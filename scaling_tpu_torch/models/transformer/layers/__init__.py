@@ -1,0 +1,8 @@
+"""Layers of the transformer stack (counterpart of
+scaling_tpu/models/transformer/layers/)."""
+
+from .embedding import EmbeddingInput
+from .layer import TransformerLayer
+from .lm_head import LayerNormWrapper, TransformerLMHead
+
+__all__ = ["EmbeddingInput", "LayerNormWrapper", "TransformerLMHead", "TransformerLayer"]
