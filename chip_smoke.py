@@ -5,12 +5,17 @@ Phases, each of which must pass:
 
 1. print the card (nvidia-smi name and power limit) and require compute
    capability 9.0;
-2. build every kernel of the serving path from this checkout's sources
-   (nvcc for the CUDA kernel, Triton's compiler for the Triton one) and
-   print the build time;
+2. build every kernel of the serving and the training path from this
+   checkout's sources (nvcc for the CUDA kernels, one process per source,
+   all started together; Triton's compiler for the Triton ones) and print
+   the build time;
 3. hold each kernel against its plain PyTorch version on the same inputs
-   at the shapes the serving path gives it, and print the max error
-   beside the tolerance;
+   at the shapes its path gives it, and print the max error beside the
+   tolerance: K1 and K2 at serving shapes; K3 (RMSNorm backward) at the
+   training rows and an odd row count; K4 and K5 (flash attention forward
+   and backward) at the training shape, unsegmented, with 3 packed
+   documents, and with 4 local heads of window 256. K5's gradients and
+   K3's dw must repeat bitwise;
 4. serve the full-width 0.5B model (random weights from a seed) with
    native and with int8 KV: every request must finish with its token
    count, the kernel launch counters must be > 0 and the plain-version
@@ -19,7 +24,15 @@ Phases, each of which must pass:
    with the card's logits; print tokens/s, TTFT and ITL;
    a profiled window of steady ticks gives the device's busy time, its
    idle share and the device time by kernel;
-5. time each kernel, its plain version and, where one PyTorch call
+5. train the same model (bench.py's first rung: micro-batch 4, seq 2048,
+   bf16, no remat): the first row's loss before any update, recomputed on
+   the CPU in f32 through the plain versions from a copy of the weights,
+   must agree with the card's; then, counters reset, 3 warm-up and 10
+   timed steps: losses finite, K2-K5 launched and no plain version run;
+   print step ms, tokens/s, MFU, peak memory and the losses; one profiled
+   step gives the device's busy time, its idle share and the device time
+   by kernel group;
+6. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call: device time from
    ``torch.profiler``, and the per-call time with CUDA events;
 
@@ -39,6 +52,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet)
@@ -55,6 +69,17 @@ SERVE = dict(num_slots=16, block_size=16, num_blocks=1024, max_blocks_per_seq=12
 WORKLOAD = dict(n_requests=32, rate=64.0, prompt_len=(128, 1024),
                 output_len=(64, 256), seed=0)
 RECOMPUTE_TICK = 12  # which measured tick is recomputed with the plain versions
+# the training path: bench.py's first rung on the 0.5B model
+TRAIN_MBS, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 2048, 3, 10
+FLASH_SHAPE = dict(b=TRAIN_MBS, s=TRAIN_SEQ, n=16, n_kv=4, d=128)
+FLASH_CASES = (  # name, packed documents, local heads, window
+    ("causal", 1, 0, None), ("packed3", 3, 0, None), ("local4", 1, 4, 256))
+K3_SHAPES = ((TRAIN_MBS * TRAIN_SEQ, 2048), (8191, 2048))
+FLASH_OUT_TOL = 1e-2    # atol and rtol: bf16 output, one rounding apart
+LSE_TOL = 1e-3          # atol: f32 from the same bf16 products
+FLASH_GRAD_TOL = 2e-2   # max |err| / max |ref|: P and dS enter the products as bf16
+K3_DW_TOL = 1e-2        # max |err| / max |ref|: a bf16 dw summed over 8192 rows
+TRAIN_LOSS_TOL = 1e-2   # |card - cpu| / cpu: bf16 through 8 layers vs f32, one row
 
 
 def card_line() -> str:
@@ -127,6 +152,41 @@ def k2_bound_ms(x: torch.Tensor) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def bound(moved_bytes: float, flops: float) -> tuple:
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k3_bound_ms(x: torch.Tensor, partial_rows: int) -> tuple:
+    """Read x, g and w, write dx and the f32 dw partials (and dw); about
+    ten operations an element."""
+    n, d = x.shape
+    moved = 3 * x.numel() * x.element_size() + 2 * d * x.element_size() + partial_rows * d * 4
+    return bound(moved, 10 * x.numel())
+
+
+def flash_flops(b: int, s: int, n: int, d: int) -> int:
+    """The causal forward's products over the pairs it needs (k <= q):
+    2 products x 2 operations x d for each of b*n*s*(s+1)/2 pairs, about
+    2*b*n*d*s^2 (the causal half of 4*b*n*d*s^2)."""
+    return 4 * d * b * n * s * (s + 1) // 2
+
+
+def k4_bound_ms(q, k) -> tuple:
+    b, s, n, d = q.shape
+    moved = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size() + b * n * s * 4
+    return bound(moved, flash_flops(b, s, n, d))
+
+
+def k5_bound_ms(q, k) -> tuple:
+    """Read q, k, v, out, dO and the lse; write dq, dk, dv. Five products
+    (S, dP, dV, dK, dQ): 2.5x the forward's operations."""
+    b, s, n, d = q.shape
+    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+    moved = 4 * qb + 4 * kb + b * n * s * 4
+    return bound(moved, 2.5 * flash_flops(b, s, n, d))
+
+
 def time_ms(fn, reps: int = 20) -> tuple:
     """(device ms, launch ms) of one call of ``fn``. Device ms: the sum of
     the CUDA kernels and copies the call runs, from ``torch.profiler``
@@ -167,21 +227,27 @@ def time_ms(fn, reps: int = 20) -> tuple:
 
 # ---------------------------------------------------------------- phases
 def build_kernels() -> float:
-    """Build every kernel of the serving path; returns seconds."""
-    from scaling_tpu_torch.ops import cuda_build, rms_norm
+    """Build every kernel of the serving and training paths; returns seconds."""
+    from scaling_tpu_torch.ops import cuda_build, rms_norm, rms_norm_bwd
 
     t0 = time.monotonic()
-    cuda_build.start("paged_attention")  # nvcc in the background
+    sources = ("paged_attention", "flash_attention")
+    for name in sources:
+        cuda_build.start(name)  # one nvcc per source, all in the background
     dev = torch.device("cuda")
-    for rows, d in K2_SHAPES:  # Triton compiles at first launch
-        rms_norm(torch.ones(rows, d, device=dev, dtype=torch.bfloat16),
-                 torch.ones(d, device=dev, dtype=torch.bfloat16), 1e-5)
-    cuda_build.load("paged_attention")
+    for rows, d in K2_SHAPES + K3_SHAPES:  # Triton compiles at first launch
+        x = torch.ones(rows, d, device=dev, dtype=torch.bfloat16)
+        w = torch.ones(d, device=dev, dtype=torch.bfloat16)
+        rms_norm(x, w, 1e-5)
+        rms_norm_bwd(x, w, x, 1e-5)
+    for name in sources:
+        cuda_build.load(name)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    for line in cuda_build.build_log("paged_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name in sources:
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
     return seconds
 
 
@@ -218,6 +284,101 @@ def check_kernels() -> dict:
                                    rtol=KERNEL_TOL)
     errs["rms_norm"] = err
     print(f"  rms_norm {K2_SHAPES}: max_abs_err={err:.3e} (atol=rtol={KERNEL_TOL})")
+    return errs
+
+
+def flash_inputs(gen, documents: int, dev):
+    """Training-shaped K4/K5 operands: q already scaled (the wrapper's job),
+    k and v unrepeated, segment ids of ``documents`` packed documents."""
+    b, s, n, n_kv, d = (FLASH_SHAPE[k] for k in ("b", "s", "n", "n_kv", "d"))
+    q = (torch.randn(b, s, n, d, generator=gen, device=dev) * d ** -0.5).bfloat16()
+    k = torch.randn(b, s, n_kv, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, n_kv, d, generator=gen, device=dev).bfloat16()
+    seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
+    for cut in sorted(torch.randint(1, s, (documents - 1,), generator=gen, device=dev).tolist()):
+        seg[:, cut:] += 1
+    return q, k, v, seg
+
+
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def check_training_kernels() -> dict:
+    """K2, K3, K4 and K5 against their plain versions at training shapes;
+    K5's gradients and K3's dw must repeat bitwise."""
+    from scaling_tpu_torch.ops import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_plain,
+        rms_norm,
+        rms_norm_bwd,
+        rms_norm_bwd_plain,
+        rms_norm_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    errs = {"rms_norm": 0.0, "rms_norm_bwd": 0.0, "flash_attention_fwd": 0.0,
+            "flash_attention_bwd": 0.0}
+    for rows, d in K3_SHAPES:
+        x = (3 * torch.randn(rows, d, generator=gen, device=dev)).bfloat16()
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
+        g = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
+        y, y_ref = rms_norm(x, w, 1e-5), rms_norm_plain(x, w, 1e-5)
+        torch.cuda.synchronize()
+        errs["rms_norm"] = max(errs["rms_norm"], (y.float() - y_ref.float()).abs().max().item())
+        print(f"  rms_norm ({rows}, {d}): max_abs_err={errs['rms_norm']:.3e} "
+              f"(atol=rtol={KERNEL_TOL})")
+        torch.testing.assert_close(y.float(), y_ref.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
+        (dx, dw), (dx2, dw2) = rms_norm_bwd(x, w, g, 1e-5), rms_norm_bwd(x, w, g, 1e-5)
+        ref_dx, ref_dw = rms_norm_bwd_plain(x, w, g, 1e-5)
+        torch.cuda.synchronize()
+        if not torch.equal(dw, dw2) or not torch.equal(dx, dx2):
+            raise AssertionError(f"rms_norm_bwd ({rows}, {d}): repeats differ")
+        torch.testing.assert_close(dx.float(), ref_dx.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
+        dx_err = (dx.float() - ref_dx.float()).abs().max().item()
+        dw_err = rel_err(dw, ref_dw)
+        print(f"  rms_norm_bwd ({rows}, {d}): dx max_abs_err={dx_err:.3e} "
+              f"(atol=rtol={KERNEL_TOL}) dw max_err/max|dw|={dw_err:.3e} (tol {K3_DW_TOL}); "
+              "repeats bitwise equal")
+        if not dw_err <= K3_DW_TOL:
+            raise AssertionError(f"rms_norm_bwd dw disagrees: {dw_err}")
+        errs["rms_norm_bwd"] = max(errs["rms_norm_bwd"], dx_err)
+    for name, documents, n_local, window in FLASH_CASES:
+        q, k, v, seg = flash_inputs(gen, documents, dev)
+        out, lse = flash_attention_fwd(q, k, v, seg, n_local, window)
+        ref_out, ref_lse = flash_attention_plain(q, k, v, seg, n_local, window)
+        torch.cuda.synchronize()
+        out_err = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        print(f"  flash_attention_fwd {name}: out max_abs_err={out_err:.3e} "
+              f"(atol=rtol={FLASH_OUT_TOL}) lse max_abs_err={lse_err:.3e} (atol {LSE_TOL})")
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=FLASH_OUT_TOL,
+                                   rtol=FLASH_OUT_TOL)
+        torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
+        dout = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, seg, n_local, window)
+        again = flash_attention_bwd(q, k, v, out, lse, dout, seg, n_local, window)
+        refs = flash_attention_bwd_plain(q, k, v, out, lse, dout, seg, n_local, window)
+        torch.cuda.synchronize()
+        gerrs, gabs = {}, 0.0
+        for gname, got, rep, ref in zip(("dq", "dk", "dv"), grads, again, refs):
+            if not torch.equal(got, rep):
+                raise AssertionError(f"flash_attention_bwd {name}: {gname} repeats differ")
+            gerrs[gname] = rel_err(got, ref)
+            gabs = max(gabs, (got.float() - ref.float()).abs().max().item())
+        print(f"  flash_attention_bwd {name}: max_err/max|ref| "
+              + " ".join(f"{g}={e:.3e}" for g, e in gerrs.items())
+              + f" (tol {FLASH_GRAD_TOL}); repeats bitwise equal")
+        if not max(gerrs.values()) <= FLASH_GRAD_TOL:
+            raise AssertionError(f"flash_attention_bwd {name} disagrees: {gerrs}")
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], out_err)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], gabs)
+        del q, k, v, out, lse, ref_out, ref_lse, dout, grads, again, refs
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -372,46 +533,208 @@ def serve(kv_dtype: str) -> dict:
     return stats
 
 
+def recompute_train_loss(module, batch) -> tuple:
+    """The first row of the first micro-batch, before any update: its loss
+    on the card (bf16, the kernels) and on the CPU in f32 through the plain
+    versions, from a copy of the weights. One row, not the micro-batch's
+    four: the CPU's f32 forward of the 0.5B model costs ~2 TFLOP a row."""
+    from scaling_tpu_torch.models.transformer import TransformerModel, loss_function
+    from scaling_tpu_torch.parallel import ParallelModule
+
+    row = {k: v[0, :1] for k, v in batch.items()}
+    with torch.no_grad():
+        card = loss_function(module.forward(row), row)[0].item()
+        arch32 = dataclasses.replace(module.model.architecture, precision="float32")
+        cpu_model = TransformerModel(arch32, device="cpu")
+        cpu_model.load_state_dict({k: v.float().cpu() for k, v in
+                                   module.model.state_dict().items()})
+        cpu_module = ParallelModule(cpu_model, module.topology)
+        cpu_row = {k: v.cpu() for k, v in row.items()}
+        cpu = loss_function(cpu_module.forward(cpu_row), cpu_row)[0].item()
+    return card, cpu
+
+
+TRAIN_GROUPS = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
+                ("rms_fwd", ("rms_norm_fwd",)), ("rms_bwd", ("rms_norm_bwd", "sum_partials")),
+                ("gemm", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")),
+                ("optimizer_foreach", ("multi_tensor_apply", "foreach")))
+
+
+def profile_train_step(step, batch) -> dict:
+    """One training step under ``torch.profiler`` (device activity only):
+    the device's busy time (the kernels' sum; one stream), its idle share
+    of the host's wall clock, and the device time by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    groups = {name: 0.0 for name, _ in TRAIN_GROUPS}
+    groups["other"] = 0.0
+    other = []
+    for e in prof.key_averages():
+        ms = (getattr(e, "self_device_time_total", 0) or 0) / 1e3
+        key = e.key.lower()
+        group = next((g for g, pats in TRAIN_GROUPS if any(p in key for p in pats)), "other")
+        groups[group] += ms
+        if group == "other" and ms > 0:
+            other.append((ms, e.count, e.key[:90]))
+    busy = sum(groups.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms), "device_ms": groups,
+            "top_other": sorted(other, reverse=True)[:8]}
+
+
+def train() -> dict:
+    """The 0.5B training step (bench.py's first rung), counters reset just
+    before the warm-up and timed steps and read just after."""
+    from scaling_tpu_torch.models.transformer import loss_function
+    from scaling_tpu_torch.models.transformer.utils.get_tflops import (
+        get_model_parameter_count,
+        get_palm_mfu,
+    )
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.train.bench import build, synth_batch, timed_windows
+
+    dev = torch.device("cuda")
+    config, module, optimizer = build("0.5b", TRAIN_SEQ, TRAIN_MBS, device=dev, seed=0)
+    arch = config.transformer_architecture
+    n_params = sum(p.numel() for p in module.model.parameters())
+    step = module.build_train_step(optimizer, loss_function)
+    batch = synth_batch(np.random.default_rng(0), TRAIN_MBS, TRAIN_SEQ, arch.vocab_size, 1, dev)
+    t0 = time.monotonic()
+    card_loss, cpu_loss = recompute_train_loss(module, batch)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"  first row before any update: loss card bf16={card_loss:.5f} cpu f32 "
+          f"(plain versions)={cpu_loss:.5f} |diff|/cpu={rel:.3e} (tol {TRAIN_LOSS_TOL}; "
+          f"{time.monotonic() - t0:.1f}s)")
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"train loss recompute disagrees: {card_loss} vs {cpu_loss}")
+
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [float(step(batch)[0]) for _ in range(TRAIN_WARMUP)]
+    seconds, timed = timed_windows(step, batch, dev, TRAIN_STEPS, windows=1)
+    kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses += timed
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    needed = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd")
+    if any(kernel.get(k, 0) <= 0 for k in needed):
+        raise AssertionError(f"training kernels not launched on the main path: {kernel}")
+    if sum(plain.values()) != 0:
+        raise AssertionError(f"plain versions ran on the card in training: {plain}")
+    tokens_per_s = TRAIN_MBS * TRAIN_SEQ / seconds[0]
+    mfu = get_palm_mfu(get_model_parameter_count(arch.hidden_size, arch.num_layers,
+                                                 arch.vocab_size, arch.mlp_factor, glu=True),
+                       arch.num_layers, arch.hidden_size, arch.sequence_length, tokens_per_s)
+    print(f"  params={n_params} mbs={TRAIN_MBS} seq={TRAIN_SEQ} steps={TRAIN_WARMUP} warm-up "
+          f"+ {TRAIN_STEPS} timed: step={seconds[0] * 1e3:.2f}ms tokens/s={tokens_per_s:.1f} "
+          f"mfu={mfu:.4f} peak max_memory_allocated={peak_gb:.2f}GB")
+    print(f"  losses: first={losses[0]:.5f} last={losses[-1]:.5f} all finite")
+    print(f"  launches kernel={kernel} plain={plain} per step: "
+          + " ".join(f"{k}={kernel[k] / n_steps:.2f}" for k in needed))
+    prof = profile_train_step(step, batch)
+    print(f"  profiled step (torch.profiler): wall={prof['wall_ms']:.3f}ms device busy="
+          f"{prof['device_busy_ms']:.3f}ms idle share={prof['device_idle_share']:.3f} "
+          "device ms by group: " + " ".join(f"{k}={v:.3f}" for k, v in prof["device_ms"].items()))
+    for ms, count, name in prof["top_other"]:
+        print(f"    other: {ms:.3f}ms in {count} launches: {name}")
+    del module, optimizer, step, batch
+    torch.cuda.empty_cache()
+    return {"launches": kernel, "steps": n_steps}
+
+
 def time_kernels(errs: dict, launches_by_kernel: dict) -> list:
     import torch.nn.functional as F
 
-    from scaling_tpu_torch.ops import paged_attention, paged_attention_plain
-    from scaling_tpu_torch.ops import rms_norm, rms_norm_plain
+    from scaling_tpu_torch.ops import (
+        _rms_norm_bwd_triton,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_plain,
+        paged_attention,
+        paged_attention_plain,
+        rms_norm,
+        rms_norm_bwd,
+        rms_norm_bwd_plain,
+        rms_norm_plain,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     rows = []
+
+    def row(name, route, source, replaces, fn, plain_fn, bound_ms, library_fn=None):
+        rows.append(dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=launches_by_kernel.get(name, 0), max_abs_err=errs[name],
+            ms=time_ms(fn), plain_ms=time_ms(plain_fn), bound_ms=bound_ms[0],
+            bound_by=bound_ms[1], library_ms=time_ms(library_fn) if library_fn else None,
+        ))
+
     for name, quantized in (("paged_attention", False), ("paged_attention_int8", True)):
         args, kw = k1_inputs(gen, quantized, dev)
-        bound, bound_by = k1_bound_ms(args, kw)
-        rows.append(dict(
-            name=name, route="cuda", source="scaling_tpu_torch/csrc/paged_attention.cu",
-            replaces="scaling_tpu/nn/paged_attention.py:163",
-            launches=launches_by_kernel.get(name, 0), max_abs_err=errs[name],
-            ms=time_ms(lambda: paged_attention(*args, **kw)),
-            plain_ms=time_ms(lambda: paged_attention_plain(*args, **kw)),
-            bound_ms=bound, bound_by=bound_by, library_ms=None,
-        ))
-    x = torch.randn(*K2_SHAPES[0], generator=gen, device=dev).bfloat16()
-    w = (1 + 0.1 * torch.randn(x.shape[-1], generator=gen, device=dev)).bfloat16()
-    bound, bound_by = k2_bound_ms(x)
-    rows.append(dict(
-        name="rms_norm", route="triton", source="scaling_tpu_torch/ops/_rms_norm_triton.py",
-        replaces="scaling_tpu/ops/rms_norm.py:107",
-        launches=launches_by_kernel.get("rms_norm", 0), max_abs_err=errs["rms_norm"],
-        ms=time_ms(lambda: rms_norm(x, w, 1e-5)),
-        plain_ms=time_ms(lambda: rms_norm_plain(x, w, 1e-5)),
-        bound_ms=bound, bound_by=bound_by,
-        library_ms=time_ms(lambda: F.rms_norm(x, (x.shape[-1],), w, 1e-5)),
-    ))
+        row(name, "cuda", "scaling_tpu_torch/csrc/paged_attention.cu",
+            "scaling_tpu/nn/paged_attention.py:163",
+            lambda: paged_attention(*args, **kw), lambda: paged_attention_plain(*args, **kw),
+            k1_bound_ms(args, kw))
+    for rows_k2, d in (K2_SHAPES[0], K3_SHAPES[0]):  # serving ticks; a training micro-batch
+        x = torch.randn(rows_k2, d, generator=gen, device=dev).bfloat16()
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
+        dev_ms, call_ms = time_ms(lambda: rms_norm(x, w, 1e-5))
+        print(f"  rms_norm ({rows_k2}, {d}): device ms={dev_ms:.4f} per call={call_ms:.4f} "
+              f"bound={k2_bound_ms(x)[0]:.4f}")
+    row("rms_norm", "triton", "scaling_tpu_torch/ops/_rms_norm_triton.py",
+        "scaling_tpu/ops/rms_norm.py:107",
+        lambda: rms_norm(x, w, 1e-5), lambda: rms_norm_plain(x, w, 1e-5), k2_bound_ms(x),
+        lambda: F.rms_norm(x, (d,), w, 1e-5))
+
+    g = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
+    xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y_lib = F.rms_norm(xr, (d,), wr, 1e-5)  # the library yardstick: autograd of F.rms_norm
+    partial_rows = _rms_norm_bwd_triton.programs_for(x.shape[0], d, dev)[0]
+    row("rms_norm_bwd", "triton", "scaling_tpu_torch/ops/_rms_norm_bwd_triton.py",
+        "scaling_tpu/ops/rms_norm.py:130",
+        lambda: rms_norm_bwd(x, w, g, 1e-5), lambda: rms_norm_bwd_plain(x, w, g, 1e-5),
+        k3_bound_ms(x, partial_rows),
+        lambda: torch.autograd.grad(y_lib, (xr, wr), g, retain_graph=True))
+
+    q, k, v, seg = flash_inputs(gen, 1, dev)
+    out, lse = flash_attention_fwd(q, k, v, seg)
+    dout = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
+    # the library yardstick: SDPA in its (b, n, s, d) layout, laid out once, untimed
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    y_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
+                                            enable_gqa=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+    row("flash_attention_fwd", "cuda", "scaling_tpu_torch/csrc/flash_attention.cu",
+        "scaling_tpu/ops/flash_attention.py:160",
+        lambda: flash_attention_fwd(q, k, v, seg), lambda: flash_attention_plain(q, k, v, seg),
+        k4_bound_ms(q, k),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
+                                               enable_gqa=True))
+    row("flash_attention_bwd", "cuda", "scaling_tpu_torch/csrc/flash_attention.cu",
+        "scaling_tpu/ops/flash_attention.py:160",
+        lambda: flash_attention_bwd(q, k, v, out, lse, dout, seg),
+        lambda: flash_attention_bwd_plain(q, k, v, out, lse, dout, seg),
+        k5_bound_ms(q, k),
+        lambda: torch.autograd.grad(y_sdpa, (qt, kt, vt), dout_t, retain_graph=True))
     for r in rows:
         launch = {k: r[k][1] for k in ("ms", "plain_ms", "library_ms") if r[k]}
         for k in launch:
             r[k] = r[k][0]  # the JSON line carries device time
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']}: device ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-              f"library={r['library_ms']} bound={r['bound_ms']:.4f} ({r['bound_by']}); "
-              f"per call with launch (events): "
+              f"library={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"launches={r['launches']}; per call with launch (events): "
               + " ".join(f"{k}={v:.4f}" for k, v in launch.items()))
     return rows
 
@@ -429,18 +752,26 @@ def main() -> int:
         raise AssertionError(f"needs compute capability (9, 0), found {cap}")
     print(f"== torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    t_start = time.monotonic()
     print("== build")
     print(f"  kernels built in {build_kernels():.1f}s")
     print("== kernels vs plain versions")
     errs = check_kernels()
+    for name, err in check_training_kernels().items():
+        errs[name] = max(err, errs.get(name, 0.0))
     print("== serve 0.5B (full width and depth, random weights, seed 0)")
     launches_by_kernel: dict = {}
     for kv_dtype in ("native", "int8"):
         stats = serve(kv_dtype)
         for name, n in stats["launches"].items():
             launches_by_kernel[name] = launches_by_kernel.get(name, 0) + n
+    print("== train 0.5B (full width and depth, random weights, seed 0; mbs 4, seq 2048)")
+    trained = train()
+    for name, n in trained["launches"].items():
+        launches_by_kernel[name] = launches_by_kernel.get(name, 0) + n
     print("== kernel times (device: torch.profiler; per call: CUDA events)")
     rows = time_kernels(errs, launches_by_kernel)
+    print(f"== done in {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,38 @@
-"""Architecture config of the served transformer.
+"""Configs of the transformer: the architecture and the training run.
 
-Counterpart of ``TransformerArchitectureConfig`` in
-``scaling_tpu/models/transformer/config.py``: the same dict keys with the
-same defaults, read from the ``transformer_architecture`` section a
-``scaling_tpu`` config carries. The port serves a subset of what the JAX
-package trains, so every key is one of three kinds:
+``TransformerArchitectureConfig`` is the counterpart of the JAX class of
+that name in ``scaling_tpu/models/transformer/config.py``: the same dict
+keys with the same defaults, read from the ``transformer_architecture``
+section a ``scaling_tpu`` config carries. Every key is one of three kinds:
 
-- supported: it shapes the model here exactly as there;
-- inert: it has no effect on inference there either (dropout rates, the
-  training attention kernel, parity-only switches), so it is accepted;
+- supported: it shapes the model here exactly as there.
+  ``masked_softmax.kernel`` selects, for training, the flash kernels or
+  the unfused attention through ``nn.attention.flash_path_active``, as the
+  JAX layer does; serving always attends through the paged kernel.
+  The ``dropout_*`` rates are read: serving has no dropout (there is none
+  in the JAX package's inference either), and the training path raises
+  NotImplementedError for a rate above 0, since dropout is not ported;
+- inert: it has no effect in the JAX package either (parity-only
+  switches), so it is accepted;
 - not ported yet: any value but the default raises NotImplementedError.
 
-An unknown key raises ValueError. No key is ever ignored silently.
+``TransformerConfig`` reads a whole training config under the JAX key
+names: ``topology`` (one device), ``optimizer``,
+``learning_rate_scheduler``, ``training`` and ``trainer.seed`` beside the
+architecture. An unknown key raises ValueError. No key is ever ignored
+silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ...nn.masked_softmax import MaskedSoftmaxConfig
+from ...optimizer import LearningRateSchedulerConfig, OptimizerConfig
+from ...topology import TopologyConfig
 
 _PRECISIONS = {
     "float32": torch.float32,
@@ -28,25 +41,21 @@ _PRECISIONS = {
 }
 _ACTIVATIONS = ("gelu", "silu", "relu", "tanh", "sigmoid")
 
-# keys with no effect on the inference forward, in the JAX package too
+# keys with no effect on the model, in the JAX package too
 _INERT = {
     "attention_use_matmul": False,
     "masked_softmax_fusion": True,
     "layernorm_epsilon": 1.0e-5,  # parity-only; layernorm.layernorm_epsilon rules
-    "dropout_embedding": 0.0,
-    "dropout_attention_probs": 0.0,
-    "dropout_after_attention": 0.0,
-    "dropout_after_mlp": 0.0,
     "vocab_file": None,
 }
 
+DROPOUT_KEYS = ("dropout_embedding", "dropout_attention_probs", "dropout_after_attention",
+                "dropout_after_mlp")
+
 # keys whose non-default values the port does not implement yet
 _NOT_PORTED = {
-    "causal": True,
     "key_query_norm": False,
     "weight_tying": False,
-    "num_local_attention_heads": 0,
-    "local_attention_window_size": None,
     "mup": None,
     "bitfit_bias_config": None,
     "adapter_config": None,
@@ -83,7 +92,16 @@ class TransformerArchitectureConfig:
     precision: str = "float32"
     layernorm_optimization_type: str = "torch"  # layernorm.optimization_type
     layernorm_eps: float = 1.0e-5  # layernorm.layernorm_epsilon
-    attention_kernel: str = "torch"  # masked_softmax.kernel (training only)
+    attention_kernel: str = "torch"  # masked_softmax.kernel: training attention path
+    softmax_in_fp32: bool = False  # masked_softmax.softmax_in_fp32 (unfused path)
+    softmax_scale: float = 1.0  # masked_softmax.scale (unfused path)
+    causal: bool = True
+    num_local_attention_heads: int = 0
+    local_attention_window_size: Optional[int] = None
+    dropout_embedding: float = 0.0
+    dropout_attention_probs: float = 0.0
+    dropout_after_attention: float = 0.0
+    dropout_after_mlp: float = 0.0
 
     def __post_init__(self):
         for name in ("vocab_size", "hidden_size", "num_layers", "num_attention_heads"):
@@ -101,6 +119,14 @@ class TransformerArchitectureConfig:
             raise ValueError("layernorm.optimization_type must be 'torch' or 'fused'")
         if self.attention_kernel not in ("torch", "flash_attention"):
             raise ValueError("masked_softmax.kernel must be 'torch' or 'flash_attention'")
+        if not 0 <= self.num_local_attention_heads <= self.num_attention_heads:
+            raise ValueError("num_local_attention_heads must be in [0, num_attention_heads]")
+        if self.num_local_attention_heads and self.local_attention_window_size is None:
+            raise ValueError("local_attention_window_size needs to be set if "
+                             "num_local_attention_heads")
+        for key in DROPOUT_KEYS:
+            if not 0.0 <= getattr(self, key) <= 1.0:
+                raise ValueError(f"{key} must be in [0, 1]")
         if not 0.0 < self.rotary_percentage <= 1.0:
             raise ValueError("rotary_percentage must be in (0, 1]")
         intermediate = self.hidden_size * self.mlp_factor
@@ -137,13 +163,17 @@ class TransformerArchitectureConfig:
         if "layernorm_epsilon" in layernorm:
             kwargs["layernorm_eps"] = float(layernorm.pop("layernorm_epsilon"))
         masked_softmax = dict(d.pop("masked_softmax", None) or {})
-        if "kernel" in masked_softmax:
-            kwargs["attention_kernel"] = masked_softmax.pop("kernel")
+        for key, field in (("kernel", "attention_kernel"),
+                           ("softmax_in_fp32", "softmax_in_fp32"), ("scale", "softmax_scale")):
+            if key in masked_softmax:
+                kwargs[field] = masked_softmax.pop(key)
+        masked_softmax.pop("deterministic_flash_attn_bwd", None)  # the port's is deterministic
         leftover = {f"layernorm.{k}" for k in layernorm} | {
             f"masked_softmax.{k}" for k in masked_softmax
         }
         fields = {f.name for f in dataclasses.fields(cls)} - {
-            "layernorm_optimization_type", "layernorm_eps", "attention_kernel"
+            "layernorm_optimization_type", "layernorm_eps", "attention_kernel",
+            "softmax_in_fp32", "softmax_scale",
         }
         leftover |= {k for k in d if k not in fields}
         if leftover:
@@ -179,3 +209,89 @@ class TransformerArchitectureConfig:
     @property
     def intermediate_size(self) -> int:
         return int(self.hidden_size * self.mlp_factor)
+
+    @property
+    def masked_softmax_config(self) -> MaskedSoftmaxConfig:
+        return MaskedSoftmaxConfig(kernel=self.attention_kernel,
+                                   softmax_in_fp32=self.softmax_in_fp32,
+                                   scale=self.softmax_scale)
+
+    def check_trainable(self) -> None:
+        """Raise for what the training path does not port: dropout."""
+        rates = {k: getattr(self, k) for k in DROPOUT_KEYS if getattr(self, k) > 0.0}
+        if rates:
+            raise NotImplementedError(f"dropout is not ported for training: {rates}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingConfig:
+    """The ``training`` section: weight decay and parameter selection."""
+
+    weight_decay: float = 1.0e-4
+    parameters_exclude: Tuple[str, ...] = ()  # regexes of parameter names not trained
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TrainingConfig":
+        d = dict(d)
+        for key, default in (("finetune", False), ("finetunable_parameters", []),
+                             ("use_separate_lr_on_embeddings", False),
+                             ("use_seperate_lr_on_embeddings", False)):
+            if key in d and d.pop(key) != default:
+                raise NotImplementedError(f"training.{key} is not ported")
+        d.pop("use_deterministic_torch_algorithms", None)  # config parity in the JAX package too
+        unknown = set(d) - {"weight_decay", "parameters_exclude"}
+        if unknown:
+            raise ValueError(f"unknown training keys: {sorted(unknown)}")
+        if "parameters_exclude" in d:
+            d["parameters_exclude"] = tuple(d["parameters_exclude"])
+        return cls(**d)
+
+
+# sections of a JAX config the port accepts only empty (their machinery is not ported)
+_EMPTY_SECTIONS = ("data", "logger", "profiler", "runner", "context")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """A training config (``TransformerConfig`` of the JAX package, the
+    parts one device trains with)."""
+
+    transformer_architecture: TransformerArchitectureConfig
+    topology: TopologyConfig
+    optimizer: OptimizerConfig = OptimizerConfig()
+    learning_rate_scheduler: LearningRateSchedulerConfig = LearningRateSchedulerConfig()
+    training: TrainingConfig = TrainingConfig()
+    seed: int = 42  # trainer.seed
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TransformerConfig":
+        d = dict(d)
+        d.pop("version", None)
+        for key in _EMPTY_SECTIONS:
+            section = d.pop(key, None) or {}
+            if any(v not in (None, {}, []) for v in section.values()):
+                raise NotImplementedError(f"the {key} section is not ported: {section}")
+        trainer = dict(d.pop("trainer", None) or {})
+        seed = trainer.pop("seed", 42)
+        trainer.pop("train_iterations", None)  # the caller decides how many steps run
+        if trainer:
+            raise NotImplementedError(f"the Trainer is not ported: trainer.{sorted(trainer)}")
+        embedding_lr = d.pop("embedding_learning_rate_scheduler", None)
+        if embedding_lr:
+            raise NotImplementedError("embedding_learning_rate_scheduler is not ported")
+        kwargs: Dict[str, Any] = dict(
+            transformer_architecture=TransformerArchitectureConfig.from_dict(
+                d.pop("transformer_architecture")),
+            topology=TopologyConfig.from_dict(d.pop("topology")),
+            seed=int(seed),
+        )
+        if "optimizer" in d:
+            kwargs["optimizer"] = OptimizerConfig.from_dict(d.pop("optimizer") or {})
+        if "learning_rate_scheduler" in d:
+            kwargs["learning_rate_scheduler"] = LearningRateSchedulerConfig.from_dict(
+                d.pop("learning_rate_scheduler") or {})
+        if "training" in d:
+            kwargs["training"] = TrainingConfig.from_dict(d.pop("training") or {})
+        if d:
+            raise ValueError(f"unknown config sections: {sorted(d)}")
+        return cls(**kwargs)

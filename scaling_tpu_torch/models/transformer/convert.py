@@ -37,6 +37,6 @@ def params_from_jax(np_params: Mapping[str, Any],
     for name, value in _flatten(np_params).items():
         if value.ndim == 2 and not name.endswith("embedding.weight"):
             value = value.T  # (in, out) -> (out, in)
-        tensor = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+        tensor = torch.from_numpy(np.array(value, dtype=np.float32))
         state[f"layers.{name}"] = tensor.to(arch.dtype)
     return state

@@ -1,6 +1,6 @@
 """Token embedding input layer (``EmbeddingInput`` of
 scaling_tpu/models/transformer/layers/embedding.py, without softprompt or
-image splices; dropout is off in inference)."""
+image splices, and without dropout, which the training path refuses)."""
 
 from __future__ import annotations
 

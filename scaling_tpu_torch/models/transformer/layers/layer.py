@@ -1,10 +1,13 @@
 """The transformer block (``TransformerLayer.__call__`` of
-scaling_tpu/models/transformer/layers/layer.py, serving path): pre-norm
-attention over the paged KV pool with a residual, then pre-norm SwiGLU
-MLP with a residual. No adapters, LoRA or MoE; dropout is off in
-inference."""
+scaling_tpu/models/transformer/layers/layer.py): pre-norm attention with a
+residual, then pre-norm SwiGLU MLP with a residual. Serving attends over
+the paged KV pool; training (no cache) over the sequence, within equal
+``segment_ids``. No adapters, LoRA or MoE; no dropout (the training path
+refuses a config that asks for it)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -31,6 +34,11 @@ class TransformerLayer(torch.nn.Module):
             bias=arch.attention_bias,
             rotary=RotaryEmbedding(arch.rotary_dimensions, arch.sequence_length,
                                    arch.rotary_embedding_base, device=device),
+            masked_softmax_config=arch.masked_softmax_config,
+            causal=arch.causal,
+            num_local_attention_heads=arch.num_local_attention_heads,
+            local_attention_window_size=arch.local_attention_window_size,
+            dropout_attention_probs=arch.dropout_attention_probs,
             dtype=arch.dtype,
             device=device,
         )
@@ -39,7 +47,8 @@ class TransformerLayer(torch.nn.Module):
                                      bias=arch.mlp_bias, dtype=arch.dtype, device=device)
 
     def forward(self, h: torch.Tensor, position_ids: torch.Tensor,
-                kv_cache: PagedKVCacheView) -> torch.Tensor:
-        attn = self.attention(self.input_layernorm(h), position_ids, kv_cache)
+                kv_cache: Optional[PagedKVCacheView] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        attn = self.attention(self.input_layernorm(h), position_ids, kv_cache, segment_ids)
         h = h + attn.to(h.dtype)
         return h + self.mlp(self.post_attention_layernorm(h)).to(h.dtype)

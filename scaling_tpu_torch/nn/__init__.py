@@ -4,28 +4,37 @@ from .activation_function import ActivationFunction, get_activation_function
 from .attention import (
     PagedKVCacheView,
     ParallelSelfAttention,
+    flash_path_active,
     kv_quantize_int8,
+    multi_head_attention,
     paged_flat_slots,
     paged_scatter_kv,
     repeat_kv,
 )
 from .linear import Embedding, Linear
+from .masked_softmax import MaskedSoftmax, MaskedSoftmaxConfig
 from .mlp import ParallelSwiGLUMLP
 from .norm import RMSNorm
 from .rotary import RotaryEmbedding
+from .seq_packing import segment_ids_to_mask
 
 __all__ = [
     "ActivationFunction",
     "Embedding",
     "Linear",
+    "MaskedSoftmax",
+    "MaskedSoftmaxConfig",
     "PagedKVCacheView",
     "ParallelSelfAttention",
     "ParallelSwiGLUMLP",
     "RMSNorm",
     "RotaryEmbedding",
+    "flash_path_active",
     "get_activation_function",
     "kv_quantize_int8",
+    "multi_head_attention",
     "paged_flat_slots",
     "paged_scatter_kv",
     "repeat_kv",
+    "segment_ids_to_mask",
 ]

@@ -1,10 +1,18 @@
-"""Self attention, serving half (counterpart of scaling_tpu/nn/attention.py).
+"""Self attention (counterpart of scaling_tpu/nn/attention.py), both halves.
 
-What the paged serving path needs: the q/k/v projections (fused or
-separate, GQA through ``num_kv_heads``), rotary, the block-paged KV pool
-view and its writer, kernel K1 over the pool, and the output projection.
-Training attention (the unfused softmax, flash, context parallelism,
-local heads, LoRA) is not ported yet.
+The paged serving half: q/k/v projections (fused or separate, GQA through
+``num_kv_heads``), rotary, the block-paged KV pool view and its writer,
+kernel K1 over the pool, and the output projection.
+
+The training half (no KV cache): causal attention within equal
+``segment_ids`` (packed documents), optional trailing local-window heads.
+``flash_path_active`` decides, as in the JAX layer, between the flash
+kernels (K4 forward, K5 backward, ``ops.flash_attention``) with
+unrepeated KV, and the unfused path (``multi_head_attention`` over a
+``segment_ids_to_mask`` mask and ``MaskedSoftmax``). There is no TPU gate
+here: on the CPU the flash path runs the kernels' plain versions.
+Context parallelism, LoRA, key/query norm, score manipulation and
+attention-probability dropout are not ported.
 
 The pool is updated IN PLACE: ``paged_scatter_kv`` writes the new
 tokens' K/V into the pool tensors the view holds, so no updated pools
@@ -19,9 +27,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 from .linear import Linear
+from .masked_softmax import MaskedSoftmax, MaskedSoftmaxConfig
 from .rotary import RotaryEmbedding
+from .seq_packing import segment_ids_to_mask
+
+FLASH_MIN_BLOCK = 128  # the flash path needs seq % 128 == 0 and head_dim >= 64
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -101,13 +114,48 @@ def paged_scatter_kv(view: PagedKVCacheView, flat: torch.Tensor,
         pv.index_copy_(0, flat, v_rows.to(pv.dtype))
 
 
+def flash_path_active(*, kernel_is_flash: bool, causal: bool,
+                      dropout_attention_probs: float, deterministic: bool,
+                      context_parallel_size: int, seq_len: int, head_dim: int,
+                      has_kv_cache: bool = False,
+                      has_scores_manipulation: bool = False) -> bool:
+    """The flash-vs-unfused gate of the JAX layer (``flash_path_active``),
+    without its TPU platform check: causal, no cache, no probability
+    dropout, no context parallelism, ``seq_len % 128 == 0`` and
+    ``head_dim >= 64``."""
+    if not kernel_is_flash or has_kv_cache or has_scores_manipulation:
+        return False
+    if not causal or context_parallel_size > 1:
+        return False
+    if dropout_attention_probs > 0.0 and not deterministic:
+        return False
+    return seq_len % FLASH_MIN_BLOCK == 0 and head_dim >= 64
+
+
+def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                         mask: torch.Tensor, scaling_factor: float,
+                         softmax: MaskedSoftmax) -> torch.Tensor:
+    """Unfused attention: QK^T -> masked softmax -> PV. q (b, s_q, n, h),
+    k/v (b, s_k, n, h) repeated, mask (b, 1, s_q, s_k) True = forbidden.
+    Returns (b, s_q, n, h)."""
+    scores = torch.einsum("bqnh,bknh->bnqk", query, key) * scaling_factor
+    probs = softmax(scores, mask)
+    return torch.einsum("bnqk,bknh->bqnh", probs.to(value.dtype), value)
+
+
 class ParallelSelfAttention(torch.nn.Module):
-    """Projections -> rotary -> paged attention (K1) -> output projection."""
+    """Projections -> rotary -> attention -> output projection. With a
+    paged KV view: kernel K1 over the pool. Without (training): flash
+    (K4/K5) or unfused attention over the sequence."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int,
                  num_kv_heads: Optional[int] = None, qkv_in_one: bool = False,
                  bias: bool = True, rotary: Optional[RotaryEmbedding] = None,
                  scaling_factor: Optional[float] = None,
+                 masked_softmax_config: Optional[MaskedSoftmaxConfig] = None,
+                 causal: bool = True, num_local_attention_heads: int = 0,
+                 local_attention_window_size: Optional[int] = None,
+                 dropout_attention_probs: float = 0.0,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if hidden_size % num_attention_heads:
@@ -136,6 +184,15 @@ class ParallelSelfAttention(torch.nn.Module):
             self.value = Linear(hidden_size, kv_size, **common)
         self.dense = Linear(hidden_size, hidden_size, **common)
         self.rotary_embedding = rotary
+        self.masked_softmax = MaskedSoftmax(masked_softmax_config or MaskedSoftmaxConfig())
+        self.use_flash = self.masked_softmax.config.kernel == "flash_attention"
+        self.causal = causal
+        if num_local_attention_heads > 0 and local_attention_window_size is None:
+            raise ValueError("local_attention_window_size needs to be set with "
+                             "num_local_attention_heads")
+        self.num_local_attention_heads = num_local_attention_heads
+        self.local_attention_window_size = local_attention_window_size
+        self.dropout_attention_probs = dropout_attention_probs
 
     def _qkv(self, x: torch.Tensor):
         b, s, _ = x.shape
@@ -150,12 +207,57 @@ class ParallelSelfAttention(torch.nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor,
-                kv_cache: PagedKVCacheView) -> torch.Tensor:
+                kv_cache: Optional[PagedKVCacheView] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = self._qkv(x)
         if self.rotary_embedding is not None:
             q, k = self.rotary_embedding(q, k, position_ids)
-        out = self._paged_attention(q, k, v, kv_cache)
+        if kv_cache is not None:
+            if self.num_local_attention_heads or not self.causal:
+                raise NotImplementedError(
+                    "the paged decode path is causal and has no local-window heads")
+            out = self._paged_attention(q, k, v, kv_cache)
+        else:
+            out = self._attention(q, k, v, segment_ids)
         return self._project_out(out)
+
+    def _attention(self, q, k, v, segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        """No cache: the training forward (``ParallelSelfAttention.__call__``
+        of the JAX layer without context parallelism)."""
+        b, s = q.shape[:2]
+        if segment_ids is None:
+            segment_ids = torch.zeros(b, s, dtype=torch.int32, device=q.device)
+        if self.dropout_attention_probs > 0.0 and self.training:
+            raise NotImplementedError("attention-probability dropout is not ported")
+        n_local = self.num_local_attention_heads
+        if flash_path_active(
+            kernel_is_flash=self.use_flash, causal=self.causal,
+            dropout_attention_probs=self.dropout_attention_probs,
+            deterministic=not self.training, context_parallel_size=1,
+            seq_len=s, head_dim=self.head_dim,
+        ):
+            return flash_attention(q, k, v, segment_ids, sm_scale=self.scaling_factor,
+                                   num_local_heads=n_local,
+                                   local_window=self.local_attention_window_size)
+        mask = segment_ids_to_mask(segment_ids, None, causal=self.causal)
+        k = repeat_kv(k, self.num_repeat_kv)
+        v = repeat_kv(v, self.num_repeat_kv)
+        if n_local == 0:
+            return multi_head_attention(q, k, v, mask, self.scaling_factor,
+                                        self.masked_softmax)
+        # mixed heads: the first n - n_local global, the last n_local in the window
+        local_mask = segment_ids_to_mask(segment_ids, None, causal=self.causal,
+                                         local_window=self.local_attention_window_size)
+        n_global = self.num_attention_heads - n_local
+        out_l = multi_head_attention(q[:, :, n_global:], k[:, :, n_global:],
+                                     v[:, :, n_global:], local_mask,
+                                     self.scaling_factor, self.masked_softmax)
+        if n_global == 0:
+            return out_l
+        out_g = multi_head_attention(q[:, :, :n_global], k[:, :, :n_global],
+                                     v[:, :, :n_global], mask, self.scaling_factor,
+                                     self.masked_softmax)
+        return torch.cat([out_g, out_l], dim=2)
 
     def _paged_attention(self, q, k, v, view: PagedKVCacheView) -> torch.Tensor:
         """Scatter the ``s`` new tokens per row into the pool (padding past

@@ -1,8 +1,9 @@
 """RMSNorm (counterpart of ``RMSNorm`` in scaling_tpu/nn/norm.py).
 
-``fused=True`` (``layernorm.optimization_type: fused``) calls kernel K2
-(``ops.rms_norm``): the Triton kernel on CUDA tensors, its plain version
-on CPU tensors. ``fused=False`` (``torch``) is plain PyTorch ops, as the
+``fused=True`` (``layernorm.optimization_type: fused``) goes through
+``ops.RMSNormFunction``: kernel K2 forward and kernel K3 backward, the
+Triton kernels on CUDA tensors and their plain versions on CPU tensors.
+``fused=False`` (``torch``) is plain PyTorch ops under autograd, as the
 JAX package leaves that path to XLA. Both compute
 ``x * rsqrt(mean(x^2) + eps) * w`` with f32 statistics, output in x's dtype.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.rms_norm import rms_norm
+from ..ops.rms_norm import RMSNormFunction
 
 
 class RMSNorm(torch.nn.Module):
@@ -30,7 +31,7 @@ class RMSNorm(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
-            return rms_norm(x, self.weight, self.eps)
+            return RMSNormFunction.apply(x, self.weight, self.eps)
         x32 = x.float()
         var = x32.square().mean(dim=-1, keepdim=True)
         return (x32 * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports with JAX and the JAX package
-blocked and serves on the CPU when asked to; without a card, its entry
-points raise instead of moving to the CPU on their own."""
+blocked, serves and takes a training step on the CPU when asked to;
+without a card, its entry points raise instead of moving to the CPU on
+their own."""
 
 import pathlib
 import re
@@ -19,12 +20,15 @@ sys.modules["scaling_tpu"] = None
 import pkgutil, importlib
 import scaling_tpu_torch
 for mod in pkgutil.walk_packages(scaling_tpu_torch.__path__, "scaling_tpu_torch."):
-    if not mod.name.endswith("_rms_norm_triton"):  # imports triton, a card-side package
+    if not mod.name.endswith("_triton"):  # these import triton, a card-side package
         importlib.import_module(mod.name)
 from scaling_tpu_torch.serve.bench import main
-sys.exit(main(["--device", "cpu", "--model", "toy", "--requests", "3", "--rate", "100",
-               "--prompt-len", "3", "9", "--output-len", "2", "4", "--num-slots", "2",
-               "--block-size", "4", "--num-blocks", "16", "--max-blocks-per-seq", "8"]))
+rc = main(["--device", "cpu", "--model", "toy", "--requests", "3", "--rate", "100",
+           "--prompt-len", "3", "9", "--output-len", "2", "4", "--num-slots", "2",
+           "--block-size", "4", "--num-blocks", "16", "--max-blocks-per-seq", "8"])
+from scaling_tpu_torch.train.bench import main as train_main
+sys.exit(rc or train_main(["--device", "cpu", "--model", "toy", "--seq-len", "128",
+                           "--mbs", "1", "--steps", "1", "--warmup", "0"]))
 """
 
 
@@ -34,6 +38,8 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "completed=3" in proc.stdout
     assert "output tokens/s" in proc.stdout and "ttft: p50=" in proc.stdout
+    assert "train bench: model=toy device=cpu" in proc.stdout
+    assert "losses: first=" in proc.stdout and "mfu: not measured" in proc.stdout
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
@@ -67,6 +73,16 @@ def test_entry_points_refuse_to_drift_onto_the_cpu():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         TransformerInferenceModule.random_init(arch, seed=0)
+
+
+def test_train_bench_refuses_to_drift_onto_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    proc = subprocess.run(
+        [sys.executable, "-m", "scaling_tpu_torch.train", "bench", "--model", "toy"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert "train bench:" not in proc.stdout
 
 
 def test_config_raises_on_keys_it_does_not_support():

@@ -1,11 +1,14 @@
-"""Kernel K2 (RMSNorm forward): the port's plain version against the JAX
-Pallas kernel ``rms_norm_fused`` in interpret mode (the Triton kernel
-against the plain version on the card is in test_torch_kernels_gpu.py).
+"""Kernels K2 and K3 (RMSNorm forward and backward): the port's plain
+versions against the JAX Pallas kernel ``rms_norm_fused`` and its VJP in
+interpret mode (the Triton kernels against the plain versions on the
+card are in test_torch_kernels_gpu.py).
 
 f32: atol 1e-6 (the same f32 statistics; summation order only). bf16
 inputs are compared after casting both outputs to f32, at one bf16
 rounding (atol 1e-2 for values of order one). Row counts that do not
-divide the TPU kernel's 256-row block are included.
+divide the TPU kernel's 256-row block are included. The backward in f32:
+dx atol 1e-5 and dw atol 1e-4 (dw sums up to 520 rows of products of
+order one, in another order than the TPU kernel's sequential grid).
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ import torch  # noqa: E402
 
 from scaling_tpu.ops.rms_norm import force_rms_interpret, rms_norm_fused  # noqa: E402
 from scaling_tpu_torch.nn.norm import RMSNorm  # noqa: E402
-from scaling_tpu_torch.ops import launches, rms_norm  # noqa: E402
+from scaling_tpu_torch.ops import launches, rms_norm, rms_norm_bwd  # noqa: E402
 
 EPS = 1e-5
 
@@ -62,3 +65,63 @@ def test_norm_module_fused_and_torch_paths_agree():
         fused.weight.uniform_(0.5, 1.5)
         plain.weight.copy_(fused.weight)
     torch.testing.assert_close(fused(x), plain(x), atol=1e-6, rtol=0)
+
+
+def jax_rms_vjp(x, w, g):
+    with force_rms_interpret():
+        _, vjp = jax.vjp(lambda xx, ww: rms_norm_fused(xx, ww, EPS), jnp.asarray(x),
+                         jnp.asarray(w))
+        dx, dw = vjp(jnp.asarray(g))
+    return np.asarray(dx), np.asarray(dw)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("rows", [7, 300, 520])  # 300: blocks of 1 row; 520: 8 of 65
+def test_plain_bwd_matches_pallas_vjp_f32(d, rows):
+    rng = np.random.default_rng(3 * d + rows)
+    x = (3.0 * rng.normal(size=(rows, d))).astype(np.float32)
+    w = (1.0 + 0.1 * rng.normal(size=(d,))).astype(np.float32)
+    g = rng.normal(size=(rows, d)).astype(np.float32)
+    launches.reset()
+    dx, dw = rms_norm_bwd(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(g), EPS)
+    assert launches.PLAIN["rms_norm_bwd"] == 1 and launches.KERNEL["rms_norm_bwd"] == 0
+    ref_dx, ref_dw = jax_rms_vjp(x, w, g)
+    np.testing.assert_allclose(dx.numpy(), ref_dx, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(dw.numpy(), ref_dw, atol=1e-4, rtol=0)
+
+
+def test_bwd_returns_dw_in_the_weights_dtype_bf16():
+    """dx in x's dtype and dw accumulated in f32 but returned in w's dtype,
+    as the TPU kernel does (bf16 values compared after one rounding)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, 11, 256)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.normal(size=(256,))).astype(np.float32)
+    g = rng.normal(size=(3, 11, 256)).astype(np.float32)
+    xb, wb, gb = (jnp.asarray(a, jnp.bfloat16) for a in (x, w, g))
+    ref_dx, ref_dw = jax_rms_vjp(xb, wb, gb)
+    tx, tw, tg = (torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+                  for a in (xb, wb, gb))
+    dx, dw = rms_norm_bwd(tx, tw, tg, EPS)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.bfloat16 and dw.shape == (256,)
+    np.testing.assert_allclose(dx.float().numpy(), ref_dx.astype(np.float32), atol=2e-2)
+    np.testing.assert_allclose(dw.float().numpy(), ref_dw.astype(np.float32),
+                               atol=1e-2 * np.abs(ref_dw.astype(np.float32)).max())
+
+
+def test_norm_function_gradients_match_the_torch_path():
+    """The fused module's autograd Function (K2 forward, K3 backward) and
+    the plain-ops ``torch`` path under autograd give the same gradients
+    (f32, atol 1e-4: dw sums 24 rows in another order)."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(4, 6, 256)).astype(np.float32)
+    w = torch.from_numpy((1.0 + 0.1 * rng.normal(size=(256,))).astype(np.float32))
+    grads = []
+    for fused in (True, False):
+        norm = RMSNorm(256, EPS, fused=fused)
+        with torch.no_grad():
+            norm.weight.copy_(w)
+        xt = torch.from_numpy(x).requires_grad_()
+        (norm(xt) ** 2).sum().backward()
+        grads.append((xt.grad, norm.weight.grad))
+    for fused_g, torch_g in zip(*grads):
+        torch.testing.assert_close(fused_g, torch_g, atol=1e-4, rtol=1e-5)
