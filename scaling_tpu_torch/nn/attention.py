@@ -239,14 +239,14 @@ class ParallelSelfAttention(torch.nn.Module):
             return flash_attention(q, k, v, segment_ids, sm_scale=self.scaling_factor,
                                    num_local_heads=n_local,
                                    local_window=self.local_attention_window_size)
-        mask = segment_ids_to_mask(segment_ids, None, causal=self.causal)
+        mask = segment_ids_to_mask(segment_ids, causal=self.causal)
         k = repeat_kv(k, self.num_repeat_kv)
         v = repeat_kv(v, self.num_repeat_kv)
         if n_local == 0:
             return multi_head_attention(q, k, v, mask, self.scaling_factor,
                                         self.masked_softmax)
         # mixed heads: the first n - n_local global, the last n_local in the window
-        local_mask = segment_ids_to_mask(segment_ids, None, causal=self.causal,
+        local_mask = segment_ids_to_mask(segment_ids, causal=self.causal,
                                          local_window=self.local_attention_window_size)
         n_global = self.num_attention_heads - n_local
         out_l = multi_head_attention(q[:, :, n_global:], k[:, :, n_global:],

@@ -22,8 +22,6 @@ class MaskedSoftmaxConfig:
     kernel: str = "torch"
     softmax_in_fp32: bool = False
     scale: float = 1.0
-    # parity knob; the port's flash backward is always deterministic
-    deterministic_flash_attn_bwd: bool = False
 
     def __post_init__(self):
         if self.kernel not in KERNELS:

@@ -11,25 +11,13 @@ from typing import Optional
 import torch
 
 
-def segment_ids_to_mask(segment_ids_q: torch.Tensor,
-                        segment_ids_k: Optional[torch.Tensor] = None,
-                        causal: bool = True,
-                        positions_q: Optional[torch.Tensor] = None,
-                        positions_k: Optional[torch.Tensor] = None,
+def segment_ids_to_mask(segment_ids: torch.Tensor, causal: bool = True,
                         local_window: Optional[int] = None) -> torch.Tensor:
-    """Boolean mask (b, 1, s_q, s_k), True where attention is FORBIDDEN."""
-    if segment_ids_k is None:
-        segment_ids_k = segment_ids_q
-    b, s_q = segment_ids_q.shape
-    s_k = segment_ids_k.shape[1]
-    allowed = segment_ids_q[:, :, None] == segment_ids_k[:, None, :]
+    """Boolean mask (b, 1, s, s), True where attention is FORBIDDEN."""
+    allowed = segment_ids[:, :, None] == segment_ids[:, None, :]
     if causal or local_window is not None:
-        dev = segment_ids_q.device
-        if positions_q is None:
-            positions_q = torch.arange(s_q, device=dev)[None, :].expand(b, s_q)
-        if positions_k is None:
-            positions_k = torch.arange(s_k, device=dev)[None, :].expand(b, s_k)
-        rel = positions_q[:, :, None] - positions_k[:, None, :]
+        positions = torch.arange(segment_ids.shape[1], device=segment_ids.device)
+        rel = positions[:, None] - positions[None, :]
         if causal:
             allowed = allowed & (rel >= 0)
         if local_window is not None:
