@@ -8,7 +8,8 @@ Phases, each of which must pass:
 2. build every kernel of the serving and the training path from this
    checkout's sources (nvcc for the CUDA kernels, one process per source,
    all started together; Triton's compiler for the Triton ones) and print
-   the build time;
+   the build time, and each CUDA kernel's registers, spills and dynamic
+   shared memory from ``ptxas -v``: a flash kernel that spills fails;
 3. hold each kernel against its plain PyTorch version on the same inputs
    at the shapes its path gives it, and print the max error beside the
    tolerance: K1 and K2 at serving shapes; K3 (RMSNorm backward) at the
@@ -37,9 +38,10 @@ Phases, each of which must pass:
    computes the same function, that call: device time from
    ``torch.profiler``, and the per-call time with CUDA events;
 
-then print one ``{"kernels": [...]}`` line, the card line, and as the last
-line ``{"ok": true, "device": {...}}``. Any failure exits non-zero, and
-nothing is printed as a result without a card.
+then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
+achieved ``tflops``: the bound's operations over the device time), the
+card line, and as the last line ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero, and nothing is printed as a result without a card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -48,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -246,10 +249,46 @@ def build_kernels() -> float:
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
     for name in sources:
-        for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for r in kernel_resources(cuda_build.build_log(name)):
+            print(f"  ptxas {name}: {r['kernel']} registers={r['registers']} "
+                  f"spill={r['spill']} bytes, dynamic smem={r['smem']} bytes")
+            if r["kernel"].startswith("flash_") and r["spill"] > 0:
+                raise AssertionError(f"{r['kernel']} spills {r['spill']} bytes")
     return seconds
+
+
+FLASH_SMEM_INDEX = {"flash_fwd_kernel": 0, "flash_bwd_dkdv_kernel": 1, "flash_bwd_dq_kernel": 2}
+
+
+def kernel_resources(log: str) -> list:
+    """Each entry function of a ``ptxas -v`` log: its short name, registers
+    and spill bytes (stores + loads); for a flash kernel, also the dynamic
+    shared memory its launcher requests (0 where it requests none)."""
+    from scaling_tpu_torch.ops.flash_attention import _library
+
+    rows = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            kernel = re.search(r"((?:flash|paged)_[a-z_]*kernel)I", mangled)
+            dim = re.search(r"Li(\d+)E", mangled)
+            name = kernel.group(1) if kernel else mangled
+            rows.append({"kernel": f"{name}<{dim.group(1)}>" if dim else name, "spill": 0,
+                         "registers": None, "smem": 0})
+            if name in FLASH_SMEM_INDEX and dim:
+                rows[-1]["smem"] = _library().flash_attention_smem_bytes(
+                    int(dim.group(1)), FLASH_SMEM_INDEX[name])
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and rows:
+            rows[-1]["spill"] = int(spill.group(1)) + int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and rows:
+            rows[-1]["registers"] = int(regs.group(1))
+    if not rows:
+        raise AssertionError("no ptxas -v lines in the build log")
+    return rows
 
 
 def check_kernels() -> dict:
@@ -696,7 +735,8 @@ def time_kernels(errs: dict, launches_by_path: dict) -> list:
     gen.manual_seed(2)
     rows = []
 
-    def row(name, route, source, replaces, fn, plain_fn, bound_ms, library_fn=None):
+    def row(name, route, source, replaces, fn, plain_fn, bound_ms, library_fn=None,
+            flops=None):
         by_path = {path: counts.get(name, 0) for path, counts in launches_by_path.items()}
         rows.append(dict(
             name=name, route=route, source=source, replaces=replaces,
@@ -704,6 +744,8 @@ def time_kernels(errs: dict, launches_by_path: dict) -> list:
             ms=time_ms(fn), plain_ms=time_ms(plain_fn), bound_ms=bound_ms[0],
             bound_by=bound_ms[1], library_ms=time_ms(library_fn) if library_fn else None,
         ))
+        if flops is not None:  # the bound's operations over the device time
+            rows[-1]["tflops"] = flops / (rows[-1]["ms"][0] * 1e-3) / 1e12
 
     for name, quantized in (("paged_attention", False), ("paged_attention_int8", True)):
         args, kw = k1_inputs(gen, quantized, dev)
@@ -744,20 +786,23 @@ def time_kernels(errs: dict, launches_by_path: dict) -> list:
         lambda: flash_attention_fwd(q, k, v, seg), lambda: flash_attention_plain(q, k, v, seg),
         k4_bound_ms(q, k),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
-                                               enable_gqa=True))
+                                               enable_gqa=True),
+        flops=flash_flops(*q.shape))
     row("flash_attention_bwd", "cuda", "scaling_tpu_torch/csrc/flash_attention.cu",
         "scaling_tpu/ops/flash_attention.py:160",
         lambda: flash_attention_bwd(q, k, v, out, lse, dout, seg),
         lambda: flash_attention_bwd_plain(q, k, v, out, lse, dout, seg),
         k5_bound_ms(q, k),
-        lambda: torch.autograd.grad(y_sdpa, (qt, kt, vt), dout_t, retain_graph=True))
+        lambda: torch.autograd.grad(y_sdpa, (qt, kt, vt), dout_t, retain_graph=True),
+        flops=2.5 * flash_flops(*q.shape))
     for r in rows:
         launch = {k: r[k][1] for k in ("ms", "plain_ms", "library_ms") if r[k]}
         for k in launch:
             r[k] = r[k][0]  # the JSON line carries device time
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        rate = f" tflops={r['tflops']:.1f}" if "tflops" in r else ""
         print(f"  {r['name']}: device ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-              f"library={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}){rate} "
               f"launches={r['launches']} {r['launches_by_path']}; per call with launch (events): "
               + " ".join(f"{k}={v:.4f}" for k, v in launch.items()))
     return rows

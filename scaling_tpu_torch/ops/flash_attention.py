@@ -185,7 +185,7 @@ def _check_operand(t: torch.Tensor, what: str, q: torch.Tensor) -> None:
     if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(
             f"flash_attention: {what} needs a unit last stride, strides that are "
-            "multiples of 8 and 16-byte alignment (16-byte row loads)")
+            "multiples of 8 and 16-byte alignment (the kernels copy by TMA)")
 
 
 def _check_shapes(q, k, v, segment_ids, num_local_heads, local_window):
@@ -277,6 +277,8 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_smem_bytes.argtypes = [ci, ci]  # head_dim, kernel
+        lib.flash_attention_smem_bytes.restype = ci
         lib._argtypes_set = True
     return lib
 

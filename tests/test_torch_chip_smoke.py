@@ -3,7 +3,8 @@ forward: on the toy model on the CPU (a bf16 forward against an f32 one,
 as card against CPU), the intact forward passes the logit tolerance, and
 a forward with the attention output zeroed or with each query head fed
 the wrong KV head fails it. The loss alone moves by about 1 % under
-either fault, which is why the check compares logits."""
+either fault, which is why the check compares logits. Beside it, the
+build phase's reading of the ``ptxas -v`` log (registers and spills)."""
 
 import pathlib
 import sys
@@ -55,3 +56,25 @@ def test_train_recompute_tells_a_wrong_forward(toy, monkeypatch, fault):
         assert rec["err"] <= chip_smoke.TRAIN_LOGIT_TOL, rec
     else:
         assert rec["err"] > 10 * chip_smoke.TRAIN_LOGIT_TOL, rec
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__0_18_flash_attention_cu_0d6f9d4a22flash_bwd_delta_kernelILi128EEEvNS_9BwdParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__0_18_flash_attention_cu_0d6f9d4a22flash_bwd_delta_kernelILi128EEEvNS_9BwdParamsE
+    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 26 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z22paged_attention_kernelI13__nv_bfloat16S0_Li64ELi32EEvPKT_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 126 registers, used 1 barriers
+"""
+
+
+def test_ptxas_log_gives_each_kernels_registers_and_spills():
+    """Phase 2's reading of ``ptxas -v``, which fails the run when a flash
+    kernel spills: each entry function by its short name and head dim, its
+    registers, and its spill stores plus loads (no launch, no library)."""
+    rows = chip_smoke.kernel_resources(PTXAS_LOG)
+    assert [(r["kernel"], r["registers"], r["spill"]) for r in rows] == [
+        ("flash_bwd_delta_kernel<128>", 26, 12), ("paged_attention_kernel<64>", 126, 0)]
+    with pytest.raises(AssertionError, match="no ptxas"):
+        chip_smoke.kernel_resources("nvcc printed nothing")

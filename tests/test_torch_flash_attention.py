@@ -9,7 +9,10 @@ f32 throughout. Forward: atol 2e-5 (the JAX package's own flash-vs-XLA
 tolerance; the same f32 softmax, another summation order). Gradients of
 ``sum(out * w)``: atol 5e-4 (the JAX package's flash-grad tolerance).
 Cases: MHA; GQA with 2 query heads per KV head; packed segment ids; 2
-trailing local heads with window 16 (also at S 256).
+trailing local heads with window 16 (also at S 256). Beside them, without
+a launch, the wrapper's admission rule against the training layer's
+routing gate: every shape the gate sends to the flash path is one the
+kernels take.
 """
 
 import numpy as np
@@ -117,6 +120,57 @@ def test_flash_and_unfused_attention_layer_agree(n_local):
     unfused = layers["torch"](x, pos, segment_ids=seg)
     assert launches.PLAIN["flash_attention_fwd"] == 1
     torch.testing.assert_close(flash, unfused, atol=FWD_ATOL, rtol=0)
+
+
+def _kernel_operands(s, d, dtype=torch.bfloat16):
+    """Zero operands of the kernels' shapes on the CPU: ``_check_shapes``
+    reads only shapes, dtypes, strides and alignment, and launches nothing."""
+    q = torch.zeros(1, s, 2, d, dtype=dtype)
+    k = torch.zeros(1, s, 1, d, dtype=dtype)
+    return q, k, k.clone(), torch.zeros(1, s, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("model", ["0.5b", "toy"])
+def test_kernels_admit_every_shape_the_flash_path_routes(model):
+    """The training layer routes to K4/K5 through ``flash_path_active``;
+    the kernels' wrapper admits through ``_check_shapes``. For the head dim
+    of each model the train bench ships, every sequence length up to 8192
+    that the gate routes to the flash path must be one the kernels take,
+    so a change of tile size cannot leave a routed shape without a kernel."""
+    from scaling_tpu_torch.nn.attention import flash_path_active
+    from scaling_tpu_torch.ops.flash_attention import _check_shapes
+    from scaling_tpu_torch.train.bench import MODELS
+
+    arch = MODELS[model]
+    d = arch["hidden_size"] // arch["num_attention_heads"]
+    routed = [s for s in range(64, 8192 + 1, 64)
+              if flash_path_active(kernel_is_flash=True, causal=True,
+                                   dropout_attention_probs=0.0, deterministic=False,
+                                   context_parallel_size=1, seq_len=s, head_dim=d)]
+    assert routed and all(s % 128 == 0 for s in routed)
+    for s in routed:
+        assert _check_shapes(*_kernel_operands(s, d), 0, None) == (0, 0), s
+
+
+@pytest.mark.parametrize("s,d", [(192, 64), (192, 128), (64, 64), (320, 128)])
+def test_kernels_admit_multiples_of_64(s, d):
+    """The kernels also take sequences that are multiples of 64 but not of
+    128 (the card tests run s 192 and s 320)."""
+    from scaling_tpu_torch.ops.flash_attention import _check_shapes
+
+    assert _check_shapes(*_kernel_operands(s, d), 2, 16) == (2, 16)
+
+
+@pytest.mark.parametrize("s,d,dtype,match", [
+    (128, 96, torch.bfloat16, "head dim"),
+    (100, 64, torch.bfloat16, "multiple"),
+    (128, 64, torch.float32, "bfloat16"),
+], ids=["head-dim-96", "s-100", "f32"])
+def test_kernels_refuse_what_they_cannot_run(s, d, dtype, match):
+    from scaling_tpu_torch.ops.flash_attention import _check_shapes
+
+    with pytest.raises(ValueError, match=match):
+        _check_shapes(*_kernel_operands(s, d, dtype), 0, None)
 
 
 def test_explicit_backward_formulas_pass_gradcheck():

@@ -159,8 +159,11 @@ def flash_inputs(card, b, s, n, n_kv, d, segments, seed):
     k = torch.randn(b, s, n_kv, d, generator=gen, device=card).bfloat16()
     v = torch.randn(b, s, n_kv, d, generator=gen, device=card).bfloat16()
     seg = torch.zeros(b, s, dtype=torch.int32, device=card)
-    for cut in range(1, segments):
-        seg[:, cut * s // segments + 7:] += 1
+    # segments: a number of documents (cut off the tile edges) or the cuts
+    cuts = segments if isinstance(segments, tuple) else [
+        cut * s // segments + 7 for cut in range(1, segments)]
+    for cut in cuts:
+        seg[:, cut:] += 1
     return q, k, v, seg
 
 
@@ -173,6 +176,11 @@ FLASH_CASES = [  # b, s, n, n_kv, d, segments, local heads, window
     (2, 256, 4, 2, 64, 3, 0, None),
     (2, 192, 4, 1, 128, 2, 2, 40),
     (1, 512, 16, 4, 128, 1, 4, 100),
+    (1, 320, 4, 2, 64, 1, 0, None),          # s not a multiple of 128
+    (2, 256, 4, 2, 128, (64, 128), 0, None),  # segment boundaries on tile edges
+    (1, 256, 4, 2, 64, 2, 2, 16),            # a window smaller than a tile
+    (1, 256, 16, 1, 128, 1, 0, None),        # one kv head for 16 query heads
+    (4, 2048, 16, 4, 128, 1, 0, None),       # the training shape
 ]
 
 
