@@ -9,10 +9,13 @@ Phases, each of which must pass:
    checkout's sources (nvcc for the CUDA kernels, one process per source,
    all started together; Triton's compiler for the Triton ones) and print
    the build time, and each CUDA kernel's registers, spills and dynamic
-   shared memory from ``ptxas -v``: a flash kernel that spills fails;
+   shared memory from ``ptxas -v``: a flash or paged kernel that spills
+   fails;
 3. hold each kernel against its plain PyTorch version on the same inputs
    at the shapes its path gives it, and print the max error beside the
-   tolerance: K1 and K2 at serving shapes; K3 (RMSNorm backward) at the
+   tolerance: K1 (native and int8) at the serving tick's shape and on one
+   row of 2048 slots, each also repeated, which must give the same bits;
+   K2 at serving shapes; K3 (RMSNorm backward) at the
    training rows and an odd row count; K4 and K5 (flash attention forward
    and backward) at the training shape, unsegmented, with 3 packed
    documents, and with 4 local heads of window 256. K5's gradients and
@@ -39,7 +42,8 @@ Phases, each of which must pass:
    ``torch.profiler``, and the per-call time with CUDA events;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
-achieved ``tflops``: the bound's operations over the device time), the
+achieved ``tflops``: the bound's operations over the device time; K1 with
+its achieved ``gbps``: the bound's bytes over the device time), the
 card line, and as the last line ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero, and nothing is printed as a result without a card.
 
@@ -65,6 +69,7 @@ BF16_FLOPS_PER_S = 989e12
 
 K1_ROWS, K1_S, K1_HEADS, K1_KV_HEADS, K1_HEAD_DIM = 16, 32, 16, 4, 128
 K1_NUM_BLOCKS, K1_BLOCK_SIZE, K1_MAX_BLOCKS = 1024, 16, 128
+K1_LONG_ROW = ((2048 - 32, 32),)  # one row: a 32-token chunk ending the 2048-slot window
 K2_SHAPES = ((512, 2048), (333, 2048))
 KERNEL_TOL = 1e-2  # atol and rtol: bf16 outputs, one rounding apart
 TICK_TOL = 0.05    # max |logit error| / max |logit|: bf16 through 8 layers vs f32
@@ -94,24 +99,31 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- inputs
-def k1_inputs(gen: torch.Generator, quantized: bool, dev):
+def k1_inputs(gen: torch.Generator, quantized: bool, dev, contexts=None):
     """Serving-shaped K1 operands: one mixed tick of 16 rows of width 32
     over a 1024-block pool, rows of every kind (idle, fresh decode, a
-    short chunk, decode and chunk at the full 2048-slot context)."""
+    short chunk, decode and chunk at the full 2048-slot context); or, with
+    ``contexts``, one row per (context, new tokens) pair."""
     from scaling_tpu_torch.nn.attention import kv_quantize_int8
 
+    rows = K1_ROWS if contexts is None else len(contexts)
     pool_shape = (K1_NUM_BLOCKS, K1_BLOCK_SIZE, K1_KV_HEADS, K1_HEAD_DIM)
-    q = torch.randn(K1_ROWS, K1_S, K1_HEADS, K1_HEAD_DIM, generator=gen, device=dev)
+    q = torch.randn(rows, K1_S, K1_HEADS, K1_HEAD_DIM, generator=gen, device=dev)
     pk = torch.randn(pool_shape, generator=gen, device=dev)
     pv = torch.randn(pool_shape, generator=gen, device=dev)
-    ctx = torch.randint(0, 2048 - K1_S, (K1_ROWS,), generator=gen, device=dev)
-    new = torch.randint(1, K1_S + 1, (K1_ROWS,), generator=gen, device=dev)
-    fixed = [(0, 0), (0, 1), (0, 17), (2047, 1), (2048 - K1_S, K1_S)]
+    if contexts is None:
+        ctx = torch.randint(0, 2048 - K1_S, (rows,), generator=gen, device=dev)
+        new = torch.randint(1, K1_S + 1, (rows,), generator=gen, device=dev)
+        fixed = [(0, 0), (0, 1), (0, 17), (2047, 1), (2048 - K1_S, K1_S)]
+    else:
+        ctx = torch.zeros(rows, dtype=torch.int64, device=dev)
+        new = torch.zeros(rows, dtype=torch.int64, device=dev)
+        fixed = contexts
     for row, (c, n) in enumerate(fixed):
         ctx[row], new[row] = c, n
     valid = ctx + new
     nblk = (valid + K1_BLOCK_SIZE - 1) // K1_BLOCK_SIZE
-    table = torch.randint(1, K1_NUM_BLOCKS, (K1_ROWS, K1_MAX_BLOCKS), generator=gen,
+    table = torch.randint(1, K1_NUM_BLOCKS, (rows, K1_MAX_BLOCKS), generator=gen,
                           device=dev)
     table = torch.where(torch.arange(K1_MAX_BLOCKS, device=dev)[None] < nblk[:, None],
                         table, 0)
@@ -194,12 +206,12 @@ def k5_bound_ms(q, k) -> tuple:
 def time_ms(fn, reps: int = 20) -> tuple:
     """(device ms, launch ms) of one call of ``fn``. Device ms: the sum of
     the CUDA kernels and copies the call runs, from ``torch.profiler``
-    (CUPTI), averaged over ``reps`` calls; where the profiler sees no
-    device time, CUDA events around ``reps`` back-to-back calls. Launch
-    ms: CUDA events around one call at a time (median), which for a
+    (CUPTI), averaged over ``reps`` calls. The profiler now and then
+    hands back no device events; it is asked up to 3 times, and only then
+    do CUDA events around ``reps`` back-to-back calls stand in, which for
+    a kernel shorter than its launch measure the host (a line says so).
+    Launch ms: CUDA events around one call at a time (median), which for a
     small kernel is the host's launch cost, not the kernel's."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -212,14 +224,10 @@ def time_ms(fn, reps: int = 20) -> tuple:
         end.synchronize()
         samples.append(start.elapsed_time(end))
     launch_ms = statistics.median(samples)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(getattr(e, "self_device_time_total", 0) or 0
-                    for e in prof.key_averages())
-    if device_us > 0:
-        return device_us / reps / 1e3, launch_ms
+    parts = device_ms_by_kernel(fn, reps)
+    if parts:
+        return sum(parts.values()), launch_ms
+    print("  (the profiler saw no device time: CUDA events around back-to-back calls)")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -227,6 +235,30 @@ def time_ms(fn, reps: int = 20) -> tuple:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, launch_ms
+
+
+def device_ms_by_kernel(fn, reps: int = 20) -> dict:
+    """Device ms one call of ``fn`` spends in each CUDA kernel or copy it
+    runs, by short name (``torch.profiler``, CUPTI, over ``reps`` calls).
+    The profiler now and then hands back no device events: it is asked up
+    to 3 times, and the result is empty if it never saw any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0:
+                short = re.search(r"(\w+_kernel)", e.key)
+                name = short.group(1) if short else e.key[:40]
+                by_name[name] = by_name.get(name, 0.0) + us / reps / 1e3
+        if by_name:
+            return by_name
+    return {}
 
 
 # ---------------------------------------------------------------- phases
@@ -252,7 +284,7 @@ def build_kernels() -> float:
         for r in kernel_resources(cuda_build.build_log(name)):
             print(f"  ptxas {name}: {r['kernel']} registers={r['registers']} "
                   f"spill={r['spill']} bytes, dynamic smem={r['smem']} bytes")
-            if r["kernel"].startswith("flash_") and r["spill"] > 0:
+            if r["kernel"].startswith(("flash_", "paged_")) and r["spill"] > 0:
                 raise AssertionError(f"{r['kernel']} spills {r['spill']} bytes")
     return seconds
 
@@ -274,7 +306,9 @@ def kernel_resources(log: str) -> list:
             kernel = re.search(r"((?:flash|paged)_[a-z_]*kernel)I", mangled)
             dim = re.search(r"Li(\d+)E", mangled)
             name = kernel.group(1) if kernel else mangled
-            rows.append({"kernel": f"{name}<{dim.group(1)}>" if dim else name, "spill": 0,
+            label = f"{dim.group(1)}, int8" if dim and "Lb1E" in mangled else (
+                dim.group(1) if dim else None)
+            rows.append({"kernel": f"{name}<{label}>" if label else name, "spill": 0,
                          "registers": None, "smem": 0})
             if name in FLASH_SMEM_INDEX and dim:
                 rows[-1]["smem"] = _library().flash_attention_smem_bytes(
@@ -301,18 +335,25 @@ def check_kernels() -> dict:
     gen.manual_seed(1)
     errs = {}
     for name, quantized in (("paged_attention", False), ("paged_attention_int8", True)):
-        args, kw = k1_inputs(gen, quantized, dev)
-        out = paged_attention(*args, **kw)
-        ref = paged_attention_plain(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"{name}: non-finite output")
-        if not bool((out[0] == 0).all()):
-            raise AssertionError(f"{name}: the valid_len 0 row is not zeros")
-        errs[name] = (out.float() - ref.float()).abs().max().item()
-        print(f"  {name}: max_abs_err={errs[name]:.3e} (atol=rtol={KERNEL_TOL})")
-        torch.testing.assert_close(out.float(), ref.float(), atol=KERNEL_TOL,
-                                   rtol=KERNEL_TOL)
+        errs[name] = 0.0
+        for case, contexts in (("serving tick", None), ("one 2048-slot row", K1_LONG_ROW)):
+            args, kw = k1_inputs(gen, quantized, dev, contexts)
+            out = paged_attention(*args, **kw)
+            again = paged_attention(*args, **kw)
+            ref = paged_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{name} {case}: non-finite output")
+            if not bool((out[args[4] == 0] == 0).all()):
+                raise AssertionError(f"{name} {case}: a valid_len 0 row is not zeros")
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name} {case}: repeats differ")
+            err = (out.float() - ref.float()).abs().max().item()
+            errs[name] = max(errs[name], err)
+            print(f"  {name} {case}: max_abs_err={err:.3e} (atol=rtol={KERNEL_TOL}); "
+                  "repeats bitwise equal")
+            torch.testing.assert_close(out.float(), ref.float(), atol=KERNEL_TOL,
+                                       rtol=KERNEL_TOL)
     err = 0.0
     for rows, d in K2_SHAPES:
         x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
@@ -747,12 +788,24 @@ def time_kernels(errs: dict, launches_by_path: dict) -> list:
         if flops is not None:  # the bound's operations over the device time
             rows[-1]["tflops"] = flops / (rows[-1]["ms"][0] * 1e-3) / 1e12
 
+    long_gen = torch.Generator(device=dev)  # apart: the tick's inputs stay as they were
+    long_gen.manual_seed(4)
     for name, quantized in (("paged_attention", False), ("paged_attention_int8", True)):
         args, kw = k1_inputs(gen, quantized, dev)
         row(name, "cuda", "scaling_tpu_torch/csrc/paged_attention.cu",
             "scaling_tpu/nn/paged_attention.py:163",
             lambda: paged_attention(*args, **kw), lambda: paged_attention_plain(*args, **kw),
             k1_bound_ms(args, kw))
+        long_args, long_kw = k1_inputs(long_gen, quantized, dev, K1_LONG_ROW)
+        dev_ms, call_ms = time_ms(lambda: paged_attention(*long_args, **long_kw))
+        long_bound = k1_bound_ms(long_args, long_kw)[0]
+        print(f"  {name} one 2048-slot row: device ms={dev_ms:.4f} per call={call_ms:.4f} "
+              f"bound={long_bound:.4f} gbps={long_bound / dev_ms * HBM_BYTES_PER_S / 1e9:.1f}")
+        for case, (a, k) in (("serving tick", (args, kw)), ("one 2048-slot row",
+                                                            (long_args, long_kw))):
+            parts = device_ms_by_kernel(lambda: paged_attention(*a, **k))
+            print(f"  {name} {case}: device ms by kernel: "
+                  + (" ".join(f"{n}={ms:.4f}" for n, ms in parts.items()) or "not measured"))
     for rows_k2, d in (K2_SHAPES[0], K3_SHAPES[0]):  # serving ticks; a training micro-batch
         x = torch.randn(rows_k2, d, generator=gen, device=dev).bfloat16()
         w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
@@ -800,7 +853,11 @@ def time_kernels(errs: dict, launches_by_path: dict) -> list:
         for k in launch:
             r[k] = r[k][0]  # the JSON line carries device time
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        if r["name"].startswith("paged_attention") and r["bound_by"] == "bytes":
+            # the bound's bytes over the device time
+            r["gbps"] = r["bound_ms"] / r["ms"] * HBM_BYTES_PER_S / 1e9
         rate = f" tflops={r['tflops']:.1f}" if "tflops" in r else ""
+        rate += f" gbps={r['gbps']:.1f}" if "gbps" in r else ""
         print(f"  {r['name']}: device ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
               f"library={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}){rate} "
               f"launches={r['launches']} {r['launches_by_path']}; per call with launch (events): "

@@ -27,14 +27,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import HEAD_DIMS, flash_attention
 from ..ops.paged_attention import paged_attention
 from .linear import Linear
 from .masked_softmax import MaskedSoftmax, MaskedSoftmaxConfig
 from .rotary import RotaryEmbedding
 from .seq_packing import segment_ids_to_mask
 
-FLASH_MIN_BLOCK = 128  # the flash path needs seq % 128 == 0 and head_dim >= 64
+FLASH_MIN_BLOCK = 128  # the flash path needs seq % 128 == 0 (the JAX gate's rule)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -121,15 +121,19 @@ def flash_path_active(*, kernel_is_flash: bool, causal: bool,
                       has_scores_manipulation: bool = False) -> bool:
     """The flash-vs-unfused gate of the JAX layer (``flash_path_active``),
     without its TPU platform check: causal, no cache, no probability
-    dropout, no context parallelism, ``seq_len % 128 == 0`` and
-    ``head_dim >= 64``."""
+    dropout, no context parallelism and ``seq_len % 128 == 0``. Where the
+    JAX gate routes every ``head_dim >= 64`` to splash, this one routes
+    only the head dims K4/K5 are built for (``HEAD_DIMS``); any other goes
+    to the unfused path, as ``head_dim < 64`` does in both packages. The
+    route depends on shapes alone, so it is the same on the CPU and on
+    the card."""
     if not kernel_is_flash or has_kv_cache or has_scores_manipulation:
         return False
     if not causal or context_parallel_size > 1:
         return False
     if dropout_attention_probs > 0.0 and not deterministic:
         return False
-    return seq_len % FLASH_MIN_BLOCK == 0 and head_dim >= 64
+    return seq_len % FLASH_MIN_BLOCK == 0 and head_dim in HEAD_DIMS
 
 
 def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,

@@ -12,7 +12,12 @@ variant dequantises with the per-slot-per-head scales of
 
 The kernel is CUDA C++ for Hopper (``csrc/paged_attention.cu``, built
 with nvcc for sm_90a and called through ctypes); its note says what
-bounds it and how it is laid out. Beside it, ``paged_attention_plain``
+bounds it and how it is laid out. For bf16 q it runs its products on
+tensor cores and splits each row's context across SMs: the launcher
+plans the splits from the host-known window alone (``split_count``,
+``split_slots``) and allocates the f32 partials the splits hand to the
+merge pass. f32 q takes an exact f32 kernel on CUDA cores, which admits
+``block_size * head_dim <= 4096``. Beside them, ``paged_attention_plain``
 computes the same function with plain PyTorch ops: it gathers each row's
 block window and runs a masked f32 softmax.
 
@@ -31,6 +36,26 @@ import torch
 from . import cuda_build, launches
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+SPLIT_SLOTS = 512  # slots of a row's context one split walks (8 KV tiles of 64)
+Q_ROWS = 128       # query vectors (tokens x query heads of a kv head) one block owns
+EXACT_MAX_ELEMS = 4096  # the f32 kernel's block_size * head_dim ceiling
+
+
+def split_count(max_blocks: int, block_size: int) -> int:
+    """Splits of the grid's split axis: the window ``max_blocks *
+    block_size`` in ``SPLIT_SLOTS`` pieces, from host-known shapes alone
+    (no device sync to learn ``valid_len``)."""
+    return -(-max_blocks * block_size // SPLIT_SLOTS)
+
+
+def split_slots(split: int, valid_len: int, max_blocks: int, block_size: int) -> range:
+    """The slots split ``split`` of a row walks, as the kernel computes
+    them: its piece of the window, cut at the row's ``valid_len`` (empty
+    for a split at or past it, which exits at once)."""
+    visible = min(valid_len, max_blocks * block_size)
+    start = split * SPLIT_SLOTS
+    return range(start, max(start, min(visible, start + SPLIT_SLOTS)))
 
 
 def paged_attention(
@@ -80,12 +105,12 @@ def _launch(q, pool_k, pool_v, block_table, valid_len, q_slot_base,
     quantized = scale_k is not None
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"paged_attention: q dtype {q.dtype} not supported")
-    if h not in (64, 128):
-        raise ValueError(f"paged_attention: head dim {h} not supported (64, 128)")
-    if block_size * h > 4096:
+    if h not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: head dim {h} not supported {HEAD_DIMS}")
+    if q.dtype == torch.float32 and block_size * h > EXACT_MAX_ELEMS:
         raise ValueError(
-            f"paged_attention: block_size {block_size} x head dim {h} > 4096"
-        )
+            f"paged_attention: f32 q takes the exact kernel, which needs block_size "
+            f"{block_size} x head dim {h} <= {EXACT_MAX_ELEMS}")
     if n != n_kv * num_repeat_kv:
         raise ValueError(
             f"paged_attention: {n} query heads != {n_kv} kv heads x {num_repeat_kv}"
@@ -96,8 +121,8 @@ def _launch(q, pool_k, pool_v, block_table, valid_len, q_slot_base,
     _check(q, "q", dev, q.dtype, (rows, s, n, h))
     _check(pool_k, "pool_k", dev, pool_dtype, pool_shape)
     _check(pool_v, "pool_v", dev, pool_dtype, pool_shape)
-    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
-        raise ValueError("paged_attention: pools must be 16-byte aligned (vector loads)")
+    if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+        raise ValueError("paged_attention: q and the pools must be 16-byte aligned")
     if quantized:
         if scale_v is None:
             raise ValueError("paged_attention: scale_k given without scale_v")
@@ -109,6 +134,12 @@ def _launch(q, pool_k, pool_v, block_table, valid_len, q_slot_base,
 
     lib = _library()
     out = torch.empty_like(q)
+    n_splits = split_count(max_blocks, block_size)
+    part_o = part_ml = None
+    if q.dtype == torch.bfloat16 and n_splits > 1:
+        units = rows * n_kv * -(-s * num_repeat_kv // Q_ROWS) * n_splits * Q_ROWS
+        part_o = torch.empty(units * h, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(units * 2, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_attention_launch(
@@ -117,7 +148,9 @@ def _launch(q, pool_k, pool_v, block_table, valid_len, q_slot_base,
             scale_k.data_ptr() if quantized else None,
             scale_v.data_ptr() if quantized else None,
             block_table.data_ptr(), valid_len.data_ptr(), q_slot_base.data_ptr(),
-            out.data_ptr(), rows, s, n, n_kv, block_size, max_blocks,
+            out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            rows, s, n, n_kv, block_size, max_blocks, SPLIT_SLOTS, n_splits,
             float(sm_scale), stream,
         )
     if err != 0:
@@ -135,7 +168,9 @@ def _library() -> ctypes.CDLL:
             ci, ci, ci,                 # dtype, quantized, head_dim
             vp, vp, vp, vp, vp,         # q, pool_k, pool_v, scale_k, scale_v
             vp, vp, vp, vp,             # table, valid_len, q_slot_base, out
+            vp, vp,                     # part_o, part_ml
             ci, ci, ci, ci, ci, ci,     # rows, s, n, n_kv, block_size, max_blocks
+            ci, ci,                     # split_slots, n_splits
             ctypes.c_float, vp,         # sm_scale, stream
         ]
         lib.paged_attention_launch.restype = ci

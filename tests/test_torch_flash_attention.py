@@ -12,7 +12,8 @@ Cases: MHA; GQA with 2 query heads per KV head; packed segment ids; 2
 trailing local heads with window 16 (also at S 256). Beside them, without
 a launch, the wrapper's admission rule against the training layer's
 routing gate: every shape the gate sends to the flash path is one the
-kernels take.
+kernels take, and head dims the kernels are not built for (96, 256) go
+to the unfused path.
 """
 
 import numpy as np
@@ -130,26 +131,54 @@ def _kernel_operands(s, d, dtype=torch.bfloat16):
     return q, k, k.clone(), torch.zeros(1, s, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("model", ["0.5b", "toy"])
+@pytest.mark.parametrize("model", ["0.5b", "toy", "d64", "d96", "d128", "d256"])
 def test_kernels_admit_every_shape_the_flash_path_routes(model):
     """The training layer routes to K4/K5 through ``flash_path_active``;
     the kernels' wrapper admits through ``_check_shapes``. For the head dim
-    of each model the train bench ships, every sequence length up to 8192
-    that the gate routes to the flash path must be one the kernels take,
-    so a change of tile size cannot leave a routed shape without a kernel."""
+    of each model the train bench ships, and for head dims 64, 96, 128 and
+    256, every sequence length up to 8192 that the gate routes to the flash
+    path must be one the kernels take, so a change of tile size cannot
+    leave a routed shape without a kernel; a head dim the kernels are not
+    built for is never routed."""
     from scaling_tpu_torch.nn.attention import flash_path_active
-    from scaling_tpu_torch.ops.flash_attention import _check_shapes
+    from scaling_tpu_torch.ops.flash_attention import HEAD_DIMS, _check_shapes
     from scaling_tpu_torch.train.bench import MODELS
 
-    arch = MODELS[model]
-    d = arch["hidden_size"] // arch["num_attention_heads"]
+    if model.startswith("d"):
+        d = int(model[1:])
+    else:
+        d = MODELS[model]["hidden_size"] // MODELS[model]["num_attention_heads"]
     routed = [s for s in range(64, 8192 + 1, 64)
               if flash_path_active(kernel_is_flash=True, causal=True,
                                    dropout_attention_probs=0.0, deterministic=False,
                                    context_parallel_size=1, seq_len=s, head_dim=d)]
-    assert routed and all(s % 128 == 0 for s in routed)
+    assert bool(routed) == (d in HEAD_DIMS)
+    assert all(s % 128 == 0 for s in routed)
     for s in routed:
         assert _check_shapes(*_kernel_operands(s, d), 0, None) == (0, 0), s
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_head_dims_without_a_kernel_take_the_unfused_path(d):
+    """At head dims K4/K5 are not built for, the gate says False and the
+    layer computes attention unfused, launching no flash version at all
+    (the JAX package, off the TPU, takes its XLA path at every head dim)."""
+    from scaling_tpu_torch.nn.attention import flash_path_active
+
+    assert not flash_path_active(kernel_is_flash=True, causal=True,
+                                 dropout_attention_probs=0.0, deterministic=False,
+                                 context_parallel_size=1, seq_len=256, head_dim=d)
+    torch.manual_seed(0)
+    layer = ParallelSelfAttention(
+        4 * d, 4, num_kv_heads=2,
+        masked_softmax_config=MaskedSoftmaxConfig(kernel="flash_attention"))
+    for p in layer.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    x = torch.randn(1, 128, 4 * d)
+    launches.reset()
+    out = layer(x, torch.arange(128)[None])
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert sum(launches.PLAIN.values()) == 0 and sum(launches.KERNEL.values()) == 0
 
 
 @pytest.mark.parametrize("s,d", [(192, 64), (192, 128), (64, 64), (320, 128)])

@@ -9,7 +9,7 @@ Each kernel against its plain version on the same CUDA tensors. f32: atol
 the output. The flash kernels (bf16 only) take P and dS into their
 products as bf16, so their gradients are held at 2e-2 of the largest
 reference value; their lse (f32 from the same bf16 products) at 1e-3.
-The flash backward and the RMSNorm backward's dw must repeat bitwise.
+K1, the flash backward and the RMSNorm backward's dw must repeat bitwise.
 And the toy model served on the card in f32 gives the CPU run's greedy
 tokens, through the kernels only.
 """
@@ -49,20 +49,40 @@ def tol(dtype):
     return 1e-5 if dtype == torch.float32 else 1e-2
 
 
-@pytest.mark.parametrize("quantized", [False, True], ids=["native", "int8"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("h,n,n_kv,s,bs", [
-    (64, 4, 2, 8, 4), (128, 16, 4, 32, 16), (128, 8, 8, 1, 16), (64, 4, 1, 40, 8),
-])
-def test_paged_attention_kernel_matches_plain(card, quantized, dtype, h, n, n_kv, s, bs):
+# h, n, n_kv, s, block_size, max_blocks, rows' (context, new tokens); None:
+# rows idle, fresh decode, a chunk at 3, a short chunk at 17, a chunk
+# ending on the window
+PAGED_CASES = {
+    "h64-gqa2-s8-bs4": (64, 4, 2, 8, 4, 16, None),
+    "h128-gqa4-s32-bs16": (128, 16, 4, 32, 16, 16, None),
+    "h128-mha-s1-bs16": (128, 8, 8, 1, 16, 16, None),
+    "h64-nkv1-s40-bs8": (64, 4, 1, 40, 8, 16, None),
+    "h128-bs32": (128, 16, 4, 32, 32, 32, None),  # a 1024-slot window: 2 splits
+    "h128-bs64": (128, 16, 4, 32, 64, 32, None),  # 2048 slots: 4 splits
+    "one-2048-slot-row": (128, 16, 4, 32, 16, 128, ((2048 - 32, 32),)),
+    "split-edges": (128, 16, 4, 32, 16, 128, (
+        (512 - 32, 32), (511 - 32, 32), (513 - 32, 32), (1023, 1), (1024, 1), (0, 0))),
+    "tile-edges": (128, 16, 4, 32, 16, 16, ((64 - 32, 32), (63 - 9, 9), (65 - 32, 32), (0, 0))),
+    "nrep4-decode": (128, 16, 4, 1, 16, 128, ((700, 1), (2047, 1), (0, 0))),
+    "nrep8": (128, 16, 2, 32, 16, 64, None),      # 256 query vectors: 2 query tiles
+    "nrep8-h64": (64, 8, 1, 32, 32, 48, None),
+}
+
+
+def paged_case(card, quantized, dtype, h, n, n_kv, s, bs, max_blocks, contexts, seed):
+    """K1 operands on the card: a pool, rows of the given contexts, tables
+    that point past the context at the trash block 0."""
     gen = torch.Generator(device=card)
-    gen.manual_seed(h + n + s + bs)
-    rows, num_blocks, max_blocks = 5, 64, 16
+    gen.manual_seed(seed)
+    window = max_blocks * bs
+    if contexts is None:
+        contexts = ((0, 0), (0, 1), (3, s), (17, min(s, 5)), (window - s, s))
+    ctx = torch.tensor([c for c, _ in contexts], device=card)
+    new = torch.tensor([k for _, k in contexts], device=card)
+    rows, num_blocks = len(contexts), max(64, max_blocks + 1)
     q = torch.randn(rows, s, n, h, generator=gen, device=card).to(dtype)
     pk = torch.randn(num_blocks, bs, n_kv, h, generator=gen, device=card)
     pv = torch.randn(num_blocks, bs, n_kv, h, generator=gen, device=card)
-    ctx = torch.tensor([0, 0, 3, 17, max_blocks * bs - s], device=card)
-    new = torch.tensor([0, 1, s, min(s, 5), s], device=card)
     valid = ctx + new
     nblk = (valid + bs - 1) // bs
     table = torch.randint(1, num_blocks, (rows, max_blocks), generator=gen, device=card)
@@ -72,23 +92,64 @@ def test_paged_attention_kernel_matches_plain(card, quantized, dtype, h, n, n_kv
         (pk, kw["scale_k"]), (pv, kw["scale_v"]) = kv_quantize_int8(pk), kv_quantize_int8(pv)
     else:
         pk, pv = pk.to(dtype), pv.to(dtype)
-    args = (q, pk, pv, table.int(), valid.int(), ctx.int())
+    return (q, pk, pv, table.int(), valid.int(), ctx.int()), kw
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_attention_kernel_matches_plain(card, quantized, dtype, case):
+    h, n, n_kv, s, bs, max_blocks, contexts = PAGED_CASES[case]
+    args, kw = paged_case(card, quantized, dtype, h, n, n_kv, s, bs, max_blocks, contexts,
+                          seed=h + n + s + bs)
+    if dtype == torch.float32 and bs * h > 4096:
+        # f32 takes the exact kernel, whose K/V prefetch admits bs x h <= 4096
+        with pytest.raises(ValueError, match="exact kernel"):
+            paged_attention(*args, **kw)
+        return
     launches.reset()
     out = paged_attention(*args, **kw)
     ref = paged_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     assert sum(launches.KERNEL.values()) == 1
-    assert bool((out[0] == 0).all())  # valid_len 0: zeros, not nan
+    valid = args[4]
+    assert bool((out[valid == 0] == 0).all())  # valid_len 0: zeros, not nan
     torch.testing.assert_close(out.float(), ref.float(), atol=tol(dtype), rtol=tol(dtype))
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["native", "int8"])
+def test_paged_attention_repeats_bitwise(card, quantized):
+    """The split kernel's partials are merged in a fixed order, without
+    atomics: two calls give the same bits, also for rows over 4 splits."""
+    args, kw = paged_case(card, quantized, torch.bfloat16, *PAGED_CASES["split-edges"][:6],
+                          ((2048 - 32, 32), (1000, 32), (5, 32), (0, 0)), seed=9)
+    first = paged_attention(*args, **kw)
+    again = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
 def test_paged_attention_rejects_what_it_cannot_run(card):
+    """Head dims other than 64 and 128, f32 q past the exact kernel's
+    block_size x head_dim <= 4096, and query heads that are no multiple of
+    the kv heads raise, naming the cause; bf16 and int8 take any block size
+    (64 at head dim 128 here)."""
+    idx = torch.zeros(1, dtype=torch.int32, device=card)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=card)
     q = torch.randn(1, 1, 2, 32, device=card)  # head dim 32: not built
     pool = torch.randn(4, 4, 2, 32, device=card)
-    idx = torch.zeros(1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head dim"):
-        paged_attention(q, pool, pool, torch.zeros(1, 2, dtype=torch.int32, device=card),
-                        idx, idx, sm_scale=1.0)
+        paged_attention(q, pool, pool, table, idx, idx, sm_scale=1.0)
+    q = torch.randn(1, 1, 2, 128, device=card)
+    pool = torch.randn(4, 64, 2, 128, device=card)
+    with pytest.raises(ValueError, match="exact kernel"):
+        paged_attention(q, pool, pool, table, idx, idx, sm_scale=1.0)
+    with pytest.raises(ValueError, match="query heads"):
+        paged_attention(q.bfloat16(), pool.bfloat16(), pool.bfloat16(), table, idx, idx,
+                        sm_scale=1.0, num_repeat_kv=2)
+    out = paged_attention(q.bfloat16(), pool.bfloat16(), pool.bfloat16(), table,
+                          idx + 70, idx + 69, sm_scale=1.0)
+    assert out.shape == q.shape and bool(torch.isfinite(out.float()).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -262,3 +323,25 @@ def test_toy_training_step_on_the_card_matches_the_cpu(card):
                 "rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd"))
             assert sum(launches.PLAIN.values()) == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2)
+
+
+def test_head_dim_96_trains_on_the_card_unfused(card, monkeypatch):
+    """The bf16 toy at hidden 384 has head dim 96, which K4/K5 are not
+    built for: its layer routes to the unfused path by shape, so two train
+    steps on the card run without a raise, with finite losses, K2 and K3
+    launched, no flash kernel and no plain version."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import loss_function
+    from scaling_tpu_torch.train import bench
+
+    monkeypatch.setitem(bench.MODELS, "toy_d96", dict(bench.MODELS["toy"], hidden_size=384))
+    _, module, optimizer = bench.build("toy_d96", 128, 2, device=card)
+    step = module.build_train_step(optimizer, loss_function)
+    batch = bench.synth_batch(np.random.default_rng(0), 2, 128, 512, 1, card)
+    launches.reset()
+    losses = [float(step(batch)[0]) for _ in range(2)]
+    assert all(np.isfinite(losses)), losses
+    assert launches.KERNEL["rms_norm"] > 0 and launches.KERNEL["rms_norm_bwd"] > 0
+    assert launches.KERNEL["flash_attention_fwd"] == 0 and launches.KERNEL["flash_attention_bwd"] == 0
+    assert sum(launches.PLAIN.values()) == 0

@@ -7,7 +7,12 @@ f32, atol 1e-5 (the same online softmax against a whole-window softmax:
 summation order only). Covered: native and int8 pools (the same
 ``kv_quantize_int8`` scales on both sides), GQA n_rep 1 and 2, query
 widths 1, 4 and 32, an all-trash row with ``valid_len`` 0, and causality
-at the slot level.
+at the slot level. Then the cases the card kernel's tiling makes risky:
+block sizes 8, 16 and 32; 32 tokens x 4 query heads (128 query vectors,
+one block's worth) and n_rep 8; contexts that end on, just before and
+just after a 64-slot KV tile or a 512-slot split; rows whose context
+spans several splits. And the launcher's split plan: every visible slot
+in exactly one split, splits past ``valid_len`` empty.
 """
 
 import numpy as np
@@ -20,6 +25,11 @@ import torch  # noqa: E402
 from scaling_tpu.nn.attention import kv_quantize_int8 as jax_quantize  # noqa: E402
 from scaling_tpu.nn.paged_attention import paged_decode_attention  # noqa: E402
 from scaling_tpu_torch.ops import launches, paged_attention  # noqa: E402
+from scaling_tpu_torch.ops.paged_attention import (  # noqa: E402
+    SPLIT_SLOTS,
+    split_count,
+    split_slots,
+)
 
 BS, MAXB, NB, H, N = 4, 12, 40, 16, 4
 ATOL = 1e-5
@@ -106,3 +116,70 @@ def test_slot_causality():
     np.testing.assert_allclose(out1[:, 0], out2[:, 0], atol=ATOL, rtol=0)
     np.testing.assert_allclose(out2, ref2, atol=ATOL, rtol=0)
     assert not np.allclose(out1[0, 1], out2[0, 1])  # token 1 does see it
+
+
+# block_size, n_kv, n_rep, s, max_blocks, each row's valid_len
+TILING_CASES = {
+    "bs8-tile-edges-128-vectors": (8, 1, 4, 32, 24, (64, 63, 65, 128)),
+    "bs16-split-edges-nrep8": (16, 1, 8, 4, 48, (512, 511, 513, 0)),
+    "bs32-several-splits": (32, 2, 2, 32, 48, (1024, 1023, 1025, 1536)),
+    "bs16-long-row-nrep4": (16, 1, 4, 32, 96, (1500, 40, 1536, 700)),
+}
+
+
+def make_tiling_case(rng, bs, n_kv, n_rep, s, max_blocks, valid):
+    """Rows of the given contexts, each ending in a chunk of up to ``s``
+    new tokens, over distinct pool blocks (block 0 the trash block)."""
+    rows = len(valid)
+    valid = np.asarray(valid, np.int32)
+    new = np.minimum(valid, s).astype(np.int32)
+    ctx = valid - new
+    nb = 1 + rows * max_blocks
+    pool_k = rng.normal(size=(nb, bs, n_kv, H)).astype(np.float32)
+    pool_v = rng.normal(size=(nb, bs, n_kv, H)).astype(np.float32)
+    q = rng.normal(size=(rows, s, n_kv * n_rep, H)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, nb))
+    tab = np.zeros((rows, max_blocks), np.int32)
+    for r in range(rows):
+        nblk = min(max_blocks, -(-int(valid[r]) // bs))
+        tab[r, :nblk] = perm[r * max_blocks:r * max_blocks + nblk]
+    return q, pool_k, pool_v, tab, valid, ctx.astype(np.int32)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("case", list(TILING_CASES))
+def test_plain_matches_pallas_kernel_at_tile_and_split_edges(case, quantized):
+    bs, n_kv, n_rep, s, max_blocks, valid = TILING_CASES[case]
+    rng = np.random.default_rng(len(case) + quantized)
+    q, pool_k, pool_v, tab, valid, base = make_tiling_case(rng, bs, n_kv, n_rep, s,
+                                                           max_blocks, valid)
+    assert split_count(max_blocks, bs) >= 1
+    out, ref = run_both(q, pool_k, pool_v, tab, valid, base, n_rep, quantized)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+
+
+def test_split_plan_covers_every_visible_slot_once():
+    """The launcher's plan, as the kernel walks it: over a sweep of
+    windows and contexts, the splits' slots are disjoint and together
+    exactly the visible ones (``min(valid_len, window)``), each split stays
+    inside its piece of the window, and every split at or past
+    ``valid_len`` is empty."""
+    for max_blocks in (1, 3, 31, 32, 33, 128, 200):
+        for block_size in (1, 8, 16, 32, 48, 64):
+            window = max_blocks * block_size
+            n = split_count(max_blocks, block_size)
+            assert n >= 1 and (n - 1) * SPLIT_SLOTS < window <= n * SPLIT_SLOTS
+            for valid_len in sorted({0, 1, 63, 64, 65, 511, 512, 513, 1024, 1100,
+                                     window - 1, window, window + 7}):
+                if valid_len < 0:
+                    continue
+                seen = []
+                for k in range(n):
+                    got = split_slots(k, valid_len, max_blocks, block_size)
+                    assert got.start == k * SPLIT_SLOTS and len(got) <= SPLIT_SLOTS
+                    if k * SPLIT_SLOTS >= valid_len:
+                        assert len(got) == 0, (max_blocks, block_size, valid_len, k)
+                    seen.extend(got)
+                assert seen == list(range(min(valid_len, window))), (
+                    max_blocks, block_size, valid_len)

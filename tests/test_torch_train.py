@@ -24,6 +24,11 @@ Checked, with these tolerances:
   the plain run's loss (rtol 1e-5: the same tokens in a different split,
   the same arithmetic recomputed).
 One of the batches packs three documents per row (segment ids).
+
+A second model has head dim 96, which K4/K5 are not built for: its layer
+takes the unfused path (as the JAX package does off the TPU at every
+head dim), and 2 steps of it match JAX ``build_train_step`` on carried
+weights, losses and grad norms at rtol 1e-4.
 """
 
 import numpy as np
@@ -57,6 +62,7 @@ ARCH = {
     "layernorm": {"optimization_type": "fused"},
     "masked_softmax": {"kernel": "flash_attention"}, "weight_tying": False,
 }
+ARCH_D96 = dict(ARCH, hidden_size=384)  # 4 heads of dim 96
 SEQ, STEPS, LR_PEAK, WARMUP = 128, 3, 3e-3, 10
 RUNS = {  # micro-batch size, gas, activation checkpointing
     "plain": (4, 1, "disabled"),
@@ -65,13 +71,13 @@ RUNS = {  # micro-batch size, gas, activation checkpointing
 }
 
 
-def config_dict(mbs, gas, ckpt):
+def config_dict(mbs, gas, ckpt, arch=ARCH):
     return {
         "topology": {"model_parallel_size": 1, "pipe_parallel_size": 1,
                      "data_parallel_size": 1, "micro_batch_size": mbs,
                      "gradient_accumulation_steps": gas,
                      "activation_checkpointing_type": ckpt},
-        "transformer_architecture": ARCH,
+        "transformer_architecture": arch,
         "optimizer": {"gradient_clipping": 1.0, "loss_scaler": {"enable": False}},
         "learning_rate_scheduler": {"learning_rate": LR_PEAK,
                                     "learning_rate_warmup_steps": WARMUP,
@@ -128,23 +134,27 @@ def torch_batch(b):
         torch.int64 if "token" in k else torch.int32) for k, v in b.items()}
 
 
-@pytest.fixture(scope="module")
-def weights():
-    config = JaxConfig.from_dict(config_dict(*RUNS["plain"]))
+def draw_weights(arch):
+    config = JaxConfig.from_dict(config_dict(*RUNS["plain"], arch=arch))
     module = jax_init_model(config, None)
     return random_params(jax.tree.map(np.asarray, module.init_params(jax.random.PRNGKey(0))),
                          np.random.default_rng(0))
 
 
-def port_module(np_params, run):
-    config = TransformerConfig.from_dict(config_dict(*RUNS[run]))
+@pytest.fixture(scope="module")
+def weights():
+    return draw_weights(ARCH)
+
+
+def port_module(np_params, run, arch=ARCH):
+    config = TransformerConfig.from_dict(config_dict(*RUNS[run], arch=arch))
     model = TransformerModel(config.transformer_architecture)
     model.load_state_dict(params_from_jax(np_params, config.transformer_architecture))
     return config, ParallelModule(model, config.topology)
 
 
-def jax_train(np_params, run):
-    config = JaxConfig.from_dict(config_dict(*RUNS[run]))
+def jax_train(np_params, run, arch=ARCH, steps=STEPS):
+    config = JaxConfig.from_dict(config_dict(*RUNS[run], arch=arch))
     topology = Topology(config.topology)
     module = jax_init_model(config, topology)
     optimizer = jax_init_optimizer(config, module, topology)
@@ -153,7 +163,7 @@ def jax_train(np_params, run):
     with force_flash_interpret(), force_rms_interpret():
         state = optimizer.init_state(params)
         step = module.build_train_step(optimizer, jax_loss, donate=False)
-        for b in batches(*RUNS[run][:2]):
+        for b in batches(*RUNS[run][:2])[:steps]:
             params, state, loss, _, out = step(params, state, jax_batch(b),
                                                jax.random.PRNGKey(0))
             losses.append(float(loss))
@@ -217,6 +227,42 @@ def test_train_steps_match_jax(weights, jax_runs, run):
         close += int((diff <= 1e-6).sum())
         total += diff.numel()
     assert close >= 0.999 * total, close / total
+
+
+def test_head_dim_96_trains_unfused_and_matches_jax():
+    """Head dim 96 (hidden 384, 4 heads): the port's layer takes the
+    unfused path, since K4/K5 are built for 64 and 128 only; the JAX
+    package's splash gate would take it in interpret mode, so JAX runs here
+    without ``force_flash_interpret``, on its XLA attention, as it does on
+    the CPU. 2 steps: losses and grad norms within rtol 1e-4."""
+    np_params = draw_weights(ARCH_D96)
+    config = JaxConfig.from_dict(config_dict(*RUNS["plain"], arch=ARCH_D96))
+    topology = Topology(config.topology)
+    module = jax_init_model(config, topology)
+    optimizer = jax_init_optimizer(config, module, topology)
+    params = jax.tree.map(jnp.asarray, np_params)
+    ref_losses, ref_norms = [], []
+    with force_rms_interpret():
+        state = optimizer.init_state(params)
+        step = module.build_train_step(optimizer, jax_loss, donate=False)
+        for b in batches(4, 1)[:2]:
+            params, state, loss, _, out = step(params, state, jax_batch(b),
+                                               jax.random.PRNGKey(0))
+            ref_losses.append(float(loss))
+            ref_norms.append(float(out.global_grad_norm))
+
+    config_t, module_t = port_module(np_params, "plain", arch=ARCH_D96)
+    step_t = module_t.build_train_step(init_optimizer(config_t, module_t.model), loss_function)
+    launches.reset()
+    losses, norms = [], []
+    for b in batches(4, 1)[:2]:
+        loss, _, out = step_t(torch_batch(b))
+        losses.append(float(loss))
+        norms.append(float(out.global_grad_norm))
+    assert launches.PLAIN["flash_attention_fwd"] == 0 and launches.PLAIN["flash_attention_bwd"] == 0
+    assert launches.PLAIN["rms_norm_bwd"] > 0
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
+    np.testing.assert_allclose(norms, ref_norms, rtol=1e-4)
 
 
 def test_dropout_raises_in_training_and_still_serves():
