@@ -40,6 +40,21 @@ Phases, each of which must pass:
 6. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call: device time from
    ``torch.profiler``, and the per-call time with CUDA events;
+7. the Trainer (``models/transformer/train.py:main``) trains the same
+   model at full width and depth from token datasets the port's builder
+   writes from seed 0 (two blended prefixes of ~2M tokens, documents of
+   64-4096 tokens, and a ~64k-token validation prefix), micro-batch 4,
+   seq 2048, 6 iterations saving and evaluating at 3 and 6: losses finite,
+   6 step records with ``palm_mfu``, two checkpoints that verify; a
+   second ``main`` resumes from step 3 with the first run's parameters and
+   f32 optimizer state, bitwise, and its step-4 batch; its step-4 loss is
+   the first run's, bitwise, and steps 5-6 within rtol 1e-4; the
+   checkpoint (``TransformerInferenceModule.from_checkpoint``) serves 4
+   greedy requests with the tokens of an engine on the trainer's own
+   weights; K1-K5 launched and no plain version run; print the steady
+   step ms beside phase 5's, and checkpoint save and load seconds, GB/s
+   and size. The checkpoints go to a temporary directory outside the
+   checkout, removed at the end;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -55,10 +70,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,6 +107,11 @@ LSE_TOL = 1e-3          # atol: f32 from the same bf16 products
 FLASH_GRAD_TOL = 2e-2   # max |err| / max |ref|: P and dS enter the products as bf16
 K3_DW_TOL = 1e-2        # max |err| / max |ref|: a bf16 dw summed over 8192 rows
 TRAIN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through 8 layers vs f32
+# the Trainer: token datasets from seed 0, 6 iterations saving and evaluating at 3
+TRAINER = dict(model="0.5b", seq=TRAIN_SEQ, mbs=TRAIN_MBS, tokens=2_000_000,
+               valid_tokens=64_000, doc_len=(64, 4096), iterations=6, interval=3,
+               eval_iterations=2, serve_requests=4, serve_prompt=(64, 256), serve_output=32)
+RESUME_RTOL = 1e-4  # steps 5-6 after the resume: the embedding backward adds with atomics
 
 
 def card_line() -> str:
@@ -749,13 +772,280 @@ def train() -> dict:
         print(f"    other: {ms:.3f}ms in {count} launches: {name}")
     del module, optimizer, step, batch
     torch.cuda.empty_cache()
-    return kernel
+    return {"launches": kernel, "step_ms": seconds[0] * 1e3}
 
 
-def time_kernels(errs: dict, launches_by_path: dict) -> list:
-    """One row a kernel. ``launches`` is the sum over the main-path runs,
-    ``launches_by_path`` each run's own count (``launches_by_path`` maps a
-    run's name to the counters read just after it)."""
+def write_token_datasets(root: Path, vocab: int) -> dict:
+    """Two training prefixes of ~``tokens`` tokens and a validation prefix,
+    documents of ``doc_len`` tokens ending in EOD 0, uint16, from seed 0,
+    written by the port's builder."""
+    from scaling_tpu_torch.data import MemoryMapDatasetBuilder
+
+    rng = np.random.default_rng(0)
+    prefixes = {}
+    for name, tokens in (("a", TRAINER["tokens"]), ("b", TRAINER["tokens"]),
+                         ("valid", TRAINER["valid_tokens"])):
+        written = 0
+        with MemoryMapDatasetBuilder(root / name, dtype=np.uint16) as builder:
+            while written < tokens:
+                doc = rng.integers(1, vocab, size=int(rng.integers(*TRAINER["doc_len"])) - 1)
+                builder.add(np.append(doc, 0))
+                written += doc.size + 1
+        prefixes[name] = str(root / name)
+    return prefixes
+
+
+def trainer_config(prefixes: dict, log_dir: Path, save_dir=None, load_dir=None) -> dict:
+    """The JAX-shaped training config of the trainer phase: the bench model
+    and optimizer of phase 5, blended token data, eval and checkpoints."""
+    from scaling_tpu_torch.train.bench import LR_SCHEDULE, MODELS, OPTIMIZER
+
+    return {
+        "topology": {"model_parallel_size": 1, "pipe_parallel_size": 1,
+                     "data_parallel_size": 1, "micro_batch_size": TRAINER["mbs"],
+                     "gradient_accumulation_steps": 1},
+        "transformer_architecture": dict(MODELS[TRAINER["model"]],
+                                         sequence_length=TRAINER["seq"]),
+        "optimizer": OPTIMIZER,
+        "learning_rate_scheduler": LR_SCHEDULE,
+        "trainer": {"seed": 0, "train_iterations": TRAINER["iterations"],
+                    "save_dir": None if save_dir is None else str(save_dir),
+                    "save_interval": TRAINER["interval"],
+                    "load_dir": None if load_dir is None else str(load_dir),
+                    "eval_interval": TRAINER["interval"],
+                    "eval_iterations": TRAINER["eval_iterations"],
+                    "delete_past_optimizer_states": False},
+        "data": {"data_prefixes": [prefixes["a"], prefixes["b"]],
+                 "validation_data_prefixes": [prefixes["valid"]]},
+        "logger": {"log_dir": str(log_dir)},
+    }
+
+
+def trainer_state(trainer) -> dict:
+    """A host copy of the trainer's parameters and f32 optimizer state."""
+    opt = trainer.optimizer.state
+    state = {f"param.{n}": p.detach().to("cpu", copy=True)
+             for n, p in trainer.module.model.named_parameters()}
+    for field in ("master", "exp_avg", "exp_avg_sq"):
+        state.update({f"{field}.{n}": t.to("cpu", copy=True)
+                      for n, t in getattr(opt, field).items()})
+    return state
+
+
+class TrainerProbe:
+    """Watches ``TransformerTrainer`` for one run: the host batch of each
+    step, the state at the save of step ``interval`` (a host copy, taken
+    before the save and outside its time), and the seconds of each save and
+    load. Installed around one ``main`` and removed after it."""
+
+    def __init__(self, snapshot_at=None, on_load=None):
+        self.batches, self.saves, self.loads = [], [], []
+        self.snapshot, self.snapshot_at, self.on_load = None, snapshot_at, on_load
+
+    def __enter__(self):
+        from scaling_tpu_torch.models.transformer.train import TransformerTrainer
+
+        self.cls = TransformerTrainer
+        self.orig = {k: getattr(TransformerTrainer, k)
+                     for k in ("_assemble_micro_batches", "save_checkpoint", "load_checkpoint")}
+        probe, orig = self, self.orig
+
+        def assemble(trainer):
+            batch = orig["_assemble_micro_batches"](trainer)
+            probe.batches.append(batch)
+            return batch
+
+        def save(trainer, *a, **kw):
+            if trainer.context.iterations == probe.snapshot_at:
+                probe.snapshot = trainer_state(trainer)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            step_dir = orig["save_checkpoint"](trainer, *a, **kw)
+            probe.saves.append((step_dir, time.monotonic() - t0))
+            return step_dir
+
+        def load(trainer, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loaded = orig["load_checkpoint"](trainer, *a, **kw)
+            torch.cuda.synchronize()
+            probe.loads.append(time.monotonic() - t0)
+            if probe.on_load is not None:
+                probe.on_load(trainer)
+            return loaded
+
+        TransformerTrainer._assemble_micro_batches = assemble
+        TransformerTrainer.save_checkpoint = save
+        TransformerTrainer.load_checkpoint = load
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.cls, k, fn)
+        return False
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def serve_greedy(inf, vocab: int) -> dict:
+    """4 greedy requests (prompts of 64-256 tokens, 32 output tokens each)
+    through an engine with native KV; tokens by request id."""
+    from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+
+    engine = ServeEngine(inf, EngineConfig(kv_dtype="native", **SERVE), device=inf.device)
+    rng = np.random.default_rng(6)
+    for _ in range(TRAINER["serve_requests"]):
+        n = int(rng.integers(TRAINER["serve_prompt"][0], TRAINER["serve_prompt"][1] + 1))
+        engine.submit(rng.integers(1, vocab, size=n).tolist(), TRAINER["serve_output"])
+    return {s.request.req_id: list(s.generated) for s in engine.run_until_done()}
+
+
+def check_trainer_launches(kernel: dict, plain: dict) -> None:
+    needed = ("paged_attention", "rms_norm", "rms_norm_bwd", "flash_attention_fwd",
+              "flash_attention_bwd")
+    if any(kernel.get(k, 0) <= 0 for k in needed):
+        raise AssertionError(f"trainer phase: kernels not launched on its path: {kernel}")
+    if sum(plain.values()) != 0:
+        raise AssertionError(f"trainer phase: plain versions ran on the card: {plain}")
+
+
+def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
+    """The Trainer end to end (phase 7 of the module's docstring); the
+    launch counters reset just before and read just after. Returns them."""
+    from scaling_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerInferenceModule,
+        TransformerModel,
+    )
+    from scaling_tpu_torch.models.transformer.train import main
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.resilience import verify_checkpoint
+    from scaling_tpu_torch.train.bench import MODELS
+
+    vocab = MODELS[TRAINER["model"]]["vocab_size"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        free = shutil.disk_usage(root).free
+        # a checkpoint: 4 bytes a parameter for the weights, 12 for the optimizer
+        need = 2 * 16 * 495_110_144 + (1 << 30) if TRAINER["model"] == "0.5b" else 1 << 30
+        print(f"  temporary directory {root}: {free / 1e9:.1f} GB free, two checkpoints need "
+              f"~{need / 1e9:.1f} GB")
+        if free < need:
+            raise AssertionError(f"not enough disk for two checkpoints under {root}")
+        t0 = time.monotonic()
+        prefixes = write_token_datasets(root, vocab)
+        print(f"  token datasets written in {time.monotonic() - t0:.1f}s: "
+              + " ".join(f"{k}={Path(v).with_suffix('.bin').stat().st_size // 2} tokens"
+                         for k, v in prefixes.items()))
+        save_dir = root / "ckpt"
+        launches.reset()
+
+        with TrainerProbe(snapshot_at=TRAINER["interval"]) as first:
+            trainer = main(TransformerConfig.from_dict(
+                trainer_config(prefixes, root / "logs", save_dir=save_dir)), device=device)
+        arch = trainer.context.config.transformer_architecture
+        weights = {k: v.clone() for k, v in trainer.module.model.state_dict().items()}
+        del trainer
+        torch.cuda.empty_cache()
+        records = [json.loads(line) for line in (root / "logs" / "metrics_rank_0.jsonl")
+                   .read_text().splitlines()]
+        steps = [r for r in records if "loss" in r["metrics"]]
+        losses = [r["metrics"]["loss"] for r in steps]
+        if [r["step"] for r in steps] != list(range(1, TRAINER["iterations"] + 1)):
+            raise AssertionError(f"step records: {[r['step'] for r in steps]}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite trainer loss: {losses}")
+        check_step_records(steps)
+        step_dirs = [d for d, _ in first.saves]
+        if [d.name for d in step_dirs] != ["global_step3", "global_step6"]:
+            raise AssertionError(f"checkpoints: {step_dirs}")
+        for d in step_dirs:
+            problems = verify_checkpoint(d)
+            if problems:
+                raise AssertionError(f"{d.name} fails verification: {problems}")
+
+        def check_loaded(trainer):
+            ctx = trainer.context
+            if (ctx.iterations, ctx.consumed_samples) != (3, 3 * TRAINER["mbs"]):
+                raise AssertionError(f"resumed at {ctx.iterations} / {ctx.consumed_samples}")
+            now = trainer_state(trainer)
+            if now.keys() != first.snapshot.keys():
+                raise AssertionError("the resumed state has other tensors than step 3's")
+            differ = [k for k, v in now.items() if not torch.equal(v, first.snapshot[k])]
+            if differ:
+                raise AssertionError(f"resumed state differs from step 3's: {differ[:5]}")
+
+        with TrainerProbe(on_load=check_loaded) as second:
+            resumed = main(TransformerConfig.from_dict(
+                trainer_config(prefixes, root / "logs2", load_dir=save_dir / "global_step3")),
+                device=device)
+        del resumed
+        torch.cuda.empty_cache()
+        step4_first, step4_again = first.batches[3], second.batches[0]
+        for field in vars(step4_first):
+            if not np.array_equal(getattr(step4_first, field), getattr(step4_again, field)):
+                raise AssertionError(f"the resumed step-4 batch differs in {field}")
+        again = [json.loads(line)["metrics"]["loss"] for line in
+                 (root / "logs2" / "metrics_rank_0.jsonl").read_text().splitlines()
+                 if "loss" in json.loads(line)["metrics"]]
+        print(f"  losses: first run {losses}; resumed at 3: {again}")
+        if again[0] != losses[3]:
+            raise AssertionError(f"step-4 loss after the resume {again[0]!r} != {losses[3]!r}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(again[1:], losses[4:])]
+        print(f"  step 4 bitwise equal; steps 5-6 rel. diff {rel} (rtol {RESUME_RTOL})")
+        if len(again) != 3 or not max(rel) <= RESUME_RTOL:
+            raise AssertionError(f"resumed losses {again} vs {losses[3:]}")
+
+        served = TransformerInferenceModule.from_checkpoint(save_dir, device=device)
+        differ = [k for k, v in served.model.state_dict().items() if not torch.equal(v, weights[k])]
+        if differ:
+            raise AssertionError(f"bf16 -> f32 npz -> bf16 is not exact: {differ[:5]}")
+        tokens = serve_greedy(served, vocab)
+        del served
+        model = TransformerModel(arch, device=device)
+        model.load_state_dict(weights)
+        in_memory = serve_greedy(TransformerInferenceModule(arch, model), vocab)
+        if tokens != in_memory or any(len(t) != TRAINER["serve_output"] for t in tokens.values()):
+            raise AssertionError("the checkpoint serves other tokens than the trainer's weights")
+        torch.cuda.synchronize()
+        kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+        print(f"  checkpoint served: {len(tokens)} greedy requests, tokens equal to the "
+              f"trainer's in-memory weights'")
+        print(f"  launches kernel={kernel} plain={plain}")
+        check_trainer_launches(kernel, plain)
+
+        durations = [r["metrics"]["step_duration"] for r in steps[1:]]
+        step_ms = statistics.median(durations) * 1e3
+        tokens_per_s = TRAINER["mbs"] * TRAINER["seq"] / (step_ms / 1e3)
+        size = dir_bytes(step_dirs[0])
+        mfus = [r["metrics"].get("palm_mfu") for r in steps[1:]]
+        mfu = "not measured" if None in mfus else f"{statistics.median(mfus):.4f}"
+        print(f"  trainer steady step (median of steps 2-{TRAINER['iterations']}, host clock "
+              f"to the loss's fetch): {step_ms:.2f}ms tokens/s={tokens_per_s:.1f} mfu={mfu}; "
+              f"phase 5's bench step at the same shape {bench_step_ms:.2f}ms "
+              f"(gap {step_ms - bench_step_ms:.2f}ms: the host's data path)")
+        for (d, sec) in first.saves:
+            print(f"  checkpoint save {d.name}: {sec:.2f}s {dir_bytes(d) / sec / 1e9:.2f}GB/s")
+        for sec in second.loads:
+            print(f"  checkpoint load (verify crc32 + read): {sec:.2f}s "
+                  f"{size / sec / 1e9:.2f}GB/s")
+        opt_bytes = sum(f.stat().st_size for f in step_dirs[0].glob("optimizer_state*"))
+        print(f"  checkpoint size: {size} bytes ({size / 1e9:.2f} GB): {size - opt_bytes} "
+              f"weights and the rest, {opt_bytes} optimizer state")
+        return kernel
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_step_records(steps: list) -> None:
+    if not all("palm_mfu" in r["metrics"] for r in steps):
+        raise AssertionError("a step record has no palm_mfu")
+
+
+def time_kernels(errs: dict) -> list:
+    """One row a kernel, its launches added by ``add_launches``."""
     import torch.nn.functional as F
 
     from scaling_tpu_torch.ops import (
@@ -778,10 +1068,8 @@ def time_kernels(errs: dict, launches_by_path: dict) -> list:
 
     def row(name, route, source, replaces, fn, plain_fn, bound_ms, library_fn=None,
             flops=None):
-        by_path = {path: counts.get(name, 0) for path, counts in launches_by_path.items()}
         rows.append(dict(
-            name=name, route=route, source=source, replaces=replaces,
-            launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=errs[name],
+            name=name, route=route, source=source, replaces=replaces, max_abs_err=errs[name],
             ms=time_ms(fn), plain_ms=time_ms(plain_fn), bound_ms=bound_ms[0],
             bound_by=bound_ms[1], library_ms=time_ms(library_fn) if library_fn else None,
         ))
@@ -859,10 +1147,21 @@ def time_kernels(errs: dict, launches_by_path: dict) -> list:
         rate = f" tflops={r['tflops']:.1f}" if "tflops" in r else ""
         rate += f" gbps={r['gbps']:.1f}" if "gbps" in r else ""
         print(f"  {r['name']}: device ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-              f"library={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}){rate} "
-              f"launches={r['launches']} {r['launches_by_path']}; per call with launch (events): "
+              f"library={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}){rate}; "
+              "per call with launch (events): "
               + " ".join(f"{k}={v:.4f}" for k, v in launch.items()))
     return rows
+
+
+def add_launches(rows: list, launches_by_path: dict) -> None:
+    """``launches``: the sum over the main-path runs; ``launches_by_path``:
+    each run's own count (``launches_by_path`` maps a run's name to the
+    counters read just after it)."""
+    for r in rows:
+        r["launches_by_path"] = {path: counts.get(r["name"], 0)
+                                 for path, counts in launches_by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        print(f"  {r['name']}: launches={r['launches']} {r['launches_by_path']}")
 
 
 def main() -> int:
@@ -889,9 +1188,17 @@ def main() -> int:
     launches_by_path = {f"serve_{kv_dtype}": serve(kv_dtype)["launches"]
                         for kv_dtype in ("native", "int8")}
     print("== train 0.5B (full width and depth, random weights, seed 0; mbs 4, seq 2048)")
-    launches_by_path["train"] = train()
+    trained = train()
+    launches_by_path["train"] = trained["launches"]
     print("== kernel times (device: torch.profiler; per call: CUDA events)")
-    rows = time_kernels(errs, launches_by_path)
+    rows = time_kernels(errs)
+    # last: after the trainer's run the profiler drops device events now and
+    # then (on an H100 a kernel's profiled sum fell to half its time after
+    # it), so the kernel times are taken before it
+    print("== trainer: 0.5B from token datasets, checkpoints, resume, serve the checkpoint")
+    launches_by_path["trainer"] = trainer_phase(trained["step_ms"])
+    print("== launches on the main paths")
+    add_launches(rows, launches_by_path)
     print(f"== done in {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)

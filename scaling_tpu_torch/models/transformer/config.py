@@ -18,21 +18,29 @@ section a ``scaling_tpu`` config carries. Every key is one of three kinds:
 
 ``TransformerConfig`` reads a whole training config under the JAX key
 names: ``topology`` (one device), ``optimizer``,
-``learning_rate_scheduler``, ``training`` and ``trainer.seed`` beside the
-architecture. An unknown key raises ValueError. No key is ever ignored
-silently.
+``learning_rate_scheduler``, ``training``, ``trainer``, ``data`` and
+``logger`` beside the architecture, with the same three kinds of keys in
+each section. The sections of machinery that is not ported (``runner``,
+``context``, the Determined ids, an active ``profiler``) are accepted
+only empty or off. An unknown key raises ValueError. No key is ever
+ignored silently.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import json
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ...data.blended_dataset import BlendedDatasetConfig
+from ...logging import LoggerConfig
 from ...nn.masked_softmax import MaskedSoftmaxConfig
 from ...optimizer import LearningRateSchedulerConfig, OptimizerConfig
 from ...topology import TopologyConfig
+from ...trainer import TrainerConfig
 
 _PRECISIONS = {
     "float32": torch.float32,
@@ -247,51 +255,117 @@ class TrainingConfig:
         return cls(**d)
 
 
-# sections of a JAX config the port accepts only empty (their machinery is not ported)
-_EMPTY_SECTIONS = ("data", "logger", "profiler", "runner", "context")
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The ``data`` section, under the JAX key names and defaults."""
+
+    data_prefixes: Optional[Tuple[str, ...]] = None
+    blended_dataset: Optional[BlendedDatasetConfig] = None
+    eod_token_id: int = 0
+    validation_data_prefixes: Optional[Tuple[str, ...]] = None
+    load_mmap_index_to_memory: bool = False
+    only_full_sequences: bool = False
+    allow_incomplete_sequences_every_n: int = 0
+
+    # not ported: the values that leave them off
+    _NOT_PORTED = {"legacy_dataset": False, "finetuning_dataset": False,
+                   "finetuning_chat_dataset": False, "finetuning_dataset_memory_map": False}
+    # no effect in the JAX package either
+    _INERT = ("use_mmap", "load_data_item_mmap_index_to_memory")
+
+    def __post_init__(self):
+        if self.eod_token_id < 0 or self.allow_incomplete_sequences_every_n < 0:
+            raise ValueError("data.eod_token_id and allow_incomplete_sequences_every_n "
+                             "must be >= 0")
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DataConfig":
+        d = dict(d)
+        for key, off in cls._NOT_PORTED.items():
+            if key in d and d.pop(key) != off:
+                raise NotImplementedError(f"data.{key} is not ported")
+        for key in cls._INERT:
+            d.pop(key, None)
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown data keys: {sorted(unknown)}")
+        for key in ("data_prefixes", "validation_data_prefixes"):
+            if d.get(key) is not None:
+                d[key] = tuple(str(p) for p in d[key])
+        if d.get("blended_dataset") is not None:
+            d["blended_dataset"] = BlendedDatasetConfig.from_dict(d["blended_dataset"])
+        return cls(**d)
+
+
+_PROFILER_KEYS = ("profile_steps", "profile_start_at_step", "profiler_output",
+                  "capture_xla_trace")
+
+
+def _check_profiler(d: Dict[str, Any]) -> None:
+    """The profiler is not ported: it must stay off (``profile_steps`` 0);
+    its other keys are inert while it is off, as in the JAX package."""
+    unknown = set(d) - set(_PROFILER_KEYS)
+    if unknown:
+        raise ValueError(f"unknown profiler keys: {sorted(unknown)}")
+    if d.get("profile_steps", 0):
+        raise NotImplementedError("the profiler section is not ported (profile_steps > 0)")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """A training config (``TransformerConfig`` of the JAX package, the
-    parts one device trains with)."""
+    parts one device trains with). ``to_dict`` gives back the dict it was
+    read from, which the JAX package's ``from_dict`` reads too: the
+    trainer writes it into every checkpoint as ``config.yml``."""
 
     transformer_architecture: TransformerArchitectureConfig
     topology: TopologyConfig
     optimizer: OptimizerConfig = OptimizerConfig()
     learning_rate_scheduler: LearningRateSchedulerConfig = LearningRateSchedulerConfig()
     training: TrainingConfig = TrainingConfig()
-    seed: int = 42  # trainer.seed
+    trainer: TrainerConfig = TrainerConfig()
+    data: DataConfig = DataConfig()
+    logger: LoggerConfig = LoggerConfig()
+    source: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False,
+                                               repr=False)
+
+    @property
+    def seed(self) -> int:
+        return self.trainer.seed
+
+    def to_dict(self) -> Dict[str, Any]:
+        return copy.deepcopy(self.source)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerConfig":
-        d = dict(d)
+        """Read a JAX training config: the ``config.yml`` the JAX trainer
+        dumps into a checkpoint (every key present, at its value) or a
+        hand-written one (missing keys take the JAX defaults)."""
+        source = json.loads(json.dumps(d, default=str))  # plain types: paths become strings
+        d = dict(source)
         d.pop("version", None)
-        for key in _EMPTY_SECTIONS:
-            section = d.pop(key, None) or {}
-            if any(v not in (None, {}, []) for v in section.values()):
-                raise NotImplementedError(f"the {key} section is not ported: {section}")
-        trainer = dict(d.pop("trainer", None) or {})
-        seed = trainer.pop("seed", 42)
-        trainer.pop("train_iterations", None)  # the caller decides how many steps run
-        if trainer:
-            raise NotImplementedError(f"the Trainer is not ported: trainer.{sorted(trainer)}")
-        embedding_lr = d.pop("embedding_learning_rate_scheduler", None)
-        if embedding_lr:
-            raise NotImplementedError("embedding_learning_rate_scheduler is not ported")
+        for key in ("runner", "context"):
+            if d.pop(key, None):
+                raise NotImplementedError(f"the {key} section is not ported")
+        for key in ("determined_experiment_id", "determined_trial_id"):
+            if d.pop(key, None) is not None:
+                raise NotImplementedError(f"{key}: the Determined glue is not ported")
+        _check_profiler(d.pop("profiler", None) or {})
+        # used only with training.use_separate_lr_on_embeddings, which raises
+        LearningRateSchedulerConfig.from_dict(d.pop("embedding_learning_rate_scheduler", None)
+                                              or {})
         kwargs: Dict[str, Any] = dict(
             transformer_architecture=TransformerArchitectureConfig.from_dict(
                 d.pop("transformer_architecture")),
             topology=TopologyConfig.from_dict(d.pop("topology")),
-            seed=int(seed),
+            source=source,
         )
-        if "optimizer" in d:
-            kwargs["optimizer"] = OptimizerConfig.from_dict(d.pop("optimizer") or {})
-        if "learning_rate_scheduler" in d:
-            kwargs["learning_rate_scheduler"] = LearningRateSchedulerConfig.from_dict(
-                d.pop("learning_rate_scheduler") or {})
-        if "training" in d:
-            kwargs["training"] = TrainingConfig.from_dict(d.pop("training") or {})
+        for key, section in (("optimizer", OptimizerConfig),
+                             ("learning_rate_scheduler", LearningRateSchedulerConfig),
+                             ("training", TrainingConfig), ("trainer", TrainerConfig),
+                             ("data", DataConfig), ("logger", LoggerConfig)):
+            if key in d:
+                kwargs[key] = section.from_dict(d.pop(key) or {})
         if d:
             raise ValueError(f"unknown config sections: {sorted(d)}")
         return cls(**kwargs)

@@ -15,6 +15,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from ...parallel.parallel_module import transposed_in_jax
 from .config import TransformerArchitectureConfig
 
 
@@ -35,7 +36,7 @@ def params_from_jax(np_params: Mapping[str, Any],
     architecture's dtype."""
     state: Dict[str, torch.Tensor] = {}
     for name, value in _flatten(np_params).items():
-        if value.ndim == 2 and not name.endswith("embedding.weight"):
+        if transposed_in_jax(name, value.ndim):
             value = value.T  # (in, out) -> (out, in)
         tensor = torch.from_numpy(np.array(value, dtype=np.float32))
         state[f"layers.{name}"] = tensor.to(arch.dtype)

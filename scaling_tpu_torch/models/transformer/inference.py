@@ -13,12 +13,16 @@ The draws are not JAX's threefry draws.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from pathlib import Path
+from typing import Dict, List, Optional, Union
 
 import torch
+import yaml
 
 from ... import resolve_device
+from ...checkpoint import load_model_checkpoint
 from ...nn.attention import PagedKVCacheView
+from ...parallel.parallel_module import jax_param_key
 from .config import TransformerArchitectureConfig
 from .model import TransformerModel
 
@@ -99,6 +103,26 @@ class TransformerInferenceModule:
                         device=None) -> "TransformerInferenceModule":
         model = TransformerModel(architecture, device=resolve_device(device))
         model.load_state_dict(state_dict)
+        return cls(architecture, model)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: Union[Path, str],
+                        device=None) -> "TransformerInferenceModule":
+        """The model of a checkpoint of either package: ``latest`` is
+        followed when ``checkpoint_dir`` holds one, the architecture comes
+        from its ``config.yml`` and the weights from its layer npz files,
+        cast to the architecture's dtype."""
+        ckpt = Path(checkpoint_dir)
+        if (ckpt / "latest").is_file():
+            ckpt = ckpt / (ckpt / "latest").read_text().strip()
+        config_file = ckpt / "config.yml"
+        if not config_file.is_file():
+            raise FileNotFoundError(f"no config.yml in {ckpt}")
+        architecture = TransformerArchitectureConfig.from_dict(
+            yaml.safe_load(config_file.read_text())["transformer_architecture"])
+        model = TransformerModel(architecture, device=resolve_device(device))
+        load_model_checkpoint(ckpt, {jax_param_key(model, name): p
+                                     for name, p in model.named_parameters()})
         return cls(architecture, model)
 
     def _make_batch(self, token_ids: torch.Tensor,

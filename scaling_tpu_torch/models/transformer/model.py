@@ -21,6 +21,7 @@ from ...nn.norm import RMSNorm
 from ...ops.cross_entropy import cross_entropy_from_logits
 from ...optimizer import Optimizer, OptimizerParamGroup
 from ...parallel import ParallelModule
+from ...parallel.parallel_module import jax_param_key
 from .config import TransformerArchitectureConfig, TransformerConfig
 from .layers import EmbeddingInput, LayerNormWrapper, TransformerLayer, TransformerLMHead
 
@@ -96,15 +97,6 @@ def loss_function(output: Dict[str, Any], batch: Dict[str, Any]):
     loss = (token_loss * loss_weights).sum() / denom
     accuracy = (correct * loss_weights).sum() / denom
     return loss, {"accuracy": accuracy}
-
-
-def jax_param_key(model: TransformerModel, name: str) -> str:
-    """The JAX package's optimizer key (``ParamMeta.key``) of the port's
-    parameter ``name``: ``layers.layer_3.x.y`` -> ``layer_3_<Class>.x.y``."""
-    m = re.fullmatch(r"layers\.(layer_\d+)\.(.+)", name)
-    if m is None:
-        raise ValueError(f"not a parameter of the layer stack: {name}")
-    return f"{m.group(1)}_{type(model.layers[m.group(1)]).__name__}.{m.group(2)}"
 
 
 NO_WEIGHT_DECAY_SUBSTRINGS = ("norm", "bias")

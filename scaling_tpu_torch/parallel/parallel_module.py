@@ -18,6 +18,7 @@ optimizer's output.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -27,10 +28,33 @@ from ..optimizer import Optimizer, OptimizerStepOutput
 from ..topology import ActivationCheckpointingType, TopologyConfig
 
 
+def jax_param_key(model: torch.nn.Module, name: str) -> str:
+    """The JAX package's key (``ParamMeta.key``, its optimizer and
+    checkpoint key) of the port's parameter ``name`` of a ``layers`` stack:
+    ``layers.layer_3.x.y`` -> ``layer_3_<Class>.x.y``."""
+    m = re.fullmatch(r"layers\.(layer_\d+)\.(.+)", name)
+    if m is None:
+        raise ValueError(f"not a parameter of the layer stack: {name}")
+    return f"{m.group(1)}_{type(model.layers[m.group(1)]).__name__}.{m.group(2)}"
+
+
+def transposed_in_jax(name: str, ndim: int) -> bool:
+    """Whether the parameter ``name`` (of either package) is stored
+    transposed by the JAX package: every matrix but the embedding table
+    (linears are ``(in, out)`` there, ``(out, in)`` here)."""
+    return ndim == 2 and not name.endswith("embedding.weight")
+
+
 class ParallelModule:
     def __init__(self, model: torch.nn.Module, topology: TopologyConfig):
         self.model = model
         self.topology = topology
+
+    def ckpt_keys(self) -> Dict[str, str]:
+        """The JAX key of each parameter, by the port's name, in the
+        model's order: the names checkpoints are written under."""
+        return {name: jax_param_key(self.model, name)
+                for name, _ in self.model.named_parameters()}
 
     @property
     def remat(self) -> bool:

@@ -7,7 +7,10 @@ prompt and output lengths drawn uniformly from ``--prompt-len`` /
 ``--output-len``, and reports output tokens/s, time to first token
 (p50, p99) and inter-token latency (p50, p99).
 
-The model is randomly initialised from ``--seed``: ``--model 0.5b`` is
+``--checkpoint DIR`` serves the weights of a checkpoint (of either
+package; ``latest`` is followed), as the JAX bench's ``--checkpoint``
+does. Otherwise the model is randomly initialised from ``--seed``:
+``--model 0.5b`` is
 ``bench.py``'s default decoder (hidden 2048, 8 layers, 16 query and 4 KV
 heads, vocab 32768, SwiGLU x2.75, RMSNorm with the fused kernel, RoPE,
 untied head, bf16); ``--model toy`` is a small f32 model for the CPU.
@@ -159,6 +162,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     p = argparse.ArgumentParser(prog="python -m scaling_tpu_torch.serve bench")
     p.add_argument("--model", choices=sorted(MODELS), default="toy")
+    p.add_argument("--checkpoint", metavar="DIR",
+                   help="serve this checkpoint's weights instead of --model's random ones")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     p.add_argument("--requests", type=int, default=16)
@@ -182,7 +187,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    inf = build_inference(args.model, seed=args.seed, device=device)
+    if args.checkpoint:
+        from ..models.transformer import TransformerInferenceModule
+
+        inf = TransformerInferenceModule.from_checkpoint(args.checkpoint, device=device)
+    else:
+        inf = build_inference(args.model, seed=args.seed, device=device)
     engine = ServeEngine(inf, EngineConfig(
         num_slots=args.num_slots, block_size=args.block_size,
         num_blocks=args.num_blocks, max_blocks_per_seq=args.max_blocks_per_seq,
@@ -200,13 +210,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     stats = run_bench(engine, work, max_wall_s=args.max_wall_s)
     stats["device"] = (torch.cuda.get_device_name(device) if device.type == "cuda"
                        else "cpu")
-    stats.update(model=args.model, kv_dtype=args.kv_dtype)
+    stats.update(model=args.checkpoint or args.model, kv_dtype=args.kv_dtype)
 
     def fmt(v):
         return "n/a" if v is None else f"{v:.4f}s"
 
     print("== serve bench (scaling_tpu_torch) ==")
-    print(f"  device={stats['device']} model={args.model} kv_dtype={args.kv_dtype}")
+    print(f"  device={stats['device']} model={stats['model']} kv_dtype={args.kv_dtype}")
     print(f"  requests={stats['requests']} completed={stats['completed']} "
           f"wall={stats['wall_s']:.3f}s ticks={stats['ticks']} "
           f"preemptions={stats['preemptions']} "

@@ -78,3 +78,27 @@ def test_ptxas_log_gives_each_kernels_registers_and_spills():
         ("flash_bwd_delta_kernel<128>", 26, 12), ("paged_attention_kernel<64>", 126, 0)]
     with pytest.raises(AssertionError, match="no ptxas"):
         chip_smoke.kernel_resources("nvcc printed nothing")
+
+
+def test_trainer_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
+    """The trainer phase's control flow on the toy model on the CPU: token
+    datasets, two checkpoints that verify, the resume from step 3 with the
+    same state, batch and step-4 loss, and the checkpoint served with the
+    trainer's own tokens. What only the card can give stays unchecked here:
+    kernel launches (the CPU runs the plain versions) and ``palm_mfu``."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    for key, value in dict(model="toy", seq=128, mbs=2, tokens=20_000, valid_tokens=2_000,
+                           doc_len=(16, 400), serve_prompt=(16, 64), serve_output=8).items():
+        monkeypatch.setitem(chip_smoke.TRAINER, key, value)
+    monkeypatch.setitem(chip_smoke.SERVE, "num_blocks", 128)
+    monkeypatch.setitem(chip_smoke.SERVE, "max_blocks_per_seq", 16)
+    seen = {}
+    monkeypatch.setattr(chip_smoke, "check_trainer_launches",
+                        lambda kernel, plain: seen.update(kernel=kernel, plain=plain))
+    monkeypatch.setattr(chip_smoke, "check_step_records", lambda steps: None)
+    chip_smoke.trainer_phase(1.0, device="cpu")
+    out = capsys.readouterr().out
+    assert "step 4 bitwise equal" in out and "tokens equal to the trainer's" in out
+    assert seen["kernel"] == {} and seen["plain"]["flash_attention_bwd"] > 0
+    assert seen["plain"]["paged_attention"] > 0

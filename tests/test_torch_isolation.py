@@ -1,5 +1,6 @@
 """The port stands alone: it imports with JAX and the JAX package
-blocked, serves and takes a training step on the CPU when asked to;
+blocked, serves, takes a training step, trains from a token dataset,
+saves, resumes and serves its checkpoint on the CPU when asked to;
 without a card, its entry points raise instead of moving to the CPU on
 their own."""
 
@@ -27,8 +28,41 @@ rc = main(["--device", "cpu", "--model", "toy", "--requests", "3", "--rate", "10
            "--prompt-len", "3", "9", "--output-len", "2", "4", "--num-slots", "2",
            "--block-size", "4", "--num-blocks", "16", "--max-blocks-per-seq", "8"])
 from scaling_tpu_torch.train.bench import main as train_main
-sys.exit(rc or train_main(["--device", "cpu", "--model", "toy", "--seq-len", "128",
-                           "--mbs", "1", "--steps", "1", "--warmup", "0"]))
+rc = rc or train_main(["--device", "cpu", "--model", "toy", "--seq-len", "128",
+                       "--mbs", "1", "--steps", "1", "--warmup", "0"])
+
+# the Trainer: token datasets -> train and save -> resume -> serve the checkpoint
+import tempfile
+from pathlib import Path
+import numpy as np
+from scaling_tpu_torch.data import MemoryMapDatasetBuilder
+from scaling_tpu_torch.models.transformer import TransformerConfig, TransformerInferenceModule
+from scaling_tpu_torch.models.transformer.train import main as trainer_main
+from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+from scaling_tpu_torch.serve.bench import MODELS
+root = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+with MemoryMapDatasetBuilder(root / "tokens", dtype=np.uint16) as builder:
+    for _ in range(40):
+        builder.add(np.append(rng.integers(1, 512, size=rng.integers(16, 200)), 0))
+def config(**trainer):
+    return TransformerConfig.from_dict({
+        "topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1},
+        "transformer_architecture": dict(MODELS["toy"], sequence_length=64),
+        "trainer": {"train_iterations": 4, "save_interval": 2, **trainer},
+        "data": {"data_prefixes": [str(root / "tokens")]},
+        "logger": {"log_dir": str(root / "logs")}})
+trainer_main(config(save_dir=str(root / "ckpt")), device="cpu")
+resumed = trainer_main(config(load_dir=str(root / "ckpt" / "global_step2")), device="cpu")
+assert resumed.context.iterations == 4 and resumed.context.consumed_samples == 8
+inf = TransformerInferenceModule.from_checkpoint(root / "ckpt", device="cpu")
+engine = ServeEngine(inf, EngineConfig(num_slots=2, block_size=4, num_blocks=16,
+                                       max_blocks_per_seq=8), device="cpu")
+engine.submit([1, 2, 3, 4, 5], 3)
+done = engine.run_until_done()
+assert [len(s.generated) for s in done] == [3]
+print("trainer: resumed at 2, served the checkpoint")
+sys.exit(rc)
 """
 
 
@@ -40,6 +74,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert "output tokens/s" in proc.stdout and "ttft: p50=" in proc.stdout
     assert "train bench: model=toy device=cpu" in proc.stdout
     assert "losses: first=" in proc.stdout and "mfu: not measured" in proc.stdout
+    assert "trainer: resumed at 2, served the checkpoint" in proc.stdout
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():

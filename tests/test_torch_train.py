@@ -301,7 +301,7 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
         ({"optimizer": {"zero": True}}, NotImplementedError),
         ({"training": {"finetune": True}}, NotImplementedError),
         ({"training": {"use_separate_lr_on_embeddings": True}}, NotImplementedError),
-        ({"trainer": {"seed": 0, "save_interval": 10}}, NotImplementedError),
+        ({"trainer": {"seed": 0, "checkpoint_backend": "orbax"}}, NotImplementedError),
         ({"optimizer": {"betaa": 0.9}}, ValueError),
         ({"surprise": {}}, ValueError),
     ]
