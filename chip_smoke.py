@@ -37,10 +37,23 @@ Phases, each of which must pass:
    print step ms, tokens/s, MFU, peak memory and the losses; one profiled
    step gives the device's busy time, its idle share and the device time
    by kernel group;
-6. time each kernel, its plain version and, where one PyTorch call
+6. generate with two models at full width and depth (random weights from
+   seed 0): (a) the same 0.5B model, (b) its widths in the JAX default
+   architecture (layernorm, GELU MLP x4, tied head, key/query norm), bf16
+   with flash. 8 prompts of 256-1024 tokens (the longest exactly 1024, so
+   the left-padded prefill runs K4) and 128 greedy tokens each, four times
+   (every row returns its tokens, the same in every run), and one 1-D
+   prompt; K4 launched on both and K2 on (a), no plain version run; the
+   most-padded row recomputed on the CPU in f32 with the port's
+   ``logits()``: every generated position's logits within 0.05 of max
+   |logit| of the card's (not constant per position), and every token whose
+   CPU top-2 margin exceeds twice that error is the CPU's argmax; print the
+   prefill ms, the median decode ms a token, output tokens/s, peak memory,
+   and the busy ms and idle share of a profiled window of 32 decode steps;
+7. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call: device time from
    ``torch.profiler``, and the per-call time with CUDA events;
-7. the Trainer (``models/transformer/train.py:main``) trains the same
+8. the Trainer (``models/transformer/train.py:main``) trains the same
    model at full width and depth from token datasets the port's builder
    writes from seed 0 (two blended prefixes of ~2M tokens, documents of
    64-4096 tokens, and a ~64k-token validation prefix), micro-batch 4,
@@ -51,7 +64,10 @@ Phases, each of which must pass:
    the first run's, bitwise, and steps 5-6 within rtol 1e-4; the
    checkpoint (``TransformerInferenceModule.from_checkpoint``) serves 4
    greedy requests with the tokens of an engine on the trainer's own
-   weights; K1-K5 launched and no plain version run; print the steady
+   weights; ``evaluate`` scores the step-6 checkpoint on 2 batches of the
+   validation prefix, finite and within 0.05 nats of the trainer's step-6
+   eval loss, launching K2 and K4 and no plain version; K1-K5 launched
+   and no plain version run; print the steady
    step ms beside phase 5's, and checkpoint save and load seconds, GB/s
    and size. The checkpoints go to a temporary directory outside the
    checkout, removed at the end;
@@ -112,6 +128,15 @@ TRAINER = dict(model="0.5b", seq=TRAIN_SEQ, mbs=TRAIN_MBS, tokens=2_000_000,
                valid_tokens=64_000, doc_len=(64, 4096), iterations=6, interval=3,
                eval_iterations=2, serve_requests=4, serve_prompt=(64, 256), serve_output=32)
 RESUME_RTOL = 1e-4  # steps 5-6 after the resume: the embedding backward adds with atomics
+EVAL_NATS = 0.05  # evaluate's loss on the step-6 checkpoint vs the trainer's step-6 eval loss
+# generation: 8 prompts of 256-1024 tokens (the longest exactly 1024, so the
+# left-padded prefill is 1024 wide and K4 runs), 128 greedy tokens each
+GEN = dict(batch=8, prompt_len=(256, 1024), max_tokens=128, seed=0, profile=(16, 48))
+GEN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through 8 layers vs f32
+# the bench 0.5B model in the JAX default architecture: its widths, other keys
+DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
+                    mlp_type="default", mlp_factor=4.0, activation_function="gelu",
+                    weight_tying=True, key_query_norm=True)
 
 
 def card_line() -> str:
@@ -486,15 +511,22 @@ def check_training_kernels() -> dict:
     return errs
 
 
-def recompute_on_cpu(inf, captured) -> tuple:
-    """The captured tick once more on the CPU in f32, through the plain
-    versions, from the pool copy taken before the card ran it."""
+def cpu_f32_copy(inf):
+    """The inference module's weights in f32 on the CPU, where its layers
+    run the kernels' plain versions."""
     from scaling_tpu_torch.models.transformer import TransformerInferenceModule
-    from scaling_tpu_torch.serve.kvcache import PagedKVPools
 
     arch32 = dataclasses.replace(inf.architecture, precision="float32")
     state = {k: v.float().cpu() for k, v in inf.model.state_dict().items()}
-    cpu_inf = TransformerInferenceModule.from_state_dict(arch32, state, device="cpu")
+    return TransformerInferenceModule.from_state_dict(arch32, state, device="cpu")
+
+
+def recompute_on_cpu(inf, captured) -> tuple:
+    """The captured tick once more on the CPU in f32, through the plain
+    versions, from the pool copy taken before the card ran it."""
+    from scaling_tpu_torch.serve.kvcache import PagedKVPools
+
+    cpu_inf = cpu_f32_copy(inf)
     pools, inp, card_logits = captured
     cpu_pools = PagedKVPools(*[
         None if p is None else [t.cpu() for t in p]
@@ -775,6 +807,225 @@ def train() -> dict:
     return {"launches": kernel, "step_ms": seconds[0] * 1e3}
 
 
+# ------------------------------------------------------------ generation
+def generation_models() -> dict:
+    """(a) the bench 0.5B model; (b) the same widths in the JAX default
+    architecture (layernorm, GELU MLP x4, tied head, key/query norm)."""
+    from scaling_tpu_torch.serve.bench import MODELS
+
+    return {"0.5b": MODELS["0.5b"], "0.5b_default_arch": dict(MODELS["0.5b"], **DEFAULT_ARCH)}
+
+
+def generation_prompts(vocab: int) -> list:
+    """``GEN["batch"]`` prompts of token ids from ``GEN["seed"]``, lengths in
+    ``GEN["prompt_len"]`` with the first exactly the longest and the last
+    exactly the shortest."""
+    rng = np.random.default_rng(GEN["seed"])
+    lo, hi = GEN["prompt_len"]
+    lengths = rng.integers(lo, hi + 1, size=GEN["batch"])
+    lengths[0], lengths[-1] = hi, lo
+    return [rng.integers(1, vocab, size=int(n)).tolist() for n in lengths]
+
+
+def recompute_generation(inf, prompt: list, out) -> dict:
+    """One row's generation once more on the CPU in f32 through the plain
+    versions: the port's ``logits()`` over the prompt and the generated
+    tokens, read at each generated position, against the card's per-step
+    logits. ``err`` is max |card - cpu| over max |cpu|; ``uniform_err`` the
+    least ``err`` that constant logits per position could reach; where the
+    CPU's top-2 margin exceeds twice the measured error, the generated
+    token must be the CPU's argmax (``disagree`` counts those that are not)."""
+    ids = out.completion_ids
+    cpu = cpu_f32_copy(inf).logits(prompt + ids[:-1])[0, len(prompt) - 1:]
+    card = out.logits.float().cpu()
+    scale = cpu.abs().max().item()
+    err_abs = (card - cpu).abs().max().item()
+    top2 = cpu.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * err_abs
+    argmax = cpu.argmax(-1)
+    tokens = torch.tensor(ids)
+    return {
+        "err": err_abs / scale, "err_abs": err_abs, "scale": scale,
+        "uniform_err": ((cpu.amax(-1) - cpu.amin(-1)) / 2).max().item() / scale,
+        "sure": int(sure.sum()), "disagree": int((sure & (tokens != argmax)).sum()),
+        "argmax_agree": (tokens == argmax).float().mean().item(),
+    }
+
+
+class GenerateProbe:
+    """CUDA events around the prefill and each decode step of the
+    ``generate`` calls made while it is installed on ``inf`` (no host
+    sync); with ``profile=(a, b)``, ``torch.profiler`` over decode steps
+    a..b-1, synchronised at both ends."""
+
+    def __init__(self, inf, profile=None):
+        self.inf, self.profile = inf, profile
+        self.prefill, self.steps = [], []
+        self.prof = self.window_ms = None
+
+    def __enter__(self):
+        inf, probe = self.inf, self
+        prefill, decode_step = inf._prefill, inf._decode_step
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def timed_prefill(*a, **kw):
+            start = event()
+            out = prefill(*a, **kw)
+            probe.prefill.append((start, event()))
+            return out
+
+        def timed_step(*a, **kw):
+            if probe.profile is not None:
+                t = len(probe.steps) + 1
+                if t in probe.profile:
+                    torch.cuda.synchronize()
+                    if t == probe.profile[0]:
+                        from torch.profiler import ProfilerActivity, profile
+
+                        probe.prof = profile(activities=[ProfilerActivity.CUDA])
+                        probe.prof.start()
+                        probe.t0 = time.monotonic()
+                    else:
+                        probe.window_ms = (time.monotonic() - probe.t0) * 1e3
+                        probe.prof.stop()
+            probe.steps.append(event())
+            return decode_step(*a, **kw)
+
+        inf._prefill, inf._decode_step = timed_prefill, timed_step
+        return self
+
+    def __exit__(self, *exc):
+        del self.inf._prefill, self.inf._decode_step  # the class's methods again
+        return False
+
+    def times(self) -> dict:
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in zip(self.steps, self.steps[1:])]
+        return {"prefill_ms": statistics.median(a.elapsed_time(b) for a, b in self.prefill),
+                "decode_ms": statistics.median(step_ms)}
+
+    def window(self) -> dict:
+        """The profiled steps' wall clock, device busy time, idle share, and
+        the kernels that took the most device time, a step each."""
+        steps = self.profile[1] - self.profile[0]
+        kernels = sorted(((getattr(e, "self_device_time_total", 0) or 0) / 1e3 / steps,
+                          e.count // steps, e.key[:70]) for e in self.prof.key_averages())
+        busy = sum(ms for ms, _, _ in kernels) * steps
+        return {"steps": steps, "wall_ms": self.window_ms, "busy_ms": busy,
+                "idle_share": max(0.0, 1.0 - busy / self.window_ms),
+                "top": [k for k in reversed(kernels) if k[0] > 0][:6]}
+
+
+def time_generation(inf, prompts: list) -> dict:
+    """A timed ``generate`` of the batch (host clock to the last token's
+    fetch; CUDA events for the prefill and per decode step) and one with a
+    profiled window of decode steps."""
+    dev = inf.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    with GenerateProbe(inf) as probe:
+        t0 = time.monotonic()
+        outs = inf.generate(prompts, max_tokens=GEN["max_tokens"])
+        wall = time.monotonic() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+    timing = probe.times()
+    with GenerateProbe(inf, profile=GEN["profile"]) as probe:
+        profiled = inf.generate(prompts, max_tokens=GEN["max_tokens"])
+    tokens = sum(len(o.completion_ids) for o in outs)
+    return {**timing, "wall_s": wall, "tokens_per_s": tokens / wall, "peak_gb": peak,
+            "weights_gb": sum(p.numel() * p.element_size() for p in inf.model.parameters()) / 1e9,
+            "window": probe.window(), "outs": [outs, profiled]}
+
+
+def check_generation_launches(name: str, kernel: dict, plain: dict, needed: tuple) -> None:
+    if any(kernel.get(k, 0) <= 0 for k in needed):
+        raise AssertionError(f"generate {name}: kernels not launched on its path: {kernel}")
+    if sum(plain.values()) != 0:
+        raise AssertionError(f"generate {name}: plain versions ran on the card: {plain}")
+
+
+def generation_phase(name: str, arch_dict: dict, device: str = "cuda") -> dict:
+    """``generate`` with one model at full width and depth (random weights
+    from seed 0): the batch of ``generation_prompts`` four times (tokens
+    checked, repeated bitwise, timed, profiled) and one 1-D prompt, launch
+    counters reset just before and read just after; then the most-padded
+    row recomputed on the CPU. Returns the counters."""
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+    from scaling_tpu_torch.ops import launches
+
+    arch = TransformerArchitectureConfig.from_dict(arch_dict)
+    inf = TransformerInferenceModule.random_init(arch, seed=0, device=device)
+    n_params = sum(p.numel() for p in inf.model.parameters())
+    prompts = generation_prompts(arch.vocab_size)
+    inf.generate(prompts[0][:128], max_tokens=4)  # warm-up, off the books
+    launches.reset()
+    first = inf.generate(prompts, max_tokens=GEN["max_tokens"])
+    again = inf.generate(prompts, max_tokens=GEN["max_tokens"])
+    timing = time_generation(inf, prompts)
+    single = inf.generate(prompts[-1], max_tokens=GEN["max_tokens"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+    runs = [first, again] + timing.pop("outs")
+    for outs in runs:
+        if [len(o.completion_ids) for o in outs] != [GEN["max_tokens"]] * len(prompts):
+            raise AssertionError(f"generate {name}: a row did not return its "
+                                 f"{GEN['max_tokens']} tokens")
+    if any([o.completion_ids for o in outs] != [o.completion_ids for o in first]
+           for outs in runs[1:]):
+        raise AssertionError(f"generate {name}: a repeated generate gave other tokens")
+    logits_equal = all(torch.equal(a.logits, b.logits) for a, b in zip(first, again))
+    if len(single.completion_ids) != GEN["max_tokens"]:
+        raise AssertionError(f"generate {name}: the 1-D prompt did not return its tokens")
+    same = sum(a == b for a, b in zip(single.completion_ids, first[-1].completion_ids))
+    rec = recompute_generation(inf, prompts[-1], first[-1])
+    print(f"  {name}: params={n_params} prompts={len(prompts)} of "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+          f"{GEN['max_tokens']} greedy tokens each; 4 batch runs give the same tokens "
+          f"(logits bitwise equal: {logits_equal}); the 1-D prompt alone matches its batch "
+          f"row in {same}/{GEN['max_tokens']} tokens")
+    print(f"  {name}: most-padded row recomputed on CPU f32 (plain versions): logits "
+          f"max_abs_err={rec['err_abs']:.4e} max|logit|={rec['scale']:.4e} "
+          f"err/max|logit|={rec['err']:.3e} (tol {GEN_LOGIT_TOL}; constant logits would give "
+          f">= {rec['uniform_err']:.3e}); tokens where the CPU's top-2 margin exceeds 2x the "
+          f"error: {rec['sure']}, of which not the CPU argmax: {rec['disagree']}; argmax "
+          f"agreement {rec['argmax_agree']:.3f}")
+    if not rec["uniform_err"] > GEN_LOGIT_TOL:
+        raise AssertionError(f"generate {name}: constant logits would pass: {rec}")
+    if not rec["err"] <= GEN_LOGIT_TOL:
+        raise AssertionError(f"generate {name}: logits recompute disagrees: {rec}")
+    if rec["disagree"]:
+        raise AssertionError(f"generate {name}: a token is not the CPU's clear argmax: {rec}")
+    print(f"  {name}: launches kernel={kernel} plain={plain}")
+    needed = ("flash_attention_fwd", "rms_norm") if arch.fused_norm else ("flash_attention_fwd",)
+    check_generation_launches(name, kernel, plain, needed)
+    if "window" in timing:
+        w = timing["window"]
+        print(f"  {name}: prefill (b {len(prompts)}, s {max(map(len, prompts))})="
+              f"{timing['prefill_ms']:.3f}ms median decode step={timing['decode_ms']:.3f}ms "
+              f"a token; output tokens/s={timing['tokens_per_s']:.1f} "
+              f"(wall {timing['wall_s']:.3f}s); peak memory of the call "
+              f"{timing['peak_gb']:.3f}GB above what was allocated before it (the weights: "
+              f"{timing['weights_gb']:.3f}GB)")
+        print(f"  {name}: profiled decode steps {GEN['profile'][0]}-{GEN['profile'][1] - 1} "
+              f"(torch.profiler): wall={w['wall_ms'] / w['steps']:.3f}ms a step, device busy="
+              f"{w['busy_ms'] / w['steps']:.3f}ms a step, idle share={w['idle_share']:.3f}")
+        for ms, count, op in w["top"]:
+            print(f"    {ms:.4f}ms a step in {count} launches: {op}")
+    del inf
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return kernel
+
+
 def write_token_datasets(root: Path, vocab: int) -> dict:
     """Two training prefixes of ~``tokens`` tokens and a validation prefix,
     documents of ``doc_len`` tokens ending in EOD 0, uint16, from seed 0,
@@ -912,7 +1163,7 @@ def check_trainer_launches(kernel: dict, plain: dict) -> None:
 
 
 def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
-    """The Trainer end to end (phase 7 of the module's docstring); the
+    """The Trainer end to end (phase 8 of the module's docstring); the
     launch counters reset just before and read just after. Returns them."""
     from scaling_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -998,6 +1249,7 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         if len(again) != 3 or not max(rel) <= RESUME_RTOL:
             raise AssertionError(f"resumed losses {again} vs {losses[3:]}")
 
+        evaluate_checkpoint(save_dir, prefixes["valid"], records, device)
         served = TransformerInferenceModule.from_checkpoint(save_dir, device=device)
         differ = [k for k, v in served.model.state_dict().items() if not torch.equal(v, weights[k])]
         if differ:
@@ -1037,6 +1289,42 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         return kernel
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def check_evaluate_launches(kernel: dict, plain: dict) -> None:
+    if any(kernel.get(k, 0) <= 0 for k in ("rms_norm", "flash_attention_fwd")):
+        raise AssertionError(f"evaluate: kernels not launched on its path: {kernel}")
+    if sum(plain.values()) != 0:
+        raise AssertionError(f"evaluate: plain versions ran on the card: {plain}")
+
+
+def evaluate_checkpoint(save_dir: Path, valid_prefix: str, records: list, device: str) -> dict:
+    """``evaluate`` on the checkpoint ``latest`` names (step 6) over the
+    validation prefix, 2 batches of the trainer's micro-batch size; its
+    launches are the counters' growth over the call."""
+    from collections import Counter
+
+    from scaling_tpu_torch.models.transformer.evaluate import evaluate
+    from scaling_tpu_torch.ops import launches
+
+    before = Counter(launches.KERNEL), Counter(launches.PLAIN)
+    t0 = time.monotonic()
+    stats = evaluate(save_dir, valid_prefix, batch_size=TRAINER["mbs"],
+                     max_batches=TRAINER["eval_iterations"], device=device)
+    seconds = time.monotonic() - t0
+    kernel = dict(Counter(launches.KERNEL) - before[0])
+    plain = dict(Counter(launches.PLAIN) - before[1])
+    eval_loss = [r["metrics"]["eval_loss"] for r in records
+                 if r["step"] == TRAINER["iterations"] and "eval_loss" in r["metrics"]][0]
+    print(f"  evaluate (step {TRAINER['iterations']} checkpoint, validation prefix, "
+          f"{stats['batches']} batches of {TRAINER['mbs']}): loss={stats['loss']} "
+          f"accuracy={stats['accuracy']} tokens={stats['tokens']} in {seconds:.2f}s; "
+          f"the trainer's step-{TRAINER['iterations']} eval loss {eval_loss:.6f} "
+          f"(tol {EVAL_NATS} nats); launches kernel={kernel} plain={plain}")
+    if not np.isfinite(stats["loss"]) or not abs(stats["loss"] - eval_loss) <= EVAL_NATS:
+        raise AssertionError(f"evaluate: loss {stats['loss']} vs eval loss {eval_loss}")
+    check_evaluate_launches(kernel, plain)
+    return stats
 
 
 def check_step_records(steps: list) -> None:
@@ -1190,6 +1478,9 @@ def main() -> int:
     print("== train 0.5B (full width and depth, random weights, seed 0; mbs 4, seq 2048)")
     trained = train()
     launches_by_path["train"] = trained["launches"]
+    for name, arch in generation_models().items():
+        print(f"== generate {name} (full width and depth, random weights, seed 0)")
+        launches_by_path[f"generate_{name}"] = generation_phase(name, arch)
     print("== kernel times (device: torch.profiler; per call: CUDA events)")
     rows = time_kernels(errs)
     # last: after the trainer's run the profiler drops device events now and

@@ -5,7 +5,10 @@ scaling_tpu/checkpoint/checkpoint.py, npz backend, written synchronously).
   JAX parameter names (``attention.query.weight``);
 - one ``optimizer_state_layer_{i}.npz`` per layer with
   ``{master,exp_avg,exp_avg_sq}.{name}`` entries, and
-  ``optimizer_state.json`` with the step and the loss scaler's state;
+  ``optimizer_state.json`` with the step and the loss scaler's state. The
+  loader also reads the older layout of one
+  ``optimizer_state_layer_{i}_{field}.npz`` per layer and field, keyed by
+  the bare parameter name, as the JAX loader does;
 - matrices in the JAX layout, ``(in, out)``: the port's linears are
   transposed on the way out and back (``transposed_in_jax``; the
   embedding table is the same on both sides);
@@ -206,11 +209,13 @@ def load_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer,
 
     def entry(field: str, index: int, pname: str) -> np.ndarray:
         f = path / f"optimizer_state_layer_{index}.npz"
-        if f not in opened:
-            if not f.exists():
-                raise FileNotFoundError(f"optimizer checkpoint file missing: {f}")
-            opened[f] = np.load(f)
-        return opened[f][f"{field}.{pname}"]
+        legacy = path / f"optimizer_state_layer_{index}_{field}.npz"
+        for file, name in ((f, f"{field}.{pname}"), (legacy, pname)):
+            if file in opened or file.exists():
+                if file not in opened:
+                    opened[file] = np.load(file)
+                return opened[file][name]
+        raise FileNotFoundError(f"optimizer checkpoint file missing: {f}")
 
     state = optimizer.state
     try:

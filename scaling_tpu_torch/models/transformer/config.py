@@ -62,8 +62,6 @@ DROPOUT_KEYS = ("dropout_embedding", "dropout_attention_probs", "dropout_after_a
 
 # keys whose non-default values the port does not implement yet
 _NOT_PORTED = {
-    "key_query_norm": False,
-    "weight_tying": False,
     "mup": None,
     "bitfit_bias_config": None,
     "adapter_config": None,
@@ -93,6 +91,8 @@ class TransformerArchitectureConfig:
     sequence_length: int = 2048
     norm_type: str = "layernorm"
     relative_position_embedding_type: str = "rotary"
+    key_query_norm: bool = False
+    weight_tying: bool = False
     mlp_type: str = "default"
     mlp_factor: float = 4.0
     mlp_bias: bool = True
@@ -140,16 +140,20 @@ class TransformerArchitectureConfig:
         intermediate = self.hidden_size * self.mlp_factor
         if float(int(intermediate)) != intermediate:
             raise ValueError("hidden_size * mlp_factor must be a natural number")
-        for key, value, supported in (
-            ("norm_type", self.norm_type, ("rms",)),
-            ("relative_position_embedding_type",
-             self.relative_position_embedding_type, ("rotary",)),
-            ("mlp_type", self.mlp_type, ("swiglu",)),
+        for key, value, supported, known in (
+            ("norm_type", self.norm_type, ("layernorm", "rms"), ()),
+            ("relative_position_embedding_type", self.relative_position_embedding_type,
+             ("none", "rotary", "rotary_complex"), ()),
+            ("mlp_type", self.mlp_type, ("default", "swiglu"), ("moe",)),
         ):
-            if value not in supported:
+            if value in known:
                 raise NotImplementedError(
-                    f"{key}={value!r} is not ported yet (supported: {supported})"
-                )
+                    f"{key}={value!r} is not ported yet (supported: {supported})")
+            if value not in supported:
+                raise ValueError(f"{key} must be one of {supported + known}, got {value!r}")
+        if (self.relative_position_embedding_type == "rotary_complex"
+                and self.rotary_dimensions != self.head_dim):
+            raise ValueError("rotary_complex rotates whole heads: rotary_percentage must be 1")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerArchitectureConfig":
@@ -297,6 +301,26 @@ class DataConfig:
         return cls(**d)
 
 
+# keys removed from the JAX config: read from an old checkpoint's config.yml
+# only at the values that leave them off
+REMOVED_CONFIG_KEYS = {
+    ("transformer_architecture", "umup"): (None, False, {"enable": False}),
+    ("data", "embedding_dataset"): (None, False),
+    ("data", "embedding_dataset_memory_map"): (None, False),
+}
+
+
+def strip_removed_config_keys(d: Dict[str, Any]) -> Dict[str, Any]:
+    """``d`` without the removed keys; one at a value that turns its
+    feature on raises NotImplementedError."""
+    d = {k: (dict(v) if isinstance(v, dict) else v) for k, v in d.items()}
+    for (section, key), off in REMOVED_CONFIG_KEYS.items():
+        sub = d.get(section)
+        if isinstance(sub, dict) and key in sub and sub.pop(key) not in off:
+            raise NotImplementedError(f"{section}.{key} was removed from the JAX package")
+    return d
+
+
 _PROFILER_KEYS = ("profile_steps", "profile_start_at_step", "profiler_output",
                   "capture_xla_trace")
 
@@ -342,7 +366,7 @@ class TransformerConfig:
         dumps into a checkpoint (every key present, at its value) or a
         hand-written one (missing keys take the JAX defaults)."""
         source = json.loads(json.dumps(d, default=str))  # plain types: paths become strings
-        d = dict(source)
+        d = strip_removed_config_keys(source)
         d.pop("version", None)
         for key in ("runner", "context"):
             if d.pop(key, None):

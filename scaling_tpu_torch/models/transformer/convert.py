@@ -6,6 +6,13 @@ are the same on both sides, so a leaf ``layer_3/attention/query/weight``
 becomes ``layers.layer_3.attention.query.weight``. Linear weights are
 stored ``(in, out)`` by the JAX package and ``(out, in)`` here, so they
 are transposed; the embedding table is ``(vocab, hidden)`` on both sides.
+
+Every parameter of every architecture the port builds maps by name alone:
+norm gains and biases (``input_layernorm.bias``), the default MLP's
+``mlp.dense_in`` / ``mlp.dense_out``, key/query norms
+(``attention.norm_query.weight``). A tied model's table sits in the JAX
+tree under ``layer_0`` only (its head layer holds an empty subtree), as it
+does in the port's state dict.
 """
 
 from __future__ import annotations

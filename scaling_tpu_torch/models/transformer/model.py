@@ -3,7 +3,8 @@ scaling_tpu/models/transformer/model.py).
 
 The stack keeps the JAX package's layer names: ``layer_0`` is the
 embedding, ``layer_1 .. layer_L`` the transformer layers,
-``layer_{L+1}`` the final norm and ``layer_{L+2}`` the untied head, so a
+``layer_{L+1}`` the final norm and ``layer_{L+2}`` the head (untied, or
+tied to the embedding table, which then lives under ``layer_0`` only), so a
 parameter ``layer_3/attention/query/weight`` there is
 ``layers.layer_3.attention.query.weight`` here, and its JAX optimizer key
 ``layer_3_TransformerLayer.attention.query.weight`` (``jax_param_key``).
@@ -17,23 +18,33 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ...nn.linear import Embedding
-from ...nn.norm import RMSNorm
+from ...nn.norm import LayerNorm, RMSNorm
 from ...ops.cross_entropy import cross_entropy_from_logits
 from ...optimizer import Optimizer, OptimizerParamGroup
 from ...parallel import ParallelModule
 from ...parallel.parallel_module import jax_param_key
 from .config import TransformerArchitectureConfig, TransformerConfig
-from .layers import EmbeddingInput, LayerNormWrapper, TransformerLayer, TransformerLMHead
+from .layers import (
+    EmbeddingInput,
+    LayerNormWrapper,
+    TransformerLayer,
+    TransformerLMHead,
+    TransformerLMHeadTied,
+)
 
 
 def get_transformer_layers(arch: TransformerArchitectureConfig,
                            device=None) -> Dict[str, torch.nn.Module]:
-    """EmbeddingInput -> L x TransformerLayer -> final norm -> LM head."""
-    layers: Dict[str, torch.nn.Module] = {"layer_0": EmbeddingInput(arch, device)}
+    """EmbeddingInput -> L x TransformerLayer -> final norm -> LM head (tied
+    to the embedding's table with ``weight_tying``)."""
+    embedding = EmbeddingInput(arch, device)
+    layers: Dict[str, torch.nn.Module] = {"layer_0": embedding}
     for i in range(arch.num_layers):
         layers[f"layer_{i + 1}"] = TransformerLayer(arch, i, device)
     layers[f"layer_{arch.num_layers + 1}"] = LayerNormWrapper(arch, device)
-    layers[f"layer_{arch.num_layers + 2}"] = TransformerLMHead(arch, device)
+    layers[f"layer_{arch.num_layers + 2}"] = (
+        TransformerLMHeadTied(embedding) if arch.weight_tying
+        else TransformerLMHead(arch, device))
     return layers
 
 
@@ -56,7 +67,7 @@ class TransformerModel(torch.nn.Module):
         return self.layers[f"layer_{self.architecture.num_layers + 1}"]
 
     @property
-    def lm_head(self) -> TransformerLMHead:
+    def lm_head(self) -> torch.nn.Module:
         return self.layers[f"layer_{self.architecture.num_layers + 2}"]
 
     @torch.no_grad()
@@ -117,7 +128,7 @@ def get_parameter_groups(config: TransformerConfig, model: TransformerModel
             if any(p.search(key) for p in exclude):
                 continue
             parameter_name = key.split(".", 1)[1].lower()
-            if isinstance(module, (RMSNorm, Embedding)) or any(
+            if isinstance(module, (LayerNorm, RMSNorm, Embedding)) or any(
                     s in parameter_name for s in NO_WEIGHT_DECAY_SUBSTRINGS):
                 no_decay.add(name)
             else:

@@ -1,21 +1,32 @@
-"""Self attention (counterpart of scaling_tpu/nn/attention.py), both halves.
+"""Self attention (counterpart of scaling_tpu/nn/attention.py).
 
-The paged serving half: q/k/v projections (fused or separate, GQA through
-``num_kv_heads``), rotary, the block-paged KV pool view and its writer,
-kernel K1 over the pool, and the output projection.
+Projections (fused or separate, GQA through ``num_kv_heads``), optional
+key/query norm (over the head dim, before rotary), rotary or none, then
+one of three attention paths, and the output projection:
 
-The training half (no KV cache): causal attention within equal
-``segment_ids`` (packed documents), optional trailing local-window heads.
-``flash_path_active`` decides, as in the JAX layer, between the flash
-kernels (K4 forward, K5 backward, ``ops.flash_attention``) with
-unrepeated KV, and the unfused path (``multi_head_attention`` over a
-``segment_ids_to_mask`` mask and ``MaskedSoftmax``). There is no TPU gate
-here: on the CPU the flash path runs the kernels' plain versions.
-Context parallelism, LoRA, key/query norm, score manipulation and
+- the paged serving path: the block-paged KV pool view and its writer,
+  kernel K1 over the pool;
+- the dense KV cache of ``generate``: a ``(k, v)`` or ``(k, v, segment
+  ids)`` tuple of ``(b, max_len, ...)`` buffers, written at
+  ``cache_offset`` (``dense_kv_write``); queries attend unfused over the
+  cache slots, causal by slot, within equal segment ids when the cache
+  carries them, with an optional additive score term (the left-pad mask
+  of ragged prompts). Under left padding a row's rotary positions lag its
+  slots: ``position_ids`` stay the rotary clock, the slots the causal one;
+- no cache (training, prefill, full-sequence logits): causal attention
+  within equal ``segment_ids`` (packed documents), optional trailing
+  local-window heads. ``flash_path_active`` decides, as in the JAX layer,
+  between the flash kernels (K4 forward, K5 backward,
+  ``ops.flash_attention``) with unrepeated KV, and the unfused path
+  (``multi_head_attention`` over a ``segment_ids_to_mask`` mask and
+  ``MaskedSoftmax``). There is no TPU gate here: on the CPU the flash
+  path runs the kernels' plain versions.
+
+Context parallelism, LoRA, multiplicative score manipulation and
 attention-probability dropout are not ported.
 
-The pool is updated IN PLACE: ``paged_scatter_kv`` writes the new
-tokens' K/V into the pool tensors the view holds, so no updated pools
+The pool and the dense cache are updated IN PLACE: the writers put the
+new tokens' K/V into the tensors the caller holds, so no updated caches
 are handed back (the JAX package returns new arrays and absorbs them).
 """
 
@@ -31,7 +42,7 @@ from ..ops.flash_attention import HEAD_DIMS, flash_attention
 from ..ops.paged_attention import paged_attention
 from .linear import Linear
 from .masked_softmax import MaskedSoftmax, MaskedSoftmaxConfig
-from .rotary import RotaryEmbedding
+from .norm import get_norm
 from .seq_packing import segment_ids_to_mask
 
 FLASH_MIN_BLOCK = 128  # the flash path needs seq % 128 == 0 (the JAX gate's rule)
@@ -114,52 +125,72 @@ def paged_scatter_kv(view: PagedKVCacheView, flat: torch.Tensor,
         pv.index_copy_(0, flat, v_rows.to(pv.dtype))
 
 
+def dense_kv_write(cache: Tuple[torch.Tensor, ...], k: torch.Tensor, v: torch.Tensor,
+                   offset: int, segment_ids: Optional[torch.Tensor] = None) -> None:
+    """Write ``s`` new tokens' K/V (and, into a 3-tuple cache, their
+    segment ids) at slots ``offset .. offset + s - 1`` of every row of a
+    dense ``(b, max_len, ...)`` cache, in place, in the cache's dtype."""
+    s = k.shape[1]
+    cache[0][:, offset:offset + s] = k
+    cache[1][:, offset:offset + s] = v
+    if len(cache) == 3:
+        cache[2][:, offset:offset + s] = 0 if segment_ids is None else segment_ids
+
+
 def flash_path_active(*, kernel_is_flash: bool, causal: bool,
                       dropout_attention_probs: float, deterministic: bool,
                       context_parallel_size: int, seq_len: int, head_dim: int,
-                      has_kv_cache: bool = False,
+                      dtype: torch.dtype, has_kv_cache: bool = False,
                       has_scores_manipulation: bool = False) -> bool:
     """The flash-vs-unfused gate of the JAX layer (``flash_path_active``),
     without its TPU platform check: causal, no cache, no probability
     dropout, no context parallelism and ``seq_len % 128 == 0``. Where the
-    JAX gate routes every ``head_dim >= 64`` to splash, this one routes
-    only the head dims K4/K5 are built for (``HEAD_DIMS``); any other goes
-    to the unfused path, as ``head_dim < 64`` does in both packages. The
-    route depends on shapes alone, so it is the same on the CPU and on
-    the card."""
+    JAX gate routes every ``head_dim >= 64`` and every dtype to splash,
+    this one routes only what K4/K5 are built for: the head dims
+    ``HEAD_DIMS`` in bf16. Any other head dim or dtype goes to the unfused
+    path, as ``head_dim < 64`` does in both packages. The route depends on
+    shapes and dtypes alone, so it is the same on the CPU and on the card."""
     if not kernel_is_flash or has_kv_cache or has_scores_manipulation:
         return False
     if not causal or context_parallel_size > 1:
         return False
     if dropout_attention_probs > 0.0 and not deterministic:
         return False
-    return seq_len % FLASH_MIN_BLOCK == 0 and head_dim in HEAD_DIMS
+    return (seq_len % FLASH_MIN_BLOCK == 0 and head_dim in HEAD_DIMS
+            and dtype == torch.bfloat16)
 
 
 def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                          mask: torch.Tensor, scaling_factor: float,
-                         softmax: MaskedSoftmax) -> torch.Tensor:
+                         softmax: MaskedSoftmax,
+                         scores_manipulation: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Unfused attention: QK^T -> masked softmax -> PV. q (b, s_q, n, h),
-    k/v (b, s_k, n, h) repeated, mask (b, 1, s_q, s_k) True = forbidden.
+    k/v (b, s_k, n, h) repeated, mask (b, 1, s_q, s_k) True = forbidden,
+    ``scores_manipulation`` added to the scaled scores (log-additive).
     Returns (b, s_q, n, h)."""
     scores = torch.einsum("bqnh,bknh->bnqk", query, key) * scaling_factor
+    if scores_manipulation is not None:
+        scores = scores + scores_manipulation.to(scores.dtype)
     probs = softmax(scores, mask)
     return torch.einsum("bnqk,bknh->bqnh", probs.to(value.dtype), value)
 
 
 class ParallelSelfAttention(torch.nn.Module):
-    """Projections -> rotary -> attention -> output projection. With a
-    paged KV view: kernel K1 over the pool. Without (training): flash
+    """Projections -> key/query norm -> rotary -> attention -> output
+    projection. With a paged KV view: kernel K1 over the pool; with a dense
+    cache tuple: unfused attention over its slots; without a cache: flash
     (K4/K5) or unfused attention over the sequence."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int,
                  num_kv_heads: Optional[int] = None, qkv_in_one: bool = False,
-                 bias: bool = True, rotary: Optional[RotaryEmbedding] = None,
+                 bias: bool = True, rotary: Optional[torch.nn.Module] = None,
                  scaling_factor: Optional[float] = None,
                  masked_softmax_config: Optional[MaskedSoftmaxConfig] = None,
                  causal: bool = True, num_local_attention_heads: int = 0,
                  local_attention_window_size: Optional[int] = None,
-                 dropout_attention_probs: float = 0.0,
+                 dropout_attention_probs: float = 0.0, key_query_norm: bool = False,
+                 norm_type: str = "layernorm", norm_eps: float = 1e-5,
+                 fused_norm: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if hidden_size % num_attention_heads:
@@ -188,6 +219,11 @@ class ParallelSelfAttention(torch.nn.Module):
             self.value = Linear(hidden_size, kv_size, **common)
         self.dense = Linear(hidden_size, hidden_size, **common)
         self.rotary_embedding = rotary
+        self.key_query_norm = key_query_norm
+        if key_query_norm:
+            norm = dict(eps=norm_eps, fused=fused_norm, dtype=dtype, device=device)
+            self.norm_query = get_norm(norm_type, self.head_dim, **norm)
+            self.norm_key = get_norm(norm_type, self.head_dim, **norm)
         self.masked_softmax = MaskedSoftmax(masked_softmax_config or MaskedSoftmaxConfig())
         self.use_flash = self.masked_softmax.config.kernel == "flash_attention"
         self.causal = causal
@@ -211,21 +247,33 @@ class ParallelSelfAttention(torch.nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor,
-                kv_cache: Optional[PagedKVCacheView] = None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_cache=None, segment_ids: Optional[torch.Tensor] = None,
+                cache_offset: Optional[int] = None,
+                scores_manipulation: Optional[torch.Tensor] = None,
+                return_kv: bool = False):
+        """``kv_cache``: a ``PagedKVCacheView``, a dense cache tuple written
+        at ``cache_offset``, or None. Returns the output, or ``(output,
+        (k, v))`` with ``return_kv`` (the new tokens' K/V after rotary)."""
         q, k, v = self._qkv(x)
+        if self.key_query_norm:
+            q, k = self.norm_query(q), self.norm_key(k)
         if self.rotary_embedding is not None:
             q, k = self.rotary_embedding(q, k, position_ids)
-        if kv_cache is not None:
-            if self.num_local_attention_heads or not self.causal:
-                raise NotImplementedError(
-                    "the paged decode path is causal and has no local-window heads")
+        if kv_cache is not None and (self.num_local_attention_heads or not self.causal):
+            raise NotImplementedError(
+                "the cached decode paths are causal and have no local-window heads")
+        if isinstance(kv_cache, PagedKVCacheView):
             out = self._paged_attention(q, k, v, kv_cache)
+        elif kv_cache is not None:
+            out = self._dense_cache_attention(q, k, v, kv_cache, cache_offset, segment_ids,
+                                              scores_manipulation)
         else:
-            out = self._attention(q, k, v, segment_ids)
-        return self._project_out(out)
+            out = self._attention(q, k, v, segment_ids, scores_manipulation)
+        out = self._project_out(out)
+        return (out, (k, v)) if return_kv else out
 
-    def _attention(self, q, k, v, segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    def _attention(self, q, k, v, segment_ids: Optional[torch.Tensor],
+                   scores_manipulation: Optional[torch.Tensor] = None) -> torch.Tensor:
         """No cache: the training forward (``ParallelSelfAttention.__call__``
         of the JAX layer without context parallelism)."""
         b, s = q.shape[:2]
@@ -238,7 +286,8 @@ class ParallelSelfAttention(torch.nn.Module):
             kernel_is_flash=self.use_flash, causal=self.causal,
             dropout_attention_probs=self.dropout_attention_probs,
             deterministic=not self.training, context_parallel_size=1,
-            seq_len=s, head_dim=self.head_dim,
+            seq_len=s, head_dim=self.head_dim, dtype=q.dtype,
+            has_scores_manipulation=scores_manipulation is not None,
         ):
             return flash_attention(q, k, v, segment_ids, sm_scale=self.scaling_factor,
                                    num_local_heads=n_local,
@@ -248,20 +297,43 @@ class ParallelSelfAttention(torch.nn.Module):
         v = repeat_kv(v, self.num_repeat_kv)
         if n_local == 0:
             return multi_head_attention(q, k, v, mask, self.scaling_factor,
-                                        self.masked_softmax)
+                                        self.masked_softmax, scores_manipulation)
         # mixed heads: the first n - n_local global, the last n_local in the window
         local_mask = segment_ids_to_mask(segment_ids, causal=self.causal,
                                          local_window=self.local_attention_window_size)
         n_global = self.num_attention_heads - n_local
         out_l = multi_head_attention(q[:, :, n_global:], k[:, :, n_global:],
                                      v[:, :, n_global:], local_mask,
-                                     self.scaling_factor, self.masked_softmax)
+                                     self.scaling_factor, self.masked_softmax,
+                                     scores_manipulation)
         if n_global == 0:
             return out_l
         out_g = multi_head_attention(q[:, :, :n_global], k[:, :, :n_global],
                                      v[:, :, :n_global], mask, self.scaling_factor,
-                                     self.masked_softmax)
+                                     self.masked_softmax, scores_manipulation)
         return torch.cat([out_g, out_l], dim=2)
+
+    def _dense_cache_attention(self, q, k, v, cache, offset: int,
+                               segment_ids: Optional[torch.Tensor],
+                               scores_manipulation: Optional[torch.Tensor]) -> torch.Tensor:
+        """Write the ``s`` new tokens at slots ``offset..``, then attend
+        over every written slot at or before each query's slot (and, with a
+        3-tuple cache, in its segment)."""
+        b, s = q.shape[:2]
+        dense_kv_write(cache, k, v, offset, segment_ids)
+        s_k = cache[0].shape[1]
+        slots_k = torch.arange(s_k, device=q.device)
+        slots_q = offset + torch.arange(s, device=q.device)
+        allowed = (slots_k < offset + s)[None, :] & (slots_k[None, :] <= slots_q[:, None])
+        allowed = allowed[None]  # (1, s, s_k)
+        if len(cache) == 3:
+            seg_q = (torch.zeros(b, s, dtype=cache[2].dtype, device=q.device)
+                     if segment_ids is None else segment_ids)
+            allowed = allowed & (cache[2][:, None, :] == seg_q[:, :, None])
+        ck = repeat_kv(cache[0], self.num_repeat_kv)
+        cv = repeat_kv(cache[1], self.num_repeat_kv)
+        return multi_head_attention(q, ck, cv, ~allowed[:, None], self.scaling_factor,
+                                    self.masked_softmax, scores_manipulation)
 
     def _paged_attention(self, q, k, v, view: PagedKVCacheView) -> torch.Tensor:
         """Scatter the ``s`` new tokens per row into the pool (padding past

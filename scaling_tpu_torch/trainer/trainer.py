@@ -7,7 +7,13 @@ JAX package's layout: ``save_dir/global_step{N}/`` with the model and
 optimizer npz files, ``context.json``, ``config.yml`` and ``MANIFEST.json``,
 committed atomically, then ``latest``. ``load_checkpoint`` takes the
 newest candidate that verifies (``latest`` first), skipping corrupt ones
-unless ``strict_checkpoint_load``.
+unless ``strict_checkpoint_load``, and warns when the checkpoint's
+``config.yml`` reads to another config than the run's, where the JAX
+trainer warns that its config fingerprint changed. The manifest carries
+no fingerprint: the JAX one is a digest of the JAX config's full dump,
+every default included, which the port does not rebuild, and a digest
+of anything else would make a JAX resume of a port checkpoint warn for
+no reason.
 
 Micro-batches are stacked ``(gas, mbs, s)`` on the host and moved to the
 device in one copy per step (``batch_to_model_input``). The JAX
@@ -20,7 +26,6 @@ the default.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import json
 import time
 import zipfile
@@ -295,11 +300,7 @@ class BaseTrainer:
         base = Path(dir or self.config.save_dir)
         base.mkdir(parents=True, exist_ok=True)
         config = self._config_dict()
-        fingerprint = None
-        if config is not None:
-            blob = json.dumps(config, sort_keys=True, default=str)
-            fingerprint = hashlib.sha256(blob.encode()).hexdigest()[:16]
-        commit = CheckpointCommit(base, self.context.iterations, config_fingerprint=fingerprint)
+        commit = CheckpointCommit(base, self.context.iterations)
         stage = commit.tmp_dir
         save_model_checkpoint(stage, self._ckpt_params(), recorder=commit.record)
         save_optimizer_checkpoint(stage, self.optimizer, self.module.ckpt_keys(),
@@ -361,8 +362,25 @@ class BaseTrainer:
         self.logger.warning(f"no valid checkpoint under {base}; skipped: " + " | ".join(skipped))
         return False
 
+    def _warn_if_config_changed(self, step_dir: Path) -> None:
+        """The JAX trainer's warning on a changed config fingerprint, from
+        the checkpoint's ``config.yml`` read as the run's config is."""
+        current = getattr(self.context, "config", None)
+        from_dict = getattr(type(current), "from_dict", None)
+        saved = step_dir / "config.yml"
+        if from_dict is None or not saved.is_file():
+            return
+        try:
+            changed = from_dict(yaml.safe_load(saved.read_text())) != current
+        except (ValueError, NotImplementedError):
+            changed = True
+        if changed:
+            self.logger.warning(f"config changed since {step_dir.name} was saved; expected "
+                                "for finetunes/topology changes, suspicious for a plain resume")
+
     def _load_step_dir(self, step_dir: Path) -> None:
         c = self.config
+        self._warn_if_config_changed(step_dir)
         load_model_checkpoint(step_dir, self._ckpt_params(),
                               allowed_missing_keys=c.allowed_missing_keys_in_checkpoint,
                               allowed_unexpected_keys=c.allowed_unexpected_keys_in_checkpoint,

@@ -300,3 +300,106 @@ def test_ignore_keys_keep_the_current_values(data, tmp_path):
         load_model_checkpoint(tmp_path / "port" / "global_step3", extra)
     load_model_checkpoint(tmp_path / "port" / "global_step3", extra,
                           allowed_missing_keys=["Adapter"])
+
+
+# the JAX default architecture with a tied head and key/query norm
+TIED_ARCH = {"vocab_size": 96, "hidden_size": 64, "num_layers": 2, "num_attention_heads": 4,
+             "sequence_length": 32, "precision": "float32", "weight_tying": True,
+             "key_query_norm": True}
+
+
+def test_tied_checkpoint_crosses_both_ways(data, tmp_path):
+    """A tied, layernorm, GELU-MLP model: the port writes the table once,
+    under ``layer_0_EmbeddingInput`` (no head layer file), and the JAX
+    trainer loads it with verification on, state for state; a JAX
+    checkpoint of the same model resumes in the port the same way."""
+    cfg = config_dict(data, tmp_path / "port")
+    cfg["transformer_architecture"] = TIED_ARCH
+    port = port_main(TransformerConfig.from_dict(cfg), device="cpu")
+    step_dir = tmp_path / "port" / "global_step3"
+    assert sorted(p.name for p in step_dir.glob("model_state_layer_*")) == [
+        "model_state_layer_0_EmbeddingInput.npz", "model_state_layer_1_TransformerLayer.npz",
+        "model_state_layer_2_TransformerLayer.npz", "model_state_layer_3_LayerNormWrapper.npz"]
+    jax_cfg = config_dict(data, load_dir=tmp_path / "port")
+    jax_cfg["transformer_architecture"] = TIED_ARCH
+    ref = jax_trainer(jax_cfg, load=True)
+    assert int(ref.opt_state.step) == 3 and ref.optimizer_states_loaded
+    arch = port.context.config.transformer_architecture
+    assert_states_equal(port_state(port), jax_state(ref, arch))
+
+    jax_main(JaxConfig.from_dict({**jax_cfg, "trainer": {
+        **jax_cfg["trainer"], "load_dir": None, "assert_checkpoint_loaded": False,
+        "save_dir": str(tmp_path / "jax")}}))
+    resumed = build_trainer(TransformerConfig.from_dict({**cfg, "trainer": {
+        **cfg["trainer"], "save_dir": None, "load_dir": str(tmp_path / "jax"),
+        "assert_checkpoint_loaded": True}}), device="cpu")
+    assert resumed.optimizer_states_loaded and resumed.context.iterations == 3
+
+
+def test_port_stamps_the_jax_config_digest_or_none(tmp_path):
+    """Fault 3: for the example config the manifest's fingerprint is JAX's
+    digest (sha256 of its full config dump) or none, never a digest of
+    something else, which would make a JAX resume warn for no reason."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    example = Path(__file__).resolve().parent.parent / "examples" / "transformer_example"
+    d = yaml.safe_load((example / "config.yml").read_text())
+    d["data"]["data_prefixes"] = [str(example / "data" / "example")]
+    d["trainer"].update(save_dir=str(tmp_path / "ckpt"), train_iterations=1, save_interval=1)
+    port_main(TransformerConfig.from_dict(d), device="cpu")
+    manifest = json.loads((tmp_path / "ckpt" / "global_step1" / "MANIFEST.json").read_text())
+    dump = JaxConfig.from_dict(d).model_dump(mode="json")
+    jax_digest = hashlib.sha256(json.dumps(dump, sort_keys=True, default=str)
+                                .encode()).hexdigest()[:16]
+    assert manifest["config_fingerprint"] in (None, jax_digest)
+
+
+def test_a_port_resume_under_a_changed_config_warns(data, tmp_path, monkeypatch):
+    """Fault 3: where the JAX trainer warns that the config fingerprint
+    changed since the save, the port warns too (here a new learning rate);
+    the config the checkpoint was saved with loads silently."""
+    from scaling_tpu_torch.logging import Logger
+
+    warnings = []
+    monkeypatch.setattr(Logger, "warning", lambda self, msg: warnings.append(str(msg)))
+    port_main(TransformerConfig.from_dict(config_dict(data, tmp_path / "ckpt")), device="cpu")
+    step_dir = tmp_path / "ckpt" / "global_step3"
+    saved = yaml.safe_load((step_dir / "config.yml").read_text())
+    build_trainer(TransformerConfig.from_dict(saved), device="cpu").load_checkpoint(step_dir)
+    assert not [w for w in warnings if "config changed" in w], warnings
+    saved["learning_rate_scheduler"]["learning_rate"] = 0.02
+    build_trainer(TransformerConfig.from_dict(saved), device="cpu").load_checkpoint(step_dir)
+    assert any("config changed since global_step3" in w for w in warnings), warnings
+
+
+def test_legacy_per_field_optimizer_files_resume_with_their_moments(data, tmp_path):
+    """Fault 4: a checkpoint in the older layout, one
+    ``optimizer_state_layer_{i}_{field}.npz`` per layer and field keyed by
+    the bare parameter name (written here from a fresh port checkpoint,
+    without a manifest, as such checkpoints predate it), resumes with its
+    masters and Adam moments bitwise, as the JAX loader reads it."""
+    import shutil
+
+    port_main(TransformerConfig.from_dict(config_dict(data, tmp_path / "ckpt")), device="cpu")
+    src = tmp_path / "ckpt" / "global_step3"
+    legacy = tmp_path / "legacy" / "global_step3"
+    shutil.copytree(src, legacy)
+    (legacy / "MANIFEST.json").unlink()
+    (legacy.parent / "latest").write_text("global_step3")
+    for f in sorted(legacy.glob("optimizer_state_layer_*.npz")):
+        with np.load(f) as z:
+            fields = {field: {k.split(".", 1)[1]: z[k] for k in z.files
+                              if k.startswith(field + ".")}
+                      for field in ("master", "exp_avg", "exp_avg_sq")}
+        f.unlink()
+        for field, arrays in fields.items():
+            np.savez(legacy / f"{f.stem}_{field}.npz", **arrays)
+    reference = build_trainer(TransformerConfig.from_dict(
+        config_dict(data, load_dir=tmp_path / "ckpt")), device="cpu")
+    resumed = build_trainer(TransformerConfig.from_dict(
+        config_dict(data, load_dir=tmp_path / "legacy")), device="cpu")
+    assert resumed.optimizer_states_loaded and resumed.optimizer.state.step == 3
+    assert_states_equal(port_state(resumed), port_state(reference))
+    assert any(t.abs().sum() > 0 for t in resumed.optimizer.state.exp_avg.values())

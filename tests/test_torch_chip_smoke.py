@@ -3,8 +3,12 @@ forward: on the toy model on the CPU (a bf16 forward against an f32 one,
 as card against CPU), the intact forward passes the logit tolerance, and
 a forward with the attention output zeroed or with each query head fed
 the wrong KV head fails it. The loss alone moves by about 1 % under
-either fault, which is why the check compares logits. Beside it, the
-build phase's reading of the ``ptxas -v`` log (registers and spills)."""
+either fault, which is why the check compares logits. The generation
+phase's recompute does the same for a bf16 ``generate`` against the f32
+``logits()``: a zeroed attention or K/V written one cache slot late
+fails it. Beside them, the build phase's reading of the ``ptxas -v`` log
+(registers and spills), and the trainer and generation phases' control
+flow at toy size."""
 
 import pathlib
 import sys
@@ -88,8 +92,12 @@ def test_trainer_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
     kernel launches (the CPU runs the plain versions) and ``palm_mfu``."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    # 8 eval batches: the toy's eval sets (2048 tokens) are small enough that
+    # evaluate's sequential batches and the trainer's shuffled ones would
+    # otherwise differ by more than EVAL_NATS
     for key, value in dict(model="toy", seq=128, mbs=2, tokens=20_000, valid_tokens=2_000,
-                           doc_len=(16, 400), serve_prompt=(16, 64), serve_output=8).items():
+                           doc_len=(16, 400), serve_prompt=(16, 64), serve_output=8,
+                           eval_iterations=8).items():
         monkeypatch.setitem(chip_smoke.TRAINER, key, value)
     monkeypatch.setitem(chip_smoke.SERVE, "num_blocks", 128)
     monkeypatch.setitem(chip_smoke.SERVE, "max_blocks_per_seq", 16)
@@ -97,8 +105,75 @@ def test_trainer_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "check_trainer_launches",
                         lambda kernel, plain: seen.update(kernel=kernel, plain=plain))
     monkeypatch.setattr(chip_smoke, "check_step_records", lambda steps: None)
+    monkeypatch.setattr(chip_smoke, "check_evaluate_launches",
+                        lambda kernel, plain: seen.update(eval_plain=plain))
     chip_smoke.trainer_phase(1.0, device="cpu")
     out = capsys.readouterr().out
     assert "step 4 bitwise equal" in out and "tokens equal to the trainer's" in out
+    assert "evaluate (step 6 checkpoint" in out and seen["eval_plain"]["rms_norm"] > 0
     assert seen["kernel"] == {} and seen["plain"]["flash_attention_bwd"] > 0
     assert seen["plain"]["paged_attention"] > 0
+
+
+def _toy_generation(monkeypatch):
+    """The generation phase's shapes cut to the toy model: 3 prompts of
+    40-128 tokens (the longest 128, so the bf16 prefill takes the flash
+    path), 8 tokens each."""
+    from scaling_tpu_torch.train.bench import MODELS
+
+    monkeypatch.setitem(chip_smoke.GEN, "batch", 3)
+    monkeypatch.setitem(chip_smoke.GEN, "prompt_len", (40, 128))
+    monkeypatch.setitem(chip_smoke.GEN, "max_tokens", 8)
+    return MODELS["toy"]
+
+
+@pytest.mark.parametrize("fault", [None, "attention_zeroed", "cache_slot_off_by_one"])
+def test_generation_recompute_tells_a_wrong_decode(monkeypatch, fault):
+    """The generation check on the CPU (a bf16 generate against the f32
+    ``logits()``, as card against CPU): the intact decode passes, and a
+    zeroed attention output or K/V written one cache slot late fails."""
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+
+    arch = TransformerArchitectureConfig.from_dict(_toy_generation(monkeypatch))
+    inf = TransformerInferenceModule.random_init(arch, seed=0, device="cpu")
+    if fault == "attention_zeroed":
+        for name in ("flash_attention", "multi_head_attention"):
+            plain = getattr(attention, name)
+            monkeypatch.setattr(attention, name, _on_bf16(_zero(plain), plain))
+    elif fault == "cache_slot_off_by_one":
+        write = attention.dense_kv_write
+        monkeypatch.setattr(attention, "dense_kv_write",
+                            lambda cache, k, v, offset, seg=None: write(cache, k, v, offset + 1,
+                                                                        seg))
+    prompts = chip_smoke.generation_prompts(arch.vocab_size)
+    outs = inf.generate(prompts, max_tokens=chip_smoke.GEN["max_tokens"])
+    rec = chip_smoke.recompute_generation(inf, prompts[-1], outs[-1])
+    assert rec["uniform_err"] > chip_smoke.GEN_LOGIT_TOL
+    if fault is None:
+        assert rec["err"] <= chip_smoke.GEN_LOGIT_TOL and rec["disagree"] == 0, rec
+    else:
+        assert rec["err"] > chip_smoke.GEN_LOGIT_TOL, rec
+
+
+def test_generation_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
+    """The generation phase's control flow with both architectures at toy
+    size on the CPU: tokens, repeats, the 1-D prompt and the recompute.
+    What only the card gives stays unchecked here: the kernel launches and
+    the timed and profiled runs (CUDA events, the profiler)."""
+    toy = _toy_generation(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "time_generation", lambda inf, prompts: {"outs": [
+        inf.generate(prompts, max_tokens=chip_smoke.GEN["max_tokens"]) for _ in range(2)]})
+    seen = []
+    monkeypatch.setattr(chip_smoke, "check_generation_launches",
+                        lambda name, kernel, plain, needed: seen.append((kernel, plain, needed)))
+    for name, arch in (("toy", toy), ("toy_default_arch", dict(toy, **chip_smoke.DEFAULT_ARCH))):
+        chip_smoke.generation_phase(name, arch, device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("4 batch runs give the same tokens") == 2
+    assert [needed for _, _, needed in seen] == [("flash_attention_fwd", "rms_norm"),
+                                                 ("flash_attention_fwd",)]
+    assert all(kernel == {} and plain["flash_attention_fwd"] > 0 for kernel, plain, _ in seen)

@@ -31,6 +31,8 @@ from scaling_tpu_torch.nn.attention import ParallelSelfAttention  # noqa: E402
 from scaling_tpu_torch.nn.masked_softmax import MaskedSoftmaxConfig  # noqa: E402
 from scaling_tpu_torch.ops import flash_attention, launches  # noqa: E402
 
+from .torch_parity import route_flash_as_bf16  # noqa: E402
+
 FWD_ATOL = 2e-5
 GRAD_ATOL = 5e-4
 WINDOW = 16
@@ -98,10 +100,13 @@ def test_plain_kernels_match_splash(case):
 
 
 @pytest.mark.parametrize("n_local", [0, 2], ids=["global", "local"])
-def test_flash_and_unfused_attention_layer_agree(n_local):
+def test_flash_and_unfused_attention_layer_agree(n_local, monkeypatch):
     """The layer's two training paths, selected by ``masked_softmax.kernel``
     through ``flash_path_active``, compute the same attention (f32, atol
-    2e-5: an f32 softmax against the -10000-filled one)."""
+    2e-5: an f32 softmax against the -10000-filled one). The gate sends
+    f32 unfused, since K4/K5 take bf16 only; here it routes by shape
+    alone, so the flash path runs in f32."""
+    route_flash_as_bf16(monkeypatch)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(size=(2, 128, 256)).astype(np.float32))
     pos = torch.arange(128)[None].expand(2, 128)
@@ -151,7 +156,8 @@ def test_kernels_admit_every_shape_the_flash_path_routes(model):
     routed = [s for s in range(64, 8192 + 1, 64)
               if flash_path_active(kernel_is_flash=True, causal=True,
                                    dropout_attention_probs=0.0, deterministic=False,
-                                   context_parallel_size=1, seq_len=s, head_dim=d)]
+                                   context_parallel_size=1, seq_len=s, head_dim=d,
+                                   dtype=torch.bfloat16)]
     assert bool(routed) == (d in HEAD_DIMS)
     assert all(s % 128 == 0 for s in routed)
     for s in routed:
@@ -167,7 +173,8 @@ def test_head_dims_without_a_kernel_take_the_unfused_path(d):
 
     assert not flash_path_active(kernel_is_flash=True, causal=True,
                                  dropout_attention_probs=0.0, deterministic=False,
-                                 context_parallel_size=1, seq_len=256, head_dim=d)
+                                 context_parallel_size=1, seq_len=256, head_dim=d,
+                                 dtype=torch.bfloat16)
     torch.manual_seed(0)
     layer = ParallelSelfAttention(
         4 * d, 4, num_kv_heads=2,

@@ -1,8 +1,8 @@
 """The port stands alone: it imports with JAX and the JAX package
 blocked, serves, takes a training step, trains from a token dataset,
-saves, resumes and serves its checkpoint on the CPU when asked to;
-without a card, its entry points raise instead of moving to the CPU on
-their own."""
+saves, resumes, serves, generates from and evaluates its checkpoint on
+the CPU when asked to; without a card, its entry points raise instead of
+moving to the CPU on their own."""
 
 import pathlib
 import re
@@ -62,6 +62,14 @@ engine.submit([1, 2, 3, 4, 5], 3)
 done = engine.run_until_done()
 assert [len(s.generated) for s in done] == [3]
 print("trainer: resumed at 2, served the checkpoint")
+
+# generate (ragged, greedy) and evaluate the same checkpoint
+from scaling_tpu_torch.models.transformer.evaluate import evaluate
+outs = inf.generate([[1, 2, 3], [4, 5, 6, 7, 8]], max_tokens=4)
+assert [len(o.completion_ids) for o in outs] == [4, 4] and outs[0].logits.shape[0] == 4
+stats = evaluate(root / "ckpt", root / "tokens", batch_size=2, max_batches=2, device="cpu")
+assert stats["batches"] == 2 and stats["tokens"] > 0 and np.isfinite(stats["loss"])
+print("generate and evaluate: ok")
 sys.exit(rc)
 """
 
@@ -75,6 +83,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert "train bench: model=toy device=cpu" in proc.stdout
     assert "losses: first=" in proc.stdout and "mfu: not measured" in proc.stdout
     assert "trainer: resumed at 2, served the checkpoint" in proc.stdout
+    assert "generate and evaluate: ok" in proc.stdout
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
@@ -129,8 +138,14 @@ def test_config_raises_on_keys_it_does_not_support():
         TransformerArchitectureConfig.from_dict({**base, "hidden_sizee": 3})
     with pytest.raises(ValueError, match="unknown"):
         TransformerArchitectureConfig.from_dict({**base, "layernorm": {"foo": 1}})
-    for key, value in (("weight_tying", True), ("lora_config", {"name": "x"}),
-                       ("norm_type", "layernorm"), ("mlp_type", "default"),
-                       ("relative_position_embedding_type", "rotary_complex")):
-        with pytest.raises(NotImplementedError):
+    for key, value in (("lora_config", {"name": "x"}), ("mlp_type", "moe"),
+                       ("mup", {"base_hidden_size": 64})):
+        with pytest.raises(NotImplementedError, match=key):
             TransformerArchitectureConfig.from_dict({**base, key: value})
+    # the JAX default architecture's keys are ported
+    for key, value in (("weight_tying", True), ("norm_type", "layernorm"),
+                       ("mlp_type", "default"), ("key_query_norm", True),
+                       ("relative_position_embedding_type", "rotary_complex"),
+                       ("relative_position_embedding_type", "none")):
+        assert getattr(TransformerArchitectureConfig.from_dict({**base, key: value}),
+                       key) == value

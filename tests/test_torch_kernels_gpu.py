@@ -345,3 +345,104 @@ def test_head_dim_96_trains_on_the_card_unfused(card, monkeypatch):
     assert launches.KERNEL["rms_norm"] > 0 and launches.KERNEL["rms_norm_bwd"] > 0
     assert launches.KERNEL["flash_attention_fwd"] == 0 and launches.KERNEL["flash_attention_bwd"] == 0
     assert sum(launches.PLAIN.values()) == 0
+
+
+@pytest.mark.parametrize("hidden,kernel_route", [(320, False), (384, True)])
+def test_fused_rms_norm_routes_by_width_on_the_card(card, monkeypatch, hidden, kernel_route):
+    """A fused-RMS toy at hidden 320 (not a multiple of 128) trains on the
+    card through the plain ops, with no K2/K3 launch and no plain-version
+    count; at 384 through K2 and K3. Two steps, finite losses."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import loss_function
+    from scaling_tpu_torch.train import bench
+
+    monkeypatch.setitem(bench.MODELS, "toy_w", dict(bench.MODELS["toy"], hidden_size=hidden,
+                                                    num_attention_heads=hidden // 64,
+                                                    attention_num_kv_heads=1))
+    _, module, optimizer = bench.build("toy_w", 128, 2, device=card)
+    step = module.build_train_step(optimizer, loss_function)
+    batch = bench.synth_batch(np.random.default_rng(0), 2, 128, 512, 1, card)
+    launches.reset()
+    losses = [float(step(batch)[0]) for _ in range(2)]
+    assert all(np.isfinite(losses)), losses
+    assert (launches.KERNEL["rms_norm"] > 0) == kernel_route
+    assert (launches.KERNEL["rms_norm_bwd"] > 0) == kernel_route
+    assert sum(launches.PLAIN.values()) == 0
+
+
+@pytest.mark.parametrize("precision", ["float32", "float16"])
+def test_non_bf16_flash_model_trains_unfused_on_the_card(card, monkeypatch, precision):
+    """K4/K5 take bf16 only: a flash toy in f32 or f16 at head dim 128 and
+    seq 128 trains on the card unfused (no flash launch, no plain version),
+    its losses within 2e-2 of the same steps on the CPU."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import init_optimizer, loss_function
+    from scaling_tpu_torch.parallel import ParallelModule
+    from scaling_tpu_torch.train import bench
+
+    monkeypatch.setitem(bench.MODELS, "toy_p", dict(bench.MODELS["toy"], precision=precision,
+                                                    num_attention_heads=2))
+    losses = {}
+    for dev in ("cpu", card):
+        config, module, _ = bench.build("toy_p", 128, 2, device="cpu")
+        module = ParallelModule(module.model.to(dev), config.topology)
+        step = module.build_train_step(init_optimizer(config, module.model), loss_function)
+        batch = bench.synth_batch(np.random.default_rng(0), 2, 128, 512, 1, dev)
+        launches.reset()
+        losses[str(dev)] = [float(step(batch)[0]) for _ in range(2)]
+        assert launches.KERNEL["flash_attention_fwd"] == 0
+        assert launches.PLAIN["flash_attention_fwd"] == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2)
+
+
+def test_generate_on_the_card_gives_the_cpu_tokens(card):
+    """The f32 toy with a tied head and key/query norm generates on the card
+    the CPU's greedy tokens for a ragged batch, with the fused decode, the
+    per-step decode and without the cache; no plain version runs."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+    from scaling_tpu_torch.serve.bench import MODELS
+
+    arch = TransformerArchitectureConfig.from_dict(dict(
+        MODELS["toy"], norm_type="layernorm", mlp_type="default", weight_tying=True,
+        key_query_norm=True))
+    cpu = TransformerInferenceModule.random_init(arch, seed=0, device="cpu")
+    gpu = TransformerInferenceModule.from_state_dict(arch, cpu.model.state_dict(), device=card)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (5, 40, 17)]
+    ref = [o.completion_ids for o in cpu.generate(prompts, max_tokens=12)]
+    launches.reset()
+    for kw in ({}, {"fused_decode": False}, {"use_cache": False}):
+        assert [o.completion_ids for o in gpu.generate(prompts, max_tokens=12, **kw)] == ref, kw
+    assert sum(launches.PLAIN.values()) == 0
+
+
+def test_bf16_generate_prefill_runs_k4_on_the_card(card):
+    """The bf16 toy (fused RMS, flash): a ragged batch whose longest prompt
+    is 128 tokens prefills through K4 and K2, decodes through K2, and the
+    fused and per-step decodes give the same tokens bitwise."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+    from scaling_tpu_torch.train.bench import MODELS
+
+    inf = TransformerInferenceModule.random_init(
+        TransformerArchitectureConfig.from_dict(MODELS["toy"]), seed=0, device=card)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (128, 37, 90)]
+    launches.reset()
+    fused = inf.generate(prompts, max_tokens=16)
+    assert launches.KERNEL["flash_attention_fwd"] == 2  # one prefill, two layers
+    assert launches.KERNEL["rms_norm"] > 0 and sum(launches.PLAIN.values()) == 0
+    per_step = inf.generate(prompts, max_tokens=16, fused_decode=False)
+    assert [o.completion_ids for o in fused] == [o.completion_ids for o in per_step]
+    assert all(len(o.completion_ids) == 16 for o in fused)

@@ -7,7 +7,9 @@ into the port. JAX runs its Pallas kernels as its own tests do on the CPU
 (splash inside ``force_flash_interpret``, the norm inside
 ``force_rms_interpret``, both spanning the gradient tracing); the port
 runs on the CPU, i.e. through the kernels' plain versions, behind the
-same autograd Functions the card runs.
+same autograd Functions the card runs. The flash gate sends f32 layers
+unfused (K4/K5 take bf16 only); these tests hold the flash path itself in
+f32, so the gate routes here by shape alone (``route_flash_as_bf16``).
 
 Checked, with these tolerances:
 - the first step's gradient of every parameter against ``jax.grad`` of
@@ -55,6 +57,8 @@ from scaling_tpu_torch.models.transformer.convert import params_from_jax  # noqa
 from scaling_tpu_torch.ops import launches  # noqa: E402
 from scaling_tpu_torch.parallel import ParallelModule  # noqa: E402
 
+from .torch_parity import route_flash_as_bf16  # noqa: E402
+
 ARCH = {
     "vocab_size": 128, "hidden_size": 256, "num_layers": 2, "num_attention_heads": 4,
     "attention_num_kv_heads": 2, "attention_qkv_in_one": False, "sequence_length": 128,
@@ -84,6 +88,11 @@ def config_dict(mbs, gas, ckpt, arch=ARCH):
                                     "learning_rate_decay_iters": 1000},
         "trainer": {"seed": 0},
     }
+
+
+@pytest.fixture(autouse=True)
+def flash_route_in_f32(monkeypatch):
+    route_flash_as_bf16(monkeypatch)
 
 
 def random_params(template, rng):
