@@ -65,8 +65,11 @@ Phases, each of which must pass:
    checkpoint (``TransformerInferenceModule.from_checkpoint``) serves 4
    greedy requests with the tokens of an engine on the trainer's own
    weights; ``evaluate`` scores the step-6 checkpoint on 2 batches of the
-   validation prefix, finite and within 0.05 nats of the trainer's step-6
-   eval loss, launching K2 and K4 and no plain version; K1-K5 launched
+   validation prefix read in order: finite, within 1e-4 nats of the
+   trainer's forward on its in-memory step-6 weights over the same batches
+   (a limit the step-3 checkpoint must miss) and within 0.05 nats of the
+   trainer's step-6 eval loss, launching K2 and K4 and no plain version;
+   K1-K5 launched
    and no plain version run; print the steady
    step ms beside phase 5's, and checkpoint save and load seconds, GB/s
    and size. The checkpoints go to a temporary directory outside the
@@ -129,6 +132,7 @@ TRAINER = dict(model="0.5b", seq=TRAIN_SEQ, mbs=TRAIN_MBS, tokens=2_000_000,
                eval_iterations=2, serve_requests=4, serve_prompt=(64, 256), serve_output=32)
 RESUME_RTOL = 1e-4  # steps 5-6 after the resume: the embedding backward adds with atomics
 EVAL_NATS = 0.05  # evaluate's loss on the step-6 checkpoint vs the trainer's step-6 eval loss
+EVAL_REF_NATS = 1e-4  # evaluate vs the trainer's forward on its in-memory weights, same batches
 # generation: 8 prompts of 256-1024 tokens (the longest exactly 1024, so the
 # left-padded prefill is 1024 wide and K4 runs), 128 greedy tokens each
 GEN = dict(batch=8, prompt_len=(256, 1024), max_tokens=128, seed=0, profile=(16, 48))
@@ -587,7 +591,7 @@ def profile_ticks(engine, vocab: int, n_ticks: int = 30) -> dict:
     return {
         "tick_ms": wall_ms / n_ticks,
         "device_busy_ms_per_tick": busy_ms / n_ticks,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_ms_per_tick": {k: v / 1e3 / n_ticks for k, v in groups.items()},
     }
 
@@ -737,7 +741,7 @@ def profile_train_step(step, batch) -> dict:
             other.append((ms, e.count, e.key[:90]))
     busy = sum(groups.values())
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall_ms), "device_ms": groups,
+            "device_idle_share": 1.0 - busy / wall_ms, "device_ms": groups,
             "top_other": sorted(other, reverse=True)[:8]}
 
 
@@ -916,7 +920,7 @@ class GenerateProbe:
                           e.count // steps, e.key[:70]) for e in self.prof.key_averages())
         busy = sum(ms for ms, _, _ in kernels) * steps
         return {"steps": steps, "wall_ms": self.window_ms, "busy_ms": busy,
-                "idle_share": max(0.0, 1.0 - busy / self.window_ms),
+                "idle_share": 1.0 - busy / self.window_ms,
                 "top": [k for k in reversed(kernels) if k[0] > 0][:6]}
 
 
@@ -1198,6 +1202,7 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
                 trainer_config(prefixes, root / "logs", save_dir=save_dir)), device=device)
         arch = trainer.context.config.transformer_architecture
         weights = {k: v.clone() for k, v in trainer.module.model.state_dict().items()}
+        in_memory_loss = in_memory_eval_loss(trainer, prefixes["valid"])
         del trainer
         torch.cuda.empty_cache()
         records = [json.loads(line) for line in (root / "logs" / "metrics_rank_0.jsonl")
@@ -1249,7 +1254,7 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         if len(again) != 3 or not max(rel) <= RESUME_RTOL:
             raise AssertionError(f"resumed losses {again} vs {losses[3:]}")
 
-        evaluate_checkpoint(save_dir, prefixes["valid"], records, device)
+        evaluate_checkpoint(save_dir, prefixes["valid"], records, in_memory_loss, device)
         served = TransformerInferenceModule.from_checkpoint(save_dir, device=device)
         differ = [k for k, v in served.model.state_dict().items() if not torch.equal(v, weights[k])]
         if differ:
@@ -1298,30 +1303,72 @@ def check_evaluate_launches(kernel: dict, plain: dict) -> None:
         raise AssertionError(f"evaluate: plain versions ran on the card: {plain}")
 
 
-def evaluate_checkpoint(save_dir: Path, valid_prefix: str, records: list, device: str) -> dict:
+def in_memory_eval_loss(trainer, valid_prefix: str) -> float:
+    """The trainer's own forward and loss function on its in-memory weights
+    (step 6) over ``evaluate``'s batches: the validation prefix read in
+    order, ``eval_iterations`` batches of the micro-batch size. The batch
+    means are weighted by the batches' loss weights, as ``evaluate`` weighs
+    its tokens."""
+    from scaling_tpu_torch.models.transformer.data.text_dataset import TextDataset
+
+    mbs = TRAINER["mbs"]
+    arch = trainer.context.config.transformer_architecture
+    dataset = TextDataset(valid_prefix, sequence_length=arch.sequence_length, shuffle=False)
+    trainer.module.model.eval()
+    total = weight = 0.0
+    with torch.no_grad():
+        for b in range(TRAINER["eval_iterations"]):
+            items = [dataset[i] for i in range(b * mbs, min((b + 1) * mbs, len(dataset)))]
+            batch = trainer.batch_to_model_input(dataset.collate(items), trainer.device)
+            loss, _ = trainer.loss_function(trainer.module.forward(batch), batch)
+            w = float(batch["loss_weights"].float().sum())
+            total, weight = total + float(loss) * w, weight + w
+    return total / weight
+
+
+def evaluate_checkpoint(save_dir: Path, valid_prefix: str, records: list,
+                        in_memory_loss: float, device: str) -> dict:
     """``evaluate`` on the checkpoint ``latest`` names (step 6) over the
     validation prefix, 2 batches of the trainer's micro-batch size; its
-    launches are the counters' growth over the call."""
+    launches are the counters' growth over the call. It must give the loss
+    of the trainer's forward on its in-memory step-6 weights over the same
+    batches within ``EVAL_REF_NATS``, a limit the step-3 checkpoint must
+    miss, and lie within ``EVAL_NATS`` of the trainer's own step-6 eval
+    loss (other, shuffled batches)."""
     from collections import Counter
 
     from scaling_tpu_torch.models.transformer.evaluate import evaluate
     from scaling_tpu_torch.ops import launches
 
+    def run(checkpoint: Path) -> dict:
+        return evaluate(checkpoint, valid_prefix, batch_size=TRAINER["mbs"],
+                        max_batches=TRAINER["eval_iterations"], device=device)
+
     before = Counter(launches.KERNEL), Counter(launches.PLAIN)
     t0 = time.monotonic()
-    stats = evaluate(save_dir, valid_prefix, batch_size=TRAINER["mbs"],
-                     max_batches=TRAINER["eval_iterations"], device=device)
+    stats = run(save_dir)
     seconds = time.monotonic() - t0
     kernel = dict(Counter(launches.KERNEL) - before[0])
     plain = dict(Counter(launches.PLAIN) - before[1])
+    step3 = run(save_dir / f"global_step{TRAINER['interval']}")
     eval_loss = [r["metrics"]["eval_loss"] for r in records
                  if r["step"] == TRAINER["iterations"] and "eval_loss" in r["metrics"]][0]
+    gap, gap3 = abs(stats["loss"] - in_memory_loss), abs(step3["loss"] - in_memory_loss)
     print(f"  evaluate (step {TRAINER['iterations']} checkpoint, validation prefix, "
           f"{stats['batches']} batches of {TRAINER['mbs']}): loss={stats['loss']} "
           f"accuracy={stats['accuracy']} tokens={stats['tokens']} in {seconds:.2f}s; "
-          f"the trainer's step-{TRAINER['iterations']} eval loss {eval_loss:.6f} "
-          f"(tol {EVAL_NATS} nats); launches kernel={kernel} plain={plain}")
-    if not np.isfinite(stats["loss"]) or not abs(stats["loss"] - eval_loss) <= EVAL_NATS:
+          f"launches kernel={kernel} plain={plain}")
+    print(f"  the trainer's forward on its in-memory step-{TRAINER['iterations']} weights over "
+          f"the same batches: {in_memory_loss:.6f}, gap {gap:.3g} (tol {EVAL_REF_NATS} nats); "
+          f"the step-{TRAINER['interval']} checkpoint: {step3['loss']}, gap {gap3:.3g} (must "
+          f"exceed the tol); the trainer's step-{TRAINER['iterations']} eval loss on its own "
+          f"batches {eval_loss:.6f} (tol {EVAL_NATS} nats)")
+    if not np.isfinite(stats["loss"]) or not gap <= EVAL_REF_NATS:
+        raise AssertionError(f"evaluate: loss {stats['loss']} vs in-memory {in_memory_loss}")
+    if not gap3 > EVAL_REF_NATS:
+        raise AssertionError(f"evaluate cannot tell the step-{TRAINER['interval']} checkpoint: "
+                             f"{step3['loss']} vs in-memory {in_memory_loss}")
+    if not abs(stats["loss"] - eval_loss) <= EVAL_NATS:
         raise AssertionError(f"evaluate: loss {stats['loss']} vs eval loss {eval_loss}")
     check_evaluate_launches(kernel, plain)
     return stats

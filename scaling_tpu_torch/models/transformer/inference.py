@@ -13,13 +13,14 @@ clock, so a row generates what it would alone. The prefill
 (``prefill_forward``) consumes no cache, so the flash kernel K4 runs there
 wherever its gate allows (bf16, ``prompt_len % 128 == 0``), and only the
 sampled position reaches the final norm and the vocabulary projection.
-The decode attends unfused over the dense cache, as the JAX package
-leaves it to XLA. ``fused_decode=True`` keeps the whole decode on the
-device: tokens and per-step logits go into preallocated buffers, with no
-host sync but a check every ``DONE_CHECK_EVERY`` steps whether every row
-has stopped; ``fused_decode=False`` fetches each step's tokens, as the
-JAX per-step path does. Both run the same operations and give the same
-tokens. ``use_cache=False`` refeeds the whole padded buffer every step.
+The decode attends unfused over the written slots of the dense cache,
+as the JAX package leaves it to XLA. It runs one loop whatever
+``fused_decode`` says: tokens and per-step logits go into preallocated
+buffers on the device, and the host checks whether every row has stopped
+every ``DONE_CHECK_EVERY`` steps (``fused_decode=True``, the counterpart
+of the JAX package's on-device loop) or every step (``False``, its
+per-step dispatch). Both give the same tokens. ``use_cache=False``
+refeeds the whole padded buffer every step.
 
 Sampling: greedy rows take the argmax, exactly as the JAX package does.
 Rows with temperature > 0 draw with Gumbel-max noise from a counter-based
@@ -317,12 +318,11 @@ class TransformerInferenceModule:
 
     @torch.no_grad()
     def prefill_forward(self, token_ids: torch.Tensor, position_ids: torch.Tensor,
-                        segment_ids: Optional[torch.Tensor] = None,
-                        last_index: Optional[int] = None):
+                        segment_ids: Optional[torch.Tensor] = None):
         """The prompt pass: the stack with each layer's (k, v) returned (no
         cache consumed, so flash stays active), and logits ``(b, 1, vocab)``
-        for one position, the last by default: only that position feeds
-        the final norm and the head."""
+        of the last position: only that position feeds the final norm and
+        the head."""
         m = self.model
         batch = self._make_batch(token_ids, position_ids, segment_ids)
         pos, seg = batch["position_ids"], batch["segment_ids"]
@@ -331,8 +331,7 @@ class TransformerInferenceModule:
         for layer in m.transformer_layers:
             h, kv = layer(h, pos, None, seg, return_kv=True)
             kvs.append(kv)
-        h = h[:, -1:] if last_index is None else h[:, last_index:last_index + 1]
-        return m.lm_head(m.final_norm(h)), kvs
+        return m.lm_head(m.final_norm(h[:, -1:])), kvs
 
     def _prefill(self, token_ids: torch.Tensor, max_len: int,
                  position_ids: Optional[torch.Tensor] = None,
@@ -387,11 +386,11 @@ class TransformerInferenceModule:
         if eos_token_id is not None:
             stop.add(int(eos_token_id))
         sample = sample_fn or sample_argmax
-        if use_cache and fused_decode:
-            toks, lgts = self._decode_fused(prompt, lay, max_tokens, sample, stop, seed)
+        if use_cache:
+            toks, lgts = self._decode(prompt, lay, max_tokens, sample, stop, seed,
+                                      DONE_CHECK_EVERY if fused_decode else 1)
         else:
-            toks, lgts = self._decode_per_step(prompt, lay, max_tokens, sample, stop, seed,
-                                               use_cache)
+            toks, lgts = self._decode_uncached(prompt, lay, max_tokens, sample, stop, seed)
         outs = []
         for i in range(b):
             end = len(toks[i])
@@ -413,10 +412,11 @@ class TransformerInferenceModule:
         return torch.full((b, 1), offset, dtype=torch.int32, device=self.device)
 
     @torch.no_grad()
-    def _decode_fused(self, prompt, lay: _LeftPadLayout, max_tokens: int, sample, stop: set,
-                      seed: int):
+    def _decode(self, prompt, lay: _LeftPadLayout, max_tokens: int, sample, stop: set,
+                seed: int, check_every: int):
         """Prefill, then every decode step on the device into preallocated
-        token and logit buffers; one transfer of the tokens at the end."""
+        token and logit buffers; one transfer of the tokens at the end. The
+        host learns every ``check_every`` steps whether every row stopped."""
         b, prompt_len = prompt.shape
         logits, caches = self._prefill(prompt, prompt_len + max_tokens, lay.prompt_pos,
                                        lay.prompt_seg)
@@ -428,7 +428,7 @@ class TransformerInferenceModule:
         toks[:, 0], lgts[:, 0] = tok, logits[:, -1]
         done = torch.isin(tok, stop_ids)
         for t in range(1, steps + 1):
-            if t % DONE_CHECK_EVERY == 0 and bool(done.all()):
+            if t % check_every == 0 and bool(done.all()):
                 break  # rows past their stop token are trimmed on the host
             offset = prompt_len + t - 1
             step_logits = self._decode_step(caches, tok, offset,
@@ -439,51 +439,34 @@ class TransformerInferenceModule:
         return toks.cpu().tolist(), lgts
 
     @torch.no_grad()
-    def _decode_per_step(self, prompt, lay: _LeftPadLayout, max_tokens: int, sample,
-                         stop: set, seed: int, use_cache: bool):
-        """Each step's tokens fetched to the host (the JAX per-step path);
-        without the cache the whole padded buffer is refed every step."""
+    def _decode_uncached(self, prompt, lay: _LeftPadLayout, max_tokens: int, sample,
+                         stop: set, seed: int):
+        """No cache: the whole padded buffer is refed every step, and each
+        step's tokens are fetched to the host."""
         b, prompt_len = prompt.shape
         max_len = prompt_len + max_tokens
         row_tokens: List[List[int]] = [[] for _ in range(b)]
         step_logits: List[torch.Tensor] = []
         finished = [False] * b
-
-        def collect(tok, logits):
-            step_logits.append(logits)
-            for i, t in enumerate(tok.cpu().tolist()):  # one transfer a step
-                if not finished[i]:
-                    row_tokens[i].append(t)
-                    finished[i] = t in stop
-
-        if use_cache:
-            logits, caches = self._prefill(prompt, max_len, lay.prompt_pos, lay.prompt_seg)
-            tok = sample(logits[:, -1], (seed, 0)).long()
-            collect(tok, logits[:, -1])
-            for t in range(1, max_tokens):
-                if all(finished):
-                    break
-                offset = prompt_len + t - 1
-                logits = self._decode_step(caches, tok, offset,
-                                           self._positions(lay, b, offset, t), lay.pad_mask)
-                tok = sample(logits, (seed, t)).long()
-                collect(tok, logits)
+        buf = torch.zeros((b, max_len), dtype=torch.int64, device=self.device)
+        buf[:, :prompt_len] = prompt
+        if lay.ragged:
+            pos, seg = lay.pos_all, lay.seg_all
         else:
-            buf = torch.zeros((b, max_len), dtype=torch.int64, device=self.device)
-            buf[:, :prompt_len] = prompt
-            if lay.ragged:
-                pos, seg = lay.pos_all, lay.seg_all
-            else:
-                pos, seg = torch.arange(max_len, device=self.device)[None].expand(b, -1), None
-            for t in range(max_tokens):
-                if all(finished):
-                    break
-                cur = prompt_len + t
-                start = torch.full((b,), cur - 1, device=self.device)
-                logits = self._run_layers(self._make_batch(buf, pos, seg),
-                                          gather_start=start, gather_width=1)[:, 0]
-                tok = sample(logits, (seed, t)).long()
-                collect(tok, logits)
-                buf[:, cur] = tok
+            pos, seg = torch.arange(max_len, device=self.device)[None].expand(b, -1), None
+        for t in range(max_tokens):
+            if all(finished):
+                break
+            cur = prompt_len + t
+            start = torch.full((b,), cur - 1, device=self.device)
+            logits = self._run_layers(self._make_batch(buf, pos, seg),
+                                      gather_start=start, gather_width=1)[:, 0]
+            tok = sample(logits, (seed, t)).long()
+            step_logits.append(logits)
+            for i, tk in enumerate(tok.cpu().tolist()):  # one transfer a step
+                if not finished[i]:
+                    row_tokens[i].append(tk)
+                    finished[i] = tk in stop
+            buf[:, cur] = tok
         lgts = torch.stack(step_logits, dim=1) if step_logits else None
         return row_tokens, lgts

@@ -9,7 +9,8 @@ one of three attention paths, and the output projection:
 - the dense KV cache of ``generate``: a ``(k, v)`` or ``(k, v, segment
   ids)`` tuple of ``(b, max_len, ...)`` buffers, written at
   ``cache_offset`` (``dense_kv_write``); queries attend unfused over the
-  cache slots, causal by slot, within equal segment ids when the cache
+  written slots with grouped products over the unrepeated K/V, causal by
+  slot, within equal segment ids when the cache
   carries them, with an optional additive score term (the left-pad mask
   of ragged prompts). Under left padding a row's rotary positions lag its
   slots: ``position_ids`` stay the rotary clock, the slots the causal one;
@@ -165,14 +166,20 @@ def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Te
                          softmax: MaskedSoftmax,
                          scores_manipulation: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Unfused attention: QK^T -> masked softmax -> PV. q (b, s_q, n, h),
-    k/v (b, s_k, n, h) repeated, mask (b, 1, s_q, s_k) True = forbidden,
-    ``scores_manipulation`` added to the scaled scores (log-additive).
-    Returns (b, s_q, n, h)."""
-    scores = torch.einsum("bqnh,bknh->bnqk", query, key) * scaling_factor
+    k/v (b, s_k, n_kv, h) with ``n_kv`` dividing ``n``: query head ``i``
+    reads kv head ``i // (n / n_kv)``, as ``repeat_kv`` lays them out, and
+    the grouped products read each kv head once, with no repeated copy.
+    mask (b, 1, s_q, s_k) True = forbidden, ``scores_manipulation`` added
+    to the scaled scores (log-additive). Returns (b, s_q, n, h)."""
+    b, s_q, n, h = query.shape
+    n_kv = key.shape[2]
+    q = query.reshape(b, s_q, n_kv, n // n_kv, h)
+    scores = torch.einsum("bqgrh,bkgh->bgrqk", q, key).reshape(b, n, s_q, -1) * scaling_factor
     if scores_manipulation is not None:
         scores = scores + scores_manipulation.to(scores.dtype)
-    probs = softmax(scores, mask)
-    return torch.einsum("bnqk,bknh->bqnh", probs.to(value.dtype), value)
+    probs = softmax(scores, mask).reshape(b, n_kv, n // n_kv, s_q, -1)
+    out = torch.einsum("bgrqk,bkgh->bqgrh", probs.to(value.dtype), value)
+    return out.reshape(b, s_q, n, h)
 
 
 class ParallelSelfAttention(torch.nn.Module):
@@ -293,12 +300,12 @@ class ParallelSelfAttention(torch.nn.Module):
                                    num_local_heads=n_local,
                                    local_window=self.local_attention_window_size)
         mask = segment_ids_to_mask(segment_ids, causal=self.causal)
-        k = repeat_kv(k, self.num_repeat_kv)
-        v = repeat_kv(v, self.num_repeat_kv)
         if n_local == 0:
             return multi_head_attention(q, k, v, mask, self.scaling_factor,
                                         self.masked_softmax, scores_manipulation)
         # mixed heads: the first n - n_local global, the last n_local in the window
+        k = repeat_kv(k, self.num_repeat_kv)
+        v = repeat_kv(v, self.num_repeat_kv)
         local_mask = segment_ids_to_mask(segment_ids, causal=self.causal,
                                          local_window=self.local_attention_window_size)
         n_global = self.num_attention_heads - n_local
@@ -317,23 +324,24 @@ class ParallelSelfAttention(torch.nn.Module):
                                segment_ids: Optional[torch.Tensor],
                                scores_manipulation: Optional[torch.Tensor]) -> torch.Tensor:
         """Write the ``s`` new tokens at slots ``offset..``, then attend
-        over every written slot at or before each query's slot (and, with a
-        3-tuple cache, in its segment)."""
+        over the written slots ``0 .. offset + s - 1`` alone, each query at
+        or before its own slot (and, with a 3-tuple cache, in its segment).
+        ``scores_manipulation`` spans the whole cache and is cut to them."""
         b, s = q.shape[:2]
         dense_kv_write(cache, k, v, offset, segment_ids)
-        s_k = cache[0].shape[1]
-        slots_k = torch.arange(s_k, device=q.device)
+        end = offset + s
+        slots_k = torch.arange(end, device=q.device)
         slots_q = offset + torch.arange(s, device=q.device)
-        allowed = (slots_k < offset + s)[None, :] & (slots_k[None, :] <= slots_q[:, None])
-        allowed = allowed[None]  # (1, s, s_k)
+        allowed = (slots_k[None, :] <= slots_q[:, None])[None]  # (1, s, end)
         if len(cache) == 3:
             seg_q = (torch.zeros(b, s, dtype=cache[2].dtype, device=q.device)
                      if segment_ids is None else segment_ids)
-            allowed = allowed & (cache[2][:, None, :] == seg_q[:, :, None])
-        ck = repeat_kv(cache[0], self.num_repeat_kv)
-        cv = repeat_kv(cache[1], self.num_repeat_kv)
-        return multi_head_attention(q, ck, cv, ~allowed[:, None], self.scaling_factor,
-                                    self.masked_softmax, scores_manipulation)
+            allowed = allowed & (cache[2][:, None, :end] == seg_q[:, :, None])
+        if scores_manipulation is not None:
+            scores_manipulation = scores_manipulation[..., :end]
+        return multi_head_attention(q, cache[0][:, :end], cache[1][:, :end], ~allowed[:, None],
+                                    self.scaling_factor, self.masked_softmax,
+                                    scores_manipulation)
 
     def _paged_attention(self, q, k, v, view: PagedKVCacheView) -> torch.Tensor:
         """Scatter the ``s`` new tokens per row into the pool (padding past

@@ -59,7 +59,7 @@ from scaling_tpu_torch.nn.rotary import RotaryEmbedding, RotaryEmbeddingComplex 
 from scaling_tpu_torch.ops import launches  # noqa: E402
 from scaling_tpu_torch.parallel import ParallelModule  # noqa: E402
 
-from .torch_parity import (  # noqa: E402
+from .test_torch_parity_helpers import (  # noqa: E402
     config_dict,
     draw,
     draw_weights,

@@ -8,7 +8,8 @@ phase's recompute does the same for a bf16 ``generate`` against the f32
 ``logits()``: a zeroed attention or K/V written one cache slot late
 fails it. Beside them, the build phase's reading of the ``ptxas -v`` log
 (registers and spills), and the trainer and generation phases' control
-flow at toy size."""
+flow at toy size, where ``evaluate`` on the step-3 checkpoint in place of
+step 6's fails the trainer phase."""
 
 import pathlib
 import sys
@@ -84,12 +85,9 @@ def test_ptxas_log_gives_each_kernels_registers_and_spills():
         chip_smoke.kernel_resources("nvcc printed nothing")
 
 
-def test_trainer_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
-    """The trainer phase's control flow on the toy model on the CPU: token
-    datasets, two checkpoints that verify, the resume from step 3 with the
-    same state, batch and step-4 loss, and the checkpoint served with the
-    trainer's own tokens. What only the card can give stays unchecked here:
-    kernel launches (the CPU runs the plain versions) and ``palm_mfu``."""
+def _toy_trainer(monkeypatch) -> dict:
+    """The trainer phase cut to the toy model on the CPU, its launch and
+    ``palm_mfu`` checks replaced by a record of the counts."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
     # 8 eval batches: the toy's eval sets (2048 tokens) are small enough that
@@ -107,12 +105,43 @@ def test_trainer_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "check_step_records", lambda steps: None)
     monkeypatch.setattr(chip_smoke, "check_evaluate_launches",
                         lambda kernel, plain: seen.update(eval_plain=plain))
+    return seen
+
+
+def test_trainer_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
+    """The trainer phase's control flow on the toy model on the CPU: token
+    datasets, two checkpoints that verify, the resume from step 3 with the
+    same state, batch and step-4 loss, ``evaluate`` held to the trainer's
+    in-memory weights, and the checkpoint served with the trainer's own
+    tokens. What only the card can give stays unchecked here: kernel
+    launches (the CPU runs the plain versions) and ``palm_mfu``."""
+    seen = _toy_trainer(monkeypatch)
     chip_smoke.trainer_phase(1.0, device="cpu")
     out = capsys.readouterr().out
     assert "step 4 bitwise equal" in out and "tokens equal to the trainer's" in out
     assert "evaluate (step 6 checkpoint" in out and seen["eval_plain"]["rms_norm"] > 0
+    assert "the trainer's forward on its in-memory step-6 weights" in out
     assert seen["kernel"] == {} and seen["plain"]["flash_attention_bwd"] > 0
     assert seen["plain"]["paged_attention"] > 0
+
+
+def test_trainer_phase_evaluate_tells_the_step3_checkpoint(monkeypatch):
+    """``evaluate`` pointed at the step-3 checkpoint where the phase asks for
+    step 6's fails the hold against the trainer's in-memory weights."""
+    import scaling_tpu_torch.models.transformer.evaluate as evaluate_module
+
+    _toy_trainer(monkeypatch)
+    evaluate = evaluate_module.evaluate
+
+    def step3(checkpoint, *a, **kw):
+        checkpoint = pathlib.Path(checkpoint)
+        if checkpoint.name == "ckpt":
+            checkpoint = checkpoint / "global_step3"
+        return evaluate(checkpoint, *a, **kw)
+
+    monkeypatch.setattr(evaluate_module, "evaluate", step3)
+    with pytest.raises(AssertionError, match="vs in-memory"):
+        chip_smoke.trainer_phase(1.0, device="cpu")
 
 
 def _toy_generation(monkeypatch):

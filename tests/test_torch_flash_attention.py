@@ -31,7 +31,7 @@ from scaling_tpu_torch.nn.attention import ParallelSelfAttention  # noqa: E402
 from scaling_tpu_torch.nn.masked_softmax import MaskedSoftmaxConfig  # noqa: E402
 from scaling_tpu_torch.ops import flash_attention, launches  # noqa: E402
 
-from .torch_parity import route_flash_as_bf16  # noqa: E402
+from .test_torch_parity_helpers import route_flash_as_bf16  # noqa: E402
 
 FWD_ATOL = 2e-5
 GRAD_ATOL = 5e-4

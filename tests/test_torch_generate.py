@@ -20,7 +20,7 @@ jax = pytest.importorskip("jax")
 from scaling_tpu_torch.models.transformer.inference import make_sampler  # noqa: E402
 from scaling_tpu_torch.ops import launches  # noqa: E402
 
-from .torch_parity import draw, inference_pair, module_state  # noqa: E402
+from .test_torch_parity_helpers import draw, inference_pair, module_state  # noqa: E402
 
 VOCAB = 96
 ARCHS = {
