@@ -74,6 +74,25 @@ Phases, each of which must pass:
    step ms beside phase 5's, and checkpoint save and load seconds, GB/s
    and size. The checkpoints go to a temporary directory outside the
    checkout, removed at the end;
+9. supervision: the same training, from the same seed and token
+   datasets, in child processes of this script (``--supervise-child``)
+   with ``save_checkpoint_async``, ``dataloader_prefetch_factor: 2``,
+   ``step_timeout_seconds: 120`` and ``max_consecutive_nonfinite: 2``.
+   Run A installs the SIGTERM handler and gets a real SIGTERM once its
+   step-4 record is written: it must exit 0 at the boundary it reached
+   (k = 4 or 5) with no record after k, ``global_step3`` and
+   ``global_step{k}`` verifying with a ``MESH.json``, ``latest`` naming k,
+   the losses of steps 1-k bitwise equal to phase 8's, the npz files of
+   ``global_step3`` carrying the crc32s of phase 8's synchronous step-3
+   save (an async snapshot that missed a host copy fails here), and no
+   watchdog stall. Run B resumes through ``run_with_resume`` to step 6:
+   at k, steps k+1-6 within rtol 1e-4 of phase 8's, ``global_step6``
+   verifying, the older checkpoints' optimizer files pruned after its
+   commit; K2-K5 launched and no plain version run. Print each async
+   save's hold of the loop and its time until durable beside phase 8's
+   synchronous saves, the peak host RSS in each save's window, and the
+   step ms with prefetch apart from writes (beside phase 8's and the
+   bench step) and during a write;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -88,13 +107,17 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -131,6 +154,12 @@ TRAINER = dict(model="0.5b", seq=TRAIN_SEQ, mbs=TRAIN_MBS, tokens=2_000_000,
                valid_tokens=64_000, doc_len=(64, 4096), iterations=6, interval=3,
                eval_iterations=2, serve_requests=4, serve_prompt=(64, 256), serve_output=32)
 RESUME_RTOL = 1e-4  # steps 5-6 after the resume: the embedding backward adds with atomics
+# phase 9: phase 8's run with the supervision keys on, in child processes; run
+# A gets SIGTERM once its step-4 record is written, each child pausing after
+# each logged step so that the signal lands within steps 4-5
+SUPERVISE = dict(keys={"save_checkpoint_async": True, "dataloader_prefetch_factor": 2,
+                       "step_timeout_seconds": 120, "max_consecutive_nonfinite": 2},
+                 sigterm_after=4, pause_s=0.3, child_timeout_s=420)
 EVAL_NATS = 0.05  # evaluate's loss on the step-6 checkpoint vs the trainer's step-6 eval loss
 EVAL_REF_NATS = 1e-4  # evaluate vs the trainer's forward on its in-memory weights, same batches
 # generation: 8 prompts of 256-1024 tokens (the longest exactly 1024, so the
@@ -1168,7 +1197,10 @@ def check_trainer_launches(kernel: dict, plain: dict) -> None:
 
 def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
     """The Trainer end to end (phase 8 of the module's docstring); the
-    launch counters reset just before and read just after. Returns them."""
+    launch counters reset just before and read just after. Returns them
+    (``launches``) with what phase 9 is held against: the first run's
+    losses, the crc32 of each npz file of its synchronous step-3 save, the
+    save seconds and the steady step ms."""
     from scaling_tpu_torch.models.transformer import (
         TransformerConfig,
         TransformerInferenceModule,
@@ -1291,9 +1323,18 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         opt_bytes = sum(f.stat().st_size for f in step_dirs[0].glob("optimizer_state*"))
         print(f"  checkpoint size: {size} bytes ({size / 1e9:.2f} GB): {size - opt_bytes} "
               f"weights and the rest, {opt_bytes} optimizer state")
-        return kernel
+        return {"launches": kernel, "losses": losses, "step3_crcs": npz_crcs(step_dirs[0]),
+                "saves": [(d.name, sec) for d, sec in first.saves], "step_ms": step_ms}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def npz_crcs(step_dir: Path) -> dict:
+    """The crc32 the manifest records for each npz file of a checkpoint."""
+    from scaling_tpu_torch.resilience import read_manifest
+
+    return {name: entry["crc32"] for name, entry in read_manifest(step_dir)["files"].items()
+            if name.endswith(".npz")}
 
 
 def check_evaluate_launches(kernel: dict, plain: dict) -> None:
@@ -1335,8 +1376,6 @@ def evaluate_checkpoint(save_dir: Path, valid_prefix: str, records: list,
     batches within ``EVAL_REF_NATS``, a limit the step-3 checkpoint must
     miss, and lie within ``EVAL_NATS`` of the trainer's own step-6 eval
     loss (other, shuffled batches)."""
-    from collections import Counter
-
     from scaling_tpu_torch.models.transformer.evaluate import evaluate
     from scaling_tpu_torch.ops import launches
 
@@ -1377,6 +1416,264 @@ def evaluate_checkpoint(save_dir: Path, valid_prefix: str, records: list,
 def check_step_records(steps: list) -> None:
     if not all("palm_mfu" in r["metrics"] for r in steps):
         raise AssertionError("a step record has no palm_mfu")
+
+
+# ------------------------------------------------------------ supervision
+def supervise_config(prefixes: dict, log_dir: Path, save_dir: Path, resume: bool) -> dict:
+    """Phase 8's config with the trainer's supervision keys on. Run B, the
+    resume, also prunes past optimizer states, after its commit."""
+    config = trainer_config(prefixes, log_dir, save_dir=save_dir,
+                            load_dir=save_dir if resume else None)
+    config["trainer"].update(SUPERVISE["keys"], delete_past_optimizer_states=resume)
+    return config
+
+
+def supervise_child_command(spec_file: Path) -> list:
+    """The command of one of phase 9's child runs."""
+    return [sys.executable, str(Path(__file__).resolve()), "--supervise-child", str(spec_file)]
+
+
+def supervise_child(spec_file: str) -> int:
+    """One supervised Trainer run in a process of its own (phase 9): the
+    spec's ``config`` through ``run_with_resume``, SIGTERM handled by
+    ``install_preemption_handler``, a pause of ``pause_s`` after each
+    logged step. Writes to ``result_path`` the iterations, where it
+    resumed, the watchdog's stalls, its launch counters, and timed events
+    (wall clock): each step, each save's start and return, each commit
+    made durable (``latest`` written), each pruning, and the peak resident
+    memory inside each save's window."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import build_trainer
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.resilience import CheckpointCommit, run_with_resume
+    from scaling_tpu_torch.trainer import BaseTrainer
+
+    spec = json.loads(Path(spec_file).read_text())
+    events, rss, stop = [], [], threading.Event()
+
+    def sample_rss():
+        page = os.sysconf("SC_PAGE_SIZE")
+        while not stop.wait(0.02):
+            with open("/proc/self/statm") as f:
+                rss.append((time.time(), int(f.read().split()[1]) * page))
+
+    threading.Thread(target=sample_rss, name="rss-sampler", daemon=True).start()
+    update_latest, prune = CheckpointCommit.update_latest, BaseTrainer._prune_past_optimizer_states
+
+    def timed_latest(commit):
+        update_latest(commit)
+        events.append({"event": "durable", "step": commit.step, "t": time.time()})
+
+    def timed_prune(base, step_dir):
+        prune(base, step_dir)
+        events.append({"event": "pruned", "step": int(step_dir.name[len("global_step"):]),
+                       "t": time.time()})
+
+    CheckpointCommit.update_latest = timed_latest
+    BaseTrainer._prune_past_optimizer_states = staticmethod(timed_prune)
+    resumed_from = []
+
+    def factory():
+        trainer = build_trainer(TransformerConfig.from_dict(spec["config"]),
+                                device=spec["device"])
+        trainer.install_preemption_handler()
+        save, train_step = trainer.save_checkpoint, trainer.train_step
+
+        def timed_save(*a, **kw):
+            it, t0 = trainer.context.iterations, time.time()
+            step_dir = save(*a, **kw)
+            events.append({"event": "save", "step": it, "t": t0, "returned": time.time()})
+            return step_dir
+
+        def timed_step():
+            t0 = time.time()
+            out = train_step()
+            events.append({"event": "step", "step": trainer.context.iterations, "t": t0,
+                           "end": time.time()})
+            return out
+
+        trainer.save_checkpoint, trainer.train_step = timed_save, timed_step
+        trainer.metrics_hooks.append(lambda metrics, step: time.sleep(spec["pause_s"]))
+        resumed_from.append(trainer.context.iterations)
+        return trainer
+
+    trainer = run_with_resume(factory, restart_budget=0)
+    stop.set()
+    durable = {e["step"]: e["t"] for e in events if e["event"] == "durable"}
+    for e in events:
+        if e["event"] == "save":
+            window = [b for t, b in rss if e["t"] <= t <= durable.get(e["step"], e["returned"])]
+            e["peak_rss"] = max(window, default=None)
+            e["rss_before"] = max((b for t, b in rss if t <= e["t"]), default=None)
+            e["durable"] = durable.get(e["step"])
+    Path(spec["result_path"]).write_text(json.dumps({
+        "iterations": trainer.context.iterations, "resumed_from": resumed_from,
+        "stall_count": trainer.watchdog.stall_count, "events": events,
+        "kernel": dict(launches.KERNEL), "plain": dict(launches.PLAIN)}))
+    return 0
+
+
+def check_supervise_launches(kernel: dict, plain: dict) -> None:
+    needed = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd")
+    if any(kernel.get(k, 0) <= 0 for k in needed):
+        raise AssertionError(f"supervise phase: kernels not launched on its path: {kernel}")
+    if sum(plain.values()) != 0:
+        raise AssertionError(f"supervise phase: plain versions ran on the card: {plain}")
+
+
+def step_records(log_dir: Path) -> dict:
+    """Step -> its metrics record, from a run's ``metrics_rank_0.jsonl``."""
+    f = log_dir / "metrics_rank_0.jsonl"
+    records = [json.loads(line) for line in f.read_text().splitlines()] if f.is_file() else []
+    return {r["step"]: r["metrics"] for r in records if "loss" in r["metrics"]}
+
+
+def run_child(root: Path, name: str, config: dict, device: str, sigterm_after=None) -> dict:
+    """One child run; with ``sigterm_after`` the parent sends it SIGTERM once
+    that step's record is written. Fails unless it exits 0; returns its
+    result. The child never outlives the call."""
+    spec = root / f"{name}.json"
+    spec.write_text(json.dumps({"config": config, "device": device, "pause_s": SUPERVISE[
+        "pause_s"], "result_path": str(root / f"{name}_result.json")}))
+    log_file = root / f"{name}.log"
+    with open(log_file, "w") as log:
+        proc = subprocess.Popen(supervise_child_command(spec), cwd=Path(__file__).resolve().parent,
+                                stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + SUPERVISE["child_timeout_s"]
+        log_dir = Path(config["logger"]["log_dir"])
+        if sigterm_after is not None:
+            while sigterm_after not in step_records(log_dir):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"{name}: no step-{sigterm_after} record before the "
+                                         f"child ended:\n{log_file.read_text()[-4000:]}")
+                time.sleep(0.01)
+            proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"{name}: child exited {rc}:\n{log_file.read_text()[-4000:]}")
+    return json.loads((root / f"{name}_result.json").read_text())
+
+
+def overlap_steps(result: dict, records: dict) -> tuple:
+    """The steady steps' ``step_duration`` ms (each child's first step left
+    out), split by whether an asynchronous save was still writing while the
+    step ran: (apart, during a write), each as {step: ms}."""
+    steps = [e for e in result["events"] if e["event"] == "step"][1:]
+    writes = [(e["returned"], e["durable"]) for e in result["events"]
+              if e["event"] == "save" and e["durable"] is not None]
+    apart, during = {}, {}
+    for e in steps:
+        ms = records[e["step"]]["step_duration"] * 1e3
+        busy = any(e["t"] < end and e["end"] > start for start, end in writes)
+        (during if busy else apart)[e["step"]] = ms
+    return apart, during
+
+
+def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda") -> dict:
+    """Phase 9: the supervised Trainer in child processes, held against
+    phase 8's run (``trainer_run``). Returns the children's launch counts."""
+    from scaling_tpu_torch.resilience import verify_checkpoint
+    from scaling_tpu_torch.train.bench import MODELS
+
+    vocab = MODELS[TRAINER["model"]]["vocab_size"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_supervise_"))
+    try:
+        free = shutil.disk_usage(root).free
+        need = 3 * 16 * 495_110_144 + (1 << 30) if TRAINER["model"] == "0.5b" else 1 << 30
+        print(f"  temporary directory {root}: {free / 1e9:.1f} GB free, three checkpoints need "
+              f"~{need / 1e9:.1f} GB")
+        if free < need:
+            raise AssertionError(f"not enough disk for three checkpoints under {root}")
+        prefixes = write_token_datasets(root, vocab)
+        save_dir = root / "ckpt"
+        gold = trainer_run["losses"]
+
+        # run A: SIGTERM from outside once step 4 is logged
+        a = run_child(root, "run_a", supervise_config(prefixes, root / "logs_a", save_dir, False),
+                      device, sigterm_after=SUPERVISE["sigterm_after"])
+        k, records_a = a["iterations"], step_records(root / "logs_a")
+        losses = [records_a[s]["loss"] for s in sorted(records_a)]
+        print(f"  run A: SIGTERM after the step-4 record; exited 0 at step {k}; losses {losses}")
+        if k not in (4, 5) or sorted(records_a) != list(range(1, k + 1)):
+            raise AssertionError(f"run A stopped at {k} with records {sorted(records_a)}")
+        if losses != gold[:k]:
+            raise AssertionError(f"run A's losses {losses} are not phase 8's {gold[:k]}")
+        if (save_dir / "latest").read_text() != f"global_step{k}":
+            raise AssertionError(f"latest names {(save_dir / 'latest').read_text()}, not {k}")
+        for step in (3, k):
+            d = save_dir / f"global_step{step}"
+            problems = verify_checkpoint(d)
+            if problems or not (d / "MESH.json").is_file():
+                raise AssertionError(f"{d.name}: {problems or 'no MESH.json'}")
+        differ = sorted(name for name, crc in npz_crcs(save_dir / "global_step3").items()
+                        if trainer_run["step3_crcs"].get(name) != crc)
+        if differ or len(trainer_run["step3_crcs"]) != len(npz_crcs(save_dir / "global_step3")):
+            raise AssertionError(f"the asynchronous global_step3 differs from phase 8's "
+                                 f"synchronous save in {differ}")
+        print(f"  steps 1-{k} bitwise equal to phase 8; global_step3 and global_step{k} verify "
+              f"with MESH.json; global_step3's {len(trainer_run['step3_crcs'])} npz files carry "
+              "the crc32s of phase 8's synchronous save")
+
+        # run B: run_with_resume from save_dir to step 6
+        b = run_child(root, "run_b", supervise_config(prefixes, root / "logs_b", save_dir, True),
+                      device)
+        records_b = step_records(root / "logs_b")
+        again = [records_b[s]["loss"] for s in sorted(records_b)]
+        rel = [abs(x - y) / abs(y) for x, y in zip(again, gold[k:])]
+        print(f"  run B: resumed at {b['resumed_from']}, losses {again}; rel. diff to phase 8 "
+              f"{rel} (rtol {RESUME_RTOL})")
+        if b["resumed_from"] != [k] or sorted(records_b) != list(range(k + 1, 7)):
+            raise AssertionError(f"run B resumed at {b['resumed_from']}, steps {sorted(records_b)}")
+        if not max(rel) <= RESUME_RTOL:
+            raise AssertionError(f"run B's losses {again} vs phase 8's {gold[k:]}")
+        step6 = save_dir / "global_step6"
+        if verify_checkpoint(step6) or (save_dir / "latest").read_text() != "global_step6":
+            raise AssertionError(f"global_step6: {verify_checkpoint(step6)}")
+        t_durable = [e["t"] for e in b["events"] if e["event"] == "durable" and e["step"] == 6]
+        t_pruned = [e["t"] for e in b["events"] if e["event"] == "pruned" and e["step"] == 6]
+        if len(t_durable) != 1 or len(t_pruned) != 1 or not t_pruned[0] > t_durable[0]:
+            raise AssertionError(f"pruning did not follow global_step6's commit: {b['events']}")
+        for step in (3, k):
+            d = save_dir / f"global_step{step}"
+            if list(d.glob("optimizer_state_*")) or verify_checkpoint(d):
+                raise AssertionError(f"{d.name} not pruned or no longer verifies")
+        stalls = (a["stall_count"], b["stall_count"])
+        print(f"  global_step6 verifies, latest names it, global_step3 and global_step{k} lost "
+              f"their optimizer files after its commit; watchdog stalls {stalls}")
+        if stalls != (0, 0):
+            raise AssertionError(f"the watchdog fired: {stalls}")
+
+        sync = ", ".join(f"{name} {sec:.2f}s" for name, sec in trainer_run["saves"])
+        for run, result in (("A", a), ("B", b)):
+            for e in (e for e in result["events"] if e["event"] == "save"):
+                print(f"  run {run} async save global_step{e['step']}: loop held "
+                      f"{e['returned'] - e['t']:.2f}s, durable after {e['durable'] - e['t']:.2f}s;"
+                      f" peak host RSS in its window {e['peak_rss'] / 1e9:.2f} GB "
+                      f"({e['rss_before'] / 1e9:.2f} GB before it)")
+        print(f"  phase 8's synchronous saves held the loop: {sync}")
+        apart, during = {}, {}
+        for run, result, records in (("A", a, records_a), ("B", b, records_b)):
+            x, y = overlap_steps(result, records)
+            apart.update({f"{run}{s}": v for s, v in x.items()})
+            during.update({f"{run}{s}": v for s, v in y.items()})
+        median = statistics.median(apart.values()) if apart else float("nan")
+        print(f"  step ms with prefetch, overlapping no write (each run's first step left out): "
+              f"{ {s: round(v, 2) for s, v in apart.items()} }, median {median:.2f}ms; phase 8 "
+              f"(no prefetch) {trainer_run['step_ms']:.2f}ms, bench step {bench_step_ms:.2f}ms")
+        print(f"  step ms during an asynchronous write: "
+              f"{ {s: round(v, 2) for s, v in during.items()} }")
+        kernel = dict(Counter(a["kernel"]) + Counter(b["kernel"]))
+        plain = dict(Counter(a["plain"]) + Counter(b["plain"]))
+        print(f"  launches kernel={kernel} plain={plain}")
+        check_supervise_launches(kernel, plain)
+        return kernel
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def time_kernels(errs: dict) -> list:
@@ -1534,7 +1831,11 @@ def main() -> int:
     # then (on an H100 a kernel's profiled sum fell to half its time after
     # it), so the kernel times are taken before it
     print("== trainer: 0.5B from token datasets, checkpoints, resume, serve the checkpoint")
-    launches_by_path["trainer"] = trainer_phase(trained["step_ms"])
+    trainer_run = trainer_phase(trained["step_ms"])
+    launches_by_path["trainer"] = trainer_run["launches"]
+    print("== supervise: the trainer phase's run with preemption, prefetch, asynchronous "
+          "checkpoints, the watchdog and run_with_resume, in child processes")
+    launches_by_path["supervise"] = supervise_phase(trainer_run, trained["step_ms"])
     print("== launches on the main paths")
     add_launches(rows, launches_by_path)
     print(f"== done in {time.monotonic() - t_start:.1f}s")
@@ -1547,4 +1848,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--supervise-child"]:
+        sys.exit(supervise_child(sys.argv[2]))
     sys.exit(main())

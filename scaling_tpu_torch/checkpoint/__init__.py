@@ -2,6 +2,7 @@
 scaling_tpu/checkpoint/)."""
 
 from .checkpoint import (
+    AsyncCheckpointWriter,
     enforce_allow_lists,
     load_model_checkpoint,
     load_optimizer_checkpoint,
@@ -10,6 +11,7 @@ from .checkpoint import (
 )
 
 __all__ = [
+    "AsyncCheckpointWriter",
     "enforce_allow_lists",
     "load_model_checkpoint",
     "load_optimizer_checkpoint",

@@ -1,5 +1,5 @@
 """Checkpoints in the JAX package's on-disk layout (counterpart of
-scaling_tpu/checkpoint/checkpoint.py, npz backend, written synchronously).
+scaling_tpu/checkpoint/checkpoint.py, npz backend).
 
 - one ``model_state_layer_{i}_{Class}.npz`` per layer, its entries the
   JAX parameter names (``attention.query.weight``);
@@ -19,14 +19,21 @@ scaling_tpu/checkpoint/checkpoint.py, npz backend, written synchronously).
 Parameters are matched by their JAX key (``layer_{i}_{Class}.{name}``,
 ``ParallelModule.ckpt_keys``), so a checkpoint of either package loads
 in the other. Non-strict loading follows ``enforce_allow_lists``.
+
+Every save takes its own host copy of each tensor before it returns
+(``_to_numpy``); with an ``AsyncCheckpointWriter`` the serialisation,
+crc32 and write of each file then run on the writer's thread while the
+training loop goes on updating the tensors in place.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import logging
 import os
 import re
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple, Union
 
@@ -35,6 +42,7 @@ import torch
 
 from ..optimizer import Optimizer
 from ..parallel.parallel_module import transposed_in_jax
+from ..resilience.faults import get_fault_plan
 from ..resilience.guards import retry_io
 from ..resilience.manifest import crc32_bytes
 
@@ -42,6 +50,55 @@ PathLike = Union[Path, str]
 Recorder = Callable[[Path, int, str], None]
 OPT_FIELDS = ("master", "exp_avg", "exp_avg_sq")
 _KEY_RE = re.compile(r"layer_(\d+)_([A-Za-z0-9]+)\.(.+)")
+
+_log = logging.getLogger("scaling_tpu_torch")
+
+
+class AsyncCheckpointWriter:
+    """Runs checkpoint writes on one background thread, in submission order.
+
+    ``submit`` applies backpressure past ``max_queued`` unfinished tasks,
+    which bounds the host memory held by queued copies at a few files'
+    worth. Once a task fails, every later task is skipped (so the commit
+    and ``latest`` of a save never land on a partly written checkpoint),
+    and the first failure re-raises from ``wait()`` only, never on the
+    submitting thread. ``wait()`` returns when every submitted task has
+    finished.
+    """
+
+    def __init__(self, max_queued: int = 4) -> None:
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-writer")
+        self._pending: List[Future] = []
+        self._max_queued = max_queued
+        # the first failure of the save in flight; tasks record it here, so
+        # the futures never carry an exception
+        self._first_error: Optional[BaseException] = None
+
+    def submit(self, fn: Callable, *args) -> None:
+        def run():
+            if self._first_error is not None:
+                return
+            try:
+                fn(*args)
+            except BaseException as e:  # re-raised from wait()
+                self._first_error = e
+                _log.error(f"checkpoint writer task failed: {e!r}")
+
+        while len([f for f in self._pending if not f.done()]) >= self._max_queued:
+            self._pending.pop(0).result()  # backpressure; a failure stays recorded
+        self._pending.append(self._pool.submit(run))
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()  # tasks never raise: a completion barrier
+        err, self._first_error = self._first_error, None
+        if err is not None:
+            raise err
+
+    def close(self) -> None:
+        self.wait()
+        self._pool.shutdown(wait=True)
 
 
 def _split_key(key: str) -> Tuple[int, str, str]:
@@ -54,13 +111,16 @@ def _split_key(key: str) -> Tuple[int, str, str]:
 
 
 def _to_numpy(key: str, t: torch.Tensor) -> np.ndarray:
-    """A tensor in the JAX layout and a dtype numpy can store."""
+    """A host copy of ``t`` in the JAX layout and a dtype numpy can store,
+    complete when this returns. Always a new array: the optimizer updates
+    the tensors in place while an asynchronous save is still writing, and
+    on the CPU ``.cpu().numpy()`` would be the live tensor itself."""
     t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
     if transposed_in_jax(key, t.ndim):
-        t = t.t().contiguous()
-    return t.cpu().numpy()
+        t = t.t()
+    out = torch.empty(t.shape, dtype=torch.float32 if t.dtype == torch.bfloat16 else t.dtype)
+    out.copy_(t)  # into pageable host memory: synchronous
+    return out.numpy()
 
 
 def _from_numpy(key: str, arr: np.ndarray) -> torch.Tensor:
@@ -79,25 +139,39 @@ def _write_npz(path: Path, arrays: Dict[str, np.ndarray],
         recorder(path, len(data), crc32_bytes(data))
 
     def put():
+        act = get_fault_plan().fire("ckpt.write", path=path)
         with open(path, "wb") as f:
             f.write(data)
             f.flush()
             os.fsync(f.fileno())
+        if act == "corrupt":
+            get_fault_plan().corrupt_file(path)
 
     retry_io(put, what=f"checkpoint write {path.name}")
 
 
+def _emit(writer: Optional[AsyncCheckpointWriter], path: Path, arrays: Dict[str, np.ndarray],
+          recorder: Optional[Recorder]) -> None:
+    if writer is None:
+        _write_npz(path, arrays, recorder)
+    else:
+        writer.submit(_write_npz, path, arrays, recorder)
+
+
 def save_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
-                          recorder: Optional[Recorder] = None) -> None:
-    """One npz per layer. ``params`` maps JAX keys to the port's tensors."""
+                          recorder: Optional[Recorder] = None,
+                          writer: Optional[AsyncCheckpointWriter] = None) -> None:
+    """One npz per layer. ``params`` maps JAX keys to the port's tensors;
+    with ``writer`` the files are written on its thread."""
     path = Path(dir)
     path.mkdir(parents=True, exist_ok=True)
-    groups: Dict[Tuple[int, str], Dict[str, np.ndarray]] = {}
-    for key, t in params.items():
+    groups: Dict[Tuple[int, str], Dict[str, str]] = {}
+    for key in params:
         index, cls, name = _split_key(key)
-        groups.setdefault((index, cls), {})[name] = _to_numpy(key, t)
-    for (index, cls), arrays in groups.items():
-        _write_npz(path / f"model_state_layer_{index}_{cls}.npz", arrays, recorder)
+        groups.setdefault((index, cls), {})[name] = key
+    for (index, cls), names in groups.items():  # host copies one layer at a time
+        arrays = {name: _to_numpy(key, params[key]) for name, key in names.items()}
+        _emit(writer, path / f"model_state_layer_{index}_{cls}.npz", arrays, recorder)
 
 
 def _compile(patterns: Optional[List[str]]) -> list:
@@ -169,24 +243,27 @@ def load_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
 
 
 def save_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer, keys: Mapping[str, str],
-                              recorder: Optional[Recorder] = None) -> None:
-    """One ``optimizer_state_layer_{i}.npz`` per layer and
-    ``optimizer_state.json``. ``keys`` maps the port's parameter names to
-    their JAX keys; parameters without optimizer state get ``(0,)``
-    placeholders."""
+                              recorder: Optional[Recorder] = None,
+                              writer: Optional[AsyncCheckpointWriter] = None) -> None:
+    """One ``optimizer_state_layer_{i}.npz`` per layer (on ``writer``'s
+    thread when given) and ``optimizer_state.json``. ``keys`` maps the
+    port's parameter names to their JAX keys; parameters without optimizer
+    state get ``(0,)`` placeholders."""
     path = Path(dir)
     path.mkdir(parents=True, exist_ok=True)
     state = optimizer.state
-    per_layer: Dict[int, Dict[str, np.ndarray]] = {}
+    per_layer: Dict[int, List[Tuple[str, str]]] = {}
     for name, key in keys.items():
-        index, _, pname = _split_key(key)
-        bucket = per_layer.setdefault(index, {})
-        for field in OPT_FIELDS:
-            tensors = getattr(state, field)
-            bucket[f"{field}.{pname}"] = (_to_numpy(key, tensors[name]) if name in tensors
-                                          else np.zeros((0,), np.float32))
-    for index, arrays in per_layer.items():
-        _write_npz(path / f"optimizer_state_layer_{index}.npz", arrays, recorder)
+        per_layer.setdefault(_split_key(key)[0], []).append((name, key))
+    for index, members in per_layer.items():  # host copies one layer at a time
+        arrays = {}
+        for name, key in members:
+            for field in OPT_FIELDS:
+                tensors = getattr(state, field)
+                arrays[f"{field}.{_split_key(key)[2]}"] = (
+                    _to_numpy(key, tensors[name]) if name in tensors
+                    else np.zeros((0,), np.float32))
+        _emit(writer, path / f"optimizer_state_layer_{index}.npz", arrays, recorder)
     ls = state.loss_scaler
     scalars = {"step": int(state.step),
                "loss_scaler": {"current_scale": float(ls.current_scale),

@@ -20,6 +20,7 @@ from typing import Any, Generator, List
 
 import numpy as np
 
+from ..resilience.faults import get_fault_plan
 from ..resilience.guards import DEFAULT_RETRY_ATTEMPTS, DEFAULT_RETRY_BACKOFF_SECONDS, retry_io
 from .base_dataset import BaseDataset
 
@@ -81,6 +82,9 @@ class DataLoader:
         self._iter = iter(self._sampler)
 
     def _read_batch(self, indices: List[int]) -> Any:
+        # the fault point and the index-based reads retry together: a retry
+        # reads the same samples again
+        get_fault_plan().fire("data.read")
         return self.dataset.collate([self.dataset[i] for i in indices])
 
     def __next__(self) -> Any:

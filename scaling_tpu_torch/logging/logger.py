@@ -6,7 +6,8 @@ and, with ``log_dir``, to ``<log_dir>/rank_0.log``. ``log_metrics`` prints
 one line a step and appends the JAX trainer's record to the metrics JSONL
 (``metrics_path``, else ``<log_dir>/metrics_rank_0.jsonl``):
 ``{"kind": "step", "step", "ts", "host", "metrics": {name: value}}``,
-non-finite values as null. TensorBoard, wandb and the lifecycle events
+non-finite values as null. ``log_event`` writes a lifecycle event to
+the log as the JAX logger mirrors it. TensorBoard, wandb and the events
 file are not ported: turning one on raises NotImplementedError.
 """
 
@@ -96,6 +97,15 @@ class Logger:
 
     def warning(self, msg: Any) -> None:
         self._log.warning(msg)
+
+    def error(self, msg: Any) -> None:
+        self._log.error(msg)
+
+    def log_event(self, event: str, **fields: Any) -> None:
+        """A lifecycle event as the JAX logger mirrors it to the log: one
+        ``EVENT {json}`` line (the events file is not ported)."""
+        record = {"event": event, "ts": time.time(), **fields}
+        self.info(f"EVENT {json.dumps(record, sort_keys=True, default=str)}")
 
     def metrics_path(self) -> Optional[Path]:
         """Where step records go, or None when the sink is off."""

@@ -54,7 +54,6 @@ _INERT = {
     "attention_use_matmul": False,
     "masked_softmax_fusion": True,
     "layernorm_epsilon": 1.0e-5,  # parity-only; layernorm.layernorm_epsilon rules
-    "vocab_file": None,
 }
 
 DROPOUT_KEYS = ("dropout_embedding", "dropout_attention_probs", "dropout_after_attention",
@@ -110,6 +109,7 @@ class TransformerArchitectureConfig:
     dropout_attention_probs: float = 0.0
     dropout_after_attention: float = 0.0
     dropout_after_mlp: float = 0.0
+    vocab_file: Optional[str] = None  # copied into every checkpoint as vocab.json
 
     def __post_init__(self):
         for name in ("vocab_size", "hidden_size", "num_layers", "num_attention_heads"):

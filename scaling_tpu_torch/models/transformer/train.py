@@ -82,8 +82,10 @@ def _read_dataset(config: TransformerConfig, prefixes: Optional[List[Any]]):
 
 
 class TransformerTrainer(BaseTrainer):
-    def run_training(self, log_metrics_fn=log_metrics_fn) -> None:  # noqa: D102
-        super().run_training(log_metrics_fn=log_metrics_fn)
+    def run_training(self, log_metrics_fn=None) -> None:
+        """``BaseTrainer.run_training`` with this module's ``log_metrics_fn``
+        unless the caller passes another (``run_with_resume`` passes None)."""
+        super().run_training(log_metrics_fn=log_metrics_fn or globals()["log_metrics_fn"])
 
 
 def build_trainer(config: TransformerConfig, device=None) -> TransformerTrainer:

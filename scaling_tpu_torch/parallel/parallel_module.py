@@ -45,6 +45,26 @@ def transposed_in_jax(name: str, ndim: int) -> bool:
     return ndim == 2 and not name.endswith("embedding.weight")
 
 
+# the linears the JAX package splits over the model axis by input
+# (RowParallelLinear); its other linears split by output (ColumnParallelLinear)
+_ROW_PARALLEL = ("dense", "dense_out", "down_proj")
+
+
+def jax_partition_spec(key: str, ndim: int) -> tuple:
+    """The partition spec the JAX metas give the parameter ``key`` (its
+    ``MESH.json`` record), over the JAX layout: the vocabulary axis of the
+    embedding, the output axis of a column-parallel linear and its bias,
+    the input axis of a row-parallel one; norms and row-parallel biases are
+    replicated."""
+    if key.endswith("embedding.weight"):
+        return ("model", None)
+    module = key.rsplit(".", 2)[-2]
+    if ndim == 2:
+        return ("model", None) if module in _ROW_PARALLEL else (None, "model")
+    linear_bias = key.endswith(".bias") and "norm" not in module
+    return ("model",) if linear_bias and module not in _ROW_PARALLEL else (None,) * ndim
+
+
 class ParallelModule:
     def __init__(self, model: torch.nn.Module, topology: TopologyConfig):
         self.model = model

@@ -1,21 +1,66 @@
-"""Atomic checkpoint commit, integrity manifest and verified restore (the
-subset of scaling_tpu/resilience/ the trainer uses)."""
+"""Crash consistency and fault tolerance on one device (the port's copy of
+scaling_tpu/resilience/ without the multi-host control plane): fault
+injection, the atomic commit, the integrity manifest and verified
+restore, ``MESH.json`` and the reshard pre-flight, the in-loop guards and
+bounded auto-resume."""
 
 from .commit import CheckpointCommit, checkpoint_candidates
-from .guards import retry_io
+from .faults import FaultPlan, InjectedFault, get_fault_plan, set_fault_plan
+from .guards import (
+    NonFiniteGuard,
+    NonFiniteLossError,
+    StepStallWatchdog,
+    dump_thread_stacks,
+    retry_io,
+)
 from .manifest import (
     CheckpointCorruptionError,
     prune_manifest_entries,
     read_manifest,
     verify_checkpoint,
 )
+from .meshmeta import (
+    MESH_NAME,
+    build_mesh_meta,
+    mesh_matches,
+    param_record,
+    read_mesh_meta,
+    signature_label,
+    topology_signature,
+    validate_param_tree,
+    write_mesh_meta,
+)
+from .reshard import ReshardError, ReshardPlan, rescale_consumed_samples, reshard_plan
+from .resume import run_with_resume
 
 __all__ = [
+    "MESH_NAME",
     "CheckpointCommit",
     "CheckpointCorruptionError",
+    "FaultPlan",
+    "InjectedFault",
+    "NonFiniteGuard",
+    "NonFiniteLossError",
+    "ReshardError",
+    "ReshardPlan",
+    "StepStallWatchdog",
+    "build_mesh_meta",
     "checkpoint_candidates",
+    "dump_thread_stacks",
+    "get_fault_plan",
+    "mesh_matches",
+    "param_record",
     "prune_manifest_entries",
     "read_manifest",
+    "read_mesh_meta",
+    "rescale_consumed_samples",
+    "reshard_plan",
     "retry_io",
+    "run_with_resume",
+    "set_fault_plan",
+    "signature_label",
+    "topology_signature",
+    "validate_param_tree",
     "verify_checkpoint",
+    "write_mesh_meta",
 ]

@@ -22,6 +22,7 @@ import shutil
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
+from .faults import get_fault_plan
 from .manifest import write_manifest
 
 TMP_PREFIX = ".tmp-global_step"
@@ -63,12 +64,15 @@ class CheckpointCommit:
 
     def finalize(self) -> Path:
         """Manifest, fsync, atomic rename; returns the final directory."""
+        plan = get_fault_plan()
+        plan.fire("ckpt.manifest", path=self.tmp_dir)
         write_manifest(self.tmp_dir, self.step, recorded=self._recorded,
                        config_fingerprint=self.config_fingerprint)
         for p in sorted(self.tmp_dir.rglob("*")):  # npz files fsync as they are written
             if p.is_dir() or p.suffix != ".npz":
                 _fsync_path(p)
         _fsync_path(self.tmp_dir)
+        plan.fire("ckpt.rename", path=self.final_dir)
         if self.final_dir.exists():  # a rerun reached this step again
             shutil.rmtree(self.final_dir)
         os.replace(self.tmp_dir, self.final_dir)

@@ -1,32 +1,47 @@
-"""The training loop and its checkpoints on one device (counterpart of
-scaling_tpu/trainer/trainer.py).
+"""The training loop, its checkpoints and its supervision on one device
+(counterpart of scaling_tpu/trainer/trainer.py).
 
 ``run_training`` drives: train step -> periodic save -> periodic eval ->
 metric logging, for ``train_iterations`` steps. Checkpoints follow the
 JAX package's layout: ``save_dir/global_step{N}/`` with the model and
-optimizer npz files, ``context.json``, ``config.yml`` and ``MANIFEST.json``,
-committed atomically, then ``latest``. ``load_checkpoint`` takes the
-newest candidate that verifies (``latest`` first), skipping corrupt ones
-unless ``strict_checkpoint_load``, and warns when the checkpoint's
-``config.yml`` reads to another config than the run's, where the JAX
-trainer warns that its config fingerprint changed. The manifest carries
-no fingerprint: the JAX one is a digest of the JAX config's full dump,
-every default included, which the port does not rebuild, and a digest
-of anything else would make a JAX resume of a port checkpoint warn for
-no reason.
+optimizer npz files, ``context.json``, ``config.yml``, ``MESH.json``,
+``vocab.json`` when the architecture names a ``vocab_file``, and
+``MANIFEST.json``, committed atomically, then ``latest``. With
+``save_checkpoint_async`` the save takes its host copies and returns
+while one writer thread serialises, writes, commits and prunes.
+``load_checkpoint`` takes the newest candidate that verifies (``latest``
+first), skipping corrupt ones unless ``strict_checkpoint_load``,
+pre-flights the checkpoint's ``MESH.json`` against the model's global
+shapes, and warns when the checkpoint's ``config.yml`` reads to another
+config than the run's, where the JAX trainer warns that its config
+fingerprint changed. The manifest carries no fingerprint: the JAX one is
+a digest of the JAX config's full dump, every default included, which
+the port does not rebuild.
 
-Micro-batches are stacked ``(gas, mbs, s)`` on the host and moved to the
-device in one copy per step (``batch_to_model_input``). The JAX
-trainer's preemption handling, control plane, stall watchdog, non-finite
-guard, prefetch thread, asynchronous writer and orbax backend are not
-ported: their config fields raise NotImplementedError at any value but
-the default.
+Supervision, as in the JAX trainer without a control plane: SIGTERM
+(``install_preemption_handler``) saves at the step boundary and returns;
+``max_consecutive_nonfinite`` bounds a streak of non-finite losses, then
+saves and raises ``NonFiniteLossError``; ``step_timeout_seconds`` arms a
+stall watchdog after the first step that requests the same save-and-exit;
+the ``SCALING_TPU_FAULTS`` points ``signal.sigterm``, ``host.kill`` and
+``host.hang`` fire at the top of each iteration and ``step.nan_grads``
+after each step.
+
+Micro-batches are stacked ``(gas, mbs, s)`` on the host, by a prefetch
+thread with ``dataloader_prefetch_factor`` > 0, and moved to the device
+in one copy per step on the loop's thread (``batch_to_model_input``).
+The control plane and the orbax backend are not ported: their config
+fields raise NotImplementedError at any value but the default.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import queue
+import shutil
+import signal
+import threading
 import time
 import zipfile
 from pathlib import Path
@@ -37,6 +52,7 @@ import torch
 import yaml
 
 from ..checkpoint import (
+    AsyncCheckpointWriter,
     load_model_checkpoint,
     load_optimizer_checkpoint,
     save_model_checkpoint,
@@ -47,13 +63,25 @@ from ..data import DataLoader
 from ..logging import Logger
 from ..optimizer import Optimizer
 from ..parallel import ParallelModule
+from ..parallel.parallel_module import jax_partition_spec, transposed_in_jax
 from ..resilience import (
     CheckpointCommit,
     CheckpointCorruptionError,
+    NonFiniteGuard,
+    NonFiniteLossError,
+    StepStallWatchdog,
+    build_mesh_meta,
     checkpoint_candidates,
+    get_fault_plan,
+    param_record,
     prune_manifest_entries,
+    read_manifest,
+    read_mesh_meta,
+    rescale_consumed_samples,
+    reshard_plan,
     retry_io,
     verify_checkpoint,
+    write_mesh_meta,
 )
 
 # disk-level corruption a load may skip past; anything else (a shape or
@@ -65,11 +93,7 @@ _CORRUPT_LOAD_ERRORS = (zipfile.BadZipFile, EOFError, OSError, CheckpointCorrupt
 # leave them off
 _NOT_PORTED = {
     "merge_lora_after_loading_checkpoint": (False,),
-    "dataloader_prefetch_factor": (None, 0),
-    "save_checkpoint_async": (False,),
     "multihost_shared_save_dir": (False,),
-    "max_consecutive_nonfinite": (None,),
-    "step_timeout_seconds": (None,),
     "checkpoint_backend": ("npz",),
 }
 # kept for config parity in the JAX package too: no effect there either
@@ -99,12 +123,23 @@ class TrainerConfig:
     io_retry_attempts: int = 3
     io_retry_backoff_seconds: float = 0.05
     deep_checkpoint_verification: bool = True
+    # micro-batch stacks assembled ahead on a thread; None or 0: synchronously
+    dataloader_prefetch_factor: Optional[int] = None
+    save_checkpoint_async: bool = False  # files written on a thread after the host copies
+    # consecutive non-finite steps tolerated before save-and-abort; None: off
+    max_consecutive_nonfinite: Optional[int] = None
+    step_timeout_seconds: Optional[float] = None  # stall watchdog; None: off
 
     def __post_init__(self):
         if self.log_interval < 1 or self.io_retry_attempts < 1:
             raise ValueError("trainer.log_interval and io_retry_attempts must be >= 1")
         if self.eval_iterations < 0 or self.io_retry_backoff_seconds < 0:
             raise ValueError("trainer.eval_iterations and io_retry_backoff_seconds must be >= 0")
+        for key in ("dataloader_prefetch_factor", "max_consecutive_nonfinite"):
+            if getattr(self, key) is not None and getattr(self, key) < 0:
+                raise ValueError(f"trainer.{key} must be >= 0")
+        if self.step_timeout_seconds is not None and not self.step_timeout_seconds > 0:
+            raise ValueError("trainer.step_timeout_seconds must be > 0")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TrainerConfig":
@@ -128,6 +163,8 @@ class TrainStepOutput(NamedTuple):
     current_loss_scale: Optional[float] = None
     step_duration: Optional[float] = None  # seconds, host clock to the loss's fetch
     fetched: bool = True
+    overflow: Any = None  # a bool when fetched
+    no_overflow_steps: Optional[int] = None
 
 
 class EvaluationStepOutput(NamedTuple):
@@ -162,6 +199,21 @@ class BaseTrainer:
         self._last_fetch_wall: Optional[float] = None
         # whether the last load took the optimizer state from the checkpoint
         self.optimizer_states_loaded = False
+        self._ckpt_writer: Optional[AsyncCheckpointWriter] = None
+        self._prefetch_queue: Optional[queue.Queue] = None
+        self._prefetch_thread: Optional[threading.Thread] = None
+        self._prefetch_stop: Optional[threading.Event] = None
+        # cluster hook points: a preemption predicate polled after every
+        # step, metric sinks called after logging, checkpoint sinks called
+        # with each durable step directory
+        self.external_preemption: Optional[Callable[[], bool]] = None
+        self.metrics_hooks: List[Callable[[dict, int], None]] = []
+        self.checkpoint_hooks: List[Callable[[Path, int], None]] = []
+        self._preempted = False
+        self._last_saved_step: Optional[int] = None
+        self._nonfinite_guard = (None if config.max_consecutive_nonfinite is None
+                                 else NonFiniteGuard(config.max_consecutive_nonfinite))
+        self.watchdog: Optional[StepStallWatchdog] = None  # the last run_training's
 
     # ------------------------------------------------------------ lifecycle
     def initialize(self, load_checkpoint: bool = True,
@@ -174,6 +226,51 @@ class BaseTrainer:
                 raise RuntimeError(f"could not load checkpoint from {load_dir}")
         self._build_dataloaders()
         self._train_step = self.module.build_train_step(self.optimizer, self.loss_function)
+        if (self.config.dataloader_prefetch_factor or 0) > 0 and self.dataloader is not None:
+            self._start_prefetch(self.config.dataloader_prefetch_factor)
+
+    def _start_prefetch(self, depth: int) -> None:
+        """A daemon thread that keeps up to ``depth`` micro-batch stacks
+        ready. It runs for the trainer's lifetime: every queued stack is
+        consumed in order by later steps, so the stream is the synchronous
+        one, and ``consumed_samples`` advances as a step takes a stack
+        (``context.step``), never as the thread assembles one. Stacks
+        assembled but not consumed are rebuilt by a resume."""
+        q: queue.Queue = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        self._prefetch_queue, self._prefetch_stop = q, stop
+
+        def worker():
+            # closure locals: stop_prefetch clears the attributes while an
+            # assembly may still be in flight
+            while not stop.is_set():
+                try:
+                    item = self._assemble_micro_batches()
+                except BaseException as e:  # raised on the loop's thread instead
+                    item = e
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
+                if isinstance(item, BaseException):
+                    if stop.is_set():
+                        self.logger.warning(f"batch prefetch error during shutdown: {item!r}")
+                    return
+
+        self._prefetch_thread = threading.Thread(target=worker, name="batch-prefetch",
+                                                 daemon=True)
+        self._prefetch_thread.start()
+
+    def stop_prefetch(self) -> None:
+        """Stop the prefetch thread and drop its queued stacks: only for a
+        trainer that will not train again."""
+        if self._prefetch_stop is not None:
+            self._prefetch_stop.set()
+        if self._prefetch_thread is not None:
+            self._prefetch_thread.join(timeout=5)
+        self._prefetch_queue = self._prefetch_thread = self._prefetch_stop = None
 
     def _loader(self, dataset: Any, consumed: int) -> DataLoader:
         return DataLoader(seed=self.config.seed, consumed_samples=consumed, dataset=dataset,
@@ -194,10 +291,23 @@ class BaseTrainer:
         batches = [next(self.dataloader) for _ in range(self.topology.gradient_accumulation_steps)]
         return type(batches[0]).stack(batches)
 
+    def _next_micro_batches(self) -> Any:
+        if self._prefetch_queue is not None:
+            item = self._prefetch_queue.get()
+            if isinstance(item, BaseException):
+                self.stop_prefetch()
+                raise item
+            return item
+        return self._assemble_micro_batches()
+
     def train_step(self) -> TrainStepOutput:
         start = time.time()
-        batch = self.batch_to_model_input(self._assemble_micro_batches(), self.device)
+        batch = self.batch_to_model_input(self._next_micro_batches(), self.device)
         loss, metrics, opt_out = self._train_step(batch)
+        if get_fault_plan().fire("step.nan_grads") == "nan":
+            # a transient NaN burst for the non-finite policy: only the
+            # observed loss is poisoned, the parameters stay clean
+            loss = torch.full((), float("nan"), device=loss.device)
         self.context.step()
         last_step = (self.config.train_iterations is not None
                      and self.context.iterations >= self.config.train_iterations)
@@ -206,7 +316,9 @@ class BaseTrainer:
             self._unfetched_steps += 1
             return TrainStepOutput(loss, metrics, opt_out.global_grad_norm,
                                    opt_out.learning_rates, opt_out.current_loss_scale,
-                                   step_duration=None, fetched=False)
+                                   step_duration=None, fetched=False,
+                                   overflow=opt_out.overflow,
+                                   no_overflow_steps=opt_out.no_overflow_steps)
         loss = float(loss)  # the one host sync of a fetched step
         now = time.time()
         backlog, self._unfetched_steps = self._unfetched_steps, 0
@@ -223,6 +335,8 @@ class BaseTrainer:
             learning_rates={k: float(v) for k, v in (opt_out.learning_rates or {}).items()},
             current_loss_scale=_maybe(float, opt_out.current_loss_scale),
             step_duration=step_duration,
+            overflow=_maybe(bool, opt_out.overflow),
+            no_overflow_steps=_maybe(int, opt_out.no_overflow_steps),
         )
 
     @torch.no_grad()
@@ -242,13 +356,86 @@ class BaseTrainer:
             metrics={k: float(np.mean([m[k] for m in metric_list])) for k in metric_list[0]},
         )
 
+    # --------------------------------------------------------- preemption
+    def install_preemption_handler(self) -> None:
+        """Save and exit at the step boundary on SIGTERM (spot and
+        preemptible machines send it before reclaiming); the next run
+        resumes from the saved step. Chains to the handler installed
+        before it. Call from the main thread."""
+        prev = signal.getsignal(signal.SIGTERM)
+
+        def handler(signum, frame):
+            self._preempted = True
+            if callable(prev):  # SIG_DFL and SIG_IGN are not callable
+                prev(signum, frame)
+
+        self._preempted = False
+        signal.signal(signal.SIGTERM, handler)
+
+    def _preemption_requested(self) -> bool:
+        return self._preempted or (self.external_preemption is not None
+                                   and self.external_preemption())
+
+    def _preemption_exit(self) -> None:
+        if self.config.save_dir is not None and self._last_saved_step == self.context.iterations:
+            # the periodic save just took this boundary: drain it, do not
+            # write it again on a reclaim's deadline
+            self.finalize_checkpoints()
+            self.logger.info("preemption: boundary already checkpointed, exiting cleanly")
+        elif self.config.save_dir is not None:
+            step_dir = self.save_checkpoint()
+            self.finalize_checkpoints()
+            self._run_checkpoint_hooks(step_dir)
+            self.logger.info("preemption: checkpoint saved, exiting cleanly")
+
+    def _on_step_stall(self, step: int, elapsed: float) -> None:
+        """The watchdog's callback, on its thread: the state cannot be
+        copied mid-step, so it requests the save-and-exit of a preemption
+        at the next loop boundary, if the stalled step ever ends."""
+        self.logger.log_event("step-stall", step=step, elapsed_s=round(elapsed, 1),
+                              verdict="local-stall", dead_hosts=[], host=0)
+        self.logger.error(f"step stall after step {step} ({elapsed:.1f}s, local-stall): "
+                          "requesting save-and-exit at the next loop boundary")
+        self._preempted = True
+
     # --------------------------------------------------------------- loop
     def run_training(self, log_metrics_fn: Optional[Callable] = None) -> None:
         if self.config.train_iterations is None:
             raise ValueError("trainer.train_iterations must be set to run training")
+        # armed by the loop after the first step: the kernels' first-use
+        # builds must not read as a stall
+        self.watchdog = (None if self.config.step_timeout_seconds is None else
+                         StepStallWatchdog(self.config.step_timeout_seconds,
+                                           on_stall=self._on_step_stall))
+        try:
+            self._run_training_loop(log_metrics_fn)
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.stop()
+
+    def _run_training_loop(self, log_metrics_fn: Optional[Callable]) -> None:
+        watchdog, armed = self.watchdog, False
         while self.context.iterations < self.config.train_iterations:
+            if armed:
+                watchdog.beat(self.context.iterations)
+            for point in ("signal.sigterm", "host.kill", "host.hang"):
+                get_fault_plan().fire(point)
+            if self._preempted:
+                # a SIGTERM that landed in the save or eval window exits
+                # here, without another step
+                self._preemption_exit()
+                return
             output = self.train_step()
+            if watchdog is not None and not armed:
+                armed = True
+                watchdog.start()
             it = self.context.iterations
+            if self._preemption_requested() and it < self.config.train_iterations:
+                # the step just taken is saved by the exit: its metrics go
+                # out first. The last boundary takes the normal exit.
+                self._emit_step_metrics(output, log_metrics_fn)
+                self._preemption_exit()
+                return
             will_save = (self.config.save_dir is not None and self.config.save_interval
                          is not None and it % self.config.save_interval == 0)
             will_eval = (self.config.eval_interval is not None
@@ -260,7 +447,7 @@ class BaseTrainer:
                 torch.cuda.synchronize(self.device)
             aux_start = time.time()
             if will_save:
-                self.save_checkpoint()
+                self._run_checkpoint_hooks(self.save_checkpoint())
             if will_eval:
                 out = self.eval_step()
                 self.logger.log_metrics({"eval_loss": out.loss,
@@ -268,6 +455,20 @@ class BaseTrainer:
             if (will_save or will_eval) and self._last_fetch_wall is not None:
                 self._last_fetch_wall += time.time() - aux_start
             self._emit_step_metrics(output, log_metrics_fn)
+            if self._nonfinite_guard is not None and output.fetched:
+                # after logging, so the aborting step's record is written;
+                # fetched steps only: an unfetched one would need a sync
+                try:
+                    self._nonfinite_guard.observe(it, output.loss, output.overflow,
+                                                  output.current_loss_scale)
+                except NonFiniteLossError:
+                    if self.config.save_dir is not None:  # leave a resumable state
+                        step_dir = self.save_checkpoint()
+                        self.finalize_checkpoints()
+                        self._run_checkpoint_hooks(step_dir)
+                        self.logger.error(f"non-finite abort: state saved to {step_dir}")
+                    raise
+        self.finalize_checkpoints()
 
     def _emit_step_metrics(self, output: TrainStepOutput,
                            log_metrics_fn: Optional[Callable]) -> None:
@@ -282,6 +483,28 @@ class BaseTrainer:
         if log_metrics_fn is not None:
             metrics = log_metrics_fn(self, output, metrics)
         self.logger.log_metrics(metrics, self.context.iterations)
+        for hook in self.metrics_hooks:
+            try:
+                hook(metrics, self.context.iterations)
+            except Exception as e:  # reporting must never abort a step
+                self.logger.warning(f"metrics hook failed: {e}")
+
+    def _run_checkpoint_hooks(self, step_dir: Path) -> None:
+        if not self.checkpoint_hooks:
+            return
+        self.finalize_checkpoints()  # hooks see a durable checkpoint
+        for hook in self.checkpoint_hooks:
+            try:
+                hook(step_dir, self.context.iterations)
+            except Exception as e:
+                self.logger.warning(f"checkpoint hook failed: {e}")
+
+    def finalize_checkpoints(self) -> None:
+        """Block until the asynchronous writes are durable and ``latest``
+        names the newest save; re-raises the writer's first failure. The
+        prefetch thread keeps running: the trainer may train on."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
 
     # --------------------------------------------------------- checkpoints
     def _ckpt_params(self) -> Dict[str, torch.Tensor]:
@@ -293,34 +516,98 @@ class BaseTrainer:
         to_dict = getattr(self.context.config, "to_dict", None)
         return None if to_dict is None else to_dict()
 
+    def _vocab_file(self) -> Optional[Path]:
+        config = getattr(self.context, "config", None)
+        vocab = getattr(getattr(config, "transformer_architecture", None), "vocab_file", None)
+        return Path(vocab) if vocab and Path(vocab).is_file() else None
+
+    def _current_topology_dict(self) -> dict:
+        """The JAX trainer's topology record at world size 1, one host."""
+        t = self.topology
+        return {"world_size": 1, "pipe_parallel_size": 1, "data_parallel_size": 1,
+                "context_parallel_size": 1, "model_parallel_size": 1, "pipe_virtual_size": 1,
+                "pipe_token_slices": 1, "micro_batch_size": t.micro_batch_size,
+                "gradient_accumulation_steps": t.gradient_accumulation_steps,
+                "global_batch_size": t.global_batch_size, "num_hosts": 1}
+
+    @staticmethod
+    def _param_records(params: Dict[str, torch.Tensor]) -> dict:
+        """JAX key -> global shape in the JAX layout, dtype and the JAX
+        partition spec, for ``MESH.json``."""
+        records = {}
+        for key, t in params.items():
+            shape = tuple(t.shape)[::-1] if transposed_in_jax(key, t.ndim) else tuple(t.shape)
+            records[key] = param_record(shape, str(t.dtype).removeprefix("torch."),
+                                        jax_partition_spec(key, t.ndim))
+        return records
+
+    def _mesh_meta(self, params: Dict[str, torch.Tensor]) -> dict:
+        return build_mesh_meta(
+            topology=self._current_topology_dict(), params=self._param_records(params),
+            optimizer={"zero_stage": 0, "fields": ["master", "exp_avg", "exp_avg_sq"],
+                       "layout": "global-per-layer"},
+            step=self.context.iterations)
+
     def save_checkpoint(self, dir: Optional[Union[Path, str]] = None) -> Path:
         """Stage, manifest, fsync and rename onto ``global_step{N}``, then
         move ``latest``; with ``delete_past_optimizer_states`` the older
-        checkpoints lose their optimizer files (and manifest entries)."""
+        checkpoints lose their optimizer files (and manifest entries) after
+        that. With ``save_checkpoint_async`` this returns once every tensor
+        has its host copy, and the writer thread does the rest in that
+        order; ``finalize_checkpoints`` waits for it."""
         base = Path(dir or self.config.save_dir)
         base.mkdir(parents=True, exist_ok=True)
-        config = self._config_dict()
+        writer = None
+        if self.config.save_checkpoint_async:
+            if self._ckpt_writer is None:
+                self._ckpt_writer = AsyncCheckpointWriter()
+            else:
+                self._ckpt_writer.wait()  # never interleave two saves
+            writer = self._ckpt_writer
+        # after the writer's barrier: a new commit sweeps stale staging
+        # directories, which must not race a previous save's finalize
         commit = CheckpointCommit(base, self.context.iterations)
         stage = commit.tmp_dir
-        save_model_checkpoint(stage, self._ckpt_params(), recorder=commit.record)
+        params = self._ckpt_params()
+        save_model_checkpoint(stage, params, recorder=commit.record, writer=writer)
         save_optimizer_checkpoint(stage, self.optimizer, self.module.ckpt_keys(),
-                                  recorder=commit.record)
+                                  recorder=commit.record, writer=writer)
+        write_mesh_meta(stage, self._mesh_meta(params))
         self.context.save_checkpoint(stage)
-        if config is not None:  # the architecture travels with the weights
+        config = self._config_dict()
+        if config is not None:  # the architecture and tokenizer travel with the weights
             (stage / "config.yml").write_text(yaml.safe_dump(config, sort_keys=False))
-        step_dir = commit.finalize()
-        commit.update_latest()
+            vocab = self._vocab_file()
+            if vocab is not None:
+                shutil.copyfile(vocab, stage / "vocab.json")
+        step_dir = commit.final_dir
+        if writer is None:
+            commit.finalize()
+            commit.update_latest()
+        else:  # FIFO: committed and pointed to once every file is durable
+            writer.submit(commit.finalize)
+            writer.submit(commit.update_latest)
         self.logger.info(f"saved checkpoint {step_dir}")
         if self.config.delete_past_optimizer_states:
-            for old in sorted(base.glob("global_step*")):
-                if old == step_dir:
-                    continue
-                removed = [f.name for f in old.glob("optimizer_state_*")]
-                for name in removed:
-                    (old / name).unlink()
-                if removed:
-                    prune_manifest_entries(old, removed)
+            # after the commit: pruning first would leave no optimizer
+            # state on disk if the process died in between
+            if writer is None:
+                self._prune_past_optimizer_states(base, step_dir)
+            else:
+                writer.submit(self._prune_past_optimizer_states, base, step_dir)
+        self._last_saved_step = self.context.iterations
         return step_dir
+
+    @staticmethod
+    def _prune_past_optimizer_states(base: Path, step_dir: Path) -> None:
+        for old in sorted(base.glob("global_step*")):
+            if old == step_dir:
+                continue
+            removed = [f.name for f in old.glob("optimizer_state_*")]
+            for name in removed:
+                (old / name).unlink()
+            if removed:
+                prune_manifest_entries(old, removed)
 
     def load_checkpoint(self, dir: Optional[Union[Path, str]] = None) -> bool:
         """Verified restore with fallback: the candidates in order, each
@@ -381,7 +668,17 @@ class BaseTrainer:
     def _load_step_dir(self, step_dir: Path) -> None:
         c = self.config
         self._warn_if_config_changed(step_dir)
-        load_model_checkpoint(step_dir, self._ckpt_params(),
+        params = self._ckpt_params()
+        # a checkpoint another topology saved loads as it is (global arrays
+        # per layer); one whose global shapes disagree is another model
+        plan = reshard_plan(read_mesh_meta(step_dir), self._current_topology_dict(),
+                            self._param_records(params))
+        if plan is not None:
+            manifest = read_manifest(step_dir)
+            self.logger.log_event("ckpt-reshard",
+                                  step=None if manifest is None else manifest.get("step"),
+                                  **plan.event_fields())
+        load_model_checkpoint(step_dir, params,
                               allowed_missing_keys=c.allowed_missing_keys_in_checkpoint,
                               allowed_unexpected_keys=c.allowed_unexpected_keys_in_checkpoint,
                               ignore_keys=c.ignore_keys_in_checkpoint)
@@ -398,11 +695,15 @@ class BaseTrainer:
             self.optimizer.state = self.optimizer.init_state()
         if c.load_context:
             self.context.load_checkpoint(step_dir)
+            # the cursors count global samples: the same numbers resume the
+            # stream when this run's batch grid divides them
             mbs = self.topology.micro_batch_size
-            if self.context.consumed_samples % mbs:
-                raise ValueError(f"consumed_samples {self.context.consumed_samples} of "
-                                 f"{step_dir} is not a multiple of micro_batch_size {mbs}")
-            self.context.consumed_eval_samples -= self.context.consumed_eval_samples % mbs
+            ctx = self.context
+            ctx.consumed_samples = rescale_consumed_samples(
+                ctx.consumed_samples, micro_batch_size=mbs, data_parallel_size=1)
+            ctx.consumed_eval_samples = rescale_consumed_samples(
+                ctx.consumed_eval_samples, micro_batch_size=mbs, data_parallel_size=1,
+                what="consumed_eval_samples", on_misaligned="floor")
         self.logger.info(f"loaded checkpoint {step_dir}")
 
 

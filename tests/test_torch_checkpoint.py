@@ -52,6 +52,7 @@ from scaling_tpu_torch.models.transformer import (  # noqa: E402
 from scaling_tpu_torch.models.transformer.convert import params_from_jax  # noqa: E402
 from scaling_tpu_torch.models.transformer.train import build_trainer  # noqa: E402
 from scaling_tpu_torch.models.transformer.train import main as port_main  # noqa: E402
+from scaling_tpu_torch.resilience import verify_checkpoint  # noqa: E402
 from scaling_tpu_torch.serve import EngineConfig, ServeEngine  # noqa: E402
 
 ARCH = {
@@ -403,3 +404,27 @@ def test_legacy_per_field_optimizer_files_resume_with_their_moments(data, tmp_pa
     assert resumed.optimizer_states_loaded and resumed.optimizer.state.step == 3
     assert_states_equal(port_state(resumed), port_state(reference))
     assert any(t.abs().sum() > 0 for t in resumed.optimizer.state.exp_avg.values())
+
+
+def test_checkpoint_carries_the_vocab_file_as_in_jax(data, tmp_path):
+    """A config with ``transformer_architecture.vocab_file``: the port's
+    checkpoint holds a ``vocab.json`` byte-equal to it, as the JAX one does,
+    and ``from_checkpoint`` gets its tokenizer from either with no argument."""
+    from scaling_tpu_torch.models.transformer.tokenizer import Tokenizer
+
+    vocab = tmp_path / "vocab.json"
+    Tokenizer.default().tokenizer.save(str(vocab))
+    cfg = config_dict(data, tmp_path / "port")
+    cfg["transformer_architecture"] = dict(ARCH, vocab_file=str(vocab))
+    port_main(TransformerConfig.from_dict(cfg), device="cpu")
+    jax_cfg = dict(cfg, trainer=dict(cfg["trainer"], save_dir=str(tmp_path / "jax")))
+    with force_rms_interpret():
+        jax_main(JaxConfig.from_dict(jax_cfg))
+    for ckpt in ("port", "jax"):
+        assert (tmp_path / ckpt / "global_step3" / "vocab.json").read_bytes() == vocab.read_bytes()
+        assert verify_checkpoint(tmp_path / ckpt / "global_step3") == []
+        served = TransformerInferenceModule.from_checkpoint(tmp_path / ckpt, device="cpu")
+        assert served.tokenizer is not None, ckpt
+        assert served.tokenizer.encode("supervise") == Tokenizer.from_file(vocab).encode(
+            "supervise")
+    assert JaxInference.from_checkpoint(tmp_path / "port").tokenizer is not None

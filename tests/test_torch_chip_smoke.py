@@ -9,7 +9,9 @@ phase's recompute does the same for a bf16 ``generate`` against the f32
 fails it. Beside them, the build phase's reading of the ``ptxas -v`` log
 (registers and spills), and the trainer and generation phases' control
 flow at toy size, where ``evaluate`` on the step-3 checkpoint in place of
-step 6's fails the trainer phase."""
+step 6's fails the trainer phase, and the supervise phase's parent and
+child processes, where an asynchronous save that hands its writer the
+live optimizer state fails the check against the synchronous save."""
 
 import pathlib
 import sys
@@ -206,3 +208,73 @@ def test_generation_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
     assert [needed for _, _, needed in seen] == [("flash_attention_fwd", "rms_norm"),
                                                  ("flash_attention_fwd",)]
     assert all(kernel == {} and plain["flash_attention_fwd"] > 0 for kernel, plain, _ in seen)
+
+
+@pytest.fixture
+def one_cpu_thread(monkeypatch):
+    """The parent and its children on one CPU thread each: phase 9 holds the
+    children's losses and bytes bitwise against the parent's phase 8, and a
+    CPU matmul may sum in another order on another thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        monkeypatch.setenv(var, "1")
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_supervise_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, one_cpu_thread):
+    """Phase 9's parent and child processes on the toy model on the CPU, held
+    against the toy trainer phase: a real SIGTERM once step 4 is logged,
+    the save at the boundary reached, steps 1-k bitwise, global_step3's
+    bytes those of the synchronous save, ``run_with_resume`` to step 6,
+    pruning after the commit, no stall. Launches stay unchecked (the CPU
+    runs the plain versions)."""
+    seen = _toy_trainer(monkeypatch)
+    run = chip_smoke.trainer_phase(1.0, device="cpu")
+    monkeypatch.setattr(chip_smoke, "check_supervise_launches",
+                        lambda kernel, plain: seen.update(sup_kernel=kernel, sup_plain=plain))
+    chip_smoke.supervise_phase(run, 1.0, device="cpu")
+    out = capsys.readouterr().out
+    assert "bitwise equal to phase 8" in out and "carry the crc32s of phase 8's" in out
+    assert "lost their optimizer files after its commit; watchdog stalls (0, 0)" in out
+    assert out.count("async save global_step") == 3
+    assert seen["sup_kernel"] == {} and seen["sup_plain"]["flash_attention_bwd"] > 0
+
+
+# the child of phase 9 with a writer that takes no host copy: it writes the
+# live tensors later, behind the loop, without backpressure
+ALIASING_CHILD = """
+import runpy, sys, time
+import scaling_tpu_torch.checkpoint.checkpoint as ckpt
+from scaling_tpu_torch.parallel.parallel_module import transposed_in_jax
+to_numpy, write = ckpt._to_numpy, ckpt._write_npz
+
+def live(key, t):
+    t = t.detach()
+    if t.dtype == ckpt.torch.float32 and not transposed_in_jax(key, t.ndim):
+        return t.numpy()
+    return to_numpy(key, t)
+
+def late(path, arrays, recorder):
+    time.sleep(0.3)
+    write(path, arrays, recorder)
+
+ckpt._to_numpy, ckpt._write_npz = live, late
+ckpt.AsyncCheckpointWriter.__init__.__defaults__ = (64,)
+sys.argv = [sys.argv[1], "--supervise-child", sys.argv[2]]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def test_supervise_phase_tells_an_async_snapshot_of_the_live_state(monkeypatch, one_cpu_thread):
+    """A child whose asynchronous save hands the writer the live optimizer
+    state instead of a host copy: the steps after the save change it before
+    it is written, and phase 9's check of global_step3 against phase 8's
+    synchronous save fails."""
+    _toy_trainer(monkeypatch)
+    run = chip_smoke.trainer_phase(1.0, device="cpu")
+    monkeypatch.setattr(chip_smoke, "supervise_child_command", lambda spec: [
+        sys.executable, "-c", ALIASING_CHILD, chip_smoke.__file__, str(spec)])
+    with pytest.raises(AssertionError, match="global_step3 differs from phase 8"):
+        chip_smoke.supervise_phase(run, 1.0, device="cpu")

@@ -196,12 +196,8 @@ def test_train_run_entry_point(data, tmp_path):
 
 REFUSED = [
     ("trainer", "checkpoint_backend", "orbax"),
-    ("trainer", "save_checkpoint_async", True),
     ("trainer", "multihost_shared_save_dir", True),
     ("trainer", "merge_lora_after_loading_checkpoint", True),
-    ("trainer", "dataloader_prefetch_factor", 2),
-    ("trainer", "max_consecutive_nonfinite", 3),
-    ("trainer", "step_timeout_seconds", 30.0),
     ("data", "legacy_dataset", True),
     ("data", "finetuning_dataset", True),
     ("data", "finetuning_chat_dataset", True),
