@@ -92,7 +92,30 @@ Phases, each of which must pass:
    save's hold of the loop and its time until durable beside phase 8's
    synchronous saves, the peak host RSS in each save's window, and the
    step ms with prefetch apart from writes (beside phase 8's and the
-   bench step) and during a write;
+   bench step) and during a write. Both children write their metrics and
+   events into one run directory, where this script, in the relaunching
+   supervisor's role, records the SIGTERM it sends (``preempt-relay``) and
+   run B's start (``relaunch``);
+10. observability: (a) after the kernel times, a 5-step Trainer run of
+   phase 8's model and data with the events file on and a profiler window
+   at steps 2-3 with ``capture_xla_trace``: its observations JSON holds
+   the 2 steps, its ``torch.profiler`` trace names K4's and K5's kernels,
+   K2-K5 launched and no plain version; each step record's ``mfu`` equals
+   ``achieved_tflops / 989.4`` and lies within 1e-6 of its ``palm_mfu``;
+   then one more step is left in flight while a span's emission,
+   ``telemetry.on_step`` and ``telemetry.flush`` run under
+   ``torch.cuda.set_sync_debug_mode("error")`` with
+   ``torch.cuda.synchronize`` trapped; and the host cost of a span and of
+   ``on_step`` + ``flush``. (b) ``serve bench --run-dir`` at phase 4's
+   native traffic: K1 and K2 launched, no plain version; ``obs report``'s
+   serving section counts the 32 requests and gives the bench's tokens/s
+   within 0.1 %. (c) after phase 9, ``obs report`` over its run directory
+   shows the step-time and MFU sections (the mfu check again), the
+   asynchronous saves' ``ckpt.*`` spans and, in the timeline, the SIGTERM
+   and the relaunch; then the Trainer step ms with the events file on
+   beside phase 8's, and serving tokens/s and the tick's wall clock with a
+   run directory beside phase 4's. With ``CHIP_SMOKE_REPORTS=DIR`` in the
+   environment the three reports are also written under DIR;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -107,6 +130,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -166,6 +190,14 @@ EVAL_REF_NATS = 1e-4  # evaluate vs the trainer's forward on its in-memory weigh
 # left-padded prefill is 1024 wide and K4 runs), 128 greedy tokens each
 GEN = dict(batch=8, prompt_len=(256, 1024), max_tokens=128, seed=0, profile=(16, 48))
 GEN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through 8 layers vs f32
+# phase 10: a 5-step observed Trainer run, profiler window at steps 2-3; the
+# repetitions of the host-cost measurement
+OBSERVE = dict(iterations=5, profile=(2, 2), span_reps=200, telemetry_reps=50,
+               serve_turns=("none", "none", "run_dir"), train_turns=("off", "on", "on", "off"),
+               turn_steps=3)
+MFU_RTOL = 1e-6  # the telemetry's mfu vs the record's palm_mfu: one formula, two roundings
+# where the reports, too long for the log, are kept; unset: nowhere
+KEEP_DIR = os.environ.get("CHIP_SMOKE_REPORTS")
 # the bench 0.5B model in the JAX default architecture: its widths, other keys
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
@@ -1169,6 +1201,12 @@ class TrainerProbe:
         return False
 
 
+def metric_records(path: Path) -> list:
+    """The step records of a metrics JSONL (its registry snapshots left out)."""
+    records = [json.loads(line) for line in path.read_text().splitlines()]
+    return [r for r in records if r.get("kind") == "step"]
+
+
 def dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
@@ -1237,8 +1275,7 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         in_memory_loss = in_memory_eval_loss(trainer, prefixes["valid"])
         del trainer
         torch.cuda.empty_cache()
-        records = [json.loads(line) for line in (root / "logs" / "metrics_rank_0.jsonl")
-                   .read_text().splitlines()]
+        records = metric_records(root / "logs" / "metrics_rank_0.jsonl")
         steps = [r for r in records if "loss" in r["metrics"]]
         losses = [r["metrics"]["loss"] for r in steps]
         if [r["step"] for r in steps] != list(range(1, TRAINER["iterations"] + 1)):
@@ -1275,9 +1312,9 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         for field in vars(step4_first):
             if not np.array_equal(getattr(step4_first, field), getattr(step4_again, field)):
                 raise AssertionError(f"the resumed step-4 batch differs in {field}")
-        again = [json.loads(line)["metrics"]["loss"] for line in
-                 (root / "logs2" / "metrics_rank_0.jsonl").read_text().splitlines()
-                 if "loss" in json.loads(line)["metrics"]]
+        again = [r["metrics"]["loss"] for r in metric_records(root / "logs2" /
+                                                              "metrics_rank_0.jsonl")
+                 if "loss" in r["metrics"]]
         print(f"  losses: first run {losses}; resumed at 3: {again}")
         if again[0] != losses[3]:
             raise AssertionError(f"step-4 loss after the resume {again[0]!r} != {losses[3]!r}")
@@ -1419,12 +1456,15 @@ def check_step_records(steps: list) -> None:
 
 
 # ------------------------------------------------------------ supervision
-def supervise_config(prefixes: dict, log_dir: Path, save_dir: Path, resume: bool) -> dict:
-    """Phase 8's config with the trainer's supervision keys on. Run B, the
-    resume, also prunes past optimizer states, after its commit."""
-    config = trainer_config(prefixes, log_dir, save_dir=save_dir,
+def supervise_config(prefixes: dict, run_dir: Path, name: str, save_dir: Path,
+                     resume: bool) -> dict:
+    """Phase 8's config with the trainer's supervision keys on, logging into
+    ``run_dir/logs_<name>`` and the run directory's one events file. Run B,
+    the resume, also prunes past optimizer states, after its commit."""
+    config = trainer_config(prefixes, run_dir / f"logs_{name}", save_dir=save_dir,
                             load_dir=save_dir if resume else None)
     config["trainer"].update(SUPERVISE["keys"], delete_past_optimizer_states=resume)
+    config["logger"]["events_path"] = str(run_dir / "events.jsonl")
     return config
 
 
@@ -1524,14 +1564,16 @@ def check_supervise_launches(kernel: dict, plain: dict) -> None:
 def step_records(log_dir: Path) -> dict:
     """Step -> its metrics record, from a run's ``metrics_rank_0.jsonl``."""
     f = log_dir / "metrics_rank_0.jsonl"
-    records = [json.loads(line) for line in f.read_text().splitlines()] if f.is_file() else []
+    records = metric_records(f) if f.is_file() else []
     return {r["step"]: r["metrics"] for r in records if "loss" in r["metrics"]}
 
 
-def run_child(root: Path, name: str, config: dict, device: str, sigterm_after=None) -> dict:
+def run_child(root: Path, name: str, config: dict, device: str, sigterm_after=None,
+              on_sigterm=lambda: None) -> dict:
     """One child run; with ``sigterm_after`` the parent sends it SIGTERM once
-    that step's record is written. Fails unless it exits 0; returns its
-    result. The child never outlives the call."""
+    that step's record is written, after calling ``on_sigterm``. Fails
+    unless it exits 0; returns its result. The child never outlives the
+    call."""
     spec = root / f"{name}.json"
     spec.write_text(json.dumps({"config": config, "device": device, "pause_s": SUPERVISE[
         "pause_s"], "result_path": str(root / f"{name}_result.json")}))
@@ -1548,6 +1590,7 @@ def run_child(root: Path, name: str, config: dict, device: str, sigterm_after=No
                     raise AssertionError(f"{name}: no step-{sigterm_after} record before the "
                                          f"child ended:\n{log_file.read_text()[-4000:]}")
                 time.sleep(0.01)
+            on_sigterm()
             proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
     finally:
@@ -1576,7 +1619,14 @@ def overlap_steps(result: dict, records: dict) -> tuple:
 
 def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda") -> dict:
     """Phase 9: the supervised Trainer in child processes, held against
-    phase 8's run (``trainer_run``). Returns the children's launch counts."""
+    phase 8's run (``trainer_run``). Both children write their events and
+    metrics into one run directory, where this process, in the role of the
+    relaunching supervisor, records the SIGTERM it relays (``preempt-relay``)
+    and the relaunch of run B (``relaunch``) under the JAX supervisor's
+    event names. Returns the children's launch counts and a copy of the run
+    directory (``run_dir``, a temporary directory phase 10 reads and
+    removes)."""
+    from scaling_tpu_torch.logging import Logger, LoggerConfig
     from scaling_tpu_torch.resilience import verify_checkpoint
     from scaling_tpu_torch.train.bench import MODELS
 
@@ -1590,13 +1640,19 @@ def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda
         if free < need:
             raise AssertionError(f"not enough disk for three checkpoints under {root}")
         prefixes = write_token_datasets(root, vocab)
-        save_dir = root / "ckpt"
+        save_dir, run_dir = root / "ckpt", root / "obs"
         gold = trainer_run["losses"]
+        supervisor = Logger(LoggerConfig(events_path=str(run_dir / "events.jsonl")),
+                            name="supervise")
+        run_dir.mkdir()
 
         # run A: SIGTERM from outside once step 4 is logged
-        a = run_child(root, "run_a", supervise_config(prefixes, root / "logs_a", save_dir, False),
-                      device, sigterm_after=SUPERVISE["sigterm_after"])
-        k, records_a = a["iterations"], step_records(root / "logs_a")
+        a = run_child(root, "run_a", supervise_config(prefixes, run_dir, "a", save_dir, False),
+                      device, sigterm_after=SUPERVISE["sigterm_after"],
+                      on_sigterm=lambda: supervisor.log_event(
+                          "preempt-relay", host="supervisor", epoch=0))
+        supervisor.log_event("epoch-clean-exit", epoch=0, preempted=True)
+        k, records_a = a["iterations"], step_records(run_dir / "logs_a")
         losses = [records_a[s]["loss"] for s in sorted(records_a)]
         print(f"  run A: SIGTERM after the step-4 record; exited 0 at step {k}; losses {losses}")
         if k not in (4, 5) or sorted(records_a) != list(range(1, k + 1)):
@@ -1620,9 +1676,11 @@ def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda
               "the crc32s of phase 8's synchronous save")
 
         # run B: run_with_resume from save_dir to step 6
-        b = run_child(root, "run_b", supervise_config(prefixes, root / "logs_b", save_dir, True),
+        supervisor.log_event("relaunch", epoch=1, restarts=1, budget=1, backoff_s=0.0)
+        b = run_child(root, "run_b", supervise_config(prefixes, run_dir, "b", save_dir, True),
                       device)
-        records_b = step_records(root / "logs_b")
+        supervisor.log_event("epoch-clean-exit", epoch=1, preempted=False)
+        records_b = step_records(run_dir / "logs_b")
         again = [records_b[s]["loss"] for s in sorted(records_b)]
         rel = [abs(x - y) / abs(y) for x, y in zip(again, gold[k:])]
         print(f"  run B: resumed at {b['resumed_from']}, losses {again}; rel. diff to phase 8 "
@@ -1671,7 +1729,347 @@ def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda
         plain = dict(Counter(a["plain"]) + Counter(b["plain"]))
         print(f"  launches kernel={kernel} plain={plain}")
         check_supervise_launches(kernel, plain)
-        return kernel
+        kept = Path(tempfile.mkdtemp(prefix="chip_smoke_supervise_obs_"))
+        shutil.copytree(run_dir, kept / "run")
+        return {"launches": kernel, "run_dir": kept / "run", "k": k}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------- observability
+def keep(name: str, text: str) -> None:
+    """Write ``text`` under KEEP_DIR, when it is set."""
+    if KEEP_DIR is not None:
+        Path(KEEP_DIR).mkdir(parents=True, exist_ok=True)
+        (Path(KEEP_DIR) / name).write_text(text)
+
+
+def check_observe_launches(where: str, kernel: dict, plain: dict, needed: tuple) -> None:
+    if any(kernel.get(k, 0) <= 0 for k in needed):
+        raise AssertionError(f"{where}: kernels not launched on its path: {kernel}")
+    if sum(plain.values()) != 0:
+        raise AssertionError(f"{where}: plain versions ran on the card: {plain}")
+
+
+def obs_report(run_dir: Path) -> tuple:
+    """The port's ``obs report`` over ``run_dir``: (its text, its ``--json``
+    stats). Fails unless it exits 0."""
+    import contextlib
+    import io
+
+    from scaling_tpu_torch.obs.cli import main as obs_main
+
+    out, stats_file = io.StringIO(), run_dir.parent / f"{run_dir.name}_report.json"
+    with contextlib.redirect_stdout(out):
+        rc = obs_main(["report", str(run_dir), "--json", str(stats_file)])
+    if rc != 0:
+        raise AssertionError(f"obs report {run_dir} exited {rc}:\n{out.getvalue()}")
+    return out.getvalue(), json.loads(stats_file.read_text())["stats"]
+
+
+def report_section(text: str, title: str) -> list:
+    """The lines of one ``== title ==`` section of a report."""
+    lines = text.splitlines()
+    start = lines.index(f"== {title} ==") + 1
+    end = next((i for i in range(start, len(lines)) if lines[i].startswith("== ")), len(lines))
+    return lines[start:end]
+
+
+def check_mfu(records: list, where: str, mfu_section: list) -> int:
+    """Every step record carries the telemetry's ``mfu``, equal to its
+    ``achieved_tflops`` over the H100's 989.4 TFLOP/s and within MFU_RTOL
+    of the record's ``palm_mfu``, and the report's MFU section reads it.
+    Returns the number of records held."""
+    from scaling_tpu_torch.models.transformer.utils.get_tflops import H100_BF16_TFLOPS
+
+    steps = [r["metrics"] for r in records if "loss" in r["metrics"]]
+    for m in steps:
+        if not {"mfu", "achieved_tflops", "palm_mfu"} <= set(m):
+            raise AssertionError(f"{where}: a step record without mfu/palm_mfu: {sorted(m)}")
+        if not math.isclose(m["mfu"], m["achieved_tflops"] / H100_BF16_TFLOPS, rel_tol=1e-9):
+            raise AssertionError(f"{where}: mfu {m['mfu']} is not achieved_tflops / 989.4")
+        if not math.isclose(m["mfu"], m["palm_mfu"], rel_tol=MFU_RTOL):
+            raise AssertionError(f"{where}: mfu {m['mfu']} vs palm_mfu {m['palm_mfu']}")
+    if not steps:
+        raise AssertionError(f"{where}: no step records")
+    if not mfu_section or not mfu_section[0].strip().startswith("mfu: mean="):
+        raise AssertionError(f"{where}: the report's MFU section reads {mfu_section}")
+    return len(steps)
+
+
+def observe_supervised(run_dir: Path, k: int) -> None:
+    """Phase 10 (a): ``obs report`` over phase 9's run directory shows the
+    step-time and MFU sections, the asynchronous saves' ``ckpt.*`` spans
+    and, in the timeline, the SIGTERM relayed to run A and run B's
+    relaunch."""
+    text, stats = obs_report(run_dir)
+    keep("observe_supervised_report.txt", text)
+    steps = report_section(text, "step time")
+    mfu = report_section(text, "mfu / throughput")
+    held = sum(check_mfu(metric_records(f), f.parent.name, mfu)
+               for f in sorted(run_dir.glob("logs_*/metrics_rank_0.jsonl")))
+    commits = report_section(text, "checkpoint commits")
+    timeline = report_section(text, "restart / preemption timeline")
+    for line in steps + mfu + commits + timeline[-1:]:
+        print(f"  report | {line.strip()}")
+    if not steps[0].strip().startswith("host 0: n=6 "):
+        raise AssertionError(f"the step-time section lacks the 6 steps:\n{text}")
+    by_step = {int(line.split(":")[0].split()[-1]): line for line in commits}
+    for step in (3, k, 6):
+        line = by_step.get(step, "")
+        if not all(f"{phase}=" in line for phase in ("save", "stage", "manifest", "rename",
+                                                      "latest")):
+            raise AssertionError(f"checkpoint section lacks step {step}'s ckpt spans:\n{text}")
+    events = [re.match(r"\s*\+\s*[\d.]+s (\S+)", line).group(1) for line in timeline[:-1]]
+    if events.count("preempt-relay") != 1 or events.count("relaunch") != 1 or \
+            "restarts=1 preemptions=1 stalls=0" not in timeline[-1]:
+        raise AssertionError(f"the timeline lacks the SIGTERM or the resume:\n{text}")
+    print(f"  {held} step records: mfu = achieved_tflops / 989.4, within {MFU_RTOL} of "
+          f"palm_mfu; p50 step time {stats['step_time_p50'] * 1e3:.2f}ms")
+
+
+def check_no_added_sync(trainer) -> dict:
+    """One more step dispatched and left in flight, then a span's emission,
+    ``telemetry.on_step`` and ``telemetry.flush`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` with ``torch.cuda.synchronize``
+    trapped: any device sync they make raises."""
+    from scaling_tpu_torch.obs import span
+
+    batch = trainer.batch_to_model_input(trainer._next_micro_batches(), trainer.device)
+    torch.cuda.synchronize()
+    loss, _, _ = trainer._train_step(batch)
+    in_flight = not torch.cuda.current_stream().query()
+    sync = torch.cuda.synchronize
+
+    def trapped(*a, **kw):
+        raise AssertionError("torch.cuda.synchronize on the telemetry path")
+
+    step = trainer.context.iterations + 1
+    torch.cuda.synchronize = trapped
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with span("observe.no_sync", step=step):
+            pass
+        derived = trainer.telemetry.on_step(step, 0.08)
+        trainer.telemetry.flush(step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize = sync
+    still = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    if not math.isfinite(float(loss)):
+        raise AssertionError("the in-flight step's loss is not finite")
+    return {"in_flight": in_flight, "still_in_flight": still, "derived": derived}
+
+
+def obs_host_costs(trainer) -> dict:
+    """Host cost of the telemetry with the events file on: an empty span
+    (histogram update, JSON line, one write) and ``on_step`` + ``flush``
+    (gauges, allocator query, one registry snapshot appended), mean ms over
+    OBSERVE's repetitions, on the host clock."""
+    from scaling_tpu_torch.obs import span
+
+    t0 = time.perf_counter()
+    for i in range(OBSERVE["span_reps"]):
+        with span("observe.cost", step=i):
+            pass
+    span_ms = (time.perf_counter() - t0) * 1e3 / OBSERVE["span_reps"]
+    step = trainer.context.iterations + 2
+    t0 = time.perf_counter()
+    for _ in range(OBSERVE["telemetry_reps"]):
+        trainer.telemetry.on_step(step, 0.08)
+        trainer.telemetry.flush(step)
+    telemetry_ms = (time.perf_counter() - t0) * 1e3 / OBSERVE["telemetry_reps"]
+    return {"span_ms": span_ms, "telemetry_ms": telemetry_ms}
+
+
+def train_turns(trainer, run_dir: Path) -> dict:
+    """The trainer trains on in OBSERVE's turns of ``turn_steps`` steps with
+    obs "on" (the events file and the telemetry) or "off" (neither: the
+    spans stay, without a file). Returns each kind's median step ms, from
+    the ``step_duration`` of the turns' records."""
+    from scaling_tpu_torch.logging import logger
+
+    config, ms = logger.config, {"on": [], "off": []}
+    for kind in OBSERVE["train_turns"]:
+        logger.configure(dataclasses.replace(
+            config, events_path=config.events_path if kind == "on" else None))
+        trainer.telemetry.enabled = kind == "on"
+        start = trainer.context.iterations
+        trainer.config = dataclasses.replace(trainer.config,
+                                             train_iterations=start + OBSERVE["turn_steps"])
+        trainer.run_training()
+        ms[kind] += [r["metrics"]["step_duration"] * 1e3 for r in metric_records(
+            run_dir / "logs" / "metrics_rank_0.jsonl") if r["step"] > start]
+    logger.configure(config)
+    trainer.telemetry.enabled = True
+    for kind, values in ms.items():
+        print(f"  turns obs {kind}: step ms {[round(v, 2) for v in values]}, median "
+              f"{statistics.median(values):.2f}")
+    return {kind: statistics.median(values) for kind, values in ms.items()}
+
+
+def check_trace(trace_dir: Path) -> None:
+    """The newest Chrome trace under ``trace_dir`` names K4's and K5's
+    kernels among its device-kernel events."""
+    traces = sorted(trace_dir.glob("*.json"))
+    if not traces:
+        raise AssertionError(f"no trace under {trace_dir}")
+    events = json.loads(traces[-1].read_text()).get("traceEvents", [])
+    names = Counter(e.get("name", "") for e in events if e.get("cat") == "kernel")
+    flash = {n: c for n, c in names.items() if "flash_" in n}
+    print(f"  torch.profiler trace {traces[-1].name}: {len(events)} events, "
+          f"{sum(names.values())} kernel events; flash kernels {flash}")
+    if not any("flash_fwd" in n for n in flash) or not any("flash_bwd" in n for n in flash):
+        raise AssertionError("the profiler window's trace does not name K4 and K5")
+
+
+def observe_train(bench_step_ms: float, device: str = "cuda") -> dict:
+    """Phase 10 (b): a 5-step Trainer run of phase 8's model and data with
+    no save and no eval, the events file on, and a profiler window at steps
+    2-3 with ``capture_xla_trace``; the launch counters reset just before it
+    and read just after. Its observations JSON holds the window's 2 steps,
+    the trace names K4's and K5's kernels, ``obs report`` renders its
+    step-time and MFU sections, and the no-sync check and the telemetry's
+    host costs follow."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import main
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.train.bench import MODELS
+
+    vocab = MODELS[TRAINER["model"]]["vocab_size"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_observe_"))
+    try:
+        prefixes = write_token_datasets(root, vocab)
+        run_dir = root / "run"
+        config = trainer_config(prefixes, run_dir / "logs")
+        config["trainer"].update(train_iterations=OBSERVE["iterations"], eval_interval=None)
+        config["logger"]["events_path"] = str(run_dir / "events.jsonl")
+        start, count = OBSERVE["profile"]
+        config["profiler"] = {"profile_steps": count, "profile_start_at_step": start,
+                              "profiler_output": str(root / "profile" / "observations.json"),
+                              "capture_xla_trace": True}
+        run_dir.mkdir(parents=True)
+        launches.reset()
+        trainer = main(TransformerConfig.from_dict(config), device=device)
+        torch.cuda.synchronize()
+        kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+        print(f"  launches kernel={kernel} plain={plain}")
+        check_observe_launches("observed trainer run", kernel, plain,
+                               ("rms_norm", "rms_norm_bwd", "flash_attention_fwd",
+                                "flash_attention_bwd"))
+
+        observations = json.loads((root / "profile" / "observations.json").read_text())
+        print(f"  profiler observations: {observations}")
+        if [o["step"] for o in observations] != list(range(start, start + count)) or any(
+                set(o) != {"step", "data_load", "step_time"} for o in observations):
+            raise AssertionError(f"profiler observations: {observations}")
+        check_trace(root / "profile" / "xla_trace")
+
+        records = metric_records(run_dir / "logs" / "metrics_rank_0.jsonl")
+        text, _ = obs_report(run_dir)
+        keep("observe_train_report.txt", text)
+        check_mfu(records, "observed run", report_section(text, "mfu / throughput"))
+        for line in report_section(text, "step time") + report_section(text, "mfu / throughput"):
+            print(f"  report | {line.strip()}")
+        window = {start + 1 + i for i in range(count)}  # the window's records
+        ms = {r["step"]: r["metrics"]["step_duration"] * 1e3 for r in records
+              if "loss" in r["metrics"]}
+        outside = [v for s, v in ms.items() if s not in window and s > 1]
+        print(f"  step ms with the events file on: {ms} (records {sorted(window)} in the "
+              f"profiler window, synchronised); outside it and after step 1: median "
+              f"{statistics.median(outside):.2f}ms; phase 5's bench step {bench_step_ms:.2f}ms")
+
+        turns = train_turns(trainer, run_dir)
+        sync = check_no_added_sync(trainer)
+        print(f"  no sync: a span, telemetry.on_step and telemetry.flush ran under "
+              f"set_sync_debug_mode('error') with the step in flight "
+              f"(before {sync['in_flight']}, after {sync['still_in_flight']}); "
+              f"derived {sorted(sync['derived'])}")
+        if not sync["in_flight"] or not sync["still_in_flight"]:
+            raise AssertionError("the no-sync check ran with no step in flight")
+        costs = obs_host_costs(trainer)
+        print(f"  host cost with the events file on: a span {costs['span_ms'] * 1e3:.1f}us, "
+              f"telemetry.on_step + flush {costs['telemetry_ms']:.3f}ms")
+        trainer.stop_prefetch()
+        del trainer
+        torch.cuda.empty_cache()
+        return {"launches": kernel, "step_ms": statistics.median(outside), "turns": turns,
+                **costs}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> dict:
+    """Phase 10 (c): ``serve bench --run-dir`` at phase 4's native traffic,
+    the launch counters reset just before it and read just after; its
+    report's serving section counts the 32 requests and gives the bench's
+    tokens/s within 0.1 %. Then the same bench in OBSERVE's turns without
+    and with a run directory (the first run counting as one with), for the
+    cost of the files in one process."""
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.serve.bench import main as bench_main
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_observe_serve_"))
+    try:
+        run_dir = root / "run"
+        base = ["--model", model, "--device", device, "--seed", str(WORKLOAD["seed"]),
+                "--requests", str(WORKLOAD["n_requests"]), "--rate", str(WORKLOAD["rate"]),
+                "--prompt-len", *map(str, WORKLOAD["prompt_len"]),
+                "--output-len", *map(str, WORKLOAD["output_len"]),
+                "--num-slots", str(SERVE["num_slots"]), "--block-size", str(SERVE["block_size"]),
+                "--num-blocks", str(SERVE["num_blocks"]),
+                "--max-blocks-per-seq", str(SERVE["max_blocks_per_seq"]),
+                "--prefill-chunk", str(SERVE["prefill_chunk"])]
+        launches.reset()
+        rc = bench_main(base + ["--run-dir", str(run_dir), "--json", str(root / "stats.json")])
+        torch.cuda.synchronize()
+        kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+        stats = json.loads((root / "stats.json").read_text())
+        print(f"  launches kernel={kernel} plain={plain}")
+        if rc != 0 or stats["completed"] != WORKLOAD["n_requests"]:
+            raise AssertionError(f"serve bench --run-dir: rc {rc}, stats {stats}")
+        check_observe_launches("serve bench --run-dir", kernel, plain,
+                               ("paged_attention", "rms_norm"))
+        text, report = obs_report(run_dir)
+        keep("observe_serve_report.txt", text)
+        serving = report_section(text, "serving")
+        for line in serving:
+            print(f"  report | {line.strip()}")
+        events = [json.loads(line) for line in (run_dir / "events.jsonl").read_text()
+                  .splitlines()]
+        requests = sum(1 for e in events if e["event"] == "serve-request")
+        if requests != WORKLOAD["n_requests"] or \
+                f"{WORKLOAD['n_requests']} request(s))" not in serving[0]:
+            raise AssertionError(f"the serving section counts {requests} requests:\n{text}")
+        rel = abs(report["serve_tokens_per_s"] - stats["tokens_per_s"]) / stats["tokens_per_s"]
+        if not rel <= 1e-3:
+            raise AssertionError(f"report tokens/s {report['serve_tokens_per_s']} vs the "
+                                 f"bench's {stats['tokens_per_s']}")
+        ticks = [e["dur_s"] for e in events if e.get("span") == "serve.tick"]
+        tick_ms = stats["wall_s"] / stats["ticks"] * 1e3
+        print(f"  with the run directory: {stats['tokens_per_s']:.1f} output tokens/s (the "
+              f"report's {report['serve_tokens_per_s']:.1f}, rel. diff {rel:.1e}), wall per "
+              f"tick {tick_ms:.3f}ms, serve.tick span median "
+              f"{statistics.median(ticks) * 1e3:.3f}ms over {len(ticks)}; phase 4: "
+              f"{phase4['tokens_per_s']:.1f} tokens/s, wall per tick "
+              f"{phase4['wall_s'] / phase4['ticks'] * 1e3:.3f}ms")
+        turns = {"run_dir": [stats], "none": []}
+        for i, kind in enumerate(OBSERVE["serve_turns"]):
+            out = root / f"stats_{i}.json"
+            extra = ["--run-dir", str(root / f"run_{i}")] if kind == "run_dir" else []
+            if bench_main(base + extra + ["--json", str(out)]) != 0:
+                raise AssertionError(f"serve bench turn {i} ({kind}) failed")
+            turns[kind].append(json.loads(out.read_text()))
+        summary = {kind: {"tokens_per_s": statistics.median(t["tokens_per_s"] for t in runs),
+                          "tick_ms": statistics.median(t["wall_s"] / t["ticks"] * 1e3
+                                                       for t in runs)}
+                   for kind, runs in turns.items()}
+        for kind, runs in turns.items():
+            print(f"  turns {kind}: tokens/s "
+                  f"{[round(t['tokens_per_s'], 1) for t in runs]}, wall per tick ms "
+                  f"{[round(t['wall_s'] / t['ticks'] * 1e3, 3) for t in runs]}")
+        return {"launches": kernel, "turns": summary}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1817,8 +2215,9 @@ def main() -> int:
     for name, err in check_training_kernels().items():
         errs[name] = max(err, errs.get(name, 0.0))
     print("== serve 0.5B (full width and depth, random weights, seed 0)")
-    launches_by_path = {f"serve_{kv_dtype}": serve(kv_dtype)["launches"]
-                        for kv_dtype in ("native", "int8")}
+    served_by_kv = {kv_dtype: serve(kv_dtype) for kv_dtype in ("native", "int8")}
+    launches_by_path = {f"serve_{kv}": stats["launches"] for kv, stats in served_by_kv.items()}
+    serve_native = served_by_kv["native"]
     print("== train 0.5B (full width and depth, random weights, seed 0; mbs 4, seq 2048)")
     trained = train()
     launches_by_path["train"] = trained["launches"]
@@ -1827,6 +2226,15 @@ def main() -> int:
         launches_by_path[f"generate_{name}"] = generation_phase(name, arch)
     print("== kernel times (device: torch.profiler; per call: CUDA events)")
     rows = time_kernels(errs)
+    # before the trainer phase, after which torch.profiler now and then drops
+    # device events: this run's trace must name K4 and K5
+    print("== observe (phase 10): a 5-step Trainer run with the events file and a profiler "
+          "window at steps 2-3")
+    observed = observe_train(trained["step_ms"])
+    launches_by_path["observe_train"] = observed["launches"]
+    print("== observe: serve bench --run-dir at phase 4's native traffic")
+    served = observe_serve(serve_native)
+    launches_by_path["observe_serve"] = served["launches"]
     # last: after the trainer's run the profiler drops device events now and
     # then (on an H100 a kernel's profiled sum fell to half its time after
     # it), so the kernel times are taken before it
@@ -1835,7 +2243,24 @@ def main() -> int:
     launches_by_path["trainer"] = trainer_run["launches"]
     print("== supervise: the trainer phase's run with preemption, prefetch, asynchronous "
           "checkpoints, the watchdog and run_with_resume, in child processes")
-    launches_by_path["supervise"] = supervise_phase(trainer_run, trained["step_ms"])
+    supervised = supervise_phase(trainer_run, trained["step_ms"])
+    launches_by_path["supervise"] = supervised["launches"]
+    print("== observe (phase 10): obs report over phase 9's run directory")
+    try:
+        observe_supervised(supervised["run_dir"], supervised["k"])
+    finally:
+        shutil.rmtree(supervised["run_dir"].parent, ignore_errors=True)
+    with_dir, without = served["turns"]["run_dir"], served["turns"]["none"]
+    print(f"  obs overhead: Trainer step with obs on {observed['turns']['on']:.2f}ms, off "
+          f"{observed['turns']['off']:.2f}ms (medians of the turns), the first steps with the "
+          f"events file on {observed['step_ms']:.2f}ms, phase 8's "
+          f"{trainer_run['step_ms']:.2f}ms; serving (medians of the "
+          f"turns) with a run directory {with_dir['tokens_per_s']:.1f} tokens/s and "
+          f"{with_dir['tick_ms']:.3f}ms a tick, without {without['tokens_per_s']:.1f} and "
+          f"{without['tick_ms']:.3f}ms, phase 4's {serve_native['tokens_per_s']:.1f} and "
+          f"{serve_native['wall_s'] / serve_native['ticks'] * 1e3:.3f}ms; a span "
+          f"{observed['span_ms'] * 1e3:.1f}us, telemetry.on_step + flush "
+          f"{observed['telemetry_ms']:.3f}ms")
     print("== launches on the main paths")
     add_launches(rows, launches_by_path)
     print(f"== done in {time.monotonic() - t_start:.1f}s")

@@ -1,5 +1,5 @@
 """Run logging (counterpart of scaling_tpu/logging/)."""
 
-from .logger import Logger, LoggerConfig
+from .logger import Logger, LoggerConfig, append_jsonl_line, logger, set_trace_provider
 
-__all__ = ["Logger", "LoggerConfig"]
+__all__ = ["Logger", "LoggerConfig", "append_jsonl_line", "logger", "set_trace_provider"]

@@ -1,14 +1,20 @@
-"""Console, per-rank log file and per-step metrics JSONL (counterpart of
-scaling_tpu/logging/logger.py on one device, rank 0).
+"""Console, per-rank log file, per-step metrics JSONL, the events file and
+TensorBoard (counterpart of scaling_tpu/logging/logger.py on one device,
+rank 0).
 
-``Logger(config)`` sends the ``scaling_tpu_torch`` log to the console
-and, with ``log_dir``, to ``<log_dir>/rank_0.log``. ``log_metrics`` prints
-one line a step and appends the JAX trainer's record to the metrics JSONL
-(``metrics_path``, else ``<log_dir>/metrics_rank_0.jsonl``):
+``logger`` is the process's logger, as in the JAX package;
+``logger.configure(config)`` wires its sinks. It sends the
+``scaling_tpu_torch`` log to the console and, with ``log_dir``, to
+``<log_dir>/rank_0.log``. ``log_metrics`` prints one line a step, appends
+the JAX trainer's record to the metrics JSONL (``metrics_path``, else
+``<log_dir>/metrics_rank_0.jsonl``):
 ``{"kind": "step", "step", "ts", "host", "metrics": {name: value}}``,
-non-finite values as null. ``log_event`` writes a lifecycle event to
-the log as the JAX logger mirrors it. TensorBoard, wandb and the events
-file are not ported: turning one on raises NotImplementedError.
+non-finite values as null, and with ``use_tensorboard`` writes each
+numeric metric as a scalar under ``<log_dir>/tensorboard``
+(``torch.utils.tensorboard``). ``log_event`` appends one JSON line a
+lifecycle event to the events file (``SCALING_TPU_EVENTS_PATH``, else
+``events_path``) and mirrors it to the log. wandb is not installed and
+stays refused by name.
 """
 
 from __future__ import annotations
@@ -27,6 +33,19 @@ _LEVELS = {"debug": logging.DEBUG, "info": logging.INFO, "warning": logging.WARN
            "error": logging.ERROR, "critical": logging.CRITICAL}
 LOGGER_NAME = "scaling_tpu_torch"
 
+# obs.spans registers a provider at import so that every log_event record
+# emitted under an active trace context carries the trace id. The hook is
+# a module-level callback, not an import: logging sits below obs.
+_trace_provider = None
+
+
+def set_trace_provider(provider) -> None:
+    """Register a zero-argument callable returning extra fields (or None)
+    to merge into every ``log_event`` record. Explicit fields win; a
+    provider that raises adds nothing (telemetry is best-effort)."""
+    global _trace_provider
+    _trace_provider = provider
+
 
 @dataclasses.dataclass(frozen=True)
 class LoggerConfig:
@@ -34,15 +53,16 @@ class LoggerConfig:
 
     log_level: str = "info"
     log_dir: Optional[str] = None
-    events_path: Optional[str] = None  # not ported: must stay None
+    # JSONL of lifecycle events; SCALING_TPU_EVENTS_PATH overrides it
+    events_path: Optional[str] = None
     metrics_path: Optional[str] = None
     metrics_jsonl: bool = True
     metrics_ranks: Optional[List[int]] = None  # None: rank 0, the port's only rank
     use_wandb: bool = False  # not ported
-    use_tensorboard: bool = False  # not ported
-    # the settings of the sinks above; inert while those are off, as in
-    # the JAX package (determined_metrics_ranks is config parity there)
-    tensorboard_ranks: Optional[List[int]] = None
+    use_tensorboard: bool = False
+    tensorboard_ranks: Optional[List[int]] = None  # None: rank 0
+    # settings of wandb, inert while it is off; determined_metrics_ranks is
+    # config parity in the JAX package too
     determined_metrics_ranks: Optional[List[int]] = None
     wandb_ranks: Optional[List[int]] = None
     wandb_host: Optional[str] = None
@@ -54,11 +74,8 @@ class LoggerConfig:
     def __post_init__(self):
         if self.log_level not in _LEVELS:
             raise ValueError(f"logger.log_level must be one of {sorted(_LEVELS)}")
-        for key in ("use_wandb", "use_tensorboard"):
-            if getattr(self, key):
-                raise NotImplementedError(f"logger.{key} is not ported")
-        if self.events_path is not None:
-            raise NotImplementedError("logger.events_path (lifecycle events) is not ported")
+        if self.use_wandb:
+            raise NotImplementedError("logger.use_wandb is not ported (wandb is not installed)")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "LoggerConfig":
@@ -68,12 +85,31 @@ class LoggerConfig:
         return cls(**d)
 
 
+class _Stdout(logging.StreamHandler):
+    """A console handler writing to the ``sys.stdout`` of the moment, so a
+    process-wide logger follows a redirected stdout."""
+
+    @property
+    def stream(self):
+        return sys.stdout
+
+    @stream.setter
+    def stream(self, value):
+        pass
+
+
+def _rank_enabled(ranks: Optional[List[int]], rank: int = 0) -> bool:
+    return rank == 0 if ranks is None else rank in ranks
+
+
 class Logger:
-    """The run's logger; ``configure`` wires its sinks."""
+    """A run's logger; ``configure`` wires its sinks. The module's
+    ``logger`` is the one the trainer, the engine and ``obs`` share."""
 
     def __init__(self, config: Optional[LoggerConfig] = None, name: str = ""):
         self._log = logging.getLogger(LOGGER_NAME)
         self._log.propagate = False
+        self._tb_writer: Any = None
         self.configure(config or LoggerConfig(), name)
 
     def configure(self, config: LoggerConfig, name: str = "") -> None:
@@ -84,13 +120,24 @@ class Logger:
             h.close()
         prefix = "[rank 0]" + (f" [{name}]" if name else "")
         fmt = logging.Formatter(f"[%(asctime)s] {prefix} [%(levelname)s] %(message)s")
-        handlers: List[logging.Handler] = [logging.StreamHandler(sys.stdout)]
+        handlers: List[logging.Handler] = [_Stdout()]
         if config.log_dir:
             Path(config.log_dir).mkdir(parents=True, exist_ok=True)
             handlers.append(logging.FileHandler(Path(config.log_dir) / "rank_0.log"))
         for h in handlers:
             h.setFormatter(fmt)
             self._log.addHandler(h)
+        if self._tb_writer is not None:
+            self._tb_writer.close()
+            self._tb_writer = None
+        if config.use_tensorboard and _rank_enabled(config.tensorboard_ranks):
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._tb_writer = SummaryWriter(
+                log_dir=str(Path(config.log_dir or ".") / "tensorboard"))
+
+    def debug(self, msg: Any) -> None:
+        self._log.debug(msg)
 
     def info(self, msg: Any) -> None:
         self._log.info(msg)
@@ -101,16 +148,54 @@ class Logger:
     def error(self, msg: Any) -> None:
         self._log.error(msg)
 
-    def log_event(self, event: str, **fields: Any) -> None:
-        """A lifecycle event as the JAX logger mirrors it to the log: one
-        ``EVENT {json}`` line (the events file is not ported)."""
-        record = {"event": event, "ts": time.time(), **fields}
-        self.info(f"EVENT {json.dumps(record, sort_keys=True, default=str)}")
+    def critical(self, msg: Any) -> None:
+        self._log.critical(msg)
 
+    # -------------------------------------------------------------- events
+    def events_path(self) -> Optional[str]:
+        """The events file: the environment's first (a launcher redirecting
+        a child process wins over its config), then the config's."""
+        return os.environ.get("SCALING_TPU_EVENTS_PATH") or self.config.events_path
+
+    def log_event(self, event: str, _level: str = "info", _fsync: bool = True,
+                  **fields: Any) -> None:
+        """A lifecycle event: one JSON line appended to the events file,
+        fsync'd unless ``_fsync=False`` (per-step spans pass False), and
+        mirrored to the log at ``_level``. Without an events file only the
+        mirror line is written."""
+        record = {"event": event, "ts": time.time(), **fields}
+        if _trace_provider is not None:
+            try:
+                extra = _trace_provider()
+            except Exception:
+                extra = None
+            for k, v in (extra or {}).items():
+                record.setdefault(k, v)
+        line = json.dumps(record, sort_keys=True, default=str)
+        getattr(self, _level, self.info)(f"EVENT {line}")
+        path = self.events_path()
+        if path:
+            try:
+                with open(path, "a") as f:
+                    f.write(line + "\n")
+                    f.flush()
+                    if _fsync:
+                        os.fsync(f.fileno())
+            except OSError as e:
+                self.warning(f"could not append event to {path}: {e!r}")
+
+    # ------------------------------------------------------------- metrics
     def metrics_path(self) -> Optional[Path]:
-        """Where step records go, or None when the sink is off."""
+        """Where step records go, or None when the sink is off: the
+        ``SCALING_TPU_METRICS_PATH`` environment variable, then
+        ``metrics_path``, then ``<log_dir>/metrics_rank_0.jsonl``."""
         c = self.config
-        if not c.metrics_jsonl or (c.metrics_ranks is not None and 0 not in c.metrics_ranks):
+        if not _rank_enabled(c.metrics_ranks):
+            return None
+        env = os.environ.get("SCALING_TPU_METRICS_PATH")
+        if env:
+            return Path(env)
+        if not c.metrics_jsonl:
             return None
         if c.metrics_path:
             return Path(c.metrics_path)
@@ -119,18 +204,44 @@ class Logger:
         return None
 
     def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
-        if self.config.metrics_ranks is not None and 0 not in self.config.metrics_ranks:
+        if not _rank_enabled(self.config.metrics_ranks):
             return
         numeric = {k: float(v) for k, v in metrics.items() if v is not None}
         self.info(f"step {step} | " + " | ".join(f"{k}: {v:.6g}" for k, v in numeric.items()))
         path = self.metrics_path()
-        if path is None:
-            return
-        record = {"kind": "step", "step": step, "ts": time.time(), "host": 0,
-                  "metrics": {k: (v if math.isfinite(v) else None) for k, v in numeric.items()}}
-        path.parent.mkdir(parents=True, exist_ok=True)
-        fd = os.open(path, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
-        try:  # one write(2) a record
-            os.write(fd, (json.dumps(record, sort_keys=True) + "\n").encode())
-        finally:
-            os.close(fd)
+        if path is not None:
+            record = {"kind": "step", "step": step, "ts": time.time(), "host": _host_id(),
+                      "metrics": {k: (v if math.isfinite(v) else None)
+                                  for k, v in numeric.items()}}
+            try:
+                path.parent.mkdir(parents=True, exist_ok=True)
+                append_jsonl_line(path, json.dumps(record, sort_keys=True))
+            except OSError as e:
+                self.warning(f"could not append metrics to {path}: {e!r}")
+        if self._tb_writer is not None:
+            for k, v in numeric.items():
+                self._tb_writer.add_scalar(k, v, step)
+
+
+def append_jsonl_line(path: Any, line: str) -> None:
+    """Append one line in a single ``write(2)`` on an O_APPEND descriptor,
+    so records of several threads or processes sharing a file never
+    interleave (a buffered file object splits writes above its 8 KiB
+    buffer)."""
+    fd = os.open(str(path), os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+    try:
+        os.write(fd, (line + "\n").encode())
+    finally:
+        os.close(fd)
+
+
+def _host_id(rank: int = 0) -> int:
+    """The host id of metric records: ``SCALING_TPU_HOST_ID`` when a
+    supervisor set it, else the rank."""
+    try:
+        return int(os.environ.get("SCALING_TPU_HOST_ID", rank))
+    except ValueError:
+        return rank
+
+
+logger = Logger()

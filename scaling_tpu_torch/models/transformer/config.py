@@ -18,11 +18,11 @@ section a ``scaling_tpu`` config carries. Every key is one of three kinds:
 
 ``TransformerConfig`` reads a whole training config under the JAX key
 names: ``topology`` (one device), ``optimizer``,
-``learning_rate_scheduler``, ``training``, ``trainer``, ``data`` and
-``logger`` beside the architecture, with the same three kinds of keys in
-each section. The sections of machinery that is not ported (``runner``,
-``context``, the Determined ids, an active ``profiler``) are accepted
-only empty or off. An unknown key raises ValueError. No key is ever
+``learning_rate_scheduler``, ``training``, ``trainer``, ``data``,
+``logger`` and ``profiler`` beside the architecture, with the same three
+kinds of keys in each section. The sections of machinery that is not
+ported (``runner``, ``context``, the Determined ids) are accepted only
+empty or off. An unknown key raises ValueError. No key is ever
 ignored silently.
 """
 
@@ -39,6 +39,7 @@ from ...data.blended_dataset import BlendedDatasetConfig
 from ...logging import LoggerConfig
 from ...nn.masked_softmax import MaskedSoftmaxConfig
 from ...optimizer import LearningRateSchedulerConfig, OptimizerConfig
+from ...profiler import ProfilerConfig
 from ...topology import TopologyConfig
 from ...trainer import TrainerConfig
 
@@ -321,20 +322,6 @@ def strip_removed_config_keys(d: Dict[str, Any]) -> Dict[str, Any]:
     return d
 
 
-_PROFILER_KEYS = ("profile_steps", "profile_start_at_step", "profiler_output",
-                  "capture_xla_trace")
-
-
-def _check_profiler(d: Dict[str, Any]) -> None:
-    """The profiler is not ported: it must stay off (``profile_steps`` 0);
-    its other keys are inert while it is off, as in the JAX package."""
-    unknown = set(d) - set(_PROFILER_KEYS)
-    if unknown:
-        raise ValueError(f"unknown profiler keys: {sorted(unknown)}")
-    if d.get("profile_steps", 0):
-        raise NotImplementedError("the profiler section is not ported (profile_steps > 0)")
-
-
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """A training config (``TransformerConfig`` of the JAX package, the
@@ -350,6 +337,7 @@ class TransformerConfig:
     trainer: TrainerConfig = TrainerConfig()
     data: DataConfig = DataConfig()
     logger: LoggerConfig = LoggerConfig()
+    profiler: ProfilerConfig = ProfilerConfig()
     source: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False,
                                                repr=False)
 
@@ -374,7 +362,6 @@ class TransformerConfig:
         for key in ("determined_experiment_id", "determined_trial_id"):
             if d.pop(key, None) is not None:
                 raise NotImplementedError(f"{key}: the Determined glue is not ported")
-        _check_profiler(d.pop("profiler", None) or {})
         # used only with training.use_separate_lr_on_embeddings, which raises
         LearningRateSchedulerConfig.from_dict(d.pop("embedding_learning_rate_scheduler", None)
                                               or {})
@@ -387,7 +374,8 @@ class TransformerConfig:
         for key, section in (("optimizer", OptimizerConfig),
                              ("learning_rate_scheduler", LearningRateSchedulerConfig),
                              ("training", TrainingConfig), ("trainer", TrainerConfig),
-                             ("data", DataConfig), ("logger", LoggerConfig)):
+                             ("data", DataConfig), ("logger", LoggerConfig),
+                             ("profiler", ProfilerConfig)):
             if key in d:
                 kwargs[key] = section.from_dict(d.pop(key) or {})
         if d:

@@ -1,7 +1,10 @@
 """Transformer training entry (counterpart of
 scaling_tpu/models/transformer/train.py): config -> context -> model ->
 optimizer -> datasets -> trainer, with tokens/s, the four TFLOPs
-estimators and PaLM MFU riding on the trainer's metric hook.
+estimators and PaLM MFU riding on the trainer's metric hook, the
+trainer's telemetry told the model's FLOPs per token (and, on the card,
+the H100's peak, so that each step record carries ``mfu``), and the
+config's ``profiler`` section.
 
 ``main(config, device=None)`` trains on the card unless ``device="cpu"``;
 ``python -m scaling_tpu_torch.train run <config.yml>`` is its command line.
@@ -13,13 +16,16 @@ from typing import Any, List, Optional
 
 from ... import resolve_device
 from ...data.blended_dataset import BlendedDatasetConfig
-from ...logging import Logger
+from ...logging import logger
+from ...profiler import Profiler
 from ...trainer import BaseTrainer
 from .config import TransformerConfig
 from .context import TransformerContext
 from .data.text_dataset import TextBlendedDataset, TextDataset
 from .model import init_model, init_optimizer, loss_function
 from .utils.get_tflops import (
+    H100_BF16_TFLOPS,
+    get_flops_per_token,
     get_model_parameter_count,
     get_palm_mfu,
     get_tflops_aleph_alpha,
@@ -93,7 +99,7 @@ def build_trainer(config: TransformerConfig, device=None) -> TransformerTrainer:
     ``trainer.seed`` or, with ``trainer.load_dir``, from its checkpoint, and
     the loaders at the context's consumed samples."""
     device = resolve_device(device)
-    logger = Logger(config.logger, name="transformer")
+    logger.configure(config.logger, name="transformer")
     logger.info(f"config: {config.to_dict()}")
     module = init_model(config, device=device)
     trainer = TransformerTrainer(
@@ -102,11 +108,22 @@ def build_trainer(config: TransformerConfig, device=None) -> TransformerTrainer:
         parallel_module=module,
         optimizer=init_optimizer(config, module.model),
         loss_function=loss_function,
-        logger=logger,
         dataset=_read_dataset(config, config.data.data_prefixes),
         dataset_evaluation=_read_dataset(config, config.data.validation_data_prefixes),
         batch_to_model_input=batch_to_model_input,
+        profiler=Profiler(config.profiler),
     )
+    arch, topo = config.transformer_architecture, config.topology
+    param_count = get_model_parameter_count(arch.hidden_size, arch.num_layers, arch.vocab_size,
+                                            arch.mlp_factor, glu=arch.mlp_type == "swiglu")
+    # the peak is the card's, declared on the card only: a CPU run records
+    # no mfu, as it records no palm_mfu
+    trainer.telemetry.configure(
+        flops_per_token=get_flops_per_token(param_count, arch.num_layers, arch.hidden_size,
+                                            arch.sequence_length),
+        tokens_per_step=topo.global_batch_size * arch.sequence_length,
+        world_size=1,
+        peak_tflops=H100_BF16_TFLOPS if device.type == "cuda" else None)
     trainer.initialize(load_checkpoint=config.trainer.load_dir is not None)
     return trainer
 

@@ -22,6 +22,7 @@ import shutil
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
+from ..obs.spans import span
 from .faults import get_fault_plan
 from .manifest import write_manifest
 
@@ -63,20 +64,27 @@ class CheckpointCommit:
         self._recorded[rel] = (size, crc32_hex)
 
     def finalize(self) -> Path:
-        """Manifest, fsync, atomic rename; returns the final directory."""
+        """Manifest, fsync, atomic rename; returns the final directory.
+
+        Traced as ``ckpt.manifest`` (digest and manifest write) and
+        ``ckpt.rename`` (the fsync walk and the rename). On an
+        asynchronous save these run on the writer thread, whose spans
+        have no parent from the main thread."""
         plan = get_fault_plan()
         plan.fire("ckpt.manifest", path=self.tmp_dir)
-        write_manifest(self.tmp_dir, self.step, recorded=self._recorded,
-                       config_fingerprint=self.config_fingerprint)
-        for p in sorted(self.tmp_dir.rglob("*")):  # npz files fsync as they are written
-            if p.is_dir() or p.suffix != ".npz":
-                _fsync_path(p)
-        _fsync_path(self.tmp_dir)
-        plan.fire("ckpt.rename", path=self.final_dir)
-        if self.final_dir.exists():  # a rerun reached this step again
-            shutil.rmtree(self.final_dir)
-        os.replace(self.tmp_dir, self.final_dir)
-        _fsync_path(self.base)
+        with span("ckpt.manifest", step=self.step):
+            write_manifest(self.tmp_dir, self.step, recorded=self._recorded,
+                           config_fingerprint=self.config_fingerprint)
+        with span("ckpt.rename", step=self.step):
+            for p in sorted(self.tmp_dir.rglob("*")):  # npz files fsync as they are written
+                if p.is_dir() or p.suffix != ".npz":
+                    _fsync_path(p)
+            _fsync_path(self.tmp_dir)
+            plan.fire("ckpt.rename", path=self.final_dir)
+            if self.final_dir.exists():  # a rerun reached this step again
+                shutil.rmtree(self.final_dir)
+            os.replace(self.tmp_dir, self.final_dir)
+            _fsync_path(self.base)
         return self.final_dir
 
     def update_latest(self) -> None:

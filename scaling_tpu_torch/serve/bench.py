@@ -15,20 +15,34 @@ does. Otherwise the model is randomly initialised from ``--seed``:
 heads, vocab 32768, SwiGLU x2.75, RMSNorm with the fused kernel, RoPE,
 untied head, bf16); ``--model toy`` is a small f32 model for the CPU.
 It runs on the card unless ``--device cpu`` is given.
+
+``--run-dir DIR`` records the run as the JAX bench does: events (one
+``serve-request`` a request, the spans and a final ``serve-summary``)
+into ``DIR/events.jsonl`` through ``SCALING_TPU_EVENTS_PATH`` (unless the
+environment already names a file), and the metrics registry's snapshots
+into ``DIR/metrics.jsonl``; ``python -m scaling_tpu_torch.obs report DIR``
+renders them. Each measured request runs under a trace id of its own,
+and each tick in a ``serve.tick`` span. Without ``--run-dir`` nothing is
+written.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..logging.logger import logger
+from ..obs import get_registry, new_trace_id, span, trace_context
 
 MODELS: Dict[str, dict] = {
     # bench.py:build at its defaults (hidden 2048, 8 layers) with
@@ -108,8 +122,9 @@ def percentile(values: List[float], q: float) -> float:
 def run_bench(engine, workload, max_wall_s: float = 600.0) -> dict:
     """Open-loop drive: submit each request when the wall clock crosses
     its arrival offset, tick the engine continuously, drain. Returns the
-    summary stats. Every tick ends in a device->host copy of its sampled
-    tokens, so the wall clock covers the device work."""
+    summary stats, which also go out as the ``serve-summary`` event,
+    followed by a registry flush. Every tick ends in a device->host copy
+    of its sampled tokens, so the wall clock covers the device work."""
     t0 = time.monotonic()
     start_tick = engine.tick_index
     start_finished = len(engine.finished)
@@ -124,10 +139,13 @@ def run_bench(engine, workload, max_wall_s: float = 600.0) -> dict:
             )
         while idx < len(pending) and pending[idx][0] <= now:
             arrival, prompt, olen = pending[idx]
-            engine.submit(prompt, olen, arrival_s=t0 + arrival)
+            # one trace a measured request, the origin of its spans and events
+            with trace_context(new_trace_id()):
+                engine.submit(prompt, olen, arrival_s=t0 + arrival)
             idx += 1
         if engine.scheduler.has_work:
-            engine.tick()
+            with span("serve.tick", step=engine.tick_index):
+                engine.tick()
         elif idx >= len(pending):
             break
         else:
@@ -139,7 +157,8 @@ def run_bench(engine, workload, max_wall_s: float = 600.0) -> dict:
     ttfts = [s.first_token_s - s.request.arrival_s for s in seqs]
     itls = [b - a for s in seqs for a, b in zip(s.token_stamps, s.token_stamps[1:])]
     out_tokens = sum(len(s.generated) for s in seqs)
-    return {
+    hit, prefilled = engine.scheduler.prefix_hit_tokens, engine.prefilled_tokens
+    stats = {
         "requests": len(pending),
         "completed": len(seqs),
         "output_tokens": out_tokens,
@@ -152,14 +171,38 @@ def run_bench(engine, workload, max_wall_s: float = 600.0) -> dict:
         "itl_p50_s": percentile(itls, 50) if itls else None,
         "itl_p99_s": percentile(itls, 99) if itls else None,
         "preemptions": engine.scheduler.preemption_count,
-        "prefix_hit_tokens": engine.scheduler.prefix_hit_tokens,
-        "prefilled_tokens": engine.prefilled_tokens,
+        "prefix_hit_tokens": hit,
+        # work avoided over work demanded, as the JAX bench reports it
+        "prefix_hit_rate": round(hit / (hit + prefilled), 4) if hit + prefilled else 0.0,
+        "prefilled_tokens": prefilled,
     }
+    logger.log_event("serve-summary", **stats)
+    get_registry().flush_step(engine.tick_index)
+    return stats
+
+
+@contextlib.contextmanager
+def recording_to(run_dir: Optional[str]):
+    """Send the events (unless ``SCALING_TPU_EVENTS_PATH`` already names a
+    file) and the registry's snapshots into ``run_dir`` for the body;
+    both sinks are put back as they were after it."""
+    if run_dir is None:
+        yield
+        return
+    Path(run_dir).mkdir(parents=True, exist_ok=True)
+    reg = get_registry()
+    env_before, sink_before = os.environ.get("SCALING_TPU_EVENTS_PATH"), reg._metrics_path
+    os.environ.setdefault("SCALING_TPU_EVENTS_PATH", str(Path(run_dir) / "events.jsonl"))
+    reg.configure(metrics_path=str(Path(run_dir) / "metrics.jsonl"))
+    try:
+        yield
+    finally:
+        reg._metrics_path = sink_before
+        if env_before is None:
+            os.environ.pop("SCALING_TPU_EVENTS_PATH", None)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    from .engine import EngineConfig, ServeEngine
-
     p = argparse.ArgumentParser(prog="python -m scaling_tpu_torch.serve bench")
     p.add_argument("--model", choices=sorted(MODELS), default="toy")
     p.add_argument("--checkpoint", metavar="DIR",
@@ -184,7 +227,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="requests served before the measured run (kernel builds)")
     p.add_argument("--max-wall-s", type=float, default=600.0)
     p.add_argument("--json", metavar="FILE", help="also write the stats here")
+    p.add_argument("--run-dir", metavar="DIR",
+                   help="record events and registry snapshots here, for obs report")
     args = p.parse_args(argv)
+    with recording_to(args.run_dir):
+        return _bench(args)
+
+
+def _bench(args) -> int:
+    from .engine import EngineConfig, ServeEngine
 
     device = resolve_device(args.device)
     if args.checkpoint:
@@ -201,9 +252,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         enable_prefix_cache=not args.no_prefix_cache,
     ), device=device)
     vocab = inf.architecture.vocab_size
-    if args.warmup:
+    if args.warmup:  # off the books: the kernels' first builds
+        engine.warmup_mode = True
         engine.submit(list(range(1, args.prompt_len[0] + 1)), args.output_len[0])
         engine.run_until_done()
+        engine.warmup_mode = False
     work = sample_workload(args.requests, args.rate, args.prompt_len,
                            args.output_len, vocab, args.seed,
                            shared_prefix_len=args.shared_prefix_len)

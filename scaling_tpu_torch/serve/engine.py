@@ -16,15 +16,23 @@ Only the final norm and the head run on the positions that are sampled
 token). Sampling is per request (``inference.sample_rows``); greedy is
 the default.
 
+Observability, as in the JAX engine's fused chunked tick: counters,
+gauges and histograms in the obs registry (flushed every
+``flush_interval`` ticks and when ``run_until_done`` drains), the spans
+``serve.admit`` (traced requests), ``serve.mixed``, ``serve.preempt`` and
+``serve.cow``, and one ``serve-request`` event a completed request with
+its TTFT. ``warmup_mode`` keeps warm-up traffic off the books.
+
 What the JAX engine also offers and this one does not yet —
 whole-prompt prefill, separate decode and chunk programs
 (``fused_tick=False``), speculative decoding, deadlines, overload
-shedding, the request journal, graceful drain, fleet labels and obs
-spans — raises NotImplementedError when asked for.
+shedding, the request journal, graceful drain and fleet labels — raises
+NotImplementedError when asked for.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional, Tuple
@@ -32,7 +40,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
+from ..logging.logger import logger
 from ..models.transformer.inference import (
     TransformerInferenceModule,
     request_uniforms,
@@ -63,6 +72,7 @@ class EngineConfig:
     enable_prefix_cache: bool = True
     spec_k: int = 0
     sample_seed: int = 0
+    flush_interval: int = 50  # registry flush cadence (ticks)
     # not ported yet: any value but the default raises
     default_deadline_ms: Optional[float] = None
     default_ttft_deadline_ms: Optional[float] = None
@@ -149,6 +159,12 @@ class ServeEngine:
         self.finished: List[Sequence] = []
         self.prefilled_tokens = 0  # prompt tokens actually prefilled
         self._next_req_id = 0
+        # bench warm-up: while True, nothing is counted and no span or
+        # serve-request event is emitted (the kernels' first builds must
+        # not enter the measured workload's percentiles)
+        self.warmup_mode = False
+        self._reg = obs.get_registry()
+        self._prefix_hits_flushed = 0
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt: List[int], max_new_tokens: int,
@@ -159,26 +175,71 @@ class ServeEngine:
                top_p: Optional[float] = None,
                req_id: Optional[int] = None,
                deadline_ms: Optional[float] = None,
-               ttft_deadline_ms: Optional[float] = None) -> Sequence:
-        """Admit one request into the waiting queue."""
+               ttft_deadline_ms: Optional[float] = None,
+               trace: Optional[str] = None) -> Sequence:
+        """Admit one request into the waiting queue. ``trace`` pins the
+        request's trace id; by default it inherits the ambient
+        ``obs.trace_context`` (the bench sets one per request). Warm-up
+        traffic takes none."""
         if deadline_ms is not None or ttft_deadline_ms is not None:
             raise NotImplementedError("request deadlines are not ported yet")
         if req_id is None:
             req_id = self._next_req_id
         self._next_req_id = max(self._next_req_id, req_id + 1)
+        if self.warmup_mode:
+            trace = None
+        elif trace is None:
+            trace = obs.current_trace_id()
         req = Request(
             req_id=req_id, prompt=list(prompt), max_new_tokens=max_new_tokens,
             arrival_s=time.monotonic() if arrival_s is None else arrival_s,
             eos_token_id=eos_token_id,
-            temperature=temperature, top_k=top_k, top_p=top_p,
+            temperature=temperature, top_k=top_k, top_p=top_p, trace_id=trace,
         )
-        return self.scheduler.add_request(req)
+        if trace is not None:  # the trace's first engine-side record
+            with obs.trace_context(trace):
+                with self._span("serve.admit", req=req_id):
+                    seq = self.scheduler.add_request(req)
+        else:
+            seq = self.scheduler.add_request(req)
+        if not self.warmup_mode:
+            self._counter("serve_requests_admitted_total").inc()
+        return seq
 
     def attach_journal(self, journal) -> None:
         raise NotImplementedError("the request journal is not ported yet")
 
     def begin_drain(self) -> None:
         raise NotImplementedError("graceful drain is not ported yet")
+
+    # ---------------------------------------------------------- telemetry
+    def _counter(self, name: str):
+        return self._reg.counter(name)
+
+    def _gauge(self, name: str):
+        return self._reg.gauge(name)
+
+    def _histogram(self, name: str):
+        return self._reg.histogram(name)
+
+    def _span(self, name: str, **fields):
+        """``obs.span``, silenced in warm-up: its ticks carry the kernels'
+        first builds."""
+        if self.warmup_mode:
+            return contextlib.nullcontext()
+        return obs.span(name, **fields)
+
+    @staticmethod
+    def _trace_fields(seqs, key: str = "traces") -> dict:
+        """``{key: [trace ids]}`` of the traced requests a batch span
+        advanced; empty without any, so trace-less records stay as they
+        were."""
+        out: List[str] = []
+        for s in seqs:
+            tid = s.request.trace_id
+            if tid and tid not in out:
+                out.append(tid)
+        return {key: out} if out else {}
 
     # ------------------------------------------------------------- ticking
     def _reset_rows(self, slots: List[int]) -> None:
@@ -198,8 +259,11 @@ class ServeEngine:
     def _apply_cow(self, pairs) -> None:
         """Copy-on-write block forks the scheduler ordered this tick, applied
         before the forward."""
+        if not pairs:
+            return
         for src, dst in pairs:
             self.pools.copy_block(src, dst)
+        self._counter("serve_cow_forks_total").inc(len(pairs))
 
     def _mixed_inputs(self, t: Tick) -> MixedInputs:
         """The tick's rows: prefill chunks and decode rows. Idle rows keep
@@ -288,12 +352,18 @@ class ServeEngine:
         """The fused tick: ONE forward covers every prefill chunk and the
         whole decode batch."""
         inp = self._mixed_inputs(t)
-        _, sampled = self._forward_mixed(inp)
-        host_samples = sampled.cpu().numpy()  # the tick's one device->host pull
+        with self._span("serve.mixed", step=self.tick_index,
+                        decodes=len(t.decodes), chunks=len(t.prefills),
+                        **self._trace_fields(t.decodes),
+                        **self._trace_fields(t.prefills, "chunk_traces")):
+            _, sampled = self._forward_mixed(inp)
+            host_samples = sampled.cpu().numpy()  # the tick's one device->host pull
         now = time.monotonic()
         for seq, start, n_real in inp.chunk_rows:
             seq.num_cached = start + n_real
-            self.prefilled_tokens += n_real
+            if not self.warmup_mode:
+                self.prefilled_tokens += n_real
+                self._counter("serve_prefill_tokens_total").inc(n_real)
             if seq.num_cached == seq.prefill_len:
                 self._emit_token(seq, int(host_samples[seq.slot, 0]), now)
         for seq in t.decodes:
@@ -304,20 +374,59 @@ class ServeEngine:
         seq.generated.append(tok)
         if seq.first_token_s is None:
             seq.first_token_s = now
+            if not self.warmup_mode:
+                self._histogram("serve_ttft_seconds").observe(now - seq.request.arrival_s)
+        elif seq.token_stamps and not self.warmup_mode:
+            self._histogram("serve_itl_seconds").observe(now - seq.token_stamps[-1])
         seq.token_stamps.append(now)
+        if not self.warmup_mode:
+            self._counter("serve_tokens_generated_total").inc()
 
     def _finish(self, seq: Sequence, now: float) -> None:
+        """Retire a completed request: the completion counter and its
+        ``serve-request`` event (outside warm-up)."""
         self.scheduler.finish(seq)
         seq.finish_status = "completed"
         seq.finished_s = now
         self.finished.append(seq)
+        if self.warmup_mode:
+            return
+        self._counter("serve_requests_completed_total").inc()
+        itl = [b - a for a, b in zip(seq.token_stamps, seq.token_stamps[1:])]
+        fields = dict(
+            req=seq.request.req_id,
+            status="completed",
+            prompt_tokens=len(seq.request.prompt),
+            output_tokens=len(seq.generated),
+            e2e_s=round(now - seq.request.arrival_s, 6),
+            itl_mean_s=round(sum(itl) / len(itl), 6) if itl else 0.0,
+            preemptions=seq.preemptions,
+        )
+        if seq.request.trace_id is not None:
+            fields["trace"] = seq.request.trace_id
+        fields["ttft_s"] = round(seq.first_token_s - seq.request.arrival_s, 6)
+        logger.log_event("serve-request", _level="debug", **fields)
 
     def tick(self) -> Tick:
         """One engine step: schedule, fork shared blocks, run the mixed
         forward, retire completions."""
         t = self.scheduler.schedule()
+        if t.preempted:
+            self._counter("serve_preemptions_total").inc(len(t.preempted))
+            # a zero-width marker: which traced requests went back to waiting
+            with self._span("serve.preempt", step=self.tick_index,
+                            count=len(t.preempted), **self._trace_fields(t.preempted)):
+                pass
+        sched = self.scheduler
+        if sched.prefix_hit_tokens > self._prefix_hits_flushed:
+            self._counter("serve_prefix_hit_tokens_total").inc(
+                sched.prefix_hit_tokens - self._prefix_hits_flushed)
+            self._prefix_hits_flushed = sched.prefix_hit_tokens
         self._reset_rows(self.scheduler.drain_freed_slots())
-        self._apply_cow(t.cow_pairs)
+        if t.cow_pairs:
+            with self._span("serve.cow", step=self.tick_index, pairs=len(t.cow_pairs),
+                            **self._trace_fields(t.prefills)):
+                self._apply_cow(t.cow_pairs)
         if t.prefills or t.decodes:
             self._run_mixed(t)
         now = time.monotonic()
@@ -325,7 +434,11 @@ class ServeEngine:
             if seq.done and seq.slot is not None:
                 self._finish(seq, now)
         self._reset_rows(self.scheduler.drain_freed_slots())
+        for name, value in self.scheduler.gauges().items():
+            self._gauge(name).set(value)
         self.tick_index += 1
+        if self.tick_index % self.config.flush_interval == 0:
+            self._reg.flush_step(self.tick_index)
         return t
 
     def run_until_done(self, max_ticks: int = 100_000) -> List[Sequence]:
@@ -340,4 +453,5 @@ class ServeEngine:
                     f"engine made no progress draining the queue within "
                     f"{max_ticks} ticks"
                 )
+        self._reg.flush_step(self.tick_index)
         return self.finished

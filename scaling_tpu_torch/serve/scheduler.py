@@ -59,6 +59,8 @@ class Request:
     temperature: float = 0.0
     top_k: Optional[int] = None
     top_p: Optional[float] = None
+    # distributed-trace id stamped on every span and event of the request
+    trace_id: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -458,6 +460,34 @@ class ContinuousBatchingScheduler:
             self.prefix_cache.evictable_count() if self.prefix_cache else 0
         )
         return self.allocator.free_blocks + extra
+
+    def pool_pressure(self) -> float:
+        """Fraction of grantable pool capacity in use, in [0, 1] (the
+        ``serve_pool_pressure`` gauge)."""
+        usable = self.config.num_blocks - 1  # minus the trash block
+        if usable <= 0:
+            return 1.0
+        return (usable - self.available_blocks()) / usable
+
+    def gauges(self) -> Dict[str, float]:
+        """Pool and queue occupancy for the obs registry. ``free`` counts
+        grantable capacity: the free list plus evictable prefix-cache
+        blocks."""
+        usable = self.config.num_blocks - 1
+        free = self.available_blocks()
+        out = {
+            "serve_running_seqs": float(len(self.running)),
+            "serve_waiting_seqs": float(len(self.waiting)),
+            "serve_prefilling_seqs": float(
+                sum(1 for s in self.running.values() if s.prefilling)
+            ),
+            "serve_free_blocks": float(free),
+            "serve_pool_utilization": (usable - free) / usable if usable else 0.0,
+            "serve_pool_pressure": self.pool_pressure(),
+        }
+        if self.prefix_cache is not None:
+            out["serve_prefix_cached_blocks"] = float(self.prefix_cache.cached_blocks)
+        return out
 
     def _take(self, n: int) -> List[int]:
         """Allocate ``n`` blocks, evicting LRU refcount-free prefix

@@ -32,6 +32,15 @@ thread with ``dataloader_prefetch_factor`` > 0, and moved to the device
 in one copy per step on the loop's thread (``batch_to_model_input``).
 The control plane and the orbax backend are not ported: their config
 fields raise NotImplementedError at any value but the default.
+
+Observability, as in the JAX trainer: the spans ``step.data``,
+``step.fwdbwd`` (host dispatch only: the device work shows in
+``step.sync``, which holds the loss's fetch), ``step.sync``,
+``trainer.eval``, ``trainer.save``, ``ckpt.stage`` and ``ckpt.latest``;
+``self.telemetry`` (``obs.StepTelemetry``) merges its gauges into each
+fetched step's record and flushes the registry after it; a ``Profiler``
+times the steps of its window, each of which synchronises, and may trace
+the window with ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -60,7 +69,8 @@ from ..checkpoint import (
 )
 from ..context import BaseContext
 from ..data import DataLoader
-from ..logging import Logger
+from ..logging.logger import logger
+from ..obs import StepTelemetry, span
 from ..optimizer import Optimizer
 from ..parallel import ParallelModule
 from ..parallel.parallel_module import jax_partition_spec, transposed_in_jax
@@ -177,19 +187,20 @@ class BaseTrainer:
 
     def __init__(self, config: TrainerConfig, context: BaseContext,
                  parallel_module: ParallelModule, optimizer: Optimizer,
-                 loss_function: Callable, logger: Logger, dataset: Any = None,
+                 loss_function: Callable, dataset: Any = None,
                  dataset_evaluation: Any = None,
                  batch_to_model_input: Callable[[Any, torch.device], Dict[str, torch.Tensor]]
-                 = lambda batch, device: batch):
+                 = lambda batch, device: batch,
+                 profiler: Any = None):
         self.config = config
         self.context = context
         self.module = parallel_module
         self.optimizer = optimizer
         self.loss_function = loss_function
-        self.logger = logger
         self.dataset = dataset
         self.dataset_evaluation = dataset_evaluation
         self.batch_to_model_input = batch_to_model_input
+        self.profiler = profiler
         self.topology = context.topology
         self.device = next(parallel_module.model.parameters()).device
         self.dataloader: Optional[DataLoader] = None
@@ -214,6 +225,10 @@ class BaseTrainer:
         self._nonfinite_guard = (None if config.max_consecutive_nonfinite is None
                                  else NonFiniteGuard(config.max_consecutive_nonfinite))
         self.watchdog: Optional[StepStallWatchdog] = None  # the last run_training's
+        # per-step telemetry: hardware gauges, the step-time EMA and, once
+        # configure() declared the model's FLOPs per token, achieved TFLOPs
+        # and MFU; host-side only by contract
+        self.telemetry = StepTelemetry()
 
     # ------------------------------------------------------------ lifecycle
     def initialize(self, load_checkpoint: bool = True,
@@ -256,7 +271,7 @@ class BaseTrainer:
                         continue
                 if isinstance(item, BaseException):
                     if stop.is_set():
-                        self.logger.warning(f"batch prefetch error during shutdown: {item!r}")
+                        logger.warning(f"batch prefetch error during shutdown: {item!r}")
                     return
 
         self._prefetch_thread = threading.Thread(target=worker, name="batch-prefetch",
@@ -301,9 +316,24 @@ class BaseTrainer:
         return self._assemble_micro_batches()
 
     def train_step(self) -> TrainStepOutput:
+        step_idx = self.context.iterations
+        profiling = self.profiler is not None and self.profiler.enabled_at(step_idx)
+        if profiling and self._unfetched_steps:
+            # the window opens on a drained device queue, or its first
+            # step_time absorbs the unfetched backlog
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._unfetched_steps = 0
+            self._last_fetch_wall = time.time()
+        if self.profiler is not None:
+            self.profiler.begin_step(step_idx)
         start = time.time()
-        batch = self.batch_to_model_input(self._next_micro_batches(), self.device)
-        loss, metrics, opt_out = self._train_step(batch)
+        with span("step.data", step=step_idx):
+            batch = self.batch_to_model_input(self._next_micro_batches(), self.device)
+        t_data = time.time() - start
+        # a dispatch span: it closes once the step's kernels are queued
+        with span("step.fwdbwd", step=step_idx):
+            loss, metrics, opt_out = self._train_step(batch)
         if get_fault_plan().fire("step.nan_grads") == "nan":
             # a transient NaN burst for the non-finite policy: only the
             # observed loss is poisoned, the parameters stay clean
@@ -311,7 +341,9 @@ class BaseTrainer:
         self.context.step()
         last_step = (self.config.train_iterations is not None
                      and self.context.iterations >= self.config.train_iterations)
-        if not (last_step or self.context.iterations % self.config.log_interval == 0):
+        # a profiled step always fetches: its time must cover the device work
+        if not (profiling or last_step
+                or self.context.iterations % self.config.log_interval == 0):
             # in flight: the next step is not held up by a host sync
             self._unfetched_steps += 1
             return TrainStepOutput(loss, metrics, opt_out.global_grad_norm,
@@ -319,7 +351,8 @@ class BaseTrainer:
                                    step_duration=None, fetched=False,
                                    overflow=opt_out.overflow,
                                    no_overflow_steps=opt_out.no_overflow_steps)
-        loss = float(loss)  # the one host sync of a fetched step
+        with span("step.sync", step=step_idx):
+            loss = float(loss)  # the one host sync of a fetched step
         now = time.time()
         backlog, self._unfetched_steps = self._unfetched_steps, 0
         if backlog and self._last_fetch_wall is not None:
@@ -328,6 +361,10 @@ class BaseTrainer:
         else:
             step_duration = now - start
         self._last_fetch_wall = now
+        if self.profiler is not None:
+            self.profiler.record(step_idx, {"data_load": t_data,
+                                            "step_time": step_duration - t_data})
+            self.profiler.end_step(step_idx)
         return TrainStepOutput(
             loss=loss,
             metrics={k: float(v) for k, v in metrics.items()},
@@ -339,8 +376,12 @@ class BaseTrainer:
             no_overflow_steps=_maybe(int, opt_out.no_overflow_steps),
         )
 
-    @torch.no_grad()
     def eval_step(self) -> EvaluationStepOutput:
+        with span("trainer.eval", step=self.context.iterations):
+            return self._eval_step_inner()
+
+    @torch.no_grad()
+    def _eval_step_inner(self) -> EvaluationStepOutput:
         if self.dataloader_evaluation is None:
             raise RuntimeError("no evaluation dataset")
         self.module.model.eval()
@@ -381,20 +422,20 @@ class BaseTrainer:
             # the periodic save just took this boundary: drain it, do not
             # write it again on a reclaim's deadline
             self.finalize_checkpoints()
-            self.logger.info("preemption: boundary already checkpointed, exiting cleanly")
+            logger.info("preemption: boundary already checkpointed, exiting cleanly")
         elif self.config.save_dir is not None:
             step_dir = self.save_checkpoint()
             self.finalize_checkpoints()
             self._run_checkpoint_hooks(step_dir)
-            self.logger.info("preemption: checkpoint saved, exiting cleanly")
+            logger.info("preemption: checkpoint saved, exiting cleanly")
 
     def _on_step_stall(self, step: int, elapsed: float) -> None:
         """The watchdog's callback, on its thread: the state cannot be
         copied mid-step, so it requests the save-and-exit of a preemption
         at the next loop boundary, if the stalled step ever ends."""
-        self.logger.log_event("step-stall", step=step, elapsed_s=round(elapsed, 1),
+        logger.log_event("step-stall", step=step, elapsed_s=round(elapsed, 1),
                               verdict="local-stall", dead_hosts=[], host=0)
-        self.logger.error(f"step stall after step {step} ({elapsed:.1f}s, local-stall): "
+        logger.error(f"step stall after step {step} ({elapsed:.1f}s, local-stall): "
                           "requesting save-and-exit at the next loop boundary")
         self._preempted = True
 
@@ -412,6 +453,9 @@ class BaseTrainer:
         finally:
             if self.watchdog is not None:
                 self.watchdog.stop()
+            if self.profiler is not None:
+                # an aborted run keeps its partial window and stops its trace
+                self.profiler.close()
 
     def _run_training_loop(self, log_metrics_fn: Optional[Callable]) -> None:
         watchdog, armed = self.watchdog, False
@@ -450,7 +494,7 @@ class BaseTrainer:
                 self._run_checkpoint_hooks(self.save_checkpoint())
             if will_eval:
                 out = self.eval_step()
-                self.logger.log_metrics({"eval_loss": out.loss,
+                logger.log_metrics({"eval_loss": out.loss,
                                          **{f"eval_{k}": v for k, v in out.metrics.items()}}, it)
             if (will_save or will_eval) and self._last_fetch_wall is not None:
                 self._last_fetch_wall += time.time() - aux_start
@@ -466,7 +510,7 @@ class BaseTrainer:
                         step_dir = self.save_checkpoint()
                         self.finalize_checkpoints()
                         self._run_checkpoint_hooks(step_dir)
-                        self.logger.error(f"non-finite abort: state saved to {step_dir}")
+                        logger.error(f"non-finite abort: state saved to {step_dir}")
                     raise
         self.finalize_checkpoints()
 
@@ -482,12 +526,18 @@ class BaseTrainer:
         metrics["step_duration"] = output.step_duration
         if log_metrics_fn is not None:
             metrics = log_metrics_fn(self, output, metrics)
-        self.logger.log_metrics(metrics, self.context.iterations)
+        try:  # host-side gauges only: no device sync
+            metrics.update(self.telemetry.on_step(self.context.iterations,
+                                                  output.step_duration))
+        except Exception as e:  # a metrics sink must never abort a step
+            logger.warning(f"step telemetry update failed: {e!r}")
+        logger.log_metrics(metrics, self.context.iterations)
+        self.telemetry.flush(self.context.iterations)
         for hook in self.metrics_hooks:
             try:
                 hook(metrics, self.context.iterations)
             except Exception as e:  # reporting must never abort a step
-                self.logger.warning(f"metrics hook failed: {e}")
+                logger.warning(f"metrics hook failed: {e}")
 
     def _run_checkpoint_hooks(self, step_dir: Path) -> None:
         if not self.checkpoint_hooks:
@@ -497,7 +547,7 @@ class BaseTrainer:
             try:
                 hook(step_dir, self.context.iterations)
             except Exception as e:
-                self.logger.warning(f"checkpoint hook failed: {e}")
+                logger.warning(f"checkpoint hook failed: {e}")
 
     def finalize_checkpoints(self) -> None:
         """Block until the asynchronous writes are durable and ``latest``
@@ -554,7 +604,21 @@ class BaseTrainer:
         checkpoints lose their optimizer files (and manifest entries) after
         that. With ``save_checkpoint_async`` this returns once every tensor
         has its host copy, and the writer thread does the rest in that
-        order; ``finalize_checkpoints`` waits for it."""
+        order; ``finalize_checkpoints`` waits for it.
+
+        Traced as ``trainer.save``; on the asynchronous path that covers
+        the host copies and the submissions, and the writer thread's own
+        ``ckpt.manifest`` / ``ckpt.rename`` / ``ckpt.latest`` spans carry
+        the durable write."""
+        with span("trainer.save", step=self.context.iterations):
+            return self._save_checkpoint_inner(dir)
+
+    @staticmethod
+    def _update_latest(commit: CheckpointCommit) -> None:
+        with span("ckpt.latest", step=commit.step):
+            commit.update_latest()
+
+    def _save_checkpoint_inner(self, dir: Optional[Union[Path, str]] = None) -> Path:
         base = Path(dir or self.config.save_dir)
         base.mkdir(parents=True, exist_ok=True)
         writer = None
@@ -569,25 +633,27 @@ class BaseTrainer:
         commit = CheckpointCommit(base, self.context.iterations)
         stage = commit.tmp_dir
         params = self._ckpt_params()
-        save_model_checkpoint(stage, params, recorder=commit.record, writer=writer)
-        save_optimizer_checkpoint(stage, self.optimizer, self.module.ckpt_keys(),
-                                  recorder=commit.record, writer=writer)
-        write_mesh_meta(stage, self._mesh_meta(params))
-        self.context.save_checkpoint(stage)
-        config = self._config_dict()
-        if config is not None:  # the architecture and tokenizer travel with the weights
-            (stage / "config.yml").write_text(yaml.safe_dump(config, sort_keys=False))
-            vocab = self._vocab_file()
-            if vocab is not None:
-                shutil.copyfile(vocab, stage / "vocab.json")
+        with span("ckpt.stage", step=self.context.iterations,
+                  backend="npz"):  # the only backend ported
+            save_model_checkpoint(stage, params, recorder=commit.record, writer=writer)
+            save_optimizer_checkpoint(stage, self.optimizer, self.module.ckpt_keys(),
+                                      recorder=commit.record, writer=writer)
+            write_mesh_meta(stage, self._mesh_meta(params))
+            self.context.save_checkpoint(stage)
+            config = self._config_dict()
+            if config is not None:  # the architecture and tokenizer travel with the weights
+                (stage / "config.yml").write_text(yaml.safe_dump(config, sort_keys=False))
+                vocab = self._vocab_file()
+                if vocab is not None:
+                    shutil.copyfile(vocab, stage / "vocab.json")
         step_dir = commit.final_dir
         if writer is None:
             commit.finalize()
-            commit.update_latest()
+            self._update_latest(commit)
         else:  # FIFO: committed and pointed to once every file is durable
             writer.submit(commit.finalize)
-            writer.submit(commit.update_latest)
-        self.logger.info(f"saved checkpoint {step_dir}")
+            writer.submit(self._update_latest, commit)
+        logger.info(f"saved checkpoint {step_dir}")
         if self.config.delete_past_optimizer_states:
             # after the commit: pruning first would leave no optimizer
             # state on disk if the process died in between
@@ -617,7 +683,7 @@ class BaseTrainer:
         base = Path(dir or self.config.load_dir)
         candidates = checkpoint_candidates(base)
         if not candidates:
-            self.logger.warning(f"no checkpoint found at {base}")
+            logger.warning(f"no checkpoint found at {base}")
             return False
         skipped: List[str] = []
         for step_dir in candidates:
@@ -627,7 +693,7 @@ class BaseTrainer:
                 if self.config.strict_checkpoint_load:
                     raise CheckpointCorruptionError(
                         f"checkpoint verification failed (strict mode): {line}")
-                self.logger.warning(f"skipping invalid checkpoint {line}")
+                logger.warning(f"skipping invalid checkpoint {line}")
                 skipped.append(line)
                 continue
             try:
@@ -639,14 +705,14 @@ class BaseTrainer:
                 line = f"{step_dir.name}: load failed ({type(e).__name__}: {e})"
                 if self.config.strict_checkpoint_load:
                     raise
-                self.logger.warning(f"skipping unreadable checkpoint {line}")
+                logger.warning(f"skipping unreadable checkpoint {line}")
                 skipped.append(line)
                 continue
             if skipped:
-                self.logger.warning(f"resumed from {step_dir.name} after skipping "
+                logger.warning(f"resumed from {step_dir.name} after skipping "
                                     f"{len(skipped)} checkpoint(s): " + " | ".join(skipped))
             return True
-        self.logger.warning(f"no valid checkpoint under {base}; skipped: " + " | ".join(skipped))
+        logger.warning(f"no valid checkpoint under {base}; skipped: " + " | ".join(skipped))
         return False
 
     def _warn_if_config_changed(self, step_dir: Path) -> None:
@@ -662,7 +728,7 @@ class BaseTrainer:
         except (ValueError, NotImplementedError):
             changed = True
         if changed:
-            self.logger.warning(f"config changed since {step_dir.name} was saved; expected "
+            logger.warning(f"config changed since {step_dir.name} was saved; expected "
                                 "for finetunes/topology changes, suspicious for a plain resume")
 
     def _load_step_dir(self, step_dir: Path) -> None:
@@ -675,7 +741,7 @@ class BaseTrainer:
                             self._param_records(params))
         if plan is not None:
             manifest = read_manifest(step_dir)
-            self.logger.log_event("ckpt-reshard",
+            logger.log_event("ckpt-reshard",
                                   step=None if manifest is None else manifest.get("step"),
                                   **plan.event_fields())
         load_model_checkpoint(step_dir, params,
@@ -688,7 +754,7 @@ class BaseTrainer:
                 load_optimizer_checkpoint(step_dir, self.optimizer, self.module.ckpt_keys())
                 self.optimizer_states_loaded = True
             except FileNotFoundError:
-                self.logger.warning(f"optimizer states absent in {step_dir}")
+                logger.warning(f"optimizer states absent in {step_dir}")
         if not self.optimizer_states_loaded:
             # the masters were copied from the random init: take them from
             # the loaded parameters, or the first step would revert the model
@@ -704,7 +770,7 @@ class BaseTrainer:
             ctx.consumed_eval_samples = rescale_consumed_samples(
                 ctx.consumed_eval_samples, micro_batch_size=mbs, data_parallel_size=1,
                 what="consumed_eval_samples", on_misaligned="floor")
-        self.logger.info(f"loaded checkpoint {step_dir}")
+        logger.info(f"loaded checkpoint {step_dir}")
 
 
 def _maybe(cast: Callable, v: Any) -> Any:

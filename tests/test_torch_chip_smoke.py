@@ -11,8 +11,13 @@ fails it. Beside them, the build phase's reading of the ``ptxas -v`` log
 flow at toy size, where ``evaluate`` on the step-3 checkpoint in place of
 step 6's fails the trainer phase, and the supervise phase's parent and
 child processes, where an asynchronous save that hands its writer the
-live optimizer state fails the check against the synchronous save."""
+live optimizer state fails the check against the synchronous save. Phase
+10 (observability) at toy size: the report over phase 9's run directory,
+the observed Trainer run with its profiler window, ``serve bench
+--run-dir`` and its report, and the checks of the trace's kernel names
+and of ``mfu`` against ``palm_mfu``, which a TPU peak fails."""
 
+import json
 import pathlib
 import sys
 
@@ -223,23 +228,38 @@ def one_cpu_thread(monkeypatch):
     torch.set_num_threads(threads)
 
 
-def test_supervise_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, one_cpu_thread):
+def test_supervise_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, one_cpu_thread,
+                                                      tmp_path):
     """Phase 9's parent and child processes on the toy model on the CPU, held
     against the toy trainer phase: a real SIGTERM once step 4 is logged,
     the save at the boundary reached, steps 1-k bitwise, global_step3's
     bytes those of the synchronous save, ``run_with_resume`` to step 6,
-    pruning after the commit, no stall. Launches stay unchecked (the CPU
-    runs the plain versions)."""
+    pruning after the commit, no stall; then phase 10's report over its
+    run directory: six step records, the asynchronous saves' ``ckpt.*``
+    spans and the SIGTERM and relaunch in the timeline. Launches and
+    ``mfu`` stay unchecked (the CPU runs the plain versions, and a CPU run
+    records no rate of the card's peak)."""
     seen = _toy_trainer(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "KEEP_DIR", tmp_path / "kept")
     run = chip_smoke.trainer_phase(1.0, device="cpu")
     monkeypatch.setattr(chip_smoke, "check_supervise_launches",
                         lambda kernel, plain: seen.update(sup_kernel=kernel, sup_plain=plain))
-    chip_smoke.supervise_phase(run, 1.0, device="cpu")
+    monkeypatch.setattr(chip_smoke, "check_mfu", lambda records, where, section: len(records))
+    supervised = chip_smoke.supervise_phase(run, 1.0, device="cpu")
+    try:
+        chip_smoke.observe_supervised(supervised["run_dir"], supervised["k"])
+    finally:
+        import shutil
+
+        shutil.rmtree(supervised["run_dir"].parent)
     out = capsys.readouterr().out
     assert "bitwise equal to phase 8" in out and "carry the crc32s of phase 8's" in out
     assert "lost their optimizer files after its commit; watchdog stalls (0, 0)" in out
     assert out.count("async save global_step") == 3
     assert seen["sup_kernel"] == {} and seen["sup_plain"]["flash_attention_bwd"] > 0
+    assert "report | totals: restarts=1 preemptions=1 stalls=0" in out
+    assert "report | host 0: n=6 " in out
+    assert (tmp_path / "kept" / "observe_supervised_report.txt").is_file()
 
 
 # the child of phase 9 with a writer that takes no host copy: it writes the
@@ -278,3 +298,93 @@ def test_supervise_phase_tells_an_async_snapshot_of_the_live_state(monkeypatch, 
         sys.executable, "-c", ALIASING_CHILD, chip_smoke.__file__, str(spec)])
     with pytest.raises(AssertionError, match="global_step3 differs from phase 8"):
         chip_smoke.supervise_phase(run, 1.0, device="cpu")
+
+
+def test_observe_train_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path):
+    """Phase 10's observed Trainer run at toy size on the CPU: the profiler
+    window's observations JSON holds steps 2-3 and its trace is exported,
+    ``obs report`` renders the run's step-time section, and the turns with
+    obs on and off and the host costs are measured. What only the card gives is recorded, not checked: the
+    launches, the trace's kernel names (the CPU launches no kernel),
+    ``mfu`` and the sync-debug check."""
+    seen = _toy_trainer(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "KEEP_DIR", tmp_path / "kept")
+    monkeypatch.setattr(chip_smoke, "check_observe_launches",
+                        lambda where, kernel, plain, needed: seen.update(plain=plain))
+    traces = []
+    monkeypatch.setattr(chip_smoke, "check_trace",
+                        lambda d: traces.extend(json.loads(f.read_text())
+                                                for f in sorted(d.glob("*.json"))))
+    monkeypatch.setattr(chip_smoke, "check_mfu",
+                        lambda records, where, section: seen.update(records=records))
+    monkeypatch.setattr(chip_smoke, "check_no_added_sync", lambda trainer: {
+        "in_flight": True, "still_in_flight": True, "derived": {}})
+    result = chip_smoke.observe_train(1.0, device="cpu")
+    out = capsys.readouterr().out
+    assert "profiler observations: [{'step': 2," in out and "'step': 3," in out
+    assert len(traces) == 1 and traces[0]["traceEvents"]
+    assert seen["plain"]["flash_attention_bwd"] > 0
+    assert [r["step"] for r in seen["records"] if "loss" in r["metrics"]] == [1, 2, 3, 4, 5]
+    assert "report | host 0: n=5 " in out
+    assert result["span_ms"] > 0 and result["telemetry_ms"] > 0
+    assert out.count("turns obs ") == 2 and set(result["turns"]) == {"on", "off"}
+
+
+def test_observe_serve_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path):
+    """``serve bench --run-dir`` and its report at toy size on the CPU: the
+    serving section counts every request and gives the bench's tokens/s."""
+    monkeypatch.setattr(chip_smoke, "KEEP_DIR", tmp_path / "kept")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    for key, value in dict(n_requests=4, rate=100.0, prompt_len=(8, 24),
+                           output_len=(2, 6)).items():
+        monkeypatch.setitem(chip_smoke.WORKLOAD, key, value)
+    for key, value in dict(num_slots=4, block_size=4, num_blocks=64, max_blocks_per_seq=16,
+                           prefill_chunk=8).items():
+        monkeypatch.setitem(chip_smoke.SERVE, key, value)
+    seen = {}
+    monkeypatch.setattr(chip_smoke, "check_observe_launches",
+                        lambda where, kernel, plain, needed: seen.update(plain=plain))
+    result = chip_smoke.observe_serve({"tokens_per_s": 1.0, "wall_s": 1.0, "ticks": 1},
+                                      model="toy", device="cpu")
+    out = capsys.readouterr().out
+    assert " 4 request(s))" in out and result["turns"]["run_dir"]["tokens_per_s"] > 0
+    assert out.count("turns ") == 2 and result["turns"]["none"]["tick_ms"] > 0
+    assert seen["plain"]["paged_attention"] > 0
+
+
+def _trace(tmp_path, names):
+    (tmp_path / "t.json").write_text(json.dumps({"traceEvents": [
+        {"name": n, "cat": "kernel", "ph": "X"} for n in names]}))
+    return tmp_path
+
+
+def test_trace_check_wants_k4_and_k5_kernel_events(tmp_path, capsys):
+    chip_smoke.check_trace(_trace(tmp_path, ["void flash_fwd_kernel<128>(FwdParams)",
+                                             "void flash_bwd_dq_kernel<128>(BwdParams)"]))
+    with pytest.raises(AssertionError, match="K4 and K5"):
+        chip_smoke.check_trace(_trace(tmp_path, ["void flash_fwd_kernel<128>(FwdParams)",
+                                                 "ampere_sgemm"]))
+
+
+@pytest.mark.parametrize("peak", [989.4, 459.0], ids=["h100", "tpu_v5p"])
+def test_mfu_check_wants_the_cards_peak(peak):
+    """A record whose ``mfu`` came from another peak than the H100's (a
+    TPU's 459 TFLOP/s reads 2.2x high) fails the check."""
+    from scaling_tpu_torch.models.transformer.utils.get_tflops import (
+        get_flops_per_token,
+        get_palm_mfu,
+    )
+
+    fpt = get_flops_per_token(495_110_144, 8, 2048, 2048)
+    tokens, step = 8192, 0.08
+    achieved = fpt * tokens / step / 1e12
+    record = {"metrics": {"loss": 10.0, "achieved_tflops": achieved, "mfu": achieved / peak,
+                          "palm_mfu": get_palm_mfu(495_110_144, 8, 2048, 2048, tokens / step)}}
+    section = [f"  mfu: mean={record['metrics']['mfu']:.4f}"]
+    if peak == 989.4:
+        assert chip_smoke.check_mfu([record], "toy", section) == 1
+        with pytest.raises(AssertionError, match="MFU section"):
+            chip_smoke.check_mfu([record], "toy", ["  mfu: (not recorded)"])
+    else:
+        with pytest.raises(AssertionError, match="achieved_tflops / 989.4"):
+            chip_smoke.check_mfu([record], "toy", section)

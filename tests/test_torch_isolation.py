@@ -1,8 +1,8 @@
 """The port stands alone: it imports with JAX and the JAX package
 blocked, serves, takes a training step, trains from a token dataset,
 saves, resumes, serves, generates from and evaluates its checkpoint on
-the CPU when asked to; without a card, its entry points raise instead of
-moving to the CPU on their own."""
+the CPU when asked to, and renders ``obs report``; without a card, its
+entry points raise instead of moving to the CPU on their own."""
 
 import pathlib
 import re
@@ -84,6 +84,28 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert "losses: first=" in proc.stdout and "mfu: not measured" in proc.stdout
     assert "trainer: resumed at 2, served the checkpoint" in proc.stdout
     assert "generate and evaluate: ok" in proc.stdout
+
+
+BLOCKED_REPORT = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["scaling_tpu"] = None
+sys.argv = ["scaling_tpu_torch.obs", "report", sys.argv[1], "--assert-mfu", "0.1"]
+runpy.run_module("scaling_tpu_torch.obs", run_name="__main__")
+"""
+
+
+def test_obs_report_runs_with_jax_blocked():
+    """``python -m scaling_tpu_torch.obs report`` over the JAX package's
+    golden run directory in a process where JAX and the JAX package cannot
+    be imported: the same report, its gate passing."""
+    fixtures = REPO / "tests" / "core" / "test_obs" / "fixtures"
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_REPORT, str(fixtures / "rundir_single")],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    golden = (fixtures / "golden_single.txt").read_text()
+    assert proc.stdout == golden.replace("RUNDIR", str(fixtures / "rundir_single")) + (
+        "== gates ==\n  PASS\n")
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():

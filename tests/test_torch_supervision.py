@@ -76,7 +76,7 @@ def read_losses(workdir) -> dict:
     out = {}
     for line in f.read_text().splitlines() if f.is_file() else []:
         rec = json.loads(line)
-        if "loss" in rec["metrics"]:
+        if rec["kind"] == "step" and "loss" in rec["metrics"]:
             out[rec["step"]] = rec["metrics"]["loss"]
     return out
 

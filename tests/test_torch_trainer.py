@@ -1,5 +1,6 @@
 """The port's Trainer on the CPU: resume, checkpoint verification, metric
-records, the ``train run`` entry point and the config keys it refuses.
+records, the ``train run`` entry point, the config keys it refuses and the
+observability keys it takes.
 
 A toy rms/swiglu model (hidden 64, 2 layers, 4/2 heads, vocab 96, seq 32)
 trains from two blended token datasets with an evaluation set.
@@ -68,7 +69,10 @@ def config_dict(data, tmp, save=True, load_dir=None, **trainer):
 
 
 def records(log_dir: Path):
-    return [json.loads(line) for line in (log_dir / "metrics_rank_0.jsonl").read_text().splitlines()]
+    """The step records of the run's metrics JSONL (the registry's
+    snapshots share the file)."""
+    lines = (log_dir / "metrics_rank_0.jsonl").read_text().splitlines()
+    return [r for r in map(json.loads, lines) if r["kind"] == "step"]
 
 
 def losses_by_step(recs, key="loss"):
@@ -203,9 +207,6 @@ REFUSED = [
     ("data", "finetuning_chat_dataset", True),
     ("data", "finetuning_dataset_memory_map", True),
     ("logger", "use_wandb", True),
-    ("logger", "use_tensorboard", True),
-    ("logger", "events_path", "events.jsonl"),
-    ("profiler", "profile_steps", 2),
 ]
 
 
@@ -215,6 +216,36 @@ def test_keys_not_ported_raise_by_name(data, tmp_path, section, key, value):
     cfg[section] = {**cfg.get(section, {}), key: value}
     with pytest.raises(NotImplementedError, match=key if section != "profiler" else "profiler"):
         TransformerConfig.from_dict(cfg)
+
+
+# refused until observability was ported; each now takes effect in a run
+ACCEPTED = [
+    ("logger", "use_tensorboard", True),
+    ("logger", "events_path", "events.jsonl"),
+    ("profiler", "profile_steps", 2),
+]
+
+
+@pytest.mark.parametrize("section,key,value", ACCEPTED, ids=[f"{s}.{k}" for s, k, _ in ACCEPTED])
+def test_observability_keys_are_accepted_and_take_effect(data, tmp_path, section, key, value):
+    cfg = config_dict(data, tmp_path, save=False)
+    cfg["trainer"]["train_iterations"] = 4
+    if key == "events_path":
+        value = str(tmp_path / value)
+    cfg[section] = {**cfg.get(section, {}), key: value}
+    if section == "profiler":
+        cfg["profiler"].update(profile_start_at_step=1, profiler_output=str(tmp_path / "p.json"))
+    config = TransformerConfig.from_dict(cfg)
+    assert getattr(getattr(config, section), key) == value
+    main(config, device="cpu")
+    if key == "use_tensorboard":
+        assert list((tmp_path / "logs" / "tensorboard").glob("events.out.tfevents.*"))
+    elif key == "events_path":
+        spans = [json.loads(line) for line in Path(value).read_text().splitlines()]
+        assert {"step.data", "step.fwdbwd", "step.sync", "trainer.eval"} <= {
+            e.get("span") for e in spans}
+    else:
+        assert [o["step"] for o in json.loads((tmp_path / "p.json").read_text())] == [1, 2]
 
 
 @pytest.mark.parametrize("section", ["trainer", "data", "logger", "profiler"])
