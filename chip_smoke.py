@@ -105,16 +105,19 @@ Phases, each of which must pass:
    then one more step is left in flight while a span's emission,
    ``telemetry.on_step`` and ``telemetry.flush`` run under
    ``torch.cuda.set_sync_debug_mode("error")`` with
-   ``torch.cuda.synchronize`` trapped; and the host cost of a span and of
-   ``on_step`` + ``flush``. (b) ``serve bench --run-dir`` at phase 4's
-   native traffic: K1 and K2 launched, no plain version; ``obs report``'s
+   ``torch.cuda.synchronize`` trapped; the host cost of a span and of
+   ``on_step`` + ``flush``; and the run trains on in turns with all of
+   obs, without the events file and ``on_step``, and with every obs call
+   stubbed out. (b) ``serve bench --run-dir`` at phase 4's native
+   traffic: K1 and K2 launched, no plain version; ``obs report``'s
    serving section counts the 32 requests and gives the bench's tokens/s
-   within 0.1 %. (c) after phase 9, ``obs report`` over its run directory
-   shows the step-time and MFU sections (the mfu check again), the
-   asynchronous saves' ``ckpt.*`` spans and, in the timeline, the SIGTERM
-   and the relaunch; then the Trainer step ms with the events file on
-   beside phase 8's, and serving tokens/s and the tick's wall clock with a
-   run directory beside phase 4's. With ``CHIP_SMOKE_REPORTS=DIR`` in the
+   within 0.1 %; then the bench in turns with a run directory, without
+   one, and with every obs call stubbed out. (c) after phase 9, ``obs
+   report`` over its run directory shows the step-time and MFU sections
+   (the mfu check again), the asynchronous saves' ``ckpt.*`` spans and,
+   in the timeline, the SIGTERM and the relaunch; then the turns' Trainer
+   step ms beside phase 8's, and their serving tokens/s and wall clock a
+   tick beside phase 4's. With ``CHIP_SMOKE_REPORTS=DIR`` in the
    environment the three reports are also written under DIR;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
@@ -128,6 +131,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -192,8 +196,11 @@ GEN = dict(batch=8, prompt_len=(256, 1024), max_tokens=128, seed=0, profile=(16,
 GEN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through 8 layers vs f32
 # phase 10: a 5-step observed Trainer run, profiler window at steps 2-3; the
 # repetitions of the host-cost measurement
+# turns in mirrored order, so that a drift over the turns weighs on each kind
+# alike; the serving turns follow the checked run with a run directory
 OBSERVE = dict(iterations=5, profile=(2, 2), span_reps=200, telemetry_reps=50,
-               serve_turns=("none", "none", "run_dir"), train_turns=("off", "on", "on", "off"),
+               serve_turns=("none", "stub", "stub", "none", "run_dir"),
+               train_turns=("stub", "no_events", "on", "on", "no_events", "stub"),
                turn_steps=3)
 MFU_RTOL = 1e-6  # the telemetry's mfu vs the record's palm_mfu: one formula, two roundings
 # where the reports, too long for the log, are kept; unset: nowhere
@@ -1363,6 +1370,7 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         return {"launches": kernel, "losses": losses, "step3_crcs": npz_crcs(step_dirs[0]),
                 "saves": [(d.name, sec) for d, sec in first.saves], "step_ms": step_ms}
     finally:
+        reset_logger()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1626,7 +1634,7 @@ def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda
     event names. Returns the children's launch counts and a copy of the run
     directory (``run_dir``, a temporary directory phase 10 reads and
     removes)."""
-    from scaling_tpu_torch.logging import Logger, LoggerConfig
+    from scaling_tpu_torch.logging.logger import append_jsonl_line
     from scaling_tpu_torch.resilience import verify_checkpoint
     from scaling_tpu_torch.train.bench import MODELS
 
@@ -1642,16 +1650,19 @@ def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda
         prefixes = write_token_datasets(root, vocab)
         save_dir, run_dir = root / "ckpt", root / "obs"
         gold = trainer_run["losses"]
-        supervisor = Logger(LoggerConfig(events_path=str(run_dir / "events.jsonl")),
-                            name="supervise")
         run_dir.mkdir()
+
+        def supervisor_event(event: str, **fields) -> None:
+            """One of the supervisor's records, as ``log_event`` writes it."""
+            append_jsonl_line(run_dir / "events.jsonl", json.dumps(
+                {"event": event, "ts": time.time(), **fields}, sort_keys=True))
 
         # run A: SIGTERM from outside once step 4 is logged
         a = run_child(root, "run_a", supervise_config(prefixes, run_dir, "a", save_dir, False),
                       device, sigterm_after=SUPERVISE["sigterm_after"],
-                      on_sigterm=lambda: supervisor.log_event(
+                      on_sigterm=lambda: supervisor_event(
                           "preempt-relay", host="supervisor", epoch=0))
-        supervisor.log_event("epoch-clean-exit", epoch=0, preempted=True)
+        supervisor_event("epoch-clean-exit", epoch=0, preempted=True)
         k, records_a = a["iterations"], step_records(run_dir / "logs_a")
         losses = [records_a[s]["loss"] for s in sorted(records_a)]
         print(f"  run A: SIGTERM after the step-4 record; exited 0 at step {k}; losses {losses}")
@@ -1676,10 +1687,10 @@ def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda
               "the crc32s of phase 8's synchronous save")
 
         # run B: run_with_resume from save_dir to step 6
-        supervisor.log_event("relaunch", epoch=1, restarts=1, budget=1, backoff_s=0.0)
+        supervisor_event("relaunch", epoch=1, restarts=1, budget=1, backoff_s=0.0)
         b = run_child(root, "run_b", supervise_config(prefixes, run_dir, "b", save_dir, True),
                       device)
-        supervisor.log_event("epoch-clean-exit", epoch=1, preempted=False)
+        supervisor_event("epoch-clean-exit", epoch=1, preempted=False)
         records_b = step_records(run_dir / "logs_b")
         again = [records_b[s]["loss"] for s in sorted(records_b)]
         rel = [abs(x - y) / abs(y) for x, y in zip(again, gold[k:])]
@@ -1744,6 +1755,14 @@ def keep(name: str, text: str) -> None:
         (Path(KEEP_DIR) / name).write_text(text)
 
 
+def reset_logger() -> None:
+    """Put the process logger back to no sinks: a Trainer's ``main``
+    leaves its run's there, and the run's directory is about to go."""
+    from scaling_tpu_torch.logging import LoggerConfig, logger
+
+    logger.configure(LoggerConfig())
+
+
 def check_observe_launches(where: str, kernel: dict, plain: dict, needed: tuple) -> None:
     if any(kernel.get(k, 0) <= 0 for k in needed):
         raise AssertionError(f"{where}: kernels not launched on its path: {kernel}")
@@ -1754,7 +1773,6 @@ def check_observe_launches(where: str, kernel: dict, plain: dict, needed: tuple)
 def obs_report(run_dir: Path) -> tuple:
     """The port's ``obs report`` over ``run_dir``: (its text, its ``--json``
     stats). Fails unless it exits 0."""
-    import contextlib
     import io
 
     from scaling_tpu_torch.obs.cli import main as obs_main
@@ -1883,14 +1901,77 @@ def obs_host_costs(trainer) -> dict:
     return {"span_ms": span_ms, "telemetry_ms": telemetry_ms}
 
 
+class _NullMetric:
+    def inc(self, *a, **kw):
+        pass
+
+    set = observe = inc
+
+
+class _NullRegistry:
+    """A registry that records nothing and writes nothing."""
+
+    def _metric(self, *a, **kw):
+        return _NullMetric()
+
+    counter = gauge = histogram = _metric
+
+    def flush_step(self, step):
+        pass
+
+
+@contextlib.contextmanager
+def obs_stubbed(trainer=None):
+    """The obs calls of the Trainer's step and of the serving path made
+    no-ops for the body: spans, trace contexts, the registry (an engine
+    built inside takes a null one; the bench's one flush after its run
+    stays), ``log_event`` and, with ``trainer``,
+    its telemetry's ``on_step`` and ``flush``. What runs is the path as it
+    was before obs, beside which the always-on cost is timed."""
+    import scaling_tpu_torch.obs as obs
+    from scaling_tpu_torch.logging import logger
+    from scaling_tpu_torch.serve import bench
+    from scaling_tpu_torch.trainer import trainer as trainer_module
+
+    null = _NullRegistry()
+
+    def null_span(*a, **kw):
+        return contextlib.nullcontext()
+
+    patches = [(obs, "span", null_span), (obs, "trace_context", null_span),
+               (obs, "current_trace_id", lambda: None), (obs, "get_registry", lambda: null),
+               (bench, "span", null_span), (bench, "trace_context", null_span),
+               (trainer_module, "span", null_span),
+               (logger, "log_event", lambda *a, **kw: None)]
+    if trainer is not None:
+        patches += [(trainer.telemetry, "on_step", lambda *a, **kw: {}),
+                    (trainer.telemetry, "flush", lambda step: None)]
+    missing = object()
+    saved = [(obj, name, vars(obj).get(name, missing)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in saved:
+            if value is missing:  # an instance's method: unshadow it
+                delattr(obj, name)
+            else:
+                setattr(obj, name, value)
+
+
 def train_turns(trainer, run_dir: Path) -> dict:
-    """The trainer trains on in OBSERVE's turns of ``turn_steps`` steps with
-    obs "on" (the events file and the telemetry) or "off" (neither: the
-    spans stay, without a file). Returns each kind's median step ms, from
-    the ``step_duration`` of the turns' records."""
+    """The trainer trains on in OBSERVE's turns of ``turn_steps`` steps of
+    three kinds: "on", all of obs (spans, ``telemetry.on_step`` and
+    ``flush``, the events file); "no_events", without the events file and
+    ``on_step`` (the spans and the registry flush stay); "stub", with
+    every obs call a no-op (``obs_stubbed``): the step as it was before
+    obs. Returns each kind's median step ms, from the ``step_duration`` of
+    the turns' records."""
     from scaling_tpu_torch.logging import logger
 
-    config, ms = logger.config, {"on": [], "off": []}
+    config = logger.config
+    ms = {kind: [] for kind in dict.fromkeys(OBSERVE["train_turns"])}
     for kind in OBSERVE["train_turns"]:
         logger.configure(dataclasses.replace(
             config, events_path=config.events_path if kind == "on" else None))
@@ -1898,7 +1979,8 @@ def train_turns(trainer, run_dir: Path) -> dict:
         start = trainer.context.iterations
         trainer.config = dataclasses.replace(trainer.config,
                                              train_iterations=start + OBSERVE["turn_steps"])
-        trainer.run_training()
+        with obs_stubbed(trainer) if kind == "stub" else contextlib.nullcontext():
+            trainer.run_training()
         ms[kind] += [r["metrics"]["step_duration"] * 1e3 for r in metric_records(
             run_dir / "logs" / "metrics_rank_0.jsonl") if r["step"] > start]
     logger.configure(config)
@@ -1997,6 +2079,7 @@ def observe_train(bench_step_ms: float, device: str = "cuda") -> dict:
         return {"launches": kernel, "step_ms": statistics.median(outside), "turns": turns,
                 **costs}
     finally:
+        reset_logger()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2004,9 +2087,12 @@ def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> di
     """Phase 10 (c): ``serve bench --run-dir`` at phase 4's native traffic,
     the launch counters reset just before it and read just after; its
     report's serving section counts the 32 requests and gives the bench's
-    tokens/s within 0.1 %. Then the same bench in OBSERVE's turns without
-    and with a run directory (the first run counting as one with), for the
-    cost of the files in one process."""
+    tokens/s within 0.1 %. Then the same bench in OBSERVE's turns of three
+    kinds, the first run counting as one with a run directory: "run_dir";
+    "none", without one (no file written, the always-on spans, counters
+    and gauges stay); "stub", with every obs call a no-op
+    (``obs_stubbed``), the engine as it was before obs. Returns the
+    launches and each kind's median tokens/s and wall clock a tick."""
     from scaling_tpu_torch.ops import launches
     from scaling_tpu_torch.serve.bench import main as bench_main
 
@@ -2054,11 +2140,13 @@ def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> di
               f"{statistics.median(ticks) * 1e3:.3f}ms over {len(ticks)}; phase 4: "
               f"{phase4['tokens_per_s']:.1f} tokens/s, wall per tick "
               f"{phase4['wall_s'] / phase4['ticks'] * 1e3:.3f}ms")
-        turns = {"run_dir": [stats], "none": []}
+        turns = {"run_dir": [stats], "none": [], "stub": []}
         for i, kind in enumerate(OBSERVE["serve_turns"]):
             out = root / f"stats_{i}.json"
             extra = ["--run-dir", str(root / f"run_{i}")] if kind == "run_dir" else []
-            if bench_main(base + extra + ["--json", str(out)]) != 0:
+            with obs_stubbed() if kind == "stub" else contextlib.nullcontext():
+                rc = bench_main(base + extra + ["--json", str(out)])
+            if rc != 0:
                 raise AssertionError(f"serve bench turn {i} ({kind}) failed")
             turns[kind].append(json.loads(out.read_text()))
         summary = {kind: {"tokens_per_s": statistics.median(t["tokens_per_s"] for t in runs),
@@ -2250,14 +2338,14 @@ def main() -> int:
         observe_supervised(supervised["run_dir"], supervised["k"])
     finally:
         shutil.rmtree(supervised["run_dir"].parent, ignore_errors=True)
-    with_dir, without = served["turns"]["run_dir"], served["turns"]["none"]
-    print(f"  obs overhead: Trainer step with obs on {observed['turns']['on']:.2f}ms, off "
-          f"{observed['turns']['off']:.2f}ms (medians of the turns), the first steps with the "
-          f"events file on {observed['step_ms']:.2f}ms, phase 8's "
-          f"{trainer_run['step_ms']:.2f}ms; serving (medians of the "
-          f"turns) with a run directory {with_dir['tokens_per_s']:.1f} tokens/s and "
-          f"{with_dir['tick_ms']:.3f}ms a tick, without {without['tokens_per_s']:.1f} and "
-          f"{without['tick_ms']:.3f}ms, phase 4's {serve_native['tokens_per_s']:.1f} and "
+    t, serving = observed["turns"], served["turns"]
+    print(f"  obs overhead (medians of the turns): Trainer step ms with all of obs "
+          f"{t['on']:.2f}, without the events file and on_step {t['no_events']:.2f}, "
+          f"obs stubbed out {t['stub']:.2f}; the first steps with the events file on "
+          f"{observed['step_ms']:.2f}, phase 8's {trainer_run['step_ms']:.2f}; serving "
+          + ", ".join(f"{kind} {v['tokens_per_s']:.1f} tokens/s and {v['tick_ms']:.3f}ms a tick"
+                      for kind, v in serving.items())
+          + f", phase 4's {serve_native['tokens_per_s']:.1f} and "
           f"{serve_native['wall_s'] / serve_native['ticks'] * 1e3:.3f}ms; a span "
           f"{observed['span_ms'] * 1e3:.1f}us, telemetry.on_step + flush "
           f"{observed['telemetry_ms']:.3f}ms")

@@ -121,6 +121,8 @@ class Logger:
         prefix = "[rank 0]" + (f" [{name}]" if name else "")
         fmt = logging.Formatter(f"[%(asctime)s] {prefix} [%(levelname)s] %(message)s")
         handlers: List[logging.Handler] = [_Stdout()]
+        if config.metrics_path:  # the registry's flushes fall back to it
+            Path(config.metrics_path).parent.mkdir(parents=True, exist_ok=True)
         if config.log_dir:
             Path(config.log_dir).mkdir(parents=True, exist_ok=True)
             handlers.append(logging.FileHandler(Path(config.log_dir) / "rank_0.log"))
@@ -162,7 +164,11 @@ class Logger:
         """A lifecycle event: one JSON line appended to the events file,
         fsync'd unless ``_fsync=False`` (per-step spans pass False), and
         mirrored to the log at ``_level``. Without an events file only the
-        mirror line is written."""
+        mirror line is written, and with the mirror's level off as well the
+        record is not even built (spans run on every tick and step)."""
+        path = self.events_path()
+        if not path and not self._log.isEnabledFor(_LEVELS.get(_level, logging.INFO)):
+            return
         record = {"event": event, "ts": time.time(), **fields}
         if _trace_provider is not None:
             try:
@@ -173,7 +179,6 @@ class Logger:
                 record.setdefault(k, v)
         line = json.dumps(record, sort_keys=True, default=str)
         getattr(self, _level, self.info)(f"EVENT {line}")
-        path = self.events_path()
         if path:
             try:
                 with open(path, "a") as f:

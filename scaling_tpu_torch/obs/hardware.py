@@ -17,6 +17,7 @@ FLOPs by the card's peak. torch is imported inside the functions, so
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 from .registry import MetricsRegistry, get_registry
@@ -31,22 +32,34 @@ def _cuda_devices() -> List[int]:
     return list(range(torch.cuda.device_count()))
 
 
-def device_memory_snapshot() -> List[Dict]:
-    """Per-device allocator stats: ``bytes_in_use`` and
-    ``peak_bytes_in_use`` from ``allocated_bytes.all.current`` / ``.peak``,
-    ``bytes_limit`` the device's total memory. A CPU run gets one record
-    of zeros, as the JAX function gives on the CPU."""
+def _memory_stats() -> Dict[int, Dict]:
+    """One ``torch.cuda.memory_stats`` dict a device; empty on a CPU run."""
     import torch
 
+    return {d: torch.cuda.memory_stats(d) for d in _cuda_devices()}
+
+
+@functools.lru_cache(maxsize=None)
+def _total_memory(device: int) -> int:
+    import torch
+
+    return int(torch.cuda.get_device_properties(device).total_memory)
+
+
+def device_memory_snapshot(stats: Optional[Dict[int, Dict]] = None) -> List[Dict]:
+    """Per-device allocator stats: ``bytes_in_use`` and
+    ``peak_bytes_in_use`` from ``allocated_bytes.all.current`` / ``.peak``,
+    ``bytes_limit`` the device's total memory. ``stats`` is
+    :func:`_memory_stats`'s, taken here when not given. A CPU run gets one
+    record of zeros, as the JAX function gives on the CPU."""
     out: List[Dict] = []
-    for d in _cuda_devices():
-        stats = torch.cuda.memory_stats(d)
+    for d, s in (_memory_stats() if stats is None else stats).items():
         out.append({
             "device": d,
             "platform": "gpu",
-            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
-            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
-            "bytes_limit": int(torch.cuda.get_device_properties(d).total_memory),
+            "bytes_in_use": int(s.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(s.get("allocated_bytes.all.peak", 0)),
+            "bytes_limit": _total_memory(d),
         })
     if not out:
         out.append({"device": 0, "platform": "cpu", "bytes_in_use": 0,
@@ -54,30 +67,30 @@ def device_memory_snapshot() -> List[Dict]:
     return out
 
 
-def live_allocations() -> int:
+def live_allocations(stats: Optional[Dict[int, Dict]] = None) -> int:
     """Live allocations of the caching allocator summed over the devices
     (``active.all.current``): the closest counterpart of the JAX gauge's
     ``len(jax.live_arrays())``, since views of one allocation count once.
     0 on a CPU run."""
-    import torch
-
-    return sum(int(torch.cuda.memory_stats(d).get("active.all.current", 0))
-               for d in _cuda_devices())
+    return sum(int(s.get("active.all.current", 0))
+               for s in (_memory_stats() if stats is None else stats).values())
 
 
 def update_hardware_gauges(registry: Optional[MetricsRegistry] = None) -> Dict:
-    """Refresh the device-memory and live-allocation gauges; returns an
-    aggregate summary (max across devices) for the step's metrics."""
+    """Refresh the device-memory and live-allocation gauges from one
+    allocator query a device; returns an aggregate summary (max across
+    devices) for the step's metrics."""
     reg = registry if registry is not None else get_registry()
+    stats = _memory_stats()
     max_in_use = 0
     max_peak = 0
-    for rec in device_memory_snapshot():
+    for rec in device_memory_snapshot(stats):
         labels = {"device": str(rec["device"])}
         reg.gauge("device_bytes_in_use", labels).set(rec["bytes_in_use"])
         reg.gauge("device_peak_bytes_in_use", labels).set(rec["peak_bytes_in_use"])
         max_in_use = max(max_in_use, rec["bytes_in_use"])
         max_peak = max(max_peak, rec["peak_bytes_in_use"])
-    live = live_allocations()
+    live = live_allocations(stats)
     reg.gauge("live_arrays").set(live)
     return {
         "device_bytes_in_use": max_in_use,

@@ -288,19 +288,23 @@ class MetricsRegistry:
         The path resolves to the explicitly configured one, else the
         logger's metrics path (``SCALING_TPU_METRICS_PATH`` env /
         ``LoggerConfig``); with neither configured this is a no-op, so
-        always-on instrumentation costs nothing on unconfigured runs."""
+        always-on instrumentation costs nothing on unconfigured runs.
+        The directory of an explicit path is made here; that of the
+        logger's is the logger's to make, and a flush never recreates one
+        removed under a config left behind (it writes nothing then)."""
         path = self._metrics_path
         if path is None:
             from ..logging.logger import logger
 
             path = logger.metrics_path()
-        if path is None:
-            return
+            if path is None or not Path(path).parent.is_dir():
+                return
+        else:
+            Path(path).parent.mkdir(parents=True, exist_ok=True)
         rec = {
             "kind": "registry", "step": step, "ts": time.time(),
             "host": host_id(), **self.snapshot(),
         }
-        Path(path).parent.mkdir(parents=True, exist_ok=True)
         append_jsonl_line(path, json.dumps(_json_safe(rec), sort_keys=True))
         textfile = self._textfile_path or os.environ.get(
             "SCALING_TPU_METRICS_TEXTFILE"

@@ -22,14 +22,17 @@ into ``DIR/events.jsonl`` through ``SCALING_TPU_EVENTS_PATH`` (unless the
 environment already names a file), and the metrics registry's snapshots
 into ``DIR/metrics.jsonl``; ``python -m scaling_tpu_torch.obs report DIR``
 renders them. Each measured request runs under a trace id of its own,
-and each tick in a ``serve.tick`` span. Without ``--run-dir`` nothing is
-written.
+and each tick in a ``serve.tick`` span. Without ``--run-dir`` the bench
+writes no events and no metrics, whatever sinks the process's logger
+had, unless ``SCALING_TPU_EVENTS_PATH`` or ``SCALING_TPU_METRICS_PATH``
+names a file.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -183,21 +186,28 @@ def run_bench(engine, workload, max_wall_s: float = 600.0) -> dict:
 
 @contextlib.contextmanager
 def recording_to(run_dir: Optional[str]):
-    """Send the events (unless ``SCALING_TPU_EVENTS_PATH`` already names a
-    file) and the registry's snapshots into ``run_dir`` for the body;
-    both sinks are put back as they were after it."""
-    if run_dir is None:
-        yield
-        return
-    Path(run_dir).mkdir(parents=True, exist_ok=True)
+    """The bench's own sinks for the body. The process logger's events
+    file and step-metrics sink, and the registry's explicit sink, are off
+    whatever they were before (a Trainer run in the same process leaves
+    its own there). With ``run_dir`` the events go into
+    ``run_dir/events.jsonl`` (unless ``SCALING_TPU_EVENTS_PATH`` already
+    names a file) and the registry's snapshots into
+    ``run_dir/metrics.jsonl``; without it only a file the environment
+    names is written. All of it is put back as it was after the body."""
     reg = get_registry()
-    env_before, sink_before = os.environ.get("SCALING_TPU_EVENTS_PATH"), reg._metrics_path
-    os.environ.setdefault("SCALING_TPU_EVENTS_PATH", str(Path(run_dir) / "events.jsonl"))
-    reg.configure(metrics_path=str(Path(run_dir) / "metrics.jsonl"))
+    config, sink_before = logger.config, reg._metrics_path
+    env_before = os.environ.get("SCALING_TPU_EVENTS_PATH")
+    # the sinks only: the console and log-file handlers stay as they are
+    logger.config = dataclasses.replace(config, events_path=None, metrics_jsonl=False)
+    reg._metrics_path = None
+    if run_dir is not None:
+        Path(run_dir).mkdir(parents=True, exist_ok=True)
+        os.environ.setdefault("SCALING_TPU_EVENTS_PATH", str(Path(run_dir) / "events.jsonl"))
+        reg.configure(metrics_path=str(Path(run_dir) / "metrics.jsonl"))
     try:
         yield
     finally:
-        reg._metrics_path = sink_before
+        logger.config, reg._metrics_path = config, sink_before
         if env_before is None:
             os.environ.pop("SCALING_TPU_EVENTS_PATH", None)
 

@@ -359,28 +359,41 @@ class ServeEngine:
             _, sampled = self._forward_mixed(inp)
             host_samples = sampled.cpu().numpy()  # the tick's one device->host pull
         now = time.monotonic()
+        emitting = []
         for seq, start, n_real in inp.chunk_rows:
             seq.num_cached = start + n_real
             if not self.warmup_mode:
                 self.prefilled_tokens += n_real
                 self._counter("serve_prefill_tokens_total").inc(n_real)
             if seq.num_cached == seq.prefill_len:
-                self._emit_token(seq, int(host_samples[seq.slot, 0]), now)
+                emitting.append(seq)
         for seq in t.decodes:
             seq.num_cached += 1
-            self._emit_token(seq, int(host_samples[seq.slot, 0]), now)
+            emitting.append(seq)
+        self._emit_tokens(emitting, host_samples, now)
 
-    def _emit_token(self, seq: Sequence, tok: int, now: float) -> None:
-        seq.generated.append(tok)
-        if seq.first_token_s is None:
-            seq.first_token_s = now
-            if not self.warmup_mode:
-                self._histogram("serve_ttft_seconds").observe(now - seq.request.arrival_s)
-        elif seq.token_stamps and not self.warmup_mode:
-            self._histogram("serve_itl_seconds").observe(now - seq.token_stamps[-1])
-        seq.token_stamps.append(now)
-        if not self.warmup_mode:
-            self._counter("serve_tokens_generated_total").inc()
+    def _emit_tokens(self, seqs: List[Sequence], host_samples: np.ndarray,
+                     now: float) -> None:
+        """Each sequence takes its sampled token. Outside warm-up the
+        tick's TTFT and ITL observations and its token count go to the
+        registry with one lookup a metric, not one a token."""
+        ttft, itl = [], []
+        for seq in seqs:
+            seq.generated.append(int(host_samples[seq.slot, 0]))
+            if seq.first_token_s is None:
+                seq.first_token_s = now
+                ttft.append(now - seq.request.arrival_s)
+            elif seq.token_stamps:
+                itl.append(now - seq.token_stamps[-1])
+            seq.token_stamps.append(now)
+        if self.warmup_mode or not seqs:
+            return
+        for name, values in (("serve_ttft_seconds", ttft), ("serve_itl_seconds", itl)):
+            if values:
+                histogram = self._histogram(name)
+                for v in values:
+                    histogram.observe(v)
+        self._counter("serve_tokens_generated_total").inc(len(seqs))
 
     def _finish(self, seq: Sequence, now: float) -> None:
         """Retire a completed request: the completion counter and its

@@ -303,9 +303,10 @@ def test_supervise_phase_tells_an_async_snapshot_of_the_live_state(monkeypatch, 
 def test_observe_train_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path):
     """Phase 10's observed Trainer run at toy size on the CPU: the profiler
     window's observations JSON holds steps 2-3 and its trace is exported,
-    ``obs report`` renders the run's step-time section, and the turns with
-    obs on and off and the host costs are measured. What only the card gives is recorded, not checked: the
-    launches, the trace's kernel names (the CPU launches no kernel),
+    ``obs report`` renders the run's step-time section, the turns of the
+    three kinds and the host costs are measured, and the process logger is
+    left with no sinks. What only the card gives is recorded, not checked:
+    the launches, the trace's kernel names (the CPU launches no kernel),
     ``mfu`` and the sync-debug check."""
     seen = _toy_trainer(monkeypatch)
     monkeypatch.setattr(chip_smoke, "KEEP_DIR", tmp_path / "kept")
@@ -327,7 +328,11 @@ def test_observe_train_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path
     assert [r["step"] for r in seen["records"] if "loss" in r["metrics"]] == [1, 2, 3, 4, 5]
     assert "report | host 0: n=5 " in out
     assert result["span_ms"] > 0 and result["telemetry_ms"] > 0
-    assert out.count("turns obs ") == 2 and set(result["turns"]) == {"on", "off"}
+    assert out.count("turns obs ") == 3
+    assert set(result["turns"]) == {"on", "no_events", "stub"}
+    from scaling_tpu_torch.logging import LoggerConfig, logger
+
+    assert logger.config == LoggerConfig()
 
 
 def test_observe_serve_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path):
@@ -348,8 +353,42 @@ def test_observe_serve_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path
                                       model="toy", device="cpu")
     out = capsys.readouterr().out
     assert " 4 request(s))" in out and result["turns"]["run_dir"]["tokens_per_s"] > 0
-    assert out.count("turns ") == 2 and result["turns"]["none"]["tick_ms"] > 0
+    assert out.count("turns ") == 3 and result["turns"]["none"]["tick_ms"] > 0
+    assert result["turns"]["stub"]["tick_ms"] > 0
     assert seen["plain"]["paged_attention"] > 0
+
+
+
+def test_obs_stubbed_makes_every_obs_call_of_the_paths_a_no_op(monkeypatch, tmp_path):
+    """Inside ``obs_stubbed`` an engine records nothing into the registry, a
+    span and ``log_event`` write no event, and the trainer's telemetry does
+    nothing; after it every stubbed name is what it was."""
+    from scaling_tpu_torch import obs
+    from scaling_tpu_torch.logging import logger
+    from scaling_tpu_torch.serve import bench
+    from scaling_tpu_torch.trainer import trainer as trainer_module
+
+    events = tmp_path / "events.jsonl"
+    monkeypatch.setenv("SCALING_TPU_EVENTS_PATH", str(events))
+    telemetry = obs.StepTelemetry(registry=obs.MetricsRegistry())
+    owner = type("Trainer", (), {"telemetry": telemetry})()
+    names = [(obs, "span"), (obs, "get_registry"), (bench, "span"), (trainer_module, "span")]
+    before = [getattr(o, n) for o, n in names]
+    with chip_smoke.obs_stubbed(owner):
+        with obs.span("x"), bench.span("y"), trainer_module.span("z"):
+            pass
+        logger.log_event("e")
+        reg = obs.get_registry()
+        reg.counter("c").inc()
+        reg.flush_step(1)
+        assert telemetry.on_step(1, 0.1) == {}
+        telemetry.flush(1)
+    assert not events.exists() and telemetry.registry.snapshot()["counters"] == {}
+    assert [getattr(o, n) for o, n in names] == before
+    assert "log_event" not in vars(logger) and "on_step" not in vars(telemetry)
+    with obs.span("x"):
+        pass
+    assert [e["span"] for e in map(json.loads, events.read_text().splitlines())] == ["x"]
 
 
 def _trace(tmp_path, names):

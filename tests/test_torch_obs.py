@@ -144,6 +144,31 @@ def test_registry_flush_falls_back_to_the_loggers_metrics_path(tmp_path, monkeyp
                                                                              "jax.jsonl"))
 
 
+
+def test_registry_flush_leaves_a_removed_logger_directory_alone(tmp_path):
+    """The logger's sink directory is the logger's to make: ``configure``
+    makes that of ``metrics_path``, a fallback flush writes there, and once
+    the directory is removed under the config a flush writes nothing and
+    does not recreate it. An explicit sink's directory is still made."""
+    from scaling_tpu_torch.logging import logger
+
+    before = logger.config
+    reg = PortRegistry()
+    reg.gauge("g").set(1.0)
+    try:
+        logger.configure(LoggerConfig(metrics_path=str(tmp_path / "logs" / "m.jsonl")))
+        reg.flush_step(1)
+        assert [r["step"] for r in read_jsonl(tmp_path / "logs" / "m.jsonl")] == [1]
+        shutil.rmtree(tmp_path / "logs")
+        reg.flush_step(2)
+        assert not (tmp_path / "logs").exists()
+    finally:
+        logger.configure(before)
+    reg.configure(metrics_path=str(tmp_path / "explicit" / "m.jsonl"))
+    reg.flush_step(3)
+    assert [r["step"] for r in read_jsonl(tmp_path / "explicit" / "m.jsonl")] == [3]
+
+
 # ------------------------------------------------------------------ spans
 def drive_spans(obs, registry_cls, events):
     """Nesting, an exception, annotate, a trace context with a parent span
@@ -328,6 +353,45 @@ def test_hardware_gauges_have_the_jax_names_on_the_cpu():
     port_gauges, jax_gauges = port_reg.snapshot()["gauges"], jax_reg.snapshot()["gauges"]
     assert set(port_gauges) <= set(jax_gauges) and "live_arrays" in port_gauges
     assert port_gauges["device_bytes_in_use{device=0}"] == 0
+
+
+
+def test_hardware_gauges_query_the_allocator_once_a_device(monkeypatch):
+    """On the card each gauge update takes one ``memory_stats`` dict a
+    device and reads both the memory and the live-allocation gauges from
+    it; the device's total memory is asked once per process. The two
+    devices' allocator stats are made up here (the CPU has none)."""
+    from scaling_tpu_torch.obs import hardware
+
+    stats = {0: {"allocated_bytes.all.current": 5, "allocated_bytes.all.peak": 9,
+                 "active.all.current": 3},
+             1: {"allocated_bytes.all.current": 7, "allocated_bytes.all.peak": 8,
+                 "active.all.current": 4}}
+    calls = {"memory_stats": 0, "properties": 0}
+
+    def memory_stats(d):
+        calls["memory_stats"] += 1
+        return stats[d]
+
+    def properties(d):
+        calls["properties"] += 1
+        return type("Props", (), {"total_memory": 100 + d})()
+
+    monkeypatch.setattr(hardware, "_cuda_devices", lambda: [0, 1])
+    monkeypatch.setattr(torch.cuda, "memory_stats", memory_stats)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", properties)
+    hardware._total_memory.cache_clear()
+    reg = PortRegistry()
+    try:
+        for _ in range(3):
+            summary = hardware.update_hardware_gauges(reg)
+    finally:
+        hardware._total_memory.cache_clear()
+    assert calls == {"memory_stats": 6, "properties": 2}
+    assert summary == {"device_bytes_in_use": 7, "device_peak_bytes_in_use": 9,
+                       "live_arrays": 7}
+    gauges = reg.snapshot()["gauges"]
+    assert gauges["device_bytes_in_use{device=1}"] == 7 and gauges["live_arrays"] == 7
 
 
 def test_step_time_ema_tflops_and_mfu_equal_jax():
@@ -648,6 +712,35 @@ def test_toy_serve_bench_run_dir_renders_the_same_through_both_reports(serve_run
     counters = read_jsonl(serve_run_dir / "metrics.jsonl")[-1]["counters"]
     assert counters["serve_requests_completed_total"] >= 4
     assert "SCALING_TPU_EVENTS_PATH" not in os.environ  # put back after the run
+
+
+
+def test_serve_bench_without_run_dir_writes_nothing_after_a_configured_logger(tmp_path):
+    """A bench without ``--run-dir`` after the process logger was given an
+    events file and a log directory (as a Trainer run leaves it), which
+    are then removed: no event, no registry snapshot and no directory
+    appears, and the logger's config and the registry's sink are put back
+    after the bench."""
+    from scaling_tpu_torch.logging import logger
+    from scaling_tpu_torch.obs import get_registry
+    from scaling_tpu_torch.serve.bench import main
+
+    before = logger.config
+    stale = LoggerConfig(log_dir=str(tmp_path / "gone" / "logs"),
+                         events_path=str(tmp_path / "gone" / "events.jsonl"))
+    logger.configure(stale)
+    shutil.rmtree(tmp_path / "gone")
+    sink = get_registry()._metrics_path
+    try:
+        rc = main(["--device", "cpu", "--model", "toy", "--requests", "3", "--rate", "100",
+                   "--prompt-len", "3", "9", "--output-len", "2", "4", "--num-slots", "2",
+                   "--block-size", "4", "--num-blocks", "16", "--max-blocks-per-seq", "8",
+                   "--json", str(tmp_path / "stats.json")])
+        assert rc == 0 and logger.config == stale
+        assert get_registry()._metrics_path == sink
+    finally:
+        logger.configure(before)
+    assert sorted(f.name for f in tmp_path.iterdir()) == ["stats.json"]
 
 
 def test_obs_trace_equals_jax_on_a_serve_run_dir(serve_run_dir, capsys):
