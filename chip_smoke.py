@@ -118,7 +118,35 @@ Phases, each of which must pass:
    in the timeline, the SIGTERM and the relaunch; then the turns' Trainer
    step ms beside phase 8's, and their serving tokens/s and wall clock a
    tick beside phase 4's. With ``CHIP_SMOKE_REPORTS=DIR`` in the
-   environment the three reports are also written under DIR;
+   environment the reports are also written under DIR;
+11. supervised relaunch: phase 8's config with ``load_dir`` = ``save_dir``,
+   ``assert_checkpoint_loaded: false`` and a ``runner`` section
+   (``supervise``, this host, one slot, ``script: chip_smoke``) goes to
+   ``runner_main(config.runner, payload)`` in a process of its own
+   (``--supervise-runner``), whose workers run this script as a module
+   (``--payload=...``: the port's ``worker_main``, a record at the start
+   with the card's free memory and one after each step with the loss and
+   the launch counters, and phase 9's pause), under
+   ``SCALING_TPU_FAULTS="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1"``:
+   epoch 0 trains steps 1-4 (saving at 3) and is SIGKILLed, epoch 1
+   resumes at 3, trains step 4 and hangs, epoch 2 resumes at 3 and, once
+   its step-5 record is written, the supervisor gets a real SIGTERM: the
+   worker saves at its boundary k (5 or 6) and exits 0. Its events must be
+   ``host-dead`` (exit, -9), ``teardown-complete``, ``relaunch``; then
+   ``host-dead`` (``heartbeat-stale``), ``teardown-complete`` with the
+   hung pid SIGKILLed, ``relaunch``; then ``preempt-relay`` and
+   ``epoch-clean-exit`` (preempted), and exit 0. A second supervisor
+   without faults over the same control root (wiping the stale
+   ``epoch-0`` directory) resumes at k and ends at 6 with
+   ``global_step6`` verifying. Losses: epoch 0 and each resumed epoch's
+   first step bitwise equal to phase 8's, later steps within rtol 1e-4;
+   each epoch launches K2-K5 and no plain version, and finds the card's
+   free memory of epoch 0 within 1 GiB; neither supervisor initialises
+   CUDA; ``obs report`` counts 2 relaunches and passes
+   ``--assert-max-resizes 0``. Prints the time to recover from the crash
+   and from the hang, split into detection, teardown, backoff, the
+   worker's start to its first heartbeat (with the checkpoint's load) and
+   the step replayed, and the timeouts beside what they budget;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -188,6 +216,16 @@ RESUME_RTOL = 1e-4  # steps 5-6 after the resume: the embedding backward adds wi
 SUPERVISE = dict(keys={"save_checkpoint_async": True, "dataloader_prefetch_factor": 2,
                        "step_timeout_seconds": 120, "max_consecutive_nonfinite": 2},
                  sigterm_after=4, pause_s=0.3, child_timeout_s=420)
+# phase 11: phase 8's run under the supervisor, its SIGTERM once epoch 2's
+# step-5 record is written. The timeouts are at least twice what they budget
+# on an H100 (this phase's own prints): a worker's longest gap between two
+# heartbeats, a synchronous save with its eval, 30.0-30.8 s; its start to
+# its first heartbeat, a verified load of 25.5-30.2 s with it, 8.2-39.5 s
+RELAUNCH = dict(faults="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1", drain_after=5,
+                runner={"heartbeat_timeout_seconds": 75.0, "startup_grace_seconds": 100.0,
+                        "restart_budget": 2, "restart_backoff_seconds": 1.0,
+                        "worker_grace_seconds": 10.0, "supervisor_poll_seconds": 0.05},
+                timeout_s=600, resume_timeout_s=300, free_tol=1 << 30)
 EVAL_NATS = 0.05  # evaluate's loss on the step-6 checkpoint vs the trainer's step-6 eval loss
 EVAL_REF_NATS = 1e-4  # evaluate vs the trainer's forward on its in-memory weights, same batches
 # generation: 8 prompts of 256-1024 tokens (the longest exactly 1024, so the
@@ -1770,16 +1808,17 @@ def check_observe_launches(where: str, kernel: dict, plain: dict, needed: tuple)
         raise AssertionError(f"{where}: plain versions ran on the card: {plain}")
 
 
-def obs_report(run_dir: Path) -> tuple:
-    """The port's ``obs report`` over ``run_dir``: (its text, its ``--json``
-    stats). Fails unless it exits 0."""
+def obs_report(run_dir: Path, *gates: str) -> tuple:
+    """The port's ``obs report`` over ``run_dir`` with ``gates`` (its
+    ``--assert-*`` options): (its text, its ``--json`` stats). Fails
+    unless it exits 0."""
     import io
 
     from scaling_tpu_torch.obs.cli import main as obs_main
 
     out, stats_file = io.StringIO(), run_dir.parent / f"{run_dir.name}_report.json"
     with contextlib.redirect_stdout(out):
-        rc = obs_main(["report", str(run_dir), "--json", str(stats_file)])
+        rc = obs_main(["report", str(run_dir), "--json", str(stats_file), *gates])
     if rc != 0:
         raise AssertionError(f"obs report {run_dir} exited {rc}:\n{out.getvalue()}")
     return out.getvalue(), json.loads(stats_file.read_text())["stats"]
@@ -2162,6 +2201,340 @@ def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> di
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------ supervised relaunch
+def relaunch_supervisor(spec_file: str) -> int:
+    """Phase 11's supervisor, in a process of its own, as a user runs one:
+    the spec's training config read by ``TransformerConfig`` and
+    ``runner_main(config.runner, payload)``. Writes its exit code and
+    whether this process initialised CUDA (it must not: the card's memory
+    is the workers') to ``result_path``."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.runner import runner_main
+
+    spec = json.loads(Path(spec_file).read_text())
+    rc = runner_main(TransformerConfig.from_dict(spec["payload"]).runner, spec["payload"])
+    Path(spec["result_path"]).write_text(json.dumps({
+        "rc": rc, "cuda_initialized": torch.cuda.is_initialized()}))
+    return rc
+
+
+def relaunch_worker() -> int:
+    """A worker of phase 11, which the supervisor launches as ``python -m
+    chip_smoke --payload=...``: the port's ``worker_main`` on the card of
+    its slot (``CHIP_SMOKE_WORKER_DEVICE`` names another device), plus a
+    record at its start (the card's free memory before the model is built)
+    and one after each step (the loss, the launch counters, the newest
+    heartbeat's time, the checkpoint load's), then phase 9's pause. A
+    SIGKILLed worker writes nothing at its exit, so the records, appended
+    to ``CHIP_SMOKE_RECORDS``, are written as it goes."""
+    from scaling_tpu_torch.logging.logger import append_jsonl_line
+    from scaling_tpu_torch.models.transformer import train
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.trainer import BaseTrainer
+
+    device, records = os.environ.get("CHIP_SMOKE_WORKER_DEVICE"), os.environ["CHIP_SMOKE_RECORDS"]
+    start = {"epoch": int(os.environ["SCALING_TPU_COORD_EPOCH"]), "t_start": time.time(),
+             "free": None if device else torch.cuda.mem_get_info()[0], "load": None}
+    append_jsonl_line(records, json.dumps({"kind": "start", **start}))
+    load, build = BaseTrainer.load_checkpoint, train.build_trainer
+
+    def timed_load(trainer, *a, **kw):
+        t0 = time.time()
+        loaded = load(trainer, *a, **kw)
+        start["load"] = (t0, time.time())
+        return loaded
+
+    def build_with_records(config, device=None):
+        trainer = build(config, device)
+
+        def record(metrics, step):
+            cp = trainer._control_plane
+            append_jsonl_line(records, json.dumps({
+                "kind": "step", **start, "step": step, "loss": metrics["loss"], "t": time.time(),
+                "hb_wall": cp.peer_heartbeats()[cp.host_id].wall,
+                "kernel": dict(launches.KERNEL), "plain": dict(launches.PLAIN)}))
+            time.sleep(SUPERVISE["pause_s"])
+
+        trainer.metrics_hooks.append(record)
+        return trainer
+
+    BaseTrainer.load_checkpoint, train.build_trainer = timed_load, build_with_records
+    train.worker_main(device=device)
+    return 0
+
+
+def start_supervisor(root: Path, name: str, payload: dict, env: dict) -> subprocess.Popen:
+    """``relaunch_supervisor`` in a new session (its workers in its process
+    group), its output and its workers' in ``root/<name>.log``."""
+    spec = root / f"{name}.json"
+    spec.write_text(json.dumps({"payload": payload,
+                                "result_path": str(root / f"{name}_result.json")}))
+    with open(root / f"{name}.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--supervise-runner", str(spec)],
+            cwd=Path(__file__).resolve().parent, env={**os.environ, **env}, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def stop_supervisor(proc: subprocess.Popen) -> None:
+    """Kill a supervisor and its workers, if any of them is left."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)  # a worker whose supervisor is gone
+
+
+def read_jsonl(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()] if path.is_file() else []
+
+
+def run_relaunch(root: Path, prefixes: dict, device: str) -> None:
+    """Phase 11's two supervisors over one control root and save directory.
+    The first runs with the faults and gets a real SIGTERM once epoch 2's
+    step-``drain_after`` record is written; the second, without faults,
+    resumes to the end. Each under a hard time limit; nothing outlives the
+    call."""
+    save_dir, run_dir = root / "ckpt", root / "obs"
+    payload = trainer_config(prefixes, run_dir / "logs", save_dir=save_dir, load_dir=save_dir)
+    payload["trainer"]["assert_checkpoint_loaded"] = False
+    payload["runner"] = {"hosts": ["localhost"], "default_gpu_count": 1, "script": "chip_smoke",
+                         "supervise": True, "control_dir": str(root / "control"),
+                         **RELAUNCH["runner"]}
+    device_env = {} if device == "cuda" else {"CHIP_SMOKE_WORKER_DEVICE": device}
+    for name, faults, timeout in (("supervisor", RELAUNCH["faults"], RELAUNCH["timeout_s"]),
+                                  ("resume", "", RELAUNCH["resume_timeout_s"])):
+        records = root / f"{name}_records.jsonl"
+        (run_dir / name).mkdir(parents=True)
+        proc = start_supervisor(root, name, payload, {
+            **device_env, "SCALING_TPU_FAULTS": faults, "CHIP_SMOKE_RECORDS": str(records),
+            "SCALING_TPU_EVENTS_PATH": str(run_dir / name / "events.jsonl")})
+        deadline = time.monotonic() + timeout
+        try:
+            while faults and not any(r.get("epoch") == 2 and r.get("step") == RELAUNCH[
+                    "drain_after"] for r in read_jsonl(records)):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"{name}: no epoch-2 step-{RELAUNCH['drain_after']} "
+                                         f"record before the supervisor ended or the limit:\n"
+                                         f"{(root / f'{name}.log').read_text()[-4000:]}")
+                time.sleep(0.01)
+            if faults:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{name}: the supervisor outlived its {timeout}s limit:\n"
+                                     f"{(root / f'{name}.log').read_text()[-4000:]}")
+        finally:
+            stop_supervisor(proc)
+        if faults:  # the second supervisor reuses epoch-0, whose abort flag this one left
+            (root / "abort_left").write_text(str((root / "control" / "epoch-0" / "flags" /
+                                                  "abort").is_file()))
+
+
+def supervisor_events(run_dir: Path) -> list:
+    """The supervisor's lifecycle events of one run, in order."""
+    names = ("epoch-start", "host-dead", "teardown-complete", "relaunch", "preempt-relay",
+             "epoch-clean-exit", "epoch-stalled", "give-up")
+    return [e for e in read_jsonl(run_dir / "events.jsonl") if e["event"] in names]
+
+
+RELAUNCH_EVENTS = {  # the supervisors' events in order: (event, the fields that must hold)
+    "supervisor": [("epoch-start", {"epoch": 0}),
+                   ("host-dead", {"epoch": 0, "reason": "exit", "exit_codes": {"0": -9}}),
+                   ("teardown-complete", {"killed_pids": []}),
+                   ("relaunch", {"epoch": 1, "restarts": 1}), ("epoch-start", {"epoch": 1}),
+                   ("host-dead", {"epoch": 1, "reason": "heartbeat-stale", "hosts": [0]}),
+                   ("teardown-complete", {}), ("relaunch", {"epoch": 2, "restarts": 2}),
+                   ("epoch-start", {"epoch": 2}), ("preempt-relay", {"epoch": 2}),
+                   ("epoch-clean-exit", {"epoch": 2, "preempted": True})],
+    "resume": [("epoch-start", {"epoch": 0}),
+               ("epoch-clean-exit", {"epoch": 0, "preempted": False})],
+}
+
+
+def check_relaunch(root: Path, gold: list) -> dict:
+    """Phase 11's checks over ``run_relaunch``'s output: each supervisor's
+    events in order and its exit 0 without CUDA; each epoch's losses
+    (bitwise through its first step, within RESUME_RTOL after), launches
+    (K2-K5, no plain version) and free memory (within ``free_tol`` of
+    epoch 0's); the stale epoch-0 directory wiped; ``global_step6``;
+    ``obs report`` with 2 relaunches, the drain's preemption events and
+    ``--assert-max-resizes 0``. Prints the time to recover from the crash
+    and from the hang, split, and the silent stretches the timeouts budget.
+    Returns the summed launch counts and the time to recover."""
+    from scaling_tpu_torch.resilience import verify_checkpoint
+
+    run_dir, epochs = root / "obs", {}
+    for name, expected in RELAUNCH_EVENTS.items():
+        result = json.loads((root / f"{name}_result.json").read_text())
+        print(f"  {name}: exit {result['rc']}, torch.cuda.is_initialized() at its end: "
+              f"{result['cuda_initialized']}")
+        if result != {"rc": 0, "cuda_initialized": False}:
+            raise AssertionError(f"{name}: {result} (exit 0 without initialising CUDA wanted)")
+        events = supervisor_events(run_dir / name)
+        got = [e["event"] for e in events]
+        if got != [e for e, _ in expected] or any(
+                {k: e.get(k) for k in fields} != fields
+                for e, (_, fields) in zip(events, expected)):
+            raise AssertionError(f"{name}: events {events}, wanted {expected}")
+        if name == "supervisor" and not events[6]["killed_pids"]:
+            raise AssertionError(f"the hung worker was not SIGKILLed: {events[6]}")
+        for r in read_jsonl(root / f"{name}_records.jsonl"):
+            ep = epochs.setdefault((name, r["epoch"]), {"start": None, "steps": [],
+                                                        "events": events})
+            if r["kind"] == "start":
+                ep["start"] = r
+            else:
+                ep["steps"].append(r)
+    steps = {key: [r["step"] for r in ep["steps"]] for key, ep in epochs.items()}
+    k = max(steps[("supervisor", 2)])
+    want = {("supervisor", 0): [1, 2, 3, 4], ("supervisor", 1): [4],
+            ("supervisor", 2): list(range(4, k + 1)), ("resume", 0): list(range(k + 1, 7))}
+    if steps != want or k not in (5, 6):
+        raise AssertionError(f"steps by epoch {steps}, wanted {want} with k 5 or 6")
+    # bitwise: epoch 0's steps (phase 8's start), and the first step of each
+    # epoch resumed from global_step3 (phase 8's state and batch); the steps
+    # after a resumed step within RESUME_RTOL (the embedding backward adds
+    # with atomics)
+    bitwise = {("supervisor", 0): 4, ("supervisor", 1): 1, ("supervisor", 2): 1, ("resume", 0): 0}
+    for key, ep in epochs.items():
+        losses = [r["loss"] for r in ep["steps"]]
+        ref = [gold[s - 1] for s in steps[key]]
+        n = bitwise[key]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[n:], ref[n:])]
+        print(f"  {key[0]} epoch {key[1]}: steps {steps[key]} losses {losses}; the first {n} "
+              f"bitwise, then rel. diff {rel} (rtol {RESUME_RTOL})")
+        if losses[:n] != ref[:n] or not all(x <= RESUME_RTOL for x in rel):
+            raise AssertionError(f"{key}: losses {losses} vs phase 8's {ref}")
+    for key, ep in epochs.items():
+        last = ep["steps"][-1] if ep["steps"] else None
+        print(f"  {key[0]} epoch {key[1]}: free memory at the worker's start "
+              f"{ep['start']['free']}, launches "
+              f"{'no step' if last is None else last['kernel']}, plain "
+              f"{'-' if last is None else last['plain']}")
+        if last is not None:
+            check_relaunch_launches(key, last["kernel"], last["plain"])
+    check_free_memory(epochs)
+    if (root / "abort_left").read_text() != "True" or \
+            (root / "control" / "epoch-0" / "flags" / "abort").is_file():
+        raise AssertionError("the second supervisor did not wipe the stale epoch-0 directory")
+    step6 = root / "ckpt" / "global_step6"
+    if verify_checkpoint(step6) or (root / "ckpt" / "latest").read_text() != "global_step6":
+        raise AssertionError(f"global_step6: {verify_checkpoint(step6)}")
+    print(f"  drained at k={k}; the second supervisor wiped epoch-0's stale abort flag and "
+          "resumed to step 6; global_step6 verifies")
+    text, _ = obs_report(run_dir, "--assert-max-resizes", "0")
+    keep("relaunch_report.txt", text)
+    totals = report_section(text, "restart / preemption timeline")[-1]
+    print(f"  report | {totals.strip()}")
+    # the report counts the supervisor's preempt-relay and, unless the
+    # worker had reached its last step, its preempt-broadcast
+    if f"restarts=2 preemptions={1 + (k < 6)} stalls=0" not in totals:
+        raise AssertionError(f"the report's timeline: {totals}")
+    recover = time_to_recover(epochs)
+    kernel = Counter()
+    for ep in epochs.values():
+        if ep["steps"]:
+            kernel.update(ep["steps"][-1]["kernel"])
+    return {"launches": dict(kernel), "recover": recover}
+
+
+def check_relaunch_launches(key: tuple, kernel: dict, plain: dict) -> None:
+    needed = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd")
+    if any(kernel.get(k, 0) <= 0 for k in needed) or sum(plain.values()):
+        raise AssertionError(f"relaunch {key}: launches kernel={kernel} plain={plain}")
+
+
+def check_free_memory(epochs: dict) -> None:
+    """Each epoch's worker found the card's free memory that epoch 0's did,
+    within ``free_tol``: a dead or hung worker's memory was given back."""
+    base = epochs[("supervisor", 0)]["start"]["free"]
+    if base is None:  # not on the card
+        return
+    for key, ep in epochs.items():
+        if abs(ep["start"]["free"] - base) > RELAUNCH["free_tol"]:
+            raise AssertionError(f"{key}: {ep['start']['free']} bytes free, epoch 0 had {base}")
+
+
+def time_to_recover(epochs: dict) -> dict:
+    """For the crash (epoch 0 -> 1) and the hang (1 -> 2): the fault (the
+    last step record and the pause after it) to the relaunched worker's
+    first step record, split into detection (to ``host-dead``), teardown
+    (to ``teardown-complete``), backoff (to the next ``epoch-start``: the
+    ``relaunch`` event, the sleep and the spawn), the worker's start to its
+    first heartbeat (of which the checkpoint's load), and the step
+    replayed (the first heartbeat to the first record). Also the timeouts'
+    measurements: each epoch's start to its first heartbeat, and the
+    longest gap between two heartbeats that step records saw."""
+    events = epochs[("supervisor", 0)]["events"]
+    ts = {(e["event"], e.get("epoch")): e["ts"] for e in events}
+    dead = [e for e in events if e["event"] == "host-dead"]
+    torn = [e for e in events if e["event"] == "teardown-complete"]
+    out = {}
+    for what, e in (("crash", 0), ("hang", 1)):
+        last, nxt = epochs[("supervisor", e)]["steps"][-1], epochs[("supervisor", e + 1)]
+        fault = last["t"] + SUPERVISE["pause_s"]
+        first = nxt["steps"][0]
+        split = {"detection": dead[e]["ts"] - fault, "teardown": torn[e]["ts"] - dead[e]["ts"],
+                 "backoff": ts[("epoch-start", e + 1)] - torn[e]["ts"],
+                 "start_to_heartbeat": first["hb_wall"] - ts[("epoch-start", e + 1)],
+                 "of_which_load": first["load"][1] - first["load"][0],
+                 "step_replayed": first["t"] - first["hb_wall"]}
+        split["total"] = first["t"] - fault
+        out[what] = split
+        print(f"  time to recover from the {what}: {split['total']:.2f}s = detection "
+              f"{split['detection']:.2f} + teardown {split['teardown']:.2f} + backoff "
+              f"{split['backoff']:.2f} + start to first heartbeat "
+              f"{split['start_to_heartbeat']:.2f} (checkpoint load "
+              f"{split['of_which_load']:.2f}) + step {first['step']} replayed "
+              f"{split['step_replayed']:.2f}")
+    starts = {}
+    for (name, e), ep in epochs.items():
+        if ep["steps"]:
+            begin = [x["ts"] for x in ep["events"] if x["event"] == "epoch-start"
+                     and x["epoch"] == e][0]
+            starts[f"{name}{e}"] = round(ep["steps"][0]["hb_wall"] - begin, 2)
+    gaps = [b["hb_wall"] - a["hb_wall"] for ep in epochs.values()
+            for a, b in zip(ep["steps"], ep["steps"][1:])]
+    runner = RELAUNCH["runner"]
+    print(f"  timeouts: startup_grace_seconds {runner['startup_grace_seconds']} against each "
+          f"epoch's start to first heartbeat {starts}s; heartbeat_timeout_seconds "
+          f"{runner['heartbeat_timeout_seconds']} against the longest gap between two "
+          f"heartbeats {max(gaps):.2f}s (a save and its eval)")
+    out["start_to_heartbeat"], out["max_heartbeat_gap"] = starts, max(gaps)
+    return out
+
+
+def relaunch_phase(trainer_run: dict, device: str = "cuda") -> dict:
+    """Phase 11: phase 8's Trainer under the supervisor through a crash, a
+    hang and a drain, and a second supervisor resuming to the end (see the
+    module's docstring), held against phase 8's losses. Returns the
+    workers' launch counts."""
+    from scaling_tpu_torch.train.bench import MODELS
+
+    vocab = MODELS[TRAINER["model"]]["vocab_size"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_relaunch_"))
+    try:
+        free = shutil.disk_usage(root).free
+        need = 3 * 16 * 495_110_144 + (1 << 30) if TRAINER["model"] == "0.5b" else 1 << 30
+        print(f"  temporary directory {root}: {free / 1e9:.1f} GB free, three checkpoints need "
+              f"~{need / 1e9:.1f} GB")
+        if free < need:
+            raise AssertionError(f"not enough disk for three checkpoints under {root}")
+        prefixes = write_token_datasets(root, vocab)
+        if device == "cuda":
+            torch.cuda.empty_cache()  # this process's cache is not the workers' to lose
+        t0 = time.monotonic()
+        run_relaunch(root, prefixes, device)
+        seconds = time.monotonic() - t0
+        result = check_relaunch(root, trainer_run["losses"])
+        print(f"  the two supervisors ran {seconds:.1f}s")
+        return {**result, "seconds": seconds}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def time_kernels(errs: dict) -> list:
     """One row a kernel, its launches added by ``add_launches``."""
     import torch.nn.functional as F
@@ -2338,6 +2711,10 @@ def main() -> int:
         observe_supervised(supervised["run_dir"], supervised["k"])
     finally:
         shutil.rmtree(supervised["run_dir"].parent, ignore_errors=True)
+    print("== relaunch (phase 11): the trainer phase's run under the supervisor through a "
+          "crash, a hang and a drain, then a second supervisor to the end")
+    relaunched = relaunch_phase(trainer_run)
+    launches_by_path["relaunch"] = relaunched["launches"]
     t, serving = observed["turns"], served["turns"]
     print(f"  obs overhead (medians of the turns): Trainer step ms with all of obs "
           f"{t['on']:.2f}, without the events file and on_step {t['no_events']:.2f}, "
@@ -2363,4 +2740,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--supervise-child"]:
         sys.exit(supervise_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--supervise-runner"]:
+        sys.exit(relaunch_supervisor(sys.argv[2]))
+    if any(a.startswith("--payload=") for a in sys.argv[1:]):
+        sys.exit(relaunch_worker())
     sys.exit(main())

@@ -19,11 +19,11 @@ section a ``scaling_tpu`` config carries. Every key is one of three kinds:
 ``TransformerConfig`` reads a whole training config under the JAX key
 names: ``topology`` (one device), ``optimizer``,
 ``learning_rate_scheduler``, ``training``, ``trainer``, ``data``,
-``logger`` and ``profiler`` beside the architecture, with the same three
-kinds of keys in each section. The sections of machinery that is not
-ported (``runner``, ``context``, the Determined ids) are accepted only
-empty or off. An unknown key raises ValueError. No key is ever
-ignored silently.
+``logger``, ``profiler`` and ``runner`` (``runner.RunnerConfig``)
+beside the architecture, with the same three kinds of keys in each
+section. The sections of machinery that is not ported (``context``, the
+Determined ids) are accepted only empty or off. An unknown key raises
+ValueError. No key is ever ignored silently.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from ...logging import LoggerConfig
 from ...nn.masked_softmax import MaskedSoftmaxConfig
 from ...optimizer import LearningRateSchedulerConfig, OptimizerConfig
 from ...profiler import ProfilerConfig
+from ...runner.config import RunnerConfig
 from ...topology import TopologyConfig
 from ...trainer import TrainerConfig
 
@@ -338,6 +339,7 @@ class TransformerConfig:
     data: DataConfig = DataConfig()
     logger: LoggerConfig = LoggerConfig()
     profiler: ProfilerConfig = ProfilerConfig()
+    runner: Optional[RunnerConfig] = None
     source: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False,
                                                repr=False)
 
@@ -356,9 +358,9 @@ class TransformerConfig:
         source = json.loads(json.dumps(d, default=str))  # plain types: paths become strings
         d = strip_removed_config_keys(source)
         d.pop("version", None)
-        for key in ("runner", "context"):
-            if d.pop(key, None):
-                raise NotImplementedError(f"the {key} section is not ported")
+        if d.pop("context", None):
+            raise NotImplementedError("the context section is not ported")
+        runner = d.pop("runner", None)
         for key in ("determined_experiment_id", "determined_trial_id"):
             if d.pop(key, None) is not None:
                 raise NotImplementedError(f"{key}: the Determined glue is not ported")
@@ -370,6 +372,7 @@ class TransformerConfig:
                 d.pop("transformer_architecture")),
             topology=TopologyConfig.from_dict(d.pop("topology")),
             source=source,
+            runner=None if runner is None else RunnerConfig.from_dict(runner),
         )
         for key, section in (("optimizer", OptimizerConfig),
                              ("learning_rate_scheduler", LearningRateSchedulerConfig),

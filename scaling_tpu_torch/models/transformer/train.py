@@ -8,6 +8,11 @@ config's ``profiler`` section.
 
 ``main(config, device=None)`` trains on the card unless ``device="cpu"``;
 ``python -m scaling_tpu_torch.train run <config.yml>`` is its command line.
+Under the supervisor (``scaling_tpu_torch.runner``) the environment
+names a control plane, which the trainer joins with the preemption
+handler installed. ``python -m scaling_tpu_torch.models.transformer.train
+--payload=<base64 config>`` is the worker a runner launches
+(``worker_main``): it trains on ``cuda:{LOCAL_SLOT}``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from ... import resolve_device
 from ...data.blended_dataset import BlendedDatasetConfig
 from ...logging import logger
 from ...profiler import Profiler
+from ...resilience import controlplane_from_env
+from ...runner import LaunchConfig, initialize_distributed
 from ...trainer import BaseTrainer
 from .config import TransformerConfig
 from .context import TransformerContext
@@ -124,6 +131,12 @@ def build_trainer(config: TransformerConfig, device=None) -> TransformerTrainer:
         tokens_per_step=topo.global_batch_size * arch.sequence_length,
         world_size=1,
         peak_tflops=H100_BF16_TFLOPS if device.type == "cuda" else None)
+    # under the supervisor: heartbeats (or a healthy worker reads as hung
+    # after the startup grace), the coordinated drain, the commit barrier
+    cp = controlplane_from_env()
+    if cp is not None:
+        trainer.attach_control_plane(cp, shared_save_dir=config.trainer.multihost_shared_save_dir)
+        trainer.install_preemption_handler()
     trainer.initialize(load_checkpoint=config.trainer.load_dir is not None)
     return trainer
 
@@ -133,3 +146,18 @@ def main(config: TransformerConfig, device=None) -> TransformerTrainer:
     trainer = build_trainer(config, device)
     trainer.run_training()
     return trainer
+
+
+def worker_main(argv: Optional[List[str]] = None, device=None) -> TransformerTrainer:
+    """The worker of a runner: the config from ``--payload``, trained by
+    ``main`` on ``device``, by default the card of the launch's slot."""
+    launch = LaunchConfig.from_launcher_args(argv)
+    initialize_distributed(launch)
+    if launch.payload is None:
+        raise ValueError("--payload is required")
+    return main(TransformerConfig.from_dict(launch.payload),
+                device=device or f"cuda:{launch.local_slot}")
+
+
+if __name__ == "__main__":
+    worker_main()

@@ -1,10 +1,21 @@
-"""Crash consistency and fault tolerance on one device (the port's copy of
-scaling_tpu/resilience/ without the multi-host control plane): fault
-injection, the atomic commit, the integrity manifest and verified
-restore, ``MESH.json`` and the reshard pre-flight, the in-loop guards and
-bounded auto-resume."""
+"""Crash consistency and fault tolerance (the port's copy of
+scaling_tpu/resilience/): fault injection, the atomic commit, the
+integrity manifest and verified restore, ``MESH.json`` and the reshard
+pre-flight, the in-loop guards, bounded auto-resume, and the supervision
+control plane (heartbeats, barriers and flags over a shared directory or
+a coordinator's TCP server)."""
 
 from .commit import CheckpointCommit, checkpoint_candidates
+from .controlplane import (
+    BarrierTimeout,
+    ControlPlane,
+    FileControlPlane,
+    JobAborted,
+    TcpControlPlane,
+    TcpControlPlaneServer,
+    controlplane_from_env,
+    straggler_table,
+)
 from .faults import FaultPlan, InjectedFault, get_fault_plan, set_fault_plan
 from .guards import (
     NonFiniteGuard,
@@ -35,17 +46,24 @@ from .resume import run_with_resume
 
 __all__ = [
     "MESH_NAME",
+    "BarrierTimeout",
     "CheckpointCommit",
     "CheckpointCorruptionError",
+    "ControlPlane",
     "FaultPlan",
+    "FileControlPlane",
     "InjectedFault",
+    "JobAborted",
     "NonFiniteGuard",
     "NonFiniteLossError",
     "ReshardError",
     "ReshardPlan",
     "StepStallWatchdog",
+    "TcpControlPlane",
+    "TcpControlPlaneServer",
     "build_mesh_meta",
     "checkpoint_candidates",
+    "controlplane_from_env",
     "dump_thread_stacks",
     "get_fault_plan",
     "mesh_matches",
@@ -59,6 +77,7 @@ __all__ = [
     "run_with_resume",
     "set_fault_plan",
     "signature_label",
+    "straggler_table",
     "topology_signature",
     "validate_param_tree",
     "verify_checkpoint",

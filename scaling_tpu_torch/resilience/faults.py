@@ -28,6 +28,18 @@ point               fired
                     ``sigterm`` delivers a real SIGTERM to this process
 ``host.kill``       same site; arm ``kill`` to crash at a step boundary
 ``host.hang``       same site; arm ``hang`` to wedge the loop
+``barrier.timeout`` on every control-plane ``barrier()`` entry, before
+                    this host's arrival: ``kill`` dies between the host's
+                    work and the rendezvous
+``ckpt.commit_barrier``
+                    after this host's commit (manifest and rename), before
+                    the ``commit:step-N`` barrier of several hosts
+``runner.worker.spawn``
+                    before the runner starts each worker process
+                    (``runner.spawn_worker``); ``fail`` is a launch failure
+``runner.worker.kill``
+                    when the babysitting runner terminates the other
+                    workers after one exited non-zero or on Ctrl-C
 ==================  =====================================================
 
 Spec grammar (comma list): ``point=action[@N][xM][@host=K][@epoch=E]``

@@ -18,20 +18,26 @@ fingerprint changed. The manifest carries no fingerprint: the JAX one is
 a digest of the JAX config's full dump, every default included, which
 the port does not rebuild.
 
-Supervision, as in the JAX trainer without a control plane: SIGTERM
+Supervision, as in the JAX trainer: SIGTERM
 (``install_preemption_handler``) saves at the step boundary and returns;
 ``max_consecutive_nonfinite`` bounds a streak of non-finite losses, then
 saves and raises ``NonFiniteLossError``; ``step_timeout_seconds`` arms a
 stall watchdog after the first step that requests the same save-and-exit;
 the ``SCALING_TPU_FAULTS`` points ``signal.sigterm``, ``host.kill`` and
 ``host.hang`` fire at the top of each iteration and ``step.nan_grads``
-after each step.
+after each step. Under the supervisor (``attach_control_plane``) each
+iteration publishes a heartbeat (``starting``, ``running``, then
+``preempted`` or ``done``), raises ``JobAborted`` on the abort flag,
+broadcasts and obeys the preempt flag, and with several hosts meets the
+others at a ``step-N`` barrier; a save meets them at ``commit:step-N``
+before ``latest`` moves; a stall sets the stall flag beside a straggler
+table's verdict.
 
 Micro-batches are stacked ``(gas, mbs, s)`` on the host, by a prefetch
 thread with ``dataloader_prefetch_factor`` > 0, and moved to the device
 in one copy per step on the loop's thread (``batch_to_model_input``).
-The control plane and the orbax backend are not ported: their config
-fields raise NotImplementedError at any value but the default.
+The orbax backend is not ported: ``checkpoint_backend`` raises
+NotImplementedError at any value but the default.
 
 Observability, as in the JAX trainer: the spans ``step.data``,
 ``step.fwdbwd`` (host dispatch only: the device work shows in
@@ -47,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import queue
 import shutil
 import signal
@@ -70,13 +77,15 @@ from ..checkpoint import (
 from ..context import BaseContext
 from ..data import DataLoader
 from ..logging.logger import logger
-from ..obs import StepTelemetry, span
+from ..obs import StepTelemetry, derive_trace_id, span, trace_context
 from ..optimizer import Optimizer
 from ..parallel import ParallelModule
 from ..parallel.parallel_module import jax_partition_spec, transposed_in_jax
 from ..resilience import (
     CheckpointCommit,
     CheckpointCorruptionError,
+    ControlPlane,
+    JobAborted,
     NonFiniteGuard,
     NonFiniteLossError,
     StepStallWatchdog,
@@ -90,8 +99,16 @@ from ..resilience import (
     rescale_consumed_samples,
     reshard_plan,
     retry_io,
+    straggler_table,
     verify_checkpoint,
     write_mesh_meta,
+)
+from ..resilience.controlplane import (
+    ABORT_FLAG,
+    ENV_COORD_EPOCH,
+    ENV_NUM_HOSTS,
+    PREEMPT_FLAG,
+    STALL_FLAG,
 )
 
 # disk-level corruption a load may skip past; anything else (a shape or
@@ -103,7 +120,6 @@ _CORRUPT_LOAD_ERRORS = (zipfile.BadZipFile, EOFError, OSError, CheckpointCorrupt
 # leave them off
 _NOT_PORTED = {
     "merge_lora_after_loading_checkpoint": (False,),
-    "multihost_shared_save_dir": (False,),
     "checkpoint_backend": ("npz",),
 }
 # kept for config parity in the JAX package too: no effect there either
@@ -139,6 +155,9 @@ class TrainerConfig:
     # consecutive non-finite steps tolerated before save-and-abort; None: off
     max_consecutive_nonfinite: Optional[int] = None
     step_timeout_seconds: Optional[float] = None  # stall watchdog; None: off
+    # under a control plane: one checkpoint tree shared by every host, whose
+    # ``latest`` host 0 alone moves; False: each host owns its pointer
+    multihost_shared_save_dir: bool = False
 
     def __post_init__(self):
         if self.log_interval < 1 or self.io_retry_attempts < 1:
@@ -225,6 +244,14 @@ class BaseTrainer:
         self._nonfinite_guard = (None if config.max_consecutive_nonfinite is None
                                  else NonFiniteGuard(config.max_consecutive_nonfinite))
         self.watchdog: Optional[StepStallWatchdog] = None  # the last run_training's
+        # the supervision control plane (attach_control_plane)
+        self._control_plane: Optional[ControlPlane] = None
+        self._cp_first_checkin = True
+        self._cp_step_barrier = True
+        self._cp_barrier_timeout = 300.0
+        self._cp_peer_stale = 60.0
+        self._cp_latest_leader = True
+        self._cp_prev_commit_step: Optional[int] = None
         # per-step telemetry: hardware gauges, the step-time EMA and, once
         # configure() declared the model's FLOPs per token, achieved TFLOPs
         # and MFU; host-side only by contract
@@ -397,6 +424,113 @@ class BaseTrainer:
             metrics={k: float(np.mean([m[k] for m in metric_list])) for k in metric_list[0]},
         )
 
+    # ------------------------------------------------------ control plane
+    def attach_control_plane(self, cp: ControlPlane, *, step_barrier: bool = True,
+                             barrier_timeout_s: float = 300.0, peer_stale_s: float = 60.0,
+                             shared_save_dir: bool = False) -> None:
+        """Join a supervision control plane. Each iteration then publishes
+        a heartbeat, obeys the supervisor's ``abort`` flag (exit, not a
+        hang in a collective whose peer is gone), broadcasts and observes
+        the ``preempt`` flag (one host's SIGTERM becomes every host's save
+        at the same step boundary) and, with ``step_barrier`` and several
+        hosts, meets the others at ``step-N``. A save meets them at
+        ``commit:step-N`` before ``latest`` moves; with ``shared_save_dir``
+        (one tree for every host) only host 0 moves it."""
+        if not step_barrier and cp.num_hosts > 1:
+            # nothing then bounds the skew: a drain may end with hosts
+            # saving at different steps, parked in commit barriers
+            logger.warning(f"attach_control_plane(step_barrier=False) on a {cp.num_hosts}-host "
+                           "plane: coordinated preemption cannot guarantee a same-step boundary "
+                           "and commit barriers may time out during a drain")
+        self._control_plane = cp
+        self._cp_step_barrier = step_barrier
+        self._cp_barrier_timeout = barrier_timeout_s
+        self._cp_peer_stale = peer_stale_s
+        self._cp_latest_leader = (not shared_save_dir) or cp.host_id == 0
+
+    def _control_plane_checkin(self) -> bool:
+        """The top of an iteration: True when this host exits at this
+        boundary (its own preemption decided before the step barrier, or a
+        peer's broadcast seen before or after it). A SIGTERM that lands
+        inside the barrier wait comes too late for this boundary (peers
+        may already wait at the next), so that host runs one more step and
+        exits on the post-step path, where its broadcast and arrival
+        release the others at the same boundary."""
+        cp = self._control_plane
+        if cp is None:
+            return self._preempted
+        step = self.context.iterations
+        # the first iteration still builds and loads the kernels: the
+        # supervisor's startup grace applies to ``starting``
+        cp.heartbeat(step, status="starting" if self._cp_first_checkin else "running")
+        self._cp_first_checkin = False
+        if cp.get_flag(ABORT_FLAG) is not None:
+            logger.log_event("abort-observed", host=cp.host_id, step=step)
+            raise JobAborted("supervisor raised the abort flag: a peer host is gone, so "
+                             "barriers/collectives can never complete — exiting without a save "
+                             "(the last committed checkpoint stands)")
+        if not self._preempted and cp.get_flag(PREEMPT_FLAG) is not None:
+            self._preempted = True
+        if self._preempted:
+            # the flag and this boundary's arrival release a peer already
+            # waiting; the save's commit barrier is the real rendezvous
+            self._broadcast_preempt(step)
+            return True
+        if self._cp_step_barrier and cp.num_hosts > 1:
+            cp.barrier(f"step-{step}", self._cp_barrier_timeout)
+            if step >= 2 and cp.host_id == 0:
+                # every host passed step-{step}: none waits on step-{step-2}
+                cp.prune_barrier(f"step-{step - 2}")
+            if cp.get_flag(PREEMPT_FLAG) is not None:
+                # the broadcaster arrived at this barrier: its boundary
+                self._preempted = True
+                return True
+        return False
+
+    def _broadcast_preempt(self, step: int) -> None:
+        """Make this host's preemption every host's without stranding a
+        peer: the preempt flag (once), then this boundary's step-barrier
+        arrival. The flag comes first, so a peer released by the arrival
+        sees it."""
+        cp = self._control_plane
+        if cp is None:
+            return
+        if cp.get_flag(PREEMPT_FLAG) is None:
+            cp.set_flag(PREEMPT_FLAG, str(step))
+            logger.log_event("preempt-broadcast", host=cp.host_id, step=step)
+        if self._cp_step_barrier and cp.num_hosts > 1:
+            cp.arrive(f"step-{step}")
+
+    def _commit_barrier_and_latest(self, commit: CheckpointCommit) -> None:
+        """``latest`` moves once every host committed its part of this step
+        (``commit:step-N``): a host killed in between leaves every
+        ``latest`` at the previous step, so no restore mixes steps. On the
+        asynchronous path this runs on the writer's thread after the
+        commit, in the synchronous path's order."""
+        cp = self._control_plane
+        if cp is not None and cp.num_hosts > 1:
+            get_fault_plan().fire("ckpt.commit_barrier", path=commit.final_dir)
+            # every host derives the same trace from the commit's identity
+            # (an epoch's re-save of a step is another incident)
+            commit_trace = derive_trace_id("ckpt-commit", commit.step,
+                                           os.environ.get(ENV_COORD_EPOCH, "0"))
+            with trace_context(commit_trace):
+                with span("ckpt.commit_barrier", step=commit.step, host=cp.host_id):
+                    cp.barrier(f"commit:step-{commit.step}", self._cp_barrier_timeout)
+            prev = self._cp_prev_commit_step
+            if prev is not None and prev != commit.step and cp.host_id == 0:
+                # every host passed this commit barrier; the current one's
+                # arrivals stay for a preemption's re-save of the same step
+                cp.prune_barrier(f"commit:step-{prev}")
+            self._cp_prev_commit_step = commit.step
+        if self._cp_latest_leader:
+            with span("ckpt.latest", step=commit.step):
+                commit.update_latest()
+
+    def _heartbeat(self, status: str = "running") -> None:
+        if self._control_plane is not None:
+            self._control_plane.heartbeat(self.context.iterations, status=status)
+
     # --------------------------------------------------------- preemption
     def install_preemption_handler(self) -> None:
         """Save and exit at the step boundary on SIGTERM (spot and
@@ -414,29 +548,63 @@ class BaseTrainer:
         signal.signal(signal.SIGTERM, handler)
 
     def _preemption_requested(self) -> bool:
+        if not self._preempted and self._control_plane is not None:
+            # another host broadcast a preemption since the last check
+            if self._control_plane.get_flag(PREEMPT_FLAG) is not None:
+                self._preempted = True
         return self._preempted or (self.external_preemption is not None
                                    and self.external_preemption())
 
     def _preemption_exit(self) -> None:
+        # a SIGTERM during the step passed no checkin: broadcast (and
+        # release a peer at this boundary) before the save's commit barrier
+        self._broadcast_preempt(self.context.iterations)
         if self.config.save_dir is not None and self._last_saved_step == self.context.iterations:
             # the periodic save just took this boundary: drain it, do not
             # write it again on a reclaim's deadline
             self.finalize_checkpoints()
             logger.info("preemption: boundary already checkpointed, exiting cleanly")
         elif self.config.save_dir is not None:
+            # the last heartbeat was a step ago: the timeout budgets the save
+            self._heartbeat()
             step_dir = self.save_checkpoint()
             self.finalize_checkpoints()
             self._run_checkpoint_hooks(step_dir)
             logger.info("preemption: checkpoint saved, exiting cleanly")
+        self._heartbeat("preempted")
 
     def _on_step_stall(self, step: int, elapsed: float) -> None:
         """The watchdog's callback, on its thread: the state cannot be
         copied mid-step, so it requests the save-and-exit of a preemption
-        at the next loop boundary, if the stalled step ever ends."""
-        logger.log_event("step-stall", step=step, elapsed_s=round(elapsed, 1),
-                              verdict="local-stall", dead_hosts=[], host=0)
-        logger.error(f"step stall after step {step} ({elapsed:.1f}s, local-stall): "
-                          "requesting save-and-exit at the next loop boundary")
+        at the next loop boundary, if the stalled step ever ends. With a
+        control plane, the peers' heartbeats give the verdict: a peer that
+        stopped publishing is dead (``peer-host-dead``), else the stall is
+        local; the stall flag tells the supervisor that the drain to come
+        is not the end of the run."""
+        verdict, dead = "local-stall", []
+        cp = self._control_plane
+        if cp is not None:
+            try:
+                report = straggler_table(cp.peer_heartbeats(), cp.num_hosts, self._cp_peer_stale)
+            # ValueError: a truncated TCP reply; the request below must go out
+            except (OSError, RuntimeError, ValueError) as e:
+                logger.warning(f"peer heartbeat read failed mid-stall: {e!r}")
+            else:
+                # this host's own heartbeat is stale mid-stall by necessity
+                dead = [h for h in report.dead_hosts if h != cp.host_id]
+                if dead:
+                    verdict = "peer-host-dead"
+                logger.error(f"stall straggler table (stale after {self._cp_peer_stale}s):\n"
+                             f"{report.render()}")
+        logger.log_event("step-stall", step=step, elapsed_s=round(elapsed, 1), verdict=verdict,
+                         dead_hosts=dead, host=cp.host_id if cp is not None else 0)
+        logger.error(f"step stall after step {step} ({elapsed:.1f}s, {verdict}): "
+                     "requesting save-and-exit at the next loop boundary")
+        if cp is not None:
+            try:
+                cp.set_flag(STALL_FLAG, str(step))
+            except (OSError, RuntimeError, ValueError) as e:
+                logger.warning(f"stall flag broadcast failed: {e!r}")
         self._preempted = True
 
     # --------------------------------------------------------------- loop
@@ -464,9 +632,10 @@ class BaseTrainer:
                 watchdog.beat(self.context.iterations)
             for point in ("signal.sigterm", "host.kill", "host.hang"):
                 get_fault_plan().fire(point)
-            if self._preempted:
-                # a SIGTERM that landed in the save or eval window exits
-                # here, without another step
+            # the heartbeat, the abort and preempt flags and the step
+            # barrier; True: a SIGTERM that landed in the save or eval
+            # window (or a peer's broadcast) exits here, without a step
+            if self._control_plane_checkin():
                 self._preemption_exit()
                 return
             output = self.train_step()
@@ -489,6 +658,10 @@ class BaseTrainer:
                 # drain the backlog inside the training window, before the
                 # save or eval time is taken out of it below
                 torch.cuda.synchronize(self.device)
+            if will_save or will_eval:
+                # the window publishes no heartbeat: the timeout budgets
+                # the window itself, not a step and the window
+                self._heartbeat()
             aux_start = time.time()
             if will_save:
                 self._run_checkpoint_hooks(self.save_checkpoint())
@@ -513,6 +686,8 @@ class BaseTrainer:
                         logger.error(f"non-finite abort: state saved to {step_dir}")
                     raise
         self.finalize_checkpoints()
+        # the supervisor's table reads "done", not a stale "running"
+        self._heartbeat("done")
 
     def _emit_step_metrics(self, output: TrainStepOutput,
                            log_metrics_fn: Optional[Callable]) -> None:
@@ -572,13 +747,20 @@ class BaseTrainer:
         return Path(vocab) if vocab and Path(vocab).is_file() else None
 
     def _current_topology_dict(self) -> dict:
-        """The JAX trainer's topology record at world size 1, one host."""
+        """The JAX trainer's topology record at world size 1."""
         t = self.topology
         return {"world_size": 1, "pipe_parallel_size": 1, "data_parallel_size": 1,
                 "context_parallel_size": 1, "model_parallel_size": 1, "pipe_virtual_size": 1,
                 "pipe_token_slices": 1, "micro_batch_size": t.micro_batch_size,
                 "gradient_accumulation_steps": t.gradient_accumulation_steps,
-                "global_batch_size": t.global_batch_size, "num_hosts": 1}
+                "global_batch_size": t.global_batch_size, "num_hosts": self._num_hosts()}
+
+    def _num_hosts(self) -> int:
+        """The hosts of the run: the control plane's when one is attached,
+        else the supervisor's environment, else 1."""
+        if self._control_plane is not None:
+            return self._control_plane.num_hosts
+        return int(os.environ.get(ENV_NUM_HOSTS, "1"))
 
     @staticmethod
     def _param_records(params: Dict[str, torch.Tensor]) -> dict:
@@ -613,11 +795,6 @@ class BaseTrainer:
         with span("trainer.save", step=self.context.iterations):
             return self._save_checkpoint_inner(dir)
 
-    @staticmethod
-    def _update_latest(commit: CheckpointCommit) -> None:
-        with span("ckpt.latest", step=commit.step):
-            commit.update_latest()
-
     def _save_checkpoint_inner(self, dir: Optional[Union[Path, str]] = None) -> Path:
         base = Path(dir or self.config.save_dir)
         base.mkdir(parents=True, exist_ok=True)
@@ -649,10 +826,10 @@ class BaseTrainer:
         step_dir = commit.final_dir
         if writer is None:
             commit.finalize()
-            self._update_latest(commit)
-        else:  # FIFO: committed and pointed to once every file is durable
+            self._commit_barrier_and_latest(commit)
+        else:  # FIFO: committed, met and pointed to once every file is durable
             writer.submit(commit.finalize)
-            writer.submit(self._update_latest, commit)
+            writer.submit(self._commit_barrier_and_latest, commit)
         logger.info(f"saved checkpoint {step_dir}")
         if self.config.delete_past_optimizer_states:
             # after the commit: pruning first would leave no optimizer

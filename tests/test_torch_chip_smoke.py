@@ -19,6 +19,7 @@ and of ``mfu`` against ``palm_mfu``, which a TPU peak fails."""
 
 import json
 import pathlib
+import shutil
 import sys
 
 import numpy as np
@@ -427,3 +428,128 @@ def test_mfu_check_wants_the_cards_peak(peak):
     else:
         with pytest.raises(AssertionError, match="achieved_tflops / 989.4"):
             chip_smoke.check_mfu([record], "toy", section)
+
+
+# phase 11 at toy size: timeouts for a CPU worker (3-4 s to its first
+# heartbeat on an idle machine, no silent stretch above a second)
+TOY_RUNNER = {"heartbeat_timeout_seconds": 5.0, "startup_grace_seconds": 20.0,
+              "restart_budget": 2, "restart_backoff_seconds": 0.2, "worker_grace_seconds": 1.0,
+              "supervisor_poll_seconds": 0.05}
+
+
+def _toy_relaunch(monkeypatch, seen: dict) -> None:
+    monkeypatch.setitem(chip_smoke.RELAUNCH, "runner", TOY_RUNNER)
+    monkeypatch.setitem(chip_smoke.RELAUNCH, "timeout_s", 180)
+    monkeypatch.setitem(chip_smoke.RELAUNCH, "resume_timeout_s", 120)
+    monkeypatch.setattr(chip_smoke, "check_relaunch_launches",
+                        lambda key, kernel, plain: seen.setdefault("relaunch", []).append(
+                            (key, kernel, plain)))
+
+
+@pytest.fixture(scope="module")
+def relaunched(tmp_path_factory):
+    """Phase 11's parent, supervisors and workers on the toy model on the CPU,
+    one thread each (the workers' losses are held bitwise against the
+    parent's phase 8), held against the toy trainer phase; its directory
+    kept for the tests of the checks' failure modes."""
+    kept = tmp_path_factory.mktemp("relaunch") / "root"
+    threads = torch.get_num_threads()
+    with pytest.MonkeyPatch.context() as mp:
+        torch.set_num_threads(1)
+        for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+            mp.setenv(var, "1")
+        seen = _toy_trainer(mp)
+        _toy_relaunch(mp, seen)
+        run = chip_smoke.trainer_phase(1.0, device="cpu")
+        check = chip_smoke.check_relaunch
+
+        def keep_and_check(root, gold):
+            shutil.copytree(root, kept)
+            return check(root, gold)
+
+        mp.setattr(chip_smoke, "check_relaunch", keep_and_check)
+        try:
+            result = chip_smoke.relaunch_phase(run, device="cpu")
+        finally:
+            torch.set_num_threads(threads)
+    return {"result": result, "root": kept, "gold": run["losses"], "seen": seen}
+
+
+def test_relaunch_phase_runs_on_the_cpu_at_toy_size(relaunched):
+    """Phase 11 on the CPU: the crash, the hang and the drain with their
+    events, the losses against phase 8, the second supervisor to step 6,
+    ``obs report``'s gate, the time to recover. The card's counters and
+    free memory stay unchecked here (the CPU runs the plain versions)."""
+    result = relaunched["result"]
+    for what in ("crash", "hang"):
+        split = result["recover"][what]
+        parts = ("detection", "teardown", "backoff", "start_to_heartbeat", "step_replayed")
+        assert all(split[p] >= 0 for p in parts) and split["of_which_load"] > 0
+        assert split["total"] == pytest.approx(sum(split[p] for p in parts), abs=1e-6)
+    assert result["recover"]["max_heartbeat_gap"] < TOY_RUNNER["heartbeat_timeout_seconds"]
+    keys = [key for key, _, _ in relaunched["seen"]["relaunch"]]
+    assert keys[:3] == [("supervisor", 0), ("supervisor", 1), ("supervisor", 2)]
+    assert all(kernel == {} and plain["flash_attention_bwd"] > 0
+               for _, kernel, plain in relaunched["seen"]["relaunch"])
+
+
+def _doctored(relaunched, tmp_path) -> pathlib.Path:
+    root = tmp_path / "root"
+    shutil.copytree(relaunched["root"], root)
+    return root
+
+
+def _rewrite_events(path: pathlib.Path, edit) -> None:
+    events = [json.loads(line) for line in path.read_text().splitlines()]
+    path.write_text("".join(json.dumps(e) + "\n" for e in edit(events)))
+
+
+def test_relaunch_check_tells_a_healthy_worker_read_as_hung(relaunched, tmp_path, monkeypatch):
+    """A supervisor whose timeout is too tight for the card's silent
+    stretches reads the healthy epoch 2 as hung and tears it down: the
+    phase fails."""
+    root = _doctored(relaunched, tmp_path)
+    monkeypatch.setattr(chip_smoke, "check_relaunch_launches", lambda *a: None)
+
+    def misread(events):
+        start = max(i for i, e in enumerate(events) if e["event"] == "epoch-start")
+        ts = events[start]["ts"] + 1
+        return events[:start + 1] + [
+            {"event": "host-dead", "epoch": 2, "hosts": [0], "reason": "heartbeat-stale",
+             "exit_codes": {}, "ts": ts},
+            {"event": "teardown-complete", "killed_pids": [1], "remote_hosts": [], "ts": ts}]
+
+    _rewrite_events(root / "obs" / "supervisor" / "events.jsonl", misread)
+    with pytest.raises(AssertionError, match="supervisor: events"):
+        chip_smoke.check_relaunch(root, relaunched["gold"])
+
+
+def test_relaunch_check_tells_a_supervisor_that_initialised_cuda(relaunched, tmp_path,
+                                                                monkeypatch):
+    root = _doctored(relaunched, tmp_path)
+    monkeypatch.setattr(chip_smoke, "check_relaunch_launches", lambda *a: None)
+    (root / "resume_result.json").write_text(json.dumps({"rc": 0, "cuda_initialized": True}))
+    with pytest.raises(AssertionError, match="without initialising CUDA"):
+        chip_smoke.check_relaunch(root, relaunched["gold"])
+
+
+@pytest.mark.parametrize("where", ["events", "report"])
+def test_relaunch_check_tells_a_missing_epoch_start(relaunched, tmp_path, monkeypatch, where):
+    """Without ``epoch-start`` events the supervisor's event order fails,
+    and, with the order read from the intact run, so does ``obs report
+    --assert-max-resizes 0``, which cannot tell a supervised run without
+    them."""
+    root = _doctored(relaunched, tmp_path)
+    monkeypatch.setattr(chip_smoke, "check_relaunch_launches", lambda *a: None)
+    for name in ("supervisor", "resume"):
+        _rewrite_events(root / "obs" / name / "events.jsonl",
+                        lambda events: [e for e in events if e["event"] != "epoch-start"])
+    if where == "events":
+        with pytest.raises(AssertionError, match="supervisor: events"):
+            chip_smoke.check_relaunch(root, relaunched["gold"])
+        return
+    events, pristine = chip_smoke.supervisor_events, relaunched["root"] / "obs"
+    monkeypatch.setattr(chip_smoke, "supervisor_events",
+                        lambda run_dir: events(pristine / run_dir.name))
+    with pytest.raises(AssertionError, match="obs report .* exited 1"):
+        chip_smoke.check_relaunch(root, relaunched["gold"])

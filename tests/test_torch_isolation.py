@@ -1,8 +1,9 @@
 """The port stands alone: it imports with JAX and the JAX package
 blocked, serves, takes a training step, trains from a token dataset,
 saves, resumes, serves, generates from and evaluates its checkpoint on
-the CPU when asked to, and renders ``obs report``; without a card, its
-entry points raise instead of moving to the CPU on their own."""
+the CPU when asked to, renders ``obs report``, and supervises a worker
+(this file, run as the runner's script, is that worker); without a card,
+its entry points raise instead of moving to the CPU on their own."""
 
 import pathlib
 import re
@@ -108,6 +109,52 @@ def test_obs_report_runs_with_jax_blocked():
         "== gates ==\n  PASS\n")
 
 
+BLOCKED_SUPERVISE = r"""
+import json, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["scaling_tpu"] = None
+from pathlib import Path
+import numpy as np
+import torch
+def refuse():
+    raise AssertionError("the supervisor initialised CUDA")
+torch.cuda._lazy_init = refuse
+from scaling_tpu_torch.data import MemoryMapDatasetBuilder
+from scaling_tpu_torch.runner import RunnerConfig, runner_main
+from scaling_tpu_torch.serve.bench import MODELS
+root = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+with MemoryMapDatasetBuilder(root / "tokens", dtype=np.uint16) as builder:
+    for _ in range(40):
+        builder.add(np.append(rng.integers(1, 512, size=rng.integers(16, 200)), 0))
+payload = {
+    "topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1},
+    "transformer_architecture": dict(MODELS["toy"], sequence_length=64),
+    "trainer": {"train_iterations": 3, "save_interval": 3, "save_dir": str(root / "ckpt")},
+    "data": {"data_prefixes": [str(root / "tokens")]},
+    "logger": {"log_dir": str(root / "logs"), "events_path": str(root / "events.jsonl")}}
+config = RunnerConfig.from_dict({
+    "hosts": ["localhost"], "default_gpu_count": 1, "script": "tests.test_torch_isolation",
+    "supervise": True, "control_dir": str(root / "control"), "startup_grace_seconds": 120})
+rc = runner_main(config, payload)
+beat = json.loads((root / "control" / "epoch-0" / "heartbeat" / "host0.json").read_text())
+print(f"supervised: rc={rc} latest={(root / 'ckpt' / 'latest').read_text()} "
+      f"heartbeat={beat['step']}:{beat['status']}")
+sys.exit(rc)
+"""
+
+
+def test_runner_supervises_a_worker_with_jax_blocked():
+    """``runner_main`` under ``supervise`` in a process where JAX and the
+    JAX package cannot be imported and CUDA's initialisation raises,
+    supervising one CPU worker that blocks both too: 3 steps, a checkpoint,
+    a ``done`` heartbeat, exit 0."""
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_SUPERVISE], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "supervised: rc=0 latest=global_step3 heartbeat=3:done" in proc.stdout
+
+
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(import jax\b|from jax\b|import scaling_tpu\.|import scaling_tpu\s*$|"
@@ -171,3 +218,12 @@ def test_config_raises_on_keys_it_does_not_support():
                        ("relative_position_embedding_type", "none")):
         assert getattr(TransformerArchitectureConfig.from_dict({**base, key: value}),
                        key) == value
+
+
+if __name__ == "__main__":
+    # the worker of test_runner_supervises_a_worker_with_jax_blocked
+    sys.modules["jax"] = None
+    sys.modules["scaling_tpu"] = None
+    from scaling_tpu_torch.models.transformer.train import worker_main
+
+    worker_main(device="cpu")

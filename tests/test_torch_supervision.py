@@ -12,6 +12,12 @@
   repeat the losses of a synchronous one bitwise; ``MESH.json`` equals the
   JAX trainer's, restores in the JAX trainer at one and at two devices
   (its reshard pre-flight), and a disagreeing one is refused.
+- The control-plane protocol: heartbeat statuses, the abort flag's
+  ``JobAborted`` with ``latest`` unmoved, a peer's preempt flag saved at
+  the same boundary, a stall's flag and verdict against the JAX
+  trainer's, a checkin that releases a parked peer, and two hosts (one a
+  thread) meeting at step barriers with ``latest`` held by the commit
+  barrier, synchronously and on the writer's thread.
 - In subprocesses (this file is its own child script), the outcomes of
   ``tests/core/test_resilience/test_crash_resume.py``: a SIGTERM at the
   top of iteration 4, a NaN burst past its budget, a SIGKILL in the
@@ -746,3 +752,172 @@ def test_hooks_see_durable_checkpoints_and_an_external_preemption_saves(prefixes
     assert seen == [("global_step3", 3, "global_step3", []),
                     ("global_step5", 5, "global_step5", [])]
     assert sorted(read_losses(tmp_path)) == [1, 2, 3, 4, 5]
+
+
+# ------------------------------------------------ the control-plane protocol
+def supervised_trainer(prefixes, workdir, cp, iterations=4, save_interval=2, **trainer):
+    """A toy trainer on the CPU joined to ``cp`` (barrier timeout 30 s), its
+    heartbeats recorded as (step, status)."""
+    t = build_trainer(TransformerConfig.from_dict(config_dict(
+        prefixes, workdir, iterations=iterations, save_interval=save_interval, **trainer)),
+        device="cpu")
+    t.attach_control_plane(cp, barrier_timeout_s=30.0)
+    beats, publish = [], cp.heartbeat
+    cp.heartbeat = lambda step, status="running": (beats.append((step, status)),
+                                                   publish(step, status))[1]
+    t.beats = beats
+    return t
+
+
+def test_heartbeats_say_starting_running_then_done_or_preempted(prefixes, tmp_path):
+    """A heartbeat at each loop top (``starting`` the first), one at the
+    head of each save window, ``done`` at the end; a SIGTERM's drain
+    refreshes before its save and ends ``preempted``."""
+    from scaling_tpu_torch.resilience import FileControlPlane
+
+    done = supervised_trainer(prefixes, tmp_path / "done", FileControlPlane(tmp_path / "cp1", 0, 1))
+    done.run_training()
+    assert done.beats == [(0, "starting"), (1, "running"), (2, "running"), (2, "running"),
+                          (3, "running"), (4, "running"), (4, "done")]
+    cp = FileControlPlane(tmp_path / "cp2", 0, 1)
+    drained = supervised_trainer(prefixes, tmp_path / "drained", cp, iterations=6,
+                                 save_interval=4)
+    drained.metrics_hooks.append(lambda m, step: step == 3 and os.kill(os.getpid(),
+                                                                       signal.SIGTERM))
+    handler = signal.getsignal(signal.SIGTERM)
+    try:
+        drained.install_preemption_handler()
+        drained.run_training()
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    assert drained.context.iterations == 3
+    assert drained.beats[-3:] == [(3, "running"), (3, "running"), (3, "preempted")]
+    assert cp.get_flag("preempt") == "3"
+    assert (tmp_path / "drained/ckpt/latest").read_text() == "global_step3"
+
+
+def test_the_abort_flag_raises_job_aborted_without_a_save(prefixes, tmp_path):
+    from scaling_tpu_torch.resilience import FileControlPlane, JobAborted
+
+    cp = FileControlPlane(tmp_path / "cp", 0, 1)
+    t = supervised_trainer(prefixes, tmp_path, cp, iterations=6)
+    t.metrics_hooks.append(lambda m, step: step == 3 and cp.set_flag("abort", "host-dead"))
+    with pytest.raises(JobAborted, match="abort flag"):
+        t.run_training()
+    assert t.context.iterations == 3
+    assert (tmp_path / "ckpt/latest").read_text() == "global_step2"
+    assert sorted(p.name for p in (tmp_path / "ckpt").glob("global_step*")) == ["global_step2"]
+
+
+def test_a_peers_preempt_flag_saves_at_the_same_boundary(prefixes, tmp_path):
+    from scaling_tpu_torch.resilience import FileControlPlane
+
+    cp = FileControlPlane(tmp_path / "cp", 0, 1)
+    t = supervised_trainer(prefixes, tmp_path, cp, iterations=6, save_interval=4)
+    # a peer broadcasts its boundary 3 while this host logs step 3
+    t.metrics_hooks.append(lambda m, step: step == 3 and cp.set_flag("preempt", "3"))
+    t.run_training()
+    assert t.context.iterations == 3 and t._preempted
+    assert (tmp_path / "ckpt/latest").read_text() == "global_step3"
+    assert t.beats[-1] == (3, "preempted")
+
+
+@pytest.mark.parametrize("own_stale", [False, True], ids=["peer_dead", "own_heartbeat_stale"])
+def test_a_stall_sets_the_stall_flag_with_the_jax_verdict(tmp_path, monkeypatch, own_stale):
+    """The watchdog's callback with a 2-host plane, in both packages: peer 1
+    never published (``peer-host-dead``), or this host's own heartbeat is
+    stale while the peer's is fresh (``local-stall``): the same event, the
+    stall flag set, a drain requested."""
+    from scaling_tpu.resilience.controlplane import FileControlPlane as JaxPlane
+    from scaling_tpu.trainer.trainer import BaseTrainer as JaxTrainer
+    from scaling_tpu_torch.resilience import FileControlPlane
+    from scaling_tpu_torch.trainer import BaseTrainer
+
+    seen = {}
+    for name, trainer_cls, plane in (("port", BaseTrainer, FileControlPlane),
+                                     ("jax", JaxTrainer, JaxPlane)):
+        events = tmp_path / f"{name}.jsonl"
+        monkeypatch.setenv("SCALING_TPU_EVENTS_PATH", str(events))
+        cp = plane(tmp_path / name, 0, 2)
+        cp.heartbeat(5)
+        if own_stale:
+            old = time.time() - 120.0
+            os.utime(tmp_path / name / "heartbeat" / "host0.json", (old, old))
+            plane(tmp_path / name, 1, 2).heartbeat(5)
+        t = object.__new__(trainer_cls)
+        t._control_plane, t._cp_peer_stale, t._preempted = cp, 1.0, False
+        t._on_step_stall(5, 33.0)
+        assert t._preempted and cp.get_flag("stall") == "5"
+        seen[name] = [{k: v for k, v in json.loads(line).items() if k != "ts"}
+                      for line in events.read_text().splitlines()
+                      if '"step-stall"' in line]
+    assert seen["port"] == seen["jax"] == [{
+        "event": "step-stall", "step": 5, "elapsed_s": 33.0, "host": 0,
+        "verdict": "local-stall" if own_stale else "peer-host-dead",
+        "dead_hosts": [] if own_stale else [1]}]
+
+
+def test_checkin_exit_path_releases_a_parked_peer(tmp_path):
+    """Host 1 decides to exit at boundary 3 while host 0 already waits in
+    the step-3 barrier: its checkin sets the flag, then arrives without
+    waiting, and host 0 is released to join the same boundary."""
+    from types import SimpleNamespace
+
+    from scaling_tpu_torch.resilience import FileControlPlane
+    from scaling_tpu_torch.trainer import BaseTrainer
+
+    a, b = FileControlPlane(tmp_path, 0, 2), FileControlPlane(tmp_path, 1, 2)
+    trainer = object.__new__(BaseTrainer)
+    trainer._control_plane, trainer._cp_first_checkin = b, False
+    trainer._cp_step_barrier, trainer._cp_barrier_timeout = True, 10.0
+    trainer._preempted = True
+    trainer.context = SimpleNamespace(iterations=3)
+    released = []
+    t = threading.Thread(target=lambda: (a.barrier("step-3", timeout_s=10), released.append(1)))
+    t.start()
+    time.sleep(0.2)
+    start = time.monotonic()
+    assert trainer._control_plane_checkin() is True
+    assert time.monotonic() - start < 2.0
+    t.join(timeout=10)
+    assert released == [1] and a.get_flag("preempt") == "3"
+
+
+@pytest.mark.parametrize("async_save", [False, True], ids=["sync", "async"])
+def test_two_hosts_meet_at_step_barriers_and_latest_waits_for_the_commit_barrier(
+        prefixes, tmp_path, async_save):
+    """Host 0 trains on a 2-host plane whose host 1 is a thread: they meet at
+    every ``step-N``; host 0's ``latest`` moves only after host 1 arrived at
+    ``commit:step-2`` (a second after host 0's commit), on the writer's
+    thread when the save is asynchronous, and the run's losses are those of
+    an unsupervised run."""
+    from scaling_tpu_torch.resilience import FileControlPlane
+
+    plain = build_trainer(TransformerConfig.from_dict(config_dict(
+        prefixes, tmp_path / "plain", iterations=4, save_interval=2)), device="cpu")
+    plain.run_training()
+    root, ckpt = tmp_path / "cp", tmp_path / "pod" / "ckpt"
+    t = supervised_trainer(prefixes, tmp_path / "pod", FileControlPlane(root, 0, 2),
+                           save_checkpoint_async=async_save)
+    peer, seen = FileControlPlane(root, 1, 2), []
+
+    def host1():
+        for name in ("step-0", "step-1"):
+            peer.barrier(name, timeout_s=30)
+        deadline = time.monotonic() + 60
+        while not (ckpt / "global_step2").is_dir() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(1.0)  # host 0 committed global_step2 and waits for this host
+        seen.append(((ckpt / "global_step2").is_dir(), (ckpt / "latest").exists()))
+        for name in ("commit:step-2", "step-2", "step-3", "commit:step-4"):
+            peer.barrier(name, timeout_s=30)
+
+    thread = threading.Thread(target=host1)
+    thread.start()
+    t.run_training()
+    thread.join(timeout=60)
+    assert seen == [(True, False)]
+    assert (ckpt / "latest").read_text() == "global_step4"
+    assert read_losses(tmp_path / "pod") == read_losses(tmp_path / "plain")
+    # host 0 pruned what no host can wait on again
+    assert not (root / "barrier" / "step-0").exists() and (root / "barrier" / "step-3").is_dir()

@@ -13,6 +13,7 @@ trains from two blended token datasets with an evaluation set.
 """
 
 import json
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -200,7 +201,6 @@ def test_train_run_entry_point(data, tmp_path):
 
 REFUSED = [
     ("trainer", "checkpoint_backend", "orbax"),
-    ("trainer", "multihost_shared_save_dir", True),
     ("trainer", "merge_lora_after_loading_checkpoint", True),
     ("data", "legacy_dataset", True),
     ("data", "finetuning_dataset", True),
@@ -218,16 +218,19 @@ def test_keys_not_ported_raise_by_name(data, tmp_path, section, key, value):
         TransformerConfig.from_dict(cfg)
 
 
-# refused until observability was ported; each now takes effect in a run
+# refused until observability, then the supervisor's control plane, was
+# ported; each now takes effect in a run
 ACCEPTED = [
     ("logger", "use_tensorboard", True),
     ("logger", "events_path", "events.jsonl"),
     ("profiler", "profile_steps", 2),
+    ("trainer", "multihost_shared_save_dir", True),
 ]
 
 
 @pytest.mark.parametrize("section,key,value", ACCEPTED, ids=[f"{s}.{k}" for s, k, _ in ACCEPTED])
-def test_observability_keys_are_accepted_and_take_effect(data, tmp_path, section, key, value):
+def test_observability_keys_are_accepted_and_take_effect(data, tmp_path, monkeypatch, section,
+                                                        key, value):
     cfg = config_dict(data, tmp_path, save=False)
     cfg["trainer"]["train_iterations"] = 4
     if key == "events_path":
@@ -237,6 +240,24 @@ def test_observability_keys_are_accepted_and_take_effect(data, tmp_path, section
         cfg["profiler"].update(profile_start_at_step=1, profiler_output=str(tmp_path / "p.json"))
     config = TransformerConfig.from_dict(cfg)
     assert getattr(getattr(config, section), key) == value
+    if key == "multihost_shared_save_dir":
+        # a supervisor's environment: the trainer joins its control plane
+        # and, host 0 of a shared tree, moves ``latest``
+        for var, v in (("SCALING_TPU_CONTROL_DIR", str(tmp_path / "cp")),
+                       ("SCALING_TPU_HOST_ID", "0"), ("SCALING_TPU_NUM_HOSTS", "1")):
+            monkeypatch.setenv(var, v)
+        cfg["trainer"].update(save_dir=str(tmp_path / "ckpt"), save_interval=2)
+        config = TransformerConfig.from_dict(cfg)
+        handler = signal.getsignal(signal.SIGTERM)
+        try:
+            trainer = main(config, device="cpu")
+        finally:
+            signal.signal(signal.SIGTERM, handler)
+        assert trainer._cp_latest_leader and trainer._control_plane.num_hosts == 1
+        assert (tmp_path / "ckpt" / "latest").read_text() == "global_step4"
+        beat = json.loads((tmp_path / "cp" / "heartbeat" / "host0.json").read_text())
+        assert (beat["step"], beat["status"]) == (4, "done")
+        return
     main(config, device="cpu")
     if key == "use_tensorboard":
         assert list((tmp_path / "logs" / "tensorboard").glob("events.out.tfevents.*"))
