@@ -148,6 +148,34 @@ Phases, each of which must pass:
    worker's start to its first heartbeat (with the checkpoint's load) and
    the step replayed, and the timeouts beside what they budget;
 
+12. finetune: phase 8's step-6 checkpoint (kept, its optimizer files
+   pruned) LoRA-finetuned (rank 16, alpha 32, LoRA dropout 0.05 on query,
+   key, value and dense) with dropout 0.1 after the embedding, the
+   attention and the MLP, ``training.finetune`` on, phase 8's data,
+   micro-batch 4, seq 2048, 6 steps saving at 3 and 6: (a) losses finite,
+   every LoRA B moved, every frozen leaf bitwise the checkpoint's, one
+   no-decay group holding the LoRA leaves alone (as
+   ``tests/test_torch_peft.py`` pins against the JAX package), optimizer
+   state for them alone; prints step ms, tokens/s, peak memory beside
+   phase 8's and the checkpoint's bytes; (b) a resume from step 3: steps
+   4-6 and the final LoRA state bitwise (a)'s, then one step without and
+   with ``every_layer`` remat from the same state: the loss bitwise, the
+   f32 LoRA masters within 1e-6, and where a step's time goes (the host's
+   dispatch against the step with its sync, one profiled step's device
+   busy time, idle share and kernel groups); (c) 2 steps at
+   ``dropout_attention_probs`` 0.1: finite, and no flash kernel (nor its
+   plain version) ran; (d) the step-6 checkpoint merged on load
+   (``merge_lora_after_loading_checkpoint``): every B zero, one row's
+   logits (1024 tokens) within 0.05 of max |logit| of the unmerged model
+   in f32 on the CPU (constant logits cannot pass); the unmerged
+   checkpoint served at phase 4's native traffic for 8 requests, whose
+   greedy tokens equal ``generate``'s or part from them first at a near
+   tie (the two candidates within 0.05 of max |logit| in the card's
+   ``logits()`` there); K2-K5 on the finetune, K1 and K2 serving, no
+   plain version; (e) one dropout of a (4, 2048, 2048) bf16 tensor at 0.1:
+   the zero share within 5 sigma, the kept values x / 0.9 in bf16, the
+   same mask for the same site and step and another for another step;
+
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
 its achieved ``gbps``: the bound's bytes over the device time), the
@@ -159,6 +187,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -226,6 +255,13 @@ RELAUNCH = dict(faults="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1", drai
                         "restart_budget": 2, "restart_backoff_seconds": 1.0,
                         "worker_grace_seconds": 10.0, "supervisor_poll_seconds": 0.05},
                 timeout_s=600, resume_timeout_s=300, free_tol=1 << 30)
+# phase 12: a LoRA finetune of phase 8's step-6 checkpoint with dropout on, 6
+# steps saving at 3 and 6; 2 steps with probability dropout; 8 served requests
+FINETUNE = dict(lora={"name": "lora", "rank": 16, "alpha": 32, "dropout": 0.05},
+                dropout=0.1, prob_dropout=0.1, iterations=6, interval=3, prob_steps=2,
+                serve_requests=8, merge_tokens=1024, dropout_shape=(4, 2048, 2048))
+REMAT_TOL = 1e-6  # the f32 LoRA masters after one step with and without every_layer remat
+MERGE_TOL = 0.05  # max |logit error| / max |logit|: merged bf16 on the card vs unmerged f32
 EVAL_NATS = 0.05  # evaluate's loss on the step-6 checkpoint vs the trainer's step-6 eval loss
 EVAL_REF_NATS = 1e-4  # evaluate vs the trainer's forward on its in-memory weights, same batches
 # generation: 8 prompts of 256-1024 tokens (the longest exactly 1024, so the
@@ -1278,12 +1314,35 @@ def check_trainer_launches(kernel: dict, plain: dict) -> None:
         raise AssertionError(f"trainer phase: plain versions ran on the card: {plain}")
 
 
-def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
+def keep_base(step_dir: Path, prefixes: dict, keep: Path) -> dict:
+    """Phase 8's ``global_step6`` (its optimizer files pruned: a finetune
+    takes none) and training prefixes moved under ``keep`` for phase 12."""
+    from scaling_tpu_torch.resilience import prune_manifest_entries
+
+    base = keep / "base"
+    base.mkdir(parents=True)
+    shutil.move(str(step_dir), str(base / step_dir.name))
+    (base / "latest").write_text(step_dir.name)
+    removed = [f.name for f in (base / step_dir.name).glob("optimizer_state_*")]
+    for name in removed:
+        (base / step_dir.name / name).unlink()
+    prune_manifest_entries(base / step_dir.name, removed)
+    kept = {}
+    for name in ("a", "b"):
+        for f in Path(prefixes[name]).parent.glob(f"{name}.*"):
+            shutil.move(str(f), str(keep / f.name))
+        kept[name] = str(keep / name)
+    return {"ckpt": base, "prefixes": kept}
+
+
+def trainer_phase(bench_step_ms: float, device: str = "cuda", keep=None) -> dict:
     """The Trainer end to end (phase 8 of the module's docstring); the
     launch counters reset just before and read just after. Returns them
     (``launches``) with what phase 9 is held against: the first run's
     losses, the crc32 of each npz file of its synchronous step-3 save, the
-    save seconds and the steady step ms."""
+    save seconds, the steady step ms and the first run's peak
+    ``max_memory_allocated``; with ``keep`` a directory, also ``base``:
+    the step-6 checkpoint and the training prefixes kept there for phase 12."""
     from scaling_tpu_torch.models.transformer import (
         TransformerConfig,
         TransformerInferenceModule,
@@ -1312,9 +1371,12 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         save_dir = root / "ckpt"
         launches.reset()
 
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         with TrainerProbe(snapshot_at=TRAINER["interval"]) as first:
             trainer = main(TransformerConfig.from_dict(
                 trainer_config(prefixes, root / "logs", save_dir=save_dir)), device=device)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
         arch = trainer.context.config.transformer_architecture
         weights = {k: v.clone() for k, v in trainer.module.model.state_dict().items()}
         in_memory_loss = in_memory_eval_loss(trainer, prefixes["valid"])
@@ -1405,8 +1467,15 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda") -> dict:
         opt_bytes = sum(f.stat().st_size for f in step_dirs[0].glob("optimizer_state*"))
         print(f"  checkpoint size: {size} bytes ({size / 1e9:.2f} GB): {size - opt_bytes} "
               f"weights and the rest, {opt_bytes} optimizer state")
-        return {"launches": kernel, "losses": losses, "step3_crcs": npz_crcs(step_dirs[0]),
-                "saves": [(d.name, sec) for d, sec in first.saves], "step_ms": step_ms}
+        if peak is not None:
+            print(f"  first run's peak max_memory_allocated: {peak / 1e9:.2f}GB")
+        out = {"launches": kernel, "losses": losses, "step3_crcs": npz_crcs(step_dirs[0]),
+               "saves": [(d.name, sec) for d, sec in first.saves], "step_ms": step_ms,
+               "peak_bytes": peak}
+        if keep is not None:
+            out["base"] = {**keep_base(step_dirs[1], prefixes, Path(keep)),
+                           "step_ms": step_ms, "peak_bytes": peak}
+        return out
     finally:
         reset_logger()
         shutil.rmtree(root, ignore_errors=True)
@@ -2535,6 +2604,383 @@ def relaunch_phase(trainer_run: dict, device: str = "cuda") -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------ finetune
+def finetune_config(base: dict, log_dir: Path, save_dir=None, load_dir=None,
+                    prob_dropout: float = 0.0, iterations=None) -> dict:
+    """Phase 12's training config: phase 8's model, optimizer and token data
+    with LoRA on query, key, value and dense, dropout 0.1 after the
+    embedding, the attention and the MLP, only the LoRA trained."""
+    cfg = trainer_config({**base["prefixes"], "valid": None}, log_dir, save_dir=save_dir,
+                         load_dir=load_dir or base["ckpt"])
+    cfg["transformer_architecture"].update(
+        lora_config=FINETUNE["lora"], dropout_embedding=FINETUNE["dropout"],
+        dropout_after_attention=FINETUNE["dropout"], dropout_after_mlp=FINETUNE["dropout"],
+        dropout_attention_probs=prob_dropout)
+    cfg["training"] = {"finetune": True}
+    cfg["data"].pop("validation_data_prefixes")
+    cfg["trainer"].update(eval_interval=None, eval_iterations=0,
+                          train_iterations=iterations or FINETUNE["iterations"],
+                          save_interval=FINETUNE["interval"])
+    if load_dir is None:  # from the base: fresh LoRA leaves and optimizer, step 0
+        cfg["trainer"].update(load_optimizer_states=False, load_context=False,
+                              allowed_missing_keys_in_checkpoint=[".*_lora\\."])
+    return cfg
+
+
+def lora_state(trainer) -> dict:
+    """Host copies of the LoRA leaves and their f32 optimizer state."""
+    opt = trainer.optimizer.state
+    out = {f"param.{n}": p.detach().to("cpu", copy=True)
+           for n, p in trainer.module.model.named_parameters() if "_lora." in n}
+    for field in ("master", "exp_avg", "exp_avg_sq"):
+        out.update({f"{field}.{n}": t.to("cpu", copy=True)
+                    for n, t in getattr(opt, field).items()})
+    return out
+
+
+def restore_lora_state(trainer, state: dict, step: int) -> None:
+    params = dict(trainer.module.model.named_parameters())
+    opt = trainer.optimizer.state
+    with torch.no_grad():
+        for key, value in state.items():
+            field, name = key.split(".", 1)
+            target = params[name] if field == "param" else getattr(opt, field)[name]
+            target.copy_(value)
+    opt.step = step
+
+
+def remat_check(trainer, batch: dict, key: tuple, device: str) -> dict:
+    """One step of ``trainer`` on ``batch`` under dropout ``key`` without
+    and with ``every_layer`` remat from the same state: the loss bitwise,
+    the f32 LoRA masters within REMAT_TOL, the bf16 LoRA leaves compared."""
+    from scaling_tpu_torch.topology import ActivationCheckpointingType
+
+    start, step = lora_state(trainer), trainer.optimizer.state.step
+    topology = trainer.module.topology
+    runs = []
+    for ckpt in (ActivationCheckpointingType.DISABLED, ActivationCheckpointingType.EVERY_LAYER):
+        restore_lora_state(trainer, start, step)
+        trainer.module.topology = dataclasses.replace(topology, activation_checkpointing_type=ckpt)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        loss = float(trainer._train_step(batch, key)[0])
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        runs.append((loss, lora_state(trainer), peak))
+    trainer.module.topology = topology
+    (loss0, after0, peak0), (loss1, after1, peak1) = runs
+    master = max((after0[k] - after1[k]).abs().max().item() for k in after0
+                 if k.startswith("master."))
+    param = max((after0[k].float() - after1[k].float()).abs().max().item() for k in after0
+                if k.startswith("param."))
+    moved = max((after0[k] - start[k]).abs().max().item() for k in after0
+                if k.startswith("master."))
+    return {"loss": (loss0, loss1), "master_diff": master, "param_diff": param,
+            "update": moved, "peak": (peak0, peak1)}
+
+
+def host_and_device_ms(step, batch: dict, n: int = 3) -> dict:
+    """Where a finetune step's time goes: the host's dispatch (the step's
+    call returns once its kernels are queued) against the step with its
+    device sync, over ``n`` steps (medians), and one profiled step's device
+    busy time, idle share and device ms by kernel group."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        step(batch)
+        t1 = time.monotonic()
+        torch.cuda.synchronize()
+        times.append(((t1 - t0) * 1e3, (time.monotonic() - t0) * 1e3))
+    return {"dispatch_ms": statistics.median(t for t, _ in times),
+            "step_ms": statistics.median(t for _, t in times),
+            **profile_train_step(step, batch)}
+
+
+def served_vs_generated(inf, engine_tokens: dict, work: list) -> dict:
+    """The engine's greedy tokens against ``generate``'s on the same
+    prompts. Equal, or the first token where they part is a near tie: the
+    card's full-sequence logits there (``logits()`` over the prompt and the
+    engine's tokens before it) put the two candidates within TICK_TOL of
+    max |logit| of each other, the tolerance the paged and the dense paths
+    are held to against f32."""
+    prompts = [p for _, p, _ in work]
+    outs = inf.generate(prompts, max_tokens=max(n for _, _, n in work))
+    equal, ties = 0, []
+    for i, ((_, prompt, n), out) in enumerate(zip(work, outs)):
+        got, want = engine_tokens[i], list(out.completion_ids[:n])
+        if len(got) != n:
+            raise AssertionError(f"served request {i}: {len(got)} of {n} tokens")
+        t = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if t is None:
+            equal += 1
+            continue
+        logits = inf.logits(prompt + got[:t])[0, -1].float()
+        gap = abs(logits[got[t]] - logits[want[t]]).item()
+        ties.append((i, t, gap, logits.abs().max().item()))
+        if not gap <= TICK_TOL * ties[-1][3]:
+            raise AssertionError(f"served request {i} parts from generate at token {t} with "
+                                 f"a logit gap {gap} > {TICK_TOL} x max|logit|")
+    return {"equal": equal, "ties": ties}
+
+
+def finetune_phase(base: dict, device: str = "cuda") -> dict:
+    """Phase 12: (a) a LoRA finetune of phase 8's step-6 checkpoint with
+    dropout, (b) its resume from step 3 and one step with and without
+    remat, (c) 2 steps with attention-probability dropout, unfused, (d) the
+    step-6 checkpoint merged on load against the unmerged model on the
+    CPU, and served against ``generate``, (e) one dropout call at training
+    size. The launch counters reset just before (a) and read after (d)."""
+    from scaling_tpu_torch.checkpoint import load_model_checkpoint
+    from scaling_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerInferenceModule,
+        TransformerModel,
+    )
+    from scaling_tpu_torch.models.transformer.train import build_trainer, main
+    from scaling_tpu_torch.nn.base_layer import DropoutContext, dropout_key
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.parallel import ParallelModule
+    from scaling_tpu_torch.parallel.parallel_module import jax_param_key
+    from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+    from scaling_tpu_torch.serve.bench import sample_workload
+
+    t_phase = time.monotonic()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
+    lora_dir = root / "lora"
+    n = FINETUNE["iterations"]
+    try:
+        # (a) the finetune from phase 8's step-6 checkpoint
+        loaded = {}
+
+        def on_load(trainer):
+            loaded.update({k: v.detach().to("cpu", copy=True)
+                           for k, v in trainer.module.model.named_parameters()
+                           if "_lora." not in k})
+
+        launches.reset()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with TrainerProbe(snapshot_at=FINETUNE["interval"], on_load=on_load) as first:
+            trainer = main(TransformerConfig.from_dict(finetune_config(
+                base, root / "logs_a", save_dir=lora_dir)), device=device)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        steps = metric_records(root / "logs_a" / "metrics_rank_0.jsonl")
+        losses = [r["metrics"]["loss"] for r in steps]
+        if [r["step"] for r in steps] != list(range(1, n + 1)) or not all(np.isfinite(losses)):
+            raise AssertionError(f"finetune steps {[r['step'] for r in steps]} losses {losses}")
+        model = trainer.module.model
+        params = dict(model.named_parameters())
+        lora_names = sorted(k for k in params if "_lora." in k)
+        groups = [(g.name, sorted(g.keys)) for g in trainer.optimizer.parameter_groups]
+        # the membership tests/test_torch_peft.py pins against the JAX
+        # package: under finetune the LoRA leaves alone, none decayed
+        if groups != [("no_weight_decay_params", lora_names)] or sorted(
+                trainer.optimizer.state.master) != lora_names:
+            raise AssertionError(f"parameter groups {[(g, len(k)) for g, k in groups]}, "
+                                 f"optimizer states {len(trainer.optimizer.state.master)}")
+        frozen_moved = [k for k, v in loaded.items() if not torch.equal(params[k].cpu(), v)]
+        if len(loaded) != len(params) - len(lora_names) or frozen_moved:
+            raise AssertionError(f"frozen leaves moved: {frozen_moved[:5]}")
+        b_moved = [k for k in lora_names if k.endswith("lora_b") and not params[k].any()]
+        if b_moved:
+            raise AssertionError(f"LoRA B still zero: {b_moved[:5]}")
+        delta = max((model.layers[f"layer_{i}"].attention.query_lora.get_delta_weights().float()
+                     .norm() / model.layers[f"layer_{i}"].attention.query.weight.float().norm())
+                    .item() for i in range(1, model.architecture.num_layers + 1))
+        final = lora_state(trainer)
+        step_ms = statistics.median(r["metrics"]["step_duration"] for r in steps[1:]) * 1e3
+        tokens_per_s = TRAINER["mbs"] * TRAINER["seq"] / (step_ms / 1e3)
+        size = dir_bytes(lora_dir / f"global_step{n}")
+        print(f"  (a) LoRA rank {FINETUNE['lora']['rank']} alpha {FINETUNE['lora']['alpha']} "
+              f"dropout {FINETUNE['lora']['dropout']} on q/k/v/dense, dropout "
+              f"{FINETUNE['dropout']} after the embedding, attention and MLP: losses {losses}")
+        print(f"  (a) {len(lora_names)} LoRA leaves of {sum(params[k].numel() for k in lora_names)}"
+              f" parameters trained (one no-decay group, optimizer state for them alone); "
+              f"{len(loaded)} frozen leaves bitwise equal to phase 8's checkpoint; every B "
+              f"moved, largest |dW_query| / |W_query| {delta:.3e}")
+        ref_peak = base.get("peak_bytes")
+        print(f"  (a) step (median of steps 2-{n}, host clock to the loss's fetch) "
+              f"{step_ms:.2f}ms tokens/s={tokens_per_s:.1f}; phase 8's {base['step_ms']:.2f}ms; "
+              f"peak max_memory_allocated "
+              + ("not measured (no card)" if peak is None else
+                 f"{peak / 1e9:.2f}GB, phase 8's {ref_peak / 1e9:.2f}GB")
+              + f"; the step-{n} checkpoint {size} bytes")
+        del trainer, model, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # (b) the resume from step 3, then one step with and without remat
+        def check_loaded(trainer):
+            now = lora_state(trainer)
+            ref = {k: v for k, v in first.snapshot.items()
+                   if "_lora." in k and (k.startswith("param.") or k.split(".")[0] in
+                                         ("master", "exp_avg", "exp_avg_sq"))}
+            if now.keys() != ref.keys() or any(not torch.equal(v, ref[k])
+                                               for k, v in now.items()):
+                raise AssertionError("the resumed LoRA state differs from step 3's")
+
+        with TrainerProbe(on_load=check_loaded):
+            resumed = main(TransformerConfig.from_dict(finetune_config(
+                base, root / "logs_b", load_dir=lora_dir / f"global_step{FINETUNE['interval']}")),
+                device=device)
+        again = [r["metrics"]["loss"]
+                 for r in metric_records(root / "logs_b" / "metrics_rank_0.jsonl")]
+        now = lora_state(resumed)
+        if again != losses[FINETUNE["interval"]:] or any(
+                not torch.equal(v, final[k]) for k, v in now.items()):
+            raise AssertionError(f"resumed losses {again} vs {losses[FINETUNE['interval']:]}, "
+                                 "or its LoRA state differs")
+        print(f"  (b) resumed at {FINETUNE['interval']}: losses {again}, bitwise equal to (a)'s, "
+              "and so the LoRA leaves and their optimizer state at the end")
+        batch = resumed.batch_to_model_input(resumed._next_micro_batches(), resumed.device)
+        key = dropout_key(resumed.context.seed, resumed.context.iterations)
+        remat = remat_check(resumed, batch, key, device)
+        print(f"  (b) one more step without / with every_layer remat: loss {remat['loss'][0]!r} "
+              f"/ {remat['loss'][1]!r}; f32 LoRA masters differ by {remat['master_diff']:.3e} "
+              f"(tol {REMAT_TOL}; the step moved them by up to {remat['update']:.3e}), bf16 "
+              f"leaves by {remat['param_diff']:.3e}; peak max_memory_allocated "
+              + ("not measured" if remat["peak"][0] is None else
+                 f"{remat['peak'][0] / 1e9:.2f} / {remat['peak'][1] / 1e9:.2f}GB"))
+        if remat["loss"][0] != remat["loss"][1] or not remat["master_diff"] <= REMAT_TOL:
+            raise AssertionError(f"remat changed the step: {remat}")
+        if device == "cuda":
+            prof = host_and_device_ms(lambda b: resumed._train_step(b, key), batch)
+            print(f"  (b) finetune step, host dispatch {prof['dispatch_ms']:.2f}ms of "
+                  f"{prof['step_ms']:.2f}ms with its sync (medians of 3); one profiled step: "
+                  f"wall={prof['wall_ms']:.3f}ms device busy={prof['device_busy_ms']:.3f}ms "
+                  f"idle share={prof['device_idle_share']:.3f} device ms by group: "
+                  + " ".join(f"{k}={v:.3f}" for k, v in prof["device_ms"].items()))
+            for ms, count, name in prof["top_other"]:
+                print(f"    other: {ms:.3f}ms in {count} launches: {name}")
+        del resumed
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # (c) probability dropout: the unfused attention, no K4/K5
+        before_k, before_p = Counter(launches.KERNEL), Counter(launches.PLAIN)
+        main(TransformerConfig.from_dict(finetune_config(
+            base, root / "logs_c", prob_dropout=FINETUNE["prob_dropout"],
+            iterations=FINETUNE["prob_steps"])), device=device)
+        kern_c = Counter(launches.KERNEL) - before_k
+        plain_c = Counter(launches.PLAIN) - before_p
+        records_c = metric_records(root / "logs_c" / "metrics_rank_0.jsonl")
+        prob_losses = [r["metrics"]["loss"] for r in records_c]
+        flash = ("flash_attention_fwd", "flash_attention_bwd")
+        print(f"  (c) dropout_attention_probs {FINETUNE['prob_dropout']}: losses {prob_losses}; "
+              f"step ms {[round(r['metrics']['step_duration'] * 1e3, 2) for r in records_c]} "
+              f"(host clock); launches kernel={dict(kern_c)} plain={dict(plain_c)}")
+        if (len(prob_losses) != FINETUNE["prob_steps"] or not all(np.isfinite(prob_losses))
+                or any(kern_c[k] + plain_c[k] for k in flash)):
+            raise AssertionError(f"probability dropout: losses {prob_losses}, flash ran: "
+                                 f"{dict(kern_c)} {dict(plain_c)}")
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # (d) the step-6 checkpoint merged on load; the unmerged one served
+        cfg = finetune_config(base, root / "logs_d", load_dir=lora_dir / f"global_step{n}")
+        cfg["trainer"]["merge_lora_after_loading_checkpoint"] = True
+        merged = build_trainer(TransformerConfig.from_dict(cfg), device=device)
+        mb = merged.batch_to_model_input(merged._next_micro_batches(), merged.device)
+        row = {k: v[0, :1, :FINETUNE["merge_tokens"]] for k, v in mb.items()}
+        mm = merged.module.model
+        if any(layer.attention.query_lora.lora_b.any() for layer in mm.transformer_layers):
+            raise AssertionError("the merge left a LoRA B nonzero")
+        mm.eval()
+        with torch.no_grad():
+            card = merged.module.forward(row)["activations"].float().cpu()
+        arch = merged.context.config.transformer_architecture
+        arch_topology = merged.module.topology
+        del merged, mm
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        served = TransformerInferenceModule.from_checkpoint(lora_dir, device=device)
+        if not served.model.layers["layer_1"].attention.query_lora.lora_b.any():
+            raise AssertionError("the served checkpoint has no LoRA delta")
+        before_k, before_p = Counter(launches.KERNEL), Counter(launches.PLAIN)
+        engine = ServeEngine(served, EngineConfig(kv_dtype="native", **SERVE), device=device)
+        work = sample_workload(FINETUNE["serve_requests"], WORKLOAD["rate"],
+                               WORKLOAD["prompt_len"], WORKLOAD["output_len"],
+                               arch.vocab_size, WORKLOAD["seed"])
+        for _, prompt, olen in work:
+            engine.submit(prompt, olen)
+        tokens = {s.request.req_id: list(s.generated) for s in engine.run_until_done()}
+        kern_d = Counter(launches.KERNEL) - before_k
+        versus = served_vs_generated(served, [tokens[i] for i in sorted(tokens)], work)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+        print(f"  (d) served {len(work)} requests of the LoRA checkpoint (native KV, phase 4's "
+              f"traffic): engine launches {dict(kern_d)}; greedy tokens equal to generate's in "
+              f"{versus['equal']}/{len(work)} requests, the others part at a near tie "
+              f"(request, token, logit gap, max|logit|): {versus['ties']}")
+        if device == "cuda" and any(kern_d.get(k, 0) <= 0 for k in ("paged_attention",
+                                                                    "rms_norm")):
+            raise AssertionError(f"serving the LoRA checkpoint: kernels {dict(kern_d)}")
+        del engine, served
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        print(f"  launches kernel={kernel} plain={plain}")
+        needed = ("paged_attention", "rms_norm", "rms_norm_bwd", "flash_attention_fwd",
+                  "flash_attention_bwd")
+        if device == "cuda" and (any(kernel.get(k, 0) <= 0 for k in needed)
+                                 or sum(plain.values())):
+            raise AssertionError(f"finetune phase: launches kernel={kernel} plain={plain}")
+
+        # the unmerged model in f32 on the CPU (plain versions, after the
+        # counters were read)
+        t0 = time.monotonic()
+        arch32 = dataclasses.replace(arch, precision="float32")
+        cpu_model = TransformerModel(arch32, device="cpu")
+        load_model_checkpoint(lora_dir / f"global_step{n}",
+                              {jax_param_key(cpu_model, k): p
+                               for k, p in cpu_model.named_parameters()})
+        cpu_model.eval()
+        with torch.no_grad():
+            cpu = ParallelModule(cpu_model, arch_topology).forward(
+                {k: v.cpu() for k, v in row.items()})["activations"]
+        scale = cpu.abs().max().item()
+        err = (card - cpu).abs().max().item() / scale
+        uniform = ((cpu.amax(-1) - cpu.amin(-1)) / 2).max().item() / scale
+        print(f"  (d) merged on load (bf16, card) vs unmerged (f32, CPU), one row of "
+              f"{row['token_ids'].shape[1]} tokens: err/max|logit|={err:.3e} (tol {MERGE_TOL}; "
+              f"constant logits would give >= {uniform:.3e}) max|logit|={scale:.4e} "
+              f"({time.monotonic() - t0:.1f}s)")
+        if not (err <= MERGE_TOL < uniform):
+            raise AssertionError(f"merged logits: err {err} uniform {uniform}")
+        del cpu_model
+
+        # (e) one dropout call at training size on the card
+        dev = torch.device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(12)
+        x = torch.randn(FINETUNE["dropout_shape"], generator=gen, device=dev).bfloat16()
+        site, rate = "layer_1.after_mlp", FINETUNE["dropout"]
+        ctx = DropoutContext(dropout_key(0, 1)).for_micro_batch(0)
+        y = ctx.dropout(x, rate, site)
+        dropped = (y == 0) & (x != 0)
+        share = dropped.float().sum().item() / (x != 0).sum().item()
+        sigma = math.sqrt(rate * (1 - rate) / x.numel())
+        kept_ok = torch.equal(y[~dropped], (x / (1 - rate))[~dropped])
+        same = torch.equal(y, ctx.dropout(x, rate, site))
+        other = not torch.equal(y, DropoutContext(dropout_key(0, 2)).for_micro_batch(0)
+                                .dropout(x, rate, site))
+        ms = time_ms(lambda: ctx.dropout(x, rate, site)) if device == "cuda" else None
+        print(f"  (e) dropout of a {tuple(x.shape)} bf16 tensor at {rate}: zero share "
+              f"{share:.6f} ({abs(share - rate) / sigma:.2f} sigma from {rate}); kept values "
+              f"x / {1 - rate} in bf16: {kept_ok}; same site and step the same mask: {same}; "
+              f"another step another mask: {other}; "
+              + ("not timed (no card)" if ms is None else
+                 f"device ms={ms[0]:.3f}, per call (CUDA events) {ms[1]:.3f}ms"))
+        if not (abs(share - rate) <= 5 * sigma and kept_ok and same and other):
+            raise AssertionError("dropout on the card")
+        wall = time.monotonic() - t_phase
+        print(f"  phase 12 took {wall:.1f}s")
+        return {"launches": kernel, "step_ms": step_ms, "peak_bytes": peak, "wall_s": wall}
+    finally:
+        reset_logger()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def time_kernels(errs: dict) -> list:
     """One row a kernel, its launches added by ``add_launches``."""
     import torch.nn.functional as F
@@ -2700,7 +3146,9 @@ def main() -> int:
     # then (on an H100 a kernel's profiled sum fell to half its time after
     # it), so the kernel times are taken before it
     print("== trainer: 0.5B from token datasets, checkpoints, resume, serve the checkpoint")
-    trainer_run = trainer_phase(trained["step_ms"])
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_base_"))  # phase 12's base, until then
+    atexit.register(shutil.rmtree, keep, True)
+    trainer_run = trainer_phase(trained["step_ms"], keep=keep)
     launches_by_path["trainer"] = trainer_run["launches"]
     print("== supervise: the trainer phase's run with preemption, prefetch, asynchronous "
           "checkpoints, the watchdog and run_with_resume, in child processes")
@@ -2715,6 +3163,10 @@ def main() -> int:
           "crash, a hang and a drain, then a second supervisor to the end")
     relaunched = relaunch_phase(trainer_run)
     launches_by_path["relaunch"] = relaunched["launches"]
+    print("== finetune (phase 12): LoRA on the trainer phase's step-6 checkpoint with dropout; "
+          "resume, remat, probability dropout, merge and serve")
+    finetuned = finetune_phase(trainer_run["base"])
+    launches_by_path["finetune"] = finetuned["launches"]
     t, serving = observed["turns"], served["turns"]
     print(f"  obs overhead (medians of the turns): Trainer step ms with all of obs "
           f"{t['on']:.2f}, without the events file and on_step {t['no_events']:.2f}, "

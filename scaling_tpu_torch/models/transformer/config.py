@@ -9,16 +9,21 @@ section a ``scaling_tpu`` config carries. Every key is one of three kinds:
   ``masked_softmax.kernel`` selects, for training, the flash kernels or
   the unfused attention through ``nn.attention.flash_path_active``, as the
   JAX layer does; serving always attends through the paged kernel.
-  The ``dropout_*`` rates are read: serving has no dropout (there is none
-  in the JAX package's inference either), and the training path raises
-  NotImplementedError for a rate above 0, since dropout is not ported;
+  The ``dropout_*`` rates act in a training pass (``nn.base_layer``);
+  eval, ``generate`` and serving run without dropout, as in the JAX
+  package. The PEFT sections (``bitfit_bias_config``, ``adapter_config``,
+  ``softprompt_config``, ``lora_config``, ``embedding_head_config``) build
+  their modules here as there;
 - inert: it has no effect in the JAX package either (parity-only
-  switches), so it is accepted;
-- not ported yet: any value but the default raises NotImplementedError.
+  switches, and ``finetunable_token_ids``), so it is accepted;
+- not ported yet: any value but the default raises NotImplementedError
+  (``mup``, MoE and the image encoder).
 
 ``TransformerConfig`` reads a whole training config under the JAX key
 names: ``topology`` (one device), ``optimizer``,
-``learning_rate_scheduler``, ``training``, ``trainer``, ``data``,
+``learning_rate_scheduler``, ``embedding_learning_rate_scheduler``,
+``training``, ``trainer``, ``data`` (token streams or the finetuning
+datasets),
 ``logger``, ``profiler`` and ``runner`` (``runner.RunnerConfig``)
 beside the architecture, with the same three kinds of keys in each
 section. The sections of machinery that is not ported (``context``, the
@@ -31,12 +36,13 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ...data.blended_dataset import BlendedDatasetConfig
 from ...logging import LoggerConfig
+from ...nn.lora import LoRaConfig
 from ...nn.masked_softmax import MaskedSoftmaxConfig
 from ...optimizer import LearningRateSchedulerConfig, OptimizerConfig
 from ...profiler import ProfilerConfig
@@ -56,6 +62,10 @@ _INERT = {
     "attention_use_matmul": False,
     "masked_softmax_fusion": True,
     "layernorm_epsilon": 1.0e-5,  # parity-only; layernorm.layernorm_epsilon rules
+    # the JAX embedding keeps the ids and defines a gradient row mask
+    # (VocabParallelEmbedding.finetunable_grad_mask) that nothing calls: every
+    # row of a trained table takes its gradient there, and here
+    "finetunable_token_ids": [],
 }
 
 DROPOUT_KEYS = ("dropout_embedding", "dropout_attention_probs", "dropout_after_attention",
@@ -64,18 +74,69 @@ DROPOUT_KEYS = ("dropout_embedding", "dropout_attention_probs", "dropout_after_a
 # keys whose non-default values the port does not implement yet
 _NOT_PORTED = {
     "mup": None,
-    "bitfit_bias_config": None,
-    "adapter_config": None,
-    "softprompt_config": None,
-    "lora_config": None,
-    "embedding_head_config": None,
-    "finetunable_token_ids": [],
     "image_encoder": False,
     "moe_num_experts": 8,
     "moe_top_k": 2,
     "moe_capacity_factor": 1.25,
     "moe_aux_loss_coef": 0.01,
 }
+
+
+def _section(cls, d: Optional[Dict[str, Any]], what: str):
+    """A PEFT section from its dict (None stays None); unknown keys raise."""
+    if d is None or isinstance(d, cls):
+        return d
+    d = dict(d)
+    unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+    if unknown:
+        raise ValueError(f"unknown {what} keys: {sorted(unknown)}")
+    return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class BitfitConfig:
+    """BitFit: linears' and norms' biases named ``bias_{name}``."""
+
+    name: str = "bitfit"
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterConfig:
+    """Bottleneck adapters after the attention and/or the MLP block; widths
+    ``hidden * factor`` (multiplicative, as in the JAX config)."""
+
+    name: str = "adapter"
+    attention_downsampling_factor: Optional[float] = None
+    mlp_downsampling_factor: Optional[float] = None
+    init_std: float = 1.0e-3
+
+    def __post_init__(self):
+        for key in ("attention_downsampling_factor", "mlp_downsampling_factor"):
+            if getattr(self, key) is not None and not getattr(self, key) > 0:
+                raise ValueError(f"adapter_config.{key} must be > 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class SoftpromptConfig:
+    """A learned prompt written over the first ``n_tokens`` positions."""
+
+    name: str = "softprompt"
+    n_tokens: int = 8
+
+    def __post_init__(self):
+        if self.n_tokens <= 0:
+            raise ValueError("softprompt_config.n_tokens must be > 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingHeadConfig:
+    """The projection stack over the mean-pooled final hidden states."""
+
+    name: str = "embedding_head"
+    proj_layers: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "proj_layers", tuple(self.proj_layers))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +173,19 @@ class TransformerArchitectureConfig:
     dropout_after_attention: float = 0.0
     dropout_after_mlp: float = 0.0
     vocab_file: Optional[str] = None  # copied into every checkpoint as vocab.json
+    bitfit_bias_config: Optional[BitfitConfig] = None
+    adapter_config: Optional[AdapterConfig] = None
+    softprompt_config: Optional[SoftpromptConfig] = None
+    lora_config: Optional[LoRaConfig] = None
+    embedding_head_config: Optional[EmbeddingHeadConfig] = None
 
     def __post_init__(self):
+        for key, cls in (("bitfit_bias_config", BitfitConfig), ("adapter_config", AdapterConfig),
+                         ("softprompt_config", SoftpromptConfig),
+                         ("embedding_head_config", EmbeddingHeadConfig)):
+            object.__setattr__(self, key, _section(cls, getattr(self, key), key))
+        if isinstance(self.lora_config, dict):
+            object.__setattr__(self, "lora_config", LoRaConfig.from_dict(self.lora_config))
         for name in ("vocab_size", "hidden_size", "num_layers", "num_attention_heads"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be > 0, got {getattr(self, name)}")
@@ -230,34 +302,48 @@ class TransformerArchitectureConfig:
                                    softmax_in_fp32=self.softmax_in_fp32,
                                    scale=self.softmax_scale)
 
-    def check_trainable(self) -> None:
-        """Raise for what the training path does not port: dropout."""
-        rates = {k: getattr(self, k) for k in DROPOUT_KEYS if getattr(self, k) > 0.0}
-        if rates:
-            raise NotImplementedError(f"dropout is not ported for training: {rates}")
+    @property
+    def peft_names(self) -> List[str]:
+        """The names of the active PEFT modules, in the JAX order."""
+        return [c.name for c in (self.bitfit_bias_config, self.adapter_config,
+                                 self.softprompt_config, self.lora_config,
+                                 self.embedding_head_config) if c is not None]
+
+    @property
+    def has_dropout(self) -> bool:
+        """Whether a training pass draws any dropout mask."""
+        return (any(getattr(self, k) > 0.0 for k in DROPOUT_KEYS)
+                or (self.lora_config is not None and self.lora_config.dropout > 0.0))
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainingConfig:
-    """The ``training`` section: weight decay and parameter selection."""
+    """The ``training`` section: weight decay and parameter selection. With
+    ``finetune`` only parameters matched by ``finetunable_parameters``
+    (regexes of JAX keys) and the PEFT modules' train; with
+    ``use_separate_lr_on_embeddings`` the embedding table takes the
+    ``embedding_learning_rate_scheduler``."""
 
     weight_decay: float = 1.0e-4
+    finetune: bool = False
+    finetunable_parameters: Tuple[str, ...] = ()
     parameters_exclude: Tuple[str, ...] = ()  # regexes of parameter names not trained
+    use_separate_lr_on_embeddings: bool = False
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TrainingConfig":
         d = dict(d)
-        for key, default in (("finetune", False), ("finetunable_parameters", []),
-                             ("use_separate_lr_on_embeddings", False),
-                             ("use_seperate_lr_on_embeddings", False)):
-            if key in d and d.pop(key) != default:
-                raise NotImplementedError(f"training.{key} is not ported")
+        # the misspelled alias keeps older configs loading, as in the JAX config
+        misspelled = d.pop("use_seperate_lr_on_embeddings", None)
+        if misspelled is not None and "use_separate_lr_on_embeddings" not in d:
+            d["use_separate_lr_on_embeddings"] = misspelled
         d.pop("use_deterministic_torch_algorithms", None)  # config parity in the JAX package too
-        unknown = set(d) - {"weight_decay", "parameters_exclude"}
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
         if unknown:
             raise ValueError(f"unknown training keys: {sorted(unknown)}")
-        if "parameters_exclude" in d:
-            d["parameters_exclude"] = tuple(d["parameters_exclude"])
+        for key in ("finetunable_parameters", "parameters_exclude"):
+            if key in d:
+                d[key] = tuple(d[key])
         return cls(**d)
 
 
@@ -272,10 +358,12 @@ class DataConfig:
     load_mmap_index_to_memory: bool = False
     only_full_sequences: bool = False
     allow_incomplete_sequences_every_n: int = 0
+    finetuning_dataset: bool = False  # prompt/completion jsonl (or memory map) data
+    finetuning_chat_dataset: bool = False  # chat jsonl data
+    finetuning_dataset_memory_map: bool = False
 
     # not ported: the values that leave them off
-    _NOT_PORTED = {"legacy_dataset": False, "finetuning_dataset": False,
-                   "finetuning_chat_dataset": False, "finetuning_dataset_memory_map": False}
+    _NOT_PORTED = {"legacy_dataset": False}
     # no effect in the JAX package either
     _INERT = ("use_mmap", "load_data_item_mmap_index_to_memory")
 
@@ -334,6 +422,8 @@ class TransformerConfig:
     topology: TopologyConfig
     optimizer: OptimizerConfig = OptimizerConfig()
     learning_rate_scheduler: LearningRateSchedulerConfig = LearningRateSchedulerConfig()
+    embedding_learning_rate_scheduler: LearningRateSchedulerConfig = \
+        LearningRateSchedulerConfig()
     training: TrainingConfig = TrainingConfig()
     trainer: TrainerConfig = TrainerConfig()
     data: DataConfig = DataConfig()
@@ -364,9 +454,6 @@ class TransformerConfig:
         for key in ("determined_experiment_id", "determined_trial_id"):
             if d.pop(key, None) is not None:
                 raise NotImplementedError(f"{key}: the Determined glue is not ported")
-        # used only with training.use_separate_lr_on_embeddings, which raises
-        LearningRateSchedulerConfig.from_dict(d.pop("embedding_learning_rate_scheduler", None)
-                                              or {})
         kwargs: Dict[str, Any] = dict(
             transformer_architecture=TransformerArchitectureConfig.from_dict(
                 d.pop("transformer_architecture")),
@@ -376,6 +463,7 @@ class TransformerConfig:
         )
         for key, section in (("optimizer", OptimizerConfig),
                              ("learning_rate_scheduler", LearningRateSchedulerConfig),
+                             ("embedding_learning_rate_scheduler", LearningRateSchedulerConfig),
                              ("training", TrainingConfig), ("trainer", TrainerConfig),
                              ("data", DataConfig), ("logger", LoggerConfig),
                              ("profiler", ProfilerConfig)):

@@ -10,9 +10,14 @@ are transposed; the embedding table is ``(vocab, hidden)`` on both sides.
 Every parameter of every architecture the port builds maps by name alone:
 norm gains and biases (``input_layernorm.bias``), the default MLP's
 ``mlp.dense_in`` / ``mlp.dense_out``, key/query norms
-(``attention.norm_query.weight``). A tied model's table sits in the JAX
-tree under ``layer_0`` only (its head layer holds an empty subtree), as it
-does in the port's state dict.
+(``attention.norm_query.weight``), and the PEFT leaves: LoRA factors
+(``attention.query_lora.lora_a``, transposed as linear weights are),
+BitFit biases (``bias_{name}``), adapters (``adapter_mlp_{name}.down``,
+transposed), the soft prompt (``layer_0.softprompt_{name}``, rows ×
+hidden on both sides, not transposed) and the embedding head's
+projections (``proj_{i}_{name}``, transposed). A tied model's table sits
+in the JAX tree under ``layer_0`` only (its head layer holds an empty
+subtree), as it does in the port's state dict.
 """
 
 from __future__ import annotations

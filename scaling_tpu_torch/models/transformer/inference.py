@@ -22,6 +22,11 @@ of the JAX package's on-device loop) or every step (``False``, its
 per-step dispatch). Both give the same tokens. ``use_cache=False``
 refeeds the whole padded buffer every step.
 
+The architecture's PEFT modules (a checkpoint's come from its
+``config.yml``) act on every path: LoRA deltas on the projections, on the
+paged serving path too, adapters, the soft prompt. Nothing here draws a
+dropout mask.
+
 Sampling: greedy rows take the argmax, exactly as the JAX package does.
 Rows with temperature > 0 draw with Gumbel-max noise from a counter-based
 hash (``request_uniforms``): in the serving engine of ``(sample_seed,
@@ -44,7 +49,7 @@ from ... import resolve_device
 from ...checkpoint import load_model_checkpoint
 from ...parallel.parallel_module import jax_param_key
 from .config import TransformerArchitectureConfig, strip_removed_config_keys
-from .layers import TransformerLayer
+from .layers import TransformerEmbeddingHead, TransformerLayer
 from .model import TransformerModel
 from .tokenizer import Tokenizer
 
@@ -297,7 +302,10 @@ class TransformerInferenceModule:
         recorded = {}
         x = tokens
         for i, (name, layer) in enumerate(self.model.layers.items()):
-            x = layer(x, pos) if isinstance(layer, TransformerLayer) else layer(x)
+            if isinstance(layer, TransformerLayer):
+                x = layer(x, pos)
+            elif not isinstance(layer, TransformerEmbeddingHead):  # the head pools aside
+                x = layer(x)
             if (include is None or i in include) and (exclude is None or i not in exclude):
                 recorded[f"{name}_{type(layer).__name__}"] = x
         return recorded

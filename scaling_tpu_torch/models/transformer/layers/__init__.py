@@ -2,8 +2,13 @@
 scaling_tpu/models/transformer/layers/)."""
 
 from .embedding import EmbeddingInput
-from .layer import TransformerLayer
-from .lm_head import LayerNormWrapper, TransformerLMHead, TransformerLMHeadTied
+from .layer import Adapter, TransformerLayer
+from .lm_head import (
+    LayerNormWrapper,
+    TransformerEmbeddingHead,
+    TransformerLMHead,
+    TransformerLMHeadTied,
+)
 
-__all__ = ["EmbeddingInput", "LayerNormWrapper", "TransformerLMHead", "TransformerLMHeadTied",
-           "TransformerLayer"]
+__all__ = ["Adapter", "EmbeddingInput", "LayerNormWrapper", "TransformerEmbeddingHead",
+           "TransformerLMHead", "TransformerLMHeadTied", "TransformerLayer"]

@@ -3,20 +3,57 @@ scaling_tpu/models/transformer/layers/layer.py): pre-norm attention with a
 residual, then pre-norm MLP (the default GELU MLP or SwiGLU) with a
 residual. Serving attends over the paged KV pool, ``generate`` over a
 dense cache; training (no cache) over the sequence, within equal
-``segment_ids``. No adapters, LoRA or MoE; no dropout (the training path
-refuses a config that asks for it)."""
+``segment_ids``.
+
+In a training pass (a ``DropoutContext`` given) the attention's and the
+MLP's outputs go through dropout, then through the bottleneck adapters
+(``adapter_config``) when there are any, before each residual, in the
+JAX order. LoRA deltas live in the attention (``nn.attention``). No MoE.
+The layer's dropout sites are ``layer_{i}.after_attention`` and
+``layer_{i}.after_mlp``, ``layer_{i}`` its name in the stack.
+"""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ....nn.attention import ParallelSelfAttention
+from ....nn.base_layer import DropoutContext, dropout
 from ....nn.mlp import ParallelMLP, ParallelSwiGLUMLP
 from ....nn.norm import get_norm
 from ....nn.rotary import get_rotary
 from ..config import TransformerArchitectureConfig
+
+
+class Adapter(torch.nn.Module):
+    """Bottleneck adapter ``up(gelu(down(x)))`` (``Adapter`` of the JAX
+    layer); the residual is the caller's. ``down`` and ``up`` are stored
+    ``(out, in)``, the JAX ``(in, out)`` transposed, and drawn from a
+    normal of std ``init_std``."""
+
+    def __init__(self, hidden_size: int, downsampling_factor: float, init_std: float,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        # multiplicative, as in the JAX layer: 0.25 -> a 4x bottleneck
+        bottleneck = max(1, int(hidden_size * downsampling_factor))
+        self.init_std = init_std
+        self.down = torch.nn.Parameter(torch.empty(bottleneck, hidden_size, dtype=dtype,
+                                                   device=device))
+        self.up = torch.nn.Parameter(torch.empty(hidden_size, bottleneck, dtype=dtype,
+                                                 device=device))
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        self.down.normal_(0.0, self.init_std, generator=generator)
+        self.up.normal_(0.0, self.init_std, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(F.linear(x, self.down.to(x.dtype)), approximate="tanh")
+        return F.linear(h, self.up.to(x.dtype))
 
 
 class TransformerLayer(torch.nn.Module):
@@ -24,8 +61,12 @@ class TransformerLayer(torch.nn.Module):
                  device=None):
         super().__init__()
         self.layer_index = layer_index
+        self.site = f"layer_{layer_index + 1}"  # the layer's name in the stack
+        self.dropout_after_attention = arch.dropout_after_attention
+        self.dropout_after_mlp = arch.dropout_after_mlp
+        bitfit = arch.bitfit_bias_config.name if arch.bitfit_bias_config else None
         norm = dict(eps=arch.layernorm_eps, fused=arch.fused_norm, dtype=arch.dtype,
-                    device=device)
+                    device=device, bitfit_bias_name=bitfit)
         self.input_layernorm = get_norm(arch.norm_type, arch.hidden_size, **norm)
         self.attention = ParallelSelfAttention(
             hidden_size=arch.hidden_size,
@@ -47,27 +88,54 @@ class TransformerLayer(torch.nn.Module):
             fused_norm=arch.fused_norm,
             dtype=arch.dtype,
             device=device,
+            bitfit_bias_name=bitfit,
+            lora_config=arch.lora_config,
+            site=f"{self.site}.attention",
         )
         self.post_attention_layernorm = get_norm(arch.norm_type, arch.hidden_size, **norm)
         if arch.mlp_type == "swiglu":
             self.mlp = ParallelSwiGLUMLP(arch.hidden_size, arch.mlp_factor,
-                                         bias=arch.mlp_bias, dtype=arch.dtype, device=device)
+                                         bias=arch.mlp_bias, dtype=arch.dtype, device=device,
+                                         bitfit_bias_name=bitfit)
         else:
             self.mlp = ParallelMLP(arch.hidden_size, arch.mlp_factor,
                                    activation=arch.activation_function, bias=arch.mlp_bias,
-                                   dtype=arch.dtype, device=device)
+                                   dtype=arch.dtype, device=device, bitfit_bias_name=bitfit)
+        self.adapter_attention: Optional[str] = None  # child names, as the JAX param keys
+        self.adapter_mlp: Optional[str] = None
+        cfg = arch.adapter_config
+        if cfg is not None:
+            for where, factor in (("attention", cfg.attention_downsampling_factor),
+                                  ("mlp", cfg.mlp_downsampling_factor)):
+                if factor:
+                    name = f"adapter_{where}_{cfg.name}"
+                    self.add_module(name, Adapter(arch.hidden_size, factor, cfg.init_std,
+                                                  dtype=arch.dtype, device=device))
+                    setattr(self, f"adapter_{where}", name)
+
+    def _adapt(self, x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+        return x if name is None else x + getattr(self, name)(x)
+
+    def merge_lora_weights(self) -> None:
+        """Fold the attention block's LoRA deltas into its base weights."""
+        self.attention.merge_lora_weights()
 
     def forward(self, h: torch.Tensor, position_ids: torch.Tensor, kv_cache=None,
                 segment_ids: Optional[torch.Tensor] = None,
                 cache_offset: Optional[int] = None,
                 scores_manipulation: Optional[torch.Tensor] = None,
-                return_kv: bool = False):
-        """The block's output, or ``(output, (k, v))`` with ``return_kv``."""
+                return_kv: bool = False, ctx: Optional[DropoutContext] = None):
+        """The block's output, or ``(output, (k, v))`` with ``return_kv``;
+        ``ctx`` is the training pass's dropout context (None: none)."""
         attn = self.attention(self.input_layernorm(h), position_ids, kv_cache, segment_ids,
-                              cache_offset, scores_manipulation, return_kv)
+                              cache_offset, scores_manipulation, return_kv, ctx)
         new_kv = None
         if return_kv:
             attn, new_kv = attn
-        h = h + attn.to(h.dtype)
-        h = h + self.mlp(self.post_attention_layernorm(h)).to(h.dtype)
+        attn = dropout(attn, self.dropout_after_attention, ctx, f"{self.site}.after_attention")
+        h = h + self._adapt(attn, self.adapter_attention).to(h.dtype)
+        mlp_out = self.mlp(self.post_attention_layernorm(h))
+        mlp_out = dropout(mlp_out, self.dropout_after_mlp, ctx, f"{self.site}.after_mlp")
+        h = h + self._adapt(mlp_out, self.adapter_mlp).to(h.dtype)
         return h if new_kv is None else (h, new_kv)
+

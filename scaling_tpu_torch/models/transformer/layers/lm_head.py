@@ -1,5 +1,8 @@
-"""Final norm and LM heads (``LayerNormWrapper``, ``TransformerLMHead`` and
-``TransformerLMHeadTied`` of scaling_tpu/models/transformer/layers/lm_head.py).
+"""Final norm, LM heads and the embedding head (``LayerNormWrapper``,
+``TransformerLMHead``, ``TransformerLMHeadTied`` and
+``TransformerEmbeddingHead`` of
+scaling_tpu/models/transformer/layers/lm_head.py). Under BitFit the final
+norm's bias is ``bias_{name}``.
 
 The tied head projects with the embedding table of ``EmbeddingInput``: it
 holds that module without registering it, so the table is one
@@ -11,10 +14,12 @@ gradients of both uses into it, and the optimizer keeps one state for it.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
-from ....nn.linear import Linear
+from ....nn.linear import Linear, xavier_normal_
 from ....nn.norm import get_norm
 from ..config import TransformerArchitectureConfig
 from .embedding import EmbeddingInput
@@ -23,8 +28,10 @@ from .embedding import EmbeddingInput
 class LayerNormWrapper(torch.nn.Module):
     def __init__(self, arch: TransformerArchitectureConfig, device=None):
         super().__init__()
+        bitfit = arch.bitfit_bias_config.name if arch.bitfit_bias_config else None
         self.norm = get_norm(arch.norm_type, arch.hidden_size, eps=arch.layernorm_eps,
-                             fused=arch.fused_norm, dtype=arch.dtype, device=device)
+                             fused=arch.fused_norm, dtype=arch.dtype, device=device,
+                             bitfit_bias_name=bitfit)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.norm(h)
@@ -47,3 +54,39 @@ class TransformerLMHeadTied(torch.nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return F.linear(h, self.tied_embedding.embedding.weight)
+
+
+class TransformerEmbeddingHead(torch.nn.Module):
+    """The weighted mean over the sequence of the final norm's output (the
+    JAX ``embeddings`` the norm records), weights ``loss_weights`` (ones
+    when absent), then the projection stack ``proj_{i}_{name}`` with GELU
+    between projections. The projections are stored ``(out, in)``, the
+    JAX ``(in, out)`` transposed."""
+
+    def __init__(self, arch: TransformerArchitectureConfig, device=None):
+        super().__init__()
+        cfg = arch.embedding_head_config
+        dims = [arch.hidden_size] + list(cfg.proj_layers)
+        self.names = [f"proj_{i}_{cfg.name}" for i in range(len(dims) - 1)]
+        for name, d_in, d_out in zip(self.names, dims[:-1], dims[1:]):
+            self.register_parameter(name, torch.nn.Parameter(torch.empty(
+                d_out, d_in, dtype=arch.dtype, device=device)))
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        for name in self.names:
+            xavier_normal_(getattr(self, name), generator)
+
+    def forward(self, h: torch.Tensor, loss_weights: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """``h`` (b, s, hidden) -> (b, last projection's width)."""
+        if loss_weights is None:
+            loss_weights = torch.ones(h.shape[:2], dtype=torch.float32, device=h.device)
+        w = loss_weights.float()
+        denom = w.sum(dim=1, keepdim=True).clamp_min(1.0)
+        pooled = ((h.float() * w[..., None]).sum(dim=1) / denom).to(h.dtype)
+        for i, name in enumerate(self.names):
+            pooled = F.linear(pooled, getattr(self, name).to(pooled.dtype))
+            if i < len(self.names) - 1:
+                pooled = F.gelu(pooled, approximate="tanh")  # jax.nn.gelu's default
+        return pooled

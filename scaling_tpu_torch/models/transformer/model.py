@@ -3,8 +3,9 @@ scaling_tpu/models/transformer/model.py).
 
 The stack keeps the JAX package's layer names: ``layer_0`` is the
 embedding, ``layer_1 .. layer_L`` the transformer layers,
-``layer_{L+1}`` the final norm and ``layer_{L+2}`` the head (untied, or
-tied to the embedding table, which then lives under ``layer_0`` only), so a
+``layer_{L+1}`` the final norm, ``layer_{L+2}`` the head (untied, or
+tied to the embedding table, which then lives under ``layer_0`` only) and,
+with an ``embedding_head_config``, ``layer_{L+3}`` the embedding head, so a
 parameter ``layer_3/attention/query/weight`` there is
 ``layers.layer_3.attention.query.weight`` here, and its JAX optimizer key
 ``layer_3_TransformerLayer.attention.query.weight`` (``jax_param_key``).
@@ -13,11 +14,12 @@ parameter ``layer_3/attention/query/weight`` there is
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ...nn.linear import Embedding
+from ...nn.lora import ParallelLoRa
 from ...nn.norm import LayerNorm, RMSNorm
 from ...ops.cross_entropy import cross_entropy_from_logits
 from ...optimizer import Optimizer, OptimizerParamGroup
@@ -27,6 +29,7 @@ from .config import TransformerArchitectureConfig, TransformerConfig
 from .layers import (
     EmbeddingInput,
     LayerNormWrapper,
+    TransformerEmbeddingHead,
     TransformerLayer,
     TransformerLMHead,
     TransformerLMHeadTied,
@@ -36,7 +39,7 @@ from .layers import (
 def get_transformer_layers(arch: TransformerArchitectureConfig,
                            device=None) -> Dict[str, torch.nn.Module]:
     """EmbeddingInput -> L x TransformerLayer -> final norm -> LM head (tied
-    to the embedding's table with ``weight_tying``)."""
+    to the embedding's table with ``weight_tying``) [-> embedding head]."""
     embedding = EmbeddingInput(arch, device)
     layers: Dict[str, torch.nn.Module] = {"layer_0": embedding}
     for i in range(arch.num_layers):
@@ -45,6 +48,8 @@ def get_transformer_layers(arch: TransformerArchitectureConfig,
     layers[f"layer_{arch.num_layers + 2}"] = (
         TransformerLMHeadTied(embedding) if arch.weight_tying
         else TransformerLMHead(arch, device))
+    if arch.embedding_head_config is not None:
+        layers[f"layer_{arch.num_layers + 3}"] = TransformerEmbeddingHead(arch, device)
     return layers
 
 
@@ -69,6 +74,11 @@ class TransformerModel(torch.nn.Module):
     @property
     def lm_head(self) -> torch.nn.Module:
         return self.layers[f"layer_{self.architecture.num_layers + 2}"]
+
+    @property
+    def embedding_head(self) -> Optional[TransformerEmbeddingHead]:
+        return self.layers[f"layer_{self.architecture.num_layers + 3}"] \
+            if self.architecture.embedding_head_config is not None else None
 
     @torch.no_grad()
     def init_random_(self, seed: int) -> "TransformerModel":
@@ -113,31 +123,58 @@ def loss_function(output: Dict[str, Any], batch: Dict[str, Any]):
 NO_WEIGHT_DECAY_SUBSTRINGS = ("norm", "bias")
 
 
+def _peft_trainable(key: str, peft_names: List[str]) -> bool:
+    """Whether ``key`` names a PEFT module's parameter: ``..._{name}.`` or
+    ``...bias_{name}`` exactly, so a short name such as ``ad`` cannot
+    claim ``lm_head``."""
+    return any(re.search(rf"(_|bias_){re.escape(n)}(\.|$)", key) for n in peft_names)
+
+
 def get_parameter_groups(config: TransformerConfig, model: TransformerModel
                          ) -> List[OptimizerParamGroup]:
-    """Weight-decay and no-decay groups at muP width multiplier 1, with the
-    JAX package's membership: norm gains, every bias and the embedding
-    table decay not; the untied head and all other matrices do.
-    ``training.parameters_exclude`` regexes match the JAX keys."""
-    exclude = [re.compile(p) for p in config.training.parameters_exclude]
-    decay, no_decay = set(), set()
+    """Weight-decay, no-decay and embedding groups at muP width multiplier
+    1, with the JAX package's membership: ``training.parameters_exclude``
+    regexes (of JAX keys) drop a parameter; under ``training.finetune`` only
+    ``finetunable_parameters`` matches and the PEFT modules' parameters
+    train. The embedding table goes to ``embedding_params`` under the
+    ``embedding_learning_rate_scheduler`` with
+    ``use_separate_lr_on_embeddings``, else with norm gains, every bias and
+    the LoRA factors to the no-decay group; the untied head and all other
+    matrices decay."""
+    training = config.training
+    include = [re.compile(p) for p in training.finetunable_parameters]
+    exclude = [re.compile(p) for p in training.parameters_exclude]
+    peft_names = config.transformer_architecture.peft_names
+
+    def trainable(key: str) -> bool:
+        if any(p.search(key) for p in exclude):
+            return False
+        if training.finetune:
+            return any(p.search(key) for p in include) or _peft_trainable(key, peft_names)
+        return True
+
+    decay, no_decay, embedding = set(), set(), set()
     for module_name, module in model.named_modules():
         for pname, _ in module.named_parameters(recurse=False):
             name = f"{module_name}.{pname}"
             key = jax_param_key(model, name)
-            if any(p.search(key) for p in exclude):
+            if not trainable(key):
                 continue
             parameter_name = key.split(".", 1)[1].lower()
-            if isinstance(module, (LayerNorm, RMSNorm, Embedding)) or any(
+            if isinstance(module, Embedding) and training.use_separate_lr_on_embeddings:
+                embedding.add(name)
+            elif isinstance(module, (LayerNorm, RMSNorm, Embedding, ParallelLoRa)) or any(
                     s in parameter_name for s in NO_WEIGHT_DECAY_SUBSTRINGS):
                 no_decay.add(name)
             else:
                 decay.add(name)
     groups = [
-        OptimizerParamGroup(keys, weight_decay=wd,
-                            learning_rate_scheduler=config.learning_rate_scheduler, name=name)
-        for keys, wd, name in ((decay, config.training.weight_decay, "weight_decay_params"),
-                               (no_decay, 0.0, "no_weight_decay_params"))
+        OptimizerParamGroup(keys, weight_decay=wd, learning_rate_scheduler=scheduler, name=name)
+        for keys, wd, scheduler, name in (
+            (decay, training.weight_decay, config.learning_rate_scheduler,
+             "weight_decay_params"),
+            (no_decay, 0.0, config.learning_rate_scheduler, "no_weight_decay_params"),
+            (embedding, 0.0, config.embedding_learning_rate_scheduler, "embedding_params"))
         if keys
     ]
     if not groups:

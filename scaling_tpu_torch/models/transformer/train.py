@@ -28,7 +28,14 @@ from ...runner import LaunchConfig, initialize_distributed
 from ...trainer import BaseTrainer
 from .config import TransformerConfig
 from .context import TransformerContext
-from .data.text_dataset import TextBlendedDataset, TextDataset
+from .data import (
+    FinetuningChatBlendedDataset,
+    FinetuningChatDataset,
+    FinetuningTextBlendedDataset,
+    FinetuningTextDataset,
+    TextBlendedDataset,
+    TextDataset,
+)
 from .model import init_model, init_optimizer, loss_function
 from .utils.get_tflops import (
     H100_BF16_TFLOPS,
@@ -75,23 +82,44 @@ def log_metrics_fn(trainer: BaseTrainer, output, metrics: dict) -> dict:
 
 
 def _read_dataset(config: TransformerConfig, prefixes: Optional[List[Any]]):
-    """One TextDataset a prefix, blended when there are several."""
+    """One dataset a prefix, blended when there are several: the finetuning
+    datasets (``data.finetuning_dataset`` / ``finetuning_chat_dataset``,
+    which need ``transformer_architecture.vocab_file``) or token streams."""
     if not prefixes:
         return None
-    data = config.data
-    datasets = [
-        TextDataset(data_prefix=p, sequence_length=config.transformer_architecture.sequence_length,
-                    seed=config.trainer.seed, eod_token_id=data.eod_token_id,
-                    only_full_sequences=data.only_full_sequences,
-                    allow_incomplete_sequences_every_n=data.allow_incomplete_sequences_every_n,
-                    load_index_to_memory=data.load_mmap_index_to_memory)
-        for p in prefixes
-    ]
+    arch, data, seed = config.transformer_architecture, config.data, config.trainer.seed
+    softprompt = arch.softprompt_config.n_tokens if arch.softprompt_config else 0
+    if data.finetuning_dataset or data.finetuning_chat_dataset:
+        if arch.vocab_file is None:
+            raise ValueError("finetuning datasets need transformer_architecture.vocab_file")
+        if data.finetuning_chat_dataset:
+            datasets: List[Any] = [
+                FinetuningChatDataset(data_prefix=p, sequence_length=arch.sequence_length,
+                                      vocab_file=arch.vocab_file, seed=seed,
+                                      softprompt_n_tokens=softprompt)
+                for p in prefixes]
+            blended_cls: Any = FinetuningChatBlendedDataset
+        else:
+            datasets = [
+                FinetuningTextDataset(data_prefix=p, sequence_length=arch.sequence_length,
+                                      vocab_file=arch.vocab_file, seed=seed,
+                                      memory_map_dataset=data.finetuning_dataset_memory_map,
+                                      softprompt_n_tokens=softprompt)
+                for p in prefixes]
+            blended_cls = FinetuningTextBlendedDataset
+    else:
+        datasets = [
+            TextDataset(data_prefix=p, sequence_length=arch.sequence_length, seed=seed,
+                        eod_token_id=data.eod_token_id,
+                        only_full_sequences=data.only_full_sequences,
+                        allow_incomplete_sequences_every_n=data.allow_incomplete_sequences_every_n,
+                        load_index_to_memory=data.load_mmap_index_to_memory)
+            for p in prefixes]
+        blended_cls = TextBlendedDataset
     if len(datasets) == 1:
         return datasets[0]
-    return TextBlendedDataset(seed=config.trainer.seed,
-                              config=data.blended_dataset or BlendedDatasetConfig(),
-                              datasets=datasets)
+    return blended_cls(seed=seed, config=data.blended_dataset or BlendedDatasetConfig(),
+                       datasets=datasets)
 
 
 class TransformerTrainer(BaseTrainer):

@@ -23,8 +23,15 @@ one of three attention paths, and the output projection:
   ``MaskedSoftmax``). There is no TPU gate here: on the CPU the flash
   path runs the kernels' plain versions.
 
-Context parallelism, LoRA, multiplicative score manipulation and
-attention-probability dropout are not ported.
+With a ``lora_config`` each named projection gets a ``ParallelLoRa``
+delta (``{query,key,value,dense}_{name}``): q, k and v add theirs after
+the split, the output projection after the dense product, each drawing
+its own dropout mask; ``merge_lora_weights`` folds the deltas into the
+host weights. Attention-probability dropout runs on the unfused path
+only: a rate above 0 in a training pass (a ``DropoutContext`` given)
+routes away from K4/K5 through ``flash_path_active``, as in the JAX
+layer. Context parallelism and multiplicative score manipulation are not
+ported.
 
 The pool and the dense cache are updated IN PLACE: the writers put the
 new tokens' K/V into the tensors the caller holds, so no updated caches
@@ -35,13 +42,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..ops.flash_attention import HEAD_DIMS, flash_attention
 from ..ops.paged_attention import paged_attention
+from .base_layer import DropoutContext, dropout
 from .linear import Linear
+from .lora import LoRAModuleType, LoRaConfig, ParallelLoRa
 from .masked_softmax import MaskedSoftmax, MaskedSoftmaxConfig
 from .norm import get_norm
 from .seq_packing import segment_ids_to_mask
@@ -164,20 +173,26 @@ def flash_path_active(*, kernel_is_flash: bool, causal: bool,
 def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                          mask: torch.Tensor, scaling_factor: float,
                          softmax: MaskedSoftmax,
-                         scores_manipulation: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         scores_manipulation: Optional[torch.Tensor] = None,
+                         dropout_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                         ) -> torch.Tensor:
     """Unfused attention: QK^T -> masked softmax -> PV. q (b, s_q, n, h),
     k/v (b, s_k, n_kv, h) with ``n_kv`` dividing ``n``: query head ``i``
     reads kv head ``i // (n / n_kv)``, as ``repeat_kv`` lays them out, and
     the grouped products read each kv head once, with no repeated copy.
     mask (b, 1, s_q, s_k) True = forbidden, ``scores_manipulation`` added
-    to the scaled scores (log-additive). Returns (b, s_q, n, h)."""
+    to the scaled scores (log-additive), ``dropout_fn`` applied to the
+    ``(b, n, s_q, s_k)`` probabilities. Returns (b, s_q, n, h)."""
     b, s_q, n, h = query.shape
     n_kv = key.shape[2]
     q = query.reshape(b, s_q, n_kv, n // n_kv, h)
     scores = torch.einsum("bqgrh,bkgh->bgrqk", q, key).reshape(b, n, s_q, -1) * scaling_factor
     if scores_manipulation is not None:
         scores = scores + scores_manipulation.to(scores.dtype)
-    probs = softmax(scores, mask).reshape(b, n_kv, n // n_kv, s_q, -1)
+    probs = softmax(scores, mask)
+    if dropout_fn is not None:
+        probs = dropout_fn(probs)
+    probs = probs.reshape(b, n_kv, n // n_kv, s_q, -1)
     out = torch.einsum("bgrqk,bkgh->bqgrh", probs.to(value.dtype), value)
     return out.reshape(b, s_q, n, h)
 
@@ -198,7 +213,9 @@ class ParallelSelfAttention(torch.nn.Module):
                  dropout_attention_probs: float = 0.0, key_query_norm: bool = False,
                  norm_type: str = "layernorm", norm_eps: float = 1e-5,
                  fused_norm: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 bitfit_bias_name: Optional[str] = None,
+                 lora_config: Optional[LoRaConfig] = None, site: str = "attention"):
         super().__init__()
         if hidden_size % num_attention_heads:
             raise ValueError("hidden_size must divide over num_attention_heads")
@@ -216,7 +233,7 @@ class ParallelSelfAttention(torch.nn.Module):
             scaling_factor if scaling_factor is not None
             else 1.0 / math.sqrt(self.head_dim)
         )
-        common = dict(bias=bias, dtype=dtype, device=device)
+        common = dict(bias=bias, dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name)
         if qkv_in_one:
             self.query_key_value = Linear(hidden_size, 3 * hidden_size, **common)
         else:
@@ -228,7 +245,8 @@ class ParallelSelfAttention(torch.nn.Module):
         self.rotary_embedding = rotary
         self.key_query_norm = key_query_norm
         if key_query_norm:
-            norm = dict(eps=norm_eps, fused=fused_norm, dtype=dtype, device=device)
+            norm = dict(eps=norm_eps, fused=fused_norm, dtype=dtype, device=device,
+                        bitfit_bias_name=bitfit_bias_name)
             self.norm_query = get_norm(norm_type, self.head_dim, **norm)
             self.norm_key = get_norm(norm_type, self.head_dim, **norm)
         self.masked_softmax = MaskedSoftmax(masked_softmax_config or MaskedSoftmaxConfig())
@@ -240,28 +258,56 @@ class ParallelSelfAttention(torch.nn.Module):
         self.num_local_attention_heads = num_local_attention_heads
         self.local_attention_window_size = local_attention_window_size
         self.dropout_attention_probs = dropout_attention_probs
+        self.site = site
+        self.lora_config = lora_config
+        self.lora_modules: Dict[LoRAModuleType, str] = {}  # module type -> child name
+        for module_type in (lora_config.parallel_modules if lora_config else ()):
+            name = f"{module_type.value}_{lora_config.name}"
+            out_features = (hidden_size if module_type in (LoRAModuleType.DENSE,
+                                                           LoRAModuleType.QUERY)
+                            else self.num_kv_heads * self.head_dim)
+            self.add_module(name, ParallelLoRa(
+                hidden_size, out_features, lora_config.rank, module_type,
+                alpha=lora_config.alpha, dropout=lora_config.dropout, bias=lora_config.bias,
+                kaiming_a=lora_config.kaiming_a, dtype=dtype, device=device,
+                site=f"{site}.{name}"))
+            self.lora_modules[module_type] = name
 
-    def _qkv(self, x: torch.Tensor):
+    def _lora(self, module_type: LoRAModuleType) -> Optional[ParallelLoRa]:
+        name = self.lora_modules.get(module_type)
+        return None if name is None else getattr(self, name)
+
+    def _qkv(self, x: torch.Tensor, ctx: Optional[DropoutContext] = None):
         b, s, _ = x.shape
         if self.qkv_in_one:
             qkv = self.query_key_value(x).reshape(
                 b, s, self.num_attention_heads, 3 * self.head_dim
             )
-            return qkv.split(self.head_dim, dim=-1)
-        q = self.query(x).reshape(b, s, self.num_attention_heads, self.head_dim)
-        k = self.key(x).reshape(b, s, self.num_kv_heads, self.head_dim)
-        v = self.value(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+            q, k, v = qkv.split(self.head_dim, dim=-1)
+        else:
+            q = self.query(x).reshape(b, s, self.num_attention_heads, self.head_dim)
+            k = self.key(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+            v = self.value(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        if self.lora_modules:  # in the JAX order: query, key, value
+            out = []
+            for t, module_type in ((q, LoRAModuleType.QUERY), (k, LoRAModuleType.KEY),
+                                   (v, LoRAModuleType.VALUE)):
+                lora = self._lora(module_type)
+                out.append(t if lora is None else t + lora(x, ctx).reshape(t.shape))
+            q, k, v = out
         return q, k, v
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor,
                 kv_cache=None, segment_ids: Optional[torch.Tensor] = None,
                 cache_offset: Optional[int] = None,
                 scores_manipulation: Optional[torch.Tensor] = None,
-                return_kv: bool = False):
+                return_kv: bool = False, ctx: Optional[DropoutContext] = None):
         """``kv_cache``: a ``PagedKVCacheView``, a dense cache tuple written
-        at ``cache_offset``, or None. Returns the output, or ``(output,
-        (k, v))`` with ``return_kv`` (the new tokens' K/V after rotary)."""
-        q, k, v = self._qkv(x)
+        at ``cache_offset``, or None. ``ctx``: the training pass's dropout
+        context, None for a deterministic pass. Returns the output, or
+        ``(output, (k, v))`` with ``return_kv`` (the new tokens' K/V after
+        rotary)."""
+        q, k, v = self._qkv(x, ctx)
         if self.key_query_norm:
             q, k = self.norm_query(q), self.norm_key(k)
         if self.rotary_embedding is not None:
@@ -275,24 +321,23 @@ class ParallelSelfAttention(torch.nn.Module):
             out = self._dense_cache_attention(q, k, v, kv_cache, cache_offset, segment_ids,
                                               scores_manipulation)
         else:
-            out = self._attention(q, k, v, segment_ids, scores_manipulation)
-        out = self._project_out(out)
+            out = self._attention(q, k, v, segment_ids, scores_manipulation, ctx)
+        out = self._project_out(out, ctx)
         return (out, (k, v)) if return_kv else out
 
     def _attention(self, q, k, v, segment_ids: Optional[torch.Tensor],
-                   scores_manipulation: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   scores_manipulation: Optional[torch.Tensor] = None,
+                   ctx: Optional[DropoutContext] = None) -> torch.Tensor:
         """No cache: the training forward (``ParallelSelfAttention.__call__``
         of the JAX layer without context parallelism)."""
         b, s = q.shape[:2]
         if segment_ids is None:
             segment_ids = torch.zeros(b, s, dtype=torch.int32, device=q.device)
-        if self.dropout_attention_probs > 0.0 and self.training:
-            raise NotImplementedError("attention-probability dropout is not ported")
         n_local = self.num_local_attention_heads
         if flash_path_active(
             kernel_is_flash=self.use_flash, causal=self.causal,
             dropout_attention_probs=self.dropout_attention_probs,
-            deterministic=not self.training, context_parallel_size=1,
+            deterministic=ctx is None, context_parallel_size=1,
             seq_len=s, head_dim=self.head_dim, dtype=q.dtype,
             has_scores_manipulation=scores_manipulation is not None,
         ):
@@ -300,9 +345,17 @@ class ParallelSelfAttention(torch.nn.Module):
                                    num_local_heads=n_local,
                                    local_window=self.local_attention_window_size)
         mask = segment_ids_to_mask(segment_ids, causal=self.causal)
+
+        def probs_dropout(site: str):
+            if ctx is None or self.dropout_attention_probs == 0.0:
+                return None
+            return lambda p: dropout(p, self.dropout_attention_probs, ctx, site)
+
+        probs_site = f"{self.site}.attention_probs"
         if n_local == 0:
             return multi_head_attention(q, k, v, mask, self.scaling_factor,
-                                        self.masked_softmax, scores_manipulation)
+                                        self.masked_softmax, scores_manipulation,
+                                        probs_dropout(probs_site))
         # mixed heads: the first n - n_local global, the last n_local in the window
         k = repeat_kv(k, self.num_repeat_kv)
         v = repeat_kv(v, self.num_repeat_kv)
@@ -312,12 +365,13 @@ class ParallelSelfAttention(torch.nn.Module):
         out_l = multi_head_attention(q[:, :, n_global:], k[:, :, n_global:],
                                      v[:, :, n_global:], local_mask,
                                      self.scaling_factor, self.masked_softmax,
-                                     scores_manipulation)
+                                     scores_manipulation, probs_dropout(probs_site + "_local"))
         if n_global == 0:
             return out_l
         out_g = multi_head_attention(q[:, :, :n_global], k[:, :, :n_global],
                                      v[:, :, :n_global], mask, self.scaling_factor,
-                                     self.masked_softmax, scores_manipulation)
+                                     self.masked_softmax, scores_manipulation,
+                                     probs_dropout(probs_site))
         return torch.cat([out_g, out_l], dim=2)
 
     def _dense_cache_attention(self, q, k, v, cache, offset: int,
@@ -368,6 +422,52 @@ class ParallelSelfAttention(torch.nn.Module):
             scale_k=view.scale_k, scale_v=view.scale_v,
         )
 
-    def _project_out(self, out: torch.Tensor) -> torch.Tensor:
+    def _project_out(self, out: torch.Tensor,
+                     ctx: Optional[DropoutContext] = None) -> torch.Tensor:
         b, s = out.shape[:2]
-        return self.dense(out.reshape(b, s, self.hidden_size))
+        out = out.reshape(b, s, self.hidden_size)
+        y = self.dense(out)
+        lora = self._lora(LoRAModuleType.DENSE)
+        return y if lora is None else y + lora(out, ctx)
+
+    @torch.no_grad()
+    def merge_lora_weights(self) -> None:
+        """Fold each LoRA delta into its host weight and zero the LoRA's
+        ``B`` (and bias), in place, as the JAX layer's ``merge_lora_weights``
+        does functionally: the LoRA path then adds exactly nothing. A LoRA
+        bias folds into the host's bias; a host without a ``bias``
+        parameter raises ValueError, and the fused ``query_key_value``
+        layout NotImplementedError, before anything is changed."""
+        for module_type in self.lora_modules:
+            lora = self._lora(module_type)
+            if lora.bias is None:
+                continue
+            if self.qkv_in_one and module_type != LoRAModuleType.DENSE:
+                raise NotImplementedError(
+                    "LoRA bias merge is unsupported for the fused query_key_value layout; "
+                    "set attention_qkv_in_one false or lora bias=False")
+            host = self.dense if module_type == LoRAModuleType.DENSE else getattr(
+                self, module_type.value)
+            if host.bias is None:
+                raise ValueError(
+                    f"cannot merge LoRA bias on {module_type.value}: the host projection has "
+                    "no bias parameter to absorb it (set lora bias=False or keep the LoRA "
+                    "unmerged)")
+        for module_type in self.lora_modules:
+            lora = self._lora(module_type)
+            delta = lora.get_delta_weights()
+            if module_type != LoRAModuleType.DENSE and self.qkv_in_one:
+                w = self.query_key_value.weight.view(self.num_attention_heads, 3,
+                                                     self.head_dim, self.hidden_size)
+                idx = ("query", "key", "value").index(module_type.value)
+                w[:, idx] += delta.view(self.num_attention_heads, self.head_dim,
+                                        self.hidden_size).to(w.dtype)
+            else:
+                host = self.dense if module_type == LoRAModuleType.DENSE else getattr(
+                    self, module_type.value)
+                host.weight += delta.to(host.weight.dtype)
+                if lora.bias is not None:
+                    host.bias += lora.bias.to(host.bias.dtype)
+            lora.lora_b.zero_()
+            if lora.bias is not None:
+                lora.bias.zero_()

@@ -1,0 +1,77 @@
+"""Dropout on one device (counterpart of ``ForwardContext.dropout`` of
+scaling_tpu/nn/base_layer.py).
+
+``dropout(x, rate, ctx, site)`` returns ``where(mask, x / keep, 0)`` in
+x's dtype, ``keep = 1 - rate``, as the JAX package does, and is the
+identity when ``rate`` is 0 or ``ctx`` is None (a deterministic pass:
+eval, generate, serve).
+
+The JAX context folds a running call counter into the step's key, which
+is sound under ``jax.checkpoint`` because the counter advances at trace
+time. Here the masks of a training step come from explicit
+``torch.Generator`` s on x's device, each seeded by a pure function of
+the context's key (the trainer seed, the tag ``"dropout"``, the
+iteration and the micro-batch index) and the STATIC site id of the call
+(``layer_3.attention.query_lora``). No generator state is carried, so
+the recompute of ``torch.utils.checkpoint`` draws the forward's masks
+again, a resume draws the masks of the run it resumes, and nothing of
+the RNG goes into a checkpoint. A ``mask_source`` may stand in for the
+draw; the parity tests replay the JAX package's masks through it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+# (context key, site, shape, keep probability, device) -> bool mask, True = kept
+MaskSource = Callable[[Tuple, str, Sequence[int], float, torch.device], torch.Tensor]
+
+
+def dropout_key(seed: int, iteration: int) -> Tuple:
+    """The key of one training step (JAX ``rng.key("dropout", iteration)``)."""
+    return (int(seed), "dropout", int(iteration))
+
+
+def site_seed(key: Tuple, site: str) -> int:
+    """The generator seed of ``site`` under ``key``: 63 bits of a hash."""
+    digest = hashlib.blake2b(repr((key, site)).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def draw_mask(key: Tuple, site: str, shape: Sequence[int], keep: float,
+              device: torch.device) -> torch.Tensor:
+    """The default mask source: ``uniform < keep`` from a generator on
+    ``device`` seeded by ``site_seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(site_seed(key, site))
+    return torch.rand(tuple(shape), generator=gen, device=device) < keep
+
+
+class DropoutContext:
+    """The dropout state of one forward: a key and the mask source."""
+
+    def __init__(self, key: Tuple, mask_source: Optional[MaskSource] = None):
+        self.key = tuple(key)
+        self.mask_source = mask_source or draw_mask
+
+    def for_micro_batch(self, index: int) -> "DropoutContext":
+        """The context of micro-batch ``index`` (JAX ``fold_in(key, index)``)."""
+        return DropoutContext(self.key + (int(index),), self.mask_source)
+
+    def dropout(self, x: torch.Tensor, rate: float, site: str) -> torch.Tensor:
+        if rate == 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = self.mask_source(self.key, site, x.shape, keep, x.device)
+        return torch.where(mask.to(x.device), x / keep, 0).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, ctx: Optional[DropoutContext],
+            site: str) -> torch.Tensor:
+    """Dropout at ``site``; the identity without a context or at rate 0."""
+    if ctx is None or rate == 0.0:
+        return x
+    return ctx.dropout(x, rate, site)

@@ -1,8 +1,11 @@
 """MLPs (``ParallelMLP`` and ``ParallelSwiGLUMLP`` of scaling_tpu/nn/mlp.py,
 mp=1): ``dense_out(act(dense_in(x)))``, and SwiGLU
-``down(silu(gate(x)) * up(x))``."""
+``down(silu(gate(x)) * up(x))``. Under BitFit every linear's bias is
+``bias_{name}``."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -20,11 +23,12 @@ def _intermediate(io_features: int, factor: float) -> int:
 class ParallelMLP(torch.nn.Module):
     def __init__(self, io_features: int, intermediate_feature_factor: float = 4.0,
                  activation: ActivationFunction = ActivationFunction.GELU, bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 bitfit_bias_name: Optional[str] = None):
         super().__init__()
         intermediate = _intermediate(io_features, intermediate_feature_factor)
         self.activation_fn = get_activation_function(activation)
-        common = dict(bias=bias, dtype=dtype, device=device)
+        common = dict(bias=bias, dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name)
         self.dense_in = Linear(io_features, intermediate, **common)
         self.dense_out = Linear(intermediate, io_features, **common)
 
@@ -34,11 +38,12 @@ class ParallelMLP(torch.nn.Module):
 
 class ParallelSwiGLUMLP(torch.nn.Module):
     def __init__(self, io_features: int, intermediate_feature_factor: float,
-                 bias: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 bias: bool = False, dtype: torch.dtype = torch.float32, device=None,
+                 bitfit_bias_name: Optional[str] = None):
         super().__init__()
         intermediate = _intermediate(io_features, intermediate_feature_factor)
         self.silu = get_activation_function(ActivationFunction.SILU)
-        common = dict(bias=bias, dtype=dtype, device=device)
+        common = dict(bias=bias, dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name)
         self.gate_proj = Linear(io_features, intermediate, **common)
         self.up_proj = Linear(io_features, intermediate, **common)
         self.down_proj = Linear(intermediate, io_features, **common)

@@ -78,10 +78,13 @@ class RMSNorm(torch.nn.Module):
 
 
 def get_norm(norm_type: str, dimensions: int, eps: float = 1e-5, fused: bool = False,
-             dtype: torch.dtype = torch.float32, device=None) -> torch.nn.Module:
-    """``layernorm`` or ``rms``; ``fused`` applies to RMSNorm only, as in JAX."""
+             dtype: torch.dtype = torch.float32, device=None,
+             bitfit_bias_name: Optional[str] = None) -> torch.nn.Module:
+    """``layernorm`` or ``rms``; ``fused`` applies to RMSNorm only, as in JAX,
+    and ``bitfit_bias_name`` to LayerNorm only (an RMSNorm has no bias)."""
     if norm_type == "layernorm":
-        return LayerNorm(dimensions, eps, dtype=dtype, device=device)
+        return LayerNorm(dimensions, eps, dtype=dtype, device=device,
+                         bitfit_bias_name=bitfit_bias_name)
     if norm_type == "rms":
         return RMSNorm(dimensions, eps, fused=fused, dtype=dtype, device=device)
     raise NotImplementedError(f"norm type {norm_type!r}")

@@ -8,22 +8,28 @@ every_layer`` each layer of the stack runs under
 ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in the
 backward, as the JAX forward wraps each layer in ``jax.checkpoint``.
 
-``build_train_step`` returns ``step(micro_batches)``: for each of the
-``gradient_accumulation_steps`` micro-batches a forward and a backward of
-``loss / gas``, the gradients added into f32 buffers (torch's bf16
-``.grad`` would round a sum that the JAX step takes in f32), then one
-optimizer step. It returns the mean loss, the mean metrics and the
-optimizer's output.
+``build_train_step`` returns ``step(micro_batches, dropout_key)``: for
+each of the ``gradient_accumulation_steps`` micro-batches a forward and a
+backward of ``loss / gas``, the gradients added into f32 buffers (torch's
+bf16 ``.grad`` would round a sum that the JAX step takes in f32), then
+one optimizer step. It returns the mean loss, the mean metrics and the
+optimizer's output. Micro-batch ``i`` draws its dropout masks from the
+step's key folded with ``i`` (``nn.base_layer``), as the JAX step folds
+its key; the masks are a function of the key and each site's static id,
+so the recompute of ``every_layer`` draws the forward's masks again.
+Parameters of no optimizer group are frozen (``requires_grad`` off): no
+gradient is computed for them, as JAX's ``stop_gradient`` removes theirs.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..nn.base_layer import DropoutContext, MaskSource
 from ..optimizer import Optimizer, OptimizerStepOutput
 from ..topology import ActivationCheckpointingType, TopologyConfig
 
@@ -40,28 +46,52 @@ def jax_param_key(model: torch.nn.Module, name: str) -> str:
 
 def transposed_in_jax(name: str, ndim: int) -> bool:
     """Whether the parameter ``name`` (of either package) is stored
-    transposed by the JAX package: every matrix but the embedding table
-    (linears are ``(in, out)`` there, ``(out, in)`` here)."""
-    return ndim == 2 and not name.endswith("embedding.weight")
+    transposed by the JAX package: every matrix but the embedding table and
+    a soft prompt (linears, LoRA factors, adapters and the embedding head's
+    projections are ``(in, out)`` there, ``(out, in)`` here; the table and
+    the soft prompt are ``(rows, hidden)`` on both sides)."""
+    leaf = name.rsplit(".", 1)[-1]
+    return (ndim == 2 and not name.endswith("embedding.weight")
+            and not leaf.startswith("softprompt_"))
 
 
 # the linears the JAX package splits over the model axis by input
 # (RowParallelLinear); its other linears split by output (ColumnParallelLinear)
 _ROW_PARALLEL = ("dense", "dense_out", "down_proj")
+# the attention's own linears; any other child named ``{query,key,value,dense}_x``
+# of an attention is the LoRA ``x`` of that projection
+_ATTENTION_LINEARS = ("query_key_value", "query", "key", "value", "dense")
+_LORA_PARENT = re.compile(r"(query|key|value|dense)_.+")
 
 
 def jax_partition_spec(key: str, ndim: int) -> tuple:
     """The partition spec the JAX metas give the parameter ``key`` (its
     ``MESH.json`` record), over the JAX layout: the vocabulary axis of the
-    embedding, the output axis of a column-parallel linear and its bias,
-    the input axis of a row-parallel one; norms and row-parallel biases are
-    replicated."""
+    embedding, the output axis of a column-parallel linear and its bias
+    (``bias`` or BitFit's ``bias_{name}``), the input axis of a row-parallel
+    one; norms and row-parallel biases are replicated. A LoRA follows its
+    host: on ``dense`` ``lora_a`` splits by input and ``lora_b`` and the
+    bias are replicated; on query, key and value ``lora_a`` is replicated
+    and ``lora_b`` and the bias split by output. Adapters, soft prompts and
+    the embedding head's projections are replicated."""
     if key.endswith("embedding.weight"):
         return ("model", None)
-    module = key.rsplit(".", 2)[-2]
+    parts = key.split(".")
+    leaf, module = parts[-1], parts[-2]
+    if (len(parts) >= 3 and parts[-3] == "attention" and module not in _ATTENTION_LINEARS
+            and _LORA_PARENT.fullmatch(module)):
+        dense = module.startswith("dense_")
+        if leaf == "lora_a":
+            return ("model", None) if dense else (None, None)
+        if leaf == "lora_b":
+            return (None, None) if dense else (None, "model")
+        return (None,) if dense else ("model",)
+    if (module.startswith("adapter_") or leaf.startswith("softprompt_")
+            or re.fullmatch(r"proj_\d+_.+", leaf)):
+        return (None,) * ndim
     if ndim == 2:
         return ("model", None) if module in _ROW_PARALLEL else (None, "model")
-    linear_bias = key.endswith(".bias") and "norm" not in module
+    linear_bias = (leaf == "bias" or leaf.startswith("bias_")) and "norm" not in module
     return ("model",) if linear_bias and module not in _ROW_PARALLEL else (None,) * ndim
 
 
@@ -80,11 +110,18 @@ class ParallelModule:
     def remat(self) -> bool:
         return self.topology.activation_checkpointing_type == ActivationCheckpointingType.EVERY_LAYER
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The stack over ``batch``; returns ``{"activations": logits}``."""
+    def merge_lora_weights(self) -> None:
+        """Fold every layer's LoRA deltas into its base weights, in place."""
+        for layer in self.model.transformer_layers:
+            layer.merge_lora_weights()
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                ctx: Optional[DropoutContext] = None) -> Dict[str, torch.Tensor]:
+        """The stack over ``batch``; returns ``{"activations": logits}``,
+        with ``"embeddings"`` beside them when the model has an embedding
+        head. ``ctx``: the dropout context of a training pass, None for a
+        deterministic one."""
         m = self.model
-        if m.training:
-            m.architecture.check_trainable()
         tokens = batch["token_ids"]
         b, s = tokens.shape
         pos = batch.get("position_ids")
@@ -99,34 +136,47 @@ class ParallelModule:
                 return checkpoint(layer, *args, use_reentrant=False)
             return layer(*args)
 
-        h = run(m.embedding, tokens)
+        h = run(m.embedding, tokens, ctx)
         for layer in m.transformer_layers:
-            h = run(layer, h, pos, None, seg)
+            h = run(layer, h, pos, None, seg, None, None, False, ctx)
         h = run(m.final_norm, h)
-        return {"activations": run(m.lm_head, h)}
+        out = {"activations": run(m.lm_head, h)}
+        if m.embedding_head is not None:
+            out["embeddings"] = run(m.embedding_head, h, batch.get("loss_weights"))
+        return out
 
-    def build_train_step(self, optimizer: Optimizer, loss_function: Callable
-                         ) -> Callable[[Dict[str, torch.Tensor]],
-                                       Tuple[torch.Tensor, Dict[str, Any], OptimizerStepOutput]]:
-        """``step(micro_batches)``: leaves stacked ``(gas, micro_batch_size,
-        ...)``. Returns (mean loss, mean metrics, optimizer output)."""
+    def build_train_step(self, optimizer: Optimizer, loss_function: Callable,
+                         mask_source: Optional[MaskSource] = None
+                         ) -> Callable[..., Tuple[torch.Tensor, Dict[str, Any],
+                                                  OptimizerStepOutput]]:
+        """``step(micro_batches, dropout_key=None)``: leaves stacked ``(gas,
+        micro_batch_size, ...)``, ``dropout_key`` the step's
+        (``nn.base_layer.dropout_key``), which a model with dropout needs.
+        ``mask_source`` replaces the masks' draw (tests replay the JAX
+        package's masks through it). Returns (mean loss, mean metrics,
+        optimizer output)."""
         gas = self.topology.gradient_accumulation_steps
-        self.model.architecture.check_trainable()
+        has_dropout = self.model.architecture.has_dropout
         optimizer.freeze_frozen_params()
         params = [optimizer.params[n] for n in optimizer.optimized]
         buffers = [torch.empty_like(p, dtype=torch.float32) for p in params]
 
-        def step(micro_batches: Dict[str, torch.Tensor]):
+        def step(micro_batches: Dict[str, torch.Tensor], dropout_key: Optional[Tuple] = None):
+            if dropout_key is None and has_dropout:
+                raise ValueError("the model has dropout: the step needs its dropout key")
             self.model.train()
             loss_sum = torch.zeros((), dtype=torch.float32, device=buffers[0].device)
             metrics_sum: Dict[str, torch.Tensor] = {}
             for i in range(gas):
                 mb = {k: v[i] for k, v in micro_batches.items()}
+                ctx = (None if dropout_key is None
+                       else DropoutContext(dropout_key, mask_source).for_micro_batch(i))
                 for p in params:
                     p.grad = None
-                loss, metrics = loss_function(self.forward(mb), mb)
+                loss, metrics = loss_function(self.forward(mb, ctx), mb)
                 scaled = optimizer.scale_loss(loss.float() / gas)
-                scaled.backward()
+                if scaled.requires_grad:  # else no trained parameter reaches the loss
+                    scaled.backward()
                 grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
                 if i == 0:
                     torch._foreach_copy_(buffers, grads)

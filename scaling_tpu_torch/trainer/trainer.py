@@ -10,7 +10,11 @@ optimizer npz files, ``context.json``, ``config.yml``, ``MESH.json``,
 ``save_checkpoint_async`` the save takes its host copies and returns
 while one writer thread serialises, writes, commits and prunes.
 ``load_checkpoint`` takes the newest candidate that verifies (``latest``
-first), skipping corrupt ones unless ``strict_checkpoint_load``,
+first), skipping corrupt ones unless ``strict_checkpoint_load``, with
+``merge_lora_after_loading_checkpoint`` folds the LoRA deltas into the
+base weights after the load (the optimizer then starts afresh from the
+merged weights, as in the JAX trainer: the checkpoint's masters hold the
+unmerged ones),
 pre-flights the checkpoint's ``MESH.json`` against the model's global
 shapes, and warns when the checkpoint's ``config.yml`` reads to another
 config than the run's, where the JAX trainer warns that its config
@@ -32,6 +36,11 @@ broadcasts and obeys the preempt flag, and with several hosts meets the
 others at a ``step-N`` barrier; a save meets them at ``commit:step-N``
 before ``latest`` moves; a stall sets the stall flag beside a straggler
 table's verdict.
+
+Each step draws its dropout masks from the key ``(seed, "dropout",
+iteration)`` (``nn.base_layer.dropout_key``, the JAX trainer's
+``rng.key("dropout", iterations)``), so a resumed run draws the masks of
+the run it resumes.
 
 Micro-batches are stacked ``(gas, mbs, s)`` on the host, by a prefetch
 thread with ``dataloader_prefetch_factor`` > 0, and moved to the device
@@ -77,6 +86,7 @@ from ..checkpoint import (
 from ..context import BaseContext
 from ..data import DataLoader
 from ..logging.logger import logger
+from ..nn.base_layer import dropout_key
 from ..obs import StepTelemetry, derive_trace_id, span, trace_context
 from ..optimizer import Optimizer
 from ..parallel import ParallelModule
@@ -119,7 +129,6 @@ _CORRUPT_LOAD_ERRORS = (zipfile.BadZipFile, EOFError, OSError, CheckpointCorrupt
 # fields of the JAX TrainerConfig that are not ported: the values that
 # leave them off
 _NOT_PORTED = {
-    "merge_lora_after_loading_checkpoint": (False,),
     "checkpoint_backend": ("npz",),
 }
 # kept for config parity in the JAX package too: no effect there either
@@ -158,6 +167,7 @@ class TrainerConfig:
     # under a control plane: one checkpoint tree shared by every host, whose
     # ``latest`` host 0 alone moves; False: each host owns its pointer
     multihost_shared_save_dir: bool = False
+    merge_lora_after_loading_checkpoint: bool = False
 
     def __post_init__(self):
         if self.log_interval < 1 or self.io_retry_attempts < 1:
@@ -360,7 +370,8 @@ class BaseTrainer:
         t_data = time.time() - start
         # a dispatch span: it closes once the step's kernels are queued
         with span("step.fwdbwd", step=step_idx):
-            loss, metrics, opt_out = self._train_step(batch)
+            loss, metrics, opt_out = self._train_step(
+                batch, dropout_key(self.context.seed, self.context.iterations))
         if get_fault_plan().fire("step.nan_grads") == "nan":
             # a transient NaN burst for the non-finite policy: only the
             # observed loss is poisoned, the parameters stay clean
@@ -925,8 +936,13 @@ class BaseTrainer:
                               allowed_missing_keys=c.allowed_missing_keys_in_checkpoint,
                               allowed_unexpected_keys=c.allowed_unexpected_keys_in_checkpoint,
                               ignore_keys=c.ignore_keys_in_checkpoint)
+        if c.merge_lora_after_loading_checkpoint:
+            self.module.merge_lora_weights()
+            logger.info("merged LoRA deltas into base weights after load")
         self.optimizer_states_loaded = False
-        if c.load_optimizer_states:
+        # merged, the checkpoint's f32 masters would bring the unmerged
+        # weights and the LoRA's B back with the first step
+        if c.load_optimizer_states and not c.merge_lora_after_loading_checkpoint:
             try:
                 load_optimizer_checkpoint(step_dir, self.optimizer, self.module.ckpt_keys())
                 self.optimizer_states_loaded = True

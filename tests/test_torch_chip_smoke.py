@@ -553,3 +553,74 @@ def test_relaunch_check_tells_a_missing_epoch_start(relaunched, tmp_path, monkey
                         lambda run_dir: events(pristine / run_dir.name))
     with pytest.raises(AssertionError, match="obs report .* exited 1"):
         chip_smoke.check_relaunch(root, relaunched["gold"])
+
+
+
+def _toy_finetune(monkeypatch, tmp_path) -> dict:
+    """Phase 12's base at a size the CPU trains in seconds: an f32 model of
+    the toy's widths but hidden 64, one step of phase 8's config saved and
+    kept as phase 8 keeps its step-6 checkpoint; phase 12 cut to 4 steps
+    saving at 2, one probability-dropout step, 2 served requests of 8-24
+    prompt tokens, a 32-token merge row and a small dropout call."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import main
+    from scaling_tpu_torch.train import bench
+
+    _toy_trainer(monkeypatch)
+    monkeypatch.setitem(bench.MODELS, "tiny", dict(bench.MODELS["toy"], precision="float32",
+                                                   hidden_size=64))
+    for key, value in dict(model="tiny", seq=64, iterations=1, interval=1).items():
+        monkeypatch.setitem(chip_smoke.TRAINER, key, value)
+    for key, value in dict(iterations=4, interval=2, prob_steps=1, serve_requests=2,
+                           merge_tokens=32, dropout_shape=(2, 64, 64)).items():
+        monkeypatch.setitem(chip_smoke.FINETUNE, key, value)
+    monkeypatch.setitem(chip_smoke.WORKLOAD, "prompt_len", (8, 24))
+    monkeypatch.setitem(chip_smoke.WORKLOAD, "output_len", (3, 5))
+    prefixes = chip_smoke.write_token_datasets(tmp_path / "data", 512)
+    main(TransformerConfig.from_dict(chip_smoke.trainer_config(
+        prefixes, tmp_path / "logs", save_dir=tmp_path / "ckpt")), device="cpu")
+    chip_smoke.reset_logger()
+    base = chip_smoke.keep_base(tmp_path / "ckpt" / "global_step1", prefixes, tmp_path / "keep")
+    return {**base, "step_ms": 1.0, "peak_bytes": None}
+
+
+def test_finetune_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path):
+    """Phase 12's control flow on the CPU: the LoRA finetune from phase 8's
+    kept checkpoint (its optimizer files pruned, the checkpoint still
+    verifying; frozen leaves bitwise, B moved, the LoRA-only group), the
+    bitwise resume, remat's bitwise loss, probability dropout without the
+    flash path, the merge against the unmerged f32 model, serving against
+    ``generate``, and the dropout call. The card's launch checks stay
+    unchecked here."""
+    from scaling_tpu_torch.resilience import verify_checkpoint
+
+    base = _toy_finetune(monkeypatch, tmp_path)
+    step_dir = base["ckpt"] / "global_step1"
+    assert not list(step_dir.glob("optimizer_state_*")) and not verify_checkpoint(step_dir)
+    out = chip_smoke.finetune_phase(base, device="cpu")
+    text = capsys.readouterr().out
+    for line in ("frozen leaves bitwise equal to phase 8's checkpoint",
+                 "bitwise equal to (a)'s", "(c) dropout_attention_probs 0.1",
+                 "(d) merged on load", "(d) served 2 requests", "same mask: True"):
+        assert line in text, line
+    assert out["launches"] == {} and np.isfinite(out["step_ms"])
+
+
+def test_finetune_resume_tells_a_mask_drawn_from_a_running_counter(monkeypatch, tmp_path):
+    """Masks seeded from a call counter carried across calls (as JAX's key
+    counter, were it kept between steps) instead of the static site id:
+    the resumed run draws other masks than the run it resumes, and the
+    bitwise check fails."""
+    import scaling_tpu_torch.nn.base_layer as base_layer
+
+    base = _toy_finetune(monkeypatch, tmp_path)
+    calls = [0]
+    draw = base_layer.draw_mask
+
+    def counted(key, site, shape, keep, device):
+        calls[0] += 1
+        return draw(key, f"call{calls[0]}", shape, keep, device)
+
+    monkeypatch.setattr(base_layer, "draw_mask", counted)
+    with pytest.raises(AssertionError, match="resumed losses"):
+        chip_smoke.finetune_phase(base, device="cpu")

@@ -1,7 +1,8 @@
 """The port stands alone: it imports with JAX and the JAX package
 blocked, serves, takes a training step, trains from a token dataset,
-saves, resumes, serves, generates from and evaluates its checkpoint on
-the CPU when asked to, renders ``obs report``, and supervises a worker
+saves, resumes, serves, generates from and evaluates its checkpoint,
+LoRA-finetunes it with dropout, merges and serves the finetune on the CPU
+when asked to, renders ``obs report``, and supervises a worker
 (this file, run as the runner's script, is that worker); without a card,
 its entry points raise instead of moving to the CPU on their own."""
 
@@ -71,6 +72,24 @@ assert [len(o.completion_ids) for o in outs] == [4, 4] and outs[0].logits.shape[
 stats = evaluate(root / "ckpt", root / "tokens", batch_size=2, max_batches=2, device="cpu")
 assert stats["batches"] == 2 and stats["tokens"] > 0 and np.isfinite(stats["loss"])
 print("generate and evaluate: ok")
+
+# a LoRA finetune with dropout from that checkpoint, merged on load and served
+d = config(load_dir=str(root / "ckpt"), load_optimizer_states=False, load_context=False,
+           allowed_missing_keys_in_checkpoint=[".*_lora\\."],
+           save_dir=str(root / "lora")).to_dict()
+d["transformer_architecture"].update(lora_config={"name": "lora", "rank": 4, "dropout": 0.1},
+                                     dropout_embedding=0.1, dropout_after_mlp=0.1)
+d["training"] = {"finetune": True}
+tuned = trainer_main(TransformerConfig.from_dict(d), device="cpu")
+assert sorted(tuned.optimizer.optimized) == sorted(
+    n for n, _ in tuned.module.model.named_parameters() if "_lora." in n)
+d["trainer"].update(load_dir=str(root / "lora"), save_dir=None, train_iterations=0,
+                    merge_lora_after_loading_checkpoint=True)
+merged = trainer_main(TransformerConfig.from_dict(d), device="cpu")
+assert not merged.module.model.layers["layer_1"].attention.query_lora.lora_b.any()
+lora = TransformerInferenceModule.from_checkpoint(root / "lora", device="cpu")
+assert len(lora.generate([1, 2, 3], max_tokens=3).completion_ids) == 3
+print("finetune: LoRA with dropout trained, merged and served")
 sys.exit(rc)
 """
 
@@ -85,6 +104,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert "losses: first=" in proc.stdout and "mfu: not measured" in proc.stdout
     assert "trainer: resumed at 2, served the checkpoint" in proc.stdout
     assert "generate and evaluate: ok" in proc.stdout
+    assert "finetune: LoRA with dropout trained, merged and served" in proc.stdout
 
 
 BLOCKED_REPORT = r"""
@@ -207,7 +227,7 @@ def test_config_raises_on_keys_it_does_not_support():
         TransformerArchitectureConfig.from_dict({**base, "hidden_sizee": 3})
     with pytest.raises(ValueError, match="unknown"):
         TransformerArchitectureConfig.from_dict({**base, "layernorm": {"foo": 1}})
-    for key, value in (("lora_config", {"name": "x"}), ("mlp_type", "moe"),
+    for key, value in (("image_encoder", True), ("mlp_type", "moe"),
                        ("mup", {"base_hidden_size": 64})):
         with pytest.raises(NotImplementedError, match=key):
             TransformerArchitectureConfig.from_dict({**base, key: value})

@@ -446,3 +446,60 @@ def test_bf16_generate_prefill_runs_k4_on_the_card(card):
     per_step = inf.generate(prompts, max_tokens=16, fused_decode=False)
     assert [o.completion_ids for o in fused] == [o.completion_ids for o in per_step]
     assert all(len(o.completion_ids) == 16 for o in fused)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dropout_draws_on_the_card(card, dtype):
+    """A CUDA tensor's mask is drawn on the card by a generator there: the
+    result stays on the card in x's dtype, the kept values are x / keep,
+    the zero share within 5 sigma of the rate, and the same (key, site)
+    gives the same mask, another site another."""
+    from scaling_tpu_torch.nn.base_layer import DropoutContext, dropout_key
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    x = torch.randn(4, 512, 512, generator=gen, device=card).to(dtype)
+    ctx = DropoutContext(dropout_key(0, 3)).for_micro_batch(1)
+    y = ctx.dropout(x, 0.1, "layer_1.after_mlp")
+    assert y.device == x.device and y.dtype == dtype
+    kept = y != 0
+    assert torch.equal(y[kept], (x / 0.9)[kept])
+    share = 1.0 - kept.float().mean().item()
+    assert abs(share - 0.1) <= 5 * (0.1 * 0.9 / x.numel()) ** 0.5
+    assert torch.equal(y, ctx.dropout(x, 0.1, "layer_1.after_mlp"))
+    assert not torch.equal(y, ctx.dropout(x, 0.1, "layer_2.after_mlp"))
+
+
+def test_lora_finetune_step_with_dropout_on_the_card(card):
+    """A bf16 LoRA finetune step of the toy with dropout on the card: the
+    flash and RMSNorm kernels run, no plain version; of all the leaves the
+    LoRA B factors alone move (A's gradient is 0 while B is)."""
+    from scaling_tpu_torch.models.transformer import loss_function
+    from scaling_tpu_torch.models.transformer.config import TransformerConfig
+    from scaling_tpu_torch.models.transformer.model import init_model, init_optimizer
+    from scaling_tpu_torch.nn.base_layer import dropout_key
+    from scaling_tpu_torch.serve.bench import MODELS
+
+    arch = dict(MODELS["toy"], precision="bfloat16", sequence_length=128,
+                masked_softmax={"kernel": "flash_attention"},
+                lora_config={"name": "lora", "rank": 8, "dropout": 0.05},
+                dropout_embedding=0.1, dropout_after_attention=0.1, dropout_after_mlp=0.1)
+    config = TransformerConfig.from_dict({
+        "topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1},
+        "transformer_architecture": arch,
+        "training": {"finetune": True}, "trainer": {"seed": 0},
+        "learning_rate_scheduler": {"learning_rate": 1e-3}})
+    module = init_model(config, device=card)
+    before = {k: v.clone() for k, v in module.model.state_dict().items()}
+    optimizer = init_optimizer(config, module.model)
+    step = module.build_train_step(optimizer, loss_function)
+    tokens = torch.randint(1, 512, (1, 2, 129), device=card)
+    batch = {"token_ids": tokens[..., :-1], "target_token_ids": tokens[..., 1:]}
+    launches.reset()
+    loss = step(batch, dropout_key(0, 0))[0]
+    assert torch.isfinite(loss)
+    for k in ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd"):
+        assert launches.KERNEL[k] > 0, k
+    assert sum(launches.PLAIN.values()) == 0
+    for k, v in module.model.state_dict().items():
+        assert torch.equal(v, before[k]) != k.endswith("lora_b"), k

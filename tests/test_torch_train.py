@@ -275,24 +275,38 @@ def test_head_dim_96_trains_unfused_and_matches_jax():
 
 
 def test_dropout_raises_in_training_and_still_serves():
-    """A dropout rate above 0 is refused on the training path (dropout is
-    not ported) and accepted for serving, which has no dropout."""
+    """A dropout rate above 0 trains: the step without its dropout key
+    raises (a model with dropout never trains without masks), with it the
+    loss differs from the deterministic forward's and the same key gives
+    the same loss again; serving stays deterministic (two eval forwards
+    equal)."""
     from scaling_tpu_torch.models.transformer import TransformerArchitectureConfig
     from scaling_tpu_torch.models.transformer.inference import TransformerInferenceModule
+    from scaling_tpu_torch.nn.base_layer import dropout_key
 
     cfg = config_dict(*RUNS["plain"])
     cfg["transformer_architecture"] = dict(ARCH, dropout_after_mlp=0.1)
     config = TransformerConfig.from_dict(cfg)
-    model = TransformerModel(config.transformer_architecture).init_random_(0)
-    module = ParallelModule(model, config.topology)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        module.build_train_step(init_optimizer(config, model), loss_function)
-    model.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        module.forward(torch_batch({k: v[0] for k, v in batches(4, 1)[0].items()}))
+    batch = torch_batch(batches(4, 1)[0])
+    mb = {k: v[0] for k, v in batch.items()}
+    losses = []
+    for _ in range(2):
+        model = TransformerModel(config.transformer_architecture).init_random_(0)
+        module = ParallelModule(model, config.topology)
+        step = module.build_train_step(init_optimizer(config, model), loss_function)
+        if not losses:
+            with pytest.raises(ValueError, match="dropout key"):
+                step(batch)
+            model.eval()
+            with torch.no_grad():
+                clean = float(loss_function(module.forward(mb), mb)[0])
+        losses.append(float(step(batch, dropout_key(0, 0))[0]))
+    assert losses[0] == losses[1] and losses[0] != clean
     arch = TransformerArchitectureConfig.from_dict(cfg["transformer_architecture"])
     inf = TransformerInferenceModule.random_init(arch, seed=0, device="cpu")
-    assert inf.architecture.dropout_after_mlp == 0.1  # serving builds and runs eval-only
+    assert inf.architecture.dropout_after_mlp == 0.1
+    tokens = mb["token_ids"][:2]
+    assert torch.equal(inf.logits(tokens), inf.logits(tokens))
 
 
 def test_config_reads_training_sections_and_refuses_what_is_not_ported():
@@ -308,8 +322,7 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
                        "activation_checkpointing_type": "every_pipe_stage"}},
          NotImplementedError),
         ({"optimizer": {"zero": True}}, NotImplementedError),
-        ({"training": {"finetune": True}}, NotImplementedError),
-        ({"training": {"use_separate_lr_on_embeddings": True}}, NotImplementedError),
+        ({"training": {"use_separate_lr_on_embedding": True}}, ValueError),
         ({"trainer": {"seed": 0, "checkpoint_backend": "orbax"}}, NotImplementedError),
         ({"optimizer": {"betaa": 0.9}}, ValueError),
         ({"surprise": {}}, ValueError),
@@ -317,7 +330,16 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
     for patch, exc in bad:
         with pytest.raises(exc):
             TransformerConfig.from_dict({**config_dict(2, 1, "disabled"), **patch})
-    lora = dict(ARCH, lora_config={"name": "lo", "rank": 4})
+    # the finetuning keys are read (the misspelled alias too), LoRA builds,
+    # muP stays refused
+    config = TransformerConfig.from_dict({
+        **config_dict(2, 1, "disabled"),
+        "training": {"finetune": True, "finetunable_parameters": ["norm"],
+                     "use_seperate_lr_on_embeddings": True},
+        "transformer_architecture": dict(ARCH, lora_config={"name": "lo", "rank": 4})})
+    assert config.training.finetune and config.training.finetunable_parameters == ("norm",)
+    assert config.training.use_separate_lr_on_embeddings
+    assert config.transformer_architecture.lora_config.rank == 4
     with pytest.raises(NotImplementedError):
-        TransformerConfig.from_dict({**config_dict(2, 1, "disabled"),
-                                     "transformer_architecture": lora})
+        TransformerConfig.from_dict({**config_dict(2, 1, "disabled"), "transformer_architecture":
+                                     dict(ARCH, mup={"base_hidden_size": 64})})

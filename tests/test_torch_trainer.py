@@ -201,11 +201,7 @@ def test_train_run_entry_point(data, tmp_path):
 
 REFUSED = [
     ("trainer", "checkpoint_backend", "orbax"),
-    ("trainer", "merge_lora_after_loading_checkpoint", True),
     ("data", "legacy_dataset", True),
-    ("data", "finetuning_dataset", True),
-    ("data", "finetuning_chat_dataset", True),
-    ("data", "finetuning_dataset_memory_map", True),
     ("logger", "use_wandb", True),
 ]
 
@@ -267,6 +263,108 @@ def test_observability_keys_are_accepted_and_take_effect(data, tmp_path, monkeyp
             e.get("span") for e in spans}
     else:
         assert [o["step"] for o in json.loads((tmp_path / "p.json").read_text())] == [1, 2]
+
+
+# refused until the finetuning slice was ported; each now takes effect in a run
+FINETUNE_ACCEPTED = [
+    ("trainer", "merge_lora_after_loading_checkpoint", True),
+    ("data", "finetuning_dataset", True),
+    ("data", "finetuning_chat_dataset", True),
+    ("data", "finetuning_dataset_memory_map", True),
+]
+LORA = {"name": "lora", "rank": 4, "alpha": 8}
+
+
+def finetuning_files(root: Path) -> dict:
+    """The byte-level tokenizer's vocab, a prompt/completion jsonl, its
+    memory map (``[len_prompt, prompt..., completion...]`` records) and a
+    chat jsonl, from seed 0."""
+    from scaling_tpu_torch.models.transformer.tokenizer import Tokenizer
+
+    tok = Tokenizer.default()
+    vocab = root / "vocab.json"
+    vocab.write_text(tok.tokenizer.to_str())
+    rng = np.random.default_rng(0)
+    words = ["sky", "blue", "grass", "green", "cat", "four", "bee", "honey"]
+    pairs = [(" ".join(rng.choice(words, 3)), " " + str(rng.choice(words))) for _ in range(12)]
+    (root / "text.jsonl").write_text("\n".join(
+        json.dumps({"prompt": p, "completion": c}) for p, c in pairs))
+    with MemoryMapDatasetBuilder(root / "text_mmap", dtype=np.uint16) as builder:
+        for p, c in pairs:
+            ids = tok.encode(p)
+            builder.add(np.array([len(ids)] + ids + tok.encode(c), dtype=np.uint16))
+    (root / "chat.jsonl").write_text("\n".join(json.dumps([
+        {"type": "text", "content": f"Q: {p}\nA:", "has_loss": False},
+        {"type": "text", "content": f"{c}<|endoftext|>", "has_loss": True}]) for p, c in pairs))
+    return {"vocab": str(vocab), "text": str(root / "text.jsonl"),
+            "text_mmap": str(root / "text_mmap"), "chat": str(root / "chat.jsonl")}
+
+
+@pytest.mark.parametrize("section,key,value", FINETUNE_ACCEPTED,
+                         ids=[f"{s}.{k}" for s, k, _ in FINETUNE_ACCEPTED])
+def test_finetuning_keys_are_accepted_and_take_effect(data, tmp_path, section, key, value):
+    """The finetuning datasets feed a LoRA finetune (the trainer reads the
+    dataset the key names, its loss weights mask the prompt); the LoRA
+    merge folds a trained LoRA checkpoint into the base weights on load:
+    ``B`` zero, the logits those of the unmerged model (atol 1e-5, f32),
+    the optimizer fresh from the merged weights."""
+    from scaling_tpu_torch.models.transformer.data import (
+        FinetuningChatDataset,
+        FinetuningTextDataset,
+    )
+
+    cfg = config_dict(data, tmp_path, train_iterations=3)
+    cfg["transformer_architecture"] = dict(ARCH, lora_config=LORA)
+    cfg["training"] = {"finetune": True}
+    if section == "data":
+        files = finetuning_files(tmp_path)
+        cfg["transformer_architecture"].update(vocab_size=257, vocab_file=files["vocab"])
+        prefix = {"finetuning_dataset": "text", "finetuning_chat_dataset": "chat",
+                  "finetuning_dataset_memory_map": "text_mmap"}[key]
+        cfg["data"] = {key: value, "data_prefixes": [files[prefix]]}
+        if key == "finetuning_dataset_memory_map":
+            cfg["data"]["finetuning_dataset"] = True
+        cfg["trainer"].update(eval_interval=None, save_dir=None)
+    trainer = main(TransformerConfig.from_dict(cfg), device="cpu")
+    losses = list(losses_by_step(records(tmp_path / "logs")).values())
+    assert len(losses) == 3 and np.all(np.isfinite(losses))
+    if section == "data":
+        assert getattr(trainer.context.config.data, key) == value
+        expected = FinetuningChatDataset if key == "finetuning_chat_dataset" else \
+            FinetuningTextDataset
+        assert isinstance(trainer.dataset, expected)
+        assert trainer.dataset.memory_map_dataset == (key == "finetuning_dataset_memory_map") \
+            if expected is FinetuningTextDataset else True
+        item = trainer.dataset[0]
+        assert item.loss_weights[0] == 0 and item.loss_weights.sum() > 0
+        return
+    model = trainer.module.model
+    lora_b = model.layers["layer_1"].attention.query_lora.lora_b
+    assert lora_b.abs().sum() > 0  # the finetune moved B
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(1, 96, size=(2, 16)))
+    model.eval()
+    with torch.no_grad():
+        unmerged = model.layers["layer_4"](model.layers["layer_3"](model.layers["layer_2"](
+            model.layers["layer_1"](model.embedding(tokens), torch.arange(16)[None]),
+            torch.arange(16)[None])))
+    cfg["trainer"].update(load_dir=cfg["trainer"]["save_dir"], save_dir=None, **{key: value})
+    merged = build_trainer(TransformerConfig.from_dict(cfg), device="cpu")
+    assert merged.config.merge_lora_after_loading_checkpoint
+    assert not merged.optimizer_states_loaded
+    m = merged.module.model
+    for layer in m.transformer_layers:
+        for name in ("query_lora", "key_lora", "value_lora", "dense_lora"):
+            assert not getattr(layer.attention, name).lora_b.any()
+    assert not torch.equal(m.layers["layer_1"].attention.query.weight,
+                           model.layers["layer_1"].attention.query.weight)
+    for n, t in merged.optimizer.state.master.items():
+        assert torch.equal(t, dict(m.named_parameters())[n].float()), n
+    m.eval()
+    with torch.no_grad():
+        out = m.layers["layer_4"](m.layers["layer_3"](m.layers["layer_2"](
+            m.layers["layer_1"](m.embedding(tokens), torch.arange(16)[None]),
+            torch.arange(16)[None])))
+    np.testing.assert_allclose(out.numpy(), unmerged.numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("section", ["trainer", "data", "logger", "profiler"])
