@@ -13,9 +13,12 @@ Phases, each of which must pass:
    fails;
 3. hold each kernel against its plain PyTorch version on the same inputs
    at the shapes its path gives it, and print the max error beside the
-   tolerance: K1 (native and int8) at the serving tick's shape and on one
-   row of 2048 slots, each also repeated, which must give the same bits;
-   K2 at serving shapes; K3 (RMSNorm backward) at the
+   tolerance: K1 (native and int8) at the serving tick's shape, on one
+   row of 2048 slots and on the separate decode forward's 16 rows at
+   s = 1 (contexts up to 2047), each also repeated, which must give the
+   same bits; K2 at serving shapes; K4 in whole-prompt prefills of one
+   row at buckets 128 and 1024, the pads in segment 1; K3 (RMSNorm
+   backward) at the
    training rows and an odd row count; K4 and K5 (flash attention forward
    and backward) at the training shape, unsegmented, with 3 packed
    documents, and with 4 local heads of window 256. K5's gradients and
@@ -54,7 +57,8 @@ Phases, each of which must pass:
    computes the same function, that call: device time from
    ``torch.profiler``, and the per-call time with CUDA events;
 8. the Trainer (``models/transformer/train.py:main``) trains the same
-   model at full width and depth from token datasets the port's builder
+   model at full width, cut to 4 of its 8 layers (as are phases 9-12 and
+   10 (a)), from token datasets the port's builder
    writes from seed 0 (two blended prefixes of ~2M tokens, documents of
    64-4096 tokens, and a ~64k-token validation prefix), micro-batch 4,
    seq 2048, 6 iterations saving and evaluating at 3 and 6: losses finite,
@@ -71,7 +75,7 @@ Phases, each of which must pass:
    trainer's step-6 eval loss, launching K2 and K4 and no plain version;
    K1-K5 launched
    and no plain version run; print the steady
-   step ms beside phase 5's, and checkpoint save and load seconds, GB/s
+   step ms beside phase 5's (8 layers), and checkpoint save and load seconds, GB/s
    and size. The checkpoints go to a temporary directory outside the
    checkout, removed at the end;
 9. supervision: the same training, from the same seed and token
@@ -175,6 +179,29 @@ Phases, each of which must pass:
    plain version; (e) one dropout of a (4, 2048, 2048) bf16 tensor at 0.1:
    the zero share within 5 sigma, the kept values x / 0.9 in bf16, the
    same mask for the same site and step and another for another step;
+13. serving modes and resilience, on phase 4's model: (a) spec_k 4 and
+   spec off on phase 4's arrivals with prompts of a random 16-64-token
+   segment repeated to 128-1024 tokens: every request its token count,
+   K1 and K2 launched, no plain version, drafts accepted, greedy tokens
+   equal or parting first at a near tie; then phase 4's engine again on
+   its traffic, the run the next three are held against (tokens, and
+   tokens/s, TTFT and ms a tick as ratios within this call): spec_k 4 on
+   that traffic; (b) whole-prompt prefill: K4, K1 and K2, one 1000-token
+   prompt's first-token logits within 0.05 of max |logit| of the f32 CPU
+   forward; (c) ``fused_tick=False``: K1 at s = 1 and at the chunk, ms
+   and launches a tick; (d) ``serve bench`` children at
+   phase 4's traffic: a wedged tick (``serve.tick=hang@40``, the watchdog
+   at 5x the longest tick measured and 10 s at least, ``--restarts 1``),
+   a SIGTERM drain (arrivals at 8 req/s) and an overload run (4x the
+   rate, ``--max-waiting 4``, a TTFT deadline of half phase 4's p50) side
+   by side, then the crash replay (``serve.tick=kill@40``, ``--restarts
+   2``) alone: exit codes, journals whose completed + shed + timeout
+   requests are every offered one, the crash's tokens against phase 10's
+   fault-free bench (equal or a near tie), the relaunch's free memory
+   within 1 GiB of the first child's, each exiting child's launch
+   counters (from its stats), ``obs report`` gates and counts, and the
+   time to recover split into detection, process start, model build,
+   replay and the first token;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -215,6 +242,13 @@ BF16_FLOPS_PER_S = 989e12
 K1_ROWS, K1_S, K1_HEADS, K1_KV_HEADS, K1_HEAD_DIM = 16, 32, 16, 4, 128
 K1_NUM_BLOCKS, K1_BLOCK_SIZE, K1_MAX_BLOCKS = 1024, 16, 128
 K1_LONG_ROW = ((2048 - 32, 32),)  # one row: a 32-token chunk ending the 2048-slot window
+# the separate decode forward's 16 rows at s = 1: an idle slot, a first
+# decode, one at the 2048-slot window's end and 13 contexts of 1-2046
+K1_DECODE_ROWS = ((0, 0), (0, 1), (2047, 1)) + tuple(
+    (int(c), 1) for c in np.random.default_rng(5).integers(1, 2047, size=13))
+# K4 in whole-prompt prefill: (bucket, prompt length), the bucket's pads in
+# segment 1; the smallest bucket that launches K4 and phase 13's 1000-token prompt's
+K4_PREFILLS = ((128, 100), (1024, 1000))
 K2_SHAPES = ((512, 2048), (333, 2048))
 KERNEL_TOL = 1e-2  # atol and rtol: bf16 outputs, one rounding apart
 TICK_TOL = 0.05    # max |logit error| / max |logit|: bf16 through 8 layers vs f32
@@ -234,8 +268,13 @@ LSE_TOL = 1e-3          # atol: f32 from the same bf16 products
 FLASH_GRAD_TOL = 2e-2   # max |err| / max |ref|: P and dS enter the products as bf16
 K3_DW_TOL = 1e-2        # max |err| / max |ref|: a bf16 dw summed over 8192 rows
 TRAIN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through 8 layers vs f32
-# the Trainer: token datasets from seed 0, 6 iterations saving and evaluating at 3
-TRAINER = dict(model="0.5b", seq=TRAIN_SEQ, mbs=TRAIN_MBS, tokens=2_000_000,
+# the Trainer: token datasets from seed 0, 6 iterations saving and evaluating at 3;
+# phases 8-12 cut the model to 4 of its layers at full width, to keep the
+# script's checkpoint I/O (~0.3 GB/s on an H100 host) inside its time limit
+# the 0.5B model's parameters (495,110,144 at 8 layers): its embedding with
+# its untied head, and one layer
+PARAMS_05B = dict(embedding_and_head=134_217_728, layer=45_111_552)
+TRAINER = dict(model="0.5b", layers=4, seq=TRAIN_SEQ, mbs=TRAIN_MBS, tokens=2_000_000,
                valid_tokens=64_000, doc_len=(64, 4096), iterations=6, interval=3,
                eval_iterations=2, serve_requests=4, serve_prompt=(64, 256), serve_output=32)
 RESUME_RTOL = 1e-4  # steps 5-6 after the resume: the embedding backward adds with atomics
@@ -247,9 +286,10 @@ SUPERVISE = dict(keys={"save_checkpoint_async": True, "dataloader_prefetch_facto
                  sigterm_after=4, pause_s=0.3, child_timeout_s=420)
 # phase 11: phase 8's run under the supervisor, its SIGTERM once epoch 2's
 # step-5 record is written. The timeouts are at least twice what they budget
-# on an H100 (this phase's own prints): a worker's longest gap between two
-# heartbeats, a synchronous save with its eval, 30.0-30.8 s; its start to
-# its first heartbeat, a verified load of 25.5-30.2 s with it, 8.2-39.5 s
+# on an H100 (this phase's own prints; at 8 layers they were 30.8 s and
+# 39.5 s): a worker's longest gap between two heartbeats, a synchronous
+# save with its eval, 17.3 s; its start to its first heartbeat, a verified
+# load of 15.5-17.8 s with it, 8.0-29.4 s
 RELAUNCH = dict(faults="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1", drain_after=5,
                 runner={"heartbeat_timeout_seconds": 75.0, "startup_grace_seconds": 100.0,
                         "restart_budget": 2, "restart_backoff_seconds": 1.0,
@@ -279,6 +319,14 @@ OBSERVE = dict(iterations=5, profile=(2, 2), span_reps=200, telemetry_reps=50,
 MFU_RTOL = 1e-6  # the telemetry's mfu vs the record's palm_mfu: one formula, two roundings
 # where the reports, too long for the log, are kept; unset: nowhere
 KEEP_DIR = os.environ.get("CHIP_SMOKE_REPORTS")
+# phase 13: spec_k 4 on prompts of a 16-64-token segment repeated to 128-1024
+# tokens; the fault drills' tick; the overload run at 4x phase 4's rate with a
+# queue cap of 4; the watchdog at 5x the longest tick measured, 10 s at least;
+# the drain's arrivals at 8 req/s (at 64 they all arrive before a request can
+# complete its 64 tokens, and a drain would find nothing left to refuse)
+MODES = dict(spec_k=4, segment=(16, 64), seed=1, first_token_prompt=1000, fault_tick=40,
+             overload_x=4, max_waiting=4, min_tick_timeout_s=10.0, child_timeout_s=300,
+             free_tol=1 << 30, drain_rate=8.0)
 # the bench 0.5B model in the JAX default architecture: its widths, other keys
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
@@ -293,16 +341,16 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- inputs
-def k1_inputs(gen: torch.Generator, quantized: bool, dev, contexts=None):
+def k1_inputs(gen: torch.Generator, quantized: bool, dev, contexts=None, s: int = K1_S):
     """Serving-shaped K1 operands: one mixed tick of 16 rows of width 32
     over a 1024-block pool, rows of every kind (idle, fresh decode, a
     short chunk, decode and chunk at the full 2048-slot context); or, with
-    ``contexts``, one row per (context, new tokens) pair."""
+    ``contexts``, one row of width ``s`` per (context, new tokens) pair."""
     from scaling_tpu_torch.nn.attention import kv_quantize_int8
 
     rows = K1_ROWS if contexts is None else len(contexts)
     pool_shape = (K1_NUM_BLOCKS, K1_BLOCK_SIZE, K1_KV_HEADS, K1_HEAD_DIM)
-    q = torch.randn(rows, K1_S, K1_HEADS, K1_HEAD_DIM, generator=gen, device=dev)
+    q = torch.randn(rows, s, K1_HEADS, K1_HEAD_DIM, generator=gen, device=dev)
     pk = torch.randn(pool_shape, generator=gen, device=dev)
     pv = torch.randn(pool_shape, generator=gen, device=dev)
     if contexts is None:
@@ -401,9 +449,10 @@ def time_ms(fn, reps: int = 20) -> tuple:
     """(device ms, launch ms) of one call of ``fn``. Device ms: the sum of
     the CUDA kernels and copies the call runs, from ``torch.profiler``
     (CUPTI), averaged over ``reps`` calls. The profiler now and then
-    hands back no device events; it is asked up to 3 times, and only then
-    do CUDA events around ``reps`` back-to-back calls stand in, which for
-    a kernel shorter than its launch measure the host (a line says so).
+    hands back no device events, or only some; it is asked up to 3 times,
+    and only then do CUDA events around ``reps`` back-to-back calls stand
+    in, which for a kernel shorter than its launch measure the host (a
+    line says so).
     Launch ms: CUDA events around one call at a time (median), which for a
     small kernel is the host's launch cost, not the kernel's."""
     for _ in range(3):
@@ -421,7 +470,7 @@ def time_ms(fn, reps: int = 20) -> tuple:
     parts = device_ms_by_kernel(fn, reps)
     if parts:
         return sum(parts.values()), launch_ms
-    print("  (the profiler saw no device time: CUDA events around back-to-back calls)")
+    print("  (the profiler missed device events: CUDA events around back-to-back calls)")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -433,26 +482,48 @@ def time_ms(fn, reps: int = 20) -> tuple:
 
 def device_ms_by_kernel(fn, reps: int = 20) -> dict:
     """Device ms one call of ``fn`` spends in each CUDA kernel or copy it
-    runs, by short name (``torch.profiler``, CUPTI, over ``reps`` calls).
-    The profiler now and then hands back no device events: it is asked up
-    to 3 times, and the result is empty if it never saw any."""
-    from torch.profiler import ProfilerActivity, profile
+    runs, by short name (``torch.profiler``, CUPTI, over ``reps`` calls
+    after ``reps`` traced and dropped: a window's first calls lose device
+    events, and on an H100 a window without that step saw 15-19 of 20
+    launches of each kernel). The profiler now and then hands back no
+    device events, or only some of them: it is asked up to 3 times, and
+    the result is empty if it never saw every call's."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0) or 0
-            if us > 0:
-                short = re.search(r"(\w+_kernel)", e.key)
-                name = short.group(1) if short else e.key[:40]
-                by_name[name] = by_name.get(name, 0.0) + us / reps / 1e3
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        by_name = kernel_ms(prof.key_averages(), reps)
         if by_name:
             return by_name
     return {}
+
+
+def kernel_ms(averages, reps: int) -> dict:
+    """Device ms a call by kernel or copy short name, from ``key_averages()``
+    over ``reps`` calls; empty when the events seen fewer than ``reps``
+    times hold more than a tenth of the device time, the mark of a profile
+    that dropped device events (on an H100 such a profile read K4 at 41 %
+    of its time, above the card's peak rate). Each refusal prints the
+    short-counted events."""
+    by_name, launches = {}, Counter()
+    for e in averages:
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0:
+            short = re.search(r"(\w+_kernel)", e.key)
+            name = short.group(1) if short else e.key[:40]
+            by_name[name] = by_name.get(name, 0.0) + us / reps / 1e3
+            launches[name] += e.count
+    short = {n: launches[n] for n in by_name if launches[n] < reps}
+    if sum(by_name[n] for n in short) > 0.1 * sum(by_name.values()):
+        print(f"  (a profile of {reps} calls saw these events fewer times: {short})")
+        return {}
+    return by_name
 
 
 # ---------------------------------------------------------------- phases
@@ -519,19 +590,30 @@ def kernel_resources(log: str) -> list:
     return rows
 
 
-def check_kernels() -> dict:
-    """Each kernel against its plain version at serving shapes."""
-    from scaling_tpu_torch.ops import paged_attention, paged_attention_plain
-    from scaling_tpu_torch.ops import rms_norm, rms_norm_plain
+def check_kernels(device: str = "cuda") -> dict:
+    """Each kernel against its plain version at serving shapes: K1 in the
+    mixed tick, on one 2048-slot row and in the separate decode forward's
+    rows at s = 1; K2; K4 in whole-prompt prefills. On the CPU each wrapper
+    runs its plain version, which checks the cases' inputs alone."""
+    from scaling_tpu_torch.ops import (
+        flash_attention_fwd,
+        flash_attention_plain,
+        paged_attention,
+        paged_attention_plain,
+        rms_norm,
+        rms_norm_plain,
+    )
 
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     errs = {}
     for name, quantized in (("paged_attention", False), ("paged_attention_int8", True)):
         errs[name] = 0.0
-        for case, contexts in (("serving tick", None), ("one 2048-slot row", K1_LONG_ROW)):
-            args, kw = k1_inputs(gen, quantized, dev, contexts)
+        for case, contexts, s in (("serving tick", None, K1_S),
+                                  ("one 2048-slot row", K1_LONG_ROW, K1_S),
+                                  ("decode rows at s = 1", K1_DECODE_ROWS, 1)):
+            args, kw = k1_inputs(gen, quantized, dev, contexts, s)
             out = paged_attention(*args, **kw)
             again = paged_attention(*args, **kw)
             ref = paged_attention_plain(*args, **kw)
@@ -559,6 +641,20 @@ def check_kernels() -> dict:
                                    rtol=KERNEL_TOL)
     errs["rms_norm"] = err
     print(f"  rms_norm {K2_SHAPES}: max_abs_err={err:.3e} (atol=rtol={KERNEL_TOL})")
+    errs["flash_attention_fwd"] = 0.0
+    for bucket, prompt_len in K4_PREFILLS:
+        q, k, v, seg = prefill_inputs(gen, bucket, prompt_len, dev)
+        out, lse = flash_attention_fwd(q, k, v, seg)
+        ref, ref_lse = flash_attention_plain(q, k, v, seg)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], err)
+        print(f"  flash_attention_fwd whole-prompt prefill, bucket {bucket} ({prompt_len} "
+              f"tokens, {bucket - prompt_len} pads in segment 1): out max_abs_err={err:.3e} "
+              f"(atol=rtol={KERNEL_TOL}) lse max_abs_err={lse_err:.3e} (atol {LSE_TOL})")
+        torch.testing.assert_close(out.float(), ref.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
+        torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
     return errs
 
 
@@ -572,6 +668,18 @@ def flash_inputs(gen, documents: int, dev):
     seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
     for cut in sorted(torch.randint(1, s, (documents - 1,), generator=gen, device=dev).tolist()):
         seg[:, cut:] += 1
+    return q, k, v, seg
+
+
+def prefill_inputs(gen, bucket: int, prompt_len: int, dev):
+    """K4's operands in one whole-prompt prefill of the serving model: one
+    row of the bucket's width, q already scaled, the prompt in segment 0
+    and the bucket's pads in segment 1."""
+    n, n_kv, d = (FLASH_SHAPE[k] for k in ("n", "n_kv", "d"))
+    q = (torch.randn(1, bucket, n, d, generator=gen, device=dev) * d ** -0.5).bfloat16()
+    k = torch.randn(1, bucket, n_kv, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(1, bucket, n_kv, d, generator=gen, device=dev).bfloat16()
+    seg = (torch.arange(bucket, device=dev) >= prompt_len).to(torch.int32)[None]
     return q, k, v, seg
 
 
@@ -784,6 +892,7 @@ def serve(kv_dtype: str) -> dict:
         seq = finished.get(i + 1)  # id 0 was the warm-up request
         if seq is None or len(seq.generated) != olen or seq.finish_status != "completed":
             raise AssertionError(f"{kv_dtype}: request {i} did not complete {olen} tokens")
+    stats["tokens"] = {i: list(finished[i + 1].generated) for i in range(len(work))}
     paged = "paged_attention_int8" if kv_dtype == "int8" else "paged_attention"
     if kernel.get(paged, 0) <= 0 or kernel.get("rms_norm", 0) <= 0:
         raise AssertionError(f"{kv_dtype}: kernels not launched on the main path: {kernel}")
@@ -1192,17 +1301,35 @@ def write_token_datasets(root: Path, vocab: int) -> dict:
     return prefixes
 
 
+def trainer_arch() -> dict:
+    """The trainer phases' model: phase 5's at its widths, cut to at most
+    TRAINER["layers"] layers."""
+    from scaling_tpu_torch.train.bench import MODELS
+
+    arch = MODELS[TRAINER["model"]]
+    return dict(arch, sequence_length=TRAINER["seq"],
+                num_layers=min(arch["num_layers"], TRAINER["layers"]))
+
+
+def checkpoint_need(n: int) -> int:
+    """Disk for ``n`` checkpoints of the trainer phases' model: 4 bytes a
+    parameter for the weights and 12 for the optimizer, and 1 GiB more."""
+    if TRAINER["model"] != "0.5b":
+        return 1 << 30
+    params = PARAMS_05B["embedding_and_head"] + trainer_arch()["num_layers"] * PARAMS_05B["layer"]
+    return n * 16 * params + (1 << 30)
+
+
 def trainer_config(prefixes: dict, log_dir: Path, save_dir=None, load_dir=None) -> dict:
-    """The JAX-shaped training config of the trainer phase: the bench model
-    and optimizer of phase 5, blended token data, eval and checkpoints."""
-    from scaling_tpu_torch.train.bench import LR_SCHEDULE, MODELS, OPTIMIZER
+    """The JAX-shaped training config of the trainer phase: ``trainer_arch``
+    and phase 5's optimizer, blended token data, eval and checkpoints."""
+    from scaling_tpu_torch.train.bench import LR_SCHEDULE, OPTIMIZER
 
     return {
         "topology": {"model_parallel_size": 1, "pipe_parallel_size": 1,
                      "data_parallel_size": 1, "micro_batch_size": TRAINER["mbs"],
                      "gradient_accumulation_steps": 1},
-        "transformer_architecture": dict(MODELS[TRAINER["model"]],
-                                         sequence_length=TRAINER["seq"]),
+        "transformer_architecture": trainer_arch(),
         "optimizer": OPTIMIZER,
         "learning_rate_scheduler": LR_SCHEDULE,
         "trainer": {"seed": 0, "train_iterations": TRAINER["iterations"],
@@ -1358,7 +1485,7 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda", keep=None) -> dict
     try:
         free = shutil.disk_usage(root).free
         # a checkpoint: 4 bytes a parameter for the weights, 12 for the optimizer
-        need = 2 * 16 * 495_110_144 + (1 << 30) if TRAINER["model"] == "0.5b" else 1 << 30
+        need = checkpoint_need(2)
         print(f"  temporary directory {root}: {free / 1e9:.1f} GB free, two checkpoints need "
               f"~{need / 1e9:.1f} GB")
         if free < need:
@@ -1457,8 +1584,8 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda", keep=None) -> dict
         mfu = "not measured" if None in mfus else f"{statistics.median(mfus):.4f}"
         print(f"  trainer steady step (median of steps 2-{TRAINER['iterations']}, host clock "
               f"to the loss's fetch): {step_ms:.2f}ms tokens/s={tokens_per_s:.1f} mfu={mfu}; "
-              f"phase 5's bench step at the same shape {bench_step_ms:.2f}ms "
-              f"(gap {step_ms - bench_step_ms:.2f}ms: the host's data path)")
+              f"phase 5's bench step at {MODELS[TRAINER['model']]['num_layers']} layers "
+              f"{bench_step_ms:.2f}ms")
         for (d, sec) in first.saves:
             print(f"  checkpoint save {d.name}: {sec:.2f}s {dir_bytes(d) / sec / 1e9:.2f}GB/s")
         for sec in second.loads:
@@ -1749,7 +1876,7 @@ def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_supervise_"))
     try:
         free = shutil.disk_usage(root).free
-        need = 3 * 16 * 495_110_144 + (1 << 30) if TRAINER["model"] == "0.5b" else 1 << 30
+        need = checkpoint_need(3)
         print(f"  temporary directory {root}: {free / 1e9:.1f} GB free, three checkpoints need "
               f"~{need / 1e9:.1f} GB")
         if free < need:
@@ -1840,7 +1967,8 @@ def supervise_phase(trainer_run: dict, bench_step_ms: float, device: str = "cuda
         median = statistics.median(apart.values()) if apart else float("nan")
         print(f"  step ms with prefetch, overlapping no write (each run's first step left out): "
               f"{ {s: round(v, 2) for s, v in apart.items()} }, median {median:.2f}ms; phase 8 "
-              f"(no prefetch) {trainer_run['step_ms']:.2f}ms, bench step {bench_step_ms:.2f}ms")
+              f"(no prefetch) {trainer_run['step_ms']:.2f}ms, phase 5's bench step at "
+              f"{MODELS[TRAINER['model']]['num_layers']} layers {bench_step_ms:.2f}ms")
         print(f"  step ms during an asynchronous write: "
               f"{ {s: round(v, 2) for s, v in during.items()} }")
         kernel = dict(Counter(a["kernel"]) + Counter(b["kernel"]))
@@ -2168,7 +2296,8 @@ def observe_train(bench_step_ms: float, device: str = "cuda") -> dict:
         outside = [v for s, v in ms.items() if s not in window and s > 1]
         print(f"  step ms with the events file on: {ms} (records {sorted(window)} in the "
               f"profiler window, synchronised); outside it and after step 1: median "
-              f"{statistics.median(outside):.2f}ms; phase 5's bench step {bench_step_ms:.2f}ms")
+              f"{statistics.median(outside):.2f}ms; phase 5's bench step at "
+              f"{MODELS[TRAINER['model']]['num_layers']} layers {bench_step_ms:.2f}ms")
 
         turns = train_turns(trainer, run_dir)
         sync = check_no_added_sync(trainer)
@@ -2207,14 +2336,7 @@ def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> di
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_observe_serve_"))
     try:
         run_dir = root / "run"
-        base = ["--model", model, "--device", device, "--seed", str(WORKLOAD["seed"]),
-                "--requests", str(WORKLOAD["n_requests"]), "--rate", str(WORKLOAD["rate"]),
-                "--prompt-len", *map(str, WORKLOAD["prompt_len"]),
-                "--output-len", *map(str, WORKLOAD["output_len"]),
-                "--num-slots", str(SERVE["num_slots"]), "--block-size", str(SERVE["block_size"]),
-                "--num-blocks", str(SERVE["num_blocks"]),
-                "--max-blocks-per-seq", str(SERVE["max_blocks_per_seq"]),
-                "--prefill-chunk", str(SERVE["prefill_chunk"])]
+        base = bench_base(model, device)
         launches.reset()
         rc = bench_main(base + ["--run-dir", str(run_dir), "--json", str(root / "stats.json")])
         torch.cuda.synchronize()
@@ -2265,7 +2387,10 @@ def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> di
             print(f"  turns {kind}: tokens/s "
                   f"{[round(t['tokens_per_s'], 1) for t in runs]}, wall per tick ms "
                   f"{[round(t['wall_s'] / t['ticks'] * 1e3, 3) for t in runs]}")
-        return {"launches": kernel, "turns": summary}
+        from scaling_tpu_torch.serve.journal import replay_journal
+
+        tokens = in_order(replay_journal(run_dir / "journal.jsonl").completed)
+        return {"launches": kernel, "turns": summary, "tokens": tokens}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2586,7 +2711,7 @@ def relaunch_phase(trainer_run: dict, device: str = "cuda") -> dict:
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_relaunch_"))
     try:
         free = shutil.disk_usage(root).free
-        need = 3 * 16 * 495_110_144 + (1 << 30) if TRAINER["model"] == "0.5b" else 1 << 30
+        need = checkpoint_need(3)
         print(f"  temporary directory {root}: {free / 1e9:.1f} GB free, three checkpoints need "
               f"~{need / 1e9:.1f} GB")
         if free < need:
@@ -2981,6 +3106,442 @@ def finetune_phase(base: dict, device: str = "cuda") -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------ serving modes, resilience
+def repeating_workload(vocab: int, seed: int = MODES["seed"]) -> list:
+    """Phase 13 (a)'s traffic: phase 4's arrivals and output lengths, each
+    prompt a random segment of 16-64 tokens repeated up to 128-1024 tokens
+    (the code-editing and quote-the-document traffic n-gram drafting
+    serves)."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / WORKLOAD["rate"], size=WORKLOAD["n_requests"]))
+    arrivals[0] = 0.0
+    work = []
+    for a in arrivals:
+        lo, hi = MODES["segment"]
+        segment = rng.integers(1, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+        length = int(rng.integers(WORKLOAD["prompt_len"][0], WORKLOAD["prompt_len"][1] + 1))
+        olen = int(rng.integers(WORKLOAD["output_len"][0], WORKLOAD["output_len"][1] + 1))
+        work.append((float(a), (segment * (length // len(segment) + 1))[:length], olen))
+    return work
+
+
+def phase4_workload(vocab: int) -> list:
+    from scaling_tpu_torch.serve.bench import sample_workload
+
+    return sample_workload(WORKLOAD["n_requests"], WORKLOAD["rate"], WORKLOAD["prompt_len"],
+                           WORKLOAD["output_len"], vocab, WORKLOAD["seed"])
+
+
+def serve_mode(inf, work: list, device: str, **cfg) -> dict:
+    """``work`` through a fresh engine of SERVE's shape with ``cfg``, after
+    phase 4's warm-up request, the counters reset just before the run and
+    read just after. Returns the stats with the tokens by request index,
+    the launches (K1's by query width too) and the longest tick."""
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+    from scaling_tpu_torch.serve.bench import run_bench
+
+    engine = ServeEngine(inf, EngineConfig(**{**SERVE, **cfg}), device=device)
+    engine.submit(list(range(1, 41)), 4)  # warm-up request, off the books
+    engine.run_until_done()
+    tick, longest = engine.tick, [0.0]
+
+    def timed_tick():
+        t0 = time.monotonic()
+        out = tick()  # each tick ends in its device->host pull
+        longest[0] = max(longest[0], time.monotonic() - t0)
+        return out
+
+    engine.tick = timed_tick
+    launches.reset()
+    stats = run_bench(engine, work)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    stats.update(launches=dict(launches.KERNEL), plain=dict(launches.PLAIN),
+                 widths=dict(launches.WIDTHS), longest_tick_s=longest[0])
+    finished = {s.request.req_id: s for s in engine.finished}
+    stats["tokens"] = {}
+    for i, (_, _, olen) in enumerate(work):
+        seq = finished.get(i + 1)  # id 0 was the warm-up request
+        if seq is None or seq.finish_status != "completed" or len(seq.generated) != olen:
+            raise AssertionError(f"{cfg}: request {i} did not complete {olen} tokens")
+        stats["tokens"][i] = list(seq.generated)
+    return stats
+
+
+def check_near_ties(inf, prompts: list, got: dict, want: dict, what: str) -> int:
+    """``got`` against ``want`` (request index -> tokens): equal, or the
+    first token where they part is a near tie, the card's ``logits()``
+    there putting the two candidates within TICK_TOL of max |logit| of
+    each other. Returns how many requests are equal."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: requests {sorted(got)} vs {sorted(want)}")
+    equal = 0
+    for i in sorted(want):
+        a, b = got[i], want[i]
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: request {i} has {len(a)} tokens, not {len(b)}")
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            equal += 1
+            continue
+        logits = inf.logits(prompts[i] + a[:t])[0, -1].float()
+        gap = abs(logits[a[t]] - logits[b[t]]).item()
+        if not gap <= TICK_TOL * logits.abs().max().item():
+            raise AssertionError(f"{what}: request {i} parts at token {t} with a logit gap "
+                                 f"{gap} > {TICK_TOL} x max|logit|")
+    return equal
+
+
+def check_mode_launches(what: str, stats: dict, needed: tuple) -> None:
+    kernel, plain = stats["launches"], stats["plain"]
+    if any(kernel.get(k, 0) <= 0 for k in needed):
+        raise AssertionError(f"{what}: kernels not launched on its path: {kernel}")
+    if sum(plain.values()) != 0:
+        raise AssertionError(f"{what}: plain versions ran on the card: {plain}")
+
+
+def check_k1_widths(widths: dict, needed: tuple) -> None:
+    """K1 launched at each query width of ``needed``."""
+    if any(widths.get(("paged_attention", s), 0) <= 0 for s in needed):
+        raise AssertionError(f"(c) K1 not launched at each of the widths {needed}: {widths}")
+
+
+def fmt_latency(stats: dict) -> str:
+    return (f"{stats['tokens_per_s']:.1f} tokens/s, ttft p50/p99 {stats['ttft_p50_s']:.4f}/"
+            f"{stats['ttft_p99_s']:.4f}s, itl p50/p99 {stats['itl_p50_s']:.4f}/"
+            f"{stats['itl_p99_s']:.4f}s, {stats['ticks']} ticks")
+
+
+def first_token_logits(inf, device: str) -> tuple:
+    """One 1000-token prompt through whole-prompt prefill (bucket 1024, 24
+    pads in segment 1): the logits the engine samples its first token
+    from, beside those of the f32 copy's ``logits()`` of the bare prompt
+    on the CPU. Returns (max |error|, max |logit|)."""
+    from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+
+    prompt = np.random.default_rng(MODES["seed"] + 1).integers(
+        1, inf.architecture.vocab_size, size=MODES["first_token_prompt"]).tolist()
+    captured = []
+    prefill = inf.prefill_forward
+
+    def capture(*args, **kwargs):
+        out = prefill(*args, **kwargs)
+        captured.append(out[0][0, 0].float().cpu())
+        return out
+
+    inf.prefill_forward = capture
+    try:
+        engine = ServeEngine(inf, EngineConfig(**{**SERVE, "prefill_chunk": None}),
+                             device=device)
+        engine.submit(prompt, 1)
+        engine.run_until_done()
+    finally:
+        del inf.prefill_forward
+    ref = cpu_f32_copy(inf).logits(prompt)[0, -1]
+    return (captured[0] - ref).abs().max().item(), ref.abs().max().item()
+
+
+def modes_in_process(inf, phase4: dict, device: str) -> dict:
+    """Phase 13 (a)-(c), in this process on phase 4's model. Each mode is
+    held against a run beside it in this call: (a)'s spec-off run on the
+    same repeating traffic, and on phase 4's traffic a chunked spec-off
+    run of phase 4's engine (host-bound numbers move by tens of percent
+    between runs minutes apart)."""
+    vocab = inf.architecture.vocab_size
+    plain_work, rep_work = phase4_workload(vocab), repeating_workload(vocab)
+    plain_prompts = [p for _, p, _ in plain_work]
+    paged = ("paged_attention", "rms_norm")
+    out = {"longest_tick_s": 0.0, "launches": {}}
+
+    def run(name, work, **cfg):
+        stats = serve_mode(inf, work, device, **cfg)
+        out["longest_tick_s"] = max(out["longest_tick_s"], stats["longest_tick_s"])
+        out["launches"][name] = stats["launches"]
+        return stats
+
+    # (a) speculative decoding on self-repeating prompts, and on phase 4's traffic
+    spec = run("spec", rep_work, spec_k=MODES["spec_k"])
+    off = run("spec_off", rep_work)
+    check_mode_launches("(a) spec_k 4", spec, paged)
+    if spec["spec_accepted_tokens"] <= 0:
+        raise AssertionError(f"(a) no draft accepted: {spec['spec_drafted_tokens']} drafted")
+    equal = check_near_ties(inf, [p for _, p, _ in rep_work], spec["tokens"], off["tokens"],
+                            "(a) spec on vs off")
+    print(f"  (a) spec_k {MODES['spec_k']}, repeating prompts: accept rate "
+          f"{spec['spec_accept_rate']} ({spec['spec_accepted_tokens']}/"
+          f"{spec['spec_drafted_tokens']}), {fmt_latency(spec)}")
+    print(f"  (a) spec off, the same traffic: {fmt_latency(off)}; greedy tokens equal in "
+          f"{equal} of {len(rep_work)} requests, the rest part at a near tie; spec on / off "
+          f"tokens/s {spec['tokens_per_s'] / off['tokens_per_s']:.3f}")
+    chunked = run("chunked", plain_work)
+    check_mode_launches("phase 4's engine", chunked, paged)
+    check_near_ties(inf, plain_prompts, chunked["tokens"], phase4["tokens"],
+                    "phase 4's engine again vs phase 4")
+    print(f"  phase 4's engine (chunk {SERVE['prefill_chunk']}, spec off) on its traffic, "
+          f"beside the runs below: {fmt_latency(chunked)}; phase 4's own run "
+          f"{phase4['tokens_per_s']:.1f} tokens/s")
+    random_spec = run("spec_random", plain_work, spec_k=MODES["spec_k"])
+    check_mode_launches("(a) spec_k 4 on phase 4's traffic", random_spec, paged)
+    equal = check_near_ties(inf, plain_prompts, random_spec["tokens"], chunked["tokens"],
+                            "(a) spec_k 4 vs spec off on phase 4's traffic")
+    print(f"  (a) spec_k {MODES['spec_k']} on phase 4's random traffic: accept rate "
+          f"{random_spec['spec_accept_rate']}, {fmt_latency(random_spec)}; spec on / off "
+          f"tokens/s {random_spec['tokens_per_s'] / chunked['tokens_per_s']:.3f}; tokens equal "
+          f"in {equal} of {len(plain_work)}, the rest part at a near tie")
+    # (b) whole-prompt prefill at phase 4's traffic
+    whole = run("whole_prompt", plain_work, prefill_chunk=None)
+    check_mode_launches("(b) whole-prompt prefill", whole,
+                        paged + ("flash_attention_fwd",))
+    equal = check_near_ties(inf, plain_prompts, whole["tokens"], chunked["tokens"],
+                            "(b) whole prompt vs chunks")
+    err, scale = first_token_logits(inf, device)
+    print(f"  (b) whole-prompt prefill: {fmt_latency(whole)}; chunked ttft p50/p99 "
+          f"{chunked['ttft_p50_s']:.4f}/{chunked['ttft_p99_s']:.4f}s, chunked / whole ttft "
+          f"p50 {chunked['ttft_p50_s'] / whole['ttft_p50_s']:.3f}; K4 launches "
+          f"{whole['launches'].get('flash_attention_fwd', 0)}; tokens equal in {equal} of "
+          f"{len(plain_work)}, the rest part at a near tie")
+    print(f"  (b) a {MODES['first_token_prompt']}-token prompt's first-token logits vs the f32 "
+          f"CPU forward: max_abs_err={err:.4e} max|logit|={scale:.4e} (tol {TICK_TOL} x)")
+    if not err <= TICK_TOL * scale:
+        raise AssertionError(f"(b) first-token logits disagree: {err} > {TICK_TOL * scale}")
+    # (c) the separate decode and chunk forwards
+    separate = run("separate", plain_work, fused_tick=False)
+    check_mode_launches("(c) fused_tick=False", separate, paged)
+    widths = separate["widths"]
+    check_k1_widths(widths, (1, SERVE["prefill_chunk"]))
+    equal = check_near_ties(inf, plain_prompts, separate["tokens"], chunked["tokens"],
+                            "(c) separate vs fused")
+
+    def per_tick(stats):
+        ticks = stats["ticks"]
+        return (f"{stats['wall_s'] / ticks * 1e3:.3f}ms a tick, launches a tick: K1 "
+                f"{stats['launches'].get('paged_attention', 0) / ticks:.2f} K2 "
+                f"{stats['launches'].get('rms_norm', 0) / ticks:.2f}")
+
+    print(f"  (c) fused_tick=False: {per_tick(separate)} (K1 at s=1: "
+          f"{widths.get(('paged_attention', 1), 0)}, at s={SERVE['prefill_chunk']}: "
+          f"{widths.get(('paged_attention', SERVE['prefill_chunk']), 0)}); fused, beside it: "
+          f"{per_tick(chunked)}; phase 4's run: {per_tick(phase4)}; {fmt_latency(separate)}; "
+          f"tokens equal in {equal} of {len(plain_work)}, the rest part at a near tie")
+    return out
+
+
+def bench_base(model: str, device: str) -> list:
+    """``serve bench`` flags of phase 4's native traffic and engine."""
+    return ["--model", model, "--device", device, "--seed", str(WORKLOAD["seed"]),
+            "--requests", str(WORKLOAD["n_requests"]), "--rate", str(WORKLOAD["rate"]),
+            "--prompt-len", *map(str, WORKLOAD["prompt_len"]),
+            "--output-len", *map(str, WORKLOAD["output_len"]),
+            "--num-slots", str(SERVE["num_slots"]), "--block-size", str(SERVE["block_size"]),
+            "--num-blocks", str(SERVE["num_blocks"]),
+            "--max-blocks-per-seq", str(SERVE["max_blocks_per_seq"]),
+            "--prefill-chunk", str(SERVE["prefill_chunk"])]
+
+
+def start_bench(run_dir: Path, args: list, faults=None) -> subprocess.Popen:
+    """``python -m scaling_tpu_torch.serve bench`` in a child process."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SCALING_TPU_")}
+    if faults:
+        env["SCALING_TPU_FAULTS"] = faults
+    run_dir.mkdir(parents=True)
+    log = open(run_dir.parent / f"{run_dir.name}.log", "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "scaling_tpu_torch.serve", "bench", *args,
+         "--run-dir", str(run_dir), "--json", str(run_dir / "stats.json")],
+        cwd=Path(__file__).resolve().parent, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
+def wait_bench(proc: subprocess.Popen, run_dir: Path, what: str) -> dict:
+    try:
+        rc = proc.wait(timeout=MODES["child_timeout_s"])
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"{what}: the bench outran {MODES['child_timeout_s']}s")
+    if rc != 0:
+        tail = (run_dir.parent / f"{run_dir.name}.log").read_text()[-3000:]
+        raise AssertionError(f"{what}: the bench exited {rc}:\n{tail}")
+    return json.loads((run_dir / "stats.json").read_text())
+
+
+def check_child_launches(what: str, stats: dict) -> dict:
+    """A child's counters, as it wrote them into its stats."""
+    check_mode_launches(what, {"launches": stats["kernel_launches"],
+                               "plain": stats["plain_launches"]},
+                        ("paged_attention", "rms_norm"))
+    return stats["kernel_launches"]
+
+
+def in_order(tokens: dict) -> dict:
+    """Request id -> tokens as workload index -> tokens (the ids count up
+    from the first measured request)."""
+    return {i: tokens[r] for i, r in enumerate(sorted(tokens))}
+
+
+def check_drain(stats: dict) -> None:
+    if not stats["drained"] or stats["unsubmitted"] <= 0:
+        raise AssertionError(f"drain: drained={stats['drained']} "
+                             f"unsubmitted={stats['unsubmitted']}")
+
+
+def check_journal_counts(replay, offered: int, what: str) -> None:
+    """Every offered request ended once: completed, shed or timed out."""
+    ended = len(replay.completed) + replay.shed_count + replay.timeout_count
+    if replay.offered_count != offered or ended != offered or replay.incomplete:
+        raise AssertionError(
+            f"{what}: the journal offered {replay.offered_count} of {offered}, "
+            f"completed {len(replay.completed)} + shed {replay.shed_count} + timeout "
+            f"{replay.timeout_count} = {ended}, incomplete {len(replay.incomplete)}")
+
+
+def serve_time_to_recover(events: list) -> dict:
+    """From the kill to the relaunched child's first emitted token, by the
+    events' host clocks: the kill (the end of the killed child's last
+    tick), the supervisor's restart event, the relaunch's spawn, its
+    ``serve-start`` (the bench entered), its ``serve-resume`` (the model
+    built, warmed up and the journal replayed: ``replay_s`` of it) and
+    its first token (the earliest ``serve-request``'s arrival plus TTFT)."""
+    restart = next(i for i, e in enumerate(events) if e["event"] == "serve-restart")
+    kill = max(e["ts"] for e in events[:restart] if e.get("span") == "serve.tick")
+    after = events[restart:]
+    spawn = next(e["ts"] for e in after if e.get("span") == "serve.supervisor.spawn")
+    start = next(e for e in after if e["event"] == "serve-start")
+    resume = next(e for e in after if e["event"] == "serve-resume")
+    first = min(e["ts"] - e["e2e_s"] + e["ttft_s"] for e in after
+                if e["event"] == "serve-request" and "ttft_s" in e)
+    return {"total": first - kill, "detection": events[restart]["ts"] - kill,
+            "process_start": start["ts"] - spawn,
+            "model_build": resume["ts"] - start["ts"] - resume["replay_s"],
+            "replay": resume["replay_s"], "first_token": first - resume["ts"]}
+
+
+def resilience_children(phase4: dict, observed_tokens: dict, inf, longest_tick_s: float,
+                        model: str, device: str) -> dict:
+    """Phase 13 (d): the bench in child processes at phase 4's traffic. The
+    wedged tick, the drain and the overload run side by side; then the
+    crash replay alone, which is timed. Returns each exiting child's
+    launches."""
+    from scaling_tpu_torch.serve.journal import replay_journal
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_resilience_"))
+    base, n = bench_base(model, device), WORKLOAD["n_requests"]
+    # the fault drills without the warm-up request, whose ticks the fault
+    # points would count: tick 40 falls in the measured run
+    cold = base + ["--warmup", "0"]
+    prompts = [p for _, p, _ in phase4_workload(inf.architecture.vocab_size)]
+    launches = {}
+    try:
+        tick_timeout = max(5 * longest_tick_s, MODES["min_tick_timeout_s"])
+        ttft_deadline_ms = 0.5 * phase4["ttft_p50_s"] * 1e3
+        hang = start_bench(root / "hang", cold + ["--restarts", "1", "--tick-timeout-s",
+                                                  str(tick_timeout)],
+                           faults=f"serve.tick=hang@{MODES['fault_tick']}")
+        # the drain's workload arrives at MODES["drain_rate"], so that the SIGTERM after
+        # the first completed request lands while requests still arrive
+        drain = start_bench(root / "drain", base + ["--rate", str(MODES["drain_rate"])])
+        overload = start_bench(root / "overload", base + [
+            "--rate", str(MODES["overload_x"] * WORKLOAD["rate"]),
+            "--max-waiting", str(MODES["max_waiting"]),
+            "--ttft-deadline-ms", str(ttft_deadline_ms)])
+        events_file = root / "drain" / "events.jsonl"
+        deadline = time.monotonic() + MODES["child_timeout_s"]
+        while not (events_file.is_file() and '"serve-request"' in events_file.read_text()):
+            if time.monotonic() > deadline or drain.poll() is not None:
+                raise AssertionError("drain: no serve-request before the SIGTERM")
+            time.sleep(0.05)
+        drain.send_signal(signal.SIGTERM)
+        stats = wait_bench(drain, root / "drain", "drain")
+        check_drain(stats)
+        launches["drain"] = check_child_launches("drain", stats)
+        report, _ = obs_report(root / "drain", "--assert-max-serve-timeouts", "0")
+        keep("modes_drain_report.txt", report)
+        replay = replay_journal(root / "drain" / "journal.jsonl")
+        check_journal_counts(replay, n - stats["unsubmitted"], "drain")
+        print(f"  (d) drain at {MODES['drain_rate']} req/s: SIGTERM after the first served "
+              "request: exit 0, drained, "
+              f"{stats['unsubmitted']} unsubmitted, {len(replay.completed)} completed; "
+              "obs report --assert-max-serve-timeouts 0 passes")
+        stats = wait_bench(overload, root / "overload", "overload")
+        launches["overload"] = check_child_launches("overload", stats)
+        replay = replay_journal(root / "overload" / "journal.jsonl")
+        check_journal_counts(replay, n, "overload")
+        if stats["requests_shed"] <= 0 or stats["requests_timeout"] <= 0:
+            raise AssertionError(f"overload: shed {stats['requests_shed']} timeouts "
+                                 f"{stats['requests_timeout']}")
+        report, rstats = obs_report(root / "overload")
+        keep("modes_overload_report.txt", report)
+        line = next(x for x in report_section(report, "serving") if "resilience:" in x)
+        if f"shed={stats['requests_shed']} " not in line or \
+                f"timeouts={stats['requests_timeout']} " not in line:
+            raise AssertionError(f"overload: the report's {line!r} vs {stats}")
+        print(f"  (d) overload at {MODES['overload_x']}x the rate, --max-waiting "
+              f"{MODES['max_waiting']}, --ttft-deadline-ms {ttft_deadline_ms:.1f}: completed "
+              f"{stats['requests']} shed {stats['requests_shed']} timeout "
+              f"{stats['requests_timeout']} of {n}; report |{line.strip()}")
+        stats = wait_bench(hang, root / "hang", "wedged tick")
+        launches["hang"] = check_child_launches("wedged tick", stats)
+        events = read_jsonl(root / "hang" / "events.jsonl")
+        stalls = [e for e in events if e["event"] == "serve-stall"]
+        restarts = [e["rc"] for e in events if e["event"] == "serve-restart"]
+        replay = replay_journal(root / "hang" / "journal.jsonl")
+        if not stalls or restarts != [-signal.SIGKILL]:
+            raise AssertionError(f"wedged tick: stalls {stalls}, restarts {restarts}")
+        check_journal_counts(replay, n, "wedged tick")
+        print(f"  (d) wedged tick (serve.tick=hang@{MODES['fault_tick']}): --tick-timeout-s "
+              f"{tick_timeout:.2f} (5 x the longest tick measured, {longest_tick_s:.4f}s, "
+              f"at least {MODES['min_tick_timeout_s']}s): serve-stall after "
+              f"{stalls[0]['stalled_s']}s, restart rc {restarts[0]}, {len(replay.completed)} "
+              f"of {n} completed")
+        # the crash replay, alone on the card
+        run_dir = root / "crash"
+        proc = start_bench(run_dir, cold + ["--restarts", "2"],
+                           faults=f"serve.tick=kill@{MODES['fault_tick']}")
+        stats = wait_bench(proc, run_dir, "crash replay")
+        launches["crash"] = check_child_launches("crash replay", stats)
+        replay = replay_journal(run_dir / "journal.jsonl")
+        check_journal_counts(replay, n, "crash replay")
+        if replay.shed_count or replay.timeout_count:
+            raise AssertionError("crash replay: requests shed or timed out")
+        equal = check_near_ties(inf, prompts, in_order(replay.completed), observed_tokens,
+                                "crash replay vs the fault-free bench")
+        events = read_jsonl(run_dir / "events.jsonl")
+        restarts = [e["rc"] for e in events if e["event"] == "serve-restart"]
+        if restarts != [-signal.SIGKILL]:
+            raise AssertionError(f"crash replay: restarts {restarts}")
+        free = [e["free_bytes"] for e in events if e["event"] == "serve-start"]
+        if len(free) != 2 or (device == "cuda" and abs(free[0] - free[1]) > MODES["free_tol"]):
+            raise AssertionError(f"crash replay: the relaunch found {free} bytes free")
+        ttr = serve_time_to_recover(events)
+        print(f"  (d) crash replay (serve.tick=kill@{MODES['fault_tick']}, --restarts 2): exit "
+              f"0, offered {replay.offered_count}, completed {len(replay.completed)}, none "
+              f"incomplete; tokens equal to the fault-free bench's in {equal} of {n}, the rest "
+              f"part at a near tie; free memory at each start {free}")
+        print("  (d) time to recover " + f"{ttr['total']:.2f}s = " + " + ".join(
+            f"{k.replace('_', ' ')} {v:.2f}" for k, v in ttr.items() if k != "total"))
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def modes_phase(phase4: dict, observed_tokens: dict, model: str = "0.5b",
+                device: str = "cuda") -> dict:
+    """Phase 13: the serving modes and the resilience drills on phase 4's
+    model. Returns the launches by run (the children's as they wrote them)."""
+    from scaling_tpu_torch.serve.bench import build_inference
+
+    t0 = time.monotonic()
+    inf = build_inference(model, seed=0, device=device)
+    modes = modes_in_process(inf, phase4, device)
+    drills = resilience_children(phase4, observed_tokens, inf, modes["longest_tick_s"],
+                                 model, device)
+    del inf
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  phase 13 took {time.monotonic() - t0:.1f}s")
+    launches = {f"modes_{k}": v for k, v in modes["launches"].items()}
+    launches.update({f"resilience_{k}": v for k, v in drills.items()})
+    return launches
+
 def time_kernels(errs: dict) -> list:
     """One row a kernel, its launches added by ``add_launches``."""
     import torch.nn.functional as F
@@ -3115,24 +3676,36 @@ def main() -> int:
     print(f"== torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t_start = time.monotonic()
+    laps, last = {}, [t_start]
+
+    def lap(name: str) -> None:  # wall seconds of each phase, printed at the end
+        now = time.monotonic()
+        laps[name], last[0] = round(now - last[0], 1), now
+
     print("== build")
     print(f"  kernels built in {build_kernels():.1f}s")
+    lap("build")
     print("== kernels vs plain versions")
     errs = check_kernels()
     for name, err in check_training_kernels().items():
         errs[name] = max(err, errs.get(name, 0.0))
+    lap("check kernels")
     print("== serve 0.5B (full width and depth, random weights, seed 0)")
     served_by_kv = {kv_dtype: serve(kv_dtype) for kv_dtype in ("native", "int8")}
     launches_by_path = {f"serve_{kv}": stats["launches"] for kv, stats in served_by_kv.items()}
     serve_native = served_by_kv["native"]
+    lap("serve (4)")
     print("== train 0.5B (full width and depth, random weights, seed 0; mbs 4, seq 2048)")
     trained = train()
     launches_by_path["train"] = trained["launches"]
+    lap("train (5)")
     for name, arch in generation_models().items():
         print(f"== generate {name} (full width and depth, random weights, seed 0)")
         launches_by_path[f"generate_{name}"] = generation_phase(name, arch)
+    lap("generate (6)")
     print("== kernel times (device: torch.profiler; per call: CUDA events)")
     rows = time_kernels(errs)
+    lap("kernel times (7)")
     # before the trainer phase, after which torch.profiler now and then drops
     # device events: this run's trace must name K4 and K5
     print("== observe (phase 10): a 5-step Trainer run with the events file and a profiler "
@@ -3142,14 +3715,17 @@ def main() -> int:
     print("== observe: serve bench --run-dir at phase 4's native traffic")
     served = observe_serve(serve_native)
     launches_by_path["observe_serve"] = served["launches"]
+    lap("observe (10)")
     # last: after the trainer's run the profiler drops device events now and
     # then (on an H100 a kernel's profiled sum fell to half its time after
     # it), so the kernel times are taken before it
-    print("== trainer: 0.5B from token datasets, checkpoints, resume, serve the checkpoint")
+    print(f"== trainer: 0.5B at full width, {trainer_arch()['num_layers']} layers, from token "
+          "datasets; checkpoints, resume, serve the checkpoint")
     keep = Path(tempfile.mkdtemp(prefix="chip_smoke_base_"))  # phase 12's base, until then
     atexit.register(shutil.rmtree, keep, True)
     trainer_run = trainer_phase(trained["step_ms"], keep=keep)
     launches_by_path["trainer"] = trainer_run["launches"]
+    lap("trainer (8)")
     print("== supervise: the trainer phase's run with preemption, prefetch, asynchronous "
           "checkpoints, the watchdog and run_with_resume, in child processes")
     supervised = supervise_phase(trainer_run, trained["step_ms"])
@@ -3159,14 +3735,21 @@ def main() -> int:
         observe_supervised(supervised["run_dir"], supervised["k"])
     finally:
         shutil.rmtree(supervised["run_dir"].parent, ignore_errors=True)
+    lap("supervise (9)")
     print("== relaunch (phase 11): the trainer phase's run under the supervisor through a "
           "crash, a hang and a drain, then a second supervisor to the end")
     relaunched = relaunch_phase(trainer_run)
     launches_by_path["relaunch"] = relaunched["launches"]
+    lap("relaunch (11)")
     print("== finetune (phase 12): LoRA on the trainer phase's step-6 checkpoint with dropout; "
           "resume, remat, probability dropout, merge and serve")
     finetuned = finetune_phase(trainer_run["base"])
     launches_by_path["finetune"] = finetuned["launches"]
+    lap("finetune (12)")
+    print("== modes (phase 13): speculative decoding, whole-prompt prefill, separate "
+          "forwards; crash replay, drain, a wedged tick and overload in child benches")
+    launches_by_path.update(modes_phase(serve_native, served["tokens"]))
+    lap("modes (13)")
     t, serving = observed["turns"], served["turns"]
     print(f"  obs overhead (medians of the turns): Trainer step ms with all of obs "
           f"{t['on']:.2f}, without the events file and on_step {t['no_events']:.2f}, "
@@ -3180,6 +3763,7 @@ def main() -> int:
           f"{observed['telemetry_ms']:.3f}ms")
     print("== launches on the main paths")
     add_launches(rows, launches_by_path)
+    print(f"== phase seconds: {laps}")
     print(f"== done in {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)

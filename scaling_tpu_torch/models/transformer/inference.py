@@ -326,11 +326,14 @@ class TransformerInferenceModule:
 
     @torch.no_grad()
     def prefill_forward(self, token_ids: torch.Tensor, position_ids: torch.Tensor,
-                        segment_ids: Optional[torch.Tensor] = None):
+                        segment_ids: Optional[torch.Tensor] = None,
+                        last_index: Optional[int] = None):
         """The prompt pass: the stack with each layer's (k, v) returned (no
         cache consumed, so flash stays active), and logits ``(b, 1, vocab)``
-        of the last position: only that position feeds the final norm and
-        the head."""
+        of one position: only that position feeds the final norm and the
+        head. It is the last one by default; ``last_index`` selects another
+        (a right-padded prompt, as the serving engine's bucketed prefill
+        lays it out, samples at ``prompt_len - 1``)."""
         m = self.model
         batch = self._make_batch(token_ids, position_ids, segment_ids)
         pos, seg = batch["position_ids"], batch["segment_ids"]
@@ -339,7 +342,8 @@ class TransformerInferenceModule:
         for layer in m.transformer_layers:
             h, kv = layer(h, pos, None, seg, return_kv=True)
             kvs.append(kv)
-        return m.lm_head(m.final_norm(h[:, -1:])), kvs
+        last = h[:, -1:] if last_index is None else h[:, last_index:last_index + 1]
+        return m.lm_head(m.final_norm(last)), kvs
 
     def _prefill(self, token_ids: torch.Tensor, max_len: int,
                  position_ids: Optional[torch.Tensor] = None,

@@ -18,8 +18,12 @@ from collections import Counter
 # call, which launches its three kernels)
 KERNEL: Counter = Counter()
 PLAIN: Counter = Counter()
+# K1's launches by query width: (name, s) -> launches, beside KERNEL's count
+# (s = 1 is the separate decode program, s = the chunk the chunk program)
+WIDTHS: Counter = Counter()
 
 
 def reset() -> None:
     KERNEL.clear()
     PLAIN.clear()
+    WIDTHS.clear()

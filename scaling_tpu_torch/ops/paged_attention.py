@@ -156,7 +156,9 @@ def _launch(q, pool_k, pool_v, block_table, valid_len, q_slot_base,
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} ({err})")
-    launches.KERNEL["paged_attention_int8" if quantized else "paged_attention"] += 1
+    name = "paged_attention_int8" if quantized else "paged_attention"
+    launches.KERNEL[name] += 1
+    launches.WIDTHS[(name, s)] += 1
     return out
 
 

@@ -40,6 +40,22 @@ point               fired
 ``runner.worker.kill``
                     when the babysitting runner terminates the other
                     workers after one exited non-zero or on Ctrl-C
+``serve.tick``      at the top of every serving-engine tick
+                    (``serve.engine.ServeEngine.tick``): ``kill`` is the
+                    crash-replay drill's mid-run crash, ``hang`` the
+                    wedged tick the bench's watchdog kills
+``serve.admit``     once per ``ServeEngine.submit`` call, before the
+                    admission and backpressure decision
+``serve.journal``   once per request-journal append
+                    (``serve.journal.RequestJournal``); ``fail`` is an
+                    IOError at the journal write
+``serve.pool``      once per KV-block allocation batch of the scheduler
+                    (admission, growth, copy-on-write forks)
+``serve.supervisor.spawn``
+                    before ``serve bench --restarts`` launches each child
+``serve.stall.kill``
+                    when the bench's tick watchdog fires, before it
+                    SIGKILLs its own process
 ==================  =====================================================
 
 Spec grammar (comma list): ``point=action[@N][xM][@host=K][@epoch=E]``

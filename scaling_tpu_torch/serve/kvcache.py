@@ -18,7 +18,7 @@ from typing import List, Optional
 import torch
 
 from ..models.transformer.config import TransformerArchitectureConfig
-from ..nn.attention import PagedKVCacheView
+from ..nn.attention import PagedKVCacheView, paged_flat_slots, paged_scatter_kv
 
 
 class PagedKVPools:
@@ -93,3 +93,18 @@ def init_pools(arch: TransformerArchitectureConfig, num_blocks: int,
         zeros(shape[:3], torch.float32) if quantized else None,
         block_size,
     )
+
+
+@torch.no_grad()
+def write_prompt_kv(view: PagedKVCacheView, k: torch.Tensor, v: torch.Tensor,
+                    block_row: torch.Tensor, prompt_len: int, block_size: int) -> None:
+    """Scatter one prefilled prompt's K/V ``(1, L_padded, n_kv, h)`` into
+    the pool through its block-table row ``(max_blocks,)``, in place (int8
+    pools quantise with per-slot scales). Positions past ``prompt_len``,
+    the length bucket's padding, go to the trash block, so one bucket
+    serves every prompt length in it."""
+    L = k.shape[1]
+    positions = torch.arange(L, dtype=torch.int32, device=k.device)[None, :]
+    flat = paged_flat_slots(block_row[None, :], positions, block_size)
+    flat = torch.where(positions < prompt_len, flat, 0).reshape(-1)
+    paged_scatter_kv(view, flat, k.reshape(L, *k.shape[2:]), v.reshape(L, *v.shape[2:]))

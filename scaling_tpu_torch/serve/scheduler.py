@@ -1,27 +1,36 @@
 """Continuous-batching scheduler (Orca, OSDI '22) — host-side policy.
 
-A copy of scaling_tpu/serve/scheduler.py for the port (which imports
-nothing of the JAX package), without what the port's engine does not run
-yet: the fault-injection hook, overload shedding, deadline cancellation
-and speculative drafts. Pure Python: every decision the serving engine
-makes about WHICH sequences run each tick lives here — admission, the
-per-tick prefill/decode mix under a token budget, block accounting,
-preemption on pool exhaustion, and slot recycling.
+A copy of scaling_tpu/serve/scheduler.py for the port, which imports
+nothing of the JAX package. Pure Python: every decision the serving
+engine makes about WHICH sequences run each tick lives here, unit-
+testable without a backend. The engine (engine.py) owns the device
+work; this module owns admission, the per-tick prefill/decode mix under
+a token budget, block accounting, preemption on pool exhaustion, slot
+recycling, overload shedding and deadline cancellation.
 
 Preemption is recompute-style (PagedAttention, SOSP '23 §4.5): the
 youngest running sequence drops its blocks and re-enters the waiting
 queue with ``prompt + generated-so-far`` as its new prompt. Under greedy
-sampling the resumed sequence regenerates token-for-token.
+sampling the resumed sequence regenerates token-for-token, so preemption
+is invisible in the output.
 
-Shared-prefix block reuse (RadixAttention, arxiv 2312.07104):
-:class:`PrefixCache` is a trie over FULL blocks of prompt tokens.
-Admission walks the trie and maps every matched block straight into the
-new sequence's table (refcounted — the allocator counts sequence users
-per block), so N requests sharing a system prompt pay its prefill ONCE;
-only the unmatched tail streams chunks. Freed cached blocks are not
-returned to the free list — they become LRU-evictable trie leaves,
-reclaimed only under pool pressure. A write into a shared block forks it
-first (copy-on-write pairs on the :class:`Tick`).
+Two raw-speed policies ride the same tick loop:
+
+- **Shared-prefix block reuse** (RadixAttention, arxiv 2312.07104):
+  :class:`PrefixCache` is a trie over FULL blocks of prompt tokens.
+  Admission walks the trie and maps every matched block straight into
+  the new sequence's table (refcounted — the allocator counts sequence
+  users per block), so N requests sharing a system prompt pay its
+  prefill ONCE; only the unmatched tail streams chunks. Freed cached
+  blocks are not returned to the free list — they become LRU-evictable
+  trie leaves, reclaimed only under pool pressure.
+- **Self-drafting speculative decoding** (Leviathan et al., arxiv
+  2211.17192): :func:`ngram_propose` drafts ``k`` candidate tokens per
+  decoding row from the row's own history; the engine scores all of
+  them in one forward and accepts the longest prefix that matches
+  what plain decode would have emitted (exact at any temperature — the
+  per-(request, position) sample keys make acceptance pathwise, not
+  merely distribution, equivalent).
 """
 
 from __future__ import annotations
@@ -31,8 +40,10 @@ import enum
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
-# block 0 is the TRASH block: never allocated, it absorbs the jitted
-# decode step's writes from inactive slots and padding (nn/attention.py
+from ..resilience.faults import get_fault_plan
+
+# block 0 is the TRASH block: never allocated, it absorbs the decode
+# step's writes from inactive slots and padding (nn/attention.py
 # PagedKVCacheView). Allocators start handing out ids at 1.
 TRASH_BLOCK = 0
 
@@ -48,8 +59,10 @@ class Request:
     """One inference request as the load generator / API submits it.
 
     ``temperature`` / ``top_k`` / ``top_p`` are per-request sampler
-    settings carried into the engine's tick as per-row tensors
-    (inference.sample_rows); ``temperature=0`` (the default) is greedy."""
+    settings carried into the engine's tick as per-row
+    tensors (inference.sample_rows); ``temperature=0`` (the default) is
+    greedy — the zero-temperature special case, not a separate code
+    path."""
 
     req_id: int
     prompt: List[int]
@@ -59,7 +72,18 @@ class Request:
     temperature: float = 0.0
     top_k: Optional[int] = None
     top_p: Optional[float] = None
-    # distributed-trace id stamped on every span and event of the request
+    # request deadlines (milliseconds from arrival; None = unbounded):
+    # ``ttft_deadline_ms`` bounds the wait for the FIRST token,
+    # ``deadline_ms`` the whole request. An expired request is cancelled
+    # at the next tick boundary with terminal status 'timeout' — its
+    # slot and blocks recycle immediately (docs/SERVING.md "Resilience")
+    deadline_ms: Optional[float] = None
+    ttft_deadline_ms: Optional[float] = None
+    # distributed-tracing identity (docs/OBSERVABILITY.md "Tracing"):
+    # assigned by the originating submitter (bench), carried through
+    # every RPC hop / journal record / failover re-dispatch so the
+    # request reconstructs as ONE trace fleet-wide. None = untraced
+    # (warmup, legacy journals) — nothing downstream stamps anything
     trace_id: Optional[str] = None
 
 
@@ -80,11 +104,16 @@ class Sequence:
     # far this sequence's own full prompt blocks are registered in it
     prefix_cached: int = 0
     cached_upto: int = 0
+    # speculative decoding: this tick's drafted candidate tokens (set by
+    # propose_drafts, consumed by the engine's mixed program)
+    draft: List[int] = dataclasses.field(default_factory=list)
     # telemetry stamps (engine fills these; monotonic seconds)
     first_token_s: Optional[float] = None
     finished_s: Optional[float] = None
     token_stamps: List[float] = dataclasses.field(default_factory=list)
-    finish_status: str = "completed"  # set at retirement
+    # terminal status: 'completed' | 'timeout' (set at retirement; rides
+    # the serve-request event next to the preemption count)
+    finish_status: str = "completed"
 
     @property
     def resume_prompt(self) -> List[int]:
@@ -352,12 +381,42 @@ class PrefixCache:
         return freed
 
 
+# speculative drafting: how far back the n-gram proposer scans (and how
+# much history propose_drafts assembles) — one constant, two users
+NGRAM_SCAN_WINDOW = 512
+
+
+def ngram_propose(history: List[int], k: int, max_n: int = 3,
+                  max_scan: int = NGRAM_SCAN_WINDOW) -> List[int]:
+    """Self-drafting n-gram proposal: find the most recent earlier
+    occurrence of the history's final n-gram (longest n first) within
+    the last ``max_scan`` tokens and copy the tokens that followed it —
+    up to ``k`` candidates. Returns [] when nothing matches (the row
+    decodes plainly that tick). Host-side and model-free: the 'draft
+    model' is the sequence itself. ``max_scan`` bounds the per-tick host
+    cost at O(max_n * max_scan) per row regardless of context length —
+    recent history is where self-repetition lives anyway; an
+    incremental suffix index is the documented follow-on
+    (docs/SERVING.md)."""
+    if k <= 0 or len(history) < 2:
+        return []
+    window = history[-max_scan:] if len(history) > max_scan else history
+    for n in range(min(max_n, len(window) - 1), 0, -1):
+        pat = window[-n:]
+        for i in range(len(window) - n - 1, -1, -1):
+            if window[i:i + n] == pat:
+                cont = window[i + n:i + n + k]
+                if cont:
+                    return list(cont)
+    return []
+
+
 @dataclasses.dataclass
 class SchedulerConfig:
-    num_slots: int = 8  # decode-batch rows (the jitted batch size)
+    num_slots: int = 8  # decode-batch rows (the tick's batch size)
     block_size: int = 16  # tokens per KV block
     num_blocks: int = 128  # pool size incl. the trash block
-    max_blocks_per_seq: int = 16  # block-table width (jitted shape)
+    max_blocks_per_seq: int = 16  # block-table width (the tick's shape)
     token_budget: int = 512  # prompt+decode tokens admitted per tick
     # Sarathi-style chunked prefill: prompts stream into the pool in
     # fixed-size chunks that share the tick budget with decode rows (no
@@ -367,6 +426,20 @@ class SchedulerConfig:
     # shared-prefix block reuse (chunked mode only: whole-prompt mode
     # can't resume a prefill mid-prompt)
     prefix_cache: bool = True
+    # self-drafting speculative decoding: candidate tokens drafted per
+    # decoding row per tick (0 = off); requires chunked prefill — the
+    # drafts are scored through the mixed program's chunk-width rows
+    spec_k: int = 0
+    # overload shedding (docs/SERVING.md "Resilience"): above the HIGH
+    # pool-pressure watermark new submissions are rejected with a
+    # structured Backpressure instead of queueing unboundedly, and keep
+    # being rejected until pressure falls back to the LOW watermark
+    # (hysteresis — admission must not flap at the boundary). None
+    # disables the pressure watermark. ``max_waiting`` is a hard cap on
+    # waiting-queue depth (no hysteresis; None = unbounded).
+    shed_high_watermark: Optional[float] = None
+    shed_low_watermark: Optional[float] = None
+    max_waiting: Optional[int] = None
 
     def __post_init__(self):
         cap = self.max_blocks_per_seq * self.block_size
@@ -377,6 +450,47 @@ class SchedulerConfig:
                 f"prefill_chunk must be >= 1 (or None for whole-prompt "
                 f"prefill), got {self.prefill_chunk}"
             )
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
+        if self.spec_k > 0 and self.prefill_chunk is None:
+            raise ValueError(
+                "speculative decoding (spec_k > 0) needs chunked prefill: "
+                "drafts are scored through the mixed program's s>1 rows"
+            )
+        high, low = self.shed_high_watermark, self.shed_low_watermark
+        if high is not None and not 0.0 < high <= 1.0:
+            raise ValueError(
+                f"shed_high_watermark must be in (0, 1], got {high}"
+            )
+        if low is not None:
+            if high is None:
+                raise ValueError(
+                    "shed_low_watermark needs shed_high_watermark"
+                )
+            if not 0.0 <= low <= high:
+                raise ValueError(
+                    f"shed_low_watermark must be in [0, high={high}], "
+                    f"got {low}"
+                )
+        if self.max_waiting is not None and self.max_waiting < 1:
+            raise ValueError(
+                f"max_waiting must be >= 1 (or None), got {self.max_waiting}"
+            )
+
+
+@dataclasses.dataclass
+class Backpressure:
+    """Structured admission rejection — the overload signal a fleet
+    router consumes (retry elsewhere / retry later) instead of a request
+    silently queueing unboundedly. ``reason`` is one of
+    ``pool-pressure`` (above the high watermark, hysteresis engaged),
+    ``queue-depth`` (waiting queue at ``max_waiting``), or ``draining``
+    (the engine is shutting down gracefully and admits nothing new)."""
+
+    reason: str
+    pool_pressure: float
+    waiting: int
+    draining: bool = False
 
 
 @dataclasses.dataclass
@@ -411,6 +525,10 @@ class ContinuousBatchingScheduler:
         self._free_slots: Deque[int] = deque(range(config.num_slots))
         self.preemption_count = 0
         self.prefix_hit_tokens = 0  # prefill tokens skipped via the trie
+        # overload shedding hysteresis: True from the first admission
+        # rejected above the high watermark until pressure falls to the
+        # low watermark (admission must not flap at the boundary)
+        self._shedding = False
         # slots whose sequence left (finish/preempt) since the engine
         # last synced: their decode-batch rows must be zeroed before the
         # next device step, or stale block tables would write into blocks
@@ -462,41 +580,103 @@ class ContinuousBatchingScheduler:
         return self.allocator.free_blocks + extra
 
     def pool_pressure(self) -> float:
-        """Fraction of grantable pool capacity in use, in [0, 1] (the
-        ``serve_pool_pressure`` gauge)."""
+        """Fraction of grantable pool capacity in use, in [0, 1] — the
+        overload gauge the shed watermarks compare against (and the
+        ``serve_pool_pressure`` gauge on the obs rails)."""
         usable = self.config.num_blocks - 1  # minus the trash block
         if usable <= 0:
             return 1.0
         return (usable - self.available_blocks()) / usable
 
-    def gauges(self) -> Dict[str, float]:
-        """Pool and queue occupancy for the obs registry. ``free`` counts
-        grantable capacity: the free list plus evictable prefix-cache
-        blocks."""
-        usable = self.config.num_blocks - 1
-        free = self.available_blocks()
-        out = {
-            "serve_running_seqs": float(len(self.running)),
-            "serve_waiting_seqs": float(len(self.waiting)),
-            "serve_prefilling_seqs": float(
-                sum(1 for s in self.running.values() if s.prefilling)
-            ),
-            "serve_free_blocks": float(free),
-            "serve_pool_utilization": (usable - free) / usable if usable else 0.0,
-            "serve_pool_pressure": self.pool_pressure(),
-        }
-        if self.prefix_cache is not None:
-            out["serve_prefix_cached_blocks"] = float(self.prefix_cache.cached_blocks)
-        return out
+    def admission_backpressure(self) -> Optional[Backpressure]:
+        """The watermark admission decision for ONE new submission:
+        None admits; a :class:`Backpressure` rejects (the caller — the
+        engine's ``submit`` — returns it to the client/router instead
+        of queueing). Pool pressure sheds with hysteresis: above
+        ``shed_high_watermark`` shedding starts and it only stops once
+        pressure falls to ``shed_low_watermark``; queue depth is a hard
+        cap with no hysteresis (depth moves by whole requests, not
+        fractions of a block)."""
+        cfg = self.config
+        pressure = self.pool_pressure()
+        if cfg.max_waiting is not None and len(self.waiting) >= cfg.max_waiting:
+            return Backpressure(
+                reason="queue-depth", pool_pressure=round(pressure, 4),
+                waiting=len(self.waiting),
+            )
+        high = cfg.shed_high_watermark
+        if high is None:
+            return None
+        low = cfg.shed_low_watermark if cfg.shed_low_watermark is not None \
+            else high
+        if self._shedding and pressure <= low:
+            self._shedding = False
+        elif not self._shedding and pressure >= high:
+            self._shedding = True
+        if self._shedding:
+            return Backpressure(
+                reason="pool-pressure", pool_pressure=round(pressure, 4),
+                waiting=len(self.waiting),
+            )
+        return None
+
+    def cancel(self, seq: Sequence) -> None:
+        """Retire a live sequence before completion (deadline timeout):
+        a RUNNING sequence releases its slot and drops one reference per
+        block — private blocks return to the free list, trie-cached
+        blocks stay resident as LRU-evictable prefix nodes (the cache
+        outlives its requester by design); a WAITING sequence just
+        leaves the queue. Either way the capacity is admissible in the
+        very next tick."""
+        if seq.state is SequenceState.RUNNING:
+            self._evict(seq)
+        elif seq.state is SequenceState.WAITING:
+            self.waiting.remove(seq)
+        else:
+            raise ValueError(
+                f"cancel on request {seq.request.req_id} in state "
+                f"{seq.state} — only live sequences can be cancelled"
+            )
+        seq.state = SequenceState.FINISHED
 
     def _take(self, n: int) -> List[int]:
         """Allocate ``n`` blocks, evicting LRU refcount-free prefix
         blocks first when the free list is short (the cache yields to
         live sequences, never the reverse)."""
+        get_fault_plan().fire("serve.pool")
         short = n - self.allocator.free_blocks
         if short > 0 and self.prefix_cache is not None:
             self.prefix_cache.evict(short)
         return self.allocator.alloc(n)
+
+    # -------------------------------------------------- speculative drafts
+    def propose_drafts(self) -> int:
+        """Draft up to ``spec_k`` candidate tokens for every decoding row
+        (n-gram self-drafting — no second model). Returns tokens drafted
+        this tick. Drafts are capped at ``remaining_tokens - 1`` so a
+        fully-accepted run (drafts + bonus token) lands exactly on the
+        request's budget. The engine calls this ahead of ``schedule()``
+        (under the ``serve.draft`` span) so GROW can book blocks for the
+        scored slots."""
+        k = self.config.spec_k
+        drafted = 0
+        for seq in self.running.values():
+            seq.draft = []
+            if k <= 0 or seq.prefilling or not seq.generated:
+                continue
+            cap = min(k, seq.remaining_tokens - 1)
+            if cap <= 0:
+                continue
+            # assemble only the scan window, not the full O(L) history
+            gen = seq.generated
+            w = NGRAM_SCAN_WINDOW
+            if len(gen) >= w:
+                hist = gen[-w:]
+            else:
+                hist = seq.request.prompt[-(w - len(gen)):] + gen
+            seq.draft = ngram_propose(hist, cap)
+            drafted += len(seq.draft)
+        return drafted
 
     # ------------------------------------------------- shared-prefix trie
     def _register_prefix_blocks(self) -> None:
@@ -584,8 +764,20 @@ class ContinuousBatchingScheduler:
             if chunk is not None and seq.prefilling:
                 step = min(chunk, seq.prefill_len - seq.num_cached)
             else:
-                step = 1  # a decode row writes its last token's slot
+                # a decode row scores its last token plus this tick's
+                # drafts in one call — blocks must cover every scored
+                # slot (rejected drafts' slots are simply overwritten)
+                step = 1 + len(seq.draft)
             need = self.blocks_needed(seq.num_cached + step) - len(seq.blocks)
+            if need > self.available_blocks() and seq.draft:
+                # speculation is opportunistic: shed the drafts before
+                # preempting anyone for their scratch space
+                seq.draft = []
+                step = 1
+                need = (
+                    self.blocks_needed(seq.num_cached + step)
+                    - len(seq.blocks)
+                )
             if need > 0:
                 while (need > self.available_blocks()
                        and self._preempt_youngest(seq, preempted)):
@@ -751,6 +943,7 @@ class ContinuousBatchingScheduler:
         # prefix_cached survives as a post-mortem stat; a re-admission
         # overwrites it with the fresh match
         seq.cached_upto = 0
+        seq.draft = []
         self.running.pop(seq.slot)
         self._free_slots.append(seq.slot)
         self._freed_slots.append(seq.slot)
@@ -773,3 +966,28 @@ class ContinuousBatchingScheduler:
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)
 
+    def gauges(self) -> Dict[str, float]:
+        """Pool/queue occupancy for the obs registry. ``free`` counts
+        grantable capacity — the free list plus evictable prefix-cache
+        blocks (resident but reclaimable on demand)."""
+        cfg = self.config
+        usable = cfg.num_blocks - 1
+        free = self.available_blocks()
+        out = {
+            "serve_running_seqs": float(len(self.running)),
+            "serve_waiting_seqs": float(len(self.waiting)),
+            "serve_prefilling_seqs": float(
+                sum(1 for s in self.running.values() if s.prefilling)
+            ),
+            "serve_free_blocks": float(free),
+            "serve_pool_utilization": (usable - free) / usable if usable
+            else 0.0,
+            # the admission watermarks' input — exported so a router (or
+            # a post-mortem) sees the same number the shed decision saw
+            "serve_pool_pressure": self.pool_pressure(),
+        }
+        if self.prefix_cache is not None:
+            out["serve_prefix_cached_blocks"] = float(
+                self.prefix_cache.cached_blocks
+            )
+        return out

@@ -15,7 +15,10 @@ live optimizer state fails the check against the synchronous save. Phase
 10 (observability) at toy size: the report over phase 9's run directory,
 the observed Trainer run with its profiler window, ``serve bench
 --run-dir`` and its report, and the checks of the trace's kernel names
-and of ``mfu`` against ``palm_mfu``, which a TPU peak fails."""
+and of ``mfu`` against ``palm_mfu``, which a TPU peak fails. Phase 3's
+kernel checks at their shapes (K1 at s = 1, K4 on the prefill buckets)
+and phase 13's in-process modes at toy size run here too, through the
+plain versions."""
 
 import json
 import pathlib
@@ -624,3 +627,146 @@ def test_finetune_resume_tells_a_mask_drawn_from_a_running_counter(monkeypatch, 
     monkeypatch.setattr(base_layer, "draw_mask", counted)
     with pytest.raises(AssertionError, match="resumed losses"):
         chip_smoke.finetune_phase(base, device="cpu")
+
+
+def _toy_greedy():
+    from scaling_tpu_torch.serve.bench import build_inference
+
+    inf = build_inference("toy", seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (9, 14, 21)]
+    want = {i: list(out.completion_ids) for i, out in
+            enumerate(inf.generate(prompts, max_tokens=6))}
+    return inf, prompts, want
+
+
+def test_modes_token_check_tells_a_changed_token_dict():
+    """Phase 13 holds each mode's tokens against another run's: equal
+    passes; a token swapped for the least likely one (no near tie) fails,
+    as does a dict that lost a request."""
+    inf, prompts, want = _toy_greedy()
+    assert chip_smoke.check_near_ties(inf, prompts, want, want, "same") == len(want)
+    got = {i: list(t) for i, t in want.items()}
+    logits = inf.logits(prompts[1] + got[1][:3])[0, -1]
+    got[1][3] = int(logits.argmin())
+    with pytest.raises(AssertionError, match="parts at token 3"):
+        chip_smoke.check_near_ties(inf, prompts, got, want, "changed")
+    with pytest.raises(AssertionError, match="requests"):
+        chip_smoke.check_near_ties(inf, prompts, {0: want[0]}, want, "lost")
+
+
+def test_modes_drain_check_wants_unsubmitted_work():
+    chip_smoke.check_drain({"drained": True, "unsubmitted": 3})
+    for stats in ({"drained": True, "unsubmitted": 0}, {"drained": False, "unsubmitted": 3}):
+        with pytest.raises(AssertionError, match="drain"):
+            chip_smoke.check_drain(stats)
+
+
+def test_modes_journal_check_wants_every_offer_ended(tmp_path):
+    """Completed + shed + timed out must be every offered request, with
+    nothing left incomplete."""
+    from scaling_tpu_torch.serve.journal import RequestJournal, replay_journal
+    from scaling_tpu_torch.serve.scheduler import Request
+
+    journal = RequestJournal(tmp_path / "journal.jsonl")
+    for r in range(3):
+        journal.record_submit(Request(req_id=r, prompt=[1, 2], max_new_tokens=2))
+    journal.record_finish(0, "completed", tokens=[5, 6])
+    journal.record_finish(1, "timeout")
+    journal.record_shed("queue-depth")
+    with pytest.raises(AssertionError, match="incomplete 1"):
+        chip_smoke.check_journal_counts(replay_journal(tmp_path / "journal.jsonl"), 4, "x")
+    journal.record_finish(2, "completed", tokens=[7, 8])
+    replay = replay_journal(tmp_path / "journal.jsonl")
+    chip_smoke.check_journal_counts(replay, 4, "x")
+    with pytest.raises(AssertionError, match="offered 4 of 5"):
+        chip_smoke.check_journal_counts(replay, 5, "x")
+
+
+def test_modes_time_to_recover_splits_the_gap():
+    """The crash's time to recover from the events: the parts add up to
+    the kill-to-first-token gap."""
+    events = [
+        {"event": "span", "span": "serve.supervisor.spawn", "ts": 0.0},
+        {"event": "serve-start", "ts": 1.0, "free_bytes": 5},
+        {"event": "span", "span": "serve.tick", "ts": 10.0},
+        {"event": "serve-restart", "ts": 10.5, "rc": -9},
+        {"event": "span", "span": "serve.supervisor.spawn", "ts": 10.6},
+        {"event": "serve-start", "ts": 18.6, "free_bytes": 5},
+        {"event": "serve-resume", "ts": 22.0, "replay_s": 0.4},
+        {"event": "serve-request", "ts": 30.0, "e2e_s": 7.5, "ttft_s": 0.9},
+    ]
+    ttr = chip_smoke.serve_time_to_recover(events)
+    assert ttr["total"] == pytest.approx(13.4) and ttr["detection"] == pytest.approx(0.5)
+    assert ttr["process_start"] == pytest.approx(8.0) and ttr["model_build"] == pytest.approx(3.0)
+    assert ttr["first_token"] == pytest.approx(1.4)
+    parts = sum(v for k, v in ttr.items() if k != "total")
+    assert parts + 0.1 == pytest.approx(ttr["total"])  # the restart-to-spawn gap
+
+
+def test_kernel_checks_run_on_the_cpu_at_their_shapes(monkeypatch, capsys):
+    """Phase 3's checks at their full shapes on the CPU, where each wrapper
+    runs its plain version: K1 also at s = 1 on the decode rows (an idle
+    slot among them), K4 on the whole-prompt buckets with their pads in
+    segment 1, each case printed with its error."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    errs = chip_smoke.check_kernels(device="cpu")
+    out = capsys.readouterr().out
+    assert set(errs) == {"paged_attention", "paged_attention_int8", "rms_norm",
+                         "flash_attention_fwd"}
+    assert all(e == 0.0 for e in errs.values())
+    assert out.count("decode rows at s = 1") == 2
+    for bucket, prompt_len in chip_smoke.K4_PREFILLS:
+        assert f"bucket {bucket} ({prompt_len} tokens, {bucket - prompt_len} pads" in out
+    rows = chip_smoke.K1_DECODE_ROWS
+    assert len(rows) == chip_smoke.K1_ROWS and max(c for c, _ in rows) == 2047
+    _, _, _, seg = chip_smoke.prefill_inputs(torch.Generator(), 128, 100, "cpu")
+    assert seg.tolist() == [[0] * 100 + [1] * 28]
+
+
+def test_modes_in_process_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
+    """Phase 13 (a)-(c) at toy size on the CPU: every mode against the
+    chunked run beside it, its ratios printed, the separate forwards' K1
+    widths read from the counters."""
+    from scaling_tpu_torch.serve.bench import build_inference
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    for key, value in dict(n_requests=4, rate=100.0, prompt_len=(8, 24),
+                           output_len=(16, 32)).items():
+        monkeypatch.setitem(chip_smoke.WORKLOAD, key, value)
+    for key, value in dict(num_slots=4, block_size=4, num_blocks=128, max_blocks_per_seq=16,
+                           prefill_chunk=8).items():
+        monkeypatch.setitem(chip_smoke.SERVE, key, value)
+    monkeypatch.setitem(chip_smoke.MODES, "first_token_prompt", 40)
+    monkeypatch.setitem(chip_smoke.MODES, "segment", (2, 4))
+    monkeypatch.setattr(chip_smoke, "check_mode_launches", lambda what, stats, needed: None)
+    widths = []
+    monkeypatch.setattr(chip_smoke, "check_k1_widths",
+                        lambda got, needed: widths.append(dict(got)))
+    inf = build_inference("toy", seed=0, device="cpu")
+    phase4 = chip_smoke.serve_mode(inf, chip_smoke.phase4_workload(512), "cpu")
+    out = chip_smoke.modes_in_process(inf, phase4, "cpu")
+    text = capsys.readouterr().out
+    assert set(out["launches"]) == {"spec", "spec_off", "chunked", "spec_random",
+                                    "whole_prompt", "separate"}
+    assert "chunked / whole ttft p50" in text and text.count("spec on / off tokens/s") == 2
+    assert "fused, beside it:" in text and out["longest_tick_s"] > 0
+    assert widths == [{}]  # the CPU counts no kernel launch at any width
+
+
+def test_kernel_times_refuse_a_profile_that_dropped_events():
+    """A kernel seen fewer times than the calls profiled marks a profile
+    that lost device events: its times are refused, not averaged. A rare
+    event of a small share of the time does not refuse the profile."""
+    from types import SimpleNamespace as E
+
+    full = [E(key="void flash_fwd_kernel<128>(Params)", self_device_time_total=2800.0, count=20),
+            E(key="Memcpy DtoD", self_device_time_total=40.0, count=20),
+            E(key="aten::empty", self_device_time_total=0.0, count=3)]
+    assert chip_smoke.kernel_ms(full, 20) == pytest.approx(
+        {"flash_fwd_kernel": 0.14, "Memcpy DtoD": 0.002})
+    full[1].count = 1
+    assert chip_smoke.kernel_ms(full, 20) == pytest.approx(
+        {"flash_fwd_kernel": 0.14, "Memcpy DtoD": 0.002})
+    full[0].count, full[0].self_device_time_total = 8, 1146.0
+    assert chip_smoke.kernel_ms(full, 20) == {}

@@ -2,12 +2,16 @@
 blocked, serves, takes a training step, trains from a token dataset,
 saves, resumes, serves, generates from and evaluates its checkpoint,
 LoRA-finetunes it with dropout, merges and serves the finetune on the CPU
-when asked to, renders ``obs report``, and supervises a worker
-(this file, run as the runner's script, is that worker); without a card,
+when asked to, renders ``obs report``, supervises a worker (this file,
+run as the runner's script, is that worker) and a serving bench through
+a crash and its journal replay; without a card,
 its entry points raise instead of moving to the CPU on their own."""
 
+import json
+import os
 import pathlib
 import re
+import signal
 import subprocess
 import sys
 
@@ -127,6 +131,57 @@ def test_obs_report_runs_with_jax_blocked():
     golden = (fixtures / "golden_single.txt").read_text()
     assert proc.stdout == golden.replace("RUNDIR", str(fixtures / "rundir_single")) + (
         "== gates ==\n  PASS\n")
+
+
+BLOCKED_SERVE_SUPERVISOR = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["scaling_tpu"] = None
+import torch
+def refuse():
+    raise AssertionError("the supervisor initialised CUDA")
+torch.cuda._lazy_init = refuse
+from scaling_tpu_torch.serve.bench import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def test_supervised_crash_replay_bench_with_jax_blocked(tmp_path):
+    """``serve bench --restarts 2`` with ``serve.tick=kill@6``: the
+    supervisor (JAX and the JAX package blocked, CUDA refused) relaunches
+    the killed child with ``--resume``. The children run where ``jax`` and
+    ``scaling_tpu`` resolve to packages that refuse to import, so a child
+    that reached either would fail every launch."""
+    blocked = tmp_path / "blocked"
+    for name in ("jax", "scaling_tpu"):
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked in this test')\n")
+    run_dir = tmp_path / "run"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SCALING_TPU_")}
+    env.update(PYTHONPATH=str(REPO), SCALING_TPU_FAULTS="serve.tick=kill@6",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", BLOCKED_SERVE_SUPERVISOR, "--device", "cpu", "--model", "toy",
+         "--requests", "6", "--rate", "50", "--prompt-len", "4", "16", "--output-len", "6",
+         "12", "--num-slots", "4", "--block-size", "4", "--num-blocks", "64",
+         "--max-blocks-per-seq", "16", "--prefill-chunk", "8", "--warmup", "0",
+         "--run-dir", str(run_dir), "--restarts", "2"],
+        cwd=blocked, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)  # a session of its own: the kill below ends its children too
+    try:
+        _, err = proc.communicate(timeout=240)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    assert proc.returncode == 0, err[-3000:]
+    events = [json.loads(line) for line in (run_dir / "events.jsonl").read_text().splitlines()]
+    assert [e["rc"] for e in events if e["event"] == "serve-restart"] == [-9]
+    lines = [json.loads(line) for line in (run_dir / "journal.jsonl").read_text().splitlines()]
+    done = [r["req"] for r in lines if r["kind"] == "serve-finish" and r["status"] == "completed"]
+    assert sorted(done) == list(range(6))
 
 
 BLOCKED_SUPERVISE = r"""

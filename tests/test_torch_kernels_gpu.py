@@ -66,6 +66,11 @@ PAGED_CASES = {
     "nrep4-decode": (128, 16, 4, 1, 16, 128, ((700, 1), (2047, 1), (0, 0))),
     "nrep8": (128, 16, 2, 32, 16, 64, None),      # 256 query vectors: 2 query tiles
     "nrep8-h64": (64, 8, 1, 32, 32, 48, None),
+    # the 0.5B model's serving shapes: the separate decode forward (s = 1)
+    # and a speculative decode row of spec_k 4 (s = 5), drafts 0..4
+    "serving-decode-s1": (128, 16, 4, 1, 16, 128, ((0, 0), (0, 1), (130, 1), (2047, 1))),
+    "serving-spec4-s5": (128, 16, 4, 5, 16, 128, (
+        (0, 0), (40, 1), (97, 3), (500, 5), (2043, 5))),
 }
 
 
@@ -503,3 +508,51 @@ def test_lora_finetune_step_with_dropout_on_the_card(card):
     assert sum(launches.PLAIN.values()) == 0
     for k, v in module.model.state_dict().items():
         assert torch.equal(v, before[k]) != k.endswith("lora_b"), k
+
+
+def test_whole_prompt_prefill_runs_k4_and_agrees_with_chunks(card):
+    """A bf16 toy of head dim 128 (fused RMS, flash) served with
+    ``prefill_chunk=None``: prompts of 100-128 tokens fill the 128 bucket,
+    whose prefill runs K4 (the bucket's pads in their own segment) and K2,
+    and the decodes run K1 at s = 1. Its greedy tokens equal the chunked
+    engine's, or part first where the card's ``logits()`` put the two
+    candidates within 0.05 of max |logit| (bf16 through two paths)."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+    from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+    from scaling_tpu_torch.serve.bench import MODELS
+
+    arch = TransformerArchitectureConfig.from_dict(dict(
+        MODELS["toy"], precision="bfloat16", masked_softmax={"kernel": "flash_attention"},
+        num_attention_heads=2, attention_num_kv_heads=1))
+    inf = TransformerInferenceModule.random_init(arch, seed=0, device=card)
+    rng = np.random.default_rng(2)
+    work = [(rng.integers(1, 512, size=int(rng.integers(100, 129))).tolist(), 12)
+            for _ in range(6)]
+    cfg = dict(num_slots=4, block_size=16, num_blocks=96, max_blocks_per_seq=16)
+
+    def serve(**kw):
+        engine = ServeEngine(inf, EngineConfig(**cfg, **kw), device=card)
+        for prompt, n in work:
+            engine.submit(prompt, n)
+        return {s.request.req_id: list(s.generated) for s in engine.run_until_done()}
+
+    launches.reset()
+    whole = serve(prefill_chunk=None)
+    torch.cuda.synchronize()
+    assert launches.KERNEL["flash_attention_fwd"] == 2 * len(work)  # one bucket, two layers
+    assert launches.WIDTHS[("paged_attention", 1)] > 0 and launches.KERNEL["rms_norm"] > 0
+    assert sum(launches.PLAIN.values()) == 0
+    chunked = serve(prefill_chunk=32)
+    for i, (prompt, n) in enumerate(work):
+        got, want = whole[i], chunked[i]
+        assert len(got) == len(want) == n
+        t = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if t is not None:
+            logits = inf.logits(prompt + got[:t])[0, -1].float()
+            gap = abs(logits[got[t]] - logits[want[t]]).item()
+            assert gap <= 0.05 * logits.abs().max().item(), (i, t, gap)

@@ -40,6 +40,8 @@ from scaling_tpu_torch.models.transformer.convert import params_from_jax  # noqa
 from scaling_tpu_torch.ops import launches  # noqa: E402
 from scaling_tpu_torch.serve import EngineConfig, ServeEngine  # noqa: E402
 
+from .test_torch_parity_helpers import inference_pair  # noqa: E402
+
 ARCH = {
     "vocab_size": 128,
     "hidden_size": 256,
@@ -221,19 +223,143 @@ def test_sampled_tokens_reproducible_across_preemption(models):
     assert a != greedy  # the sampler really sampled
 
 
-def test_engine_rejects_what_is_not_ported(models):
-    for kwargs in (dict(prefill_chunk=None), dict(fused_tick=False), dict(spec_k=2),
-                   dict(default_deadline_ms=5.0), dict(shed_high_watermark=0.9),
-                   dict(max_waiting=4), dict(replica_id=0)):
-        with pytest.raises(NotImplementedError):
-            EngineConfig(**kwargs)
-    engine = ServeEngine(models[1], EngineConfig(**ENGINE), device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.submit([1, 2, 3], 2, deadline_ms=10.0)
-    with pytest.raises(NotImplementedError):
-        engine.attach_journal(None)
-    with pytest.raises(NotImplementedError):
-        engine.begin_drain()
+# (keys, the error both engines raise); paged_kernel='xla' raises in the
+# port alone, by name: on the card it would run K1's plain version
+REFUSED = {
+    "paged_kernel_xla": (dict(paged_kernel="xla"), NotImplementedError),
+    "paged_kernel_unknown": (dict(paged_kernel="mosaic"), ValueError),
+    "spec_without_chunks": (dict(spec_k=2, prefill_chunk=None), ValueError),
+    "spec_without_fused_tick": (dict(spec_k=2, fused_tick=False), ValueError),
+    "spec_negative": (dict(spec_k=-1), ValueError),
+    "chunk_zero": (dict(prefill_chunk=0), ValueError),
+    "high_watermark_above_1": (dict(shed_high_watermark=1.5), ValueError),
+    "low_without_high": (dict(shed_low_watermark=0.5), ValueError),
+    "low_above_high": (dict(shed_high_watermark=0.5, shed_low_watermark=0.8), ValueError),
+    "max_waiting_zero": (dict(max_waiting=0), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_engine_rejects_what_is_not_ported(models, case):
+    """What still raises in the port (``paged_kernel='xla'``), and the JAX
+    engine's validation errors, raised by the port's config or engine
+    where the JAX package raises them."""
+    jax_inf, port_inf = models
+    kwargs, error = REFUSED[case]
+    with pytest.raises(error):
+        ServeEngine(port_inf, EngineConfig(**{**ENGINE, **kwargs}), device="cpu")
+    if case == "paged_kernel_xla":
+        JaxEngineConfig(**{**ENGINE, **kwargs})  # the JAX engine has it
+        return
+    with pytest.raises(error):
+        JaxEngine(jax_inf, JaxEngineConfig(**{**ENGINE, **kwargs}))
+
+
+def repeating_workload(seed=2, n=6):
+    """Self-repeating prompts (a segment of 3-6 tokens repeated to 12-24),
+    the traffic n-gram drafting serves."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        segment = rng.integers(1, 128, size=int(rng.integers(3, 7))).tolist()
+        length = int(rng.integers(12, 25))
+        out.append(((segment * 8)[:length], int(rng.integers(6, 13))))
+    return out
+
+
+MODES = {
+    "spec2_native": (dict(spec_k=2), True),
+    "spec4_native": (dict(spec_k=4), True),
+    "spec2_int8": (dict(spec_k=2, kv_dtype="int8"), True),
+    "spec4_int8": (dict(spec_k=4, kv_dtype="int8"), True),
+    "whole_prompt": (dict(prefill_chunk=None), False),
+    "separate_chunked": (dict(fused_tick=False), False),
+    "separate_whole_prompt": (dict(prefill_chunk=None, fused_tick=False), False),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_modes_give_the_jax_engines_tokens(models, mode):
+    """Greedy tokens token for token and the speculative draft and accept
+    counts equal to the JAX engine's in every mode: ``spec_k`` 2 and 4 on
+    self-repeating prompts (native and int8 KV), whole-prompt prefill and
+    the separate decode and chunk forwards (chunked and whole-prompt)."""
+    jax_inf, port_inf = models
+    cfg, spec = MODES[mode]
+    work = repeating_workload() if spec else workload()
+    launches.reset()
+    port_engine, port_tokens = serve_port(port_inf, work, **cfg)
+    jax_engine, jax_tokens = serve_jax(jax_inf, work, **cfg)
+    assert port_tokens == jax_tokens
+    assert [len(port_tokens[i]) for i in range(len(work))] == [n for _, n in work]
+    assert (port_engine.spec_drafted_tokens, port_engine.spec_accepted_tokens) == \
+        (jax_engine.spec_drafted_tokens, jax_engine.spec_accepted_tokens)
+    if spec:
+        assert port_engine.spec_accepted_tokens > 0
+        assert port_engine.scheduler.config.spec_k == cfg["spec_k"]
+    assert port_engine.scheduler.preemption_count == jax_engine.scheduler.preemption_count
+    assert port_engine.max_concurrent_prefills == jax_engine.max_concurrent_prefills
+    assert sum(launches.KERNEL.values()) == 0
+    assert launches.PLAIN["paged_attention_int8" if "int8" in mode
+                          else "paged_attention"] > 0
+
+
+# the architectures of the other parity files, served by both engines
+PEFT_BASE = dict(vocab_size=128, hidden_size=64, num_layers=2, num_attention_heads=4,
+                 sequence_length=128, precision="float32")
+ARCHS = {
+    "jax_default": dict(PEFT_BASE, attention_num_kv_heads=2, attention_qkv_in_one=False,
+                        norm_type="layernorm", mlp_type="default", activation_function="gelu",
+                        weight_tying=True, key_query_norm=True),
+    "rotary_complex": dict(PEFT_BASE, relative_position_embedding_type="rotary_complex",
+                           norm_type="rms", mlp_type="swiglu", mlp_factor=2.0,
+                           weight_tying=False),
+    "lora_separate": dict(PEFT_BASE, attention_num_kv_heads=2, attention_qkv_in_one=False,
+                          lora_config={"name": "lora", "rank": 4, "alpha": 8, "bias": True}),
+    "lora_qkv_in_one": dict(PEFT_BASE, attention_qkv_in_one=True, norm_type="rms",
+                            mlp_type="swiglu", mlp_factor=2.0,
+                            lora_config={"name": "lo", "rank": 8, "alpha": 16}),
+    "adapters_bitfit": dict(PEFT_BASE, attention_num_kv_heads=2, attention_qkv_in_one=False,
+                            bitfit_bias_config={"name": "bf"},
+                            adapter_config={"name": "ad", "attention_downsampling_factor": 0.25,
+                                            "mlp_downsampling_factor": 0.5}),
+}
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_architectures_give_the_jax_engines_tokens(arch):
+    """The JAX default architecture, ``rotary_complex``, LoRA (separate and
+    ``qkv_in_one``) and adapters with BitFit: greedy tokens equal to the JAX
+    engine's with speculation on (``spec_k`` 2), and the draft counts."""
+    jax_inf, port_inf = inference_pair(ARCHS[arch], seed=3)
+    work = repeating_workload(seed=4, n=4)
+    port_engine, port_tokens = serve_port(port_inf, work, spec_k=2)
+    jax_engine, jax_tokens = serve_jax(jax_inf, work, spec_k=2)
+    assert port_tokens == jax_tokens
+    assert (port_engine.spec_drafted_tokens, port_engine.spec_accepted_tokens) == \
+        (jax_engine.spec_drafted_tokens, jax_engine.spec_accepted_tokens)
+    assert port_engine.spec_drafted_tokens > 0
+
+
+@pytest.mark.parametrize("spec_k", [2, 4])
+def test_sampled_speculation_equals_plain_decode_across_preemption(models, spec_k):
+    """temperature > 0: with speculation on, across forced preemptions,
+    every request's tokens equal those of plain decode in a roomy pool (each
+    scored position draws with its (request, position) key)."""
+    _, port_inf = models
+
+    def run(**cfg):
+        engine = ServeEngine(port_inf, EngineConfig(**{**ENGINE, **cfg}), device="cpu")
+        for i, (prompt, n) in enumerate(repeating_workload(seed=5)):
+            engine.submit(prompt, n, temperature=0.7, top_k=20 if i % 2 else None)
+        done = engine.run_until_done()
+        return engine, {s.request.req_id: list(s.generated) for s in done}
+
+    _, plain = run()
+    tight, spec = run(spec_k=spec_k, num_blocks=14)
+    assert tight.scheduler.preemption_count > 0 and tight.spec_drafted_tokens > 0
+    assert spec == plain
+    assert plain != serve_port(port_inf, repeating_workload(seed=5))[1]  # it sampled
 
 
 def test_torch_rotary_table_dtype_matches_jax():
