@@ -9,8 +9,8 @@ Phases, each of which must pass:
    checkout's sources (nvcc for the CUDA kernels, one process per source,
    all started together; Triton's compiler for the Triton ones) and print
    the build time, and each CUDA kernel's registers, spills and dynamic
-   shared memory from ``ptxas -v``: a flash or paged kernel that spills
-   fails;
+   shared memory from ``ptxas -v``: a flash, paged or RMSNorm-backward
+   kernel that spills fails;
 3. hold each kernel against its plain PyTorch version on the same inputs
    at the shapes its path gives it, and print the max error beside the
    tolerance: K1 (native and int8) at the serving tick's shape, on one
@@ -18,11 +18,13 @@ Phases, each of which must pass:
    s = 1 (contexts up to 2047), each also repeated, which must give the
    same bits; K2 at serving shapes; K4 in whole-prompt prefills of one
    row at buckets 128 and 1024, the pads in segment 1; K3 (RMSNorm
-   backward) at the
-   training rows and an odd row count; K4 and K5 (flash attention forward
-   and backward) at the training shape, unsegmented, with 3 packed
-   documents, and with 4 local heads of window 256. K5's gradients and
-   K3's dw must repeat bitwise;
+   backward), with dw and dx-only, at the training rows, an odd row count,
+   7 rows of 8192 and 3 of 32768 (the chunked walk), in bf16, and at the
+   training rows also with an f32 gain and in f16; K4 and K5 (flash
+   attention forward and backward) at the training shape, unsegmented,
+   with 3 packed documents, and with 4 local heads of window 256. K5's
+   gradients and both K3 variants' outputs must repeat bitwise, and the
+   dx-only variant's dx must be the full one's;
 4. serve the full-width 0.5B model (random weights from a seed) with
    native and with int8 KV: every request must finish with its token
    count, the kernel launch counters must be > 0 and the plain-version
@@ -262,7 +264,9 @@ TRAIN_MBS, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 2048, 3, 10
 FLASH_SHAPE = dict(b=TRAIN_MBS, s=TRAIN_SEQ, n=16, n_kv=4, d=128)
 FLASH_CASES = (  # name, packed documents, local heads, window
     ("causal", 1, 0, None), ("packed3", 3, 0, None), ("local4", 1, 4, 256))
-K3_SHAPES = ((TRAIN_MBS * TRAIN_SEQ, 2048), (8191, 2048))
+K3_SHAPES = ((TRAIN_MBS * TRAIN_SEQ, 2048), (8191, 2048), (7, 8192), (3, 32768))
+# (x, w) dtypes of K3's cases beyond bf16, at the training rows: an f32 gain, f16
+K3_DTYPES = ((torch.bfloat16, torch.float32), (torch.float16, torch.float16))
 FLASH_OUT_TOL = 1e-2    # atol and rtol: bf16 output, one rounding apart
 LSE_TOL = 1e-3          # atol: f32 from the same bf16 products
 FLASH_GRAD_TOL = 2e-2   # max |err| / max |ref|: P and dS enter the products as bf16
@@ -415,11 +419,12 @@ def bound(moved_bytes: float, flops: float) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k3_bound_ms(x: torch.Tensor) -> tuple:
-    """Read x, g and w, write dx and dw: what the function needs, not the
-    kernel's own f32 dw partials; about ten operations an element."""
+def k3_bound_ms(x: torch.Tensor, need_dw: bool = True) -> tuple:
+    """Read x, g and w, write dx and dw (dx alone without ``need_dw``): what
+    the function needs, not the kernel's own f32 dw partials; about ten
+    operations an element."""
     d = x.shape[-1]
-    moved = 3 * x.numel() * x.element_size() + 2 * d * x.element_size()
+    moved = 3 * x.numel() * x.element_size() + (2 if need_dw else 1) * d * x.element_size()
     return bound(moved, 10 * x.numel())
 
 
@@ -529,18 +534,17 @@ def kernel_ms(averages, reps: int) -> dict:
 # ---------------------------------------------------------------- phases
 def build_kernels() -> float:
     """Build every kernel of the serving and training paths; returns seconds."""
-    from scaling_tpu_torch.ops import cuda_build, rms_norm, rms_norm_bwd
+    from scaling_tpu_torch.ops import cuda_build, rms_norm
 
     t0 = time.monotonic()
-    sources = ("paged_attention", "flash_attention")
+    sources = ("paged_attention", "flash_attention", "rms_norm_bwd")
     for name in sources:
         cuda_build.start(name)  # one nvcc per source, all in the background
     dev = torch.device("cuda")
-    for rows, d in K2_SHAPES + K3_SHAPES:  # Triton compiles at first launch
+    for rows, d in K2_SHAPES + K3_SHAPES[:1]:  # Triton compiles at first launch
         x = torch.ones(rows, d, device=dev, dtype=torch.bfloat16)
         w = torch.ones(d, device=dev, dtype=torch.bfloat16)
         rms_norm(x, w, 1e-5)
-        rms_norm_bwd(x, w, x, 1e-5)
     for name in sources:
         cuda_build.load(name)
     torch.cuda.synchronize()
@@ -549,35 +553,48 @@ def build_kernels() -> float:
         for r in kernel_resources(cuda_build.build_log(name)):
             print(f"  ptxas {name}: {r['kernel']} registers={r['registers']} "
                   f"spill={r['spill']} bytes, dynamic smem={r['smem']} bytes")
-            if r["kernel"].startswith(("flash_", "paged_")) and r["spill"] > 0:
+            if r["kernel"].startswith(("flash_", "paged_", "rms_")) and r["spill"] > 0:
                 raise AssertionError(f"{r['kernel']} spills {r['spill']} bytes")
     return seconds
 
 
 FLASH_SMEM_INDEX = {"flash_fwd_kernel": 0, "flash_bwd_dkdv_kernel": 1, "flash_bwd_dq_kernel": 2}
+K3_DTYPE_NAMES = ("f32", "bf16", "f16")  # the dtype codes of csrc/rms_norm_bwd.cu
 
 
 def kernel_resources(log: str) -> list:
     """Each entry function of a ``ptxas -v`` log: its short name, registers
     and spill bytes (stores + loads); for a flash kernel, also the dynamic
-    shared memory its launcher requests (0 where it requests none)."""
+    shared memory its launcher requests (0 where it requests none), and for
+    K3 the most its ring takes at the training rows' dtypes (its x and g
+    dtypes and variant in the label)."""
     from scaling_tpu_torch.ops.flash_attention import _library
+    from scaling_tpu_torch.ops.rms_norm import plan_bwd
 
     rows = []
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            kernel = re.search(r"((?:flash|paged)_[a-z_]*kernel)I", mangled)
+            kernel = re.search(r"((?:flash|paged|rms_norm_bwd)_[a-z_]*kernel)I", mangled)
             dim = re.search(r"Li(\d+)E", mangled)
             name = kernel.group(1) if kernel else mangled
-            label = f"{dim.group(1)}, int8" if dim and "Lb1E" in mangled else (
-                dim.group(1) if dim else None)
+            k3 = re.search(r"ILi(\d)ELi(\d)ELb([01])E", mangled)
+            if name == "rms_norm_bwd_kernel" and k3:
+                xt, gt = (K3_DTYPE_NAMES[int(k3.group(i))] for i in (1, 2))
+                label = f"x {xt}, g {gt}, " + ("dx and dw" if k3.group(3) == "1" else "dx only")
+            else:
+                label = f"{dim.group(1)}, int8" if dim and "Lb1E" in mangled else (
+                    dim.group(1) if dim else None)
             rows.append({"kernel": f"{name}<{label}>" if label else name, "spill": 0,
                          "registers": None, "smem": 0})
             if name in FLASH_SMEM_INDEX and dim:
                 rows[-1]["smem"] = _library().flash_attention_smem_bytes(
                     int(dim.group(1)), FLASH_SMEM_INDEX[name])
+            if name == "rms_norm_bwd_kernel" and k3:
+                rows_k3, d = K3_SHAPES[0]
+                sizes = [4 if int(k3.group(i)) == 0 else 2 for i in (1, 2)]
+                rows[-1]["smem"] = plan_bwd(rows_k3, d, *sizes, 132).smem_bytes
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and rows:
@@ -687,9 +704,37 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+def check_k3(x, w, g, kernel, plain) -> float:
+    """Both K3 variants against the plain version on one case: dx within
+    KERNEL_TOL, dw within K3_DW_TOL of its largest value, each output equal
+    to itself on a repeat, and the dx-only variant's dx the full one's.
+    Returns dx's max |error|."""
+    (dx, dw), (dx2, dw2) = kernel(x, w, g, 1e-5), kernel(x, w, g, 1e-5)
+    (dx_only, none), (dx_only2, _) = (kernel(x, w, g, 1e-5, need_dw=False),
+                                      kernel(x, w, g, 1e-5, need_dw=False))
+    ref_dx, ref_dw = plain(x, w, g, 1e-5)
+    torch.cuda.synchronize()
+    case = f"{tuple(x.shape)} x {str(x.dtype)[6:]} w {str(w.dtype)[6:]}"
+    if none is not None or dx.dtype != x.dtype or dw.dtype != w.dtype:
+        raise AssertionError(f"rms_norm_bwd {case}: outputs {dx.dtype} {dw.dtype} {none}")
+    if not (torch.equal(dw, dw2) and torch.equal(dx, dx2) and torch.equal(dx_only, dx_only2)):
+        raise AssertionError(f"rms_norm_bwd {case}: repeats differ")
+    if not torch.equal(dx_only, dx):
+        raise AssertionError(f"rms_norm_bwd {case}: the dx-only variant's dx differs")
+    torch.testing.assert_close(dx.float(), ref_dx.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    dx_err = (dx.float() - ref_dx.float()).abs().max().item()
+    dw_err = rel_err(dw, ref_dw)
+    print(f"  rms_norm_bwd {case}: dx max_abs_err={dx_err:.3e} (atol=rtol={KERNEL_TOL}) "
+          f"dw max_err/max|dw|={dw_err:.3e} (tol {K3_DW_TOL}); repeats bitwise equal, "
+          "dx-only's dx the same bits")
+    if not dw_err <= K3_DW_TOL:
+        raise AssertionError(f"rms_norm_bwd {case}: dw disagrees: {dw_err}")
+    return dx_err
+
+
 def check_training_kernels() -> dict:
     """K2, K3, K4 and K5 against their plain versions at training shapes;
-    K5's gradients and K3's dw must repeat bitwise."""
+    K5's gradients and K3's outputs must repeat bitwise."""
     from scaling_tpu_torch.ops import (
         flash_attention_bwd,
         flash_attention_bwd_plain,
@@ -710,26 +755,21 @@ def check_training_kernels() -> dict:
         x = (3 * torch.randn(rows, d, generator=gen, device=dev)).bfloat16()
         w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).bfloat16()
         g = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
-        y, y_ref = rms_norm(x, w, 1e-5), rms_norm_plain(x, w, 1e-5)
-        torch.cuda.synchronize()
-        errs["rms_norm"] = max(errs["rms_norm"], (y.float() - y_ref.float()).abs().max().item())
-        print(f"  rms_norm ({rows}, {d}): max_abs_err={errs['rms_norm']:.3e} "
-              f"(atol=rtol={KERNEL_TOL})")
-        torch.testing.assert_close(y.float(), y_ref.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
-        (dx, dw), (dx2, dw2) = rms_norm_bwd(x, w, g, 1e-5), rms_norm_bwd(x, w, g, 1e-5)
-        ref_dx, ref_dw = rms_norm_bwd_plain(x, w, g, 1e-5)
-        torch.cuda.synchronize()
-        if not torch.equal(dw, dw2) or not torch.equal(dx, dx2):
-            raise AssertionError(f"rms_norm_bwd ({rows}, {d}): repeats differ")
-        torch.testing.assert_close(dx.float(), ref_dx.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
-        dx_err = (dx.float() - ref_dx.float()).abs().max().item()
-        dw_err = rel_err(dw, ref_dw)
-        print(f"  rms_norm_bwd ({rows}, {d}): dx max_abs_err={dx_err:.3e} "
-              f"(atol=rtol={KERNEL_TOL}) dw max_err/max|dw|={dw_err:.3e} (tol {K3_DW_TOL}); "
-              "repeats bitwise equal")
-        if not dw_err <= K3_DW_TOL:
-            raise AssertionError(f"rms_norm_bwd dw disagrees: {dw_err}")
-        errs["rms_norm_bwd"] = max(errs["rms_norm_bwd"], dx_err)
+        if d == 2048:  # K2 at the training rows (the model's width)
+            y, y_ref = rms_norm(x, w, 1e-5), rms_norm_plain(x, w, 1e-5)
+            torch.cuda.synchronize()
+            errs["rms_norm"] = max(errs["rms_norm"],
+                                   (y.float() - y_ref.float()).abs().max().item())
+            print(f"  rms_norm ({rows}, {d}): max_abs_err={errs['rms_norm']:.3e} "
+                  f"(atol=rtol={KERNEL_TOL})")
+            torch.testing.assert_close(y.float(), y_ref.float(), atol=KERNEL_TOL,
+                                       rtol=KERNEL_TOL)
+        cases = [(x, w, g)]
+        if (rows, d) == K3_SHAPES[0]:
+            cases += [(x.to(xt), w.to(wt), g.to(xt)) for xt, wt in K3_DTYPES]
+        for xc, wc, gc in cases:
+            dx_err = check_k3(xc, wc, gc, rms_norm_bwd, rms_norm_bwd_plain)
+            errs["rms_norm_bwd"] = max(errs["rms_norm_bwd"], dx_err)
     for name, documents, n_local, window in FLASH_CASES:
         q, k, v, seg = flash_inputs(gen, documents, dev)
         out, lse = flash_attention_fwd(q, k, v, seg, n_local, window)
@@ -963,7 +1003,7 @@ def recompute_train_row(module, batch) -> dict:
 
 
 TRAIN_GROUPS = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
-                ("rms_fwd", ("rms_norm_fwd",)), ("rms_bwd", ("rms_norm_bwd", "sum_partials")),
+                ("rms_fwd", ("rms_norm_fwd",)), ("rms_bwd", ("rms_norm_bwd_kernel",)),
                 ("gemm", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")),
                 ("optimizer_foreach", ("multi_tensor_apply", "foreach")))
 
@@ -3044,12 +3084,16 @@ def finetune_phase(base: dict, device: str = "cuda") -> dict:
         del engine, served
         if device == "cuda":
             torch.cuda.empty_cache()
-        print(f"  launches kernel={kernel} plain={plain}")
+        variants = {v: launches.VARIANTS[("rms_norm_bwd", v)] for v in ("dx_dw", "dx_only")}
+        print(f"  launches kernel={kernel} plain={plain}; K3 by variant {variants} (the "
+              "norm gains are frozen)")
         needed = ("paged_attention", "rms_norm", "rms_norm_bwd", "flash_attention_fwd",
                   "flash_attention_bwd")
         if device == "cuda" and (any(kernel.get(k, 0) <= 0 for k in needed)
                                  or sum(plain.values())):
             raise AssertionError(f"finetune phase: launches kernel={kernel} plain={plain}")
+        if device == "cuda" and (variants["dx_dw"] or variants["dx_only"] <= 0):
+            raise AssertionError(f"finetune phase: frozen gains took K3 {variants}")
 
         # the unmerged model in f32 on the CPU (plain versions, after the
         # counters were read)
@@ -3606,11 +3650,23 @@ def time_kernels(errs: dict) -> list:
     g = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
     xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
     y_lib = F.rms_norm(xr, (d,), wr, 1e-5)  # the library yardstick: autograd of F.rms_norm
-    row("rms_norm_bwd", "triton", "scaling_tpu_torch/ops/_rms_norm_bwd_triton.py",
+    row("rms_norm_bwd", "cuda", "scaling_tpu_torch/csrc/rms_norm_bwd.cu",
         "scaling_tpu/ops/rms_norm.py:130",
         lambda: rms_norm_bwd(x, w, g, 1e-5), lambda: rms_norm_bwd_plain(x, w, g, 1e-5),
         k3_bound_ms(x),
         lambda: torch.autograd.grad(y_lib, (xr, wr), g, retain_graph=True))
+    parts = device_ms_by_kernel(lambda: rms_norm_bwd(x, w, g, 1e-5))
+    print(f"  rms_norm_bwd {tuple(x.shape)}: device ms by kernel: "
+          + (" ".join(f"{n}={ms:.4f}" for n, ms in parts.items()) or "not measured"))
+    # the dx-only variant (frozen gains): the library call is autograd of
+    # F.rms_norm with respect to x alone
+    y_lib_x = F.rms_norm(xr, (d,), w, 1e-5)
+    dev_ms, call_ms = time_ms(lambda: rms_norm_bwd(x, w, g, 1e-5, need_dw=False))
+    lib_ms = time_ms(lambda: torch.autograd.grad(y_lib_x, (xr,), g, retain_graph=True))[0]
+    only_bound = k3_bound_ms(x, need_dw=False)[0]
+    print(f"  rms_norm_bwd dx-only {tuple(x.shape)}: device ms={dev_ms:.4f} "
+          f"per call={call_ms:.4f} bound={only_bound:.4f} (bytes) library={lib_ms:.4f} "
+          f"gbps={only_bound / dev_ms * HBM_BYTES_PER_S / 1e9:.1f}")
 
     q, k, v, seg = flash_inputs(gen, 1, dev)
     out, lse = flash_attention_fwd(q, k, v, seg)

@@ -7,8 +7,9 @@ PyTorch ops under autograd at every ``optimization_type``, as the JAX
 package leaves it to XLA; ``RMSNorm`` is ``x * rsqrt(mean(x^2) + eps) * w``.
 
 ``fused=True`` (``layernorm.optimization_type: fused``) sends an RMSNorm
-through ``ops.RMSNormFunction`` (kernel K2 forward, K3 backward: Triton on
-CUDA tensors, their plain versions on CPU tensors) where
+through ``ops.RMSNormFunction`` (kernel K2 forward in Triton, K3 backward
+in CUDA C++ on CUDA tensors, their plain versions on CPU tensors; a frozen
+gain takes K3's dx-only variant) where
 ``rms_norm_fused_supported`` allows it: the JAX gate without its platform
 check, a hidden size that is a multiple of 128. Any other width takes the
 plain ops, as the JAX layer takes its XLA path; the route depends on the

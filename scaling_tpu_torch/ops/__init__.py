@@ -1,8 +1,9 @@
 """The port's kernels, each beside its plain PyTorch version.
 
 - ``paged_attention`` (K1): CUDA C++, ``csrc/paged_attention.cu``;
-- ``rms_norm`` (K2) and ``rms_norm_bwd`` (K3): Triton,
-  ``_rms_norm_triton.py`` and ``_rms_norm_bwd_triton.py``;
+- ``rms_norm`` (K2): Triton, ``_rms_norm_triton.py``;
+- ``rms_norm_bwd`` (K3): CUDA C++, ``csrc/rms_norm_bwd.cu``, with a dx-only
+  variant for a gain that needs no gradient;
 - ``flash_attention_fwd`` (K4) and ``flash_attention_bwd`` (K5): CUDA C++,
   ``csrc/flash_attention.cu``.
 

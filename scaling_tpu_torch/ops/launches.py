@@ -21,9 +21,13 @@ PLAIN: Counter = Counter()
 # K1's launches by query width: (name, s) -> launches, beside KERNEL's count
 # (s = 1 is the separate decode program, s = the chunk the chunk program)
 WIDTHS: Counter = Counter()
+# K3's launches by variant, beside KERNEL["rms_norm_bwd"]: ("rms_norm_bwd",
+# "dx_dw") or ("rms_norm_bwd", "dx_only") (a frozen gain)
+VARIANTS: Counter = Counter()
 
 
 def reset() -> None:
     KERNEL.clear()
     PLAIN.clear()
     WIDTHS.clear()
+    VARIANTS.clear()

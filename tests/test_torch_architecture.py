@@ -65,6 +65,7 @@ from .test_torch_parity_helpers import (  # noqa: E402
     draw_weights,
     inference_pair,
     module_state,
+    one_torch_thread,  # noqa: F401
 )
 
 REPO = Path(__file__).resolve().parent.parent

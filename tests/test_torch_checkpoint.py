@@ -54,6 +54,7 @@ from scaling_tpu_torch.models.transformer.train import build_trainer  # noqa: E4
 from scaling_tpu_torch.models.transformer.train import main as port_main  # noqa: E402
 from scaling_tpu_torch.resilience import verify_checkpoint  # noqa: E402
 from scaling_tpu_torch.serve import EngineConfig, ServeEngine  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 ARCH = {
     "vocab_size": 96, "hidden_size": 64, "num_layers": 2, "num_attention_heads": 4,

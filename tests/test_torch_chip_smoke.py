@@ -34,6 +34,8 @@ import chip_smoke  # noqa: E402
 import scaling_tpu_torch.nn.attention as attention  # noqa: E402
 from scaling_tpu_torch.train.bench import build, synth_batch  # noqa: E402
 
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
+
 
 def _on_bf16(fault, plain):
     """Apply ``fault`` only on the bf16 side, the stand-in for the card."""
@@ -94,6 +96,28 @@ def test_ptxas_log_gives_each_kernels_registers_and_spills():
         ("flash_bwd_delta_kernel<128>", 26, 12), ("paged_attention_kernel<64>", 126, 0)]
     with pytest.raises(AssertionError, match="no ptxas"):
         chip_smoke.kernel_resources("nvcc printed nothing")
+
+
+K3_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__a4bf5a05_15_rms_norm_bwd_cu_4901032019rms_norm_bwd_kernelILi1ELi1ELb1EEEvNS_6ParamsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 228 registers, used 16 barriers, 4352 bytes smem
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__a4bf5a05_15_rms_norm_bwd_cu_4901032019rms_norm_bwd_kernelILi0ELi2ELb0EEEvNS_6ParamsE' for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 16 barriers, 128 bytes smem
+"""
+
+
+def test_ptxas_log_names_each_k3_instantiation():
+    """K3's entry functions by their x and g dtypes and variant, with the
+    ring's shared memory at the training rows for those dtypes; the build
+    phase fails on a K3 kernel that spills, as on a flash one."""
+    rows = chip_smoke.kernel_resources(K3_PTXAS_LOG)
+    assert [(r["kernel"], r["registers"], r["spill"]) for r in rows] == [
+        ("rms_norm_bwd_kernel<x bf16, g bf16, dx and dw>", 228, 0),
+        ("rms_norm_bwd_kernel<x f32, g f16, dx only>", 255, 8)]
+    assert rows[0]["smem"] == 1024 + 4 * 2048 + 2 * 8 * 2048 * 4
+    assert rows[1]["smem"] == 1024 + 4 * 2048 + 2 * 4 * 2048 * 6
 
 
 def _toy_trainer(monkeypatch) -> dict:

@@ -55,6 +55,7 @@ from scaling_tpu_torch.ops import launches  # noqa: E402
 from scaling_tpu_torch.parallel import ParallelModule  # noqa: E402
 
 from .test_torch_parity_helpers import config_dict, random_params  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 ARCH = {
     "vocab_size": 96, "hidden_size": 64, "num_layers": 2, "num_attention_heads": 4,

@@ -30,6 +30,7 @@ from scaling_tpu.models.transformer.tokenizer import (  # noqa: E402
 from scaling_tpu_torch.models.transformer.data.prepare import prepare  # noqa: E402
 from scaling_tpu_torch.models.transformer.evaluate import evaluate  # noqa: E402
 from scaling_tpu_torch.models.transformer.tokenizer import Tokenizer, load_tokenizers  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "transformer" / "files" / "backward_compatibility_checkpoint"

@@ -50,6 +50,7 @@ from scaling_tpu_torch.models.transformer.tokenizer import Tokenizer  # noqa: E4
 from scaling_tpu_torch.models.transformer.train import build_trainer  # noqa: E402
 
 from .test_torch_checkpoint import assert_states_equal, jax_state, port_state  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 EXAMPLE = Path(__file__).resolve().parent.parent / "examples" / "finetune_example"
 QA = [("what color is the sky?", "blue"), ("what color is grass?", "green"),

@@ -32,6 +32,7 @@ from scaling_tpu_torch.nn.masked_softmax import MaskedSoftmaxConfig  # noqa: E40
 from scaling_tpu_torch.ops import flash_attention, launches  # noqa: E402
 
 from .test_torch_parity_helpers import route_flash_as_bf16  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 FWD_ATOL = 2e-5
 GRAD_ATOL = 5e-4

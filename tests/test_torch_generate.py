@@ -21,6 +21,7 @@ from scaling_tpu_torch.models.transformer.inference import make_sampler  # noqa:
 from scaling_tpu_torch.ops import launches  # noqa: E402
 
 from .test_torch_parity_helpers import draw, inference_pair, module_state  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 VOCAB = 96
 ARCHS = {

@@ -9,7 +9,8 @@ Each kernel against its plain version on the same CUDA tensors. f32: atol
 the output. The flash kernels (bf16 only) take P and dS into their
 products as bf16, so their gradients are held at 2e-2 of the largest
 reference value; their lse (f32 from the same bf16 products) at 1e-3.
-K1, the flash backward and the RMSNorm backward's dw must repeat bitwise.
+K1, the flash backward and the RMSNorm backward (both its variants) must
+repeat bitwise.
 And the toy model served on the card in f32 gives the CPU run's greedy
 tokens, through the kernels only.
 """
@@ -198,24 +199,54 @@ def test_toy_engine_on_the_card_matches_the_cpu(card):
     assert card_tokens == cpu_tokens
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("rows,d", [(1, 2048), (333, 2048), (8192, 2048), (7, 256)])
-def test_rms_norm_bwd_kernel_matches_plain(card, dtype, rows, d):
+# (x and g, w) dtypes of K3's cases
+K3_DTYPES = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+             "f16": (torch.float16, torch.float16), "bf16-f32w": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("dtypes", list(K3_DTYPES))
+@pytest.mark.parametrize("rows,d", [(rows, d) for rows in (1, 333, 8191, 8192)
+                                    for d in (128, 2048, 8192, 32768)] + [(7, 256)])
+def test_rms_norm_bwd_kernel_matches_plain(card, dtypes, rows, d):
+    """K3 with dw and dx-only: dx and dw against the plain version, every
+    output equal to itself on a repeat (no atomics on values: dw's partials
+    are added in a fixed order), and the dx-only variant's dx the full
+    one's. d 32768 takes the chunked walk."""
+    dtype, w_dtype = K3_DTYPES[dtypes]
     x = (3 * torch.randn(rows, d, device=card)).to(dtype)
-    w = (1.0 + 0.1 * torch.randn(d, device=card)).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(d, device=card)).to(w_dtype)
     g = torch.randn(rows, d, device=card).to(dtype)
     launches.reset()
     dx, dw = rms_norm_bwd(x, w, g, 1e-5)
     dx2, dw2 = rms_norm_bwd(x, w, g, 1e-5)
+    dx_only, none = rms_norm_bwd(x, w, g, 1e-5, need_dw=False)
+    dx_only2, _ = rms_norm_bwd(x, w, g, 1e-5, need_dw=False)
     ref_dx, ref_dw = rms_norm_bwd_plain(x, w, g, 1e-5)
     torch.cuda.synchronize()
-    assert launches.KERNEL["rms_norm_bwd"] == 2
-    assert dx.dtype == dtype and dw.dtype == dtype and dw.shape == (d,)
-    assert torch.equal(dw, dw2) and torch.equal(dx, dx2)  # no atomics: bitwise repeats
+    assert launches.KERNEL["rms_norm_bwd"] == 4
+    assert launches.VARIANTS[("rms_norm_bwd", "dx_only")] == 2
+    assert dx.dtype == dtype and dw.dtype == w_dtype and dw.shape == (d,) and none is None
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2) and torch.equal(dx_only, dx_only2)
+    assert torch.equal(dx_only, dx)
     torch.testing.assert_close(dx.float(), ref_dx.float(), atol=tol(dtype), rtol=tol(dtype))
     # dw sums over the rows: the tolerance scales with its magnitude
     scale = ref_dw.float().abs().max().item()
     assert (dw.float() - ref_dw.float()).abs().max().item() <= tol(dtype) * max(scale, 1.0)
+
+
+def test_rms_norm_bwd_reads_a_misaligned_view(card):
+    """x and g whose storage offset leaves them off a 16-byte boundary are
+    copied to aligned buffers, not refused."""
+    flat = torch.randn(3 * 2048 + 1, device=card).bfloat16()
+    x = flat[1:].view(3, 2048)
+    g = torch.randn(3, 2048, device=card).bfloat16()
+    w = torch.ones(2048, device=card).bfloat16()
+    assert x.data_ptr() % 16 != 0
+    dx, dw = rms_norm_bwd(x, w, g, 1e-5)
+    ref_dx, ref_dw = rms_norm_bwd_plain(x, w, g, 1e-5)
+    torch.testing.assert_close(dx.float(), ref_dx.float(), atol=1e-2, rtol=1e-2)
+    scale = ref_dw.float().abs().max().item()
+    assert (dw.float() - ref_dw.float()).abs().max().item() <= 1e-2 * max(scale, 1.0)
 
 
 def flash_inputs(card, b, s, n, n_kv, d, segments, seed):
@@ -475,10 +506,9 @@ def test_dropout_draws_on_the_card(card, dtype):
     assert not torch.equal(y, ctx.dropout(x, 0.1, "layer_2.after_mlp"))
 
 
-def test_lora_finetune_step_with_dropout_on_the_card(card):
-    """A bf16 LoRA finetune step of the toy with dropout on the card: the
-    flash and RMSNorm kernels run, no plain version; of all the leaves the
-    LoRA B factors alone move (A's gradient is 0 while B is)."""
+def lora_toy_step(card):
+    """One bf16 LoRA finetune step of the toy with dropout on the card:
+    (the model's state before, after)."""
     from scaling_tpu_torch.models.transformer import loss_function
     from scaling_tpu_torch.models.transformer.config import TransformerConfig
     from scaling_tpu_torch.models.transformer.model import init_model, init_optimizer
@@ -493,7 +523,9 @@ def test_lora_finetune_step_with_dropout_on_the_card(card):
         "topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1},
         "transformer_architecture": arch,
         "training": {"finetune": True}, "trainer": {"seed": 0},
-        "learning_rate_scheduler": {"learning_rate": 1e-3}})
+        # constant: the cosine default with no decay iterations gives step 1 a rate of 0
+        "learning_rate_scheduler": {"learning_rate": 1e-3,
+                                    "learning_rate_decay_style": "constant"}})
     module = init_model(config, device=card)
     before = {k: v.clone() for k, v in module.model.state_dict().items()}
     optimizer = init_optimizer(config, module.model)
@@ -503,11 +535,30 @@ def test_lora_finetune_step_with_dropout_on_the_card(card):
     launches.reset()
     loss = step(batch, dropout_key(0, 0))[0]
     assert torch.isfinite(loss)
+    return before, module.model.state_dict()
+
+
+def test_lora_finetune_step_with_dropout_on_the_card(card):
+    """A bf16 LoRA finetune step of the toy with dropout on the card: the
+    flash and RMSNorm kernels run, no plain version; of all the leaves the
+    LoRA B factors alone move (A's gradient is 0 while B is)."""
+    before, after = lora_toy_step(card)
     for k in ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd"):
         assert launches.KERNEL[k] > 0, k
     assert sum(launches.PLAIN.values()) == 0
-    for k, v in module.model.state_dict().items():
+    for k, v in after.items():
         assert torch.equal(v, before[k]) != k.endswith("lora_b"), k
+
+
+def test_lora_step_takes_k3_dx_only_for_frozen_gains(card):
+    """The LoRA step's norm gains are frozen: every K3 launch is the
+    dx-only variant, no plain version runs, and the gains stay bitwise."""
+    before, after = lora_toy_step(card)
+    assert launches.VARIANTS[("rms_norm_bwd", "dx_only")] == launches.KERNEL["rms_norm_bwd"] > 0
+    assert launches.VARIANTS[("rms_norm_bwd", "dx_dw")] == 0
+    assert sum(launches.PLAIN.values()) == 0
+    gains = [k for k in after if "norm" in k and k.endswith("weight")]
+    assert gains and all(torch.equal(after[k], before[k]) for k in gains)
 
 
 def test_whole_prompt_prefill_runs_k4_and_agrees_with_chunks(card):

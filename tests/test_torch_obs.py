@@ -36,6 +36,7 @@ from scaling_tpu.logging.logger import _Logger as JaxLogger
 from scaling_tpu.obs.registry import MetricsRegistry as JaxRegistry
 from scaling_tpu_torch.logging import Logger, LoggerConfig, append_jsonl_line
 from scaling_tpu_torch.obs.registry import MetricsRegistry as PortRegistry
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "core" / "test_obs" / "fixtures"

@@ -30,6 +30,7 @@ from scaling_tpu_torch.ops.paged_attention import (  # noqa: E402
     split_count,
     split_slots,
 )
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 BS, MAXB, NB, H, N = 4, 12, 40, 16, 4
 ATOL = 1e-5

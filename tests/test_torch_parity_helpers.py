@@ -1,7 +1,8 @@
 """Helpers of the port's parity tests against the JAX package: a training
 config in the JAX key names, weights drawn with numpy in the shapes of the
 JAX parameter tree, and the two inference modules on those weights (the
-port's through ``params_from_jax``, on the CPU)."""
+port's through ``params_from_jax``, on the CPU); and ``one_torch_thread``,
+a module's tests and their child processes on one torch thread."""
 
 import types
 
@@ -22,6 +23,22 @@ from scaling_tpu_torch.models.transformer import (  # noqa: E402
     TransformerInferenceModule,
 )
 from scaling_tpu_torch.models.transformer.convert import params_from_jax  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread for the tests of a module that imports this
+    fixture, and (through ``OMP_NUM_THREADS``) for the processes they start.
+    The suite runs in several worker processes at once, and a toy model's
+    many small ops spread over every core stall one another: on 8 cores
+    shared by 6 workers the toy trainer phase took minutes, alone 3 s."""
+    with pytest.MonkeyPatch.context() as mp:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+            mp.setenv(var, "1")
+        yield
+        torch.set_num_threads(threads)
 
 
 def config_dict(arch: dict, mbs: int = 2, gas: int = 1, lr: float = 3e-3, **sections) -> dict:

@@ -72,6 +72,7 @@ from .test_torch_parity_helpers import (  # noqa: E402
     inference_pair,
     module_state,
 )
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 CTX = ForwardContext()
 HIDDEN = 64

@@ -41,6 +41,7 @@ from scaling_tpu_torch.ops import launches  # noqa: E402
 from scaling_tpu_torch.serve import EngineConfig, ServeEngine  # noqa: E402
 
 from .test_torch_parity_helpers import inference_pair  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 ARCH = {
     "vocab_size": 128,

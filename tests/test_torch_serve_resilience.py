@@ -37,6 +37,7 @@ from scaling_tpu_torch.serve.scheduler import Request  # noqa: E402
 
 from .test_torch_parity_helpers import inference_pair  # noqa: E402
 from .test_torch_serve import ARCH, ENGINE, workload  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGES = {"jax": (jax_journal, jax_faults), "port": (port_journal, port_faults)}

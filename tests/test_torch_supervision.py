@@ -137,6 +137,7 @@ from scaling_tpu_torch.checkpoint import AsyncCheckpointWriter  # noqa: E402
 from scaling_tpu_torch.data import MemoryMapDatasetBuilder  # noqa: E402
 from scaling_tpu_torch.models.transformer import TransformerConfig  # noqa: E402
 from scaling_tpu_torch.models.transformer.train import build_trainer  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 from scaling_tpu_torch.resilience import (  # noqa: E402
     FaultPlan,
     InjectedFault,

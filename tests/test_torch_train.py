@@ -58,6 +58,7 @@ from scaling_tpu_torch.ops import launches  # noqa: E402
 from scaling_tpu_torch.parallel import ParallelModule  # noqa: E402
 
 from .test_torch_parity_helpers import route_flash_as_bf16  # noqa: E402
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 ARCH = {
     "vocab_size": 128, "hidden_size": 256, "num_layers": 2, "num_attention_heads": 4,

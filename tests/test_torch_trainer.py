@@ -28,6 +28,8 @@ from scaling_tpu_torch.models.transformer import TransformerConfig
 from scaling_tpu_torch.models.transformer.train import build_trainer, main
 from scaling_tpu_torch.resilience import CheckpointCorruptionError, verify_checkpoint
 
+from .test_torch_parity_helpers import one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 ARCH = {
     "vocab_size": 96, "hidden_size": 64, "num_layers": 2, "num_attention_heads": 4,
