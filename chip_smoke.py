@@ -59,7 +59,7 @@ Phases, each of which must pass:
    computes the same function, that call: device time from
    ``torch.profiler``, and the per-call time with CUDA events;
 8. the Trainer (``models/transformer/train.py:main``) trains the same
-   model at full width, cut to 4 of its 8 layers (as are phases 9-12 and
+   model at full width, cut to 2 of its 8 layers (as are phases 9-12 and
    10 (a)), from token datasets the port's builder
    writes from seed 0 (two blended prefixes of ~2M tokens, documents of
    64-4096 tokens, and a ~64k-token validation prefix), micro-batch 4,
@@ -71,7 +71,7 @@ Phases, each of which must pass:
    checkpoint (``TransformerInferenceModule.from_checkpoint``) serves 4
    greedy requests with the tokens of an engine on the trainer's own
    weights; ``evaluate`` scores the step-6 checkpoint on 2 batches of the
-   validation prefix read in order: finite, within 1e-4 nats of the
+   validation prefix read in order: finite, within 1e-5 nats of the
    trainer's forward on its in-memory step-6 weights over the same batches
    (a limit the step-3 checkpoint must miss) and within 0.05 nats of the
    trainer's step-6 eval loss, launching K2 and K4 and no plain version;
@@ -204,6 +204,30 @@ Phases, each of which must pass:
    counters (from its stats), ``obs report`` gates and counts, and the
    time to recover split into detection, process start, model build,
    replay and the first token;
+14. the serving fleet on the card, phase 4's engine on workload F (64
+   requests at 128 req/s, 4 families of a 256-token shared prefix before
+   128-1024 random tokens, 64-256 output tokens): (a) one engine in this
+   process, the reference; (b) ``serve bench --replicas 2`` (two engines,
+   a tick thread and a CUDA stream each, in one child); (c) ``serve bench
+   --replicas-proc 2`` (two worker processes, one CUDA context each, the
+   host without CUDA); (d) as (c) with ``serve.replica.kill=kill@40@host=1``;
+   (e) a SIGTERM to a ``--replicas-proc 2`` fleet at 8 req/s, 2 s after both
+   workers are ready; (b) and (c) without a run directory, as (a) (no
+   events file), (d) and (e) with one. (b)-(d): tokens equal to (a)'s,
+   (d)'s to (c)'s, or
+   parting first at a near tie; both replicas dispatched to, affinity
+   dispatches; each replica launched K1 and K2 and no plain version (its
+   tick thread's counts in (b), its stats in (c) and (d)); tokens/s, TTFT
+   and ITL beside (a)'s; the longest tick-loop age and stats round trip, no
+   hung verdict. (d): every offered request ended once by the journals
+   and the failover harvest, one ``serve-replica-restart``, ``obs report
+   --assert-max-replica-restarts 1`` passes, the card's free memory with
+   both replicas up after the relaunch within 1 GiB of the first start's
+   and this process's before and after the run within 1 GiB, and the time
+   to recover from the killed worker's last tick to the dead verdict, the
+   relaunch's spawn, its ready event and the first token of a
+   re-dispatched request. (e): exit 0, drained with work unsubmitted, both
+   workers exit 0;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -273,12 +297,13 @@ FLASH_GRAD_TOL = 2e-2   # max |err| / max |ref|: P and dS enter the products as 
 K3_DW_TOL = 1e-2        # max |err| / max |ref|: a bf16 dw summed over 8192 rows
 TRAIN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through 8 layers vs f32
 # the Trainer: token datasets from seed 0, 6 iterations saving and evaluating at 3;
-# phases 8-12 cut the model to 4 of its layers at full width, to keep the
+# phases 8-12 cut the model to 2 of its layers at full width, to keep the
 # script's checkpoint I/O (~0.3 GB/s on an H100 host) inside its time limit
+# (at 4 layers, with phase 14 added, a run on a slow host took 1233 s)
 # the 0.5B model's parameters (495,110,144 at 8 layers): its embedding with
 # its untied head, and one layer
 PARAMS_05B = dict(embedding_and_head=134_217_728, layer=45_111_552)
-TRAINER = dict(model="0.5b", layers=4, seq=TRAIN_SEQ, mbs=TRAIN_MBS, tokens=2_000_000,
+TRAINER = dict(model="0.5b", layers=2, seq=TRAIN_SEQ, mbs=TRAIN_MBS, tokens=2_000_000,
                valid_tokens=64_000, doc_len=(64, 4096), iterations=6, interval=3,
                eval_iterations=2, serve_requests=4, serve_prompt=(64, 256), serve_output=32)
 RESUME_RTOL = 1e-4  # steps 5-6 after the resume: the embedding backward adds with atomics
@@ -290,14 +315,15 @@ SUPERVISE = dict(keys={"save_checkpoint_async": True, "dataloader_prefetch_facto
                  sigterm_after=4, pause_s=0.3, child_timeout_s=420)
 # phase 11: phase 8's run under the supervisor, its SIGTERM once epoch 2's
 # step-5 record is written. The timeouts are at least twice what they budget
-# on an H100 (this phase's own prints; at 8 layers they were 30.8 s and
-# 39.5 s): a worker's longest gap between two heartbeats, a synchronous
-# save with its eval, 17.3 s; its start to its first heartbeat, a verified
-# load of 15.5-17.8 s with it, 8.0-29.4 s
+# on an H100 (this phase's own prints, the slowest host seen, at 4 layers): a
+# worker's longest gap between two heartbeats, a synchronous save with its
+# eval, 21.9 s; its start to its first heartbeat, a verified load of
+# 22.4-23.3 s with it, 10.7-46.5 s. A hung worker runs its SIGTERM handler and
+# goes on hanging, so its teardown waits the worker grace out, then SIGKILLs
 RELAUNCH = dict(faults="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1", drain_after=5,
-                runner={"heartbeat_timeout_seconds": 75.0, "startup_grace_seconds": 100.0,
+                runner={"heartbeat_timeout_seconds": 50.0, "startup_grace_seconds": 100.0,
                         "restart_budget": 2, "restart_backoff_seconds": 1.0,
-                        "worker_grace_seconds": 10.0, "supervisor_poll_seconds": 0.05},
+                        "worker_grace_seconds": 5.0, "supervisor_poll_seconds": 0.05},
                 timeout_s=600, resume_timeout_s=300, free_tol=1 << 30)
 # phase 12: a LoRA finetune of phase 8's step-6 checkpoint with dropout on, 6
 # steps saving at 3 and 6; 2 steps with probability dropout; 8 served requests
@@ -307,7 +333,10 @@ FINETUNE = dict(lora={"name": "lora", "rank": 16, "alpha": 32, "dropout": 0.05},
 REMAT_TOL = 1e-6  # the f32 LoRA masters after one step with and without every_layer remat
 MERGE_TOL = 0.05  # max |logit error| / max |logit|: merged bf16 on the card vs unmerged f32
 EVAL_NATS = 0.05  # evaluate's loss on the step-6 checkpoint vs the trainer's step-6 eval loss
-EVAL_REF_NATS = 1e-4  # evaluate vs the trainer's forward on its in-memory weights, same batches
+# evaluate vs the trainer's forward on its in-memory weights, same batches: they
+# agree within 1.5e-7-2.2e-7 nats on an H100, and at 2 layers the step-3
+# checkpoint, which must miss the limit, lies 7.5e-5 away (1e-4 could not tell it)
+EVAL_REF_NATS = 1e-5
 # generation: 8 prompts of 256-1024 tokens (the longest exactly 1024, so the
 # left-padded prefill is 1024 wide and K4 runs), 128 greedy tokens each
 GEN = dict(batch=8, prompt_len=(256, 1024), max_tokens=128, seed=0, profile=(16, 48))
@@ -331,6 +360,15 @@ KEEP_DIR = os.environ.get("CHIP_SMOKE_REPORTS")
 MODES = dict(spec_k=4, segment=(16, 64), seed=1, first_token_prompt=1000, fault_tick=40,
              overload_x=4, max_waiting=4, min_tick_timeout_s=10.0, child_timeout_s=300,
              free_tol=1 << 30, drain_rate=8.0)
+# phase 14: the serving fleet on one card. Workload F: 64 requests at 128
+# req/s (each of two replicas sees phase 4's 64), 4 families of a 256-token
+# system prompt before 128-1024 random tokens, 64-256 output tokens; the
+# kill at the 40th tick with work of replica 1; the drain's arrivals at 8
+# req/s, its SIGTERM 2 s after both workers are ready
+FLEET = dict(n_requests=64, rate=128.0, prompt_len=(128, 1024), output_len=(64, 256),
+             shared_prefix_len=256, prefix_families=4, seed=0, replicas=2, kill_tick=40,
+             drain_rate=8.0, drain_after_s=2.0, child_timeout_s=300, free_tol=1 << 30,
+             heartbeat_timeout_s=10.0)
 # the bench 0.5B model in the JAX default architecture: its widths, other keys
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
@@ -3383,8 +3421,11 @@ def bench_base(model: str, device: str) -> list:
             "--prefill-chunk", str(SERVE["prefill_chunk"])]
 
 
-def start_bench(run_dir: Path, args: list, faults=None) -> subprocess.Popen:
-    """``python -m scaling_tpu_torch.serve bench`` in a child process."""
+def start_bench(run_dir: Path, args: list, faults=None, record: bool = True
+                ) -> subprocess.Popen:
+    """``python -m scaling_tpu_torch.serve bench`` in a child process, its
+    stats in ``run_dir/stats.json``; with ``record`` also ``--run-dir
+    run_dir`` (events, metrics, the journal)."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("SCALING_TPU_")}
     if faults:
         env["SCALING_TPU_FAULTS"] = faults
@@ -3392,7 +3433,8 @@ def start_bench(run_dir: Path, args: list, faults=None) -> subprocess.Popen:
     log = open(run_dir.parent / f"{run_dir.name}.log", "w")
     return subprocess.Popen(
         [sys.executable, "-m", "scaling_tpu_torch.serve", "bench", *args,
-         "--run-dir", str(run_dir), "--json", str(run_dir / "stats.json")],
+         *(["--run-dir", str(run_dir)] if record else []),
+         "--json", str(run_dir / "stats.json")],
         cwd=Path(__file__).resolve().parent, env=env, stdout=log, stderr=subprocess.STDOUT)
 
 
@@ -3585,6 +3627,281 @@ def modes_phase(phase4: dict, observed_tokens: dict, model: str = "0.5b",
     launches = {f"modes_{k}": v for k, v in modes["launches"].items()}
     launches.update({f"resilience_{k}": v for k, v in drills.items()})
     return launches
+
+def fleet_workload(vocab: int) -> list:
+    from scaling_tpu_torch.serve.bench import sample_workload
+
+    return sample_workload(FLEET["n_requests"], FLEET["rate"], FLEET["prompt_len"],
+                           FLEET["output_len"], vocab, FLEET["seed"],
+                           shared_prefix_len=FLEET["shared_prefix_len"],
+                           prefix_families=FLEET["prefix_families"])
+
+
+def fleet_args(model: str, device: str, rate=None) -> list:
+    """``serve bench`` flags of workload F on phase 4's engine."""
+    return ["--model", model, "--device", device, "--seed", str(FLEET["seed"]),
+            "--requests", str(FLEET["n_requests"]), "--rate", str(rate or FLEET["rate"]),
+            "--prompt-len", *map(str, FLEET["prompt_len"]),
+            "--output-len", *map(str, FLEET["output_len"]),
+            "--shared-prefix-len", str(FLEET["shared_prefix_len"]),
+            "--prefix-families", str(FLEET["prefix_families"]),
+            "--num-slots", str(SERVE["num_slots"]), "--block-size", str(SERVE["block_size"]),
+            "--num-blocks", str(SERVE["num_blocks"]),
+            "--max-blocks-per-seq", str(SERVE["max_blocks_per_seq"]),
+            "--prefill-chunk", str(SERVE["prefill_chunk"])]
+
+
+def wait_fleet(proc: subprocess.Popen, run_dir: Path, what: str) -> dict:
+    try:
+        rc = proc.wait(timeout=FLEET["child_timeout_s"])
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"{what}: the bench outran {FLEET['child_timeout_s']}s")
+    if rc != 0:
+        tail = (run_dir.parent / f"{run_dir.name}.log").read_text()[-3000:]
+        raise AssertionError(f"{what}: the bench exited {rc}:\n{tail}")
+    return json.loads((run_dir / "stats.json").read_text())
+
+
+def check_fleet_launches(what: str, rows: list) -> dict:
+    """Each replica launched K1 and K2 and no plain version; returns the
+    launches summed over the replicas."""
+    total = Counter()
+    for row in rows:
+        check_mode_launches(f"{what} replica {row['replica']}",
+                            {"launches": row["kernel_launches"], "plain": row["plain_launches"]},
+                            ("paged_attention", "rms_norm"))
+        total.update(row["kernel_launches"])
+    return dict(total)
+
+
+def check_fleet_dispatch(what: str, stats: dict) -> None:
+    rows = stats["replica_stats"]
+    if len(rows) != FLEET["replicas"] or any(r.get("dispatches", 0) <= 0 for r in rows):
+        raise AssertionError(f"{what}: not every replica was dispatched to: {rows}")
+    if stats["router"]["affinity_dispatches"] <= 0:
+        raise AssertionError(f"{what}: no affinity dispatch: {stats['router']}")
+    if stats["requests"] != FLEET["n_requests"] or stats["requests_timeout"] \
+            or stats["requests_shed"]:
+        raise AssertionError(f"{what}: completed {stats['requests']} of {FLEET['n_requests']}, "
+                             f"timeouts {stats['requests_timeout']} shed "
+                             f"{stats['requests_shed']}")
+
+
+def fleet_line(stats: dict) -> str:
+    rows = ", ".join(f"replica {r['replica']} {r['requests']} requests {r['ticks']} ticks "
+                     f"{r.get('dispatches', 0)} dispatches ({r.get('affinity_dispatches', 0)} "
+                     "by affinity)" for r in stats["replica_stats"])
+    return f"{fmt_latency(stats)}, prefix hit rate {stats['prefix_hit_rate']}; {rows}"
+
+
+def fleet_tokens(stats: dict) -> dict:
+    return in_order({int(r): t for r, t in stats["outputs"].items()})
+
+
+def check_heartbeats(what: str, stats: dict, restarts: int = 0) -> None:
+    """No replica near the heartbeat timeout (a hung verdict would SIGKILL
+    it and show as a restart), and the host without CUDA."""
+    if stats["replica_restarts"] != restarts or \
+            stats["max_loop_age_s"] >= FLEET["heartbeat_timeout_s"]:
+        raise AssertionError(f"{what}: restarts {stats['replica_restarts']}, longest loop "
+                             f"age {stats['max_loop_age_s']}s")
+    if stats["host_cuda_initialized"]:
+        raise AssertionError(f"{what}: the fleet's host initialised CUDA")
+
+
+def fleet_time_to_recover(events: list) -> dict:
+    """From the killed worker's last tick (the end of replica 1's last
+    ``serve.tick`` before the dead verdict) to the verdict, the relaunch's
+    spawn (the start of its ``serve.replica.spawn`` span), its
+    ``serve-replica-ready`` and the first token of a re-dispatched request
+    (one admitted by replica 1 before the verdict and by another replica
+    after it), by the events' host clocks."""
+    i_dead = next(i for i, e in enumerate(events) if e["event"] == "serve-replica-dead")
+    dead = events[i_dead]
+    rid = dead["replica"]
+    kill = max(e["ts"] for e in events[:i_dead]
+               if e.get("span") == "serve.tick" and e.get("replica") == rid)
+    after = events[i_dead:]
+    spawn = next(e for e in after
+                 if e.get("span") == "serve.replica.spawn" and e.get("replica") == rid)
+    ready = next(e for e in after if e["event"] == "serve-replica-ready" and e["replica"] == rid)
+    before_ids = {e["req"] for e in events[:i_dead]
+                  if e.get("span") == "serve.admit" and e.get("replica") == rid}
+    again = {e["req"] for e in after if e.get("span") == "serve.admit"
+             and e.get("replica") != rid and e["req"] in before_ids}
+    first = min(e["ts"] - e["e2e_s"] + e["ttft_s"] for e in after
+                if e["event"] == "serve-request" and e.get("req") in again and "ttft_s" in e)
+    return {"detection": dead["ts"] - kill, "spawn": spawn["ts"] - spawn["dur_s"] - kill,
+            "ready": ready["ts"] - kill, "first_token": first - kill,
+            "redispatched": len(again)}
+
+
+def check_fleet_journals(run_dir: Path, stats: dict) -> dict:
+    """Every offered request ended once: the completed requests of the
+    replica journals are disjoint, and with the failover harvest's (the
+    dead incarnation's journal is harvested, then started afresh) they are
+    every offered one; nothing is left incomplete or shed."""
+    from scaling_tpu_torch.serve.journal import replay_journal
+
+    seen: dict = {}
+    for path in sorted(run_dir.glob("journal_r*.jsonl")):
+        rep = replay_journal(path)
+        for r in rep.completed:
+            if r in seen:
+                raise AssertionError(f"request {r} completed in {seen[r]} and {path.name}")
+            seen[r] = path.name
+        if rep.timeout_count or rep.shed_count:
+            raise AssertionError(f"{path.name}: timeouts {rep.timeout_count} "
+                                 f"shed {rep.shed_count}")
+    fleet = replay_journal(run_dir / "journal.jsonl")
+    ended = len(seen) + stats["recovered_requests"]
+    if ended != FLEET["n_requests"] or fleet.shed_count or \
+            set(seen) - {int(r) for r in stats["outputs"]}:
+        raise AssertionError(f"journals: {len(seen)} completed + {stats['recovered_requests']} "
+                             f"recovered of {FLEET['n_requests']}, fleet sheds "
+                             f"{fleet.shed_count}")
+    return {"journaled": len(seen), "recovered": stats["recovered_requests"]}
+
+
+def fleet_children(ref: dict, inf, model: str, device: str) -> dict:
+    """Phase 14 (b)-(e), each a ``serve bench`` child on workload F.
+    Returns each run's launches summed over its replicas."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    prompts = [p for _, p, _ in fleet_workload(inf.architecture.vocab_size)]
+    base = fleet_args(model, device)
+    launches, rows = {}, {}
+    n = FLEET["replicas"]
+    try:
+        # (b) and (c) without a run directory, as (a): no events file in the
+        # runs whose tokens/s stand beside (a)'s
+        stats = wait_fleet(start_bench(root / "threads", base + ["--replicas", str(n)],
+                                       record=False), root / "threads", "(b) --replicas 2")
+        check_fleet_dispatch("(b)", stats)
+        launches["fleet_threads"] = check_fleet_launches("(b)", stats["replica_stats"])
+        equal = check_near_ties(inf, prompts, fleet_tokens(stats), ref["tokens"], "(b) vs (a)")
+        rows["threads"] = stats
+        print(f"  (b) --replicas {n} (one process, a tick thread and a CUDA stream a "
+              f"replica): {fleet_line(stats)}; tokens equal to (a)'s in {equal} of "
+              f"{len(prompts)}, the rest part at a near tie")
+        # (c) the process fleet, fault-free
+        stats = wait_fleet(start_bench(root / "procs", base + ["--replicas-proc", str(n)],
+                                       record=False), root / "procs", "(c) --replicas-proc 2")
+        check_fleet_dispatch("(c)", stats)
+        check_heartbeats("(c)", stats)
+        launches["fleet_procs"] = check_fleet_launches("(c)", stats["replica_stats"])
+        clean = fleet_tokens(stats)
+        equal = check_near_ties(inf, prompts, clean, ref["tokens"], "(c) vs (a)")
+        rows["procs"] = stats
+        print(f"  (c) --replicas-proc {n} (a worker process and CUDA context a replica, the "
+              f"host without CUDA): {fleet_line(stats)}; tokens equal to (a)'s in {equal} "
+              f"of {len(prompts)}, the rest part at a near tie; longest loop age "
+              f"{stats['max_loop_age_s']:.4f}s, longest stats round trip "
+              f"{stats['max_stats_rtt_s']:.4f}s")
+        # (d) replica 1 SIGKILLed at its 40th tick with work
+        if device == "cuda":
+            torch.cuda.synchronize()
+        free_before = torch.cuda.mem_get_info()[0] if device == "cuda" else None
+        faults = f"serve.replica.kill=kill@{FLEET['kill_tick']}@host=1"
+        stats = wait_fleet(start_bench(root / "kill", base + ["--replicas-proc", str(n)],
+                                       faults=faults), root / "kill", "(d) the kill")
+        free_after = torch.cuda.mem_get_info()[0] if device == "cuda" else None
+        events = read_jsonl(root / "kill" / "events.jsonl")
+        check_heartbeats("(d)", stats, restarts=1)
+        hung = [e for e in events if e["event"] == "serve-replica-hung"]
+        if hung:
+            raise AssertionError(f"(d): hung verdicts {hung}")
+        launches["fleet_kill"] = check_fleet_launches("(d)", stats["replica_stats"])
+        if stats["requests"] != FLEET["n_requests"] or stats["replicas_gave_up"]:
+            raise AssertionError(f"(d): completed {stats['requests']}, gave up "
+                                 f"{stats['replicas_gave_up']}")
+        ended = check_fleet_journals(root / "kill", stats)
+        restarts = [e for e in events if e["event"] == "serve-replica-restart"]
+        if len(restarts) != 1:
+            raise AssertionError(f"(d): restart events {restarts}")
+        report, _ = obs_report(root / "kill", "--assert-max-replica-restarts", "1")
+        keep("fleet_kill_report.txt", report)
+        equal = check_near_ties(inf, prompts, fleet_tokens(stats), clean, "(d) vs (c)")
+        ready = [e for e in events if e["event"] == "serve-replica-ready"]
+        starts = [(e["replica"], e["incarnation"], e["free_bytes"]) for e in events
+                  if e["event"] == "serve-start"]
+        if device == "cuda":
+            first_up = min(e["free_bytes"] for e in ready[:n])
+            relaunch_up = ready[-1]["free_bytes"]
+            if relaunch_up < first_up - FLEET["free_tol"] or \
+                    abs(free_after - free_before) > FLEET["free_tol"]:
+                raise AssertionError(
+                    f"(d) free memory: both up {first_up} at the start, {relaunch_up} after "
+                    f"the relaunch; this process {free_before} before, {free_after} after")
+        ttr = fleet_time_to_recover(events)
+        rows["kill"] = stats
+        print(f"  (d) {faults}: {stats['requests']} of {FLEET['n_requests']} completed, "
+              f"{ended['journaled']} by the replica journals and {ended['recovered']} from "
+              f"the failover harvest, each once; {stats['redispatched_requests']} "
+              f"re-dispatched; restarts 1; obs report --assert-max-replica-restarts 1 passes; "
+              f"tokens equal to (c)'s in {equal} of {len(prompts)}, the rest part at a near "
+              f"tie; {fleet_line(stats)}")
+        print(f"  (d) free memory: at each start (replica, incarnation, bytes) {starts}; with "
+              f"both up {[e['free_bytes'] for e in ready]}; this process before "
+              f"{free_before} after {free_after}")
+        print(f"  (d) time to recover from the last tick: dead verdict {ttr['detection']:.3f}s, "
+              f"relaunch spawn {ttr['spawn']:.3f}s, ready {ttr['ready']:.3f}s, first token "
+              f"of a re-dispatched request {ttr['first_token']:.3f}s "
+              f"({ttr['redispatched']} re-dispatched)")
+        # (e) the drain
+        proc = start_bench(root / "drain", fleet_args(model, device, FLEET["drain_rate"])
+                           + ["--replicas-proc", str(n)])
+        events_file = root / "drain" / "events.jsonl"
+        deadline = time.monotonic() + FLEET["child_timeout_s"]
+        while not (events_file.is_file()
+                   and events_file.read_text().count('"serve-replica-ready"') >= n):
+            if time.monotonic() > deadline or proc.poll() is not None:
+                raise AssertionError("(e): the fleet never became ready")
+            time.sleep(0.05)
+        time.sleep(FLEET["drain_after_s"])
+        proc.send_signal(signal.SIGTERM)
+        stats = wait_fleet(proc, root / "drain", "(e) the drain")
+        check_drain(stats)
+        codes = [r["exit_code"] for r in stats["replica_stats"]]
+        if codes != [0] * n or stats["replicas_gave_up"]:
+            raise AssertionError(f"(e): worker exit codes {codes}")
+        print(f"  (e) SIGTERM {FLEET['drain_after_s']}s after both workers were ready, "
+              f"arrivals at {FLEET['drain_rate']} req/s: exit 0, drained, "
+              f"{stats['unsubmitted']} unsubmitted, {stats['requests']} completed, worker "
+              f"exit codes {codes}")
+        return {"launches": launches, "runs": rows}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fleet_phase(model: str = "0.5b", device: str = "cuda") -> dict:
+    """Phase 14: (a) one engine in this process on workload F, then the
+    fleets in child processes (``fleet_children``). Returns the launches by
+    run, each fleet's summed over its replicas."""
+    from scaling_tpu_torch.serve.bench import build_inference
+
+    t0 = time.monotonic()
+    inf = build_inference(model, seed=0, device=device)
+    work = fleet_workload(inf.architecture.vocab_size)
+    ref = serve_mode(inf, work, device)
+    check_mode_launches("(a) one engine", ref, ("paged_attention", "rms_norm"))
+    print(f"  (a) one engine on F: {fmt_latency(ref)}, prefix hit rate "
+          f"{ref['prefix_hit_rate']}, {ref['preemptions']} preemptions, "
+          f"{ref['wall_s'] / ref['ticks'] * 1e3:.3f}ms a tick")
+    out = fleet_children(ref, inf, model, device)
+    runs = out["runs"]
+    print("  tokens/s on F: one engine {:.1f}, --replicas 2 {:.1f} ({:.3f}x), --replicas-proc 2 "
+          "{:.1f} ({:.3f}x), with the kill {:.1f}".format(
+              ref["tokens_per_s"], runs["threads"]["tokens_per_s"],
+              runs["threads"]["tokens_per_s"] / ref["tokens_per_s"],
+              runs["procs"]["tokens_per_s"], runs["procs"]["tokens_per_s"] / ref["tokens_per_s"],
+              runs["kill"]["tokens_per_s"]))
+    del inf
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  phase 14 took {time.monotonic() - t0:.1f}s")
+    return {"fleet_one": ref["launches"], **out["launches"]}
+
 
 def time_kernels(errs: dict) -> list:
     """One row a kernel, its launches added by ``add_launches``."""
@@ -3806,6 +4123,10 @@ def main() -> int:
           "forwards; crash replay, drain, a wedged tick and overload in child benches")
     launches_by_path.update(modes_phase(serve_native, served["tokens"]))
     lap("modes (13)")
+    print("== fleet (phase 14): workload F through one engine, --replicas 2 and "
+          "--replicas-proc 2, a replica killed mid-stream, a drain")
+    launches_by_path.update(fleet_phase())
+    lap("fleet (14)")
     t, serving = observed["turns"], served["turns"]
     print(f"  obs overhead (medians of the turns): Trainer step ms with all of obs "
           f"{t['on']:.2f}, without the events file and on_step {t['no_events']:.2f}, "

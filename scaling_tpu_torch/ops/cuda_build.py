@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -34,6 +35,9 @@ NVCC_FLAGS = [
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _PENDING: Dict[str, subprocess.Popen] = {}
+# one build at a time: the threaded serving fleet's tick threads may reach
+# a kernel's first use together
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -90,6 +94,14 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed.
     Raises if the build fails: there is no other path to the kernel."""
+    lib_obj = _LIBS.get(name)
+    if lib_obj is not None:
+        return lib_obj
+    with _BUILD_LOCK:
+        return _load_locked(name)
+
+
+def _load_locked(name: str) -> ctypes.CDLL:
     lib_obj = _LIBS.get(name)
     if lib_obj is not None:
         return lib_obj

@@ -69,7 +69,7 @@ def flash_attention_plain(q, k, v, segment_ids, num_local_heads: int = 0,
                           local_window: Optional[int] = None):
     """K4's function in plain PyTorch: ``(out (b, s, n, d) in q's dtype,
     lse (b, n, s) f32)``. q is already scaled."""
-    launches.PLAIN["flash_attention_fwd"] += 1
+    launches.add(launches.PLAIN, "flash_attention_fwd")
     b, s, n, d = q.shape
     n_rep = n // k.shape[2]
     kr, vr = _repeat_kv(_f32(k), n_rep), _repeat_kv(_f32(v), n_rep)
@@ -89,7 +89,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, segment_ids,
     ``P = exp(S - lse)``, ``D = rowsum(dO * O)``, ``dS = P * (dP - D)``,
     ``dQ = dS K``, ``dK = dS^T Q`` and ``dV = P^T dO``, the last two summed
     over each GQA group. Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
-    launches.PLAIN["flash_attention_bwd"] += 1
+    launches.add(launches.PLAIN, "flash_attention_bwd")
     b, s, n, d = q.shape
     n_kv = k.shape[2]
     n_rep = n // n_kv
@@ -229,7 +229,7 @@ def _launch_fwd(q, k, v, segment_ids, num_local_heads, local_window):
             out.data_ptr(), lse.data_ptr(), b, s, n, k.shape[2],
             _strides(q, k, v, out), n_local, window, stream)
     _raise_on(lib, err, "flash_attention_fwd")
-    launches.KERNEL["flash_attention_fwd"] += 1
+    launches.add(launches.KERNEL, "flash_attention_fwd")
     return out, lse
 
 
@@ -255,7 +255,7 @@ def _launch_bwd(q, k, v, out, lse, dout, segment_ids, num_local_heads, local_win
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, n, k.shape[2],
             _strides(q, k, v, out, dout, dq, dk, dv), n_local, window, stream)
     _raise_on(lib, err, "flash_attention_bwd")
-    launches.KERNEL["flash_attention_bwd"] += 1
+    launches.add(launches.KERNEL, "flash_attention_bwd")
     return dq, dk, dv
 
 

@@ -157,8 +157,8 @@ def _launch(q, pool_k, pool_v, block_table, valid_len, q_slot_base,
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} ({err})")
     name = "paged_attention_int8" if quantized else "paged_attention"
-    launches.KERNEL[name] += 1
-    launches.WIDTHS[(name, s)] += 1
+    launches.add(launches.KERNEL, name)
+    launches.add(launches.WIDTHS, (name, s))
     return out
 
 
@@ -198,8 +198,8 @@ def paged_attention_plain(
     """The kernel's function in plain PyTorch: gather each row's block
     window, dequantise, masked f32 softmax. A row with no visible slot
     gives zeros (the kernel's safe shift and ``l == 0`` guard)."""
-    launches.PLAIN["paged_attention_int8" if scale_k is not None
-                   else "paged_attention"] += 1
+    launches.add(launches.PLAIN, "paged_attention_int8" if scale_k is not None
+                 else "paged_attention")
     rows, s, n, h = q.shape
     _, block_size, n_kv, _ = pool_k.shape
     window = block_table.shape[1] * block_size

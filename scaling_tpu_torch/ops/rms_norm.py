@@ -103,7 +103,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     x2 = x.reshape(-1, d)
     y = torch.empty_like(x2)
     _rms_norm_triton.launch(x2, weight, y, float(eps))
-    launches.KERNEL["rms_norm"] += 1
+    launches.add(launches.KERNEL, "rms_norm")
     return y.reshape(x.shape)
 
 
@@ -218,8 +218,8 @@ def _launch_bwd(x, weight, g, eps, need_dw=True):
     if err != 0:
         msg = _library().rms_norm_bwd_error_string(err).decode()
         raise RuntimeError(f"rms_norm_bwd kernel launch failed: {msg} ({err})")
-    launches.KERNEL["rms_norm_bwd"] += 1
-    launches.VARIANTS[("rms_norm_bwd", "dx_dw" if need_dw else "dx_only")] += 1
+    launches.add(launches.KERNEL, "rms_norm_bwd")
+    launches.add(launches.VARIANTS, ("rms_norm_bwd", "dx_dw" if need_dw else "dx_only"))
     return dx.reshape(x.shape), dw
 
 
@@ -244,7 +244,7 @@ def _library() -> ctypes.CDLL:
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """The forward kernel's function in explicit f32 PyTorch ops."""
-    launches.PLAIN["rms_norm"] += 1
+    launches.add(launches.PLAIN, "rms_norm")
     x32 = x.float()
     r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (x32 * r * weight.float()).to(x.dtype)
@@ -254,7 +254,7 @@ def rms_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, e
                        need_dw: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The backward kernel's function in explicit f32 PyTorch ops:
     ``(dx in x's dtype, dw in w's dtype)``, dw None without ``need_dw``."""
-    launches.PLAIN["rms_norm_bwd"] += 1
+    launches.add(launches.PLAIN, "rms_norm_bwd")
     x32, g32 = x.float(), g.float()
     r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     gw = g32 * weight.float()

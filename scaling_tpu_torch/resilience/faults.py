@@ -56,6 +56,46 @@ point               fired
 ``serve.stall.kill``
                     when the bench's tick watchdog fires, before it
                     SIGKILLs its own process
+``serve.replica.spawn``
+                    host side, once per replica subprocess launch
+                    (``serve.replica_proc``: initial spawns, supervised
+                    relaunches, autoscale spawns); ``fail`` is an OSError
+                    the fleet supervisor's budgeted backoff absorbs
+``serve.replica.rpc``
+                    worker side, at the top of every handled RPC request
+                    (submit, poll, stats, drain); ``fail`` drops that
+                    reply and the host's ``retry_io`` retries. Advisory
+                    network actions, applied by the handler: ``delay``
+                    sleeps 0.25 s before serving (a slow link),
+                    ``partition`` drops the request before it is served
+                    (the op never happened), ``drop`` serves it and drops
+                    the reply (admitted but unacknowledged: the window
+                    the idempotent submit and the router's in-doubt parks
+                    exist for)
+``serve.replica.net_partition``
+                    worker side, before a handled RPC is looked at;
+                    ``partition@N xM @host=K`` cuts one host off for M
+                    requests (the partition drill)
+``serve.replica.rendezvous``
+                    on every rendezvous-file operation: the worker's
+                    address publish, the host's reads while it waits for
+                    a spawned replica, the worker-config write; ``fail``
+                    is an OSError inside the ``retry_io`` they all ride
+``serve.replica.teardown``
+                    host side, before one replica worker is force-killed;
+                    ``fail`` aborts that kill
+``serve.replica.kill``
+                    worker side, before each engine tick while the
+                    replica has work; ``kill@N@host=K`` (a worker exports
+                    ``SCALING_TPU_HOST_ID=<replica id>``) SIGKILLs exactly
+                    one replica mid-stream: the journal-exact failover
+                    drill
+``serve.replica.hung_kill``
+                    host side, before the supervisor SIGKILLs a replica
+                    it classified hung
+``serve.fleet.teardown``
+                    host side, once the process fleet's run is over,
+                    before the bench waits for its workers to exit
 ==================  =====================================================
 
 Spec grammar (comma list): ``point=action[@N][xM][@host=K][@epoch=E]``

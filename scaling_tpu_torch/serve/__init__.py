@@ -1,7 +1,11 @@
 """Serving (counterpart of scaling_tpu/serve/): the continuous-batching
 scheduler, the block-paged KV pools, the engine with its speculative,
-whole-prompt and separate-program modes, the crash-replay request journal
-and the load generator (``python -m scaling_tpu_torch.serve bench``)."""
+whole-prompt and separate-program modes, the crash-replay request journal,
+the fleet (:mod:`.router`: N replicas behind a prefix-affinity router;
+:mod:`.replica_proc`: replicas as supervised subprocesses with
+journal-exact failover and autoscaling) and the load generator (``python
+-m scaling_tpu_torch.serve bench``, ``--replicas N`` / ``--replicas-proc
+N`` for the fleets)."""
 
 from .engine import (
     MIN_PREFILL_BUCKET,
@@ -20,6 +24,15 @@ from .journal import (
     submitted_ids,
 )
 from .kvcache import PagedKVPools, init_pools, write_prompt_kv
+from .router import (
+    AutoscalePolicy,
+    FleetRouter,
+    InDoubtAdmit,
+    ReplicaHandle,
+    ReplicaStats,
+    ReplicaUnreachable,
+    install_fleet_drain_handler,
+)
 from .scheduler import (
     NGRAM_SCAN_WINDOW,
     Backpressure,
@@ -32,11 +45,17 @@ from .scheduler import (
 __all__ = [
     "MIN_PREFILL_BUCKET",
     "NGRAM_SCAN_WINDOW",
+    "AutoscalePolicy",
     "Backpressure",
     "ContinuousBatchingScheduler",
     "EngineConfig",
+    "FleetRouter",
+    "InDoubtAdmit",
     "JournalReplay",
     "PagedKVPools",
+    "ReplicaHandle",
+    "ReplicaStats",
+    "ReplicaUnreachable",
     "Request",
     "RequestJournal",
     "SchedulerConfig",
@@ -44,6 +63,7 @@ __all__ = [
     "failover_split",
     "init_pools",
     "install_drain_handler",
+    "install_fleet_drain_handler",
     "journal_path",
     "ngram_propose",
     "open_journal",

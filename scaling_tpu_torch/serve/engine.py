@@ -794,6 +794,46 @@ class ServeEngine:
         counts its compiled programs."""
         return len(self._prefill_shapes)
 
+    def stats_snapshot(self) -> dict:
+        """One JSON-safe dict of the engine's load and lifetime tallies,
+        with the JAX engine's fields and names: the ``stats`` reply of a
+        subprocess replica (``serve.replica_proc``), which is also its
+        heartbeat, and what the router's least-loaded sort, the
+        supervisor's liveness pass and the process fleet's serve-summary
+        read. Beside them, this process's kernel and plain-version
+        launches (``ops.launches``), so the host can check a worker's
+        kernels. Plain attribute and length reads, safe from an RPC
+        thread while a tick runs."""
+        from ..ops import launches
+
+        sched = self.scheduler
+        finished = list(self.finished)
+        return {
+            "replica": self.replica_id,
+            "queue_depth": len(sched.waiting) + len(sched.running),
+            "waiting": len(sched.waiting),
+            "running": len(sched.running),
+            "pool_pressure": sched.pool_pressure(),
+            "has_work": sched.has_work,
+            "draining": self.draining,
+            "next_req_id": self._next_req_id,
+            "tick": self.tick_index,
+            "shed_count": self.shed_count,
+            "timeout_count": self.timeout_count,
+            "finished": len(finished),
+            "completed": sum(1 for s in finished if s.finish_status == "completed"),
+            "output_tokens": sum(len(s.generated) for s in finished),
+            "preemptions": sched.preemption_count,
+            "prefix_hit_tokens": sched.prefix_hit_tokens,
+            "prefilled_tokens": self.prefilled_tokens,
+            "spec_drafted_tokens": self.spec_drafted_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "prefill_compiles": self.prefill_program_count,
+            "max_concurrent_prefills": self.max_concurrent_prefills,
+            "kernel_launches": launches.snapshot(launches.KERNEL),
+            "plain_launches": launches.snapshot(launches.PLAIN),
+        }
+
     def run_until_done(self, max_ticks: int = 100_000) -> List[Sequence]:
         """Drain every submitted request; returns finished sequences in
         completion order."""

@@ -794,3 +794,56 @@ def test_kernel_times_refuse_a_profile_that_dropped_events():
         {"flash_fwd_kernel": 0.14, "Memcpy DtoD": 0.002})
     full[0].count, full[0].self_device_time_total = 8, 1146.0
     assert chip_smoke.kernel_ms(full, 20) == {}
+
+
+def test_fleet_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
+    """Phase 14 (a)-(e) at toy size on the CPU: the fleets in child
+    processes, the kill (here at replica 1's 3rd tick with work) failed
+    over with every request ended once, the time to recover split from the
+    events, the drain's workers exiting 0. The card's launch and memory
+    checks stay unchecked here (the CPU runs the plain versions)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    for key, value in dict(n_requests=12, rate=60.0, prompt_len=(8, 24), output_len=(16, 32),
+                           shared_prefix_len=8, prefix_families=4, kill_tick=3,
+                           drain_rate=4.0, drain_after_s=0.5).items():
+        monkeypatch.setitem(chip_smoke.FLEET, key, value)
+    for key, value in dict(num_slots=2, block_size=4, num_blocks=128, max_blocks_per_seq=32,
+                           prefill_chunk=8).items():
+        monkeypatch.setitem(chip_smoke.SERVE, key, value)
+    monkeypatch.setattr(chip_smoke, "check_mode_launches", lambda what, stats, needed: None)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = chip_smoke.fleet_phase(model="toy", device="cpu")
+    text = capsys.readouterr().out
+    assert set(out) == {"fleet_one", "fleet_threads", "fleet_procs", "fleet_kill"}
+    for line in ("(a) one engine on F:", "(b) --replicas 2", "(c) --replicas-proc 2",
+                 "(d) serve.replica.kill=kill@3@host=1: 12 of 12 completed",
+                 "restarts 1; obs report --assert-max-replica-restarts 1 passes",
+                 "(d) time to recover from the last tick: dead verdict",
+                 "(e) SIGTERM 0.5s after both workers were ready", "worker exit codes [0, 0]",
+                 "tokens/s on F: one engine"):
+        assert line in text, line
+
+
+def test_fleet_time_to_recover_splits_the_gap():
+    """The kill's time to recover from the events: the killed replica's last
+    tick, the dead verdict, the relaunch's spawn span (its start), its ready
+    event and the first token of a request re-dispatched to the survivor."""
+    events = [
+        {"event": "span", "span": "serve.admit", "req": 4, "replica": 1, "ts": 1.0},
+        {"event": "span", "span": "serve.admit", "req": 5, "replica": 0, "ts": 1.1},
+        {"event": "span", "span": "serve.tick", "replica": 1, "ts": 9.0},
+        {"event": "span", "span": "serve.tick", "replica": 0, "ts": 9.5},
+        {"event": "serve-replica-dead", "replica": 1, "ts": 10.0},
+        {"event": "span", "span": "serve.admit", "req": 4, "replica": 0, "ts": 10.1},
+        {"event": "serve-request", "req": 5, "replica": 0, "ts": 10.2, "e2e_s": 9.0,
+         "ttft_s": 0.5},
+        {"event": "serve-request", "req": 4, "replica": 0, "ts": 12.0, "e2e_s": 1.9,
+         "ttft_s": 0.4},
+        {"event": "serve-replica-ready", "replica": 1, "ts": 14.0},
+        {"event": "span", "span": "serve.replica.spawn", "replica": 1, "ts": 14.1,
+         "dur_s": 3.6},
+    ]
+    ttr = chip_smoke.fleet_time_to_recover(events)
+    assert ttr["detection"] == pytest.approx(1.0) and ttr["spawn"] == pytest.approx(1.5)
+    assert ttr["ready"] == pytest.approx(5.0) and ttr["first_token"] == pytest.approx(1.5)
+    assert ttr["redispatched"] == 1

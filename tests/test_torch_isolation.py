@@ -4,7 +4,8 @@ saves, resumes, serves, generates from and evaluates its checkpoint,
 LoRA-finetunes it with dropout, merges and serves the finetune on the CPU
 when asked to, renders ``obs report``, supervises a worker (this file,
 run as the runner's script, is that worker) and a serving bench through
-a crash and its journal replay; without a card,
+a crash and its journal replay and a process fleet through a killed
+replica's failover (its workers blocked too); without a card,
 its entry points raise instead of moving to the CPU on their own."""
 
 import json
@@ -182,6 +183,45 @@ def test_supervised_crash_replay_bench_with_jax_blocked(tmp_path):
     lines = [json.loads(line) for line in (run_dir / "journal.jsonl").read_text().splitlines()]
     done = [r["req"] for r in lines if r["kind"] == "serve-finish" and r["status"] == "completed"]
     assert sorted(done) == list(range(6))
+
+
+def test_process_fleet_with_jax_blocked_in_host_and_workers(tmp_path):
+    """``serve bench --replicas-proc 2`` with ``serve.replica.kill=kill@3@host=1``:
+    the host runs with JAX and the JAX package blocked and CUDA refused; its
+    workers (and the relaunch) start where ``jax`` and ``scaling_tpu``
+    resolve to packages that refuse to import. Every request completes, one
+    replica is relaunched, and the host never initialised CUDA."""
+    blocked = tmp_path / "blocked"
+    for name in ("jax", "scaling_tpu"):
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked in this test')\n")
+    run_dir = tmp_path / "run"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SCALING_TPU_")}
+    env.update(PYTHONPATH=str(REPO), SCALING_TPU_FAULTS="serve.replica.kill=kill@3@host=1",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", BLOCKED_SERVE_SUPERVISOR, "--device", "cpu", "--model", "toy",
+         "--requests", "8", "--rate", "50", "--seed", "7", "--prompt-len", "4", "16",
+         "--output-len", "6", "12", "--num-slots", "2", "--block-size", "4", "--num-blocks",
+         "96", "--max-blocks-per-seq", "16", "--prefill-chunk", "4", "--replicas-proc", "2",
+         "--run-dir", str(run_dir), "--json", str(run_dir / "stats.json")],
+        cwd=blocked, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=240)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    assert proc.returncode == 0, err[-3000:]
+    stats = json.loads((run_dir / "stats.json").read_text())
+    assert stats["requests"] == 8 and stats["replica_restarts"] == 1
+    assert stats["host_cuda_initialized"] is False
+    ready = [e for e in map(json.loads, (run_dir / "events.jsonl").read_text().splitlines())
+             if e["event"] == "serve-replica-ready"]
+    assert sorted(e["replica"] for e in ready) == [0, 1, 1]  # both, and the relaunch
 
 
 BLOCKED_SUPERVISE = r"""

@@ -607,3 +607,33 @@ def test_whole_prompt_prefill_runs_k4_and_agrees_with_chunks(card):
             logits = inf.logits(prompt + got[:t])[0, -1].float()
             gap = abs(logits[got[t]] - logits[want[t]]).item()
             assert gap <= 0.05 * logits.abs().max().item(), (i, t, gap)
+
+
+def test_process_fleet_serves_through_the_kernels_in_each_worker(card, tmp_path):
+    """``serve bench --replicas-proc 2 --model toy`` on the card: both
+    workers serve (on ``cuda:0`` each with one card), each launched K1 and
+    K2 and no plain version (from its stats), every request completed, and
+    the host never initialised CUDA."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SCALING_TPU_")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "scaling_tpu_torch.serve", "bench", "--model", "toy",
+         "--replicas-proc", "2", "--requests", "16", "--rate", "200", "--prompt-len", "16", "64",
+         "--output-len", "8", "16", "--num-slots", "4", "--num-blocks", "64",
+         "--max-blocks-per-seq", "8", "--json", str(tmp_path / "stats.json")],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    stats = json.loads((tmp_path / "stats.json").read_text())
+    assert stats["requests"] == 16 and stats["host_cuda_initialized"] is False
+    for row in stats["replica_stats"]:
+        assert row["device"] == f"cuda:{row['replica'] % torch.cuda.device_count()}"
+        assert row["dispatches"] > 0, row
+        assert row["kernel_launches"].get("paged_attention", 0) > 0, row
+        assert row["kernel_launches"].get("rms_norm", 0) > 0, row
+        assert sum(row["plain_launches"].values()) == 0, row
