@@ -228,6 +228,23 @@ Phases, each of which must pass:
    relaunch's spawn, its ready event and the first token of a
    re-dispatched request. (e): exit 0, drained with work unsubmitted, both
    workers exit 0;
+15. mixture-of-experts and muP, after phase 6: ``0.5b-moe`` (the 0.5B
+   widths, 8 routed SwiGLU experts, top-2, capacity 1.25, aux 0.01, muP
+   from a 256-wide base: attention scale 1/32, the head's output_mult 2,
+   its 1/8 learning rate by fan-in) at full width and depth from seed 0.
+   (a) one MoE layer at b 4, s 2048 in f32 on the card and on the CPU:
+   at least 0.999 of the tokens routed alike (expert set and kept
+   flags), their outputs within 1e-4 of max |y|, the aux losses within
+   1e-3; (b) phase 5 on this model: its first row's routing captured by
+   forward hooks on the card and on the CPU, at most 5 % of the (token,
+   layer) decisions differing, the logits of the positions routed alike
+   in every layer within 0.05 of max |logit| (constant logits cannot
+   pass); ``moe_aux_loss`` finite and positive at every step; MFU printed
+   with N all parameters and with N the parameters a token touches; the
+   routing and dispatch ops timed as a group of the profiled step; (c)
+   phase 4 on this model with native KV, its recomputed tick's routing
+   held to the same 5 %; (d) K1-K5 all launched on (b) and (c), no plain
+   version run. ``generate`` on this model is left to the CPU tests;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -369,6 +386,16 @@ FLEET = dict(n_requests=64, rate=128.0, prompt_len=(128, 1024), output_len=(64, 
              shared_prefix_len=256, prefix_families=4, seed=0, replicas=2, kill_tick=40,
              drain_rate=8.0, drain_after_s=2.0, child_timeout_s=300, free_tol=1 << 30,
              heartbeat_timeout_s=10.0)
+# phase 15: the 0.5B widths with 8 routed SwiGLU experts (top-2, capacity 1.25,
+# aux 0.01) under muP from a 256-wide base (serve/bench.py MODELS["0.5b-moe"]).
+# (a) one MoE layer at b 4, s 2048 in f32, card against CPU: the share of
+# tokens routed alike (expert set and kept flags) and, on those, y within
+# layer_tol of max |y| (f32 sums in another order: ~1e-6) and the aux loss
+# within aux_rtol (a token whose top-1 flips moves it by ~1/(b s)); (b) phase
+# 5's training and (c) phase 4's serving with routing captured on the card
+# and on the CPU: at most flip_share of the (token, layer) decisions differ
+MOE = dict(model="0.5b-moe", layer_shape=(4, 2048), route_agree=0.999, layer_tol=1e-4,
+           aux_rtol=1e-3, flip_share=0.05)
 # the bench 0.5B model in the JAX default architecture: its widths, other keys
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
@@ -853,13 +880,16 @@ def cpu_f32_copy(inf):
     return TransformerInferenceModule.from_state_dict(arch32, state, device="cpu")
 
 
-def recompute_on_cpu(inf, captured) -> tuple:
+def recompute_on_cpu(inf, captured) -> dict:
     """The captured tick once more on the CPU in f32, through the plain
-    versions, from the pool copy taken before the card ran it."""
+    versions, from the pool copy taken before the card ran it. A MoE
+    model's routing is captured on the CPU too and held against the card's
+    (``routing_flips``); the logit error is then taken over the rows whose
+    sampled position was routed alike in every layer."""
     from scaling_tpu_torch.serve.kvcache import PagedKVPools
 
     cpu_inf = cpu_f32_copy(inf)
-    pools, inp, card_logits = captured
+    pools, inp, card_logits, card_routing = captured
     cpu_pools = PagedKVPools(*[
         None if p is None else [t.cpu() for t in p]
         for p in (pools.pool_k, pools.pool_v, pools.scale_k, pools.scale_v)
@@ -868,16 +898,22 @@ def recompute_on_cpu(inf, captured) -> tuple:
     tokens, ctx = torch.from_numpy(inp.tokens), torch.from_numpy(inp.ctx)
     new_lens = torch.from_numpy(inp.new_lens)
     pos = ctx[:, None] + torch.arange(width, dtype=torch.int32)
-    logits = cpu_inf._run_layers(
-        cpu_inf._make_batch(tokens, pos),
-        cpu_pools.views(torch.from_numpy(inp.tables), ctx, new_lens),
-        gather_start=(new_lens - 1).clamp(0, width - 1), gather_width=1,
-    )
+    gather = (new_lens - 1).clamp(0, width - 1)
+    cpu_routing = []
+    with routing_recorder(cpu_inf.model, cpu_routing):
+        logits = cpu_inf._run_layers(
+            cpu_inf._make_batch(tokens, pos),
+            cpu_pools.views(torch.from_numpy(inp.tables), ctx, new_lens),
+            gather_start=gather, gather_width=1,
+        )
     card = card_logits.float().cpu()
-    err = (card - logits).abs().max().item()
-    scale = logits.abs().max().item()
-    agree = (card.argmax(-1) == logits.argmax(-1)).float().mean().item()
-    return err, scale, agree
+    flips, alike = routing_flips(card_routing, cpu_routing, tokens.shape)
+    rows = alike.gather(1, gather.long()[:, None])[:, 0]
+    diff = (card - logits).abs().flatten(1).amax(-1)
+    return {"err": diff[rows].max().item() if rows.any() else math.inf,
+            "scale": logits.abs().max().item(),
+            "agree": (card.argmax(-1) == logits.argmax(-1)).float().mean().item(),
+            "flips": flips, "rows": rows.float().mean().item()}
 
 
 def profile_ticks(engine, vocab: int, n_ticks: int = 30) -> dict:
@@ -924,15 +960,17 @@ def profile_ticks(engine, vocab: int, n_ticks: int = 30) -> dict:
     }
 
 
-def serve(kv_dtype: str) -> dict:
+def serve(kv_dtype: str, model: str = "0.5b") -> dict:
     """The 0.5B model through the engine, counters reset just before the
-    measured run and read just after."""
+    measured run and read just after. A MoE model (phase 15) has the
+    recomputed tick's routing captured on the card and held against the
+    CPU's."""
     from scaling_tpu_torch.ops import launches
     from scaling_tpu_torch.serve import EngineConfig, ServeEngine
     from scaling_tpu_torch.serve.bench import build_inference, run_bench, sample_workload
 
     dev = torch.device("cuda")
-    inf = build_inference("0.5b", seed=0, device=dev)
+    inf = build_inference(model, seed=0, device=dev)
     n_params = sum(p.numel() for p in inf.model.parameters())
     engine = ServeEngine(inf, EngineConfig(kv_dtype=kv_dtype, **SERVE), device=dev)
     engine.submit(list(range(1, 41)), 4)  # warm-up request, off the books
@@ -951,8 +989,10 @@ def serve(kv_dtype: str) -> dict:
             for p in (engine.pools.pool_k, engine.pools.pool_v,
                       engine.pools.scale_k, engine.pools.scale_v)
         ], block_size=engine.pools.block_size)
-        logits, sampled = forward(inp)
-        captured["tick"] = (snapshot, inp, logits.clone())
+        routing = []
+        with routing_recorder(inf.model, routing):
+            logits, sampled = forward(inp)
+        captured["tick"] = (snapshot, inp, logits.clone(), routing)
         return logits, sampled
 
     engine._forward_mixed = capture
@@ -976,7 +1016,8 @@ def serve(kv_dtype: str) -> dict:
         raise AssertionError(f"{kv_dtype}: kernels not launched on the main path: {kernel}")
     if sum(plain.values()) != 0:
         raise AssertionError(f"{kv_dtype}: plain versions ran on the card: {plain}")
-    err, scale, agree = recompute_on_cpu(inf, captured["tick"])
+    rec = recompute_on_cpu(inf, captured["tick"])
+    err, scale, agree = rec["err"], rec["scale"], rec["agree"]
     print(f"  {kv_dtype}: params={n_params} requests={stats['completed']}/"
           f"{stats['requests']} ticks={stats['ticks']} preemptions={stats['preemptions']} "
           f"wall={stats['wall_s']:.3f}s")
@@ -989,6 +1030,13 @@ def serve(kv_dtype: str) -> dict:
     print(f"  {kv_dtype}: tick {RECOMPUTE_TICK} recomputed on CPU f32: "
           f"max_abs_err={err:.4e} max|logit|={scale:.4e} "
           f"(tol {TICK_TOL} x max|logit|) argmax agreement={agree:.3f}")
+    if inf.architecture.is_moe:
+        print(f"  {kv_dtype}: the tick's routing, card vs cpu: {rec['flips']:.4f} of the "
+              f"(token, layer) decisions differ (tol {MOE['flip_share']}); the logit error "
+              f"is over the {rec['rows']:.3f} of the rows whose sampled position was routed "
+              "alike in every layer")
+        if not rec["flips"] <= MOE["flip_share"]:
+            raise AssertionError(f"{kv_dtype}: the tick's routing disagrees: {rec}")
     if not err <= TICK_TOL * scale:
         raise AssertionError(f"{kv_dtype}: tick recompute disagrees: {err} > {TICK_TOL * scale}")
     prof = profile_ticks(engine, inf.architecture.vocab_size)
@@ -1002,6 +1050,45 @@ def serve(kv_dtype: str) -> dict:
     return stats
 
 
+def routing_decisions(layer, x: torch.Tensor) -> torch.Tensor:
+    """Each token's routing by a MoE layer, on the CPU: its ``top_k``
+    experts in ascending order and whether each kept its slot, (b, s, 2k)."""
+    from scaling_tpu_torch.nn.moe import capacity
+
+    with torch.no_grad():
+        _, experts, positions, _ = layer.route(x, with_aux=False)
+    kept = positions < capacity(layer.capacity_factor, layer.top_k, x.shape[1],
+                                layer.num_experts)
+    experts, order = experts.sort(dim=-1)
+    return torch.cat([experts, kept.gather(-1, order).long()], dim=-1).cpu()
+
+
+@contextlib.contextmanager
+def routing_recorder(model, out: list):
+    """While open, each forward of a MoE layer of ``model`` appends its
+    ``routing_decisions`` to ``out`` (in layer order); no-op for a dense
+    model."""
+    from scaling_tpu_torch.nn.moe import ParallelMoEMLP
+
+    hooks = [m.register_forward_hook(lambda mod, args, _: out.append(
+        routing_decisions(mod, args[0]))) for m in model.modules()
+        if isinstance(m, ParallelMoEMLP)]
+    try:
+        yield out
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def routing_flips(card: list, cpu: list, shape) -> tuple:
+    """(share of the (token, layer) decisions that differ, (b, s) mask of
+    the positions routed alike in every layer)."""
+    if not card:
+        return 0.0, torch.ones(shape, dtype=torch.bool)
+    same = torch.stack([(a == b).all(-1) for a, b in zip(card, cpu)])
+    return 1.0 - same.float().mean().item(), same.all(0)
+
+
 def recompute_train_row(module, batch) -> dict:
     """The first row of the first micro-batch, before any update, on the
     card (bf16, the kernels) and on the CPU in f32 through the plain
@@ -1012,13 +1099,19 @@ def recompute_train_row(module, batch) -> dict:
     near ln(vocab) whatever the forward does. ``err`` is max |card - cpu|
     over max |cpu|; ``uniform_err`` is the least ``err`` a forward giving
     each position constant logits could reach (half the widest row's range),
-    which the tolerance must stay below for the check to tell."""
+    which the tolerance must stay below for the check to tell. For a MoE
+    model the routing of each layer is captured on both sides: ``flips`` is
+    the share of (token, layer) decisions that differ, and ``err`` is taken
+    over the positions routed alike in every layer (``alike``, their
+    share)."""
     from scaling_tpu_torch.models.transformer import TransformerModel, loss_function
     from scaling_tpu_torch.parallel import ParallelModule
 
     row = {k: v[0, :1] for k, v in batch.items()}
+    card_routing, cpu_routing = [], []
     with torch.no_grad():
-        card_out = module.forward(row)
+        with routing_recorder(module.model, card_routing):
+            card_out = module.forward(row)
         card_loss = loss_function(card_out, row)[0].item()
         card = card_out["activations"].float().cpu()
         del card_out
@@ -1028,15 +1121,21 @@ def recompute_train_row(module, batch) -> dict:
                                    module.model.state_dict().items()})
         cpu_module = ParallelModule(cpu_model, module.topology)
         cpu_row = {k: v.cpu() for k, v in row.items()}
-        cpu_out = cpu_module.forward(cpu_row)
+        with routing_recorder(cpu_model, cpu_routing):
+            cpu_out = cpu_module.forward(cpu_row)
         cpu_loss = loss_function(cpu_out, cpu_row)[0].item()
         cpu = cpu_out["activations"]
+        del cpu_model, cpu_module
     scale = cpu.abs().max().item()
+    # a MoE model: positions routed otherwise on the card take other experts
+    flips, alike = routing_flips(card_routing, cpu_routing, cpu.shape[:2])
     return {
         "card_loss": card_loss, "cpu_loss": cpu_loss, "scale": scale,
-        "err": (card - cpu).abs().max().item() / scale,
+        "err": ((card - cpu).abs().amax(-1)[alike].max().item() / scale if alike.any()
+                else math.inf),
         "uniform_err": ((cpu.amax(-1) - cpu.amin(-1)) / 2).max().item() / scale,
         "agree": (card.argmax(-1) == cpu.argmax(-1)).float().mean().item(),
+        "flips": flips, "alike": alike.float().mean().item(),
     }
 
 
@@ -1046,10 +1145,17 @@ TRAIN_GROUPS = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
                 ("optimizer_foreach", ("multi_tensor_apply", "foreach")))
 
 
-def profile_train_step(step, batch) -> dict:
+# a MoE step's routing and dispatch: the router's sort and one-hots, the
+# position scan, the buffer's scatter and gathers and their backward
+MOE_GROUPS = (("moe_routing", ("sort", "scatter", "gather", "index", "scan", "softmax",
+                               "one_hot", "argmax", "cumsum")),)
+
+
+def profile_train_step(step, batch, extra_groups=()) -> dict:
     """One training step under ``torch.profiler`` (device activity only):
     the device's busy time (the kernels' sum; one stream), its idle share
-    of the host's wall clock, and the device time by kernel group."""
+    of the host's wall clock, and the device time by kernel group
+    (``extra_groups`` after phase 5's)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1058,13 +1164,14 @@ def profile_train_step(step, batch) -> dict:
         step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    groups = {name: 0.0 for name, _ in TRAIN_GROUPS}
+    kinds = TRAIN_GROUPS + tuple(extra_groups)
+    groups = {name: 0.0 for name, _ in kinds}
     groups["other"] = 0.0
     other = []
     for e in prof.key_averages():
         ms = (getattr(e, "self_device_time_total", 0) or 0) / 1e3
         key = e.key.lower()
-        group = next((g for g, pats in TRAIN_GROUPS if any(p in key for p in pats)), "other")
+        group = next((g for g, pats in kinds if any(p in key for p in pats)), "other")
         groups[group] += ms
         if group == "other" and ms > 0:
             other.append((ms, e.count, e.key[:90]))
@@ -1074,43 +1181,60 @@ def profile_train_step(step, batch) -> dict:
             "top_other": sorted(other, reverse=True)[:8]}
 
 
-def train() -> dict:
-    """The 0.5B training step (bench.py's first rung), counters reset just
-    before the warm-up and timed steps and read just after."""
-    from scaling_tpu_torch.models.transformer import loss_function
-    from scaling_tpu_torch.models.transformer.utils.get_tflops import (
-        get_model_parameter_count,
-        get_palm_mfu,
-    )
-    from scaling_tpu_torch.ops import launches
-    from scaling_tpu_torch.train.bench import build, synth_batch, timed_windows
-
-    dev = torch.device("cuda")
-    config, module, optimizer = build("0.5b", TRAIN_SEQ, TRAIN_MBS, device=dev, seed=0)
-    arch = config.transformer_architecture
-    n_params = sum(p.numel() for p in module.model.parameters())
-    step = module.build_train_step(optimizer, loss_function)
-    batch = synth_batch(np.random.default_rng(0), TRAIN_MBS, TRAIN_SEQ, arch.vocab_size, 1, dev)
-    t0 = time.monotonic()
-    rec = recompute_train_row(module, batch)
+def check_train_row(rec: dict, moe: bool, seconds: float = 0.0) -> None:
+    """Print ``recompute_train_row``'s result and hold it to its limits."""
     print(f"  first row before any update, card bf16 vs cpu f32 (plain versions): logits "
           f"max_abs_err={rec['err'] * rec['scale']:.4e} max|logit|={rec['scale']:.4e} "
           f"err/max|logit|={rec['err']:.3e} (tol {TRAIN_LOGIT_TOL}; constant logits would "
           f"give >= {rec['uniform_err']:.3e}) argmax agreement={rec['agree']:.3f}; "
-          f"loss card={rec['card_loss']:.5f} cpu={rec['cpu_loss']:.5f} "
-          f"({time.monotonic() - t0:.1f}s)")
+          f"loss card={rec['card_loss']:.5f} cpu={rec['cpu_loss']:.5f} ({seconds:.1f}s)")
+    if moe:
+        print(f"  routing of the row, card vs cpu: {rec['flips']:.4f} of the (token, layer) "
+              f"decisions differ (tol {MOE['flip_share']}); the logit error is over the "
+              f"{rec['alike']:.4f} of the positions routed alike in every layer")
+        if not rec["flips"] <= MOE["flip_share"]:
+            raise AssertionError(f"train routing disagrees with the CPU's: {rec}")
     if not rec["uniform_err"] > TRAIN_LOGIT_TOL:
         raise AssertionError(f"constant logits would pass the logit check: {rec}")
     if not rec["err"] <= TRAIN_LOGIT_TOL:
         raise AssertionError(f"train logits recompute disagrees: {rec}")
 
+
+def train(model: str = "0.5b") -> dict:
+    """The 0.5B training step (bench.py's first rung), counters reset just
+    before the warm-up and timed steps and read just after. A MoE model
+    (phase 15) also has its routing held against the CPU's, its aux loss
+    printed at each step, its MFU counted twice and its routing and
+    dispatch ops timed as a group of their own."""
+    from scaling_tpu_torch.models.transformer import loss_function
+    from scaling_tpu_torch.models.transformer.utils.get_tflops import (
+        get_model_parameter_count,
+        get_palm_mfu,
+        moe_parameter_counts,
+    )
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.train.bench import build, synth_batch
+
+    dev = torch.device("cuda")
+    config, module, optimizer = build(model, TRAIN_SEQ, TRAIN_MBS, device=dev, seed=0)
+    arch = config.transformer_architecture
+    n_params = sum(p.numel() for p in module.model.parameters())
+    step = module.build_train_step(optimizer, loss_function)
+    batch = synth_batch(np.random.default_rng(0), TRAIN_MBS, TRAIN_SEQ, arch.vocab_size, 1, dev)
+    t0 = time.monotonic()
+    check_train_row(recompute_train_row(module, batch), arch.is_moe, time.monotonic() - t0)
+
     launches.reset()
     torch.cuda.reset_peak_memory_stats(dev)
-    losses = [float(step(batch)[0]) for _ in range(TRAIN_WARMUP)]
-    seconds, timed = timed_windows(step, batch, dev, TRAIN_STEPS, windows=1)
+    outs = [step(batch)[:2] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    outs += [step(batch)[:2] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize(dev)
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
     kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    losses += timed
+    losses = [float(loss) for loss, _ in outs]
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1119,25 +1243,35 @@ def train() -> dict:
         raise AssertionError(f"training kernels not launched on the main path: {kernel}")
     if sum(plain.values()) != 0:
         raise AssertionError(f"plain versions ran on the card in training: {plain}")
-    tokens_per_s = TRAIN_MBS * TRAIN_SEQ / seconds[0]
-    mfu = get_palm_mfu(get_model_parameter_count(arch.hidden_size, arch.num_layers,
-                                                 arch.vocab_size, arch.mlp_factor, glu=True),
-                       arch.num_layers, arch.hidden_size, arch.sequence_length, tokens_per_s)
+    tokens_per_s = TRAIN_MBS * TRAIN_SEQ / step_s
+    counts = (moe_parameter_counts(module.model) if arch.is_moe else
+              (get_model_parameter_count(arch.hidden_size, arch.num_layers, arch.vocab_size,
+                                         arch.mlp_factor, glu=True),))
+    mfu = [get_palm_mfu(n, arch.num_layers, arch.hidden_size, arch.sequence_length,
+                        tokens_per_s) for n in counts]
+    mfu_text = (f"mfu={mfu[0]:.4f}" if len(mfu) == 1 else
+                f"mfu={mfu[0]:.4f} (6N + 12LHS, N all {counts[0]} parameters) "
+                f"mfu={mfu[1]:.4f} (N the {counts[1]} a token's work touches)")
     print(f"  params={n_params} mbs={TRAIN_MBS} seq={TRAIN_SEQ} steps={TRAIN_WARMUP} warm-up "
-          f"+ {TRAIN_STEPS} timed: step={seconds[0] * 1e3:.2f}ms tokens/s={tokens_per_s:.1f} "
-          f"mfu={mfu:.4f} peak max_memory_allocated={peak_gb:.2f}GB")
+          f"+ {TRAIN_STEPS} timed: step={step_s * 1e3:.2f}ms tokens/s={tokens_per_s:.1f} "
+          f"{mfu_text} peak max_memory_allocated={peak_gb:.2f}GB")
     print(f"  losses: first={losses[0]:.5f} last={losses[-1]:.5f} all finite")
+    if arch.is_moe:
+        aux = [float(metrics["moe_aux_loss"]) for _, metrics in outs]
+        print("  moe_aux_loss by step: " + " ".join(f"{a:.6f}" for a in aux))
+        if not all(np.isfinite(aux)) or min(aux) <= 0:
+            raise AssertionError(f"moe_aux_loss not finite and positive: {aux}")
     print(f"  launches kernel={kernel} plain={plain} per step: "
           + " ".join(f"{k}={kernel[k] / n_steps:.2f}" for k in needed))
-    prof = profile_train_step(step, batch)
+    prof = profile_train_step(step, batch, MOE_GROUPS if arch.is_moe else ())
     print(f"  profiled step (torch.profiler): wall={prof['wall_ms']:.3f}ms device busy="
           f"{prof['device_busy_ms']:.3f}ms idle share={prof['device_idle_share']:.3f} "
           "device ms by group: " + " ".join(f"{k}={v:.3f}" for k, v in prof["device_ms"].items()))
     for ms, count, name in prof["top_other"]:
         print(f"    other: {ms:.3f}ms in {count} launches: {name}")
-    del module, optimizer, step, batch
+    del module, optimizer, step, batch, outs
     torch.cuda.empty_cache()
-    return {"launches": kernel, "step_ms": seconds[0] * 1e3}
+    return {"launches": kernel, "step_ms": step_s * 1e3, "peak_gb": peak_gb}
 
 
 # ------------------------------------------------------------ generation
@@ -4024,6 +4158,80 @@ def time_kernels(errs: dict) -> list:
     return rows
 
 
+# ------------------------------------------------------- MoE and muP
+def card_copy(layer: torch.nn.Module, device) -> torch.nn.Module:
+    """A copy of ``layer`` on the card (phase 15 (a)'s card side)."""
+    import copy
+
+    return copy.deepcopy(layer).to(device)
+
+
+def moe_layer_check(device: str = "cuda") -> dict:
+    """Phase 15 (a): one MoE layer of the phase's model in f32, weights from
+    seed 0 and an input of ``MOE["layer_shape"]`` from a numpy seed, on the
+    card and on the CPU: the share of tokens routed alike (expert set and
+    kept flags), and on them y's error over max |y|; the aux losses."""
+    from scaling_tpu_torch.models.transformer import TransformerArchitectureConfig
+    from scaling_tpu_torch.nn.moe import ParallelMoEMLP
+    from scaling_tpu_torch.serve.bench import MODELS
+
+    arch = TransformerArchitectureConfig.from_dict(MODELS[MOE["model"]])
+    cpu_layer = ParallelMoEMLP(arch.hidden_size, arch.mlp_factor, arch.moe_num_experts,
+                               top_k=arch.moe_top_k, capacity_factor=arch.moe_capacity_factor,
+                               aux_loss_coef=arch.moe_aux_loss_coef, glu=True,
+                               activation=arch.activation_function)
+    cpu_layer.init_(torch.Generator().manual_seed(0))
+    b, s = MOE["layer_shape"]
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(b, s, arch.hidden_size)).astype(np.float32))
+    card_layer = card_copy(cpu_layer, device)
+    with torch.no_grad():
+        y, aux = cpu_layer(x)
+        xc = x.to(device)
+        y_card, aux_card = card_layer(xc)
+        alike = (routing_decisions(card_layer, xc) == routing_decisions(cpu_layer, x)).all(-1)
+    diff = (y_card.cpu() - y).abs().amax(-1)
+    scale = y.abs().max().item()
+    return {"alike": alike.float().mean().item(),
+            "err": diff[alike].max().item() / scale if alike.any() else math.inf,
+            "scale": scale, "aux": aux.item(), "aux_card": aux_card.item()}
+
+
+def check_moe_layer(rec: dict) -> None:
+    print(f"  (a) one MoE layer at b, s = {MOE['layer_shape']} in f32, card vs cpu: "
+          f"{rec['alike']:.5f} of the tokens routed alike (>= {MOE['route_agree']}); on them "
+          f"y max_abs_err/max|y|={rec['err']:.3e} (max|y|={rec['scale']:.4e}, tol "
+          f"{MOE['layer_tol']}); aux card={rec['aux_card']:.7f} cpu={rec['aux']:.7f} "
+          f"(rtol {MOE['aux_rtol']})")
+    if not rec["alike"] >= MOE["route_agree"]:
+        raise AssertionError(f"MoE routing on the card disagrees with the CPU's: {rec}")
+    if not rec["err"] <= MOE["layer_tol"]:
+        raise AssertionError(f"MoE layer output on the card disagrees: {rec}")
+    if not abs(rec["aux_card"] - rec["aux"]) <= MOE["aux_rtol"] * abs(rec["aux"]):
+        raise AssertionError(f"MoE aux loss on the card disagrees: {rec}")
+
+
+def moe_phase() -> dict:
+    """Phase 15: MoE and muP at the 0.5B widths: (a) the layer alone, (b)
+    phase 5's training, (c) phase 4's serving (native KV); every kernel
+    K1-K5 launched on (b) and (c) and no plain version. Returns each path's
+    launch counters."""
+    check_moe_layer(moe_layer_check())
+    print(f"  (b) train {MOE['model']} (full width and depth, random weights, seed 0; mbs "
+          f"{TRAIN_MBS}, seq {TRAIN_SEQ})")
+    trained = train(MOE["model"])
+    print("  (c) serve it at phase 4's settings and traffic, native KV")
+    served = serve("native", MOE["model"])
+    launched = Counter(trained["launches"]) + Counter(served["launches"])
+    needed = ("paged_attention", "rms_norm", "rms_norm_bwd", "flash_attention_fwd",
+              "flash_attention_bwd")
+    if any(launched[k] <= 0 for k in needed):
+        raise AssertionError(f"phase 15 did not launch every kernel K1-K5: {dict(launched)}")
+    print(f"  (d) launches: training {trained['launches']}, serving {served['launches']}; "
+          "no plain version ran")
+    return {"moe_train": trained["launches"], "moe_serve": served["launches"]}
+
+
 def add_launches(rows: list, launches_by_path: dict) -> None:
     """``launches``: the sum over the main-path runs; ``launches_by_path``:
     each run's own count (``launches_by_path`` maps a run's name to the
@@ -4076,6 +4284,10 @@ def main() -> int:
         print(f"== generate {name} (full width and depth, random weights, seed 0)")
         launches_by_path[f"generate_{name}"] = generation_phase(name, arch)
     lap("generate (6)")
+    print(f"== moe (phase 15): {MOE['model']}, the 0.5B widths with 8 routed experts (top-2) "
+          "under muP: the layer card vs cpu, training, serving")
+    launches_by_path.update(moe_phase())
+    lap("moe (15)")
     print("== kernel times (device: torch.profiler; per call: CUDA events)")
     rows = time_kernels(errs)
     lap("kernel times (7)")

@@ -31,8 +31,13 @@ from __future__ import annotations
 import io
 import json
 import logging
+import math
+import mmap
 import os
 import re
+import struct
+import zipfile
+import zlib
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple, Union
@@ -44,7 +49,7 @@ from ..optimizer import Optimizer
 from ..parallel.parallel_module import transposed_in_jax
 from ..resilience.faults import get_fault_plan
 from ..resilience.guards import retry_io
-from ..resilience.manifest import crc32_bytes
+from ..resilience.manifest import crc32_combine
 
 PathLike = Union[Path, str]
 Recorder = Callable[[Path, int, str], None]
@@ -118,36 +123,138 @@ def _to_numpy(key: str, t: torch.Tensor) -> np.ndarray:
     t = t.detach()
     if transposed_in_jax(key, t.ndim):
         t = t.t()
-    out = torch.empty(t.shape, dtype=torch.float32 if t.dtype == torch.bfloat16 else t.dtype)
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    if t.is_cuda:  # transpose and widen on the card: the host copy is then one memcpy
+        t = t.to(dtype).contiguous()
+    out = torch.empty(t.shape, dtype=dtype)
     out.copy_(t)  # into pageable host memory: synchronous
     return out.numpy()
 
 
-def _from_numpy(key: str, arr: np.ndarray) -> torch.Tensor:
+def _from_numpy(key: str, arr: np.ndarray, device=None) -> torch.Tensor:
+    """The stored array on ``device`` in the port's layout. It goes to the
+    device as stored (one contiguous copy) and is transposed there: a
+    transposing copy on the host runs at a fraction of the memory's rate."""
     t = torch.from_numpy(np.asarray(arr))
+    if device is not None:
+        t = t.to(device)
     return t.t() if transposed_in_jax(key, t.ndim) else t
+
+
+def _copy_in(target: torch.Tensor, key: str, arr: np.ndarray, what: str) -> None:
+    """``target`` takes the stored ``arr`` (in the JAX layout), in place;
+    nothing keeps a view of ``arr`` once this returns."""
+    value = _from_numpy(key, arr, target.device)
+    if tuple(value.shape) != tuple(target.shape):
+        raise ValueError(f"{what} shape mismatch for {key}: checkpoint "
+                         f"{tuple(value.shape)} vs model {tuple(target.shape)}")
+    target.copy_(value)
+
+
+def _savez(f, arrays: Dict[str, np.ndarray]) -> Tuple[int, str]:
+    """``np.savez``'s bytes (stored zip64 members ``{name}.npy``) written
+    into ``f``, an open seekable file that can be read back; returns their
+    (size, crc32 hex). The crc32 is put together from the members' crcs,
+    which the zip writer takes as it writes, and the headers: the arrays'
+    bytes pass through one crc32 and are never copied into a buffer."""
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for name, value in arrays.items():
+            with zf.open(name + ".npy", "w", force_zip64=True) as member:
+                np.lib.format.write_array(member, np.asanyarray(value), allow_pickle=False)
+        members, start_dir = zf.infolist(), zf.start_dir
+    size = f.tell()
+    f.seek(start_dir)
+    tail = f.read()  # the central directory and its end records
+    crc, pos = 0, 0
+    for zinfo in members:
+        header = zinfo.FileHeader(True)  # the header as the writer patched it in
+        if zinfo.header_offset != pos:
+            raise RuntimeError(f"unexpected zip layout at {zinfo.filename}")
+        crc = crc32_combine(zlib.crc32(header, crc), zinfo.CRC, zinfo.compress_size)
+        pos += len(header) + zinfo.compress_size
+    if pos != start_dir or start_dir + len(tail) != size:
+        raise RuntimeError("unexpected zip layout at the central directory")
+    return size, f"{zlib.crc32(tail, crc) & 0xFFFFFFFF:08x}"
 
 
 def _write_npz(path: Path, arrays: Dict[str, np.ndarray],
                recorder: Optional[Recorder] = None) -> None:
-    """Serialise once in memory (the manifest's digest is of the intended
-    bytes), then write and fsync, retried on a transient error."""
-    buf = io.BytesIO()
-    np.savez(buf, **arrays)
-    data = buf.getvalue()
-    if recorder is not None:
-        recorder(path, len(data), crc32_bytes(data))
-
+    """Serialise straight into the file and fsync it, retried on a
+    transient error; the manifest's digest is of the bytes written."""
     def put():
         act = get_fault_plan().fire("ckpt.write", path=path)
-        with open(path, "wb") as f:
-            f.write(data)
+        with open(path, "w+b") as f:
+            written = _savez(f, arrays)
             f.flush()
             os.fsync(f.fileno())
         if act == "corrupt":
             get_fault_plan().corrupt_file(path)
+        return written
 
-    retry_io(put, what=f"checkpoint write {path.name}")
+    size, digest = retry_io(put, what=f"checkpoint write {path.name}")
+    if recorder is not None:
+        recorder(path, size, digest)
+
+
+class _NpzReader:
+    """The arrays of an npz file, read in place: the file is mapped, each
+    stored member's array is a view of the mapping at the offset the zip
+    directory gives, its crc32 checked against the directory's as
+    ``np.load`` checks it. ``np.load`` copies each member through the zip
+    reader's buffers first; a compressed member (not written by either
+    package) still goes through it. Close it once the views are copied."""
+
+    def __init__(self, path: PathLike) -> None:
+        self._file = open(path, "rb")
+        try:
+            self._zip = zipfile.ZipFile(self._file)
+            self._members = {z.filename[:-len(".npy")]: z for z in self._zip.infolist()
+                             if z.filename.endswith(".npy")}
+            self._map = (mmap.mmap(self._file.fileno(), 0, access=mmap.ACCESS_COPY)
+                         if os.fstat(self._file.fileno()).st_size else None)
+        except BaseException:
+            self._file.close()
+            raise
+
+    @property
+    def files(self) -> List[str]:
+        return list(self._members)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        zinfo = self._members[name]
+        if zinfo.compress_type != zipfile.ZIP_STORED:
+            with self._zip.open(zinfo) as member:
+                return np.lib.format.read_array(member, allow_pickle=False)
+        # the local header: 30 bytes, then the name and the extra field
+        start = zinfo.header_offset
+        name_len, extra_len = struct.unpack_from("<HH", self._map, start + 26)
+        start += 30 + name_len + extra_len
+        with memoryview(self._map) as whole:
+            data = whole[start:start + zinfo.file_size]
+        if zlib.crc32(data) != zinfo.CRC:
+            data.release()
+            raise zipfile.BadZipFile(f"Bad CRC-32 for file {zinfo.filename!r}")
+        header = io.BytesIO(data[:min(len(data), 1 << 16)])
+        read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                       (2, 0): np.lib.format.read_array_header_2_0}.get(
+                           np.lib.format.read_magic(header))
+        if read_header is None:  # a newer .npy version: numpy's own reader
+            with self._zip.open(zinfo) as member:
+                return np.lib.format.read_array(member, allow_pickle=False)
+        shape, fortran, dtype = read_header(header)
+        if dtype.hasobject:
+            raise ValueError(f"{zinfo.filename}: object arrays are not loaded")
+        array = np.frombuffer(data, dtype=dtype, count=math.prod(shape), offset=header.tell())
+        return array.reshape(shape[::-1]).T if fortran else array.reshape(shape)
+
+    def close(self) -> None:
+        if self._map is not None:
+            try:
+                self._map.close()
+            except BufferError:  # a view lives on (in a traceback): it frees the map
+                pass
+        self._zip.close()
+        self._file.close()
 
 
 def _emit(writer: Optional[AsyncCheckpointWriter], path: Path, arrays: Dict[str, np.ndarray],
@@ -216,25 +323,23 @@ def load_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
     for f in sorted(path.glob("model_state_layer_*.npz")):
         m = re.match(r"model_state_layer_(\d+)_(.+)", f.stem)
         layer_class = m.group(2).split("__")[0]  # a PEFT suffix follows a double underscore
-        with np.load(f) as z:
-            for name in z.files:
-                available[f"layer_{int(m.group(1))}_{layer_class}.{name}"] = (f, name)
+        with zipfile.ZipFile(f) as z:
+            for member in z.namelist():
+                if member.endswith(".npy"):
+                    name = member[:-len(".npy")]
+                    available[f"layer_{int(m.group(1))}_{layer_class}.{name}"] = (f, name)
     enforce_allow_lists(params, available, _compile(allowed_missing_keys),
                         _compile(allowed_unexpected_keys))
     ignore = _compile(ignore_keys)
-    opened: Dict[Path, np.lib.npyio.NpzFile] = {}
+    opened: Dict[Path, _NpzReader] = {}
     try:
         for key, t in params.items():
             if key not in available or _matches_any(key, ignore):
                 continue
             f, name = available[key]
             if f not in opened:
-                opened[f] = np.load(f)
-            value = _from_numpy(key, opened[f][name])
-            if tuple(value.shape) != tuple(t.shape):
-                raise ValueError(f"shape mismatch for {key}: checkpoint "
-                                 f"{tuple(value.shape)} vs model {tuple(t.shape)}")
-            t.copy_(value)
+                opened[f] = _NpzReader(f)
+            _copy_in(t, key, opened[f][name], "parameter")
             if restored_keys is not None:
                 restored_keys.add(key)
     finally:
@@ -282,7 +387,7 @@ def load_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer,
     has no optimizer state (pruned or never written)."""
     path = Path(dir)
     scalars = json.loads((path / "optimizer_state.json").read_text())
-    opened: Dict[Path, np.lib.npyio.NpzFile] = {}
+    opened: Dict[Path, _NpzReader] = {}
 
     def entry(field: str, index: int, pname: str) -> np.ndarray:
         f = path / f"optimizer_state_layer_{index}.npz"
@@ -290,7 +395,7 @@ def load_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer,
         for file, name in ((f, f"{field}.{pname}"), (legacy, pname)):
             if file in opened or file.exists():
                 if file not in opened:
-                    opened[file] = np.load(file)
+                    opened[file] = _NpzReader(file)
                 return opened[file][name]
         raise FileNotFoundError(f"optimizer checkpoint file missing: {f}")
 
@@ -300,12 +405,8 @@ def load_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer,
             key = keys[name]
             index, _, pname = _split_key(key)
             for field in OPT_FIELDS:
-                target = getattr(state, field)[name]
-                value = _from_numpy(key, entry(field, index, pname))
-                if tuple(value.shape) != tuple(target.shape):
-                    raise ValueError(f"optimizer {field} shape mismatch for {key}: checkpoint "
-                                     f"{tuple(value.shape)} vs {tuple(target.shape)}")
-                target.copy_(value)
+                _copy_in(getattr(state, field)[name], key, entry(field, index, pname),
+                         f"optimizer {field}")
     finally:
         for z in opened.values():
             z.close()

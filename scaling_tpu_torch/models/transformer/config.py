@@ -17,7 +17,13 @@ section a ``scaling_tpu`` config carries. Every key is one of three kinds:
 - inert: it has no effect in the JAX package either (parity-only
   switches, and ``finetunable_token_ids``), so it is accepted;
 - not ported yet: any value but the default raises NotImplementedError
-  (``mup``, MoE and the image encoder).
+  (the image encoder).
+
+``mlp_type: moe`` builds the routed expert MLP (``nn.moe``) from the
+``moe_*`` keys, which a dense model carries inert, as the JAX config
+does; ``mup`` (``MupConfig``) sets the width-scaled attention scale, the
+head's ``output_mult`` and zero readout, and the ``1/m`` learning-rate
+groups of ``model.get_parameter_groups``.
 
 ``TransformerConfig`` reads a whole training config under the JAX key
 names: ``topology`` (one device), ``optimizer``,
@@ -72,14 +78,7 @@ DROPOUT_KEYS = ("dropout_embedding", "dropout_attention_probs", "dropout_after_a
                 "dropout_after_mlp")
 
 # keys whose non-default values the port does not implement yet
-_NOT_PORTED = {
-    "mup": None,
-    "image_encoder": False,
-    "moe_num_experts": 8,
-    "moe_top_k": 2,
-    "moe_capacity_factor": 1.25,
-    "moe_aux_loss_coef": 0.01,
-}
+_NOT_PORTED = {"image_encoder": False}
 
 
 def _section(cls, d: Optional[Dict[str, Any]], what: str):
@@ -140,6 +139,26 @@ class EmbeddingHeadConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MupConfig:
+    """Maximal-update parametrisation (``MupConfig`` of the JAX config):
+    hyperparameters tuned at ``base_hidden_size`` carry to this width.
+    ``base_num_attention_heads`` (default: this model's head count) gives
+    the base head dim of the attention scale; ``output_mult`` multiplies
+    the untied head's logits; ``readout_zero_init`` zeroes the head."""
+
+    base_hidden_size: int
+    base_num_attention_heads: Optional[int] = None
+    output_mult: float = 1.0
+    readout_zero_init: bool = True
+
+    def __post_init__(self):
+        for key in ("base_hidden_size", "base_num_attention_heads", "output_mult"):
+            value = getattr(self, key)
+            if value is not None and not value > 0:
+                raise ValueError(f"mup.{key} must be > 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class TransformerArchitectureConfig:
     vocab_size: int
     hidden_size: int
@@ -158,6 +177,11 @@ class TransformerArchitectureConfig:
     mlp_type: str = "default"
     mlp_factor: float = 4.0
     mlp_bias: bool = True
+    moe_num_experts: int = 8  # mlp_type "moe": experts, routed per token, buffer slack
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_coef: float = 0.01  # the Switch load-balance loss's coefficient
+    mup: Optional[MupConfig] = None
     activation_function: str = "gelu"
     precision: str = "float32"
     layernorm_optimization_type: str = "torch"  # layernorm.optimization_type
@@ -182,7 +206,7 @@ class TransformerArchitectureConfig:
     def __post_init__(self):
         for key, cls in (("bitfit_bias_config", BitfitConfig), ("adapter_config", AdapterConfig),
                          ("softprompt_config", SoftpromptConfig),
-                         ("embedding_head_config", EmbeddingHeadConfig)):
+                         ("embedding_head_config", EmbeddingHeadConfig), ("mup", MupConfig)):
             object.__setattr__(self, key, _section(cls, getattr(self, key), key))
         if isinstance(self.lora_config, dict):
             object.__setattr__(self, "lora_config", LoRaConfig.from_dict(self.lora_config))
@@ -218,7 +242,7 @@ class TransformerArchitectureConfig:
             ("norm_type", self.norm_type, ("layernorm", "rms"), ()),
             ("relative_position_embedding_type", self.relative_position_embedding_type,
              ("none", "rotary", "rotary_complex"), ()),
-            ("mlp_type", self.mlp_type, ("default", "swiglu"), ("moe",)),
+            ("mlp_type", self.mlp_type, ("default", "swiglu", "moe"), ()),
         ):
             if value in known:
                 raise NotImplementedError(
@@ -228,6 +252,20 @@ class TransformerArchitectureConfig:
         if (self.relative_position_embedding_type == "rotary_complex"
                 and self.rotary_dimensions != self.head_dim):
             raise ValueError("rotary_complex rotates whole heads: rotary_percentage must be 1")
+        for key in ("moe_num_experts", "moe_top_k", "moe_capacity_factor"):
+            if not getattr(self, key) > 0:
+                raise ValueError(f"{key} must be > 0")
+        if self.moe_aux_loss_coef < 0:
+            raise ValueError("moe_aux_loss_coef must be >= 0")
+        if self.mlp_type == "moe":
+            if self.moe_top_k > self.moe_num_experts:
+                raise ValueError(f"moe_top_k ({self.moe_top_k}) cannot exceed "
+                                 f"moe_num_experts ({self.moe_num_experts})")
+            if self.mlp_bias:
+                raise ValueError("mlp_type 'moe' does not support mlp_bias; set it false "
+                                 "(experts are GLU FFNs without bias)")
+        if self.mup is not None and self.weight_tying:
+            raise ValueError("mup does not compose with weight_tying: untie the head to use mup")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerArchitectureConfig":
@@ -266,6 +304,25 @@ class TransformerArchitectureConfig:
             raise ValueError(f"unknown or unsupported config keys: {sorted(leftover)}")
         kwargs.update(d)
         return cls(**kwargs)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.mlp_type == "moe"
+
+    @property
+    def mup_width_mult(self) -> float:
+        """Width multiplier ``m = hidden / base_hidden`` (1.0 without muP)."""
+        return 1.0 if self.mup is None else self.hidden_size / self.mup.base_hidden_size
+
+    @property
+    def attention_scale(self) -> Optional[float]:
+        """muP's attention scale ``sqrt(base_head_dim) / head_dim``, with
+        ``base_head_dim`` the base width over the base model's heads (this
+        model's by default); None (``1 / sqrt(head_dim)``) without muP."""
+        if self.mup is None:
+            return None
+        base_heads = self.mup.base_num_attention_heads or self.num_attention_heads
+        return (self.mup.base_hidden_size / base_heads) ** 0.5 / self.head_dim
 
     @property
     def num_kv_heads(self) -> int:

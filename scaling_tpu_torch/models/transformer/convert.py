@@ -17,7 +17,10 @@ transposed), the soft prompt (``layer_0.softprompt_{name}``, rows ×
 hidden on both sides, not transposed) and the embedding head's
 projections (``proj_{i}_{name}``, transposed). A tied model's table sits
 in the JAX tree under ``layer_0`` only (its head layer holds an empty
-subtree), as it does in the port's state dict.
+subtree), as it does in the port's state dict. A MoE layer's
+``mlp.router.weight`` is transposed as a linear's and stays f32 in any
+model dtype, as both packages keep it; its expert weights ``mlp.w_in``,
+``mlp.w_gate`` and ``mlp.w_out`` have the same layout on both sides.
 """
 
 from __future__ import annotations
@@ -42,14 +45,20 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+def param_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the parameter ``name`` in a model of ``dtype``: f32 for
+    a MoE router, ``dtype`` for every other parameter."""
+    return torch.float32 if name.endswith("router.weight") else dtype
+
+
 def params_from_jax(np_params: Mapping[str, Any],
                     arch: TransformerArchitectureConfig) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's state dict, in the
-    architecture's dtype."""
+    architecture's dtype (a MoE router in f32)."""
     state: Dict[str, torch.Tensor] = {}
     for name, value in _flatten(np_params).items():
         if transposed_in_jax(name, value.ndim):
             value = value.T  # (in, out) -> (out, in)
         tensor = torch.from_numpy(np.array(value, dtype=np.float32))
-        state[f"layers.{name}"] = tensor.to(arch.dtype)
+        state[f"layers.{name}"] = tensor.to(param_dtype(name, arch.dtype))
     return state

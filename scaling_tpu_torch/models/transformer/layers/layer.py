@@ -3,12 +3,16 @@ scaling_tpu/models/transformer/layers/layer.py): pre-norm attention with a
 residual, then pre-norm MLP (the default GELU MLP or SwiGLU) with a
 residual. Serving attends over the paged KV pool, ``generate`` over a
 dense cache; training (no cache) over the sequence, within equal
-``segment_ids``.
+``segment_ids``. With ``mlp_type: moe`` the MLP is the routed expert MLP
+(``nn.moe``, GLU with the config's activation), whose load-balance loss
+the block returns beside its output when asked (``return_aux``), as the
+JAX block adds it to the IO dict's ``aux_loss``. Under muP the attention
+scales its scores by ``sqrt(base_head_dim) / head_dim``.
 
 In a training pass (a ``DropoutContext`` given) the attention's and the
 MLP's outputs go through dropout, then through the bottleneck adapters
 (``adapter_config``) when there are any, before each residual, in the
-JAX order. LoRA deltas live in the attention (``nn.attention``). No MoE.
+JAX order. LoRA deltas live in the attention (``nn.attention``).
 The layer's dropout sites are ``layer_{i}.after_attention`` and
 ``layer_{i}.after_mlp``, ``layer_{i}`` its name in the stack.
 """
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from ....nn.attention import ParallelSelfAttention
 from ....nn.base_layer import DropoutContext, dropout
 from ....nn.mlp import ParallelMLP, ParallelSwiGLUMLP
+from ....nn.moe import ParallelMoEMLP
 from ....nn.norm import get_norm
 from ....nn.rotary import get_rotary
 from ..config import TransformerArchitectureConfig
@@ -77,6 +82,7 @@ class TransformerLayer(torch.nn.Module):
             rotary=get_rotary(arch.relative_position_embedding_type, arch.rotary_dimensions,
                               arch.sequence_length, arch.rotary_embedding_base,
                               device=device),
+            scaling_factor=arch.attention_scale,
             masked_softmax_config=arch.masked_softmax_config,
             causal=arch.causal,
             num_local_attention_heads=arch.num_local_attention_heads,
@@ -93,7 +99,14 @@ class TransformerLayer(torch.nn.Module):
             site=f"{self.site}.attention",
         )
         self.post_attention_layernorm = get_norm(arch.norm_type, arch.hidden_size, **norm)
-        if arch.mlp_type == "swiglu":
+        if arch.is_moe:
+            self.mlp = ParallelMoEMLP(arch.hidden_size, arch.mlp_factor, arch.moe_num_experts,
+                                      top_k=arch.moe_top_k,
+                                      capacity_factor=arch.moe_capacity_factor,
+                                      aux_loss_coef=arch.moe_aux_loss_coef, glu=True,
+                                      activation=arch.activation_function, dtype=arch.dtype,
+                                      device=device)
+        elif arch.mlp_type == "swiglu":
             self.mlp = ParallelSwiGLUMLP(arch.hidden_size, arch.mlp_factor,
                                          bias=arch.mlp_bias, dtype=arch.dtype, device=device,
                                          bitfit_bias_name=bitfit)
@@ -124,9 +137,12 @@ class TransformerLayer(torch.nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 cache_offset: Optional[int] = None,
                 scores_manipulation: Optional[torch.Tensor] = None,
-                return_kv: bool = False, ctx: Optional[DropoutContext] = None):
-        """The block's output, or ``(output, (k, v))`` with ``return_kv``;
-        ``ctx`` is the training pass's dropout context (None: none)."""
+                return_kv: bool = False, ctx: Optional[DropoutContext] = None,
+                return_aux: bool = False):
+        """The block's output, or ``(output, (k, v))`` with ``return_kv``,
+        or ``(output, aux)`` with ``return_aux`` (the MoE load-balance loss,
+        an f32 scalar; a MoE block computes it only then); ``ctx`` is the
+        training pass's dropout context (None: none)."""
         attn = self.attention(self.input_layernorm(h), position_ids, kv_cache, segment_ids,
                               cache_offset, scores_manipulation, return_kv, ctx)
         new_kv = None
@@ -134,8 +150,15 @@ class TransformerLayer(torch.nn.Module):
             attn, new_kv = attn
         attn = dropout(attn, self.dropout_after_attention, ctx, f"{self.site}.after_attention")
         h = h + self._adapt(attn, self.adapter_attention).to(h.dtype)
-        mlp_out = self.mlp(self.post_attention_layernorm(h))
+        normed = self.post_attention_layernorm(h)
+        aux = None
+        if isinstance(self.mlp, ParallelMoEMLP):
+            mlp_out, aux = self.mlp(normed, with_aux=return_aux)
+        else:
+            mlp_out = self.mlp(normed)
         mlp_out = dropout(mlp_out, self.dropout_after_mlp, ctx, f"{self.site}.after_mlp")
         h = h + self._adapt(mlp_out, self.adapter_mlp).to(h.dtype)
+        if return_aux:
+            return h, aux
         return h if new_kv is None else (h, new_kv)
 

@@ -37,14 +37,30 @@ class LayerNormWrapper(torch.nn.Module):
         return self.norm(h)
 
 
+class _ZeroInitLinear(Linear):
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        self.weight.zero_()
+
+
 class TransformerLMHead(torch.nn.Module):
+    """The untied head. Under muP its logits carry ``output_mult`` and,
+    with ``readout_zero_init``, it starts at zero (the width correction is
+    the head's ``1/m`` learning rate, not a logit multiplier)."""
+
     def __init__(self, arch: TransformerArchitectureConfig, device=None):
         super().__init__()
-        self.linear = Linear(arch.hidden_size, arch.vocab_size, bias=False,
-                             dtype=arch.dtype, device=device)
+        mup = arch.mup
+        linear = _ZeroInitLinear if mup is not None and mup.readout_zero_init else Linear
+        self.linear = linear(arch.hidden_size, arch.vocab_size, bias=False, dtype=arch.dtype,
+                             device=device)
+        # the multiplier in the logits' dtype, as the JAX head casts it
+        self.logit_mult = (None if mup is None
+                           else float(torch.tensor(mup.output_mult, dtype=arch.dtype)))
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.linear(h)
+        logits = self.linear(h)
+        return logits if self.logit_mult is None else logits * self.logit_mult
 
 
 class TransformerLMHeadTied(torch.nn.Module):

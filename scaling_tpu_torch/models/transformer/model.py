@@ -107,7 +107,8 @@ def per_token_loss(logits: torch.Tensor, targets: torch.Tensor
 
 def loss_function(output: Dict[str, Any], batch: Dict[str, Any]):
     """Cross entropy weighted by ``loss_weights`` (a weighted mean) and
-    accuracy under the same weights."""
+    accuracy under the same weights; a MoE model's ``aux_loss`` (already
+    scaled by its coefficient) is added and reported as ``moe_aux_loss``."""
     targets = batch["target_token_ids"]
     loss_weights = batch.get("loss_weights")
     if loss_weights is None:
@@ -117,7 +118,13 @@ def loss_function(output: Dict[str, Any], batch: Dict[str, Any]):
     denom = loss_weights.sum().clamp_min(1.0)
     loss = (token_loss * loss_weights).sum() / denom
     accuracy = (correct * loss_weights).sum() / denom
-    return loss, {"accuracy": accuracy}
+    metrics = {"accuracy": accuracy}
+    aux = output.get("aux_loss")
+    if aux is not None:
+        aux = aux.float()
+        loss = loss + aux
+        metrics["moe_aux_loss"] = aux
+    return loss, metrics
 
 
 NO_WEIGHT_DECAY_SUBSTRINGS = ("norm", "bias")
@@ -130,17 +137,37 @@ def _peft_trainable(key: str, peft_names: List[str]) -> bool:
     return any(re.search(rf"(_|bias_){re.escape(n)}(\.|$)", key) for n in peft_names)
 
 
+def _fan_in_scales_with_width(parameter_name: str, param: torch.Tensor,
+                              module: torch.nn.Module) -> bool:
+    """Whether muP scales the parameter's learning rate by ``1/m``: a
+    matrix whose fan-in grows with the width (attention, MLP and expert
+    weights, the router, the head, adapters' ``down``, ``lora_a``, the
+    embedding head's first projection), not the embedding table, a soft
+    prompt, an adapter's ``up``, ``lora_b``, later projections or vectors."""
+    if param.ndim < 2 or isinstance(module, Embedding) or "softprompt" in parameter_name:
+        return False
+    if parameter_name.endswith(".up") or "lora_b" in parameter_name:
+        return False
+    m = re.search(r"proj_(\d+)_", parameter_name)
+    return m is None or int(m.group(1)) == 0
+
+
 def get_parameter_groups(config: TransformerConfig, model: TransformerModel
                          ) -> List[OptimizerParamGroup]:
-    """Weight-decay, no-decay and embedding groups at muP width multiplier
-    1, with the JAX package's membership: ``training.parameters_exclude``
+    """Weight-decay, no-decay and embedding groups with the JAX package's
+    membership: ``training.parameters_exclude``
     regexes (of JAX keys) drop a parameter; under ``training.finetune`` only
     ``finetunable_parameters`` matches and the PEFT modules' parameters
     train. The embedding table goes to ``embedding_params`` under the
     ``embedding_learning_rate_scheduler`` with
     ``use_separate_lr_on_embeddings``, else with norm gains, every bias and
     the LoRA factors to the no-decay group; the untied head and all other
-    matrices decay."""
+    matrices decay. Under muP (width multiplier ``m`` != 1) each of the
+    first two splits by ``_fan_in_scales_with_width``: the scaled halves
+    keep the names and take ``lr_scale = 1/m`` (``weight_decay_params``,
+    ``no_weight_decay_params_width_scaled``), the others keep the base
+    rate (``weight_decay_params_fixed_width``, ``no_weight_decay_params``),
+    as in the JAX package."""
     training = config.training
     include = [re.compile(p) for p in training.finetunable_parameters]
     exclude = [re.compile(p) for p in training.parameters_exclude]
@@ -153,29 +180,40 @@ def get_parameter_groups(config: TransformerConfig, model: TransformerModel
             return any(p.search(key) for p in include) or _peft_trainable(key, peft_names)
         return True
 
-    decay, no_decay, embedding = set(), set(), set()
+    decay, no_decay, embedding, scaled = set(), set(), set(), set()
     for module_name, module in model.named_modules():
-        for pname, _ in module.named_parameters(recurse=False):
+        for pname, param in module.named_parameters(recurse=False):
             name = f"{module_name}.{pname}"
             key = jax_param_key(model, name)
             if not trainable(key):
                 continue
-            parameter_name = key.split(".", 1)[1].lower()
+            parameter_name = key.split(".", 1)[1]
+            if _fan_in_scales_with_width(parameter_name, param, module):
+                scaled.add(name)
             if isinstance(module, Embedding) and training.use_separate_lr_on_embeddings:
                 embedding.add(name)
             elif isinstance(module, (LayerNorm, RMSNorm, Embedding, ParallelLoRa)) or any(
-                    s in parameter_name for s in NO_WEIGHT_DECAY_SUBSTRINGS):
+                    s in parameter_name.lower() for s in NO_WEIGHT_DECAY_SUBSTRINGS):
                 no_decay.add(name)
             else:
                 decay.add(name)
+    mult = config.transformer_architecture.mup_width_mult
+    lr = config.learning_rate_scheduler
+    if mult == 1.0:
+        spec = [(decay, training.weight_decay, lr, "weight_decay_params", 1.0),
+                (no_decay, 0.0, lr, "no_weight_decay_params", 1.0)]
+    else:
+        spec = [(decay & scaled, training.weight_decay, lr, "weight_decay_params", 1.0 / mult),
+                (decay - scaled, training.weight_decay, lr, "weight_decay_params_fixed_width",
+                 1.0),
+                (no_decay & scaled, 0.0, lr, "no_weight_decay_params_width_scaled", 1.0 / mult),
+                (no_decay - scaled, 0.0, lr, "no_weight_decay_params", 1.0)]
+    spec.append((embedding, 0.0, config.embedding_learning_rate_scheduler, "embedding_params",
+                 1.0))
     groups = [
-        OptimizerParamGroup(keys, weight_decay=wd, learning_rate_scheduler=scheduler, name=name)
-        for keys, wd, scheduler, name in (
-            (decay, training.weight_decay, config.learning_rate_scheduler,
-             "weight_decay_params"),
-            (no_decay, 0.0, config.learning_rate_scheduler, "no_weight_decay_params"),
-            (embedding, 0.0, config.embedding_learning_rate_scheduler, "embedding_params"))
-        if keys
+        OptimizerParamGroup(keys, weight_decay=wd, learning_rate_scheduler=scheduler, name=name,
+                            lr_scale=lr_scale)
+        for keys, wd, scheduler, name, lr_scale in spec if keys
     ]
     if not groups:
         raise ValueError("no trainable parameters selected")

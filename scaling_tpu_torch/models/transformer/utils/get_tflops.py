@@ -17,6 +17,21 @@ def get_model_parameter_count(hidden_size: int, num_layers: int, vocab_size: int
     return num_layers * per_layer + vocab_size * hidden_size
 
 
+def moe_parameter_counts(model) -> tuple:
+    """(all parameters, the parameters a token's work touches): the second
+    counts those outside the experts and ``top_k / num_experts`` of the
+    experts', since each token passes ``top_k`` of them."""
+    from ....nn.moe import ParallelMoEMLP
+
+    total = sum(p.numel() for p in model.parameters())
+    active = total
+    for m in model.modules():
+        if isinstance(m, ParallelMoEMLP):
+            experts = sum(p.numel() for n, p in m.named_parameters() if n.startswith("w_"))
+            active -= experts - experts * m.top_k / m.num_experts
+    return total, int(active)
+
+
 def get_tflops_megatron(parameter_count: int, iter_time_s: float, global_batch_size: int,
                         sequence_length: int) -> float:
     """6 * N * tokens."""

@@ -15,6 +15,7 @@ from .attention import (
 from .linear import Embedding, Linear
 from .masked_softmax import MaskedSoftmax, MaskedSoftmaxConfig
 from .mlp import ParallelMLP, ParallelSwiGLUMLP
+from .moe import ParallelMoEMLP
 from .norm import LayerNorm, RMSNorm, get_norm
 from .rotary import RotaryEmbedding, RotaryEmbeddingComplex
 from .seq_packing import segment_ids_to_mask
@@ -28,6 +29,7 @@ __all__ = [
     "MaskedSoftmaxConfig",
     "PagedKVCacheView",
     "ParallelMLP",
+    "ParallelMoEMLP",
     "ParallelSelfAttention",
     "ParallelSwiGLUMLP",
     "RMSNorm",

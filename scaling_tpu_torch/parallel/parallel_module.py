@@ -3,7 +3,9 @@
 scaling_tpu/parallel/parallel_module.py at world size 1).
 
 ``forward`` runs the layer stack over a batch dict (``token_ids``,
-``position_ids``, ``segment_ids``); with ``activation_checkpointing_type:
+``position_ids``, ``segment_ids``) and, for a MoE model, sums the
+layers' load-balance losses into ``aux_loss`` in layer order, as the JAX
+IO dict carries it; with ``activation_checkpointing_type:
 every_layer`` each layer of the stack runs under
 ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in the
 backward, as the JAX forward wraps each layer in ``jax.checkpoint``.
@@ -47,9 +49,10 @@ def jax_param_key(model: torch.nn.Module, name: str) -> str:
 def transposed_in_jax(name: str, ndim: int) -> bool:
     """Whether the parameter ``name`` (of either package) is stored
     transposed by the JAX package: every matrix but the embedding table and
-    a soft prompt (linears, LoRA factors, adapters and the embedding head's
-    projections are ``(in, out)`` there, ``(out, in)`` here; the table and
-    the soft prompt are ``(rows, hidden)`` on both sides)."""
+    a soft prompt (linears, the MoE router, LoRA factors, adapters and the
+    embedding head's projections are ``(in, out)`` there, ``(out, in)``
+    here; the table and the soft prompt are ``(rows, hidden)`` on both
+    sides, and the 3-D expert weights keep the JAX layout)."""
     leaf = name.rsplit(".", 1)[-1]
     return (ndim == 2 and not name.endswith("embedding.weight")
             and not leaf.startswith("softprompt_"))
@@ -62,6 +65,9 @@ _ROW_PARALLEL = ("dense", "dense_out", "down_proj")
 # of an attention is the LoRA ``x`` of that projection
 _ATTENTION_LINEARS = ("query_key_value", "query", "key", "value", "dense")
 _LORA_PARENT = re.compile(r"(query|key|value|dense)_.+")
+# a MoE's expert weights: experts over the data axis, the FFN width over model
+_EXPERT_SPECS = {"w_in": ("data", None, "model"), "w_gate": ("data", None, "model"),
+                 "w_out": ("data", "model", None)}
 
 
 def jax_partition_spec(key: str, ndim: int) -> tuple:
@@ -73,11 +79,17 @@ def jax_partition_spec(key: str, ndim: int) -> tuple:
     host: on ``dense`` ``lora_a`` splits by input and ``lora_b`` and the
     bias are replicated; on query, key and value ``lora_a`` is replicated
     and ``lora_b`` and the bias split by output. Adapters, soft prompts and
-    the embedding head's projections are replicated."""
+    the embedding head's projections are replicated. A MoE's experts split
+    over ``data`` and their FFN width over ``model``; its router is
+    replicated."""
     if key.endswith("embedding.weight"):
         return ("model", None)
     parts = key.split(".")
     leaf, module = parts[-1], parts[-2]
+    if module == "mlp" and leaf in _EXPERT_SPECS:
+        return _EXPERT_SPECS[leaf]
+    if module == "router" and parts[-3:-2] == ["mlp"]:
+        return (None, None)
     if (len(parts) >= 3 and parts[-3] == "attention" and module not in _ATTENTION_LINEARS
             and _LORA_PARENT.fullmatch(module)):
         dense = module.startswith("dense_")
@@ -119,8 +131,8 @@ class ParallelModule:
                 ctx: Optional[DropoutContext] = None) -> Dict[str, torch.Tensor]:
         """The stack over ``batch``; returns ``{"activations": logits}``,
         with ``"embeddings"`` beside them when the model has an embedding
-        head. ``ctx``: the dropout context of a training pass, None for a
-        deterministic one."""
+        head and ``"aux_loss"`` when it is a MoE model. ``ctx``: the dropout
+        context of a training pass, None for a deterministic one."""
         m = self.model
         tokens = batch["token_ids"]
         b, s = tokens.shape
@@ -137,10 +149,18 @@ class ParallelModule:
             return layer(*args)
 
         h = run(m.embedding, tokens, ctx)
+        moe = m.architecture.is_moe
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device) if moe else None
         for layer in m.transformer_layers:
-            h = run(layer, h, pos, None, seg, None, None, False, ctx)
+            if moe:
+                h, layer_aux = run(layer, h, pos, None, seg, None, None, False, ctx, True)
+                aux = aux + layer_aux
+            else:
+                h = run(layer, h, pos, None, seg, None, None, False, ctx)
         h = run(m.final_norm, h)
         out = {"activations": run(m.lm_head, h)}
+        if moe:
+            out["aux_loss"] = aux
         if m.embedding_head is not None:
             out["embeddings"] = run(m.embedding_head, h, batch.get("loss_weights"))
         return out

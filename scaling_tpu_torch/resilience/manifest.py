@@ -15,12 +15,14 @@ from __future__ import annotations
 import json
 import logging
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
 MANIFEST_NAME = "MANIFEST.json"
 SCHEMA_VERSION = 1
 _CHUNK = 1 << 20
+_VERIFY_THREADS = 4
 
 _log = logging.getLogger("scaling_tpu_torch")
 
@@ -44,8 +46,31 @@ def crc32_file(path: Path) -> Tuple[int, str]:
     return size, f"{crc & 0xFFFFFFFF:08x}"
 
 
-def crc32_bytes(data: bytes) -> str:
-    return f"{zlib.crc32(data) & 0xFFFFFFFF:08x}"
+_CRC_POLY = 0xEDB88320  # reflected CRC-32
+
+
+def _multmodp(a: int, b: int) -> int:
+    """a * b modulo the CRC-32 polynomial (reflected bit order)."""
+    m, p = 1 << 31, 0
+    while m:
+        if a & m:
+            p ^= b
+        b = (b >> 1) ^ _CRC_POLY if b & 1 else b >> 1
+        m >>= 1
+    return p
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """The crc32 of ``A + B`` from ``crc1`` of A, ``crc2`` of B and B's
+    length (zlib's ``crc32_combine``): ``crc1`` shifted over ``len2``
+    zero bytes, xored with ``crc2``."""
+    shift, x2n, n = 1 << 31, 1 << 30, len2 * 8  # x^0, x^1; n bits
+    while n:
+        if n & 1:
+            shift = _multmodp(x2n, shift)
+        x2n = _multmodp(x2n, x2n)
+        n >>= 1
+    return _multmodp(shift, crc1) ^ crc2
 
 
 def write_manifest(step_dir: Path, step: int,
@@ -105,6 +130,7 @@ def verify_checkpoint(step_dir: Path, deep: bool = True) -> List[str]:
                      "not verified")
         return []
     problems: List[str] = []
+    digest: List[Tuple[str, str]] = []
     for rel, meta in manifest.get("files", {}).items():
         p = step_dir / rel
         if not p.is_file():
@@ -118,10 +144,13 @@ def verify_checkpoint(step_dir: Path, deep: bool = True) -> List[str]:
             problems.append(f"{rel}: size {size} != manifest {meta['size']} (truncated?)")
             continue
         if deep:
-            _, digest = crc32_file(p)
-            if digest != meta["crc32"]:
-                problems.append(f"{rel}: crc32 {digest} != manifest {meta['crc32']} "
-                                "(bit rot / torn write)")
+            digest.append((rel, meta["crc32"]))
+    # the crc32s file by file on several threads: reads and zlib release the GIL
+    with ThreadPoolExecutor(max_workers=_VERIFY_THREADS) as pool:
+        found = list(pool.map(lambda rel: crc32_file(step_dir / rel)[1], [r for r, _ in digest]))
+    for (rel, expected), got in zip(digest, found):
+        if got != expected:
+            problems.append(f"{rel}: crc32 {got} != manifest {expected} (bit rot / torn write)")
     return problems
 
 

@@ -67,7 +67,7 @@ import threading
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -81,10 +81,9 @@ from ..resilience.faults import get_fault_plan
 from .journal import journal_path, open_journal, replay_journal
 from .scheduler import Backpressure
 
-MODELS: Dict[str, dict] = {
-    # bench.py:build at its defaults (hidden 2048, 8 layers) with
-    # BENCH_NORM=fused, i.e. layernorm.optimization_type: fused
-    "0.5b": {
+# bench.py:build at its defaults (hidden 2048, 8 layers) with
+# BENCH_NORM=fused, i.e. layernorm.optimization_type: fused
+MODELS_05B: Dict[str, Any] = {
         "vocab_size": 32768,
         "hidden_size": 2048,
         "num_layers": 8,
@@ -105,6 +104,24 @@ MODELS: Dict[str, dict] = {
         "dropout_attention_probs": 0.0,
         "dropout_after_attention": 0.0,
         "dropout_after_mlp": 0.0,
+}
+
+MODELS: Dict[str, dict] = {
+    "0.5b": MODELS_05B,
+    # the 0.5B widths with a routed expert MLP (8 SwiGLU experts, top-2, the JAX
+    # defaults of capacity and aux loss) under muP from a 256-wide base: width
+    # multiplier 8, attention scale 1/32; the head drawn, not zeroed, with
+    # output_mult 2. 2,432,903,168 parameters
+    "0.5b-moe": {
+        **{k: v for k, v in MODELS_05B.items() if k != "mlp_type"},
+        "mlp_type": "moe",
+        "mlp_bias": False,
+        "activation_function": "silu",
+        "moe_num_experts": 8,
+        "moe_top_k": 2,
+        "moe_capacity_factor": 1.25,
+        "moe_aux_loss_coef": 0.01,
+        "mup": {"base_hidden_size": 256, "output_mult": 2.0, "readout_zero_init": False},
     },
     "toy": {
         "vocab_size": 512,

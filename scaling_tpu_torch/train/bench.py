@@ -31,11 +31,16 @@ import torch
 
 from .. import resolve_device
 from ..models.transformer import TransformerConfig, init_model, init_optimizer, loss_function
-from ..models.transformer.utils.get_tflops import get_model_parameter_count, get_palm_mfu
+from ..models.transformer.utils.get_tflops import (
+    get_model_parameter_count,
+    get_palm_mfu,
+    moe_parameter_counts,
+)
 from ..serve import bench as serve_bench
 
 MODELS = {
     "0.5b": serve_bench.MODELS["0.5b"],
+    "0.5b-moe": serve_bench.MODELS["0.5b-moe"],
     # the serving toy in bf16 with the flash kernels (which take bf16 only)
     "toy": dict(serve_bench.MODELS["toy"], precision="bfloat16",
                 masked_softmax={"kernel": "flash_attention"}),
@@ -125,9 +130,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     tokens_per_s = args.mbs * args.gas * args.seq_len / dt
     mfu = None  # a rate of the card's peak: only from a run on the card
     if device.type == "cuda":
-        mfu = get_palm_mfu(get_model_parameter_count(arch.hidden_size, arch.num_layers,
-                                                     arch.vocab_size, arch.mlp_factor, glu=True),
-                           arch.num_layers, arch.hidden_size, arch.sequence_length, tokens_per_s)
+        # a MoE model by its parameters, all of them and those a token touches
+        counts = (moe_parameter_counts(module.model) if arch.is_moe else
+                  (get_model_parameter_count(arch.hidden_size, arch.num_layers,
+                                             arch.vocab_size, arch.mlp_factor, glu=True),))
+        mfu = [get_palm_mfu(n, arch.num_layers, arch.hidden_size, arch.sequence_length,
+                            tokens_per_s) for n in counts]
     losses = first + losses
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     n_params = sum(p.numel() for p in module.model.parameters())
@@ -135,8 +143,9 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"gas={args.gas} remat={args.remat} params={n_params}")
     print(f"step: {dt * 1e3:.2f} ms (median of windows "
           + " ".join(f"{s * 1e3:.2f}" for s in seconds) + ")")
-    print(f"tokens/s: {tokens_per_s:.1f}  mfu: "
-          + ("not measured (no card)" if mfu is None else f"{mfu:.4f}"))
+    print(f"tokens/s: {tokens_per_s:.1f}  mfu: " + (
+        "not measured (no card)" if mfu is None else f"{mfu[0]:.4f}" if len(mfu) == 1
+        else f"{mfu[0]:.4f} (N all parameters), {mfu[1]:.4f} (N those a token touches)"))
     print(f"losses: first={losses[0]:.4f} last={losses[-1]:.4f}")
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite loss: {losses}")

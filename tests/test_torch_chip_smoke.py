@@ -847,3 +847,137 @@ def test_fleet_time_to_recover_splits_the_gap():
     assert ttr["detection"] == pytest.approx(1.0) and ttr["spawn"] == pytest.approx(1.5)
     assert ttr["ready"] == pytest.approx(5.0) and ttr["first_token"] == pytest.approx(1.5)
     assert ttr["redispatched"] == 1
+
+
+# ------------------------------------------------------------ phase 15
+TOY_MOE = {"vocab_size": 512, "hidden_size": 256, "num_layers": 2, "num_attention_heads": 4,
+           "attention_num_kv_heads": 2, "sequence_length": 128, "precision": "bfloat16",
+           "norm_type": "rms", "layernorm": {"optimization_type": "fused"},
+           "weight_tying": False, "attention_qkv_in_one": False,
+           "masked_softmax": {"kernel": "flash_attention"}, "mlp_type": "moe",
+           "mlp_bias": False, "activation_function": "silu", "mlp_factor": 2.0,
+           "moe_num_experts": 8, "moe_top_k": 2,
+           "mup": {"base_hidden_size": 64, "output_mult": 2.0, "readout_zero_init": False}}
+
+
+def _bf16_router(layer):
+    """The router's product in bf16: its weight and input rounded, the
+    logits too."""
+    route = layer.route
+
+    def bf16_route(x, with_aux=True):
+        w = layer.router.weight
+        layer.router.weight = torch.nn.Parameter(w.detach().bfloat16().float())
+        try:
+            return route(x.bfloat16().float(), with_aux)
+        finally:
+            layer.router.weight = w
+
+    layer.route = bf16_route
+    return layer
+
+
+def _zeroed_expert(layer):
+    with torch.no_grad():
+        layer.w_out[0].zero_()
+    return layer
+
+
+@pytest.fixture
+def toy_moe(monkeypatch):
+    """Phase 15's model cut to the toy MoE in both benches' tables."""
+    from scaling_tpu_torch.serve import bench
+    from scaling_tpu_torch.train import bench as train_bench
+
+    monkeypatch.setitem(bench.MODELS, chip_smoke.MOE["model"], TOY_MOE)
+    monkeypatch.setitem(train_bench.MODELS, chip_smoke.MOE["model"], TOY_MOE)
+    monkeypatch.setitem(chip_smoke.MOE, "layer_shape", (4, 128))
+    return TOY_MOE
+
+
+@pytest.mark.parametrize("fault", [None, _bf16_router, _zeroed_expert],
+                         ids=["intact", "bf16_router", "zeroed_expert"])
+def test_moe_layer_check_tells_a_bf16_router_and_a_zeroed_expert(toy_moe, monkeypatch, fault):
+    """Phase 15 (a) with the card's copy on the CPU: the intact copy routes
+    every token alike and passes; one whose router computes in bf16 routes
+    more than a thousandth of the tokens otherwise, one with an expert's
+    output zeroed misses the output tolerance."""
+    copy_to = chip_smoke.card_copy
+    monkeypatch.setattr(chip_smoke, "card_copy",
+                        lambda layer, device: (fault or (lambda m: m))(copy_to(layer, device)))
+    rec = chip_smoke.moe_layer_check(device="cpu")
+    if fault is None:
+        assert rec["alike"] == 1.0 and rec["err"] == 0.0
+        chip_smoke.check_moe_layer(rec)
+        return
+    with pytest.raises(AssertionError, match="routing|output"):
+        chip_smoke.check_moe_layer(rec)
+    if fault is _bf16_router:
+        assert rec["alike"] < chip_smoke.MOE["route_agree"], rec
+    else:
+        assert rec["alike"] == 1.0 and rec["err"] > 100 * chip_smoke.MOE["layer_tol"], rec
+
+
+@pytest.mark.parametrize("fault", [None, "zeroed_expert"])
+def test_moe_train_recompute_tells_a_zeroed_expert(toy_moe, monkeypatch, fault):
+    """Phase 15 (b)'s row recompute on the toy MoE model (a bf16 forward
+    against the f32 copy, as card against CPU): routing captured on both
+    sides, few decisions differ; an expert whose output is zeroed on the
+    bf16 side alone fails the check (its tokens' changed outputs reroute
+    the next layer, or the logits miss their tolerance)."""
+    from scaling_tpu_torch.nn.moe import ParallelMoEMLP
+
+    config, module, _ = build(chip_smoke.MOE["model"], 128, 2, device=torch.device("cpu"),
+                              seed=0)
+    assert sum(p.numel() for p in module.model.parameters()) < 10_000_000  # the toy
+    batch = synth_batch(np.random.default_rng(0), 2, 128, TOY_MOE["vocab_size"], 1,
+                        torch.device("cpu"))
+    if fault:
+        forward = ParallelMoEMLP.forward
+
+        def zeroed(self, x, with_aux=True):  # expert 0's output zeroed, bf16 side only
+            if x.dtype != torch.bfloat16:
+                return forward(self, x, with_aux)
+            w_out = self.w_out.data
+            self.w_out.data = w_out.clone().index_fill_(0, torch.tensor([0]), 0)
+            try:
+                return forward(self, x, with_aux)
+            finally:
+                self.w_out.data = w_out
+
+        monkeypatch.setattr(ParallelMoEMLP, "forward", zeroed)
+    rec = chip_smoke.recompute_train_row(module, batch)
+    assert rec["uniform_err"] > chip_smoke.TRAIN_LOGIT_TOL
+    if fault is None:
+        assert rec["flips"] <= chip_smoke.MOE["flip_share"], rec
+        assert rec["err"] <= chip_smoke.TRAIN_LOGIT_TOL, rec
+        chip_smoke.check_train_row(rec, moe=True)
+    else:  # the zeroed outputs reroute the next layer's tokens, or miss the logits
+        with pytest.raises(AssertionError, match="routing disagrees|logits recompute"):
+            chip_smoke.check_train_row(rec, moe=True)
+
+
+def test_serve_tick_recompute_holds_the_moe_routing(toy_moe, monkeypatch, capsys):
+    """Phase 15 (c): ``serve`` on the toy MoE model on the CPU (the engine
+    at phase 4's settings, 4 requests; the bf16 model stands for the
+    card's, the plain versions' counts for the kernels'), its tick
+    recomputed in f32 with the routing captured on both sides."""
+    monkeypatch.setattr(chip_smoke, "WORKLOAD", dict(chip_smoke.WORKLOAD, n_requests=4,
+                                                     prompt_len=(16, 64), output_len=(8, 16)))
+    monkeypatch.setattr(chip_smoke, "RECOMPUTE_TICK", 3)
+    monkeypatch.setattr(chip_smoke, "profile_ticks", lambda engine, vocab: {
+        "tick_ms": 0.0, "device_busy_ms_per_tick": 0.0, "device_idle_share": 0.0,
+        "device_ms_per_tick": {}})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(torch, "device", lambda name: torch.empty(0).device
+                        if name == "cuda" else torch.empty(0, device=name).device)
+    from scaling_tpu_torch.ops import launches
+
+    add = launches.add  # the CPU's plain versions stand for the card's kernels
+    monkeypatch.setattr(launches, "add", lambda counter, key: add(
+        launches.KERNEL if counter is launches.PLAIN else counter, key))
+    stats = chip_smoke.serve("native", chip_smoke.MOE["model"])
+    assert stats["completed"] == 4 and stats["launches"]["paged_attention"] > 0
+    out = capsys.readouterr().out
+    assert "the tick's routing, card vs cpu" in out and "tick 3 recomputed" in out

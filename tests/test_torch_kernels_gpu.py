@@ -12,7 +12,11 @@ reference value; their lse (f32 from the same bf16 products) at 1e-3.
 K1, the flash backward and the RMSNorm backward (both its variants) must
 repeat bitwise.
 And the toy model served on the card in f32 gives the CPU run's greedy
-tokens, through the kernels only.
+tokens, through the kernels only. muP's attention scale (1/32 for the
+0.5B widths from a 256-wide base) through K1 and through K4/K5, and the
+MoE layer at those widths in f32 on the card against its CPU run: at
+least 0.999 of the tokens routed alike, their outputs within 1e-4 of max
+|y| (f32 sums in another order).
 """
 
 import pytest
@@ -20,6 +24,7 @@ import torch
 
 from scaling_tpu_torch.nn.attention import kv_quantize_int8
 from scaling_tpu_torch.ops import (
+    flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
     flash_attention_fwd,
@@ -637,3 +642,69 @@ def test_process_fleet_serves_through_the_kernels_in_each_worker(card, tmp_path)
         assert row["kernel_launches"].get("paged_attention", 0) > 0, row
         assert row["kernel_launches"].get("rms_norm", 0) > 0, row
         assert sum(row["plain_launches"].values()) == 0, row
+
+
+MUP_SCALE = 1 / 32  # sqrt(256 / 16) / 128: the 0.5B widths under muP from a 256-wide base
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["native", "int8"])
+def test_paged_attention_takes_the_mup_scale(card, quantized):
+    case = PAGED_CASES["h128-gqa4-s32-bs16"][:6]
+    args, kw = paged_case(card, quantized, torch.bfloat16, *case, None, seed=32)
+    kw["sm_scale"] = MUP_SCALE
+    out = paged_attention(*args, **kw)
+    ref = paged_attention_plain(*args, **kw)
+    default = paged_attention_plain(*args, **dict(kw, sm_scale=128 ** -0.5))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    assert (out.float() - default.float()).abs().max() > 0.1  # the scale moved it
+
+
+def test_flash_attention_takes_the_mup_scale(card):
+    """``flash_attention(..., sm_scale=1/32)`` at the training shape: q is
+    scaled before K4, and autograd carries the scale into K5's dq."""
+    q, k, v, seg = flash_inputs(card, 4, 2048, 16, 4, 128, 1, seed=32)
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    dout = torch.randn_like(q)
+    launches.reset()
+    out = flash_attention(q, k, v, seg, sm_scale=MUP_SCALE)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert launches.KERNEL["flash_attention_fwd"] == 1
+    assert launches.KERNEL["flash_attention_bwd"] == 1
+    qs = (q.detach() * MUP_SCALE).bfloat16()
+    ref, lse = flash_attention_plain(qs, k.detach(), v.detach(), seg, 0, None)
+    torch.testing.assert_close(out.detach().float(), ref.float(), atol=1e-2, rtol=1e-2)
+    dq, dk, dv = flash_attention_bwd_plain(qs, k.detach(), v.detach(), ref, lse, dout, seg, 0,
+                                           None)
+    for name, g, r in (("dq", q.grad, dq.float() * MUP_SCALE), ("dk", k.grad, dk),
+                       ("dv", v.grad, dv)):
+        assert rel_err(g, r) <= 2e-2, (name, rel_err(g, r))
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(card):
+    """The 0.5B MoE layer (h 2048, 8 experts of 5632, top-2, capacity 1.25)
+    in f32 at b 4, s 2048 on the card and on the CPU from the same
+    weights and input."""
+    import copy
+
+    from scaling_tpu_torch.nn.moe import ParallelMoEMLP, capacity
+
+    layer = ParallelMoEMLP(2048, 2.75, 8, top_k=2, capacity_factor=1.25)
+    layer.init_(torch.Generator().manual_seed(0))
+    x = torch.randn(4, 2048, 2048, generator=torch.Generator().manual_seed(1))
+    on_card = copy.deepcopy(layer).to(card)
+    with torch.no_grad():
+        y, aux = layer(x)
+        y_card, aux_card = on_card(x.to(card))
+        routed = []
+        for m, xx in ((layer, x), (on_card, x.to(card))):
+            _, experts, positions, _ = m.route(xx)
+            kept = positions < capacity(1.25, 2, 2048, 8)
+            experts, order = experts.sort(-1)
+            routed.append(torch.cat([experts, kept.gather(-1, order).long()], -1).cpu())
+    alike = (routed[0] == routed[1]).all(-1)
+    assert alike.float().mean().item() >= 0.999
+    err = (y_card.cpu() - y).abs().amax(-1)[alike].max() / y.abs().max()
+    assert err.item() <= 1e-4, err.item()
+    assert abs(aux_card.item() - aux.item()) <= 1e-3 * aux.item()

@@ -332,7 +332,7 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
         with pytest.raises(exc):
             TransformerConfig.from_dict({**config_dict(2, 1, "disabled"), **patch})
     # the finetuning keys are read (the misspelled alias too), LoRA builds,
-    # muP stays refused
+    # muP is read, the image encoder stays refused
     config = TransformerConfig.from_dict({
         **config_dict(2, 1, "disabled"),
         "training": {"finetune": True, "finetunable_parameters": ["norm"],
@@ -341,6 +341,10 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
     assert config.training.finetune and config.training.finetunable_parameters == ("norm",)
     assert config.training.use_separate_lr_on_embeddings
     assert config.transformer_architecture.lora_config.rank == 4
+    config = TransformerConfig.from_dict({**config_dict(2, 1, "disabled"),
+                                          "transformer_architecture":
+                                          dict(ARCH, mup={"base_hidden_size": 64})})
+    assert config.transformer_architecture.mup_width_mult == ARCH["hidden_size"] / 64
     with pytest.raises(NotImplementedError):
         TransformerConfig.from_dict({**config_dict(2, 1, "disabled"), "transformer_architecture":
-                                     dict(ARCH, mup={"base_hidden_size": 64})})
+                                     dict(ARCH, image_encoder=True)})
