@@ -55,6 +55,12 @@ Phases, each of which must pass:
    CPU top-2 margin exceeds twice that error is the CPU's argmax; print the
    prefill ms, the median decode ms a token, output tokens/s, peak memory,
    and the busy ms and idle share of a profiled window of 32 decode steps;
+   then AtMan controls on (a) at a 4 x 1024 batch in both variants, counters
+   reset just before and read just after (K2, no K4: a manipulation runs
+   unfused): factor 1 gives the uncontrolled unfused logits (bitwise
+   log-additive, within 0.1 of max |logit| multiplicative), factor 0 on
+   token 300 leaves positions before it bitwise and moves every later one;
+   each call's ms beside K4's and the unfused logits';
 7. time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call: device time from
    ``torch.profiler``, and the per-call time with CUDA events;
@@ -133,7 +139,8 @@ Phases, each of which must pass:
    (``--payload=...``: the port's ``worker_main``, a record at the start
    with the card's free memory and one after each step with the loss and
    the launch counters, and phase 9's pause), under
-   ``SCALING_TPU_FAULTS="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1"``:
+   ``SCALING_TPU_FAULTS="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1"``
+   (heartbeat timeout 30 s, startup grace 50 s):
    epoch 0 trains steps 1-4 (saving at 3) and is SIGKILLed, epoch 1
    resumes at 3, trains step 4 and hangs, epoch 2 resumes at 3 and, once
    its step-5 record is written, the supervisor gets a real SIGTERM: the
@@ -164,9 +171,10 @@ Phases, each of which must pass:
    ``tests/test_torch_peft.py`` pins against the JAX package), optimizer
    state for them alone; prints step ms, tokens/s, peak memory beside
    phase 8's and the checkpoint's bytes; (b) a resume from step 3: steps
-   4-6 and the final LoRA state bitwise (a)'s, then one step without and
-   with ``every_layer`` remat from the same state: the loss bitwise, the
-   f32 LoRA masters within 1e-6, and where a step's time goes (the host's
+   4-6 and the final LoRA state bitwise (a)'s, then one step without remat,
+   with ``every_layer`` and with ``every_layer_save_dots`` from the same
+   state: the losses bitwise, the f32 LoRA masters within 1e-6 of the run
+   without remat, and where a step's time goes (the host's
    dispatch against the step with its sync, one profiled step's device
    busy time, idle share and kernel groups); (c) 2 steps at
    ``dropout_attention_probs`` 0.1: finite, and no flash kernel (nor its
@@ -245,6 +253,23 @@ Phases, each of which must pass:
    phase 4 on this model with native KV, its recomputed tick's routing
    held to the same 5 %; (d) K1-K5 all launched on (b) and (c), no plain
    version run. ``generate`` on this model is left to the CPU tests;
+16. the last one-device model features, after phase 15, at the 0.5B widths
+   cut to 2 layers (``FEATURES``): (a) a multimodal finetune with the ViT
+   image encoder at its defaults (768 wide, 6 blocks, 12 heads), micro-batch
+   4, seq 2048, 2 seeded 384 x 384 images a sample (144 tokens each at 64
+   and 1024), 6 steps on one batch: the loss falls, K2-K5 launched and no
+   plain version, the logits before position 64 bitwise the same under
+   other images; step ms and peak memory; (b) the CLIP backbones: RN50x16
+   forward and backward on 8 images (the BatchNorm statistics without a
+   gradient), a CLIP ViT from a state dict drawn in the CLIPVisionModel
+   layout (a 7 x 7 grid, interpolated to 12 x 12) forward on 8; one image
+   of each against an f32 CPU copy within 0.1 of max |y|; ms; (c) 4 of 16
+   heads local with window 256: K4 prefills 4 prompts of 1024 tokens with
+   its local heads, 128 greedy tokens cached against ``use_cache=False``,
+   equal or parting first at a near tie, K2 and K4, no plain version; (d)
+   phase 5's step (8 layers) without remat, with ``every_layer`` and with
+   ``every_layer_save_dots``: ms a step, peak memory, launches a step,
+   save_dots launching each of K2-K5 as often as every_layer;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -260,6 +285,8 @@ from __future__ import annotations
 import atexit
 import contextlib
 import dataclasses
+import gc
+import importlib
 import json
 import math
 import os
@@ -331,14 +358,17 @@ SUPERVISE = dict(keys={"save_checkpoint_async": True, "dataloader_prefetch_facto
                        "step_timeout_seconds": 120, "max_consecutive_nonfinite": 2},
                  sigterm_after=4, pause_s=0.3, child_timeout_s=420)
 # phase 11: phase 8's run under the supervisor, its SIGTERM once epoch 2's
-# step-5 record is written. The timeouts are at least twice what they budget
-# on an H100 (this phase's own prints, the slowest host seen, at 4 layers): a
-# worker's longest gap between two heartbeats, a synchronous save with its
-# eval, 21.9 s; its start to its first heartbeat, a verified load of
-# 22.4-23.3 s with it, 10.7-46.5 s. A hung worker runs its SIGTERM handler and
-# goes on hanging, so its teardown waits the worker grace out, then SIGKILLs
+# step-5 record is written. The timeouts are over three times what they
+# budget on an H100 at 2 layers (this phase's own prints in two runs with the
+# current checkpoint I/O): a worker's longest gap between two heartbeats, a
+# synchronous save with its eval, 8.15-8.6 s; its start to its first
+# heartbeat, a verified load with it, 8.1-15.6 s (so twice that on a host 1.5x
+# slower). The hang is found once both have passed: at the grace, ~36 s
+# after it hangs (at 100 / 50 s it took 86.7 s). A hung worker runs its
+# SIGTERM handler and goes on hanging, so its teardown waits the worker grace
+# out, then SIGKILLs
 RELAUNCH = dict(faults="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1", drain_after=5,
-                runner={"heartbeat_timeout_seconds": 50.0, "startup_grace_seconds": 100.0,
+                runner={"heartbeat_timeout_seconds": 30.0, "startup_grace_seconds": 50.0,
                         "restart_budget": 2, "restart_backoff_seconds": 1.0,
                         "worker_grace_seconds": 5.0, "supervisor_poll_seconds": 0.05},
                 timeout_s=600, resume_timeout_s=300, free_tol=1 << 30)
@@ -347,7 +377,7 @@ RELAUNCH = dict(faults="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1", drai
 FINETUNE = dict(lora={"name": "lora", "rank": 16, "alpha": 32, "dropout": 0.05},
                 dropout=0.1, prob_dropout=0.1, iterations=6, interval=3, prob_steps=2,
                 serve_requests=8, merge_tokens=1024, dropout_shape=(4, 2048, 2048))
-REMAT_TOL = 1e-6  # the f32 LoRA masters after one step with and without every_layer remat
+REMAT_TOL = 1e-6  # the f32 LoRA masters after one step with and without remat (both modes)
 MERGE_TOL = 0.05  # max |logit error| / max |logit|: merged bf16 on the card vs unmerged f32
 EVAL_NATS = 0.05  # evaluate's loss on the step-6 checkpoint vs the trainer's step-6 eval loss
 # evaluate vs the trainer's forward on its in-memory weights, same batches: they
@@ -396,6 +426,35 @@ FLEET = dict(n_requests=64, rate=128.0, prompt_len=(128, 1024), output_len=(64, 
 # and on the CPU: at most flip_share of the (token, layer) decisions differ
 MOE = dict(model="0.5b-moe", layer_shape=(4, 2048), route_agree=0.999, layer_tol=1e-4,
            aux_rtol=1e-3, flip_share=0.05)
+# phase 6: AtMan controls on the 0.5B model at a 4 x 1024 batch, both variants.
+# Factor 1 against the uncontrolled unfused logits: bitwise under the
+# log-additive variant (its offset is 0), within tol of max |logit| under the
+# multiplicative one (each shifted score is rounded to bf16 once more, which
+# the softmax cancels only in exact arithmetic: twice TICK_TOL; constant logits
+# would sit near 0.5-1); factor 0 on position j: every earlier position
+# bitwise the factor-1 run's (a causal query never sees j), the later ones moved
+ATMAN = dict(batch=4, seq=1024, seed=2, token=300, tol=0.1, reps=3)
+# phase 16: the last one-device model features at the 0.5B widths cut to 2
+# layers. (a) a multimodal finetune, the ViT encoder at its defaults (768
+# wide, 6 blocks, 12 heads; a 384 x 384 image gives 144 tokens), 2 seeded
+# images a sample at 64 and 1024, micro-batch 4, seq 2048, 6 steps on one
+# batch: the loss falls; the logits before the first image are bitwise the
+# same under other images; (b) the CLIP backbones: RN50x16 forward and
+# backward on 8 images, a CLIP ViT (a 7 x 7 grid drawn in the CLIPVisionModel
+# layout, imported with its positions interpolated to 12 x 12) forward on 8,
+# one image of each against the CPU in f32 within encoder_tol of max |y|
+# (bf16 through 50 convolutions or 6 blocks); (c) 4 of 16 heads local with
+# window 256: 4 prompts of 1024 tokens (K4 prefills them with its local
+# heads), 128 greedy tokens, cached against use_cache=False, equal or parting
+# first at a near tie; (d) phase 5's step (8 layers) without remat, with
+# every_layer and with every_layer_save_dots: step ms, peak memory, launches
+# (the tests run it on the CPU at toy size through ``model``, ``encoder``,
+# ``resnet`` and ``vit``: an empty dict keeps the defaults)
+FEATURES = dict(model="0.5b", layers=2, mbs=TRAIN_MBS, seq=TRAIN_SEQ, image_starts=(64, 1024),
+                steps=6, lr=3e-4, seed=16, encoder={}, clip_images=8, resnet={}, vit={},
+                clip_source_grid=7, encoder_tol=0.1, local_heads=4, window=256,
+                local_prompts=4, local_prompt_len=1024, local_tokens=128, remat_model="0.5b",
+                remat_steps=5)
 # the bench 0.5B model in the JAX default architecture: its widths, other keys
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
@@ -1488,6 +1547,110 @@ def generation_phase(name: str, arch_dict: dict, device: str = "cuda") -> dict:
         for ms, count, op in w["top"]:
             print(f"    {ms:.4f}ms a step in {count} launches: {op}")
     del inf
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return kernel
+
+
+@contextlib.contextmanager
+def unfused_attention(inf):
+    """The model's attention on its unfused path, as ``masked_softmax.kernel:
+    torch`` would build it."""
+    layers = inf.model.transformer_layers
+    saved = [layer.attention.use_flash for layer in layers]
+    for layer in layers:
+        layer.attention.use_flash = False
+    try:
+        yield
+    finally:
+        for layer, flag in zip(layers, saved):
+            layer.attention.use_flash = flag
+
+
+def timed_ms(fn, reps: int) -> float:
+    """Median wall ms of ``reps`` calls of ``fn``, each ended by a device sync."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def atman_phase(arch_dict: dict, device: str = "cuda") -> dict:
+    """Phase 6's AtMan check on the 0.5B model (random weights from seed 0):
+    ``logits(controls=...)`` of a ``ATMAN`` batch in both variants, counters
+    reset just before the controlled calls and read just after (the
+    controls run unfused: K2, no K4); factor 1 against the uncontrolled
+    unfused logits, factor 0 on one token against factor 1 (see ATMAN);
+    each call's ms beside the plain (K4) and the unfused logits'. Returns
+    the controlled calls' counters."""
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+    from scaling_tpu_torch.models.transformer.attention_control import Control
+    from scaling_tpu_torch.ops import launches
+
+    arch = TransformerArchitectureConfig.from_dict(arch_dict)
+    inf = TransformerInferenceModule.random_init(arch, seed=0, device=device)
+    tokens = torch.from_numpy(np.random.default_rng(ATMAN["seed"]).integers(
+        1, arch.vocab_size, size=(ATMAN["batch"], ATMAN["seq"]))).to(device)
+    j = ATMAN["token"]
+    with unfused_attention(inf):
+        unfused = inf.logits(tokens).float()
+    launches.reset()
+    runs = {}
+    for log_additive in (True, False):
+        one = inf.logits(tokens, [Control(j, 1.0)], log_additive).float()
+        zero = inf.logits(tokens, [Control(j, 0.0)], log_additive).float()
+        runs[log_additive] = (one, zero)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+    scale = unfused.abs().max().item()
+    for log_additive, (one, zero) in runs.items():
+        name = "log-additive" if log_additive else "multiplicative"
+        err = (one - unfused).abs().max().item() / scale
+        moved = (zero[:, j:] - one[:, j:]).abs().amax(-1)
+        before_equal = torch.equal(zero[:, :j], one[:, :j])
+        print(f"  atman {name}: factor 1 vs the uncontrolled unfused logits max_abs_err/"
+              f"max|logit|={err:.3e} (bitwise: {torch.equal(one, unfused)}; tol "
+              f"{'bitwise' if log_additive else ATMAN['tol']}); factor 0 on token {j}: "
+              f"positions < {j} bitwise the factor-1 run's: {before_equal}, positions >= {j} "
+              f"moved by {moved.min().item():.3e}-{moved.max().item():.3e}")
+        if log_additive and not torch.equal(one, unfused):
+            raise AssertionError(f"atman {name}: factor 1 is not the unfused logits bitwise")
+        if not err <= ATMAN["tol"]:
+            raise AssertionError(f"atman {name}: factor 1 off the unfused logits by {err}")
+        if not before_equal or not moved.min().item() > 0:
+            raise AssertionError(f"atman {name}: factor 0 did not keep the earlier positions "
+                                 "or move every later one")
+    ran = kernel if device == "cuda" else plain  # the CPU runs the plain versions
+    if ran.get("rms_norm", 0) <= 0 or ran.get("flash_attention_fwd", 0) != 0:
+        raise AssertionError(f"atman: the controlled logits must run K2 and not K4: {ran}")
+    if device == "cuda" and sum(plain.values()) != 0:
+        raise AssertionError(f"atman: plain versions ran on the card: {plain}")
+    flash = inf.logits(tokens).float()
+    floor = (flash - unfused).abs().max().item() / scale
+    print(f"  atman: the bf16 floor, K4's logits vs the unfused path's: max_abs_err/max|logit|="
+          f"{floor:.3e}")
+    del flash
+    if device == "cuda":
+        controls = [Control(j, 0.0)]
+        ms = {"plain (K4)": timed_ms(lambda: inf.logits(tokens), ATMAN["reps"])}
+        with unfused_attention(inf):
+            ms["unfused"] = timed_ms(lambda: inf.logits(tokens), ATMAN["reps"])
+        ms["log-additive"] = timed_ms(lambda: inf.logits(tokens, controls), ATMAN["reps"])
+        ms["multiplicative"] = timed_ms(lambda: inf.logits(tokens, controls, False),
+                                        ATMAN["reps"])
+        print(f"  atman logits of {ATMAN['batch']} x {ATMAN['seq']} tokens, ms (median of "
+              f"{ATMAN['reps']}, host clock to a device sync): "
+              + " ".join(f"{k}={v:.2f}" for k, v in ms.items()))
+    print(f"  atman launches kernel={kernel} plain={plain}")
+    del inf, runs, unfused
     if device == "cuda":
         torch.cuda.empty_cache()
     return kernel
@@ -2988,14 +3151,15 @@ def restore_lora_state(trainer, state: dict, step: int) -> None:
 
 def remat_check(trainer, batch: dict, key: tuple, device: str) -> dict:
     """One step of ``trainer`` on ``batch`` under dropout ``key`` without
-    and with ``every_layer`` remat from the same state: the loss bitwise,
-    the f32 LoRA masters within REMAT_TOL, the bf16 LoRA leaves compared."""
-    from scaling_tpu_torch.topology import ActivationCheckpointingType
+    remat, with ``every_layer`` and with ``every_layer_save_dots``, each from
+    the same state: the losses bitwise, the f32 LoRA masters within
+    REMAT_TOL of the run without remat, the bf16 LoRA leaves compared."""
+    from scaling_tpu_torch.topology import ActivationCheckpointingType as Remat
 
     start, step = lora_state(trainer), trainer.optimizer.state.step
     topology = trainer.module.topology
     runs = []
-    for ckpt in (ActivationCheckpointingType.DISABLED, ActivationCheckpointingType.EVERY_LAYER):
+    for ckpt in (Remat.DISABLED, Remat.EVERY_LAYER, Remat.EVERY_LAYER_SAVE_DOTS):
         restore_lora_state(trainer, start, step)
         trainer.module.topology = dataclasses.replace(topology, activation_checkpointing_type=ckpt)
         if device == "cuda":
@@ -3004,15 +3168,15 @@ def remat_check(trainer, batch: dict, key: tuple, device: str) -> dict:
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
         runs.append((loss, lora_state(trainer), peak))
     trainer.module.topology = topology
-    (loss0, after0, peak0), (loss1, after1, peak1) = runs
-    master = max((after0[k] - after1[k]).abs().max().item() for k in after0
-                 if k.startswith("master."))
-    param = max((after0[k].float() - after1[k].float()).abs().max().item() for k in after0
-                if k.startswith("param."))
+    (_, after0, _), *others = runs
+    master = max((after0[k] - after[k]).abs().max().item() for _, after, _ in others
+                 for k in after0 if k.startswith("master."))
+    param = max((after0[k].float() - after[k].float()).abs().max().item()
+                for _, after, _ in others for k in after0 if k.startswith("param."))
     moved = max((after0[k] - start[k]).abs().max().item() for k in after0
                 if k.startswith("master."))
-    return {"loss": (loss0, loss1), "master_diff": master, "param_diff": param,
-            "update": moved, "peak": (peak0, peak1)}
+    return {"loss": tuple(r[0] for r in runs), "master_diff": master, "param_diff": param,
+            "update": moved, "peak": tuple(r[2] for r in runs)}
 
 
 def host_and_device_ms(step, batch: dict, n: int = 3) -> dict:
@@ -3172,13 +3336,14 @@ def finetune_phase(base: dict, device: str = "cuda") -> dict:
         batch = resumed.batch_to_model_input(resumed._next_micro_batches(), resumed.device)
         key = dropout_key(resumed.context.seed, resumed.context.iterations)
         remat = remat_check(resumed, batch, key, device)
-        print(f"  (b) one more step without / with every_layer remat: loss {remat['loss'][0]!r} "
-              f"/ {remat['loss'][1]!r}; f32 LoRA masters differ by {remat['master_diff']:.3e} "
-              f"(tol {REMAT_TOL}; the step moved them by up to {remat['update']:.3e}), bf16 "
-              f"leaves by {remat['param_diff']:.3e}; peak max_memory_allocated "
+        print(f"  (b) one more step without remat / with every_layer / with "
+              f"every_layer_save_dots: loss " + " / ".join(repr(x) for x in remat["loss"])
+              + f"; f32 LoRA masters differ by {remat['master_diff']:.3e} (tol {REMAT_TOL}; "
+              f"the step moved them by up to {remat['update']:.3e}), bf16 leaves by "
+              f"{remat['param_diff']:.3e}; peak max_memory_allocated "
               + ("not measured" if remat["peak"][0] is None else
-                 f"{remat['peak'][0] / 1e9:.2f} / {remat['peak'][1] / 1e9:.2f}GB"))
-        if remat["loss"][0] != remat["loss"][1] or not remat["master_diff"] <= REMAT_TOL:
+                 " / ".join(f"{p / 1e9:.2f}" for p in remat["peak"]) + "GB"))
+        if len(set(remat["loss"])) != 1 or not remat["master_diff"] <= REMAT_TOL:
             raise AssertionError(f"remat changed the step: {remat}")
         if device == "cuda":
             prof = host_and_device_ms(lambda b: resumed._train_step(b, key), batch)
@@ -4232,6 +4397,414 @@ def moe_phase() -> dict:
     return {"moe_train": trained["launches"], "moe_serve": served["launches"]}
 
 
+# ------------------------------------------------------------ phase 16
+def features_arch(**extra) -> dict:
+    """FEATURES["model"] (the 0.5B widths) cut to FEATURES["layers"] layers,
+    with ``extra``."""
+    from scaling_tpu_torch.train.bench import MODELS
+
+    return dict(MODELS[FEATURES["model"]], num_layers=FEATURES["layers"], **extra)
+
+
+def settled_memory(dev: torch.device) -> int:
+    """The bytes earlier phases still hold on the card once their garbage
+    is collected (a cycle freed in the middle of a measurement would pull
+    its peak down), 0 on the CPU."""
+    gc.collect()
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def multimodal_batch(rng: np.random.Generator, vocab: int, dev) -> dict:
+    """One micro-batch (gas 1) of FEATURES["mbs"] rows of FEATURES["seq"]
+    tokens, two 384 x 384 images a row at FEATURES["image_starts"], the
+    placeholders' loss weight 0."""
+    mbs, s = FEATURES["mbs"], FEATURES["seq"]
+    tokens = rng.integers(1, vocab, size=(1, mbs, s))
+    weights = np.ones((1, mbs, s), np.float32)
+    starts = FEATURES["image_starts"]
+    for st in starts:
+        weights[..., st:st + 144] = 0.0
+    batch = {"token_ids": tokens, "target_token_ids": np.roll(tokens, -1, axis=-1),
+             "position_ids": np.broadcast_to(np.arange(s, dtype=np.int32), (1, mbs, s)).copy(),
+             "segment_ids": np.zeros((1, mbs, s), np.int32), "loss_weights": weights,
+             "input_images": rng.normal(size=(1, mbs, len(starts), 384, 384, 3)).astype(
+                 np.float32),
+             "input_image_locations": np.broadcast_to(np.array(starts, np.int32),
+                                                      (1, mbs, len(starts))).copy(),
+             "input_image_mask": np.ones((1, mbs, len(starts)), bool)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def multimodal_check(device: str = "cuda") -> dict:
+    """Phase 16 (a): the 2-layer 0.5B model with the ViT encoder at its
+    defaults trained on one multimodal batch for FEATURES["steps"] steps,
+    counters reset just before and read just after; the loss must fall; the
+    logits before the first image must not move, bitwise, when the images
+    change. Returns the counters, the step ms and the peak GB."""
+    from scaling_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_model,
+        init_optimizer,
+        loss_function,
+    )
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.train.bench import OPTIMIZER
+
+    dev = torch.device(device)
+    held = settled_memory(dev)
+    config = TransformerConfig.from_dict({
+        "topology": {"micro_batch_size": FEATURES["mbs"], "gradient_accumulation_steps": 1},
+        "transformer_architecture": features_arch(sequence_length=FEATURES["seq"],
+                                                  image_encoder=True, **FEATURES["encoder"]),
+        "optimizer": OPTIMIZER,
+        "learning_rate_scheduler": {"learning_rate": FEATURES["lr"],
+                                    "learning_rate_warmup_steps": 1,
+                                    "learning_rate_decay_iters": 1000},
+        "trainer": {"seed": 0}})
+    module = init_model(config, device=dev)
+    n_params = sum(p.numel() for p in module.model.parameters())
+    n_encoder = sum(p.numel() for p in module.model.embedding.image_encoder.parameters())
+    step = module.build_train_step(init_optimizer(config, module.model), loss_function)
+    rng = np.random.default_rng(FEATURES["seed"])
+    batch = multimodal_batch(rng, config.transformer_architecture.vocab_size, dev)
+    first = FEATURES["image_starts"][0]
+    with torch.no_grad():
+        row = {k: v[0] for k, v in batch.items()}
+        a = module.forward(row)["activations"]
+        other = dict(row, input_images=torch.from_numpy(rng.normal(
+            size=tuple(row["input_images"].shape)).astype(np.float32)).to(dev))
+        b = module.forward(other)["activations"]
+        kept = torch.equal(a[:, :first], b[:, :first])
+        moved = (a[:, first:] - b[:, first:]).abs().max().item()
+        del a, b, other, row
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches.reset()
+    losses, times = [], []
+    for _ in range(FEATURES["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)[0]))  # the loss's fetch syncs the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e9 if device == "cuda" else None
+    step_ms = statistics.median(times[1:])
+    print(f"  (a) multimodal: params={n_params} (image encoder {n_encoder}), mbs "
+          f"{FEATURES['mbs']}, seq {FEATURES['seq']}, {len(FEATURES['image_starts'])} images a "
+          f"row at {FEATURES['image_starts']}: losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step {step_ms:.2f}ms (median of steps 2-{FEATURES['steps']}, host clock to the "
+          f"loss's fetch); peak max_memory_allocated above what earlier phases hold "
+          + ("not measured" if peak is None else f"{peak:.2f}GB (they hold {held / 1e9:.2f}GB)"))
+    print(f"  (a) other images: logits before position {first} bitwise the same: {kept}; "
+          f"after it they moved by up to {moved:.3e}")
+    print(f"  (a) launches kernel={kernel} plain={plain}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"multimodal: the loss did not fall: {losses}")
+    if not kept or not moved > 0:
+        raise AssertionError("multimodal: the logits before the first image moved with the "
+                             "image, or none after it did")
+    needed = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd")
+    if device == "cuda" and (any(kernel.get(k, 0) <= 0 for k in needed)
+                             or sum(plain.values()) != 0):
+        raise AssertionError(f"multimodal: K2-K5 not all launched, or a plain version ran: "
+                             f"{kernel} {plain}")
+    del module, step, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": kernel, "step_ms": step_ms, "peak_gb": peak}
+
+
+def init_encoder(encoder: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every ``init_`` of ``encoder``'s modules from one seeded generator."""
+    gen = torch.Generator(device=next(encoder.parameters()).device).manual_seed(seed)
+    for m in encoder.modules():
+        if hasattr(m, "init_"):
+            m.init_(gen)
+    return encoder
+
+
+def drawn_clip_state(width: int, layers: int, grid: int, seed: int) -> dict:
+    """A CLIPVisionModel state dict drawn from a seed (patch 32, ``grid`` x
+    ``grid`` positions, MLP 4x): normal weights of std 0.02, LayerNorms at 1
+    and 0, as a pretrained file would lay them out."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    sd = {"vision_model.embeddings.class_embedding": normal(width),
+          "vision_model.embeddings.patch_embedding.weight": normal(width, 3, 32, 32),
+          "vision_model.embeddings.position_embedding.weight": normal(grid * grid + 1, width),
+          "vision_model.pre_layrnorm.weight": torch.ones(width),
+          "vision_model.pre_layrnorm.bias": torch.zeros(width)}
+    for i in range(layers):
+        base = f"vision_model.encoder.layers.{i}"
+        for name, (o, n) in {"self_attn.q_proj": (width, width), "self_attn.k_proj": (width, width),
+                             "self_attn.v_proj": (width, width),
+                             "self_attn.out_proj": (width, width),
+                             "mlp.fc1": (4 * width, width), "mlp.fc2": (width, 4 * width)}.items():
+            sd[f"{base}.{name}.weight"], sd[f"{base}.{name}.bias"] = normal(o, n), normal(o)
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[f"{base}.{ln}.weight"], sd[f"{base}.{ln}.bias"] = torch.ones(width), torch.zeros(width)
+    return sd
+
+
+def encoder_vs_cpu(encoder, images: torch.Tensor) -> tuple:
+    """The first image through ``encoder`` on the card and through an f32
+    copy on the CPU: (max |card - cpu| / max |cpu|, the least such error
+    constant features per token could reach)."""
+    cpu = copy_module_f32(encoder)
+    with torch.no_grad():
+        card = encoder(images[:1]).float().cpu()
+        ref = cpu(images[:1].cpu())
+    scale = ref.abs().max().item()
+    return ((card - ref).abs().max().item() / scale,
+            ((ref.amax(-1) - ref.amin(-1)) / 2).max().item() / scale)
+
+
+def copy_module_f32(module: torch.nn.Module) -> torch.nn.Module:
+    """An f32 copy of ``module`` on the CPU (its ``dtype`` attributes too)."""
+    import copy
+
+    cpu = copy.deepcopy(module).float().cpu()
+    for m in cpu.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float32
+    return cpu
+
+
+def clip_backbones_check(device: str = "cuda") -> dict:
+    """Phase 16 (b): the RN50x16 trunk at its defaults, forward and backward
+    on FEATURES["clip_images"] images in bf16, and a CLIP ViT at the
+    encoder's defaults from a drawn state dict, forward; one image of each
+    against the CPU in f32. Returns each one's ms."""
+    from scaling_tpu_torch.models.transformer.image_encoder import ImageEncoder
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(FEATURES["seed"] + 1)
+    images = torch.from_numpy(rng.normal(size=(FEATURES["clip_images"], 384, 384, 3)).astype(
+        np.float32)).to(dev)
+    width = features_arch()["hidden_size"]
+    held = settled_memory(dev)
+    out = {}
+    resnet = init_encoder(ImageEncoder(width, backbone="clip_resnet", dtype=torch.bfloat16,
+                                       device=dev, **FEATURES["resnet"]), FEATURES["seed"])
+    n_resnet = sum(p.numel() for p in resnet.parameters())
+
+    def resnet_step():
+        resnet.zero_grad(set_to_none=True)
+        y = resnet(images)
+        y.float().square().mean().backward()
+        return y
+
+    resnet_step()  # cuDNN picks its algorithms
+    if device == "cuda":
+        out["resnet_fwd_bwd_ms"] = timed_ms(resnet_step, 3)
+        torch.cuda.reset_peak_memory_stats(dev)
+    y = resnet_step().detach()
+    if device == "cuda":
+        out["resnet_peak_gb"] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+    stats = [p for n, p in resnet.named_parameters() if n.endswith((".mean", ".var"))]
+    no_grad = all(p.grad is None for p in stats)
+    finite = bool(torch.isfinite(y).all()) and all(
+        p.grad is None or bool(torch.isfinite(p.grad).all()) for p in resnet.parameters())
+    resnet.zero_grad(set_to_none=True)
+    err, uniform = encoder_vs_cpu(resnet, images)
+    trunk = resnet.clip
+    print(f"  (b) clip_resnet (stages {trunk.stage_blocks}, {trunk.channels} channels: RN50x16 "
+          f"at the defaults; {n_resnet} parameters) on {len(images)} images: tokens "
+          f"{tuple(y.shape)}, forward and backward "
+          + (f"{out['resnet_fwd_bwd_ms']:.2f}ms (median of 3), peak above earlier phases' "
+             f"{out['resnet_peak_gb']:.2f}GB" if "resnet_fwd_bwd_ms" in out else "not timed")
+          + f"; BatchNorm statistics without gradient: {no_grad}; one image card bf16 vs cpu "
+          f"f32 max_abs_err/max|y|={err:.3e} (tol {FEATURES['encoder_tol']}; constant tokens "
+          f"would give >= {uniform:.3e})")
+    if y.shape != (len(images), 144, width) or not finite or not no_grad:
+        raise AssertionError("clip_resnet: wrong tokens, a non-finite value or a gradient on "
+                             "the BatchNorm statistics")
+    if not err <= FEATURES["encoder_tol"] < uniform:
+        raise AssertionError(f"clip_resnet: card vs cpu {err} (constant {uniform})")
+    del resnet, y
+    vit = ImageEncoder(width, backbone="clip", dtype=torch.bfloat16, device=dev,
+                       **FEATURES["vit"])
+    init_encoder(vit, FEATURES["seed"])
+    grid = FEATURES["clip_source_grid"]
+    vit.load_clip_weights(drawn_clip_state(vit.clip.width, vit.clip.num_layers, grid,
+                                           FEATURES["seed"]))
+    with torch.no_grad():
+        vit(images)
+        if device == "cuda":
+            out["vit_fwd_ms"] = timed_ms(lambda: vit(images), 3)
+        y = vit(images)
+    err, uniform = encoder_vs_cpu(vit, images)
+    print(f"  (b) clip ViT ({vit.clip.width} wide, {vit.clip.num_layers} blocks; a {grid} x "
+          f"{grid} grid imported and "
+          f"interpolated to 12 x 12) on {len(images)} images: tokens {tuple(y.shape)}, forward "
+          + (f"{out['vit_fwd_ms']:.2f}ms" if "vit_fwd_ms" in out else "not timed")
+          + f"; one image card bf16 vs cpu f32 max_abs_err/max|y|={err:.3e} (tol "
+          f"{FEATURES['encoder_tol']}; constant tokens would give >= {uniform:.3e})")
+    if y.shape != (len(images), 144, width) or not bool(torch.isfinite(y).all()):
+        raise AssertionError("clip ViT: wrong tokens or a non-finite value")
+    if not err <= FEATURES["encoder_tol"] < uniform:
+        raise AssertionError(f"clip ViT: card vs cpu {err} (constant {uniform})")
+    del vit, y, images
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def local_window_check(device: str = "cuda") -> dict:
+    """Phase 16 (c): FEATURES["local_heads"] of 16 heads local: greedy
+    ``generate`` of FEATURES["local_prompts"] prompts cached and with
+    ``use_cache=False``, counters reset just before and read just after;
+    the prefill must run K4 with its local heads. Returns the counters."""
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+    from scaling_tpu_torch.ops import launches
+
+    flash_module = importlib.import_module("scaling_tpu_torch.ops.flash_attention")
+    arch = TransformerArchitectureConfig.from_dict(features_arch(
+        num_local_attention_heads=FEATURES["local_heads"],
+        local_attention_window_size=FEATURES["window"]))
+    inf = TransformerInferenceModule.random_init(arch, seed=0, device=device)
+    rng = np.random.default_rng(FEATURES["seed"] + 2)
+    prompts = [rng.integers(1, arch.vocab_size, size=FEATURES["local_prompt_len"]).tolist()
+               for _ in range(FEATURES["local_prompts"])]
+    inf.generate(prompts[0][:128], max_tokens=2)  # warm-up, off the books
+    local_heads = []
+    launch = flash_module.flash_attention_fwd
+
+    def spy(q, k, v, segment_ids, num_local_heads=0, *a, **kw):
+        local_heads.append(num_local_heads)
+        return launch(q, k, v, segment_ids, num_local_heads, *a, **kw)
+
+    flash_module.flash_attention_fwd = spy
+    try:
+        launches.reset()
+        t0 = time.monotonic()
+        cached = inf.generate(prompts, max_tokens=FEATURES["local_tokens"])
+        t1 = time.monotonic()
+        uncached = inf.generate(prompts, max_tokens=FEATURES["local_tokens"], use_cache=False)
+        t2 = time.monotonic()
+        kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+    finally:
+        flash_module.flash_attention_fwd = launch
+    got = {i: o.completion_ids for i, o in enumerate(cached)}
+    want = {i: o.completion_ids for i, o in enumerate(uncached)}
+    equal = check_near_ties(inf, prompts, got, want, "local-window decode")
+    rec = recompute_generation(inf, prompts[0], cached[0])
+    print(f"  (c) the first row's cached decode recomputed on the CPU in f32 without a cache "
+          f"(plain versions): logits max_abs_err/max|logit|={rec['err']:.3e} (tol "
+          f"{GEN_LOGIT_TOL}; constant logits would give >= {rec['uniform_err']:.3e}); tokens "
+          f"where the CPU's top-2 margin exceeds 2x the error: {rec['sure']}, of which not the "
+          f"CPU argmax: {rec['disagree']}")
+    if not rec["err"] <= GEN_LOGIT_TOL < rec["uniform_err"] or rec["disagree"]:
+        raise AssertionError(f"local-window: the cached decode disagrees with the CPU: {rec}")
+    print(f"  (c) {FEATURES['local_heads']} of {arch.num_attention_heads} heads local (window "
+          f"{FEATURES['window']}): {len(prompts)} prompts of {FEATURES['local_prompt_len']} "
+          f"tokens, {FEATURES['local_tokens']} greedy tokens: cached {t1 - t0:.2f}s, "
+          f"use_cache=False {t2 - t1:.2f}s; {equal}/{len(prompts)} requests' tokens equal, the "
+          f"others part first at a near tie; K4 ran with num_local_heads "
+          f"{sorted(set(local_heads))}")
+    print(f"  (c) launches kernel={kernel} plain={plain}")
+    if not local_heads or any(n != FEATURES["local_heads"] for n in local_heads):
+        raise AssertionError(f"local-window: K4 did not run with the local heads: {local_heads}")
+    if device == "cuda" and (kernel.get("flash_attention_fwd", 0) <= 0
+                             or kernel.get("rms_norm", 0) <= 0 or sum(plain.values()) != 0):
+        raise AssertionError(f"local-window: K4 or K2 not launched, or a plain version ran: "
+                             f"{kernel} {plain}")
+    del inf
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return kernel
+
+
+def remat_modes_check(device: str = "cuda") -> dict:
+    """Phase 16 (d): phase 5's step (8 layers) without remat, with
+    ``every_layer`` and with ``every_layer_save_dots`` from one module, each
+    after a warm-up step: step ms, peak memory and launches a step, counters
+    reset just before each mode's timed steps and read just after;
+    ``every_layer_save_dots`` must launch each of K2-K5 as often as
+    ``every_layer``. Returns the save_dots steps' counters and the numbers."""
+    from scaling_tpu_torch.models.transformer import loss_function
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.topology import ActivationCheckpointingType as Remat
+    from scaling_tpu_torch.train.bench import build, synth_batch
+
+    dev = torch.device(device)
+    held = settled_memory(dev)
+    config, module, optimizer = build(FEATURES["remat_model"], FEATURES["seq"], FEATURES["mbs"],
+                                      device=dev, seed=0)
+    step = module.build_train_step(optimizer, loss_function)
+    batch = synth_batch(np.random.default_rng(0), FEATURES["mbs"], FEATURES["seq"],
+                        config.transformer_architecture.vocab_size, 1, dev)
+    topology = module.topology
+    rows = {}
+    for mode in (Remat.DISABLED, Remat.EVERY_LAYER, Remat.EVERY_LAYER_SAVE_DOTS):
+        module.topology = dataclasses.replace(topology, activation_checkpointing_type=mode)
+        float(step(batch)[0])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        launches.reset()
+        t0 = time.perf_counter()
+        losses = [step(batch)[0] for _ in range(FEATURES["remat_steps"])]
+        float(losses[-1])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FEATURES["remat_steps"]
+        rows[mode] = {"ms": ms, "launches": dict(launches.KERNEL),
+                      "plain": dict(launches.PLAIN),
+                      "ran": dict(launches.KERNEL if device == "cuda" else launches.PLAIN),
+                      "peak_gb": ((torch.cuda.max_memory_allocated(dev) - held) / 1e9
+                                  if device == "cuda" else None)}
+        if device == "cuda":  # where the time goes: the host's dispatch, the device's work
+            rows[mode]["split"] = host_and_device_ms(step, batch)
+    module.topology = topology
+    n = FEATURES["remat_steps"]
+    for mode, r in rows.items():
+        per_step = {k: v / n for k, v in sorted(r["launches"].items())}
+        print(f"  (d) phase 5's step, {mode}: {r['ms']:.2f}ms a step (mean of {n}), peak above "
+              "earlier phases' " + ("not measured" if r["peak_gb"] is None else
+                                    f"{r['peak_gb']:.2f}GB (they hold {held / 1e9:.2f}GB)")
+              + f"; launches a step {per_step}, plain {r['plain']}")
+        if "split" in r:
+            sp = r["split"]
+            print(f"  (d) {mode}: host dispatch {sp['dispatch_ms']:.2f}ms of {sp['step_ms']:.2f}ms "
+                  f"with its sync (medians of 3); one profiled step: device busy="
+                  f"{sp['device_busy_ms']:.3f}ms idle share={sp['device_idle_share']:.3f} "
+                  "device ms by group: " + " ".join(f"{k}={v:.3f}"
+                                                    for k, v in sp["device_ms"].items()))
+    dots, layer = rows[Remat.EVERY_LAYER_SAVE_DOTS], rows[Remat.EVERY_LAYER]
+    needed = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd")
+    if any(dots["ran"].get(k, 0) != layer["ran"].get(k, 0) or dots["ran"].get(k, 0) <= 0
+           for k in needed):
+        raise AssertionError(f"save_dots: its launches differ from every_layer's: "
+                             f"{dots['ran']} vs {layer['ran']}")
+    if device == "cuda" and (any(dots["launches"].get(k, 0) <= 0 for k in needed)
+                             or any(sum(r["plain"].values()) for r in rows.values())):
+        raise AssertionError("save_dots: K2-K5 not launched, or a plain version ran")
+    del module, optimizer, step, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": dots["launches"], "rows": rows}
+
+
+def features_phase(device: str = "cuda") -> dict:
+    """Phase 16: (a)-(d) of FEATURES. Returns each path's launch counters."""
+    multimodal = multimodal_check(device)
+    clip_backbones_check(device)
+    local = local_window_check(device)
+    remat = remat_modes_check(device)
+    return {"multimodal": multimodal["launches"], "local_window": local,
+            "remat_save_dots": remat["launches"]}
+
+
 def add_launches(rows: list, launches_by_path: dict) -> None:
     """``launches``: the sum over the main-path runs; ``launches_by_path``:
     each run's own count (``launches_by_path`` maps a run's name to the
@@ -4283,11 +4856,19 @@ def main() -> int:
     for name, arch in generation_models().items():
         print(f"== generate {name} (full width and depth, random weights, seed 0)")
         launches_by_path[f"generate_{name}"] = generation_phase(name, arch)
+    print(f"== atman: the 0.5B model's logits of {ATMAN['batch']} x {ATMAN['seq']} tokens "
+          "under attention controls, both variants")
+    launches_by_path["atman"] = atman_phase(generation_models()["0.5b"])
     lap("generate (6)")
     print(f"== moe (phase 15): {MOE['model']}, the 0.5B widths with 8 routed experts (top-2) "
           "under muP: the layer card vs cpu, training, serving")
     launches_by_path.update(moe_phase())
     lap("moe (15)")
+    print(f"== features (phase 16): the 0.5B widths cut to {FEATURES['layers']} layers: a "
+          "multimodal finetune, the CLIP backbones, local-window heads in cached decode; "
+          "phase 5's step under each remat mode")
+    launches_by_path.update(features_phase())
+    lap("features (16)")
     print("== kernel times (device: torch.profiler; per call: CUDA events)")
     rows = time_kernels(errs)
     lap("kernel times (7)")

@@ -11,7 +11,9 @@ scaling_tpu/checkpoint/checkpoint.py, npz backend).
   the bare parameter name, as the JAX loader does;
 - matrices in the JAX layout, ``(in, out)``: the port's linears are
   transposed on the way out and back (``transposed_in_jax``; the
-  embedding table is the same on both sides);
+  embedding table is the same on both sides), convolution kernels
+  permuted between ``(out, in, kh, kw)`` and ``(kh, kw, in, out)``
+  (``to_jax_layout``);
 - bf16 stored as float32, a lossless widening; the loader casts back;
 - a frozen parameter (no optimizer state) has ``(0,)`` float32
   placeholders in the optimizer files, as the JAX optimizer keeps them.
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 
 from ..optimizer import Optimizer
-from ..parallel.parallel_module import transposed_in_jax
+from ..parallel.parallel_module import from_jax_layout, to_jax_layout
 from ..resilience.faults import get_fault_plan
 from ..resilience.guards import retry_io
 from ..resilience.manifest import crc32_combine
@@ -120,9 +122,7 @@ def _to_numpy(key: str, t: torch.Tensor) -> np.ndarray:
     complete when this returns. Always a new array: the optimizer updates
     the tensors in place while an asynchronous save is still writing, and
     on the CPU ``.cpu().numpy()`` would be the live tensor itself."""
-    t = t.detach()
-    if transposed_in_jax(key, t.ndim):
-        t = t.t()
+    t = to_jax_layout(key, t.detach())
     dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
     if t.is_cuda:  # transpose and widen on the card: the host copy is then one memcpy
         t = t.to(dtype).contiguous()
@@ -138,7 +138,7 @@ def _from_numpy(key: str, arr: np.ndarray, device=None) -> torch.Tensor:
     t = torch.from_numpy(np.asarray(arr))
     if device is not None:
         t = t.to(device)
-    return t.t() if transposed_in_jax(key, t.ndim) else t
+    return from_jax_layout(key, t)
 
 
 def _copy_in(target: torch.Tensor, key: str, arr: np.ndarray, what: str) -> None:

@@ -26,8 +26,9 @@ class BaseDatasetBatch(ABC):
     @classmethod
     def stack(cls, batches: List["BaseDatasetBatch"]) -> "BaseDatasetBatch":
         """The batches stacked along a new leading axis (the trainer's
-        gradient-accumulation axis)."""
-        return cls(**{k: np.stack([vars(b)[k] for b in batches]) for k in vars(batches[0])})
+        gradient-accumulation axis); an attribute that is None stays None."""
+        return cls(**{k: None if v is None else np.stack([vars(b)[k] for b in batches])
+                      for k, v in vars(batches[0]).items()})
 
 
 class BaseDataset(ABC, Generic[T, TBatch]):

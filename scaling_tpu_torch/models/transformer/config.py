@@ -3,7 +3,7 @@
 ``TransformerArchitectureConfig`` is the counterpart of the JAX class of
 that name in ``scaling_tpu/models/transformer/config.py``: the same dict
 keys with the same defaults, read from the ``transformer_architecture``
-section a ``scaling_tpu`` config carries. Every key is one of three kinds:
+section a ``scaling_tpu`` config carries. Every key is one of two kinds:
 
 - supported: it shapes the model here exactly as there.
   ``masked_softmax.kernel`` selects, for training, the flash kernels or
@@ -15,9 +15,13 @@ section a ``scaling_tpu`` config carries. Every key is one of three kinds:
   ``softprompt_config``, ``lora_config``, ``embedding_head_config``) build
   their modules here as there;
 - inert: it has no effect in the JAX package either (parity-only
-  switches, and ``finetunable_token_ids``), so it is accepted;
-- not ported yet: any value but the default raises NotImplementedError
-  (the image encoder).
+  switches, and ``finetunable_token_ids``), so it is accepted.
+
+``image_encoder`` builds the multimodal image encoder
+(``image_encoder.py``) from the ``image_encoder_*`` keys and
+``dropout_image_encoder``, which a text model carries inert, as the JAX
+config does; ``image_encoder_clip_checkpoint`` is read at train start
+(``train.py``).
 
 ``mlp_type: moe`` builds the routed expert MLP (``nn.moe``) from the
 ``moe_*`` keys, which a dense model carries inert, as the JAX config
@@ -76,9 +80,6 @@ _INERT = {
 
 DROPOUT_KEYS = ("dropout_embedding", "dropout_attention_probs", "dropout_after_attention",
                 "dropout_after_mlp")
-
-# keys whose non-default values the port does not implement yet
-_NOT_PORTED = {"image_encoder": False}
 
 
 def _section(cls, d: Optional[Dict[str, Any]], what: str):
@@ -202,6 +203,15 @@ class TransformerArchitectureConfig:
     softprompt_config: Optional[SoftpromptConfig] = None
     lora_config: Optional[LoRaConfig] = None
     embedding_head_config: Optional[EmbeddingHeadConfig] = None
+    image_encoder: bool = False  # 384 x 384 images as 144 prefix tokens each
+    image_encoder_width: int = 768
+    image_encoder_layers: int = 6
+    image_encoder_heads: int = 12
+    image_encoder_backbone: str = "vit"  # vit, clip (a CLIP ViT), clip_resnet (RN50x16)
+    image_encoder_resnet_stages: Tuple[int, ...] = (6, 8, 18, 8)
+    image_encoder_resnet_channels: int = 96
+    image_encoder_clip_checkpoint: Optional[str] = None  # applied at train start, fresh runs
+    dropout_image_encoder: float = 0.0  # after the image encoder's projection
 
     def __post_init__(self):
         for key, cls in (("bitfit_bias_config", BitfitConfig), ("adapter_config", AdapterConfig),
@@ -266,6 +276,19 @@ class TransformerArchitectureConfig:
                                  "(experts are GLU FFNs without bias)")
         if self.mup is not None and self.weight_tying:
             raise ValueError("mup does not compose with weight_tying: untie the head to use mup")
+        object.__setattr__(self, "image_encoder_resnet_stages",
+                           tuple(self.image_encoder_resnet_stages))
+        if self.image_encoder_backbone not in ("vit", "clip", "clip_resnet"):
+            raise ValueError("image_encoder_backbone must be one of ('vit', 'clip', "
+                             f"'clip_resnet'), got {self.image_encoder_backbone!r}")
+        if len(self.image_encoder_resnet_stages) != 4:
+            raise ValueError("image_encoder_resnet_stages needs exactly 4 stages (CLIP layout)")
+        for key in ("image_encoder_width", "image_encoder_layers", "image_encoder_heads",
+                    "image_encoder_resnet_channels"):
+            if getattr(self, key) <= 0:
+                raise ValueError(f"{key} must be > 0")
+        if not 0.0 <= self.dropout_image_encoder <= 1.0:
+            raise ValueError("dropout_image_encoder must be in [0, 1]")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerArchitectureConfig":
@@ -274,13 +297,6 @@ class TransformerArchitectureConfig:
         kwargs: Dict[str, Any] = {}
         for key, default in _INERT.items():
             d.pop(key, default)
-        for key, default in _NOT_PORTED.items():
-            if key in d and d.pop(key) != default:
-                raise NotImplementedError(f"{key} is not ported yet")
-        for key in [k for k in d if k.startswith("image_encoder_")] + [
-            "dropout_image_encoder"
-        ]:
-            d.pop(key, None)  # inert while image_encoder is off (checked above)
         layernorm = dict(d.pop("layernorm", None) or {})
         if "optimization_type" in layernorm:
             kwargs["layernorm_optimization_type"] = layernorm.pop("optimization_type")
@@ -370,7 +386,8 @@ class TransformerArchitectureConfig:
     def has_dropout(self) -> bool:
         """Whether a training pass draws any dropout mask."""
         return (any(getattr(self, k) > 0.0 for k in DROPOUT_KEYS)
-                or (self.lora_config is not None and self.lora_config.dropout > 0.0))
+                or (self.lora_config is not None and self.lora_config.dropout > 0.0)
+                or (self.image_encoder and self.dropout_image_encoder > 0.0))
 
 
 @dataclasses.dataclass(frozen=True)

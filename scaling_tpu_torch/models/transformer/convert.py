@@ -21,6 +21,11 @@ subtree), as it does in the port's state dict. A MoE layer's
 ``mlp.router.weight`` is transposed as a linear's and stays f32 in any
 model dtype, as both packages keep it; its expert weights ``mlp.w_in``,
 ``mlp.w_gate`` and ``mlp.w_out`` have the same layout on both sides.
+The image encoder's leaves (``layer_0.image_encoder...``) map by name too:
+its linears transposed, a CLIP ResNet's convolution kernels permuted from
+JAX's ``(kh, kw, in, out)`` to PyTorch's ``(out, in, kh, kw)``, a CLIP
+tower's position embedding as stored and its flattened patch kernel
+transposed as a linear's.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from ...parallel.parallel_module import transposed_in_jax
+from ...parallel.parallel_module import from_jax_layout
 from .config import TransformerArchitectureConfig
 
 
@@ -57,8 +62,6 @@ def params_from_jax(np_params: Mapping[str, Any],
     architecture's dtype (a MoE router in f32)."""
     state: Dict[str, torch.Tensor] = {}
     for name, value in _flatten(np_params).items():
-        if transposed_in_jax(name, value.ndim):
-            value = value.T  # (in, out) -> (out, in)
-        tensor = torch.from_numpy(np.array(value, dtype=np.float32))
-        state[f"layers.{name}"] = tensor.to(param_dtype(name, arch.dtype))
+        tensor = from_jax_layout(name, torch.from_numpy(np.array(value, dtype=np.float32)))
+        state[f"layers.{name}"] = tensor.contiguous().to(param_dtype(name, arch.dtype))
     return state

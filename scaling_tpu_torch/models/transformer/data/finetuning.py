@@ -4,22 +4,28 @@ formats:
 
 - text jsonl: ``{"prompt": str, "completion": str}`` a line (the prompt may
   be a list of strings; an image entry raises NotImplementedError, as in
-  the JAX package, which has no image encoder on this path);
+  the JAX package);
 - text memory map: each record ``[len_prompt, prompt..., completion...]``;
 - chat jsonl: each line a list of ``{"type": "text", "content": str,
-  "has_loss": bool}`` elements, the tokens of ``has_loss`` elements
-  trained (an image element raises NotImplementedError: the image
-  encoder is not ported).
+  "has_loss": bool}`` and ``{"type": "image", "content": path}`` elements
+  (the path relative to the data file's directory), the tokens of
+  ``has_loss`` elements trained. An image takes 144 placeholder tokens (the
+  EOS id, weight 0), which the embedding overwrites with the encoded image
+  (``layers/embedding.py``); it is read by ``load_image`` (PIL, CLIP's
+  preprocessing) when its item is.
 
 Loss weights are 0 on prompt tokens and padding and 1 on the completion
 and its closing EOS; items are padded with EOS to ``sequence_length``, an
 over-long text item cut from the front of its prompt, a chat item from
-its end. With a soft prompt, ``softprompt_n_tokens`` placeholder ids 0
+its end, and an image whose 144 tokens no longer fit is dropped with its
+start. A chat dataset's batches carry ``max_images`` image slots, the most
+any of its samples has, padded with zero images that ``input_image_mask``
+leaves out. With a soft prompt, ``softprompt_n_tokens`` placeholder ids 0
 lead every item; the embedding writes the prompt over them. Item order
 belongs to the loader's sampler, as in the JAX package.
 
 Both datasets build their tokenizer (``tokenizers``) in the constructor;
-the import happens there, not when this module is imported.
+that import, and PIL's, happen there, not when this module is imported.
 """
 
 from __future__ import annotations
@@ -39,18 +45,41 @@ from ..tokenizer import load_tokenizers
 from .text_dataset import TextDatasetBatch
 
 
+IMAGE_ENCODER_TOKEN_COUNT = 144  # (384 / 32)^2 patches (image_encoder.py)
+IMAGE_SIZE = 384
+# CLIP's preprocessing constants
+_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def load_image(path: Path) -> np.ndarray:
+    """An image file as a normalised (384, 384, 3) f32 array: RGB, bicubic
+    resize, CLIP's mean and std."""
+    from PIL import Image
+
+    img = Image.open(str(path)).convert("RGB").resize((IMAGE_SIZE, IMAGE_SIZE), Image.BICUBIC)
+    return (np.asarray(img, dtype=np.float32) / 255.0 - _IMAGE_MEAN) / _IMAGE_STD
+
+
 class FinetuningItem:
-    __slots__ = ("token_ids", "target_token_ids", "loss_weights")
+    __slots__ = ("token_ids", "target_token_ids", "loss_weights", "images", "image_locations")
 
     def __init__(self, token_ids: np.ndarray, target_token_ids: np.ndarray,
-                 loss_weights: np.ndarray):
+                 loss_weights: np.ndarray, images: Optional[List[np.ndarray]] = None,
+                 image_locations: Optional[List[int]] = None):
         self.token_ids = token_ids
         self.target_token_ids = target_token_ids
         self.loss_weights = loss_weights
+        self.images = images  # (H, W, 3) arrays, or None
+        self.image_locations = image_locations  # each image's first position
 
 
 class _FinetuningBase(BaseDataset):
     """Item assembly and collate of both finetuning datasets."""
+
+    # image slots in every batch: a dataset-wide count keeps the batch's
+    # shapes the same from step to step
+    max_images: int = 0
 
     def __init__(self, sequence_length: int, eod_token_id: int, seed: int = 42,
                  shuffle: bool = True):
@@ -69,29 +98,52 @@ class _FinetuningBase(BaseDataset):
         return f"finetune-{kind}-{h}"
 
     def _assemble(self, input_ids: List[int], target_ids: List[int], loss_mask: List[int],
-                  truncate: str = "front") -> FinetuningItem:
+                  truncate: str = "front", images: Optional[List[np.ndarray]] = None,
+                  image_locations: Optional[List[int]] = None) -> FinetuningItem:
         """``front`` keeps the tail (where a text item's completion is),
-        ``back`` the head (a chat item, as the JAX chat dataset)."""
+        ``back`` the head (a chat item, as the JAX chat dataset, which keeps
+        image starts valid). An image whose span no longer fits is dropped:
+        the cut may reach it, and a trailing image loses its last
+        placeholder to the target shift."""
         length = self.sequence_length
         if len(input_ids) > length:
             cut = slice(-length, None) if truncate == "front" else slice(None, length)
             input_ids, target_ids, loss_mask = input_ids[cut], target_ids[cut], loss_mask[cut]
+        if image_locations is not None:
+            keep = [i for i, start in enumerate(image_locations)
+                    if start + IMAGE_ENCODER_TOKEN_COUNT <= len(input_ids)]
+            images = [images[i] for i in keep]
+            image_locations = [image_locations[i] for i in keep]
         pad = length - len(input_ids)
         eod = self.eod_token_id
         return FinetuningItem(np.asarray(input_ids + [eod] * pad, dtype=np.int64),
                               np.asarray(target_ids + [eod] * pad, dtype=np.int64),
-                              np.asarray(loss_mask + [0] * pad, dtype=np.float32))
+                              np.asarray(loss_mask + [0] * pad, dtype=np.float32),
+                              images, image_locations)
 
     def collate(self, batch: List[FinetuningItem]) -> TextDatasetBatch:
-        """One document a row: positions count up, segment ids are 0."""
+        """One document a row: positions count up, segment ids are 0; with
+        ``max_images`` slots, each row's images, starts and mask."""
         tokens = np.stack([b.token_ids for b in batch])
-        return TextDatasetBatch(
+        out = TextDatasetBatch(
             token_ids=tokens.astype(np.int32),
             target_token_ids=np.stack([b.target_token_ids for b in batch]).astype(np.int32),
             position_ids=np.broadcast_to(np.arange(tokens.shape[1], dtype=np.int32),
                                          tokens.shape).copy(),
             segment_ids=np.zeros(tokens.shape, dtype=np.int32),
             loss_weights=np.stack([b.loss_weights for b in batch]))
+        n = self.max_images
+        if n > 0:
+            images = np.zeros((len(batch), n, IMAGE_SIZE, IMAGE_SIZE, 3), np.float32)
+            starts = np.zeros((len(batch), n), np.int32)
+            mask = np.zeros((len(batch), n), bool)
+            for i, item in enumerate(batch):
+                for j, (img, start) in enumerate(zip(item.images or [],
+                                                     item.image_locations or [])):
+                    images[i, j], starts[i, j], mask[i, j] = img, start, True
+            out.input_images, out.input_image_locations, out.input_image_mask = (
+                images, starts, mask)
+        return out
 
 
 def _jsonl_path(prefix: Path) -> Path:
@@ -166,31 +218,44 @@ class FinetuningChatDataset(_FinetuningBase):
         self.tokenizer, self.tokenizer_no_prefix_space = load_tokenizers(self.vocab_file)
         path = _jsonl_path(self.data_prefix)
         eos = self.tokenizer.eos_token_id
-        self._samples: List[Dict[str, List[int]]] = []
+        self._samples: List[Dict[str, Any]] = []
         missing_eos = 0
         for line in path.read_text().splitlines():
             if not line.strip():
                 continue
             tokens: List[int] = []
             mask: List[int] = []
-            for i, el in enumerate(json.loads(line)):
-                if el["type"] != "text":
-                    raise NotImplementedError(
-                        f"chat content type {el['type']!r} is not supported (images need the "
-                        "image encoder, which is not ported)")
-                ids = (self.tokenizer if i == 0 else self.tokenizer_no_prefix_space).encode(
-                    el["content"])
-                tokens.extend(ids)
-                mask.extend([int(bool(el.get("has_loss", False)))] * len(ids))
-            if eos is not None and eos not in tokens:
+            image_paths: List[Path] = []
+            image_locations: List[int] = []
+            first_text, has_text_eos = True, False
+            for el in json.loads(line):
+                if el["type"] == "text":
+                    tok = self.tokenizer if first_text else self.tokenizer_no_prefix_space
+                    ids = tok.encode(el["content"])
+                    tokens.extend(ids)
+                    mask.extend([int(bool(el.get("has_loss", False)))] * len(ids))
+                    first_text = False
+                    has_text_eos = has_text_eos or (eos is not None and eos in ids)
+                elif el["type"] == "image":
+                    # placeholders the embedding overwrites with the encoded image
+                    image_paths.append(self.data_prefix.parent / el["content"])
+                    image_locations.append(len(tokens))
+                    tokens.extend([eos or 0] * IMAGE_ENCODER_TOKEN_COUNT)
+                    mask.extend([0] * IMAGE_ENCODER_TOKEN_COUNT)
+                else:
+                    raise NotImplementedError(f"chat content type {el['type']!r} is not "
+                                              "supported")
+            if eos is not None and not has_text_eos:  # placeholders reuse the EOS id
                 missing_eos += 1
-            self._samples.append({"input": tokens[:-1], "target": tokens[1:],
-                                  "mask": mask[1:]})
+            self._samples.append({"input": tokens[:-1], "target": tokens[1:], "mask": mask[1:],
+                                  "image_paths": image_paths,
+                                  "image_locations": image_locations})
         if missing_eos:
             logger.warning(
                 f"finetuning_chat_dataset does not add EOS automatically; "
                 f"{missing_eos}/{len(self._samples)} samples in {path} carry no EOS token — "
                 f"append it in your data.jsonl if completions should terminate")
+        self.max_images = max((len(s["image_paths"]) for s in self._samples), default=0)
         super().__init__(sequence_length, eos or 0, seed=seed, shuffle=shuffle)
 
     def ident(self) -> str:
@@ -201,9 +266,13 @@ class FinetuningChatDataset(_FinetuningBase):
 
     def __getitem__(self, index: int) -> FinetuningItem:
         s = self._samples[index]
-        pad = [0] * self.softprompt_n_tokens  # placeholders, after the target shift
+        n_sp = self.softprompt_n_tokens
+        pad = [0] * n_sp  # placeholders, after the target shift
+        images = [load_image(p) for p in s["image_paths"]] or None
         return self._assemble(pad + s["input"], pad + s["target"], pad + s["mask"],
-                              truncate="back")
+                              truncate="back", images=images,
+                              image_locations=([start + n_sp for start in s["image_locations"]]
+                                               if images else None))
 
 
 class FinetuningTextBlendedDataset(BaseBlendedDataset):

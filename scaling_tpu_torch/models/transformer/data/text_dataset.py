@@ -13,7 +13,7 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -33,33 +33,50 @@ class TextDatasetItem(BaseDatasetItem):
 
 
 class TextDatasetBatch(BaseDatasetBatch):
-    """Arrays of shape (..., b, s): int32 ids, f32 loss weights."""
+    """Arrays of shape (..., b, s): int32 ids, f32 loss weights; with
+    images (the multimodal finetuning data) also ``input_images`` (..., b,
+    n, H, W, 3) f32, ``input_image_locations`` (..., b, n) int32 starts and
+    ``input_image_mask`` (..., b, n) bool, False on a padded image slot."""
 
     def __init__(self, token_ids: np.ndarray, target_token_ids: np.ndarray,
                  position_ids: np.ndarray, segment_ids: np.ndarray,
-                 loss_weights: np.ndarray):
+                 loss_weights: np.ndarray, input_images: Optional[np.ndarray] = None,
+                 input_image_locations: Optional[np.ndarray] = None,
+                 input_image_mask: Optional[np.ndarray] = None):
         self.token_ids = token_ids
         self.target_token_ids = target_token_ids
         self.position_ids = position_ids
         self.segment_ids = segment_ids
         self.loss_weights = loss_weights
+        self.input_images = input_images
+        self.input_image_locations = input_image_locations
+        self.input_image_mask = input_image_mask
 
     def as_model_input(self, device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
         """The batch dict ``ParallelModule.forward`` and ``loss_function``
         take, on ``device``, in one host-to-device copy: the five arrays
         go over as one int32 buffer (the f32 weights by their bits), and
-        the token ids are widened to int64 on the device."""
+        the token ids are widened to int64 on the device. Images, when the
+        batch has them, take one more copy, and their starts and mask one."""
         host = np.stack([np.asarray(getattr(self, k), np.float32).view(np.int32)
                          if k == "loss_weights" else np.asarray(getattr(self, k), np.int32)
                          for k in _FIELDS])
         buf = torch.from_numpy(host).to(device)
-        return {
+        out = {
             "token_ids": buf[0].long(),
             "target_token_ids": buf[1].long(),
             "position_ids": buf[2],
             "segment_ids": buf[3],
             "loss_weights": buf[4].view(torch.float32),
         }
+        if self.input_images is not None:
+            out["input_images"] = torch.from_numpy(
+                np.ascontiguousarray(self.input_images, np.float32)).to(device)
+            where = torch.from_numpy(np.stack([
+                np.asarray(self.input_image_locations, np.int32),
+                np.asarray(self.input_image_mask, np.int32)])).to(device)
+            out["input_image_locations"], out["input_image_mask"] = where[0], where[1].bool()
+        return out
 
 
 class TextDataset(BaseDataset[TextDatasetItem, TextDatasetBatch]):

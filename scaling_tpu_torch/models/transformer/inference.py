@@ -14,7 +14,11 @@ clock, so a row generates what it would alone. The prefill
 wherever its gate allows (bf16, ``prompt_len % 128 == 0``), and only the
 sampled position reaches the final norm and the vocabulary projection.
 The decode attends unfused over the written slots of the dense cache,
-as the JAX package leaves it to XLA. It runs one loop whatever
+as the JAX package leaves it to XLA; local-window heads keep their window
+there, counted in slots, so the cached decode gives the uncached forward's
+logits (the JAX package's cache drops the window). ``logits`` takes AtMan
+controls (``attention_control.py``), which every layer applies on the
+unfused path. The decode runs one loop whatever
 ``fused_decode`` says: tokens and per-step logits go into preallocated
 buffers on the device, and the host checks whether every row has stopped
 every ``DONE_CHECK_EVERY`` steps (``fused_decode=True``, the counterpart
@@ -39,7 +43,7 @@ threefry draws.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,6 +52,7 @@ import yaml
 from ... import resolve_device
 from ...checkpoint import load_model_checkpoint
 from ...parallel.parallel_module import jax_param_key
+from .attention_control import Control, build_attention_scores_manipulation
 from .config import TransformerArchitectureConfig, strip_removed_config_keys
 from .layers import TransformerEmbeddingHead, TransformerLayer
 from .model import TransformerModel
@@ -231,8 +236,8 @@ class TransformerInferenceModule:
 
     def _make_batch(self, token_ids: torch.Tensor, position_ids: torch.Tensor,
                     segment_ids: Optional[torch.Tensor] = None,
-                    scores_manipulation: Optional[torch.Tensor] = None
-                    ) -> Dict[str, Optional[torch.Tensor]]:
+                    scores_manipulation: Optional[torch.Tensor] = None,
+                    log_additive: bool = True) -> Dict[str, Any]:
         def on_device(t, dtype):
             return None if t is None else t.to(self.device, dtype)
 
@@ -241,6 +246,7 @@ class TransformerInferenceModule:
             "position_ids": on_device(position_ids, torch.int32),
             "segment_ids": on_device(segment_ids, torch.int32),
             "attention_scores_manipulation": scores_manipulation,
+            "attention_scores_manipulation_log_additive": log_additive,
         }
 
     @torch.no_grad()
@@ -264,9 +270,11 @@ class TransformerInferenceModule:
             )
         pos, seg = batch["position_ids"], batch.get("segment_ids")
         manipulation = batch.get("attention_scores_manipulation")
+        log_additive = batch.get("attention_scores_manipulation_log_additive", True)
         h = m.embedding(batch["token_ids"])
         for i, layer in enumerate(layers):
-            h = layer(h, pos, None if caches is None else caches[i], seg, offset, manipulation)
+            h = layer(h, pos, None if caches is None else caches[i], seg, offset, manipulation,
+                      scores_log_additive=log_additive)
         if gather_start is not None:
             idx = gather_start.long()[:, None] + torch.arange(
                 gather_width, device=h.device
@@ -283,13 +291,21 @@ class TransformerInferenceModule:
             t = torch.from_numpy(np.asarray(token_ids, dtype=np.int64)).to(self.device)
         return t[None] if t.ndim == 1 else t
 
-    def logits(self, token_ids) -> torch.Tensor:
-        """Full-sequence logits ``(b, s, vocab)`` of one prompt or a batch
-        (attention controls are not ported)."""
+    def logits(self, token_ids, controls: Optional[Sequence[Control]] = None,
+               control_log_additive: bool = True) -> torch.Tensor:
+        """Full-sequence logits ``(b, s, vocab)`` of one prompt or a batch.
+        ``controls``: AtMan controls (``attention_control.Control``) applied
+        in every layer, as ``log(factor)`` score offsets or, with
+        ``control_log_additive=False``, as factors on min-shifted scores;
+        with controls the attention runs unfused."""
         tokens = self._token_batch(token_ids)
         b, s = tokens.shape
         pos = torch.arange(s, device=self.device)[None].expand(b, s)
-        return self._run_layers(self._make_batch(tokens, pos))
+        manipulation = build_attention_scores_manipulation(
+            controls or [], seq_len=s, batch_size=b, log_additive=control_log_additive,
+            device=self.device)
+        return self._run_layers(self._make_batch(tokens, pos, scores_manipulation=manipulation,
+                                                 log_additive=control_log_additive))
 
     @torch.no_grad()
     def hidden_states(self, token_ids, include: Optional[List[int]] = None,

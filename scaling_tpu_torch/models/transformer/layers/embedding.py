@@ -1,9 +1,13 @@
 """Token embedding input layer (``EmbeddingInput`` of
-scaling_tpu/models/transformer/layers/embedding.py, without the image
-splice): the table lookup, the soft prompt (``softprompt_config``) written
-over the first ``n_tokens`` positions, then embedding dropout at the site
-``layer_0.embedding`` in a training pass. ``finetunable_token_ids`` is
-accepted and inert, as in the JAX package (see the config)."""
+scaling_tpu/models/transformer/layers/embedding.py): the table lookup; with
+``image_encoder`` the encoded images spliced over their placeholder
+positions (each image's 144 tokens from its start ``input_image_locations``,
+an image whose ``input_image_mask`` entry is False left out, later images
+over earlier ones, a start clamped so that the span fits, as JAX's
+``dynamic_update_slice`` clamps it); the soft prompt (``softprompt_config``)
+written over the first ``n_tokens`` positions; then embedding dropout at
+the site ``layer_0.embedding`` in a training pass. ``finetunable_token_ids``
+is accepted and inert, as in the JAX package (see the config)."""
 
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import torch
 from ....nn.base_layer import DropoutContext, dropout
 from ....nn.linear import Embedding
 from ..config import TransformerArchitectureConfig
+from ..image_encoder import ImageEncoder
 
 
 class EmbeddingInput(torch.nn.Module):
@@ -22,6 +27,15 @@ class EmbeddingInput(torch.nn.Module):
         self.embedding = Embedding(arch.vocab_size, arch.hidden_size,
                                    dtype=arch.dtype, device=device)
         self.dropout_rate = arch.dropout_embedding
+        self.image_encoder: Optional[ImageEncoder] = None
+        if arch.image_encoder:
+            self.image_encoder = ImageEncoder(
+                arch.hidden_size, width=arch.image_encoder_width,
+                layers=arch.image_encoder_layers, heads=arch.image_encoder_heads,
+                dropout_p=arch.dropout_image_encoder, dtype=arch.dtype,
+                backbone=arch.image_encoder_backbone,
+                resnet_stages=arch.image_encoder_resnet_stages,
+                resnet_channels=arch.image_encoder_resnet_channels, device=device)
         self.softprompt: Optional[str] = None  # the parameter's name, as the JAX key
         if arch.softprompt_config is not None:
             self.softprompt = f"softprompt_{arch.softprompt_config.name}"
@@ -36,9 +50,33 @@ class EmbeddingInput(torch.nn.Module):
         if self.softprompt is not None:
             getattr(self, self.softprompt).normal_(0.0, 0.5, generator=generator)
 
-    def forward(self, token_ids: torch.Tensor,
-                ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+    def splice_images(self, h: torch.Tensor, images: torch.Tensor, locations: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None,
+                      ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+        """``h`` (b, s, hidden) with the encoded ``images`` (b, n, H, W, 3)
+        written from ``locations`` (b, n) on, where ``mask`` (b, n) is True
+        (every image without one). One gather a slot, no host sync."""
+        b, n = images.shape[:2]
+        enc = self.image_encoder(images.reshape((b * n,) + images.shape[2:]), ctx)
+        enc = enc.reshape(b, n, enc.shape[-2], enc.shape[-1]).to(h.dtype)
+        tokens, s = enc.shape[2], h.shape[1]
+        starts = locations.long().clamp(0, max(s - tokens, 0))
+        rel = torch.arange(s, device=h.device)[None] - starts[:, :, None]  # (b, n, s)
+        inside = (rel >= 0) & (rel < tokens)
+        if mask is not None:
+            inside = inside & mask.bool()[:, :, None]
+        idx = rel.clamp(0, tokens - 1)[..., None].expand(-1, -1, -1, h.shape[-1])
+        for j in range(n):
+            h = torch.where(inside[:, j, :, None], enc[:, j].gather(1, idx[:, j]), h)
+        return h
+
+    def forward(self, token_ids: torch.Tensor, ctx: Optional[DropoutContext] = None,
+                images: Optional[torch.Tensor] = None,
+                image_locations: Optional[torch.Tensor] = None,
+                image_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.embedding(token_ids.long())
+        if self.image_encoder is not None and images is not None:
+            h = self.splice_images(h, images, image_locations, image_mask, ctx)
         if self.softprompt is not None:
             sp = getattr(self, self.softprompt)
             n = sp.shape[0]

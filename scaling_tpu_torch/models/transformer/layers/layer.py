@@ -138,13 +138,15 @@ class TransformerLayer(torch.nn.Module):
                 cache_offset: Optional[int] = None,
                 scores_manipulation: Optional[torch.Tensor] = None,
                 return_kv: bool = False, ctx: Optional[DropoutContext] = None,
-                return_aux: bool = False):
+                return_aux: bool = False, scores_log_additive: bool = True):
         """The block's output, or ``(output, (k, v))`` with ``return_kv``,
         or ``(output, aux)`` with ``return_aux`` (the MoE load-balance loss,
         an f32 scalar; a MoE block computes it only then); ``ctx`` is the
-        training pass's dropout context (None: none)."""
+        training pass's dropout context (None: none); ``scores_manipulation``
+        is log-additive unless ``scores_log_additive`` is False."""
         attn = self.attention(self.input_layernorm(h), position_ids, kv_cache, segment_ids,
-                              cache_offset, scores_manipulation, return_kv, ctx)
+                              cache_offset, scores_manipulation, return_kv, ctx,
+                              scores_log_additive=scores_log_additive)
         new_kv = None
         if return_kv:
             attn, new_kv = attn

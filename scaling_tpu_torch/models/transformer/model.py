@@ -143,8 +143,11 @@ def _fan_in_scales_with_width(parameter_name: str, param: torch.Tensor,
     matrix whose fan-in grows with the width (attention, MLP and expert
     weights, the router, the head, adapters' ``down``, ``lora_a``, the
     embedding head's first projection), not the embedding table, a soft
-    prompt, an adapter's ``up``, ``lora_b``, later projections or vectors."""
+    prompt, an adapter's ``up``, ``lora_b``, later projections, vectors or
+    anything of the image encoder."""
     if param.ndim < 2 or isinstance(module, Embedding) or "softprompt" in parameter_name:
+        return False
+    if "image_encoder" in parameter_name:  # its widths do not grow with the stream's
         return False
     if parameter_name.endswith(".up") or "lora_b" in parameter_name:
         return False
@@ -160,8 +163,9 @@ def get_parameter_groups(config: TransformerConfig, model: TransformerModel
     ``finetunable_parameters`` matches and the PEFT modules' parameters
     train. The embedding table goes to ``embedding_params`` under the
     ``embedding_learning_rate_scheduler`` with
-    ``use_separate_lr_on_embeddings``, else with norm gains, every bias and
-    the LoRA factors to the no-decay group; the untied head and all other
+    ``use_separate_lr_on_embeddings``, else with norm gains, every bias,
+    the LoRA factors and a CLIP ResNet's BatchNorm parameters (its frozen
+    statistics among them) to the no-decay group; the untied head and all other
     matrices decay. Under muP (width multiplier ``m`` != 1) each of the
     first two splits by ``_fan_in_scales_with_width``: the scaled halves
     keep the names and take ``lr_scale = 1/m`` (``weight_decay_params``,
@@ -192,7 +196,8 @@ def get_parameter_groups(config: TransformerConfig, model: TransformerModel
                 scaled.add(name)
             if isinstance(module, Embedding) and training.use_separate_lr_on_embeddings:
                 embedding.add(name)
-            elif isinstance(module, (LayerNorm, RMSNorm, Embedding, ParallelLoRa)) or any(
+            elif isinstance(module, (LayerNorm, RMSNorm, Embedding, ParallelLoRa)) or getattr(
+                    module, "no_weight_decay", False) or any(
                     s in parameter_name.lower() for s in NO_WEIGHT_DECAY_SUBSTRINGS):
                 no_decay.add(name)
             else:
@@ -221,8 +226,9 @@ def get_parameter_groups(config: TransformerConfig, model: TransformerModel
 
 
 def init_optimizer(config: TransformerConfig, model: TransformerModel) -> Optimizer:
-    return Optimizer(config.optimizer, get_parameter_groups(config, model),
-                     dict(model.named_parameters()))
+    params = dict(model.named_parameters())
+    return Optimizer(config.optimizer, get_parameter_groups(config, model), params,
+                     keys={name: jax_param_key(model, name) for name in params})
 
 
 def init_model(config: TransformerConfig, device=None) -> ParallelModule:

@@ -10,14 +10,19 @@ config's ``profiler`` section.
 ``python -m scaling_tpu_torch.train run <config.yml>`` is its command line.
 Under the supervisor (``scaling_tpu_torch.runner``) the environment
 names a control plane, which the trainer joins with the preemption
-handler installed. ``python -m scaling_tpu_torch.models.transformer.train
+handler installed. With ``image_encoder_clip_checkpoint`` the pretrained
+CLIP trunk is spliced in after the load, on a fresh run only
+(``apply_pretrained_clip``). ``python -m scaling_tpu_torch.models.transformer.train
 --payload=<base64 config>`` is the worker a runner launches
 (``worker_main``): it trains on ``cuda:{LOCAL_SLOT}``.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import torch
 
 from ... import resolve_device
 from ...data.blended_dataset import BlendedDatasetConfig
@@ -166,7 +171,60 @@ def build_trainer(config: TransformerConfig, device=None) -> TransformerTrainer:
         trainer.attach_control_plane(cp, shared_save_dir=config.trainer.multihost_shared_save_dir)
         trainer.install_preemption_handler()
     trainer.initialize(load_checkpoint=config.trainer.load_dir is not None)
+    clip_checkpoint = arch.image_encoder_clip_checkpoint
+    if clip_checkpoint is not None:
+        apply_pretrained_clip(trainer, clip_checkpoint)
     return trainer
+
+
+def read_clip_checkpoint(path) -> Dict[str, torch.Tensor]:
+    """The state dict of pretrained CLIP vision weights: a file
+    ``torch.load`` reads (a ``state_dict`` entry is unwrapped), or a
+    directory holding ``pytorch_model.bin``. The port reads them without
+    ``transformers``, so any other form raises ValueError."""
+    p = Path(path)
+    if p.is_dir():
+        if not (p / "pytorch_model.bin").is_file():
+            raise ValueError(f"image_encoder_clip_checkpoint {p}: a directory needs a "
+                             "pytorch_model.bin (the port reads no safetensors or other "
+                             "transformers formats); pass a torch.load file instead")
+        p = p / "pytorch_model.bin"
+    sd = torch.load(p, map_location="cpu", weights_only=True)
+    return sd.get("state_dict", sd)
+
+
+def apply_pretrained_clip(trainer: BaseTrainer, path) -> None:
+    """Splice pretrained CLIP weights into the image encoder's trunk at
+    train start, as the JAX trainer's ``_apply_pretrained_clip``: not on a
+    resume (``iterations > 0``) nor after a load that restored the trunk;
+    on a fresh run or a finetune from a checkpoint without it. The trunk's
+    f32 masters are taken from the spliced weights and its moments zeroed,
+    so that the first step does not revert it; the moments the load gave
+    the rest of the model are kept."""
+    if trainer.context.iterations > 0:
+        logger.info(f"resume at step {trainer.context.iterations}: skipping the pretrained "
+                    "CLIP splice (the trunk is in the checkpoint)")
+        return
+    if any("image_encoder.clip." in k for k in trainer.restored_model_keys):
+        logger.info("the loaded checkpoint restored the CLIP trunk; skipping the pretrained "
+                    "CLIP splice")
+        return
+    encoder = trainer.module.model.embedding.image_encoder
+    if encoder is None:
+        raise ValueError("image_encoder_clip_checkpoint set but the model has no image encoder "
+                         "(set image_encoder: true, image_encoder_backbone: clip)")
+    encoder.load_clip_weights(read_clip_checkpoint(path))
+    opt = trainer.optimizer
+    if trainer.optimizer_states_loaded:
+        with torch.no_grad():
+            for name in opt.optimized:
+                if ".image_encoder.clip." in name:
+                    opt.state.master[name].copy_(opt.params[name])
+                    opt.state.exp_avg[name].zero_()
+                    opt.state.exp_avg_sq[name].zero_()
+    else:
+        opt.state = opt.init_state()
+    logger.info(f"loaded pretrained CLIP vision weights from {path}")
 
 
 def main(config: TransformerConfig, device=None) -> TransformerTrainer:

@@ -13,7 +13,11 @@ one of three attention paths, and the output projection:
   slot, within equal segment ids when the cache
   carries them, with an optional additive score term (the left-pad mask
   of ragged prompts). Under left padding a row's rotary positions lag its
-  slots: ``position_ids`` stay the rotary clock, the slots the causal one;
+  slots: ``position_ids`` stay the rotary clock, the slots the causal one.
+  The trailing local-window heads also keep to ``slot_q - slot_k <=
+  window``, the rule of the uncached forward (the JAX package's dense
+  cache drops the window, so its cached decode parts from its own
+  uncached one; the port does not copy that);
 - no cache (training, prefill, full-sequence logits): causal attention
   within equal ``segment_ids`` (packed documents), optional trailing
   local-window heads. ``flash_path_active`` decides, as in the JAX layer,
@@ -30,8 +34,10 @@ its own dropout mask; ``merge_lora_weights`` folds the deltas into the
 host weights. Attention-probability dropout runs on the unfused path
 only: a rate above 0 in a training pass (a ``DropoutContext`` given)
 routes away from K4/K5 through ``flash_path_active``, as in the JAX
-layer. Context parallelism and multiplicative score manipulation are not
-ported.
+layer. A score manipulation (AtMan controls, ``models/transformer/
+attention_control.py``) is log-additive or multiplicative on the unfused
+paths; the paged path refuses it, and local-window heads, by name, as the
+JAX layer does. Context parallelism is not ported.
 
 The pool and the dense cache are updated IN PLACE: the writers put the
 new tokens' K/V into the tensors the caller holds, so no updated caches
@@ -174,21 +180,28 @@ def multi_head_attention(query: torch.Tensor, key: torch.Tensor, value: torch.Te
                          mask: torch.Tensor, scaling_factor: float,
                          softmax: MaskedSoftmax,
                          scores_manipulation: Optional[torch.Tensor] = None,
-                         dropout_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
-                         ) -> torch.Tensor:
+                         dropout_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                         log_additive: bool = True) -> torch.Tensor:
     """Unfused attention: QK^T -> masked softmax -> PV. q (b, s_q, n, h),
     k/v (b, s_k, n_kv, h) with ``n_kv`` dividing ``n``: query head ``i``
     reads kv head ``i // (n / n_kv)``, as ``repeat_kv`` lays them out, and
     the grouped products read each kv head once, with no repeated copy.
-    mask (b, 1, s_q, s_k) True = forbidden, ``scores_manipulation`` added
-    to the scaled scores (log-additive), ``dropout_fn`` applied to the
+    mask (b, 1 or n, s_q, s_k) True = forbidden. ``scores_manipulation`` is
+    added to the scaled scores (``log_additive``) or multiplies them after
+    each row is shifted so that its least unmasked score is 0, as in the
+    JAX ``multi_head_attention``. ``dropout_fn`` is applied to the
     ``(b, n, s_q, s_k)`` probabilities. Returns (b, s_q, n, h)."""
     b, s_q, n, h = query.shape
     n_kv = key.shape[2]
     q = query.reshape(b, s_q, n_kv, n // n_kv, h)
     scores = torch.einsum("bqgrh,bkgh->bgrqk", q, key).reshape(b, n, s_q, -1) * scaling_factor
     if scores_manipulation is not None:
-        scores = scores + scores_manipulation.to(scores.dtype)
+        m = scores_manipulation.to(scores.dtype)
+        if log_additive:
+            scores = scores + m
+        else:
+            filled = scores.masked_fill(mask, 10000.0)
+            scores = (scores - filled.amin(dim=-1, keepdim=True)) * m
     probs = softmax(scores, mask)
     if dropout_fn is not None:
         probs = dropout_fn(probs)
@@ -301,33 +314,42 @@ class ParallelSelfAttention(torch.nn.Module):
                 kv_cache=None, segment_ids: Optional[torch.Tensor] = None,
                 cache_offset: Optional[int] = None,
                 scores_manipulation: Optional[torch.Tensor] = None,
-                return_kv: bool = False, ctx: Optional[DropoutContext] = None):
+                return_kv: bool = False, ctx: Optional[DropoutContext] = None,
+                scores_log_additive: bool = True):
         """``kv_cache``: a ``PagedKVCacheView``, a dense cache tuple written
         at ``cache_offset``, or None. ``ctx``: the training pass's dropout
-        context, None for a deterministic pass. Returns the output, or
-        ``(output, (k, v))`` with ``return_kv`` (the new tokens' K/V after
-        rotary)."""
+        context, None for a deterministic pass. ``scores_manipulation`` is
+        log-additive or, with ``scores_log_additive=False``, multiplicative.
+        Returns the output, or ``(output, (k, v))`` with ``return_kv`` (the
+        new tokens' K/V after rotary)."""
         q, k, v = self._qkv(x, ctx)
         if self.key_query_norm:
             q, k = self.norm_query(q), self.norm_key(k)
         if self.rotary_embedding is not None:
             q, k = self.rotary_embedding(q, k, position_ids)
-        if kv_cache is not None and (self.num_local_attention_heads or not self.causal):
-            raise NotImplementedError(
-                "the cached decode paths are causal and have no local-window heads")
+        if kv_cache is not None and not self.causal:
+            raise NotImplementedError("the cached decode paths are causal")
         if isinstance(kv_cache, PagedKVCacheView):
+            if scores_manipulation is not None:
+                raise NotImplementedError(
+                    "attention_scores_manipulation is unsupported on the paged decode path")
+            if self.num_local_attention_heads:
+                raise NotImplementedError(
+                    "local-window heads are unsupported on the paged decode path")
             out = self._paged_attention(q, k, v, kv_cache)
         elif kv_cache is not None:
             out = self._dense_cache_attention(q, k, v, kv_cache, cache_offset, segment_ids,
-                                              scores_manipulation)
+                                              scores_manipulation, scores_log_additive)
         else:
-            out = self._attention(q, k, v, segment_ids, scores_manipulation, ctx)
+            out = self._attention(q, k, v, segment_ids, scores_manipulation, ctx,
+                                  scores_log_additive)
         out = self._project_out(out, ctx)
         return (out, (k, v)) if return_kv else out
 
     def _attention(self, q, k, v, segment_ids: Optional[torch.Tensor],
                    scores_manipulation: Optional[torch.Tensor] = None,
-                   ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+                   ctx: Optional[DropoutContext] = None,
+                   log_additive: bool = True) -> torch.Tensor:
         """No cache: the training forward (``ParallelSelfAttention.__call__``
         of the JAX layer without context parallelism)."""
         b, s = q.shape[:2]
@@ -355,7 +377,7 @@ class ParallelSelfAttention(torch.nn.Module):
         if n_local == 0:
             return multi_head_attention(q, k, v, mask, self.scaling_factor,
                                         self.masked_softmax, scores_manipulation,
-                                        probs_dropout(probs_site))
+                                        probs_dropout(probs_site), log_additive)
         # mixed heads: the first n - n_local global, the last n_local in the window
         k = repeat_kv(k, self.num_repeat_kv)
         v = repeat_kv(v, self.num_repeat_kv)
@@ -365,37 +387,50 @@ class ParallelSelfAttention(torch.nn.Module):
         out_l = multi_head_attention(q[:, :, n_global:], k[:, :, n_global:],
                                      v[:, :, n_global:], local_mask,
                                      self.scaling_factor, self.masked_softmax,
-                                     scores_manipulation, probs_dropout(probs_site + "_local"))
+                                     scores_manipulation, probs_dropout(probs_site + "_local"),
+                                     log_additive)
         if n_global == 0:
             return out_l
         out_g = multi_head_attention(q[:, :, :n_global], k[:, :, :n_global],
                                      v[:, :, :n_global], mask, self.scaling_factor,
                                      self.masked_softmax, scores_manipulation,
-                                     probs_dropout(probs_site))
+                                     probs_dropout(probs_site), log_additive)
         return torch.cat([out_g, out_l], dim=2)
 
     def _dense_cache_attention(self, q, k, v, cache, offset: int,
                                segment_ids: Optional[torch.Tensor],
-                               scores_manipulation: Optional[torch.Tensor]) -> torch.Tensor:
+                               scores_manipulation: Optional[torch.Tensor],
+                               log_additive: bool = True) -> torch.Tensor:
         """Write the ``s`` new tokens at slots ``offset..``, then attend
         over the written slots ``0 .. offset + s - 1`` alone, each query at
         or before its own slot (and, with a 3-tuple cache, in its segment).
-        ``scores_manipulation`` spans the whole cache and is cut to them."""
+        The last ``num_local_attention_heads`` heads also keep to ``slot_q -
+        slot_k <= local_attention_window_size``: the window of the uncached
+        forward and of K4/K5, counted in slots. ``scores_manipulation`` spans
+        the whole cache and is cut to them."""
         b, s = q.shape[:2]
         dense_kv_write(cache, k, v, offset, segment_ids)
         end = offset + s
         slots_k = torch.arange(end, device=q.device)
         slots_q = offset + torch.arange(s, device=q.device)
-        allowed = (slots_k[None, :] <= slots_q[:, None])[None]  # (1, s, end)
+        rel = slots_q[:, None] - slots_k[None, :]  # (s, end)
+        allowed = (rel >= 0)[None]  # (1, s, end)
         if len(cache) == 3:
             seg_q = (torch.zeros(b, s, dtype=cache[2].dtype, device=q.device)
                      if segment_ids is None else segment_ids)
             allowed = allowed & (cache[2][:, None, :end] == seg_q[:, :, None])
+        mask = ~allowed[:, None]  # (b or 1, 1, s, end)
+        n_local = self.num_local_attention_heads
+        if n_local:
+            is_local = torch.arange(self.num_attention_heads, device=q.device) >= (
+                self.num_attention_heads - n_local)
+            outside = rel > self.local_attention_window_size
+            mask = mask | (is_local[:, None, None] & outside[None])[None]  # (., n, s, end)
         if scores_manipulation is not None:
             scores_manipulation = scores_manipulation[..., :end]
-        return multi_head_attention(q, cache[0][:, :end], cache[1][:, :end], ~allowed[:, None],
+        return multi_head_attention(q, cache[0][:, :end], cache[1][:, :end], mask,
                                     self.scaling_factor, self.masked_softmax,
-                                    scores_manipulation)
+                                    scores_manipulation, log_additive=log_additive)
 
     def _paged_attention(self, q, k, v, view: PagedKVCacheView) -> torch.Tensor:
         """Scatter the ``s`` new tokens per row into the pool (padding past

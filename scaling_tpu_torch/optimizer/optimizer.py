@@ -16,7 +16,10 @@ The step counter and the loss scaler live on the host. With the scaler
 off nothing is read back from the card (the overflow flag of the output
 stays a device tensor); with it on, the overflow flag is read once per
 step to decide the skip. ``torch.optim.AdamW`` is not used: it keeps no
-separate f32 masters.
+separate f32 masters. With ``debug_log`` the output's ``debug_dict``
+holds each parameter's clipped gradient norm, by its JAX key, as device
+tensors (one ``_foreach_norm``, no host sync); nothing logs it, as in the
+JAX trainer.
 """
 
 from __future__ import annotations
@@ -47,8 +50,6 @@ class OptimizerConfig:
     def __post_init__(self):
         if self.zero:
             raise NotImplementedError("ZeRO is not ported (one device)")
-        if self.debug_log:
-            raise NotImplementedError("per-parameter gradient norms (debug_log) are not ported")
         if self.zero_stage != 1:
             raise ValueError(f"zero_stage {self.zero_stage} requires zero: true")
 
@@ -94,17 +95,24 @@ class OptimizerStepOutput(NamedTuple):
     overflow: Any = None  # bool with the scaler on, else a device bool tensor
     no_overflow_steps: Optional[int] = None
     current_loss_scale: Optional[float] = None
+    # with ``debug_log``: each parameter's gradient L2 norm (f32, on the
+    # device, after unscaling and clipping; 0 for a frozen one), by its key
+    debug_dict: Optional[Dict[str, torch.Tensor]] = None
 
 
 class Optimizer:
     """AdamW over named parameters, grouped by name. Parameters in no
-    group are frozen: no master, no moments, no update."""
+    group are frozen: no master, no moments, no update. ``keys`` names each
+    parameter in ``debug_dict`` (the JAX meta keys, ``init_optimizer``
+    passes them); by default its own name."""
 
     def __init__(self, config: OptimizerConfig, parameter_groups: List[OptimizerParamGroup],
-                 params: Mapping[str, torch.nn.Parameter]):
+                 params: Mapping[str, torch.nn.Parameter],
+                 keys: Optional[Mapping[str, str]] = None):
         self.config = config
         self.parameter_groups = parameter_groups
         self.params = dict(params)
+        self.keys = {n: n for n in self.params} if keys is None else dict(keys)
         self.loss_scaler = LossScaler(config.loss_scaler)
         self.group_names: List[List[str]] = [[] for _ in parameter_groups]
         claimed = set()
@@ -167,6 +175,7 @@ class Optimizer:
         if c.loss_scaler.enable:  # only the scaler skips; without it a nan propagates loudly
             overflow = bool(raw_overflow.item())
             scaler_out = self.loss_scaler.step(state.loss_scaler, overflow)
+        debug = self._grad_norms(g32) if c.debug_log else None
         if not (c.loss_scaler.enable and overflow):
             self._update(dict(zip(self.optimized, g32)), group_lrs, step_index)
             state.step = step_index
@@ -177,7 +186,24 @@ class Optimizer:
             overflow=overflow,
             no_overflow_steps=scaler_out.no_overflow_steps if scaler_out else None,
             current_loss_scale=scaler_out.current_loss_scale if scaler_out else None,
+            debug_dict=debug,
         )
+
+    def _grad_norms(self, g32: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``sqrt(sum(g^2))`` of each clipped f32 gradient in one
+        ``_foreach_norm``, by key in the parameters' order, with no host
+        sync; a frozen parameter's is 0, its gradient in the JAX step."""
+        norms = dict(zip(self.optimized, torch._foreach_norm(g32))) if g32 else {}
+        zero = None
+        out = {}
+        for name, p in self.params.items():
+            norm = norms.get(name)
+            if norm is None:
+                if zero is None:
+                    zero = torch.zeros((), dtype=torch.float32, device=p.device)
+                norm = zero
+            out[self.keys[name]] = norm
+        return out
 
     def _update(self, g32: Dict[str, torch.Tensor], group_lrs: List[float],
                 step_index: int) -> None:

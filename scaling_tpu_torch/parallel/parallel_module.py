@@ -3,12 +3,21 @@
 scaling_tpu/parallel/parallel_module.py at world size 1).
 
 ``forward`` runs the layer stack over a batch dict (``token_ids``,
-``position_ids``, ``segment_ids``) and, for a MoE model, sums the
+``position_ids``, ``segment_ids``; for a model with an image encoder
+``input_images``, ``input_image_locations`` and ``input_image_mask``,
+which the embedding splices) and, for a MoE model, sums the
 layers' load-balance losses into ``aux_loss`` in layer order, as the JAX
 IO dict carries it; with ``activation_checkpointing_type:
 every_layer`` each layer of the stack runs under
 ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in the
 backward, as the JAX forward wraps each layer in ``jax.checkpoint``.
+``every_layer_save_dots`` is JAX's ``remat_policy``,
+``dots_with_no_batch_dims_saveable``: a selective-checkpoint policy
+(``save_dots_policy``) keeps the outputs of ``aten.mm`` and
+``aten.addmm`` (the linears, LoRA's products and the head: dots with no
+batch dimension) and recomputes everything else, ``aten.bmm`` (the
+unfused attention's products, the MoE experts') and the kernels K2-K5
+among it, as JAX recomputes their ``pallas_call`` s.
 
 ``build_train_step`` returns ``step(micro_batches, dropout_key)``: for
 each of the ``gradient_accumulation_steps`` micro-batches a forward and a
@@ -25,11 +34,16 @@ gradient is computed for them, as JAX's ``stop_gradient`` removes theirs.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..nn.base_layer import DropoutContext, MaskSource
 from ..optimizer import Optimizer, OptimizerStepOutput
@@ -48,14 +62,32 @@ def jax_param_key(model: torch.nn.Module, name: str) -> str:
 
 def transposed_in_jax(name: str, ndim: int) -> bool:
     """Whether the parameter ``name`` (of either package) is stored
-    transposed by the JAX package: every matrix but the embedding table and
-    a soft prompt (linears, the MoE router, LoRA factors, adapters and the
-    embedding head's projections are ``(in, out)`` there, ``(out, in)``
-    here; the table and the soft prompt are ``(rows, hidden)`` on both
-    sides, and the 3-D expert weights keep the JAX layout)."""
+    transposed by the JAX package: every matrix but the embedding table, a
+    soft prompt and a CLIP tower's position embedding (linears, the MoE
+    router, LoRA factors, adapters, the embedding head's projections and a
+    CLIP tower's flattened patch kernel are ``(in, out)`` there, ``(out,
+    in)`` here; the tables are ``(rows, hidden)`` on both sides, and the 3-D
+    expert weights keep the JAX layout). 4-D convolution kernels are
+    permuted instead (``to_jax_layout``)."""
     leaf = name.rsplit(".", 1)[-1]
     return (ndim == 2 and not name.endswith("embedding.weight")
-            and not leaf.startswith("softprompt_"))
+            and not leaf.startswith("softprompt_") and leaf != "position_embedding")
+
+
+def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The parameter ``t`` in the JAX layout (a view): matrices transposed
+    as ``transposed_in_jax`` says, a convolution kernel from PyTorch's
+    ``(out, in, kh, kw)`` to JAX's ``(kh, kw, in, out)``."""
+    if t.ndim == 4:
+        return t.permute(2, 3, 1, 0)
+    return t.t() if transposed_in_jax(name, t.ndim) else t
+
+
+def from_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``to_jax_layout`` (a view)."""
+    if t.ndim == 4:
+        return t.permute(3, 2, 0, 1)
+    return t.t() if transposed_in_jax(name, t.ndim) else t
 
 
 # the linears the JAX package splits over the model axis by input
@@ -75,7 +107,9 @@ def jax_partition_spec(key: str, ndim: int) -> tuple:
     ``MESH.json`` record), over the JAX layout: the vocabulary axis of the
     embedding, the output axis of a column-parallel linear and its bias
     (``bias`` or BitFit's ``bias_{name}``), the input axis of a row-parallel
-    one; norms and row-parallel biases are replicated. A LoRA follows its
+    one; norms and row-parallel biases are replicated. The image encoder's
+    projection into the stream is row-parallel, its CLIP tower replicated
+    whole. A LoRA follows its
     host: on ``dense`` ``lora_a`` splits by input and ``lora_b`` and the
     bias are replicated; on query, key and value ``lora_a`` is replicated
     and ``lora_b`` and the bias split by output. Adapters, soft prompts and
@@ -86,6 +120,10 @@ def jax_partition_spec(key: str, ndim: int) -> tuple:
         return ("model", None)
     parts = key.split(".")
     leaf, module = parts[-1], parts[-2]
+    if ".image_encoder.clip." in key:  # a CLIP tower runs replicated
+        return (None,) * ndim
+    if module == "proj" and parts[-3].endswith("image_encoder"):  # row-parallel
+        return ("model", None) if ndim == 2 else (None,)
     if module == "mlp" and leaf in _EXPERT_SPECS:
         return _EXPERT_SPECS[leaf]
     if module == "router" and parts[-3:-2] == ["mlp"]:
@@ -107,6 +145,26 @@ def jax_partition_spec(key: str, ndim: int) -> tuple:
     return ("model",) if linear_bias and module not in _ROW_PARALLEL else (None,) * ndim
 
 
+# the products JAX's dots_with_no_batch_dims_saveable keeps: a 2-D input
+# times a matrix (F.linear flattens (b, s, h) into one), with or without bias
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def save_dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``every_layer_save_dots``: save the outputs of ``SAVED_DOTS``,
+    recompute the rest. The policy sees the ops that reach the dispatcher:
+    a hand-written kernel's launch (K2 by Triton, K3-K5 through their C
+    entry points) does not, so it runs again in the recompute, after the
+    same ``aten`` allocations as in the forward; the saved products are
+    matched to the recompute's in the order the forward ran them, which
+    the recompute repeats because it runs the same code on the same
+    inputs."""
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, save_dots_policy)
+
+
 class ParallelModule:
     def __init__(self, model: torch.nn.Module, topology: TopologyConfig):
         self.model = model
@@ -120,7 +178,8 @@ class ParallelModule:
 
     @property
     def remat(self) -> bool:
-        return self.topology.activation_checkpointing_type == ActivationCheckpointingType.EVERY_LAYER
+        return (self.topology.activation_checkpointing_type
+                != ActivationCheckpointingType.DISABLED)
 
     def merge_lora_weights(self) -> None:
         """Fold every layer's LoRA deltas into its base weights, in place."""
@@ -143,12 +202,19 @@ class ParallelModule:
         if seg is None:
             seg = torch.zeros(b, s, dtype=torch.int32, device=tokens.device)
 
+        save_dots = (self.topology.activation_checkpointing_type
+                     == ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS)
+
         def run(layer: Callable, *args):
             if self.remat and torch.is_grad_enabled():
+                if save_dots:
+                    return checkpoint(layer, *args, use_reentrant=False,
+                                      context_fn=_SAVE_DOTS_CONTEXT)
                 return checkpoint(layer, *args, use_reentrant=False)
             return layer(*args)
 
-        h = run(m.embedding, tokens, ctx)
+        h = run(m.embedding, tokens, ctx, batch.get("input_images"),
+                batch.get("input_image_locations"), batch.get("input_image_mask"))
         moe = m.architecture.is_moe
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device) if moe else None
         for layer in m.transformer_layers:

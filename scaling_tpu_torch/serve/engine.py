@@ -202,6 +202,11 @@ class ServeEngine:
         dev, model_dev = resolve_device(device), inference_module.device
         if dev.type != model_dev.type or dev.index not in (None, model_dev.index):
             raise ValueError(f"engine on {dev} but the model is on {model_dev}")
+        if inference_module.architecture.num_local_attention_heads:
+            # the paged attention (K1) has no window, as in the JAX engine
+            raise NotImplementedError(
+                "local-window heads (num_local_attention_heads) are unsupported on the paged "
+                "serving path; generate with use_cache=True or False serves them")
         self.device = model_dev
         self.inf = inference_module
         self.config = config or EngineConfig()

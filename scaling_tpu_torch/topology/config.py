@@ -3,7 +3,8 @@ scaling_tpu/topology/config.py's ``TopologyConfig``): the port trains on
 one device, so every parallel size must be 1. It reads the batch split
 (``micro_batch_size``, ``gradient_accumulation_steps``,
 ``global_batch_size``: two of the three, as in the JAX config) and
-``activation_checkpointing_type`` (``disabled`` or ``every_layer``).
+``activation_checkpointing_type`` (``disabled``, ``every_layer`` or
+``every_layer_save_dots``).
 Any other value raises NotImplementedError and an unknown key
 ValueError; the JAX key names are kept.
 """
@@ -17,6 +18,7 @@ from typing import Any, Dict, Optional
 class ActivationCheckpointingType:
     DISABLED = "disabled"
     EVERY_LAYER = "every_layer"
+    EVERY_LAYER_SAVE_DOTS = "every_layer_save_dots"  # per-layer remat keeping matmul outputs
 
 
 _PARALLEL = ("model_parallel_size", "pipe_parallel_size", "data_parallel_size",
@@ -38,10 +40,11 @@ class TopologyConfig:
         if self.micro_batch_size <= 0 or self.gradient_accumulation_steps <= 0:
             raise ValueError("micro_batch_size and gradient_accumulation_steps must be > 0")
         if self.activation_checkpointing_type not in (
-                ActivationCheckpointingType.DISABLED, ActivationCheckpointingType.EVERY_LAYER):
+                ActivationCheckpointingType.DISABLED, ActivationCheckpointingType.EVERY_LAYER,
+                ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS):
             raise NotImplementedError(
                 f"activation_checkpointing_type {self.activation_checkpointing_type!r} is "
-                "not ported (disabled, every_layer)")
+                "not ported (disabled, every_layer, every_layer_save_dots)")
 
     @property
     def global_batch_size(self) -> int:

@@ -114,7 +114,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--seed", type=int, default=0, help="weights and batch")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
-    p.add_argument("--remat", choices=["none", "every_layer"], default="none")
+    p.add_argument("--remat", choices=["none", "every_layer", "every_layer_save_dots"],
+                   default="none")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)

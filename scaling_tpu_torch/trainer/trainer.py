@@ -70,7 +70,7 @@ import threading
 import time
 import zipfile
 from pathlib import Path
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Set, Union
 
 import numpy as np
 import torch
@@ -90,7 +90,7 @@ from ..nn.base_layer import dropout_key
 from ..obs import StepTelemetry, derive_trace_id, span, trace_context
 from ..optimizer import Optimizer
 from ..parallel import ParallelModule
-from ..parallel.parallel_module import jax_partition_spec, transposed_in_jax
+from ..parallel.parallel_module import jax_partition_spec, to_jax_layout
 from ..resilience import (
     CheckpointCommit,
     CheckpointCorruptionError,
@@ -237,8 +237,10 @@ class BaseTrainer:
         self._train_step: Optional[Callable] = None
         self._unfetched_steps = 0
         self._last_fetch_wall: Optional[float] = None
-        # whether the last load took the optimizer state from the checkpoint
+        # whether the last load took the optimizer state from the checkpoint,
+        # and the JAX keys of the parameters it took from the checkpoint
         self.optimizer_states_loaded = False
+        self.restored_model_keys: Set[str] = set()
         self._ckpt_writer: Optional[AsyncCheckpointWriter] = None
         self._prefetch_queue: Optional[queue.Queue] = None
         self._prefetch_thread: Optional[threading.Thread] = None
@@ -779,8 +781,7 @@ class BaseTrainer:
         partition spec, for ``MESH.json``."""
         records = {}
         for key, t in params.items():
-            shape = tuple(t.shape)[::-1] if transposed_in_jax(key, t.ndim) else tuple(t.shape)
-            records[key] = param_record(shape, str(t.dtype).removeprefix("torch."),
+            records[key] = param_record(tuple(to_jax_layout(key, t).shape), str(t.dtype).removeprefix("torch."),
                                         jax_partition_spec(key, t.ndim))
         return records
 
@@ -932,10 +933,12 @@ class BaseTrainer:
             logger.log_event("ckpt-reshard",
                                   step=None if manifest is None else manifest.get("step"),
                                   **plan.event_fields())
+        self.restored_model_keys = set()
         load_model_checkpoint(step_dir, params,
                               allowed_missing_keys=c.allowed_missing_keys_in_checkpoint,
                               allowed_unexpected_keys=c.allowed_unexpected_keys_in_checkpoint,
-                              ignore_keys=c.ignore_keys_in_checkpoint)
+                              ignore_keys=c.ignore_keys_in_checkpoint,
+                              restored_keys=self.restored_model_keys)
         if c.merge_lora_after_loading_checkpoint:
             self.module.merge_lora_weights()
             logger.info("merged LoRA deltas into base weights after load")

@@ -348,10 +348,18 @@ def test_example_config_trains_through_train_run(tmp_path):
     assert (tmp_path / "ckpt" / "global_step4" / "MANIFEST.json").is_file()
 
 
-@pytest.mark.parametrize("key,value", [("image_encoder", True)])
-def test_keys_still_not_ported_raise_by_name(key, value):
-    with pytest.raises(NotImplementedError, match=key):
-        TransformerArchitectureConfig.from_dict({**BASE, key: value})
+@pytest.mark.parametrize("backbone", ["vit", "clip", "clip_resnet"])
+def test_image_encoder_keys_are_read_as_in_jax(backbone):
+    """The last key the port refused, ``image_encoder``, now builds with
+    each backbone (its parity with JAX: ``test_torch_image_encoder.py``);
+    an unknown backbone raises by name."""
+    arch = TransformerArchitectureConfig.from_dict({
+        **BASE, "image_encoder": True, "image_encoder_backbone": backbone,
+        "image_encoder_resnet_stages": [1, 1, 1, 1], "dropout_image_encoder": 0.1})
+    assert arch.image_encoder and arch.image_encoder_backbone == backbone and arch.has_dropout
+    with pytest.raises(ValueError, match="image_encoder_backbone"):
+        TransformerArchitectureConfig.from_dict({**BASE, "image_encoder": True,
+                                                 "image_encoder_backbone": "rn50"})
 
 
 # refused until the finetuning slice; each now builds and runs, the logits

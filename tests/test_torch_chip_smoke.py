@@ -981,3 +981,73 @@ def test_serve_tick_recompute_holds_the_moe_routing(toy_moe, monkeypatch, capsys
     assert stats["completed"] == 4 and stats["launches"]["paged_attention"] > 0
     out = capsys.readouterr().out
     assert "the tick's routing, card vs cpu" in out and "tick 3 recomputed" in out
+
+
+def _toy_features(monkeypatch):
+    """Phase 16 cut to the bf16 toy (flash, fused RMS) on the CPU: 2 layers,
+    micro-batch 2 of 384 tokens with images at 8 and 200, a ViT of width 64,
+    one block; a 4-stage ResNet of 8 channels and a CLIP ViT of width 64 on 2
+    images; 2 of 4 heads local with window 16 over 2 prompts of 128 tokens,
+    8 new tokens; 2 timed steps a remat mode."""
+    for key, value in dict(
+            model="toy", mbs=2, seq=384, image_starts=(8, 200), steps=4,
+            encoder={"image_encoder_width": 64, "image_encoder_layers": 1,
+                     "image_encoder_heads": 4},
+            clip_images=2, resnet={"resnet_stages": (1, 1, 1, 1), "resnet_channels": 8},
+            vit={"width": 64, "layers": 1, "heads": 4}, clip_source_grid=3, local_heads=2,
+            window=16, local_prompts=2, local_prompt_len=128, local_tokens=8,
+            remat_model="toy", remat_steps=2).items():
+        monkeypatch.setitem(chip_smoke.FEATURES, key, value)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+
+
+def test_features_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
+    """Phase 16's control flow on the CPU: the multimodal steps (the loss
+    falls, the logits before the first image stay bitwise), both CLIP
+    backbones against their f32 copies, the local-window decode cached
+    against uncached (K4's plain version with the local heads), and the
+    remat modes (save_dots running the plain versions as often as
+    every_layer). What only the card gives stays unchecked: times, peak
+    memory and the kernels' counters."""
+    _toy_features(monkeypatch)
+    out = chip_smoke.features_phase(device="cpu")
+    text = capsys.readouterr().out
+    for line in ("(a) multimodal:", "logits before position 8 bitwise the same: True",
+                 "(b) clip_resnet", "BatchNorm statistics without gradient: True",
+                 "(b) clip ViT", "(c) 2 of 4 heads local", "K4 ran with num_local_heads [2]",
+                 "(d) phase 5's step, every_layer_save_dots"):
+        assert line in text, line
+    assert out == {"multimodal": {}, "local_window": {}, "remat_save_dots": {}}
+
+
+def test_atman_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
+    """Phase 6's AtMan check on the bf16 toy: factor 1 is the unfused
+    logits (bitwise, log-additive), factor 0 keeps the earlier positions
+    bitwise and moves the later ones, in both variants; the controlled
+    logits run K2's plain version and not K4's."""
+    from scaling_tpu_torch.train.bench import MODELS
+
+    monkeypatch.setitem(chip_smoke.ATMAN, "seq", 256)
+    monkeypatch.setitem(chip_smoke.ATMAN, "batch", 2)
+    monkeypatch.setitem(chip_smoke.ATMAN, "token", 100)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    chip_smoke.atman_phase(MODELS["toy"], device="cpu")
+    text = capsys.readouterr().out
+    assert "atman log-additive: factor 1 vs the uncontrolled unfused logits" in text
+    assert "(bitwise: True" in text and "atman multiplicative" in text
+
+
+def test_features_remat_check_tells_a_save_dots_step_without_recompute(monkeypatch):
+    """Phase 16 (d) fails when ``every_layer_save_dots`` runs without the
+    recompute (the remat switch of the slice before, which knew only
+    ``every_layer``): its forward kernels then run once a step, not twice
+    as under ``every_layer``."""
+    from scaling_tpu_torch.parallel.parallel_module import ParallelModule
+    from scaling_tpu_torch.topology import ActivationCheckpointingType
+
+    _toy_features(monkeypatch)
+    monkeypatch.setattr(ParallelModule, "remat", property(
+        lambda self: self.topology.activation_checkpointing_type
+        == ActivationCheckpointingType.EVERY_LAYER))
+    with pytest.raises(AssertionError, match="launches differ"):
+        chip_smoke.remat_modes_check(device="cpu")

@@ -5,7 +5,9 @@ soft-prompt placeholders, and the two blended classes. Every item's
 token ids, targets and loss weights, and the collated batches (those and
 the position and segment ids) are equal, exactly. Items longer than the
 sequence are cut as the JAX package cuts them (a text item from the
-front, a chat item from the back). Image entries raise by name."""
+front, a chat item from the back). An image entry in a text prompt and an
+element of an unknown type raise by name, as in the JAX package (chat
+images: ``tests/test_torch_image_encoder.py``)."""
 
 import json
 
@@ -126,6 +128,8 @@ def test_image_entries_raise_by_name(files, tmp_path):
     with pytest.raises(NotImplementedError, match="image"):
         ds[0]
     chat = tmp_path / "img_chat.jsonl"
-    chat.write_text(json.dumps([{"type": "image", "content": "x.png"}]))
-    with pytest.raises(NotImplementedError, match="image"):
+    chat.write_text(json.dumps([{"type": "video", "content": "x.mp4"}]))
+    with pytest.raises(NotImplementedError, match="video"):
         port_ft.FinetuningChatDataset(chat, SEQ, files["vocab"])
+    with pytest.raises(NotImplementedError, match="video"):
+        jax_ft.FinetuningChatDataset(chat, SEQ, files["vocab"])

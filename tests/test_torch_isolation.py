@@ -1,8 +1,10 @@
 """The port stands alone: it imports with JAX and the JAX package
 blocked, serves, takes a training step, trains from a token dataset,
 saves, resumes, serves, generates from and evaluates its checkpoint,
-LoRA-finetunes it with dropout, merges and serves the finetune on the CPU
-when asked to, renders ``obs report``, supervises a worker (this file,
+LoRA-finetunes it with dropout, merges and serves the finetune, takes
+AtMan-controlled logits, a multimodal step under ``every_layer_save_dots``
+with gradient norms and a local-window cached decode, on the CPU when asked
+to, renders ``obs report``, supervises a worker (this file,
 run as the runner's script, is that worker) and a serving bench through
 a crash and its journal replay and a process fleet through a killed
 replica's failover (its workers blocked too); without a card,
@@ -43,7 +45,8 @@ import tempfile
 from pathlib import Path
 import numpy as np
 from scaling_tpu_torch.data import MemoryMapDatasetBuilder
-from scaling_tpu_torch.models.transformer import TransformerConfig, TransformerInferenceModule
+from scaling_tpu_torch.models.transformer import (TransformerArchitectureConfig,
+                                                  TransformerConfig, TransformerInferenceModule)
 from scaling_tpu_torch.models.transformer.train import main as trainer_main
 from scaling_tpu_torch.serve import EngineConfig, ServeEngine
 from scaling_tpu_torch.serve.bench import MODELS
@@ -95,6 +98,39 @@ assert not merged.module.model.layers["layer_1"].attention.query_lora.lora_b.any
 lora = TransformerInferenceModule.from_checkpoint(root / "lora", device="cpu")
 assert len(lora.generate([1, 2, 3], max_tokens=3).completion_ids) == 3
 print("finetune: LoRA with dropout trained, merged and served")
+
+# AtMan logits in both variants; a multimodal train step (ViT image encoder,
+# every_layer_save_dots remat, per-parameter gradient norms); local-window
+# heads through the cached decode
+import torch
+from scaling_tpu_torch.models.transformer import init_model, init_optimizer, loss_function
+from scaling_tpu_torch.models.transformer.attention_control import Control
+for log_additive in (True, False):
+    lg = inf.logits([[1, 2, 3, 4, 5, 6]], controls=[Control(2, 0.0), Control(4, 2.0)],
+                    control_log_additive=log_additive)
+    assert lg.shape == (1, 6, 512) and bool(torch.isfinite(lg).all())
+mm = TransformerConfig.from_dict({
+    "topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
+                 "activation_checkpointing_type": "every_layer_save_dots"},
+    "optimizer": {"debug_log": True},
+    "transformer_architecture": dict(MODELS["toy"], sequence_length=16, image_encoder=True,
+                                     image_encoder_width=32, image_encoder_layers=1,
+                                     image_encoder_heads=4)})
+module = init_model(mm, device="cpu")
+step = module.build_train_step(init_optimizer(mm, module.model), loss_function)
+tok = torch.randint(1, 512, (1, 2, 16))
+batch = {"token_ids": tok, "target_token_ids": tok.roll(-1, -1),
+         "input_images": torch.randn(1, 2, 1, 64, 64, 3),
+         "input_image_locations": torch.tensor([[[2], [5]]]),
+         "input_image_mask": torch.ones(1, 2, 1, dtype=torch.bool)}
+loss, _, out = step(batch)
+assert np.isfinite(float(loss)) and any(
+    float(v) > 0 for k, v in out.debug_dict.items() if ".image_encoder." in k)
+local = TransformerInferenceModule.random_init(TransformerArchitectureConfig.from_dict(dict(
+    MODELS["toy"], num_local_attention_heads=2, local_attention_window_size=4)), device="cpu")
+outs = local.generate([[1, 2, 3], [4, 5, 6, 7, 8, 9]], max_tokens=6)
+assert [len(o.completion_ids) for o in outs] == [6, 6]
+print("model features: atman, multimodal save_dots step, local-window decode")
 sys.exit(rc)
 """
 
@@ -110,6 +146,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert "trainer: resumed at 2, served the checkpoint" in proc.stdout
     assert "generate and evaluate: ok" in proc.stdout
     assert "finetune: LoRA with dropout trained, merged and served" in proc.stdout
+    assert "model features: atman, multimodal save_dots step, local-window decode" in proc.stdout
 
 
 BLOCKED_REPORT = r"""
@@ -322,8 +359,8 @@ def test_config_raises_on_keys_it_does_not_support():
         TransformerArchitectureConfig.from_dict({**base, "hidden_sizee": 3})
     with pytest.raises(ValueError, match="unknown"):
         TransformerArchitectureConfig.from_dict({**base, "layernorm": {"foo": 1}})
-    with pytest.raises(NotImplementedError, match="image_encoder"):
-        TransformerArchitectureConfig.from_dict({**base, "image_encoder": True})
+    # the image encoder is read now (its parity: test_torch_image_encoder.py)
+    assert TransformerArchitectureConfig.from_dict({**base, "image_encoder": True}).image_encoder
     # the JAX default architecture's keys are ported
     for key, value in (("weight_tying", True), ("norm_type", "layernorm"),
                        ("mlp_type", "default"), ("key_query_norm", True),

@@ -19,6 +19,8 @@ least 0.999 of the tokens routed alike, their outputs within 1e-4 of max
 |y| (f32 sums in another order).
 """
 
+import importlib
+
 import pytest
 import torch
 
@@ -708,3 +710,125 @@ def test_moe_layer_on_the_card_matches_the_cpu(card):
     err = (y_card.cpu() - y).abs().amax(-1)[alike].max() / y.abs().max()
     assert err.item() <= 1e-4, err.item()
     assert abs(aux_card.item() - aux.item()) <= 1e-3 * aux.item()
+
+
+def _toy_steps(card, steps: int, **topology):
+    """The bf16 toy's train steps on the card from seed 0, the launch
+    counters reset just before: (losses, parameters after, kernel and
+    plain counters)."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import loss_function
+    from scaling_tpu_torch.train.bench import build, synth_batch
+
+    config, module, optimizer = build("toy", 128, 2, device=card, seed=0, **topology)
+    step = module.build_train_step(optimizer, loss_function)
+    batch = synth_batch(np.random.default_rng(0), 2, 128, 512, 1, card)
+    launches.reset()
+    losses = [float(step(batch)[0]) for _ in range(steps)]
+    params = {n: p.detach().clone() for n, p in module.model.named_parameters()}
+    return losses, params, dict(launches.KERNEL), dict(launches.PLAIN)
+
+
+def test_save_dots_step_launches_every_layers_kernels(card):
+    """Two bf16 toy steps under ``every_layer_save_dots``: K2-K5 launched as
+    often as under ``every_layer`` (the recompute runs the kernels again,
+    as JAX's policy recomputes its ``pallas_call`` s), more K4 than without
+    remat, no plain version; losses and parameters those of
+    ``every_layer``, bitwise (the saved products are the recompute's)."""
+    dots = _toy_steps(card, 2, remat="every_layer_save_dots")
+    layer = _toy_steps(card, 2, remat="every_layer")
+    off = _toy_steps(card, 2)
+    for k in ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd"):
+        assert dots[2].get(k, 0) == layer[2].get(k, 0) > 0, k
+    assert dots[2]["flash_attention_fwd"] > off[2]["flash_attention_fwd"]
+    assert sum(dots[3].values()) == 0
+    assert dots[0] == layer[0]
+    assert all(torch.equal(v, layer[1][n]) for n, v in dots[1].items())
+
+
+def test_local_window_prefill_runs_k4_with_local_heads(card):
+    """A bf16 toy of head dim 128 with 2 of 4 heads local (window 32): a
+    128-token prompt prefills through K4 with ``num_local_heads`` 2, the
+    cached decode gives the uncached decode's tokens, no plain version."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+    from scaling_tpu_torch.train.bench import MODELS
+
+    flash_module = importlib.import_module("scaling_tpu_torch.ops.flash_attention")
+
+    arch = TransformerArchitectureConfig.from_dict(dict(
+        MODELS["toy"], hidden_size=512, num_local_attention_heads=2,
+        local_attention_window_size=32))
+    inf = TransformerInferenceModule.random_init(arch, seed=0, device=card)
+    seen = []
+    launch = flash_module.flash_attention_fwd
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("num_local_heads", args[4] if len(args) > 4 else 0))
+        return launch(*args, **kwargs)
+
+    flash_module.flash_attention_fwd = spy
+    try:
+        prompts = np.random.default_rng(2).integers(1, 512, size=(2, 128)).tolist()
+        launches.reset()
+        cached = inf.generate(prompts, max_tokens=16)
+        kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+    finally:
+        flash_module.flash_attention_fwd = launch
+    assert kernel["flash_attention_fwd"] == 2 and seen and all(n == 2 for n in seen)
+    assert sum(plain.values()) == 0
+    uncached = inf.generate(prompts, max_tokens=16, use_cache=False)
+    for a, b in zip(cached, uncached):
+        # bf16 (K4 or the unfused path, other sums): the logits agree within
+        # 5e-2 of max |logit| up to where the tokens part, and they part, if
+        # at all, at a near tie of the random-weight model's flat logits
+        t = next((i for i, (x, y) in enumerate(zip(a.completion_ids, b.completion_ids))
+                  if x != y), len(a.completion_ids))
+        ref = b.logits[:t + 1].float()
+        err = (a.logits[:t + 1].float() - ref).abs().max().item()
+        assert err <= 5e-2 * ref.abs().max().item(), (t, err)
+
+
+def test_multimodal_step_runs_no_plain_version(card):
+    """Two bf16 steps of the toy with a ViT image encoder (one 384 x 384
+    image a row, 144 tokens at position 8 of 256): K2-K5 launched, no plain
+    version, finite losses, the encoder's weights moved."""
+    import numpy as np
+
+    from scaling_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_model,
+        init_optimizer,
+        loss_function,
+    )
+    from scaling_tpu_torch.train.bench import MODELS
+
+    config = TransformerConfig.from_dict({
+        "topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1},
+        "transformer_architecture": dict(MODELS["toy"], sequence_length=256, image_encoder=True,
+                                         image_encoder_width=128, image_encoder_layers=1,
+                                         image_encoder_heads=4),
+        # a rate at which one step moves a bf16 weight past its rounding
+        "learning_rate_scheduler": {"learning_rate": 1e-3, "learning_rate_warmup_steps": 1}})
+    module = init_model(config, device=card)
+    step = module.build_train_step(init_optimizer(config, module.model), loss_function)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(1, 512, size=(1, 2, 256))).to(card)
+    batch = {"token_ids": tokens, "target_token_ids": tokens.roll(-1, -1),
+             "input_images": torch.from_numpy(rng.normal(size=(1, 2, 1, 384, 384, 3)).astype(
+                 np.float32)).to(card),
+             "input_image_locations": torch.full((1, 2, 1), 8, device=card),
+             "input_image_mask": torch.ones(1, 2, 1, dtype=torch.bool, device=card)}
+    before = module.model.embedding.image_encoder.patch_proj.weight.detach().clone()
+    launches.reset()
+    losses = [float(step(batch)[0]) for _ in range(2)]
+    assert all(np.isfinite(losses))
+    for k in ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd"):
+        assert launches.KERNEL[k] > 0, k
+    assert sum(launches.PLAIN.values()) == 0
+    assert not torch.equal(module.model.embedding.image_encoder.patch_proj.weight, before)

@@ -332,7 +332,7 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
         with pytest.raises(exc):
             TransformerConfig.from_dict({**config_dict(2, 1, "disabled"), **patch})
     # the finetuning keys are read (the misspelled alias too), LoRA builds,
-    # muP is read, the image encoder stays refused
+    # muP and the image encoder are read
     config = TransformerConfig.from_dict({
         **config_dict(2, 1, "disabled"),
         "training": {"finetune": True, "finetunable_parameters": ["norm"],
@@ -345,6 +345,7 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
                                           "transformer_architecture":
                                           dict(ARCH, mup={"base_hidden_size": 64})})
     assert config.transformer_architecture.mup_width_mult == ARCH["hidden_size"] / 64
-    with pytest.raises(NotImplementedError):
-        TransformerConfig.from_dict({**config_dict(2, 1, "disabled"), "transformer_architecture":
-                                     dict(ARCH, image_encoder=True)})
+    config = TransformerConfig.from_dict({**config_dict(2, 1, "disabled"),
+                                          "transformer_architecture":
+                                          dict(ARCH, image_encoder=True)})
+    assert config.transformer_architecture.image_encoder
