@@ -270,6 +270,23 @@ Phases, each of which must pass:
    phase 5's step (8 layers) without remat, with ``every_layer`` and with
    ``every_layer_save_dots``: ms a step, peak memory, launches a step,
    save_dots launching each of K2-K5 as often as every_layer;
+17. tooling, after phase 12, at phase 8's model (``TOOLING``): (a) ~2M tokens
+   in each Megatron layout (MMIDIDX by the port's writer, TNTIDX by numpy)
+   from seed 0, 3 Trainer steps over their blend with ``legacy_dataset``
+   and ``only_full_sequences``: the C++ builder's windows equal to the
+   plain loop's, K2-K5 launched, no plain version, step ms; (b) the pack
+   builder over 2,000,000 document sizes of 16-8192 tokens at sequence
+   2048, every_n 0 and 4: C++ and the plain loop, equal spans, both times;
+   (c) phase 8's step-6 checkpoint exported to the reference's ``.pt``
+   format and imported back, bit-equal, seconds and GB/s, then served for
+   8 requests against ``generate`` (equal or parting first at a near tie),
+   K1 and K2, no plain version; (d) phase 8's kept steps 3 and 6 restored
+   with ``restore.assemble`` failing once (retried), failing each try
+   (step 6 demoted to 3), and a copy of step 6 whose ``MESH.json`` names
+   two devices (``ckpt.reshard`` fires once); (e) ``python -m
+   scaling_tpu_torch.train.bench --model 0.5b --mbs-plan 4,8,16,32
+   --steps 3`` in a child process: each rung's tokens/s, the winner, its
+   MFU, no plain version; a rung out of memory is reported as such;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -294,6 +311,7 @@ import re
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -455,6 +473,19 @@ FEATURES = dict(model="0.5b", layers=2, mbs=TRAIN_MBS, seq=TRAIN_SEQ, image_star
                 clip_source_grid=7, encoder_tol=0.1, local_heads=4, window=256,
                 local_prompts=4, local_prompt_len=1024, local_tokens=128, remat_model="0.5b",
                 remat_steps=5)
+# phase 17: the data, checkpoint and bench tooling at phase 8's model (the 0.5B
+# widths cut to 2 layers). (a) ~2M tokens in each Megatron layout (MMIDIDX by the
+# port's writer, TNTIDX by numpy), documents of 64-4096 tokens from seed 0, 3
+# Trainer steps over their blend with legacy_dataset and only_full_sequences;
+# (b) the pack builder over 2,000,000 document sizes of 16-8192 tokens from seed
+# 0 (~8.2B tokens) at seq 2048, every_n 0 and 4, C++ against the plain loop;
+# (c) phase 8's step-6 checkpoint exported, imported, served for 8 requests;
+# (d) the restore's fault points on phase 8's steps 3 and 6; (e) the train
+# bench's ladder at phase 5's model (8 layers) in a child process
+TOOLING = dict(tokens=2_000_000, doc_len=(64, 4096), steps=3, pack_docs=2_000_000,
+               pack_doc_len=(16, 8192), pack_every_n=(0, 4), serve_requests=8, model="0.5b",
+               mbs_plan="4,8,16,32", ladder_steps=3, ladder_seq=TRAIN_SEQ,
+               ladder_timeout_s=600)
 # the bench 0.5B model in the JAX default architecture: its widths, other keys
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
@@ -1816,19 +1847,22 @@ def check_trainer_launches(kernel: dict, plain: dict) -> None:
         raise AssertionError(f"trainer phase: plain versions ran on the card: {plain}")
 
 
-def keep_base(step_dir: Path, prefixes: dict, keep: Path) -> dict:
+def keep_base(step_dir: Path, prefixes: dict, keep: Path, earlier: tuple = ()) -> dict:
     """Phase 8's ``global_step6`` (its optimizer files pruned: a finetune
-    takes none) and training prefixes moved under ``keep`` for phase 12."""
+    takes none), ``latest`` naming it, and training prefixes moved under
+    ``keep`` for phase 12; the ``earlier`` steps beside it, pruned alike,
+    for phase 17's restores."""
     from scaling_tpu_torch.resilience import prune_manifest_entries
 
     base = keep / "base"
     base.mkdir(parents=True)
-    shutil.move(str(step_dir), str(base / step_dir.name))
+    for d in (*earlier, step_dir):
+        shutil.move(str(d), str(base / d.name))
+        removed = [f.name for f in (base / d.name).glob("optimizer_state_*")]
+        for name in removed:
+            (base / d.name / name).unlink()
+        prune_manifest_entries(base / d.name, removed)
     (base / "latest").write_text(step_dir.name)
-    removed = [f.name for f in (base / step_dir.name).glob("optimizer_state_*")]
-    for name in removed:
-        (base / step_dir.name / name).unlink()
-    prune_manifest_entries(base / step_dir.name, removed)
     kept = {}
     for name in ("a", "b"):
         for f in Path(prefixes[name]).parent.glob(f"{name}.*"):
@@ -1975,7 +2009,7 @@ def trainer_phase(bench_step_ms: float, device: str = "cuda", keep=None) -> dict
                "saves": [(d.name, sec) for d, sec in first.saves], "step_ms": step_ms,
                "peak_bytes": peak}
         if keep is not None:
-            out["base"] = {**keep_base(step_dirs[1], prefixes, Path(keep)),
+            out["base"] = {**keep_base(step_dirs[1], prefixes, Path(keep), step_dirs[:1]),
                            "step_ms": step_ms, "peak_bytes": peak}
         return out
     finally:
@@ -4805,6 +4839,321 @@ def features_phase(device: str = "cuda") -> dict:
             "remat_save_dots": remat["launches"]}
 
 
+# ------------------------------------------------------------ tooling (phase 17)
+def write_tntidx(prefix: Path, docs: list, dtype) -> None:
+    """The Megatron TNTIDX layout written with numpy, as the docstring of
+    ``data/legacy_indexed_dataset.py`` sets it out: one dim a document."""
+    dtype = np.dtype(dtype)
+    sizes = np.asarray([len(d) for d in docs], np.int64)
+    code = {np.dtype(np.uint16): 8, np.dtype(np.int32): 4}[dtype]
+    with open(prefix.with_suffix(".bin"), "wb") as f:
+        for d in docs:
+            f.write(np.asarray(d, dtype).tobytes())
+    with open(prefix.with_suffix(".idx"), "wb") as f:
+        f.write(b"TNTIDX\x00\x00")
+        f.write(struct.pack("<QQQQQQ", 1, code, dtype.itemsize, len(docs), len(docs),
+                            len(docs) + 1))
+        for arr in (np.arange(len(docs) + 1), np.concatenate([[0], np.cumsum(sizes)]), sizes,
+                    np.arange(len(docs) + 1)):
+            f.write(np.asarray(arr, np.int64).tobytes())
+
+
+def write_legacy_datasets(root: Path, vocab: int) -> dict:
+    """(a)'s data: ~TOOLING["tokens"] tokens in each Megatron layout, MMIDIDX
+    by the port's writer and TNTIDX by numpy, uint16 documents of
+    ``doc_len`` tokens ending in EOD 0, from seed 0."""
+    from scaling_tpu_torch.data import LegacyMMapIndexWriter
+
+    rng = np.random.default_rng(0)
+    docs = {}
+    for name in ("mmidx", "tntidx"):
+        docs[name], written = [], 0
+        while written < TOOLING["tokens"]:
+            doc = rng.integers(1, vocab, size=int(rng.integers(*TOOLING["doc_len"])) - 1)
+            docs[name].append(np.append(doc, 0))
+            written += doc.size + 1
+    with LegacyMMapIndexWriter(root / "mmidx", dtype=np.uint16) as writer:
+        for d in docs["mmidx"]:
+            writer.add(d)
+    write_tntidx(root / "tntidx", docs["tntidx"], np.uint16)
+    return {name: str(root / name) for name in docs}
+
+
+def legacy_trainer_check(root: Path, device: str) -> dict:
+    """(a): TOOLING["steps"] Trainer steps of phase 8's model over a blend of
+    the two Megatron datasets with ``legacy_dataset`` and
+    ``only_full_sequences``; the C++ builder's windows against the plain
+    loop's; K2-K5 launched, no plain version. The counters are reset just
+    before and read just after."""
+    from scaling_tpu_torch.data import LegacyIndexedDataset
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import main
+    from scaling_tpu_torch.native import build_pack_index_plain
+    from scaling_tpu_torch.ops import launches
+
+    t0 = time.monotonic()
+    (root / "legacy").mkdir()
+    prefixes = write_legacy_datasets(root / "legacy", trainer_arch()["vocab_size"])
+    written = time.monotonic() - t0
+    cfg = trainer_config({"a": prefixes["mmidx"], "b": prefixes["tntidx"], "valid": None},
+                         root / "legacy_logs")
+    cfg["data"] = {"data_prefixes": [prefixes["mmidx"], prefixes["tntidx"]],
+                   "legacy_dataset": True, "only_full_sequences": True,
+                   "eod_token_id": 0}
+    cfg["trainer"].update(train_iterations=TOOLING["steps"], eval_interval=None,
+                          eval_iterations=0)
+    launches.reset()
+    try:
+        trainer = main(TransformerConfig.from_dict(cfg), device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+        windows = {}
+        for ds in trainer.dataset.datasets:
+            if not isinstance(ds.memory_map, LegacyIndexedDataset):
+                raise AssertionError(f"{ds.data_prefix} is not read as Megatron data")
+            starts, ends = build_pack_index_plain(ds.memory_map.sizes(), ds.sequence_length,
+                                                  ds.allow_incomplete_sequences_every_n)
+            if not (np.array_equal(ds._item_starts, starts)
+                    and np.array_equal(ds._item_ends, ends)):
+                raise AssertionError(f"{ds.data_prefix}: the C++ windows are not the loop's")
+            windows[Path(ds.data_prefix).name] = len(starts)
+        iterations = trainer.context.iterations
+        del trainer
+    finally:
+        reset_logger()
+    records = metric_records(root / "legacy_logs" / "metrics_rank_0.jsonl")
+    steps = [r for r in records if "loss" in r["metrics"]]
+    losses = [r["metrics"]["loss"] for r in steps]
+    if iterations != TOOLING["steps"] or len(losses) != TOOLING["steps"]:
+        raise AssertionError(f"(a) trained {iterations} steps, records {len(losses)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"(a) non-finite losses {losses}")
+    step_ms = statistics.median(r["metrics"]["step_duration"] for r in steps[1:]) * 1e3
+    print(f"  (a) Megatron data written in {written:.1f}s; windows by the C++ builder equal "
+          f"to the plain loop's: {windows}; {TOOLING['steps']} steps, losses {losses}, "
+          f"step {step_ms:.2f}ms (median of steps 2-{TOOLING['steps']}, host clock to the "
+          f"loss's fetch)")
+    print(f"  (a) launches kernel={kernel} plain={plain}")
+    if device == "cuda":
+        needed = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd")
+        if any(kernel.get(k, 0) <= 0 for k in needed) or sum(plain.values()):
+            raise AssertionError(f"(a) kernels {kernel}, plain versions {plain}")
+        torch.cuda.empty_cache()
+    return {"launches": kernel, "step_ms": step_ms, "losses": losses}
+
+
+def pack_builder_check() -> dict:
+    """(b): the C++ builder and the plain loop over TOOLING["pack_docs"]
+    document sizes from seed 0 at sequence 2048, each
+    ``allow_incomplete_sequences_every_n`` of TOOLING["pack_every_n"]; the
+    spans must be equal. Host seconds of each."""
+    from scaling_tpu_torch import native
+
+    t0 = time.monotonic()
+    native.load()
+    loaded = time.monotonic() - t0
+    sizes = np.random.default_rng(0).integers(TOOLING["pack_doc_len"][0],
+                                              TOOLING["pack_doc_len"][1] + 1,
+                                              size=TOOLING["pack_docs"])
+    out = {}
+    for every_n in TOOLING["pack_every_n"]:
+        t0 = time.monotonic()
+        got = native.build_pack_index(sizes, TRAIN_SEQ, every_n)
+        cpp_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        want = native.build_pack_index_plain(sizes, TRAIN_SEQ, every_n)
+        plain_s = time.monotonic() - t0
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"(b) every_n {every_n}: the C++ spans are not the loop's")
+        out[every_n] = {"cpp_s": cpp_s, "plain_s": plain_s, "windows": len(got[0])}
+        print(f"  (b) {len(sizes)} documents, {int(sizes.sum())} tokens, every_n {every_n}: "
+              f"{len(got[0])} windows, equal; C++ {cpp_s * 1e3:.1f}ms, plain loop "
+              f"{plain_s * 1e3:.1f}ms ({plain_s / cpp_s:.0f}x)")
+    print(f"  (b) the C++ builder loaded (built with g++ if missing) in {loaded:.2f}s")
+    return out
+
+
+def reference_round_trip(base: dict, root: Path, device: str) -> dict:
+    """(c): phase 8's step-6 checkpoint exported to the reference's format
+    and imported back, bit-equal to the source; the import served for
+    TOOLING["serve_requests"] requests (native KV, phase 4's traffic),
+    greedy tokens against ``generate``'s under the near-tie rule; K1 and K2
+    launched, no plain version (the counters reset just before the engine
+    and read just after ``generate``)."""
+    from scaling_tpu_torch.checkpoint.export_reference import export_reference_checkpoint
+    from scaling_tpu_torch.checkpoint.import_reference import convert_reference_checkpoint
+    from scaling_tpu_torch.models.transformer import TransformerInferenceModule
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+    from scaling_tpu_torch.serve.bench import sample_workload
+
+    src = base["ckpt"] / (base["ckpt"] / "latest").read_text()
+    weights = sum(f.stat().st_size for f in src.glob("model_state_layer_*.npz"))
+    t0 = time.monotonic()
+    written = export_reference_checkpoint(src, root / "ref")
+    export_s = time.monotonic() - t0
+    pt_bytes = sum(f.stat().st_size for f in (root / "ref").glob("*.pt"))
+    t0 = time.monotonic()
+    converted = convert_reference_checkpoint(root / "ref", root / "imported")
+    import_s = time.monotonic() - t0
+    for f in src.glob("model_state_layer_*.npz"):
+        with np.load(f) as want, np.load(root / "imported" / f.name) as got:
+            if sorted(got.files) != sorted(want.files) or any(
+                    got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k])
+                    for k in want.files):
+                raise AssertionError(f"(c) {f.name}: the import is not the source bit for bit")
+    print(f"  (c) export: {written} .pt files, {pt_bytes / 1e9:.3f} GB bf16 from "
+          f"{weights / 1e9:.3f} GB of f32 npz, {export_s:.2f}s ({weights / export_s / 1e9:.2f} "
+          f"GB/s of npz); import: {converted} npz files in {import_s:.2f}s "
+          f"({weights / import_s / 1e9:.2f} GB/s of npz), bit-equal to the source")
+    shutil.copy(src / "config.yml", root / "imported" / "config.yml")
+    served = TransformerInferenceModule.from_checkpoint(root / "imported", device=device)
+    arch = served.architecture
+    work = sample_workload(TOOLING["serve_requests"], WORKLOAD["rate"], WORKLOAD["prompt_len"],
+                           WORKLOAD["output_len"], arch.vocab_size, WORKLOAD["seed"])
+    launches.reset()
+    engine = ServeEngine(served, EngineConfig(kv_dtype="native", **SERVE), device=device)
+    for _, prompt, olen in work:
+        engine.submit(prompt, olen)
+    tokens = {s.request.req_id: list(s.generated) for s in engine.run_until_done()}
+    versus = served_vs_generated(served, [tokens[i] for i in sorted(tokens)], work)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+    print(f"  (c) served {len(work)} requests of the import: greedy tokens equal to generate's "
+          f"in {versus['equal']}/{len(work)}, the others part at a near tie (request, token, "
+          f"logit gap, max|logit|): {versus['ties']}; launches kernel={kernel} plain={plain}")
+    if device == "cuda" and (any(kernel.get(k, 0) <= 0 for k in ("paged_attention", "rms_norm"))
+                             or sum(plain.values())):
+        raise AssertionError(f"(c) kernels {kernel}, plain versions {plain}")
+    del engine, served
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": kernel, "export_s": export_s, "import_s": import_s,
+            "weights_bytes": weights}
+
+
+def restore_faults_check(base: dict, root: Path, device: str) -> dict:
+    """(d): one Trainer of phase 8's config loads phase 8's kept steps 3
+    and 6 (model files, ``latest`` at 6) with ``restore.assemble`` failing
+    once (retried: step 6) and failing each of its 3 tries (step 6
+    demoted: step 3), then a copy of step 6 whose ``MESH.json`` names two
+    devices (``ckpt.reshard`` fires once). Host seconds of each load,
+    the crc32 verification included."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import build_trainer
+    from scaling_tpu_torch.resilience import FaultPlan, get_fault_plan, set_fault_plan
+    from scaling_tpu_torch.resilience.manifest import write_manifest
+
+    cfg = trainer_config({**base["prefixes"], "valid": None}, root / "restore_logs")
+    cfg["data"].pop("validation_data_prefixes")
+    cfg["trainer"].update(eval_interval=None, eval_iterations=0, load_optimizer_states=False)
+    trainer = build_trainer(TransformerConfig.from_dict(cfg), device=device)
+    older, newest = sorted(int(d.name[len("global_step"):])
+                           for d in base["ckpt"].glob("global_step*"))[-2:]
+    latest = base["ckpt"] / f"global_step{newest}"
+    n_files = len(list(latest.glob("model_state_layer_*.npz")))
+    mesh = root / "mesh" / latest.name
+    shutil.copytree(latest, mesh, copy_function=os.link)
+    meta = json.loads((mesh / "MESH.json").read_text())
+    meta["topology"].update(world_size=2, data_parallel_size=2)
+    for name in ("MESH.json", "MANIFEST.json"):  # links: new files, the originals untouched
+        (mesh / name).unlink()
+    (mesh / "MESH.json").write_text(json.dumps(meta))
+    write_manifest(mesh, newest)
+    out = {}
+    try:
+        for name, where, spec, step, point, hits in (
+                ("transient", base["ckpt"], "restore.assemble=fail@1", newest,
+                 "restore.assemble", 1 + n_files),
+                ("persistent", base["ckpt"], "restore.assemble=fail@1x3", older,
+                 "restore.assemble", 3 + n_files),
+                ("reshard", mesh.parent, "", newest, "ckpt.reshard", 1)):
+            set_fault_plan(FaultPlan(spec))
+            t0 = time.monotonic()
+            if not trainer.load_checkpoint(where):
+                raise AssertionError(f"(d) {name}: nothing restored")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            got = (trainer.context.iterations, get_fault_plan().hits(point))
+            print(f"  (d) {name} ({spec or 'MESH.json of 2 devices'}): restored step {got[0]}, "
+                  f"{point} hits {got[1]}, {seconds:.2f}s")
+            if got != (step, hits):
+                raise AssertionError(f"(d) {name}: step and hits {got}, expected {(step, hits)}")
+            out[name] = seconds
+    finally:
+        set_fault_plan(None)
+        del trainer
+        reset_logger()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+LADDER_LINE = re.compile(
+    r"^mbs=(\d+) (?:(out of memory)|([0-9.]+) tokens/s(?: peak ([0-9.]+) GB)?)$")
+
+
+def ladder_check(device: str) -> dict:
+    """(e): ``python -m scaling_tpu_torch.train.bench`` climbing
+    TOOLING["mbs_plan"] at phase 5's model (8 layers) in a child process,
+    so that an out-of-memory rung cannot leave fragments in this process's
+    allocator. Each rung's tokens/s, the winner and its MFU; no plain
+    version ran in the child."""
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        print(f"  (e) this process holds {held / 1e9:.2f} GB of the card while the child runs")
+    cmd = [sys.executable, "-m", "scaling_tpu_torch.train.bench", "--model", TOOLING["model"],
+           "--mbs-plan", TOOLING["mbs_plan"], "--steps", str(TOOLING["ladder_steps"]),
+           "--seq-len", str(TOOLING["ladder_seq"]), "--device", device]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=TOOLING["ladder_timeout_s"])
+    seconds = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(e) the ladder exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    lines = {line.split(": ", 1)[0]: line.split(": ", 1)[1]
+             for line in proc.stdout.splitlines() if ": " in line}
+    rungs_text, winner = lines["ladder"].rsplit("; winner mbs=", 1)
+    rungs = []
+    for part in rungs_text.split(", "):
+        m = LADDER_LINE.match(part)
+        if m is None:
+            raise AssertionError(f"(e) unreadable rung {part!r}")
+        rungs.append({"mbs": int(m.group(1)), "oom": bool(m.group(2)),
+                      "tokens_per_s": None if m.group(2) else float(m.group(3)),
+                      "peak_gb": None if m.group(4) is None else float(m.group(4))})
+    counts = json.loads(lines["launches"])
+    for line in proc.stdout.splitlines():
+        print(f"  (e) | {line}")
+    print(f"  (e) the child ran {seconds:.1f}s")
+    if device == "cuda" and (sum(counts["plain"].values()) or not counts["kernel"]):
+        raise AssertionError(f"(e) launches {counts}")
+    return {"rungs": rungs, "winner": int(winner), "seconds": seconds,
+            "launches": counts["kernel"]}
+
+
+def tooling_phase(base: dict, device: str = "cuda") -> dict:
+    """Phase 17: (a)-(e) of TOOLING on phase 8's kept checkpoint and data.
+    Returns the launch counters of (a)'s training and (c)'s serving."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tooling_"))
+    try:
+        trained = legacy_trainer_check(root, device)
+        pack_builder_check()
+        served = reference_round_trip(base, root, device)
+        restore_faults_check(base, root, device)
+        ladder_check(device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"tooling_legacy_trainer": trained["launches"],
+            "tooling_import_serve": served["launches"]}
+
+
 def add_launches(rows: list, launches_by_path: dict) -> None:
     """``launches``: the sum over the main-path runs; ``launches_by_path``:
     each run's own count (``launches_by_path`` maps a run's name to the
@@ -4912,6 +5261,11 @@ def main() -> int:
     finetuned = finetune_phase(trainer_run["base"])
     launches_by_path["finetune"] = finetuned["launches"]
     lap("finetune (12)")
+    print("== tooling (phase 17): Megatron data through the Trainer, the C++ pack builder, "
+          "a reference checkpoint exported, imported and served, the restore's fault points, "
+          "the train bench's micro-batch ladder")
+    launches_by_path.update(tooling_phase(trainer_run["base"]))
+    lap("tooling (17)")
     print("== modes (phase 13): speculative decoding, whole-prompt prefill, separate "
           "forwards; crash replay, drain, a wedged tick and overload in child benches")
     launches_by_path.update(modes_phase(serve_native, served["tokens"]))

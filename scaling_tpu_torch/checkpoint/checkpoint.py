@@ -257,6 +257,16 @@ class _NpzReader:
         self._file.close()
 
 
+def _open_artifact(path: Path) -> _NpzReader:
+    """One checkpoint npz opened for a restore. Fires the
+    ``restore.assemble`` fault point first, once per artifact: an injected
+    failure is an ``OSError``, which the Trainer's bounded retry retries
+    and which, when it persists, demotes the checkpoint to the next valid
+    one."""
+    get_fault_plan().fire("restore.assemble", path=path)
+    return _NpzReader(path)
+
+
 def _emit(writer: Optional[AsyncCheckpointWriter], path: Path, arrays: Dict[str, np.ndarray],
           recorder: Optional[Recorder]) -> None:
     if writer is None:
@@ -338,7 +348,7 @@ def load_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
                 continue
             f, name = available[key]
             if f not in opened:
-                opened[f] = _NpzReader(f)
+                opened[f] = _open_artifact(f)
             _copy_in(t, key, opened[f][name], "parameter")
             if restored_keys is not None:
                 restored_keys.add(key)
@@ -395,7 +405,7 @@ def load_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer,
         for file, name in ((f, f"{field}.{pname}"), (legacy, pname)):
             if file in opened or file.exists():
                 if file not in opened:
-                    opened[file] = _NpzReader(file)
+                    opened[file] = _open_artifact(file)
                 return opened[file][name]
         raise FileNotFoundError(f"optimizer checkpoint file missing: {f}")
 

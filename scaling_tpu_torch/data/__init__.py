@@ -9,6 +9,8 @@ from .blended_dataset import (
     weights_examples_proportional,
 )
 from .dataloader import DataLoader, RandomSampler
+from .file_dataset import FileDataset
+from .legacy_indexed_dataset import LegacyIndexedDataset, LegacyMMapIndexWriter
 from .memory_map import MemoryMapDataset, MemoryMapDatasetBuilder
 
 __all__ = [
@@ -18,6 +20,9 @@ __all__ = [
     "BaseDatasetItem",
     "BlendedDatasetConfig",
     "DataLoader",
+    "FileDataset",
+    "LegacyIndexedDataset",
+    "LegacyMMapIndexWriter",
     "MemoryMapDataset",
     "MemoryMapDatasetBuilder",
     "RandomSampler",

@@ -435,9 +435,8 @@ class DataConfig:
     finetuning_dataset: bool = False  # prompt/completion jsonl (or memory map) data
     finetuning_chat_dataset: bool = False  # chat jsonl data
     finetuning_dataset_memory_map: bool = False
+    legacy_dataset: bool = False  # Megatron-format .bin/.idx data
 
-    # not ported: the values that leave them off
-    _NOT_PORTED = {"legacy_dataset": False}
     # no effect in the JAX package either
     _INERT = ("use_mmap", "load_data_item_mmap_index_to_memory")
 
@@ -449,9 +448,6 @@ class DataConfig:
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "DataConfig":
         d = dict(d)
-        for key, off in cls._NOT_PORTED.items():
-            if key in d and d.pop(key) != off:
-                raise NotImplementedError(f"data.{key} is not ported")
         for key in cls._INERT:
             d.pop(key, None)
         unknown = set(d) - {f.name for f in dataclasses.fields(cls)}

@@ -1,11 +1,12 @@
 """Pretraining text dataset: packed fixed-length windows over memory-mapped
 documents (counterpart of scaling_tpu/models/transformer/data/text_dataset.py).
 
-Token documents in a ``MemoryMapDataset`` are packed into items of
+Token documents in a ``MemoryMapDataset`` (or, with ``legacy_dataset``,
+a Megatron ``.bin/.idx`` pair) are packed into items of
 ``sequence_length + 1`` tokens (input and target shifted by one). The
 pack index is a pure function of the documents' sizes and the sequence
-length, computed here by the JAX package's Python loop. EOD tokens start
-a new segment id; positions restart at each segment.
+length, built by the C++ builder of ``scaling_tpu_torch.native``. EOD
+tokens start a new segment id; positions restart at each segment.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import torch
 
 from ....data import BaseDataset, BaseDatasetBatch, BaseDatasetItem
 from ....data.blended_dataset import BaseBlendedDataset
+from ....data.legacy_indexed_dataset import LegacyIndexedDataset
 from ....data.memory_map import MemoryMapDataset
+from ....native import build_pack_index
 from ....nn.seq_packing import get_position_ids_from_segments, get_segment_ids
 
 # the order of the fields in the one host-to-device copy of a batch
@@ -85,69 +88,30 @@ class TextDataset(BaseDataset[TextDatasetItem, TextDatasetBatch]):
                  only_full_sequences: bool = False,
                  allow_incomplete_sequences_every_n: int = 0,
                  load_index_to_memory: bool = True, legacy_dataset: bool = False):
-        if legacy_dataset:
-            raise NotImplementedError("data.legacy_dataset (Megatron .bin/.idx) is not ported")
         self.data_prefix = Path(data_prefix)
         self.sequence_length = sequence_length
         self.eod_token_id = eod_token_id
         self.only_full_sequences = only_full_sequences
         self.allow_incomplete_sequences_every_n = allow_incomplete_sequences_every_n
-        self.memory_map = MemoryMapDataset(self.data_prefix,
-                                           load_index_to_memory=load_index_to_memory)
+        # Megatron .bin/.idx data has the same store interface as a memory map
+        store = LegacyIndexedDataset if legacy_dataset else MemoryMapDataset
+        self.memory_map = store(self.data_prefix, load_index_to_memory=load_index_to_memory)
         self._build_pack_index()
         super().__init__(seed=seed, shuffle=shuffle)
 
     def _build_pack_index(self) -> None:
         """Item i covers tokens [i*L, i*L + L + 1) of the concatenated
         document stream, L = sequence_length. With only_full_sequences the
-        items align to document starts instead: whole documents are packed
-        greedily into [start, end) windows, a window closes at the first
-        document that does not fit, and every
-        ``allow_incomplete_sequences_every_n``-th window may cut a document."""
+        items align to document starts instead, the windows of the C++
+        builder (``native.build_pack_index``)."""
         sizes = self.memory_map.sizes().astype(np.int64)
-        total_tokens = int(sizes.sum())
-        L = self.sequence_length
-        self._total_tokens = total_tokens
+        self._total_tokens = int(sizes.sum())
         if not self.only_full_sequences:
-            self._num_items = max((total_tokens - 1) // L, 0)
+            self._num_items = max((self._total_tokens - 1) // self.sequence_length, 0)
             self._item_starts = self._item_ends = None
             return
-        spans: List[tuple] = []
-        doc_offsets = np.concatenate([[0], np.cumsum(sizes)])
-        window_start = 0
-        since_cut = 0
-        every_n = self.allow_incomplete_sequences_every_n
-        for d in range(len(sizes)):
-            doc_start = int(doc_offsets[d])
-            doc_end = int(doc_offsets[d + 1])
-            if doc_end - window_start <= L:
-                continue  # the document fits into the open window
-            if every_n > 0 and since_cut + 1 >= every_n:
-                # the every-n exception: cut mid-document, windows of L+1
-                # tokens overlapping by one, so the boundary token is the
-                # target of one window and the first input of the next
-                while doc_end - window_start > L:
-                    spans.append((window_start, window_start + L + 1))
-                    window_start += L
-                since_cut = 0
-                continue
-            if doc_start > window_start:  # close the open window at this document
-                spans.append((window_start, doc_start))
-                since_cut += 1
-            window_start = doc_start
-            if doc_end - window_start > L:
-                # an over-long document: full windows, the <L-token tail
-                # dropped so the next window starts at a document
-                while doc_end - window_start > L:
-                    spans.append((window_start, window_start + L + 1))
-                    window_start += L
-                    since_cut = 0
-                window_start = doc_end
-        if total_tokens - window_start >= 2:
-            spans.append((window_start, total_tokens))
-        spans = [(s, e) for s, e in spans if e - s >= 2 and s + 2 <= total_tokens]
-        self._item_starts = np.asarray([s for s, _ in spans], dtype=np.int64)
-        self._item_ends = np.asarray([e for _, e in spans], dtype=np.int64)
+        self._item_starts, self._item_ends = build_pack_index(
+            sizes, self.sequence_length, self.allow_incomplete_sequences_every_n)
         self._num_items = len(self._item_starts)
 
     def set_seed(self, seed: int, shuffle: bool = True) -> None:

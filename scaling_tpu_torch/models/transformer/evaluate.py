@@ -76,7 +76,7 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--max-batches", type=int, default=None)
     ap.add_argument("--legacy-dataset", action="store_true",
-                    help="Megatron .bin/.idx format (not ported: raises)")
+                    help="Megatron .bin/.idx format (MMIDIDX or TNTIDX)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)

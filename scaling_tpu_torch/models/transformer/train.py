@@ -118,7 +118,8 @@ def _read_dataset(config: TransformerConfig, prefixes: Optional[List[Any]]):
                         eod_token_id=data.eod_token_id,
                         only_full_sequences=data.only_full_sequences,
                         allow_incomplete_sequences_every_n=data.allow_incomplete_sequences_every_n,
-                        load_index_to_memory=data.load_mmap_index_to_memory)
+                        load_index_to_memory=data.load_mmap_index_to_memory,
+                        legacy_dataset=data.legacy_dataset)
             for p in prefixes]
         blended_cls = TextBlendedDataset
     if len(datasets) == 1:

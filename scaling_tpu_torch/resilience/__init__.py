@@ -5,7 +5,7 @@ pre-flight, the in-loop guards, bounded auto-resume, and the supervision
 control plane (heartbeats, barriers and flags over a shared directory or
 a coordinator's TCP server)."""
 
-from .commit import CheckpointCommit, checkpoint_candidates
+from .commit import CheckpointCommit, checkpoint_candidates, scan_step_dirs, select_checkpoint
 from .controlplane import (
     BarrierTimeout,
     ControlPlane,
@@ -41,7 +41,14 @@ from .meshmeta import (
     validate_param_tree,
     write_mesh_meta,
 )
-from .reshard import ReshardError, ReshardPlan, rescale_consumed_samples, reshard_plan
+from .reshard import (
+    ReshardError,
+    ReshardPlan,
+    fire_reshard_point,
+    iter_global_leaves,
+    rescale_consumed_samples,
+    reshard_plan,
+)
 from .resume import run_with_resume
 
 __all__ = [
@@ -65,7 +72,9 @@ __all__ = [
     "checkpoint_candidates",
     "controlplane_from_env",
     "dump_thread_stacks",
+    "fire_reshard_point",
     "get_fault_plan",
+    "iter_global_leaves",
     "mesh_matches",
     "param_record",
     "prune_manifest_entries",
@@ -75,6 +84,8 @@ __all__ = [
     "reshard_plan",
     "retry_io",
     "run_with_resume",
+    "scan_step_dirs",
+    "select_checkpoint",
     "set_fault_plan",
     "signature_label",
     "straggler_table",

@@ -10,7 +10,8 @@ point leaves the previous committed checkpoint, or the new one.
 
 On load, ``checkpoint_candidates`` lists the ``latest``-pointed directory
 first, then every other ``global_step*`` newest first; the trainer takes
-the first that verifies.
+the first that verifies and loads, ``select_checkpoint`` the first that
+verifies.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 from ..obs.spans import span
 from .faults import get_fault_plan
-from .manifest import write_manifest
+from .manifest import CheckpointCorruptionError, verify_checkpoint, write_manifest
 
 TMP_PREFIX = ".tmp-global_step"
 LATEST_NAME = "latest"
@@ -96,6 +97,14 @@ class CheckpointCommit:
         _fsync_path(self.base)
 
 
+def scan_step_dirs(base: Union[Path, str]) -> List[Tuple[int, Path]]:
+    """``(step, directory)`` of every ``global_stepN`` under ``base``,
+    newest first."""
+    base = Path(base)
+    return sorted(((int(m.group(1)), d) for d in (base.iterdir() if base.is_dir() else [])
+                   if (m := _STEP_RE.match(d.name)) and d.is_dir()), reverse=True)
+
+
 def checkpoint_candidates(base: Union[Path, str]) -> List[Path]:
     """Step directories under ``base`` in restore order: the one
     ``latest`` names (when it exists), then every other ``global_step*``
@@ -110,10 +119,30 @@ def checkpoint_candidates(base: Union[Path, str]) -> List[Path]:
         else:
             _log.warning(f"latest names {pointed.name!r} but no such directory exists "
                          f"under {base}; falling back to a scan")
-    steps = sorted(((int(m.group(1)), d) for d in (base.iterdir() if base.is_dir() else [])
-                    if (m := _STEP_RE.match(d.name)) and d.is_dir()), reverse=True)
-    cands += [d for _, d in steps if d not in cands]
+    cands += [d for _, d in scan_step_dirs(base) if d not in cands]
     if not cands and ((base / "context.json").is_file()
                       or any(base.glob("model_state_layer_*.npz"))):
         cands.append(base)
     return cands
+
+
+def select_checkpoint(base: Union[Path, str], strict: bool = False, deep: bool = True
+                      ) -> Tuple[Optional[Path], List[str]]:
+    """The first of ``checkpoint_candidates`` that verifies against its
+    manifest (None when none does), and one line for each candidate
+    skipped, saying why. ``strict`` raises CheckpointCorruptionError at
+    the first invalid candidate instead."""
+    skipped: List[str] = []
+    for cand in checkpoint_candidates(base):
+        problems = verify_checkpoint(cand, deep=deep)
+        if not problems:
+            if skipped:
+                _log.warning(f"restored from {cand} after skipping {len(skipped)} invalid "
+                             "checkpoint(s): " + " | ".join(skipped))
+            return cand, skipped
+        line = f"{cand.name}: {'; '.join(problems)}"
+        if strict:
+            raise CheckpointCorruptionError(f"checkpoint verification failed (strict mode): {line}")
+        _log.warning(f"skipping invalid checkpoint {line}")
+        skipped.append(line)
+    return None, skipped

@@ -20,6 +20,17 @@ point               fired
                     (``CheckpointCommit.finalize``)
 ``ckpt.rename``     after the manifest and the fsyncs, before the atomic
                     staging-dir -> ``global_stepN`` rename
+``ckpt.reshard``    once per engaged reshard restore (the checkpoint's
+                    ``MESH.json`` topology differs from the restoring
+                    one), before any leaf is loaded
+                    (``reshard.fire_reshard_point``, from the Trainer's
+                    load)
+``restore.assemble`` once per checkpoint npz opened during a restore
+                    (``checkpoint._open_artifact`` and the model-free
+                    ``reshard.iter_global_leaves``); ``fail`` is an
+                    ``OSError`` in the Trainer's bounded-retry load: a
+                    transient one is retried, a persistent one demotes
+                    the checkpoint to the next valid one
 ``data.read``       once per dataloader micro-batch read attempt
                     (``DataLoader._read_batch``, inside its retry)
 ``step.nan_grads``  once per train step after the step returns; ``nan``

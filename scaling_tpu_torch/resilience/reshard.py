@@ -14,8 +14,13 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Dict, Optional
+from pathlib import Path
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
+import numpy as np
+
+from .faults import get_fault_plan
+from .guards import retry_io
 from .meshmeta import mesh_matches, signature_label, topology_signature, validate_param_tree
 
 _log = logging.getLogger("scaling_tpu_torch")
@@ -68,6 +73,14 @@ def reshard_plan(mesh_meta: Optional[dict], current_topology: Dict[str, Any],
     return plan
 
 
+def fire_reshard_point(step_dir: Union[Path, str], plan: ReshardPlan) -> None:
+    """The ``ckpt.reshard`` fault point: fired once per engaged reshard
+    restore, before any leaf is loaded."""
+    get_fault_plan().fire("ckpt.reshard", path=step_dir)
+    _log.info(f"resharding checkpoint {Path(step_dir).name}: "
+              f"{plan.saved_label} -> {plan.restoring_label}")
+
+
 def rescale_consumed_samples(consumed_samples: int, *, micro_batch_size: int,
                              data_parallel_size: int, what: str = "consumed_samples",
                              on_misaligned: str = "error") -> int:
@@ -92,3 +105,27 @@ def rescale_consumed_samples(consumed_samples: int, *, micro_batch_size: int,
         f"data_parallel_size ({grid}): resuming here would split a micro-batch stride "
         f"mid-step. Pick a batch hierarchy whose mbs*dp divides {consumed_samples}; the "
         "saving run's global_batch_size always does")
+
+
+def iter_global_leaves(step_dir: Union[Path, str], *, retry_attempts: int = 3,
+                       retry_backoff: float = 0.05) -> Iterator[Tuple[str, str, np.ndarray]]:
+    """``(file name, entry name, global array)`` for every model and
+    optimizer artifact of an npz checkpoint, one array in memory at a
+    time. Each file is opened through ``retry_io``, behind the
+    ``restore.assemble`` fault point: any reader gets the global arrays
+    without a model and without the mesh that saved them."""
+    step_dir = Path(step_dir)
+    files = (sorted(step_dir.glob("model_state_layer_*.npz"))
+             + sorted(step_dir.glob("optimizer_state_layer_*.npz")))
+    for f in files:
+        def open_file(path=f):
+            get_fault_plan().fire("restore.assemble", path=path)
+            return np.load(path, allow_pickle=False)
+
+        z = retry_io(open_file, attempts=retry_attempts, base_delay=retry_backoff,
+                     what=f"reshard assemble {f.name}")
+        try:
+            for name in z.files:
+                yield f.name, name, z[name]
+        finally:
+            z.close()

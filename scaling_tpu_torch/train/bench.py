@@ -14,6 +14,12 @@ targets rolled by -1, positions ``arange``, segment ids 0, loss weights
 1). After ``--warmup`` steps it times ``--steps`` steps in each of 3
 windows and reports the median window's step time, tokens/s and the
 PaLM MFU against the H100's 989.4 TFLOP/s bf16 peak, plus the losses.
+``--mbs-plan 4,8,16,32`` climbs ``bench.py``'s micro-batch ladder:
+each rung measured so, up while tokens/s improves, the winner reported
+beside every rung's tokens/s (and, on the card, its peak
+``max_memory_allocated``); a rung out of device memory ends the climb.
+The kernels' and the plain versions' launches over the run are printed
+last.
 
 It runs on the card unless ``--device cpu`` is given; without a card it
 raises.
@@ -22,9 +28,12 @@ raises.
 from __future__ import annotations
 
 import argparse
+import gc
+import json
 import statistics
+import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +45,7 @@ from ..models.transformer.utils.get_tflops import (
     get_palm_mfu,
     moe_parameter_counts,
 )
+from ..ops import launches
 from ..serve import bench as serve_bench
 
 MODELS = {
@@ -103,11 +113,90 @@ def timed_windows(step, batch, device, steps: int, windows: int = 3):
     return seconds, losses
 
 
+def climb_mbs_ladder(measure: Callable[[int], dict], mbs_plan: Sequence[int]
+                     ) -> Tuple[dict, List[dict]]:
+    """``bench.py:climb_mbs_ladder``: measure the plan's first rung, then
+    climb while a rung's tokens/s beats the best so far, stopping at the
+    first rung that does not. ``measure(mbs)`` returns a record with
+    ``tokens_per_s``. A rung that runs out of device memory
+    (``torch.cuda.OutOfMemoryError``) ends the climb with the winner kept,
+    its tensors freed first; any other error propagates. Returns the
+    winner's record and every rung's (an out-of-memory rung as
+    ``{"mbs": n, "oom": True}``)."""
+    best = measure(mbs_plan[0])
+    rungs = [best]
+    for mbs in mbs_plan[1:]:
+        _release()
+        try:
+            rec = measure(mbs)
+        except torch.cuda.OutOfMemoryError as e:
+            what = str(e).splitlines()[0] if str(e) else type(e).__name__
+            rungs.append({"mbs": mbs, "oom": True, "error": what})
+        else:
+            rungs.append(rec)
+            if rec["tokens_per_s"] > best["tokens_per_s"]:
+                best = rec
+                continue
+        break
+    _release()  # the failed rung's tensors: the exception's frames are gone
+    if rungs[-1].get("oom"):
+        print(f"# mbs={rungs[-1]['mbs']} rung out of memory ({rungs[-1]['error']}); "
+              f"keeping mbs={best['mbs']}", file=sys.stderr)
+    return best, rungs
+
+
+def _release() -> None:
+    """Free what the last rung left: its cycles, then the allocator's cache."""
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def measure_rung(args, device: torch.device, mbs: int) -> dict:
+    """One rung: build at micro-batch ``mbs``, ``--warmup`` steps, then
+    ``--steps`` in each of 3 windows; nothing of the model outlives it."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    config, module, optimizer = build(args.model, args.seq_len, mbs, args.gas, args.remat,
+                                      args.seed, device)
+    arch = config.transformer_architecture
+    step = module.build_train_step(optimizer, loss_function)
+    batch = synth_batch(np.random.default_rng(args.seed), mbs, args.seq_len,
+                        arch.vocab_size, args.gas, device)
+    first = [float(step(batch)[0]) for _ in range(args.warmup)]
+    seconds, losses = timed_windows(step, batch, device, args.steps)
+    dt = statistics.median(seconds)
+    tokens_per_s = mbs * args.gas * args.seq_len / dt
+    mfu = None  # a rate of the card's peak: only from a run on the card
+    if device.type == "cuda":
+        # a MoE model by its parameters, all of them and those a token touches
+        counts = (moe_parameter_counts(module.model) if arch.is_moe else
+                  (get_model_parameter_count(arch.hidden_size, arch.num_layers,
+                                             arch.vocab_size, arch.mlp_factor, glu=True),))
+        mfu = [get_palm_mfu(n, arch.num_layers, arch.hidden_size, arch.sequence_length,
+                            tokens_per_s) for n in counts]
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    return {"mbs": mbs, "step_s": dt, "seconds": seconds, "tokens_per_s": tokens_per_s,
+            "mfu": mfu, "losses": first + losses, "peak_bytes": peak,
+            "params": sum(p.numel() for p in module.model.parameters())}
+
+
+def mbs_plan(text: str) -> List[int]:
+    plan = [int(x) for x in text.split(",") if x.strip()]
+    if not plan or min(plan) < 1:
+        raise argparse.ArgumentTypeError(f"not a plan of micro-batch sizes: {text!r}")
+    return plan
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(prog="python -m scaling_tpu_torch.train bench")
     p.add_argument("--model", choices=sorted(MODELS), default="0.5b")
     p.add_argument("--seq-len", type=int, default=2048)
-    p.add_argument("--mbs", type=int, default=4, help="micro-batch size")
+    rungs = p.add_mutually_exclusive_group()
+    rungs.add_argument("--mbs", type=int, default=4, help="micro-batch size (a one-rung plan)")
+    rungs.add_argument("--mbs-plan", type=mbs_plan, default=None,
+                       help="micro-batch sizes to climb, e.g. 4,8,16,32: up while tokens/s "
+                            "improves; a rung out of device memory ends the climb")
     p.add_argument("--gas", type=int, default=1, help="gradient accumulation steps")
     p.add_argument("--steps", type=int, default=10, help="timed steps per window")
     p.add_argument("--warmup", type=int, default=1, help="untimed steps first (kernel builds)")
@@ -119,35 +208,34 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    config, module, optimizer = build(args.model, args.seq_len, args.mbs, args.gas,
-                                      args.remat, args.seed, device)
-    arch = config.transformer_architecture
-    step = module.build_train_step(optimizer, loss_function)
-    batch = synth_batch(np.random.default_rng(args.seed), args.mbs, args.seq_len,
-                        arch.vocab_size, args.gas, device)
-    first = [float(step(batch)[0]) for _ in range(args.warmup)]
-    seconds, losses = timed_windows(step, batch, device, args.steps)
-    dt = statistics.median(seconds)
-    tokens_per_s = args.mbs * args.gas * args.seq_len / dt
-    mfu = None  # a rate of the card's peak: only from a run on the card
-    if device.type == "cuda":
-        # a MoE model by its parameters, all of them and those a token touches
-        counts = (moe_parameter_counts(module.model) if arch.is_moe else
-                  (get_model_parameter_count(arch.hidden_size, arch.num_layers,
-                                             arch.vocab_size, arch.mlp_factor, glu=True),))
-        mfu = [get_palm_mfu(n, arch.num_layers, arch.hidden_size, arch.sequence_length,
-                            tokens_per_s) for n in counts]
-    losses = first + losses
+    kernel_before = launches.snapshot(launches.KERNEL)
+    plain_before = launches.snapshot(launches.PLAIN)
+    best, rungs = climb_mbs_ladder(lambda mbs: measure_rung(args, device, mbs),
+                                   args.mbs_plan or [args.mbs])
+    mfu, losses = best["mfu"], best["losses"]
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    n_params = sum(p.numel() for p in module.model.parameters())
-    print(f"train bench: model={args.model} device={name} seq={args.seq_len} mbs={args.mbs} "
-          f"gas={args.gas} remat={args.remat} params={n_params}")
-    print(f"step: {dt * 1e3:.2f} ms (median of windows "
-          + " ".join(f"{s * 1e3:.2f}" for s in seconds) + ")")
-    print(f"tokens/s: {tokens_per_s:.1f}  mfu: " + (
+    print(f"train bench: model={args.model} device={name} seq={args.seq_len} mbs={best['mbs']} "
+          f"gas={args.gas} remat={args.remat} params={best['params']}")
+    if len(rungs) > 1 or args.mbs_plan:
+        print("ladder: " + ", ".join(
+            f"mbs={r['mbs']} out of memory" if r.get("oom")
+            else f"mbs={r['mbs']} {r['tokens_per_s']:.1f} tokens/s" + (
+                "" if r["peak_bytes"] is None else f" peak {r['peak_bytes'] / 1e9:.2f} GB")
+            for r in rungs) + f"; winner mbs={best['mbs']}")
+    print(f"step: {best['step_s'] * 1e3:.2f} ms (median of windows "
+          + " ".join(f"{s * 1e3:.2f}" for s in best["seconds"]) + ")")
+    print(f"tokens/s: {best['tokens_per_s']:.1f}  mfu: " + (
         "not measured (no card)" if mfu is None else f"{mfu[0]:.4f}" if len(mfu) == 1
         else f"{mfu[0]:.4f} (N all parameters), {mfu[1]:.4f} (N those a token touches)"))
     print(f"losses: first={losses[0]:.4f} last={losses[-1]:.4f}")
-    if not all(np.isfinite(losses)):
-        raise RuntimeError(f"non-finite loss: {losses}")
+    print("launches: " + json.dumps({
+        "kernel": serve_bench.launches_since(launches.KERNEL, kernel_before),
+        "plain": serve_bench.launches_since(launches.PLAIN, plain_before)}))
+    for r in rungs:
+        if not r.get("oom") and not all(np.isfinite(r["losses"])):
+            raise RuntimeError(f"non-finite loss at mbs={r['mbs']}: {r['losses']}")
     return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

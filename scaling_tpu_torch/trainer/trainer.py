@@ -101,6 +101,7 @@ from ..resilience import (
     StepStallWatchdog,
     build_mesh_meta,
     checkpoint_candidates,
+    fire_reshard_point,
     get_fault_plan,
     param_record,
     prune_manifest_entries,
@@ -929,6 +930,7 @@ class BaseTrainer:
         plan = reshard_plan(read_mesh_meta(step_dir), self._current_topology_dict(),
                             self._param_records(params))
         if plan is not None:
+            fire_reshard_point(step_dir, plan)
             manifest = read_manifest(step_dir)
             logger.log_event("ckpt-reshard",
                                   step=None if manifest is None else manifest.get("step"),

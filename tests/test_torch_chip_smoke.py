@@ -1051,3 +1051,45 @@ def test_features_remat_check_tells_a_save_dots_step_without_recompute(monkeypat
         == ActivationCheckpointingType.EVERY_LAYER))
     with pytest.raises(AssertionError, match="launches differ"):
         chip_smoke.remat_modes_check(device="cpu")
+
+
+def test_tooling_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path):
+    """Phase 17's control flow on the CPU, on an f32 model of the toy's
+    widths but hidden 64 with steps 1 and 2 kept as phase 8 keeps its steps
+    3 and 6: Megatron data through the Trainer with the C++ windows against
+    the plain loop's, the pack builder, the reference checkpoint out, in
+    (bit-equal) and served against ``generate``, the three restores with
+    their fault points and the ladder's child at mbs 1 and 2. The card's
+    launch checks stay unchecked here."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import main
+    from scaling_tpu_torch.train import bench
+
+    _toy_trainer(monkeypatch)
+    monkeypatch.setitem(bench.MODELS, "tiny", dict(bench.MODELS["toy"], precision="float32",
+                                                   hidden_size=64))
+    for key, value in dict(model="tiny", seq=64, iterations=2, interval=1).items():
+        monkeypatch.setitem(chip_smoke.TRAINER, key, value)
+    monkeypatch.setitem(chip_smoke.WORKLOAD, "prompt_len", (8, 24))
+    monkeypatch.setitem(chip_smoke.WORKLOAD, "output_len", (3, 5))
+    for key, value in dict(tokens=20_000, doc_len=(16, 200), pack_docs=20_000, serve_requests=2,
+                           model="toy", mbs_plan="1,2", ladder_steps=1, ladder_seq=32).items():
+        monkeypatch.setitem(chip_smoke.TOOLING, key, value)
+    prefixes = chip_smoke.write_token_datasets(tmp_path / "data", 512)
+    main(TransformerConfig.from_dict(chip_smoke.trainer_config(
+        prefixes, tmp_path / "logs", save_dir=tmp_path / "ckpt")), device="cpu")
+    chip_smoke.reset_logger()
+    ckpt = tmp_path / "ckpt"
+    base = chip_smoke.keep_base(ckpt / "global_step2", prefixes, tmp_path / "keep",
+                                (ckpt / "global_step1",))
+    out = chip_smoke.tooling_phase(base, device="cpu")
+    text = capsys.readouterr().out
+    for line in ("(a) Megatron data written", "windows by the C++ builder equal to the plain",
+                 "(b) 20000 documents", "every_n 4:", "(c) export: 5 .pt files",
+                 "bit-equal to the source", "(c) served 2 requests of the import",
+                 "(d) transient (restore.assemble=fail@1): restored step 2, restore.assemble "
+                 "hits 6", "(d) persistent (restore.assemble=fail@1x3): restored step 1, "
+                 "restore.assemble hits 8", "restored step 2, ckpt.reshard hits 1",
+                 "(e) | ladder: mbs=1 ", "(e) | launches: "):
+        assert line in text, line
+    assert sorted(out) == ["tooling_import_serve", "tooling_legacy_trainer"]

@@ -204,8 +204,3 @@ def test_batch_goes_to_the_device_as_the_model_takes_it(prefixes):
     assert out["loss_weights"].dtype == torch.float32
     for field in FIELDS:
         np.testing.assert_array_equal(out[field].numpy(), getattr(stacked, field), err_msg=field)
-
-
-def test_legacy_dataset_is_not_ported(prefixes):
-    with pytest.raises(NotImplementedError, match="legacy"):
-        TextDataset(prefixes["a"], SEQ, legacy_dataset=True)

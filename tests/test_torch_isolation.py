@@ -3,8 +3,10 @@ blocked, serves, takes a training step, trains from a token dataset,
 saves, resumes, serves, generates from and evaluates its checkpoint,
 LoRA-finetunes it with dropout, merges and serves the finetune, takes
 AtMan-controlled logits, a multimodal step under ``every_layer_save_dots``
-with gradient norms and a local-window cached decode, on the CPU when asked
-to, renders ``obs report``, supervises a worker (this file,
+with gradient norms and a local-window cached decode, packs Megatron data
+with the C++ builder, exports its checkpoint to the reference's format and
+imports and serves it, climbs the train bench's micro-batch ladder, on the
+CPU when asked to, renders ``obs report``, supervises a worker (this file,
 run as the runner's script, is that worker) and a serving bench through
 a crash and its journal replay and a process fleet through a killed
 replica's failover (its workers blocked too); without a card,
@@ -81,6 +83,34 @@ stats = evaluate(root / "ckpt", root / "tokens", batch_size=2, max_batches=2, de
 assert stats["batches"] == 2 and stats["tokens"] > 0 and np.isfinite(stats["loss"])
 print("generate and evaluate: ok")
 
+# Megatron data packed by the C++ builder; the checkpoint exported to the
+# reference's format, imported back and served; the model-free leaf reader,
+# the verified selection; the train bench's micro-batch ladder
+import shutil
+from scaling_tpu_torch.checkpoint.export_reference import export_reference_checkpoint
+from scaling_tpu_torch.checkpoint.import_reference import convert_reference_checkpoint
+from scaling_tpu_torch.data import LegacyMMapIndexWriter
+from scaling_tpu_torch.models.transformer.data import TextDataset
+from scaling_tpu_torch.native import build_pack_index_plain
+from scaling_tpu_torch.resilience import iter_global_leaves, select_checkpoint
+with LegacyMMapIndexWriter(root / "legacy") as writer:
+    for _ in range(30):
+        writer.add(np.append(rng.integers(1, 512, size=rng.integers(16, 200)), 0))
+legacy = TextDataset(root / "legacy", 64, only_full_sequences=True, legacy_dataset=True)
+starts, _ = build_pack_index_plain(legacy.memory_map.sizes(), 64, 0)
+assert len(legacy) > 0 and (legacy._item_starts == starts).all()
+step = root / "ckpt" / (root / "ckpt" / "latest").read_text()
+export_reference_checkpoint(step, root / "ref")
+convert_reference_checkpoint(root / "ref", root / "imported")
+shutil.copy(step / "config.yml", root / "imported")
+imported = TransformerInferenceModule.from_checkpoint(root / "imported", device="cpu")
+assert (imported.generate([1, 2, 3], max_tokens=3).completion_ids
+        == inf.generate([1, 2, 3], max_tokens=3).completion_ids)
+assert select_checkpoint(root / "ckpt")[0] == step and len(list(iter_global_leaves(step))) > 0
+rc = rc or train_main(["--device", "cpu", "--model", "toy", "--seq-len", "32",
+                       "--mbs-plan", "1,2", "--steps", "1", "--warmup", "0"])
+print("tooling: legacy data, reference checkpoint round trip, ladder")
+
 # a LoRA finetune with dropout from that checkpoint, merged on load and served
 d = config(load_dir=str(root / "ckpt"), load_optimizer_states=False, load_context=False,
            allowed_missing_keys_in_checkpoint=[".*_lora\\."],
@@ -147,6 +177,8 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert "generate and evaluate: ok" in proc.stdout
     assert "finetune: LoRA with dropout trained, merged and served" in proc.stdout
     assert "model features: atman, multimodal save_dots step, local-window decode" in proc.stdout
+    assert "tooling: legacy data, reference checkpoint round trip, ladder" in proc.stdout
+    assert "ladder: mbs=1 " in proc.stdout
 
 
 BLOCKED_REPORT = r"""

@@ -16,7 +16,10 @@ tokens, through the kernels only. muP's attention scale (1/32 for the
 0.5B widths from a 256-wide base) through K1 and through K4/K5, and the
 MoE layer at those widths in f32 on the card against its CPU run: at
 least 0.999 of the tokens routed alike, their outputs within 1e-4 of max
-|y| (f32 sums in another order).
+|y| (f32 sums in another order). A checkpoint exported to the reference's
+format and imported back serves on the card the CPU's tokens of the
+original weights, and the C++ pack-index builder equals its plain loop on
+the card's host.
 """
 
 import importlib
@@ -832,3 +835,60 @@ def test_multimodal_step_runs_no_plain_version(card):
         assert launches.KERNEL[k] > 0, k
     assert sum(launches.PLAIN.values()) == 0
     assert not torch.equal(module.model.embedding.image_encoder.patch_proj.weight, before)
+
+
+def test_imported_reference_checkpoint_serves_on_the_card(card, tmp_path):
+    """The toy model's checkpoint exported to the reference's format and
+    imported back loads on the card and serves through the kernels the CPU
+    run's greedy tokens of the original weights."""
+    import yaml
+
+    from scaling_tpu_torch.checkpoint import save_model_checkpoint
+    from scaling_tpu_torch.checkpoint.export_reference import export_reference_checkpoint
+    from scaling_tpu_torch.checkpoint.import_reference import convert_reference_checkpoint
+    from scaling_tpu_torch.models.transformer import (
+        TransformerArchitectureConfig,
+        TransformerInferenceModule,
+    )
+    from scaling_tpu_torch.parallel.parallel_module import jax_param_key
+    from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+    from scaling_tpu_torch.serve.bench import MODELS
+
+    arch = TransformerArchitectureConfig.from_dict(MODELS["toy"])
+    source = TransformerInferenceModule.random_init(arch, seed=0, device="cpu")
+    save_model_checkpoint(tmp_path / "npz", {jax_param_key(source.model, n): p
+                                             for n, p in source.model.named_parameters()})
+    config = yaml.safe_dump({"transformer_architecture": MODELS["toy"]})
+    (tmp_path / "npz" / "config.yml").write_text(config)
+    export_reference_checkpoint(tmp_path / "npz", tmp_path / "ref")
+    convert_reference_checkpoint(tmp_path / "ref", tmp_path / "imported")
+    (tmp_path / "imported" / "config.yml").write_text(config)
+
+    def serve(inf, device):
+        engine = ServeEngine(inf, EngineConfig(num_slots=2, block_size=16, num_blocks=16,
+                                               max_blocks_per_seq=4), device=device)
+        engine.submit(list(range(1, 40)), 12)
+        return [s.generated for s in engine.run_until_done()]
+
+    want = serve(source, torch.device("cpu"))
+    launches.reset()
+    got = serve(TransformerInferenceModule.from_checkpoint(tmp_path / "imported", device=card),
+                card)
+    assert launches.KERNEL["paged_attention"] > 0 and launches.KERNEL["rms_norm"] > 0
+    assert sum(launches.PLAIN.values()) == 0
+    assert got == want and len(got[0]) == 12
+
+
+def test_cpp_pack_builder_equals_the_plain_loop_on_the_cards_host(card, tmp_path):
+    """The C++ builder, compiled with the host's g++, against the Python
+    loop over 200,000 document sizes of 16-8192 tokens at sequence 2048."""
+    import numpy as np
+
+    from scaling_tpu_torch.native import build_pack_index, build_pack_index_plain
+
+    sizes = np.random.default_rng(0).integers(16, 8193, size=200_000)
+    for every_n in (0, 4):
+        got = build_pack_index(sizes, 2048, every_n, build_dir=tmp_path)
+        want = build_pack_index_plain(sizes, 2048, every_n)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

@@ -203,7 +203,6 @@ def test_train_run_entry_point(data, tmp_path):
 
 REFUSED = [
     ("trainer", "checkpoint_backend", "orbax"),
-    ("data", "legacy_dataset", True),
     ("logger", "use_wandb", True),
 ]
 
