@@ -123,8 +123,11 @@ Phases, each of which must pass:
    stubbed out. (b) ``serve bench --run-dir`` at phase 4's native
    traffic: K1 and K2 launched, no plain version; ``obs report``'s
    serving section counts the 32 requests and gives the bench's tokens/s
-   within 0.1 %; then the bench in turns with a run directory, without
-   one, and with every obs call stubbed out. (c) after phase 9, ``obs
+   within 0.1 %; then the bench once more in each kind: with a run
+   directory, without one, and with every obs call stubbed out. The
+   Trainer run of (a) carries the training tuner's prediction for it
+   (phase 18 (c)), and its report prints the tuner section with the
+   calibration error. (c) after phase 9, ``obs
    report`` over its run directory shows the step-time and MFU sections
    (the mfu check again), the asynchronous saves' ``ckpt.*`` spans and,
    in the timeline, the SIGTERM and the relaunch; then the turns' Trainer
@@ -212,7 +215,7 @@ Phases, each of which must pass:
    counters (from its stats), ``obs report`` gates and counts, and the
    time to recover split into detection, process start, model build,
    replay and the first token;
-14. the serving fleet on the card, phase 4's engine on workload F (64
+14. the serving fleet on the card, phase 4's engine on workload F (32
    requests at 128 req/s, 4 families of a 256-token shared prefix before
    128-1024 random tokens, 64-256 output tokens): (a) one engine in this
    process, the reference; (b) ``serve bench --replicas 2`` (two engines,
@@ -287,6 +290,27 @@ Phases, each of which must pass:
    scaling_tpu_torch.train.bench --model 0.5b --mbs-plan 4,8,16,32
    --steps 3`` in a child process: each rung's tokens/s, the winner, its
    MFU, no plain version; a rung out of memory is reported as such;
+18. the tuner, the analyzer's dispatch audit and the serving config, after
+   phase 14 (``TUNE``): (a) K1 alone at each block size the serving tuner
+   searches (8, 16, 32) at phase 4's tick shape over one 16384-slot pool,
+   held against its plain version, device ms beside its bound, and the fit
+   ``t = c (1 + O / bs)`` whose O is the tuner's ``PAGED_BLOCK_OVERHEAD``;
+   (b) ``python -m scaling_tpu_torch.tune --serve --devices 1`` calibrated
+   from phase 10's serve run directory emits a config, and ``serve bench
+   --config`` serves 16 requests of phase 4's traffic with it in this
+   process (the pool and longest context given explicitly), counters reset
+   just before and read just after: K1 and K2 launched, no plain version;
+   the chosen point, its predicted tick beside the measured mean
+   ``serve.mixed`` tick, and the calibration factor; (c) the training tuner
+   over the micro-batch ladder at the 0.5B, calibrated from phase 5's MFU:
+   each rung's predicted memory and step time beside phase 17's measured
+   rung, the tuner's pick beside the ladder's winner (printed, not gated);
+   before phase 10, its prediction for phase 10's run, exported to it;
+   (d) the dispatch audit (``scaling_tpu_torch.analysis.dispatch_audit``)
+   of phase 5's step: K2 and K3 2L+1, K4 and K5 L launches a step, no plain
+   version; and of a tick of phase 4's engine after its run: K1 and K2, no
+   plain version; host syncs and device-to-host copies of each, and the
+   distinct forward shapes phase 4's run produced;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -304,6 +328,7 @@ import contextlib
 import dataclasses
 import gc
 import importlib
+import io
 import json
 import math
 import os
@@ -409,9 +434,10 @@ GEN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through 8 layers v
 # phase 10: a 5-step observed Trainer run, profiler window at steps 2-3; the
 # repetitions of the host-cost measurement
 # turns in mirrored order, so that a drift over the turns weighs on each kind
-# alike; the serving turns follow the checked run with a run directory
+# alike; the serving turns, one of each kind, follow the checked run with a
+# run directory (phase 18's room in the time limit)
 OBSERVE = dict(iterations=5, profile=(2, 2), span_reps=200, telemetry_reps=50,
-               serve_turns=("none", "stub", "stub", "none", "run_dir"),
+               serve_turns=("none", "stub", "run_dir"),
                train_turns=("stub", "no_events", "on", "on", "no_events", "stub"),
                turn_steps=3)
 MFU_RTOL = 1e-6  # the telemetry's mfu vs the record's palm_mfu: one formula, two roundings
@@ -425,12 +451,13 @@ KEEP_DIR = os.environ.get("CHIP_SMOKE_REPORTS")
 MODES = dict(spec_k=4, segment=(16, 64), seed=1, first_token_prompt=1000, fault_tick=40,
              overload_x=4, max_waiting=4, min_tick_timeout_s=10.0, child_timeout_s=300,
              free_tol=1 << 30, drain_rate=8.0)
-# phase 14: the serving fleet on one card. Workload F: 64 requests at 128
-# req/s (each of two replicas sees phase 4's 64), 4 families of a 256-token
-# system prompt before 128-1024 random tokens, 64-256 output tokens; the
+# phase 14: the serving fleet on one card. Workload F: 32 requests at 128
+# req/s (each of two replicas sees phase 4's rate of 64), 4 families of a
+# 256-token system prompt before 128-1024 random tokens, 64-256 output
+# tokens; the
 # kill at the 40th tick with work of replica 1; the drain's arrivals at 8
 # req/s, its SIGTERM 2 s after both workers are ready
-FLEET = dict(n_requests=64, rate=128.0, prompt_len=(128, 1024), output_len=(64, 256),
+FLEET = dict(n_requests=32, rate=128.0, prompt_len=(128, 1024), output_len=(64, 256),
              shared_prefix_len=256, prefix_families=4, seed=0, replicas=2, kill_tick=40,
              drain_rate=8.0, drain_after_s=2.0, child_timeout_s=300, free_tol=1 << 30,
              heartbeat_timeout_s=10.0)
@@ -487,6 +514,11 @@ TOOLING = dict(tokens=2_000_000, doc_len=(64, 4096), steps=3, pack_docs=2_000_00
                mbs_plan="4,8,16,32", ladder_steps=3, ladder_seq=TRAIN_SEQ,
                ladder_timeout_s=600)
 # the bench 0.5B model in the JAX default architecture: its widths, other keys
+# phase 18: the tuner and the dispatch audit on the card. (a) K1 alone at
+# each block size the serving tuner searches, 20 profiled calls each; (b) the
+# serving tuner's emitted config served for 16 requests of phase 4's
+# traffic; (c) the training tuner over the train bench's micro-batch ladder
+TUNE = dict(block_sizes=(8, 16, 32), reps=20, requests=16, ladder="4,8,16,32")
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
                     weight_tying=True, key_query_norm=True)
@@ -500,15 +532,20 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- inputs
-def k1_inputs(gen: torch.Generator, quantized: bool, dev, contexts=None, s: int = K1_S):
+def k1_inputs(gen: torch.Generator, quantized: bool, dev, contexts=None, s: int = K1_S,
+              block_size: int = K1_BLOCK_SIZE):
     """Serving-shaped K1 operands: one mixed tick of 16 rows of width 32
-    over a 1024-block pool, rows of every kind (idle, fresh decode, a
-    short chunk, decode and chunk at the full 2048-slot context); or, with
-    ``contexts``, one row of width ``s`` per (context, new tokens) pair."""
+    over a pool of 16384 slots (1024 blocks of 16), rows of every kind
+    (idle, fresh decode, a short chunk, decode and chunk at the full
+    2048-slot context); or, with ``contexts``, one row of width ``s`` per
+    (context, new tokens) pair. ``block_size`` cuts the same pool and
+    window into other blocks (phase 18 (a)); the draws are the same."""
     from scaling_tpu_torch.nn.attention import kv_quantize_int8
 
     rows = K1_ROWS if contexts is None else len(contexts)
-    pool_shape = (K1_NUM_BLOCKS, K1_BLOCK_SIZE, K1_KV_HEADS, K1_HEAD_DIM)
+    num_blocks = K1_NUM_BLOCKS * K1_BLOCK_SIZE // block_size
+    max_blocks = K1_MAX_BLOCKS * K1_BLOCK_SIZE // block_size
+    pool_shape = (num_blocks, block_size, K1_KV_HEADS, K1_HEAD_DIM)
     q = torch.randn(rows, s, K1_HEADS, K1_HEAD_DIM, generator=gen, device=dev)
     pk = torch.randn(pool_shape, generator=gen, device=dev)
     pv = torch.randn(pool_shape, generator=gen, device=dev)
@@ -523,10 +560,9 @@ def k1_inputs(gen: torch.Generator, quantized: bool, dev, contexts=None, s: int 
     for row, (c, n) in enumerate(fixed):
         ctx[row], new[row] = c, n
     valid = ctx + new
-    nblk = (valid + K1_BLOCK_SIZE - 1) // K1_BLOCK_SIZE
-    table = torch.randint(1, K1_NUM_BLOCKS, (rows, K1_MAX_BLOCKS), generator=gen,
-                          device=dev)
-    table = torch.where(torch.arange(K1_MAX_BLOCKS, device=dev)[None] < nblk[:, None],
+    nblk = (valid + block_size - 1) // block_size
+    table = torch.randint(1, num_blocks, (rows, max_blocks), generator=gen, device=dev)
+    table = torch.where(torch.arange(max_blocks, device=dev)[None] < nblk[:, None],
                         table, 0)
     scales = {}
     if quantized:
@@ -1050,11 +1086,14 @@ def profile_ticks(engine, vocab: int, n_ticks: int = 30) -> dict:
     }
 
 
-def serve(kv_dtype: str, model: str = "0.5b") -> dict:
+def serve(kv_dtype: str, model: str = "0.5b", audit: bool = False) -> dict:
     """The 0.5B model through the engine, counters reset just before the
-    measured run and read just after. A MoE model (phase 15) has the
-    recomputed tick's routing captured on the card and held against the
-    CPU's."""
+    measured run and read just after; the forward shapes of the run are
+    recorded (phase 18 (d)), and with ``audit`` one more tick after it runs
+    under the dispatch audit (``audit_tick``). A MoE model (phase 15) has
+    the recomputed tick's routing captured on the card and held against
+    the CPU's."""
+    from scaling_tpu_torch.analysis.dispatch_audit import record_forward_shapes
     from scaling_tpu_torch.ops import launches
     from scaling_tpu_torch.serve import EngineConfig, ServeEngine
     from scaling_tpu_torch.serve.bench import build_inference, run_bench, sample_workload
@@ -1090,10 +1129,12 @@ def serve(kv_dtype: str, model: str = "0.5b") -> dict:
                            WORKLOAD["prompt_len"], WORKLOAD["output_len"],
                            inf.architecture.vocab_size, WORKLOAD["seed"])
     launches.reset()
-    stats = run_bench(engine, work)
+    with record_forward_shapes(engine) as shapes:
+        stats = run_bench(engine, work)
     torch.cuda.synchronize()
     kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
     engine._forward_mixed = forward
+    stats["forward_shapes"] = sorted(shapes)
 
     finished = {s.request.req_id: s for s in engine.finished}
     for i, (_, _, olen) in enumerate(work):
@@ -1134,6 +1175,8 @@ def serve(kv_dtype: str, model: str = "0.5b") -> dict:
           f"device busy={prof['device_busy_ms_per_tick']:.3f}ms "
           f"idle share={prof['device_idle_share']:.3f} device ms/tick by kernel: "
           + " ".join(f"{k}={v:.3f}" for k, v in prof["device_ms_per_tick"].items()))
+    if audit:
+        stats["tick_audit"] = audit_tick(engine, inf.architecture.vocab_size)
     stats["launches"] = kernel
     del engine, inf
     torch.cuda.empty_cache()
@@ -1361,7 +1404,7 @@ def train(model: str = "0.5b") -> dict:
         print(f"    other: {ms:.3f}ms in {count} launches: {name}")
     del module, optimizer, step, batch, outs
     torch.cuda.empty_cache()
-    return {"launches": kernel, "step_ms": step_s * 1e3, "peak_gb": peak_gb}
+    return {"launches": kernel, "step_ms": step_s * 1e3, "peak_gb": peak_gb, "mfu": mfu[0]}
 
 
 # ------------------------------------------------------------ generation
@@ -2697,7 +2740,9 @@ def observe_train(bench_step_ms: float, device: str = "cuda") -> dict:
         text, _ = obs_report(run_dir)
         keep("observe_train_report.txt", text)
         check_mfu(records, "observed run", report_section(text, "mfu / throughput"))
-        for line in report_section(text, "step time") + report_section(text, "mfu / throughput"):
+        tuner = report_section(text, "tuner") if "== tuner ==" in text.splitlines() else []
+        for line in (report_section(text, "step time") + report_section(text, "mfu / throughput")
+                     + tuner):
             print(f"  report | {line.strip()}")
         window = {start + 1 + i for i in range(count)}  # the window's records
         ms = {r["step"]: r["metrics"]["step_duration"] * 1e3 for r in records
@@ -2729,7 +2774,8 @@ def observe_train(bench_step_ms: float, device: str = "cuda") -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> dict:
+def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda",
+                  keep_run=None) -> dict:
     """Phase 10 (c): ``serve bench --run-dir`` at phase 4's native traffic,
     the launch counters reset just before it and read just after; its
     report's serving section counts the 32 requests and gives the bench's
@@ -2738,7 +2784,9 @@ def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> di
     "none", without one (no file written, the always-on spans, counters
     and gauges stay); "stub", with every obs call a no-op
     (``obs_stubbed``), the engine as it was before obs. Returns the
-    launches and each kind's median tokens/s and wall clock a tick."""
+    launches and each kind's median tokens/s and wall clock a tick; the
+    run directory is copied to ``keep_run`` when given (phase 18 (b)
+    calibrates the serving tuner from it)."""
     from scaling_tpu_torch.ops import launches
     from scaling_tpu_torch.serve.bench import main as bench_main
 
@@ -2799,6 +2847,8 @@ def observe_serve(phase4: dict, model: str = "0.5b", device: str = "cuda") -> di
         from scaling_tpu_torch.serve.journal import replay_journal
 
         tokens = in_order(replay_journal(run_dir / "journal.jsonl").completed)
+        if keep_run is not None:
+            shutil.copytree(run_dir, keep_run)
         return {"launches": kernel, "turns": summary, "tokens": tokens}
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2847,8 +2897,8 @@ def relaunch_worker() -> int:
         start["load"] = (t0, time.time())
         return loaded
 
-    def build_with_records(config, device=None):
-        trainer = build(config, device)
+    def build_with_records(config, device=None, glue=None):
+        trainer = build(config, device, glue=glue)
 
         def record(metrics, step):
             cp = trainer._control_plane
@@ -5138,20 +5188,284 @@ def ladder_check(device: str) -> dict:
             "launches": counts["kernel"]}
 
 
-def tooling_phase(base: dict, device: str = "cuda") -> dict:
+def tooling_phase(base: dict, device: str = "cuda", ladder_out=None) -> dict:
     """Phase 17: (a)-(e) of TOOLING on phase 8's kept checkpoint and data.
-    Returns the launch counters of (a)'s training and (c)'s serving."""
+    Returns the launch counters of (a)'s training and (c)'s serving; (e)'s
+    rungs and winner go into ``ladder_out`` when given (phase 18 (c))."""
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_tooling_"))
     try:
         trained = legacy_trainer_check(root, device)
         pack_builder_check()
         served = reference_round_trip(base, root, device)
         restore_faults_check(base, root, device)
-        ladder_check(device)
+        ladder = ladder_check(device)
+        if ladder_out is not None:
+            ladder_out.update(ladder)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"tooling_legacy_trainer": trained["launches"],
             "tooling_import_serve": served["launches"]}
+
+
+# ------------------------------------------------ phase 18: the tuner, the audit
+def mean_tick_s(run_dir: Path) -> tuple:
+    """(mean seconds, count) of the ``serve.mixed`` / ``serve.decode``
+    spans of a serve run directory: the tick the serving tuner prices."""
+    spans = [json.loads(line) for line in (run_dir / "events.jsonl").read_text().splitlines()]
+    ticks = [e["dur_s"] for e in spans
+             if e.get("span") in ("serve.mixed", "serve.decode") and e.get("dur_s") is not None]
+    return statistics.fmean(ticks), len(ticks)
+
+
+def fit_block_overhead(ms: dict) -> tuple:
+    """``t(bs) = c * (1 + O / bs)``, least squares of t on 1/bs: (c, O)."""
+    xs, ys = [1.0 / bs for bs in ms], list(ms.values())
+    mx, my = statistics.fmean(xs), statistics.fmean(ys)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    c = my - slope * mx
+    return c, slope / c
+
+
+def k1_block_sizes(device: str = "cuda") -> dict:
+    """Phase 18 (a): K1 alone at each block size the serving tuner searches
+    (TUNE["block_sizes"]), at phase 4's tick shape (16 rows of 32 queries,
+    the same contexts up to 2048 slots) over one 16384-slot pool, each
+    held against its plain version; device ms from ``torch.profiler``, and
+    the fit of ``t = c * (1 + O / bs)`` whose O is the serving tuner's
+    ``PAGED_BLOCK_OVERHEAD`` (the CPU times the plain version instead)."""
+    from scaling_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+    from scaling_tpu_torch.tune.serving import PAGED_BLOCK_OVERHEAD
+
+    rows, ms = [], {}
+    for bs in TUNE["block_sizes"]:
+        gen = torch.Generator(device=device).manual_seed(11)
+        args, kw = k1_inputs(gen, False, device, block_size=bs)
+        out = paged_attention(*args, **kw)
+        ref = paged_attention_plain(*args, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= KERNEL_TOL + KERNEL_TOL * ref.float().abs().max().item():
+            raise AssertionError(f"(a) K1 at block size {bs} disagrees with its plain "
+                                 f"version: {err}")
+        if device == "cuda":
+            ms[bs] = time_ms(lambda: paged_attention(*args, **kw), TUNE["reps"])[0]
+        else:
+            t0 = time.perf_counter()
+            paged_attention(*args, **kw)
+            ms[bs] = (time.perf_counter() - t0) * 1e3
+        b_ms, by = k1_bound_ms(args, kw)
+        rows.append((bs, ms[bs], b_ms, by, err))
+    c, overhead = fit_block_overhead(ms)
+    for bs, t, b_ms, by, err in rows:
+        print(f"  (a) K1 at block size {bs}: {t:.4f}ms (bound {b_ms:.4f}ms, {by}; "
+              f"{b_ms / t:.0%} of it), max_abs_err {err:.3e} vs the plain version; "
+              f"the fit's {c * (1 + overhead / bs):.4f}ms")
+    print(f"  (a) fit t = c * (1 + O / bs): c {c:.4f}ms, O {overhead:.3f} (the tuner's "
+          f"PAGED_BLOCK_OVERHEAD {PAGED_BLOCK_OVERHEAD})")
+    return {"ms": ms, "overhead": overhead}
+
+
+def serving_tuner_check(serve_run_dir: Path, device: str = "cuda", model: str = "0.5b",
+                        tune_model=None) -> dict:
+    """Phase 18 (b): ``tune --serve --devices 1`` calibrated from phase 10's
+    serve run directory emits a serving config; ``serve bench --config``
+    serves TUNE["requests"] requests of phase 4's traffic with it in this
+    process, counters reset just before and read just after: K1 and K2
+    launched, no plain version. The config's block size, token budget,
+    slots and pool are the bench's defaults; the pool and the longest
+    context are given explicitly, at what the traffic's longest request
+    needs in every slot (the tuner sizes a pool from the token budget and
+    knows no traffic). Prints the chosen point, the calibrated prediction
+    of its tick beside the measured mean ``serve.mixed`` tick, and the
+    calibration factor."""
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.serve.bench import main as bench_main
+    from scaling_tpu_torch.tune.cli import main as tune_main
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tuner_"))
+    try:
+        emitted, report = root / "serving.json", root / "tune.json"
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tune_main(["--serve", "--devices", "1", "--model", tune_model or model,
+                            "--serve-calibrate-from", str(serve_run_dir),
+                            "--emit-config", str(emitted), "--json", str(report)])
+        for line in out.getvalue().splitlines()[:6]:
+            print(f"  (b) tune | {line}")
+        payload, cfg = json.loads(report.read_text()), json.loads(emitted.read_text())
+        cal = payload["serve_calibration"]
+        if rc != 0 or cal is None:
+            raise AssertionError(f"(b) tune --serve exited {rc}, calibration {cal}")
+        best = payload["ranked"][0]
+        longest = WORKLOAD["prompt_len"][1] + WORKLOAD["output_len"][1]
+        per_seq = -(-longest // cfg["block_size"])
+        run, stats_file = root / "run", root / "stats.json"
+        args = ["--model", model, "--device", device, "--seed", str(WORKLOAD["seed"]),
+                "--requests", str(TUNE["requests"]), "--rate", str(WORKLOAD["rate"]),
+                "--prompt-len", *map(str, WORKLOAD["prompt_len"]),
+                "--output-len", *map(str, WORKLOAD["output_len"]),
+                "--prefill-chunk", str(SERVE["prefill_chunk"]), "--config", str(emitted),
+                "--max-blocks-per-seq", str(per_seq),
+                "--num-blocks", str(cfg["num_slots"] * per_seq + 1),
+                "--run-dir", str(run), "--json", str(stats_file)]
+        launches.reset()
+        rc = bench_main(args)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernel, plain = dict(launches.KERNEL), dict(launches.PLAIN)
+        stats = json.loads(stats_file.read_text())
+        engine = stats["engine"]
+        if rc != 0 or stats["completed"] != TUNE["requests"]:
+            raise AssertionError(f"(b) serve bench --config: rc {rc}, stats {stats}")
+        if any(engine[k] != cfg[k] for k in ("block_size", "token_budget", "num_slots")):
+            raise AssertionError(f"(b) the bench ran {engine}, not the emitted {cfg}")
+        if device == "cuda" and (kernel.get("paged_attention", 0) <= 0
+                                 or kernel.get("rms_norm", 0) <= 0 or sum(plain.values())):
+            raise AssertionError(f"(b) launches kernel={kernel} plain={plain}")
+        measured, ticks = mean_tick_s(run)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  (b) chosen {best['label']} (config {cfg}); served {stats['completed']} requests: "
+          f"{stats['tokens_per_s']:.1f} tokens/s, {stats['preemptions']} preemptions, launches "
+          f"kernel={kernel} plain={plain}")
+    print(f"  (b) tick: predicted {best['tick_s'] * 1e3:.3f}ms (analytic "
+          f"{best['tick_s'] / cal['factor'] * 1e3:.3f}ms x calibration factor "
+          f"{cal['factor']:.3f} from {cal['ticks']} ticks of phase 10's run), measured mean "
+          f"{measured * 1e3:.3f}ms over {ticks} serve.mixed ticks")
+    return {"launches": kernel, "predicted_tick_s": best["tick_s"], "measured_tick_s": measured,
+            "factor": cal["factor"], "label": best["label"]}
+
+
+def training_tuner(args: list) -> dict:
+    """``python -m scaling_tpu_torch.tune`` in this process: its ``--json``
+    payload."""
+    from scaling_tpu_torch.tune.cli import main as tune_main
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        report = Path(tmp) / "tune.json"
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tune_main([*args, "--json", str(report)])
+        if rc != 0:
+            raise AssertionError(f"tune {args} exited {rc}:\n{out.getvalue()}")
+        return json.loads(report.read_text())
+
+
+def observed_run_prediction(mfu: float) -> dict:
+    """Phase 18 (c), first half, before phase 10: the training tuner's
+    prediction for phase 10's observed run (phase 8's model: the 0.5B
+    widths at TRAINER's depth, micro-batch 4, one micro-batch a step),
+    calibrated from phase 5's MFU; phase 10 runs with it exported, so its
+    ``obs report`` prints the calibration error."""
+    from scaling_tpu_torch.train.bench import MODELS
+
+    arch = dict(MODELS[TRAINER["model"]], num_layers=trainer_arch()["num_layers"])
+    spec = ",".join(str(arch[k]) for k in ("hidden_size", "num_layers", "num_attention_heads",
+                                           "attention_num_kv_heads"))
+    spec += f",{TRAINER['seq']},{arch['vocab_size']},{arch['mlp_factor']}"
+    payload = training_tuner(["--devices", "1", "--model", spec, "--global-batch",
+                              str(TRAIN_MBS), "--mbs", str(TRAIN_MBS), "--mfu", str(mfu)])
+    print(f"  (c) the tuner's prediction for phase 10's run ({spec}, mbs {TRAIN_MBS}): "
+          f"{payload['prediction']['predicted_step_s'] * 1e3:.2f}ms a step at efficiency "
+          f"{mfu:.4f} (phase 5's MFU)")
+    return payload["prediction"]
+
+
+def ladder_vs_tuner(mfu: float, ladder: dict) -> dict:
+    """Phase 18 (c), second half, after phase 17: the training tuner over
+    the micro-batch ladder at the 0.5B (one device, global batch 64),
+    calibrated from phase 5's MFU; each rung's predicted memory and tokens/s
+    beside phase 17's measured rung, and the tuner's pick beside the
+    ladder's winner. Printed facts, not gates."""
+    payload = training_tuner(["--devices", "1", "--model", TOOLING["model"], "--mbs-ladder",
+                              TUNE["ladder"], "--mfu", str(mfu)])
+    measured = {r["mbs"]: r for r in ladder.get("rungs", [])}
+    for row in payload["ranked"]:
+        mbs = row["layout"]["micro_batch_size"]
+        m = measured.get(mbs)
+        seen = ("not measured (the climb stopped before it)" if m is None else
+                "out of memory" if m["oom"] else
+                f"{m['tokens_per_s']:.1f} tokens/s, peak {m['peak_gb']} GB")
+        print(f"  (c) mbs {mbs}: predicted {row['predicted_step_s']:.4f}s a step of "
+              f"{row['layout']['global_batch_size']} sequences ({row['tokens_per_s']:.1f} "
+              f"tokens/s), {row['memory_gb_per_device']:.2f} GB; phase 17 measured {seen}")
+    pick = payload["ranked"][0]["layout"]["micro_batch_size"]
+    print(f"  (c) the tuner's pick mbs {pick} (ties broken by label), the ladder's winner mbs "
+          f"{ladder.get('winner')}")
+    return {"pick": pick, "winner": ladder.get("winner")}
+
+
+def audit_train_step_check(device: str = "cuda", model: str = "0.5b") -> dict:
+    """Phase 18 (d): phase 5's step (the 0.5B, micro-batch 4, seq 2048)
+    under the dispatch audit after one warm step: per step K2 and K3 2L+1,
+    K4 and K5 L launches and no plain version (the CPU: as many plain
+    runs). Prints its host syncs, device-to-host copies, aten ops, matmuls
+    and bf16->f32 upcasts feeding them."""
+    from scaling_tpu_torch.analysis.dispatch_audit import audit_train_step
+    from scaling_tpu_torch.models.transformer import loss_function
+    from scaling_tpu_torch.train.bench import build, synth_batch
+
+    dev = torch.device(device)
+    config, module, optimizer = build(model, TRAIN_SEQ, TRAIN_MBS, device=dev, seed=0)
+    layers = config.transformer_architecture.num_layers
+    step = module.build_train_step(optimizer, loss_function)
+    batch = synth_batch(np.random.default_rng(0), TRAIN_MBS, TRAIN_SEQ,
+                        config.transformer_architecture.vocab_size, 1, dev)
+    step(batch)
+    report = audit_train_step(step, batch)
+    want = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+            "flash_attention_fwd": layers, "flash_attention_bwd": layers}
+    got = report["launches"]["plain" if device == "cpu" else "kernel"]
+    if got != want or (device == "cuda" and report["launches"]["plain"]):
+        raise AssertionError(f"(d) the step's launches {report['launches']}, want {want}")
+    print(f"  (d) phase 5's step ({layers} layers): launches {report['launches']}; host syncs "
+          f"{report['host_syncs']}, device->host copies {report['device_to_host_copies']}, "
+          f"{report['op_count']} aten ops, {report['matmul_ops']} matmuls, "
+          f"{report['bf16_to_f32_matmul_upcasts']} fed by a bf16->f32 upcast, rng ops "
+          f"{report['rng_ops']}")
+    del module, optimizer, step, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
+def audit_tick(engine, vocab: int, device: str = "cuda") -> dict:
+    """Phase 18 (d), on phase 4's engine after its run: 16 requests of
+    phase 4's traffic submitted at once, RECOMPUTE_TICK ticks, then one
+    tick under the dispatch audit (prefill-chunk and decode rows): K1 and
+    K2 launched, no plain version (the CPU: plain runs)."""
+    from scaling_tpu_torch.analysis.dispatch_audit import audit_engine_tick
+
+    for _, prompt, olen in phase4_workload(vocab)[:16]:
+        engine.submit(prompt, olen)
+    for _ in range(RECOMPUTE_TICK):
+        engine.tick()
+    report = audit_engine_tick(engine)
+    got = report["launches"]["plain" if device == "cpu" else "kernel"]
+    if got.get("paged_attention", 0) <= 0 or got.get("rms_norm", 0) <= 0 or (
+            device == "cuda" and report["launches"]["plain"]):
+        raise AssertionError(f"(d) the audited tick's launches {report['launches']}")
+    engine.run_until_done()
+    return report
+
+
+def tuner_phase(serve_run_dir: Path, mfu: float, ladder: dict, phase4: dict,
+                device: str = "cuda") -> dict:
+    """Phase 18: (a)-(d) of TUNE. Returns the launch counters of (b)'s
+    serving through the emitted config."""
+    t0 = time.monotonic()
+    k1_block_sizes(device)
+    served = serving_tuner_check(serve_run_dir, device)
+    ladder_vs_tuner(mfu, ladder)
+    audit_train_step_check(device)
+    tick = phase4["tick_audit"]
+    print(f"  (d) a steady tick of phase 4's engine: launches {tick['launches']}; host syncs "
+          f"{tick['host_syncs']}, device->host copies {tick['device_to_host_copies']}, "
+          f"{tick['op_count']} aten ops")
+    print(f"  (d) distinct forward shapes over phase 4's traffic: {len(phase4['forward_shapes'])} "
+          f"{phase4['forward_shapes']} (the CUDA graphs the tick would need)")
+    print(f"  phase 18 took {time.monotonic() - t0:.1f}s")
+    return {"tuner_serve_config": served["launches"]}
 
 
 def add_launches(rows: list, launches_by_path: dict) -> None:
@@ -5194,7 +5508,8 @@ def main() -> int:
         errs[name] = max(err, errs.get(name, 0.0))
     lap("check kernels")
     print("== serve 0.5B (full width and depth, random weights, seed 0)")
-    served_by_kv = {kv_dtype: serve(kv_dtype) for kv_dtype in ("native", "int8")}
+    served_by_kv = {kv_dtype: serve(kv_dtype, audit=kv_dtype == "native")
+                    for kv_dtype in ("native", "int8")}
     launches_by_path = {f"serve_{kv}": stats["launches"] for kv, stats in served_by_kv.items()}
     serve_native = served_by_kv["native"]
     lap("serve (4)")
@@ -5223,12 +5538,22 @@ def main() -> int:
     lap("kernel times (7)")
     # before the trainer phase, after which torch.profiler now and then drops
     # device events: this run's trace must name K4 and K5
+    print("== tuner (phase 18 (c)): the training tuner's prediction for phase 10's run, "
+          "calibrated from phase 5's MFU")
+    from scaling_tpu_torch.tune import PREDICTION_ENV
+
+    os.environ[PREDICTION_ENV] = json.dumps(observed_run_prediction(trained["mfu"]))
     print("== observe (phase 10): a 5-step Trainer run with the events file and a profiler "
           "window at steps 2-3")
-    observed = observe_train(trained["step_ms"])
+    try:
+        observed = observe_train(trained["step_ms"])
+    finally:
+        os.environ.pop(PREDICTION_ENV, None)
     launches_by_path["observe_train"] = observed["launches"]
     print("== observe: serve bench --run-dir at phase 4's native traffic")
-    served = observe_serve(serve_native)
+    kept_serve = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_run_"))  # phase 18 (b)'s
+    atexit.register(shutil.rmtree, kept_serve, True)
+    served = observe_serve(serve_native, keep_run=kept_serve / "run")
     launches_by_path["observe_serve"] = served["launches"]
     lap("observe (10)")
     # last: after the trainer's run the profiler drops device events now and
@@ -5264,7 +5589,8 @@ def main() -> int:
     print("== tooling (phase 17): Megatron data through the Trainer, the C++ pack builder, "
           "a reference checkpoint exported, imported and served, the restore's fault points, "
           "the train bench's micro-batch ladder")
-    launches_by_path.update(tooling_phase(trainer_run["base"]))
+    ladder = {}
+    launches_by_path.update(tooling_phase(trainer_run["base"], ladder_out=ladder))
     lap("tooling (17)")
     print("== modes (phase 13): speculative decoding, whole-prompt prefill, separate "
           "forwards; crash replay, drain, a wedged tick and overload in child benches")
@@ -5274,6 +5600,11 @@ def main() -> int:
           "--replicas-proc 2, a replica killed mid-stream, a drain")
     launches_by_path.update(fleet_phase())
     lap("fleet (14)")
+    print("== tuner (phase 18): K1 by block size; the serving tuner's config served; the "
+          "training tuner beside the ladder; the dispatch audit of phase 5's step and a tick")
+    launches_by_path.update(tuner_phase(kept_serve / "run", trained["mfu"], ladder,
+                                        serve_native))
+    lap("tuner (18)")
     t, serving = observed["turns"], served["turns"]
     print(f"  obs overhead (medians of the turns): Trainer step ms with all of obs "
           f"{t['on']:.2f}, without the events file and on_step {t['no_events']:.2f}, "

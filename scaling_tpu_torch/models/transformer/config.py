@@ -500,6 +500,10 @@ class TransformerConfig:
     logger: LoggerConfig = LoggerConfig()
     profiler: ProfilerConfig = ProfilerConfig()
     runner: Optional[RunnerConfig] = None
+    # the Determined experiment and trial this run belongs to (parity keys:
+    # the glue reads its context from the SDK, as in the JAX package)
+    determined_experiment_id: Optional[int] = None
+    determined_trial_id: Optional[int] = None
     source: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False,
                                                repr=False)
 
@@ -521,10 +525,9 @@ class TransformerConfig:
         if d.pop("context", None):
             raise NotImplementedError("the context section is not ported")
         runner = d.pop("runner", None)
-        for key in ("determined_experiment_id", "determined_trial_id"):
-            if d.pop(key, None) is not None:
-                raise NotImplementedError(f"{key}: the Determined glue is not ported")
         kwargs: Dict[str, Any] = dict(
+            determined_experiment_id=d.pop("determined_experiment_id", None),
+            determined_trial_id=d.pop("determined_trial_id", None),
             transformer_architecture=TransformerArchitectureConfig.from_dict(
                 d.pop("transformer_architecture")),
             topology=TopologyConfig.from_dict(d.pop("topology")),

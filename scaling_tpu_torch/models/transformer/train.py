@@ -26,6 +26,7 @@ import torch
 
 from ... import resolve_device
 from ...data.blended_dataset import BlendedDatasetConfig
+from ...determined import DeterminedGlue
 from ...logging import logger
 from ...profiler import Profiler
 from ...resilience import controlplane_from_env
@@ -135,10 +136,13 @@ class TransformerTrainer(BaseTrainer):
         super().run_training(log_metrics_fn=log_metrics_fn or globals()["log_metrics_fn"])
 
 
-def build_trainer(config: TransformerConfig, device=None) -> TransformerTrainer:
+def build_trainer(config: TransformerConfig, device=None,
+                  glue: Optional[DeterminedGlue] = None) -> TransformerTrainer:
     """The trainer of ``config``, initialised: the model from
     ``trainer.seed`` or, with ``trainer.load_dir``, from its checkpoint, and
-    the loaders at the context's consumed samples."""
+    the loaders at the context's consumed samples. With a Determined
+    ``glue`` (``DeterminedGlue.detect()``) the trainer reports to it, and
+    the experiment's latest checkpoint wins over ``load_dir``."""
     device = resolve_device(device)
     logger.configure(config.logger, name="transformer")
     logger.info(f"config: {config.to_dict()}")
@@ -171,7 +175,14 @@ def build_trainer(config: TransformerConfig, device=None) -> TransformerTrainer:
     if cp is not None:
         trainer.attach_control_plane(cp, shared_save_dir=config.trainer.multihost_shared_save_dir)
         trainer.install_preemption_handler()
-    trainer.initialize(load_checkpoint=config.trainer.load_dir is not None)
+    if glue is None:
+        trainer.initialize(load_checkpoint=config.trainer.load_dir is not None)
+    else:
+        glue.attach(trainer)
+        with glue.latest_checkpoint() as det_ckpt:
+            trainer.initialize(
+                load_checkpoint=det_ckpt is not None or config.trainer.load_dir is not None,
+                load_dir=det_ckpt)
     clip_checkpoint = arch.image_encoder_clip_checkpoint
     if clip_checkpoint is not None:
         apply_pretrained_clip(trainer, clip_checkpoint)
@@ -229,9 +240,16 @@ def apply_pretrained_clip(trainer: BaseTrainer, path) -> None:
 
 
 def main(config: TransformerConfig, device=None) -> TransformerTrainer:
-    """Train as ``config`` says; returns the trainer after its last step."""
-    trainer = build_trainer(config, device)
-    trainer.run_training()
+    """Train as ``config`` says; returns the trainer after its last step.
+    Inside a Determined task (the SDK importable and its cluster info
+    present) the run reports to Determined through ``DeterminedGlue``."""
+    glue = DeterminedGlue.detect()
+    try:
+        trainer = build_trainer(config, device, glue=glue)
+        trainer.run_training()
+    finally:
+        if glue is not None:
+            glue.close()
     return trainer
 
 

@@ -79,7 +79,7 @@ def load_run_dir(run_dir: Path | str, recursive: bool = True) -> RunData:
             # stays raw: the report reader is already fault-tolerant by
             # design — an unreadable file counts as bad and the report
             # proceeds (torn tails are data, not errors, post-crash)
-            text = path.read_text()
+            text = path.read_text()  # sta: disable=STA011
         except OSError:
             bad += 1
             continue

@@ -260,4 +260,6 @@ def synchronize_devices_of(x: Any) -> None:
         elif isinstance(item, (list, tuple)):
             stack.extend(item)
     for device in devices:
-        torch.cuda.synchronize(device)
+        # opt-in via sp.wait_for(x), never the default: the caller asked
+        # for the device's time inside the measured window
+        torch.cuda.synchronize(device)  # sta: disable=STA010

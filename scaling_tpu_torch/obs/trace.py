@@ -423,7 +423,7 @@ def main(argv=None) -> int:
     if args.json:
         # stays raw, same rationale as the report CLI: obs cannot
         # import resilience's retry_io without inverting the layering
-        Path(args.json).write_text(
+        Path(args.json).write_text(  # sta: disable=STA011
             json.dumps(payload, indent=1, sort_keys=True) + "\n"
         )
     return 1 if failures else 0

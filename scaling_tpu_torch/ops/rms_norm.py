@@ -40,7 +40,9 @@ import torch
 from . import cuda_build, launches
 
 LANES = 128  # the hidden dim must be a multiple of this, as on the TPU side
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the dtypes the kernels take (the JAX kernel's f32/bf16/f16): a table of
+# what the wrapper accepts, not a precision choice
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # sta: disable=STA006
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -174,7 +176,7 @@ def plan_bwd(n: int, d: int, x_bytes: int, g_bytes: int, sms: int) -> BwdPlan:
 _SMS: Dict[int, int] = {}
 # (device, stream) -> the finish's two tickets: zeroed once, put back to 0 by every launch
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # sta: disable=STA006
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

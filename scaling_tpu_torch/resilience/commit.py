@@ -113,7 +113,9 @@ def checkpoint_candidates(base: Union[Path, str]) -> List[Path]:
     cands: List[Path] = []
     latest = base / LATEST_NAME
     if latest.is_file():
-        pointed = base / latest.read_text().strip()
+        from .guards import retry_io
+
+        pointed = base / retry_io(latest.read_text, what="latest pointer read").strip()
         if pointed.is_dir():
             cands.append(pointed)
         else:

@@ -307,8 +307,10 @@ class TcpControlPlaneServer:
         self._flags: Dict[str, str] = {}
         self._capacity: Dict[str, Dict[str, dict]] = {}
         self._lock = threading.Lock()
-        # a bind failure is a configuration error: raised, not retried
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        # stays raw: one-time server bind at startup; a port conflict or
+        # a bad address is a configuration error that must abort loudly,
+        # not retry (client requests ride retry_io)
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)  # sta: disable=STA011
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
         self._sock.listen(64)

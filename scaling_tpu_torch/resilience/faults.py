@@ -238,7 +238,10 @@ class FaultPlan:
         """Truncate ``path`` to half its size (write-time corruption)."""
         p = Path(path)
         size = p.stat().st_size
-        with open(p, "r+b") as f:
+        # stays raw: the fault injector IS the fault source; wrapping the
+        # deliberate corruption in retry/fault plumbing would make the
+        # chaos tests depend on the machinery they exist to test
+        with open(p, "r+b") as f:  # sta: disable=STA011
             f.truncate(max(size // 2, 1))
         _log.warning(f"FAULT INJECTION: corrupted {p} ({size} -> {max(size // 2, 1)} B)")
 

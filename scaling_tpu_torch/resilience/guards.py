@@ -104,6 +104,14 @@ class StepStallWatchdog:
     take no lock.
     """
 
+    # Deliberately lock-free cross-thread scalars: the main loop writes
+    # ``_last_beat`` (a monotonic float) and ``_step`` (an int) in
+    # ``beat()``; the watchdog thread only READS them, and a torn or stale
+    # read merely shifts one poll's staleness verdict by one interval —
+    # GIL-atomic scalar handoff; a lock would make the per-step beat
+    # contend with the poll loop for nothing.
+    # sta: lock(_last_beat, _step)
+
     def __init__(self, timeout_s: float, on_stall: Optional[Callable[[int, float], None]] = None,
                  poll_interval_s: Optional[float] = None):
         if not timeout_s > 0:

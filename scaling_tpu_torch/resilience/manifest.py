@@ -168,4 +168,8 @@ def prune_manifest_entries(step_dir: Path, removed: Iterable[str]) -> None:
         return
     manifest["files"] = kept
     manifest["optimizer_pruned"] = True
-    (step_dir / MANIFEST_NAME).write_text(json.dumps(manifest, indent=1, sort_keys=True))
+    from .guards import retry_io
+
+    text = json.dumps(manifest, indent=1, sort_keys=True)
+    retry_io(lambda: (step_dir / MANIFEST_NAME).write_text(text),
+             what="pruned manifest rewrite")

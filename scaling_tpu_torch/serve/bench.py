@@ -35,8 +35,15 @@ worker processes supervised by ``replica_proc.FleetSupervisor``
 (``--replicas-proc N``: journal-exact failover of a dead replica, a
 budgeted relaunch, ``--autoscale``). The process fleet's host builds no
 model and initialises no CUDA. Host mode (``--hostsfile``), the capacity
-channel (``--capacity-dir``), ``--mp > 1`` and the tuner's ``--config``
-are not ported and fail by name.
+channel (``--capacity-dir``) and ``--mp > 1`` are not ported and fail by
+name.
+
+``--config FILE`` reads the serving config ``python -m
+scaling_tpu_torch.tune --serve --emit-config FILE`` writes: its
+``block_size``, ``token_budget``, ``num_slots``, ``num_blocks`` (and
+``max_blocks_per_seq`` when present) become the defaults, and a flag
+given on the command line wins over the file. An emitted ``mp`` or
+``replicas`` above 1 (a fleet of several devices) fails by name.
 
 ``--run-dir DIR`` records the run as the JAX bench does: events (one
 ``serve-request`` a request, the spans and a final ``serve-summary``)
@@ -758,8 +765,9 @@ def _run_fleet_proc(args, workload, run_dir: Path) -> dict:
     handles = [f.result() for f in futures if f.exception() is None]
     failed = [f.exception() for f in futures if f.exception() is not None]
     if failed:
-        for h in handles:
-            h.kill()
+        with span("serve.fleet.teardown", phase="spawn-failed"):
+            for h in handles:
+                h.kill()
         signal.signal(signal.SIGTERM, prev)
         raise failed[0]
     print("  placement: " + ", ".join(
@@ -1014,8 +1022,34 @@ NOT_PORTED = {
                     "resilience/capacity.py) is not ported",
     "capacity_publish_s": "--capacity-publish-s belongs to --capacity-dir, which is not "
                           "ported",
-    "config": "--config (the tuner's emitted serving config) is not ported",
 }
+
+# the keys of a tuner-emitted serving config that become flag defaults
+SERVING_CONFIG_KEYS = ("mp", "replicas", "block_size", "token_budget", "num_slots",
+                       "num_blocks", "max_blocks_per_seq")
+
+
+def apply_serving_config(args, argv: List[str], parser) -> None:
+    """Fold a tuner-emitted serving config (``tune --serve --emit-config``)
+    into the parsed ``args`` as DEFAULTS: a flag the user passed on the
+    command line wins over the file. An ``mp`` or ``replicas`` above 1
+    fails by name: the port serves a config of one device."""
+    from ..resilience.guards import retry_io
+
+    try:
+        cfg = json.loads(retry_io(Path(args.config).read_text, what="serving config read"))
+    except (OSError, ValueError) as e:
+        parser.error(f"--config {args.config}: unreadable ({e})")
+    if not isinstance(cfg, dict):
+        parser.error(f"--config {args.config}: not a JSON object")
+    for key in ("mp", "replicas"):
+        if int(cfg.get(key, 1)) > 1:
+            parser.error(f"--config {args.config}: {key}={cfg[key]} (a serving fleet of "
+                         "several devices) is not ported; the port serves one device")
+    passed = {a[2:].split("=", 1)[0].replace("-", "_") for a in argv if a.startswith("--")}
+    for key in SERVING_CONFIG_KEYS:
+        if key in cfg and key not in passed:
+            setattr(args, key, int(cfg[key]))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -1078,7 +1112,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--capacity-publish-s", type=float, default=None,
                    help="not ported (elastic capacity)")
     p.add_argument("--config", metavar="FILE",
-                   help="not ported (the tuner's serving config)")
+                   help="a serving config emitted by `tune --serve --emit-config`: its "
+                        "engine shape as defaults, explicit flags win")
     p.add_argument("--deadline-ms", type=float, default=None,
                    help="per-request total deadline, ms from arrival")
     p.add_argument("--ttft-deadline-ms", type=float, default=None,
@@ -1110,6 +1145,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     for key, why in NOT_PORTED.items():
         if getattr(args, key) is not None:
             p.error(why)
+    if args.config:
+        apply_serving_config(args, argv, p)
     if args.mp != 1:
         p.error("--mp > 1 (model-parallel replicas) is not ported" if args.mp > 1
                 else "--mp must be >= 1")
@@ -1351,8 +1388,10 @@ def _report(args, stats: dict, offered: int, sweep_ks) -> int:
     print(f"  ttft: p50={fmt(stats['ttft_p50_s'])} p99={fmt(stats['ttft_p99_s'])}")
     print(f"  itl:  p50={fmt(stats['itl_p50_s'])} p99={fmt(stats['itl_p99_s'])}")
     if args.json:
-        with open(args.json, "w") as f:
-            json.dump(stats, f, indent=2)
+        from ..resilience.guards import retry_io
+
+        stats_text = json.dumps(stats, indent=2)
+        retry_io(lambda: Path(args.json).write_text(stats_text), what="serve stats write")
     ended = (stats["requests"] + stats["requests_timeout"] + stats["requests_shed"]
              + stats["unsubmitted"])
     return 0 if ended == offered or sweep_ks is not None else 1

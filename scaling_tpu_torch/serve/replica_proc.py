@@ -145,7 +145,10 @@ class ReplicaRpcServer:
     def __init__(self, handler: Callable[[dict], dict],
                  host: str = "127.0.0.1", port: int = 0):
         self._handler = handler
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        # stays raw: one-time server bind at worker startup; a port
+        # conflict or a bad address is a configuration error that must
+        # abort the worker loudly, not retry (host requests ride retry_io)
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)  # sta: disable=STA011
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
         self._sock.listen(64)

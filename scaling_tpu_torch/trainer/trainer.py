@@ -121,6 +121,7 @@ from ..resilience.controlplane import (
     PREEMPT_FLAG,
     STALL_FLAG,
 )
+from ..tune import prediction_from_env
 
 # disk-level corruption a load may skip past; anything else (a shape or
 # config mismatch, an out-of-memory) aborts the resume
@@ -273,6 +274,9 @@ class BaseTrainer:
     # ------------------------------------------------------------ lifecycle
     def initialize(self, load_checkpoint: bool = True,
                    load_dir: Optional[Union[Path, str]] = None) -> None:
+        # a second initialize rebuilds the loaders: the running prefetch
+        # worker reads them, so it stops first
+        self.stop_prefetch()
         self.context.initialize(self.config.seed)
         load_dir = load_dir or self.config.load_dir
         if load_checkpoint and load_dir is not None:
@@ -333,6 +337,11 @@ class BaseTrainer:
                           retry_attempts=self.config.io_retry_attempts,
                           retry_backoff=self.config.io_retry_backoff_seconds)
 
+    # Deliberately lock-free: ``dataloader`` is assigned here BEFORE
+    # ``_start_prefetch`` spawns the worker (thread start happens-before
+    # publishes it) and never reassigned while a worker is live
+    # (``initialize`` stops a running one first, ``stop_prefetch`` joins it).
+    # sta: lock(dataloader)
     def _build_dataloaders(self) -> None:
         if self.dataset is not None:
             self.dataloader = self._loader(self.dataset, self.context.consumed_samples)
@@ -362,7 +371,7 @@ class BaseTrainer:
             # the window opens on a drained device queue, or its first
             # step_time absorbs the unfetched backlog
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(self.device)  # sta: disable=STA010
             self._unfetched_steps = 0
             self._last_fetch_wall = time.time()
         if self.profiler is not None:
@@ -393,7 +402,8 @@ class BaseTrainer:
                                    overflow=opt_out.overflow,
                                    no_overflow_steps=opt_out.no_overflow_steps)
         with span("step.sync", step=step_idx):
-            loss = float(loss)  # the one host sync of a fetched step
+            # the one host sync of a fetched step
+            loss = float(loss)  # sta: disable=STA010
         now = time.time()
         backlog, self._unfetched_steps = self._unfetched_steps, 0
         if backlog and self._last_fetch_wall is not None:
@@ -625,6 +635,13 @@ class BaseTrainer:
     def run_training(self, log_metrics_fn: Optional[Callable] = None) -> None:
         if self.config.train_iterations is None:
             raise ValueError("trainer.train_iterations must be set to run training")
+        # the tuner's predicted step time for this run's layout (exported by
+        # ``python -m scaling_tpu_torch.tune`` as SCALING_TPU_TUNER_PREDICTION),
+        # logged into the run's events so ``obs report`` scores prediction
+        # against span-measured step time
+        prediction = prediction_from_env()
+        if prediction is not None:
+            logger.log_event("tuner-prediction", **prediction)
         # armed by the loop after the first step: the kernels' first-use
         # builds must not read as a stall
         self.watchdog = (None if self.config.step_timeout_seconds is None else
@@ -671,7 +688,7 @@ class BaseTrainer:
             if (will_save or will_eval) and self._unfetched_steps and self.device.type == "cuda":
                 # drain the backlog inside the training window, before the
                 # save or eval time is taken out of it below
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(self.device)  # sta: disable=STA010
             if will_save or will_eval:
                 # the window publishes no heartbeat: the timeout budgets
                 # the window itself, not a step and the window

@@ -1093,3 +1093,101 @@ def test_tooling_phase_runs_on_the_cpu_at_toy_size(monkeypatch, capsys, tmp_path
                  "(e) | ladder: mbs=1 ", "(e) | launches: "):
         assert line in text, line
     assert sorted(out) == ["tooling_import_serve", "tooling_legacy_trainer"]
+
+
+# ------------------------------------------------------------ phase 18
+def test_block_overhead_fit_recovers_a_known_overhead():
+    ms = {bs: 0.04 * (1 + 6.0 / bs) for bs in (8, 16, 32)}
+    c, overhead = chip_smoke.fit_block_overhead(ms)
+    assert c == pytest.approx(0.04) and overhead == pytest.approx(6.0)
+
+
+def test_k1_block_sizes_hold_the_same_rows_against_the_plain_version(capsys):
+    """Phase 18 (a) on the CPU: the kernel's wrapper runs its plain version,
+    so every block size agrees with it; the printed fit names the tuner's
+    constant."""
+    out = chip_smoke.k1_block_sizes(device="cpu")
+    assert sorted(out["ms"]) == [8, 16, 32]
+    text = capsys.readouterr().out
+    assert text.count("(a) K1 at block size") == 3 and "PAGED_BLOCK_OVERHEAD" in text
+
+
+def _toy_serving(monkeypatch):
+    for key, value in dict(n_requests=4, rate=100.0, prompt_len=(8, 24),
+                           output_len=(2, 6)).items():
+        monkeypatch.setitem(chip_smoke.WORKLOAD, key, value)
+    for key, value in dict(num_slots=4, block_size=4, num_blocks=64, max_blocks_per_seq=16,
+                           prefill_chunk=8).items():
+        monkeypatch.setitem(chip_smoke.SERVE, key, value)
+    monkeypatch.setitem(chip_smoke.TUNE, "requests", 3)
+
+
+TOY_SPEC = "256,2,4,2,512,512,2.0"  # the serving toy as the tuner's ModelSpec
+
+
+def test_serving_tuner_check_serves_the_emitted_config_on_the_cpu(monkeypatch, capsys,
+                                                                 tmp_path):
+    """Phase 18 (b) at toy size: the tuner calibrated from a toy ``serve bench
+    --run-dir``, its config served in process; the engine the bench ran is
+    the emitted one, the prediction and the measured tick printed."""
+    from scaling_tpu_torch.serve.bench import main as bench_main
+
+    _toy_serving(monkeypatch)
+    run = tmp_path / "phase10"
+    assert bench_main(chip_smoke.bench_base("toy", "cpu") + ["--run-dir", str(run)]) == 0
+    out = chip_smoke.serving_tuner_check(run, device="cpu", model="toy", tune_model=TOY_SPEC)
+    text = capsys.readouterr().out
+    assert "(b) chosen mp1·r1·bs" in text and "calibration factor" in text
+    assert out["measured_tick_s"] > 0 and out["factor"] > 0
+    assert out["label"].startswith("mp1·r1·")
+
+
+def test_ladder_vs_tuner_prints_every_rung_beside_the_measured_one(capsys):
+    ladder = {"rungs": [{"mbs": 4, "oom": False, "tokens_per_s": 100.0, "peak_gb": 16.5},
+                        {"mbs": 8, "oom": False, "tokens_per_s": 120.0, "peak_gb": 24.0}],
+              "winner": 8}
+    out = chip_smoke.ladder_vs_tuner(0.35, ladder)
+    text = capsys.readouterr().out
+    for mbs in (4, 8, 16, 32):
+        assert f"(c) mbs {mbs}: predicted" in text
+    assert "not measured (the climb stopped before it)" in text
+    assert out["winner"] == 8 and out["pick"] in (4, 8, 16, 32)
+
+
+def test_observed_run_prediction_prices_phase_10s_shape():
+    pred = chip_smoke.observed_run_prediction(0.3)
+    assert pred["world_size"] == 1 and pred["predicted_step_s"] > 0
+    assert pred["source"] == "measured mfu 0.3 (--mfu)"
+
+
+def test_audit_of_a_step_and_a_tick_on_the_cpu(monkeypatch, capsys):
+    """Phase 18 (d) at toy size: the step's plain runs at 2L+1 / 2L+1 / L /
+    L, the tick's paged attention and RMSNorm; a count off by one fails."""
+    from scaling_tpu_torch.analysis import dispatch_audit
+    from scaling_tpu_torch.serve import EngineConfig, ServeEngine
+    from scaling_tpu_torch.serve.bench import build_inference
+
+    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", 128)
+    monkeypatch.setattr(chip_smoke, "TRAIN_MBS", 2)
+    report = chip_smoke.audit_train_step_check(device="cpu", model="toy")
+    assert report["launches"]["plain"]["rms_norm"] == 5
+    assert "(d) phase 5's step (2 layers)" in capsys.readouterr().out
+
+    _toy_serving(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "RECOMPUTE_TICK", 3)
+    engine = ServeEngine(build_inference("toy", device="cpu"),
+                         EngineConfig(**chip_smoke.SERVE), device="cpu")
+    tick = chip_smoke.audit_tick(engine, 512, device="cpu")
+    assert tick["launches"]["plain"]["paged_attention"] == 2
+    assert not engine.scheduler.has_work
+
+    real = dispatch_audit.audit_train_step
+
+    def off_by_one(*a, **k):
+        r = real(*a, **k)
+        r["launches"]["plain"]["rms_norm"] -= 1
+        return r
+
+    monkeypatch.setattr(dispatch_audit, "audit_train_step", off_by_one)
+    with pytest.raises(AssertionError, match="the step's launches"):
+        chip_smoke.audit_train_step_check(device="cpu", model="toy")

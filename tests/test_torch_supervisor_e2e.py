@@ -42,8 +42,8 @@ def worker() -> None:
 
     build = train.build_trainer
 
-    def build_with_record(config, device=None):
-        trainer = build(config, device)
+    def build_with_record(config, device=None, glue=None):
+        trainer = build(config, device, glue=glue)
         records = Path(config.trainer.save_dir).parent / "records.jsonl"
 
         def record(metrics, step):
