@@ -143,7 +143,8 @@ Phases, each of which must pass:
    with the card's free memory and one after each step with the loss and
    the launch counters, and phase 9's pause), under
    ``SCALING_TPU_FAULTS="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1"``
-   (heartbeat timeout 30 s, startup grace 50 s):
+   (heartbeat timeout 20 s, startup grace 35 s, worker grace 2 s, backoff
+   0.25 s doubling):
    epoch 0 trains steps 1-4 (saving at 3) and is SIGKILLed, epoch 1
    resumes at 3, trains step 4 and hangs, epoch 2 resumes at 3 and, once
    its step-5 record is written, the supervisor gets a real SIGTERM: the
@@ -193,18 +194,19 @@ Phases, each of which must pass:
    the zero share within 5 sigma, the kept values x / 0.9 in bf16, the
    same mask for the same site and step and another for another step;
 13. serving modes and resilience, on phase 4's model: (a) spec_k 4 and
-   spec off on phase 4's arrivals with prompts of a random 16-64-token
-   segment repeated to 128-1024 tokens: every request its token count,
-   K1 and K2 launched, no plain version, drafts accepted, greedy tokens
-   equal or parting first at a near tie; then phase 4's engine again on
-   its traffic, the run the next three are held against (tokens, and
+   spec off on 16 of phase 4's arrivals with prompts of a random
+   16-64-token segment repeated to 128-1024 tokens: every request its
+   token count, K1 and K2 launched, no plain version, drafts accepted,
+   greedy tokens equal or parting first at a near tie; then phase 4's
+   engine again on the first 16 requests of its traffic, the run the next
+   three are held against (tokens, and
    tokens/s, TTFT and ms a tick as ratios within this call): spec_k 4 on
    that traffic; (b) whole-prompt prefill: K4, K1 and K2, one 1000-token
    prompt's first-token logits within 0.05 of max |logit| of the f32 CPU
    forward; (c) ``fused_tick=False``: K1 at s = 1 and at the chunk, ms
-   and launches a tick; (d) ``serve bench`` children at
+   and launches a tick, on the first 8 requests; (d) ``serve bench`` children at
    phase 4's traffic: a wedged tick (``serve.tick=hang@40``, the watchdog
-   at 5x the longest tick measured and 10 s at least, ``--restarts 1``),
+   at 5x the longest tick measured and 5 s at least, ``--restarts 1``),
    a SIGTERM drain (arrivals at 8 req/s) and an overload run (4x the
    rate, ``--max-waiting 4``, a TTFT deadline of half phase 4's p50) side
    by side, then the crash replay (``serve.tick=kill@40``, ``--restarts
@@ -311,6 +313,29 @@ Phases, each of which must pass:
    version; and of a tick of phase 4's engine after its run: K1 and K2, no
    plain version; host syncs and device-to-host copies of each, and the
    distinct forward shapes phase 4's run produced;
+19. data and tensor parallelism, after phase 17 (``DIST``): ``runner_main``
+   with 4 local slots starts 4 ``train run`` workers of phase 8's model and
+   data at dp 2 x mp 2 with ZeRO-1 (micro-batch 2 a data rank, phase 8's
+   global batch), saving every 2 steps; they share the one card through
+   gloo (NCCL refuses two ranks on one device; ``dist_probe.py``). Beside
+   them a one-rank run of the same config for 2 steps. Rank 3 gets SIGTERM
+   once its step-3 record is written. Checks, each failing the phase: (a)
+   the step-1 and step-2 losses within 0.02 of the one-rank run's, all
+   finite; (b) the probe row's (512 tokens) logits of the four ranks'
+   forward at the step-4 weights within 0.05 of max |logit| of a CPU f32
+   forward of the merged step-4 checkpoint (constant logits cannot pass);
+   (c) each rank's step-2 launches of K2-K5 equal to the one-rank run's
+   (K4/K5 on 8 query and 2 kv heads), no plain version on any rank; (d) a
+   one-rank child, started with the SIGTERM beside the four ranks' step 4,
+   resumes the step-2 checkpoint (``MESH.json``: dp 2 x mp 2, ZeRO 1) to
+   step 4, its losses within 0.02 of the four ranks'; (e)
+   every rank stops at step 4 and exits 0, ``latest`` names step 4, which
+   verifies. Prints each rank's ``max_memory_allocated`` beside the
+   one-rank run's and the shares the layout predicts, the backend and the
+   ranks a device (gloo runs every collective on the CUDA tensors, so no
+   byte is staged through the host), rank 0's collective bytes in a step,
+   and the step time, taken with four ranks sharing one card (not a
+   scaling figure);
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -335,6 +360,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import struct
 import subprocess
@@ -401,19 +427,18 @@ SUPERVISE = dict(keys={"save_checkpoint_async": True, "dataloader_prefetch_facto
                        "step_timeout_seconds": 120, "max_consecutive_nonfinite": 2},
                  sigterm_after=4, pause_s=0.3, child_timeout_s=420)
 # phase 11: phase 8's run under the supervisor, its SIGTERM once epoch 2's
-# step-5 record is written. The timeouts are over three times what they
-# budget on an H100 at 2 layers (this phase's own prints in two runs with the
-# current checkpoint I/O): a worker's longest gap between two heartbeats, a
-# synchronous save with its eval, 8.15-8.6 s; its start to its first
-# heartbeat, a verified load with it, 8.1-15.6 s (so twice that on a host 1.5x
-# slower). The hang is found once both have passed: at the grace, ~36 s
-# after it hangs (at 100 / 50 s it took 86.7 s). A hung worker runs its
-# SIGTERM handler and goes on hanging, so its teardown waits the worker grace
-# out, then SIGKILLs
+# step-5 record is written. The timeouts are near twice the longest of what
+# they budget on an H100 at 2 layers (this phase's own prints in six runs):
+# a worker's longest gap between two heartbeats, a synchronous save with its
+# eval, 7.6-10.7 s; its start to its first heartbeat, a verified load with
+# it, 8.2-18.6 s. The hang is found once both have passed, ~20 s after it
+# hangs (at 30 / 50 s it took 29-37 s; at 100 / 50 s 86.7 s). A hung worker
+# runs its SIGTERM handler and goes on hanging, so its teardown waits the
+# worker grace out, then SIGKILLs
 RELAUNCH = dict(faults="host.kill=kill@5@epoch=0,host.hang=hang@2@epoch=1", drain_after=5,
-                runner={"heartbeat_timeout_seconds": 30.0, "startup_grace_seconds": 50.0,
-                        "restart_budget": 2, "restart_backoff_seconds": 1.0,
-                        "worker_grace_seconds": 5.0, "supervisor_poll_seconds": 0.05},
+                runner={"heartbeat_timeout_seconds": 20.0, "startup_grace_seconds": 35.0,
+                        "restart_budget": 2, "restart_backoff_seconds": 0.25,
+                        "worker_grace_seconds": 2.0, "supervisor_poll_seconds": 0.05},
                 timeout_s=600, resume_timeout_s=300, free_tol=1 << 30)
 # phase 12: a LoRA finetune of phase 8's step-6 checkpoint with dropout on, 6
 # steps saving at 3 and 6; 2 steps with probability dropout; 8 served requests
@@ -445,11 +470,17 @@ MFU_RTOL = 1e-6  # the telemetry's mfu vs the record's palm_mfu: one formula, tw
 KEEP_DIR = os.environ.get("CHIP_SMOKE_REPORTS")
 # phase 13: spec_k 4 on prompts of a 16-64-token segment repeated to 128-1024
 # tokens; the fault drills' tick; the overload run at 4x phase 4's rate with a
-# queue cap of 4; the watchdog at 5x the longest tick measured, 10 s at least;
+# queue cap of 4; the watchdog at 5x the longest tick measured, 5 s at least
+# (the longest tick of (a)-(c) was 0.16-0.45 s in six runs);
 # the drain's arrivals at 8 req/s (at 64 they all arrive before a request can
 # complete its 64 tokens, and a drain would find nothing left to refuse)
+# (a) and (b) run on ``requests`` requests (the repeating traffic, and the
+# first of phase 4's), (c)'s separate forwards on the first
+# ``separate_requests`` (part of the time phase 19 costs came out of them:
+# each still checks rates a tick, acceptance and equal tokens)
 MODES = dict(spec_k=4, segment=(16, 64), seed=1, first_token_prompt=1000, fault_tick=40,
-             overload_x=4, max_waiting=4, min_tick_timeout_s=10.0, child_timeout_s=300,
+             requests=16, separate_requests=8,
+             overload_x=4, max_waiting=4, min_tick_timeout_s=5.0, child_timeout_s=300,
              free_tol=1 << 30, drain_rate=8.0)
 # phase 14: the serving fleet on one card. Workload F: 32 requests at 128
 # req/s (each of two replicas sees phase 4's rate of 64), 4 families of a
@@ -519,6 +550,16 @@ TOOLING = dict(tokens=2_000_000, doc_len=(64, 4096), steps=3, pack_docs=2_000_00
 # serving tuner's emitted config served for 16 requests of phase 4's
 # traffic; (c) the training tuner over the train bench's micro-batch ladder
 TUNE = dict(block_sizes=(8, 16, 32), reps=20, requests=16, ladder="4,8,16,32")
+# phase 19: phase 8's model and data at dp 2 x mp 2 with ZeRO-1, four worker
+# processes of ``runner_main`` sharing the one card through gloo; rank 3 gets
+# SIGTERM once its step-3 record is written (each rank pausing after each
+# step), so every rank stops and saves at step 4; a one-rank run of the same
+# config beside it for steps 1-2, and a one-rank child, started with the
+# SIGTERM, resuming the step-2 checkpoint to step 4; a probe row of 512
+# tokens for the logits check
+DIST = dict(dp=2, mp=2, steps=8, save_interval=2, sigterm_rank=3, sigterm_after=3,
+            stop_step=4, ref_steps=2, pause_s=0.5, loss_tol=0.02, logit_tol=0.05,
+            probe_tokens=512, timeout_s=420, script="chip_smoke")
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
                     weight_tying=True, key_query_norm=True)
@@ -3572,13 +3613,14 @@ def finetune_phase(base: dict, device: str = "cuda") -> dict:
 
 
 # ------------------------------------------------ serving modes, resilience
-def repeating_workload(vocab: int, seed: int = MODES["seed"]) -> list:
-    """Phase 13 (a)'s traffic: phase 4's arrivals and output lengths, each
-    prompt a random segment of 16-64 tokens repeated up to 128-1024 tokens
-    (the code-editing and quote-the-document traffic n-gram drafting
-    serves)."""
+def repeating_workload(vocab: int, seed: int = MODES["seed"], n=None) -> list:
+    """Phase 13 (a)'s traffic: ``n`` requests at phase 4's rate and output
+    lengths, each prompt a random segment of 16-64 tokens repeated up to
+    128-1024 tokens (the code-editing and quote-the-document traffic n-gram
+    drafting serves)."""
     rng = np.random.default_rng(seed)
-    arrivals = np.cumsum(rng.exponential(1.0 / WORKLOAD["rate"], size=WORKLOAD["n_requests"]))
+    n = MODES["requests"] if n is None else n
+    arrivals = np.cumsum(rng.exponential(1.0 / WORKLOAD["rate"], size=n))
     arrivals[0] = 0.0
     work = []
     for a in arrivals:
@@ -3710,11 +3752,12 @@ def first_token_logits(inf, device: str) -> tuple:
 def modes_in_process(inf, phase4: dict, device: str) -> dict:
     """Phase 13 (a)-(c), in this process on phase 4's model. Each mode is
     held against a run beside it in this call: (a)'s spec-off run on the
-    same repeating traffic, and on phase 4's traffic a chunked spec-off
-    run of phase 4's engine (host-bound numbers move by tens of percent
+    same repeating traffic, and on the first ``MODES["requests"]`` of
+    phase 4's traffic a chunked spec-off run of phase 4's engine (host-bound numbers move by tens of percent
     between runs minutes apart)."""
     vocab = inf.architecture.vocab_size
-    plain_work, rep_work = phase4_workload(vocab), repeating_workload(vocab)
+    n = MODES["requests"]
+    plain_work, rep_work = phase4_workload(vocab)[:n], repeating_workload(vocab)
     plain_prompts = [p for _, p, _ in plain_work]
     paged = ("paged_attention", "rms_norm")
     out = {"longest_tick_s": 0.0, "launches": {}}
@@ -3741,10 +3784,12 @@ def modes_in_process(inf, phase4: dict, device: str) -> dict:
           f"tokens/s {spec['tokens_per_s'] / off['tokens_per_s']:.3f}")
     chunked = run("chunked", plain_work)
     check_mode_launches("phase 4's engine", chunked, paged)
-    check_near_ties(inf, plain_prompts, chunked["tokens"], phase4["tokens"],
+    check_near_ties(inf, plain_prompts, chunked["tokens"],
+                    {i: phase4["tokens"][i] for i in range(len(plain_work))},
                     "phase 4's engine again vs phase 4")
-    print(f"  phase 4's engine (chunk {SERVE['prefill_chunk']}, spec off) on its traffic, "
-          f"beside the runs below: {fmt_latency(chunked)}; phase 4's own run "
+    print(f"  phase 4's engine (chunk {SERVE['prefill_chunk']}, spec off) on the first "
+          f"{len(plain_work)} requests of its traffic, beside the runs below: "
+          f"{fmt_latency(chunked)}; phase 4's own run (all its requests) "
           f"{phase4['tokens_per_s']:.1f} tokens/s")
     random_spec = run("spec_random", plain_work, spec_k=MODES["spec_k"])
     check_mode_launches("(a) spec_k 4 on phase 4's traffic", random_spec, paged)
@@ -3770,12 +3815,14 @@ def modes_in_process(inf, phase4: dict, device: str) -> dict:
           f"CPU forward: max_abs_err={err:.4e} max|logit|={scale:.4e} (tol {TICK_TOL} x)")
     if not err <= TICK_TOL * scale:
         raise AssertionError(f"(b) first-token logits disagree: {err} > {TICK_TOL * scale}")
-    # (c) the separate decode and chunk forwards
-    separate = run("separate", plain_work, fused_tick=False)
+    # (c) the separate decode and chunk forwards, on the first requests
+    n_sep = min(MODES["separate_requests"], len(plain_work))
+    separate = run("separate", plain_work[:n_sep], fused_tick=False)
     check_mode_launches("(c) fused_tick=False", separate, paged)
     widths = separate["widths"]
     check_k1_widths(widths, (1, SERVE["prefill_chunk"]))
-    equal = check_near_ties(inf, plain_prompts, separate["tokens"], chunked["tokens"],
+    equal = check_near_ties(inf, plain_prompts, separate["tokens"],
+                            {i: chunked["tokens"][i] for i in range(n_sep)},
                             "(c) separate vs fused")
 
     def per_tick(stats):
@@ -3788,7 +3835,8 @@ def modes_in_process(inf, phase4: dict, device: str) -> dict:
           f"{widths.get(('paged_attention', 1), 0)}, at s={SERVE['prefill_chunk']}: "
           f"{widths.get(('paged_attention', SERVE['prefill_chunk']), 0)}); fused, beside it: "
           f"{per_tick(chunked)}; phase 4's run: {per_tick(phase4)}; {fmt_latency(separate)}; "
-          f"tokens equal in {equal} of {len(plain_work)}, the rest part at a near tie")
+          f"tokens equal in {equal} of {n_sep} (phase 4's first {n_sep} requests), the rest "
+          "part at a near tie")
     return out
 
 
@@ -5468,6 +5516,332 @@ def tuner_phase(serve_run_dir: Path, mfu: float, ladder: dict, phase4: dict,
     return {"tuner_serve_config": served["launches"]}
 
 
+# ------------------------------------------- phase 19: data and tensor parallelism
+DIST_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd", "flash_attention_bwd")
+
+
+def dist_probe_row(arch) -> torch.Tensor:
+    """Phase 19's probe row: ``probe_tokens`` ids (at most the model's
+    sequence) from seed 19, (1, n)."""
+    gen = torch.Generator().manual_seed(19)
+    n = min(DIST["probe_tokens"], arch.sequence_length)
+    return torch.randint(1, arch.vocab_size, (1, n), generator=gen, dtype=torch.int32)
+
+
+def dist_worker() -> int:
+    """A worker of phase 19, which ``runner_main`` launches as ``python -m
+    chip_smoke --payload=...``: the port's ``worker_main`` on its slot's
+    card, with one JSON line a step appended to ``<log_dir>/rank{r}.jsonl``
+    (the global loss, the launch counters, ``max_memory_allocated``, the
+    collectives' byte counters, the time) and a pause of ``pause_s``; at its
+    start its pid, backend and device; at its end the iterations, this
+    rank's parameter and optimizer bytes, and rank 0's logits of the probe
+    row at the final weights (``probe_logits.npy``), the forward run by
+    every rank of the layout. ``CHIP_SMOKE_WORKER_DEVICE`` names another
+    device than the slot's card (the CPU tests)."""
+    from scaling_tpu_torch.logging.logger import append_jsonl_line
+    from scaling_tpu_torch.models.transformer import train
+    from scaling_tpu_torch.ops import launches
+    from scaling_tpu_torch.parallel import collectives
+    from scaling_tpu_torch.runner import LaunchConfig
+
+    launch = LaunchConfig.from_launcher_args()
+    log_dir = Path(launch.payload["logger"]["log_dir"])
+    log_dir.mkdir(parents=True, exist_ok=True)
+    records = log_dir / f"rank{launch.global_rank}.jsonl"
+    build = train.build_trainer
+    device = os.environ.get("CHIP_SMOKE_WORKER_DEVICE")
+
+    def max_allocated(dev: torch.device) -> int:
+        return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+    def build_with_records(config, device=None, glue=None):
+        trainer = build(config, device, glue=glue)
+        lay = trainer.layout
+        append_jsonl_line(records, json.dumps({
+            "kind": "start", "pid": os.getpid(), "rank": launch.global_rank,
+            "device": str(trainer.device), "describe": None if lay is None else lay.describe(),
+            "local_world_size": int(os.environ.get("LOCAL_WORLD_SIZE", "1"))}))
+
+        def record(metrics, step):
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize(trainer.device)
+            append_jsonl_line(records, json.dumps({
+                "kind": "step", "step": step, "loss": metrics["loss"], "t": time.time(),
+                "kernel": dict(launches.KERNEL), "plain": dict(launches.PLAIN),
+                "max_allocated": max_allocated(trainer.device),
+                "stats": dict(collectives.STATS)}))
+            time.sleep(DIST["pause_s"])
+
+        trainer.metrics_hooks.append(record)
+        return trainer
+
+    train.build_trainer = build_with_records
+    trainer = train.worker_main(device=device)
+    row = dist_probe_row(trainer.module.model.architecture).to(trainer.device)
+    trainer.module.model.eval()
+    with torch.no_grad():
+        logits = trainer.module.forward({"token_ids": row})["activations"]
+    rank = launch.global_rank
+    if rank == 0:
+        np.save(log_dir / "probe_logits.npy", logits[0].float().cpu().numpy())
+    opt = trainer.optimizer.state
+    append_jsonl_line(records, json.dumps({
+        "kind": "end", "iterations": trainer.context.iterations,
+        "preempted": trainer._preempted,
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in trainer.module.model.parameters()),
+        "optimizer_bytes": sum(t.numel() * t.element_size() for field in (
+            opt.master, opt.exp_avg, opt.exp_avg_sq) for t in field.values()),
+        "max_allocated": max_allocated(trainer.device),
+        "kernel": dict(launches.KERNEL), "plain": dict(launches.PLAIN)}))
+    return 0
+
+
+def free_port() -> int:
+    """A TCP port of this host that nothing listens on now (each launch's
+    rendezvous takes its own, so two checkouts on one host never meet)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_config(prefixes: dict, root: Path, name: str, dp: int, mp: int, steps: int,
+                load_dir=None, save: bool = True) -> dict:
+    """Phase 8's config at dp x mp (ZeRO-1 when dp > 1, micro-batch
+    ``TRAINER["mbs"] / dp`` a data rank: phase 8's global batch), saving
+    every ``save_interval`` steps (``save``), no evaluation, under ``runner_main``
+    with one slot a rank and this script as the workers' module."""
+    config = trainer_config(dict(prefixes, valid=None), root / name / "logs",
+                            save_dir=root / name / "ckpt" if save else None, load_dir=load_dir)
+    del config["data"]["validation_data_prefixes"]  # phase 8's kept prefixes: a and b
+    config["topology"] = {"model_parallel_size": mp, "pipe_parallel_size": 1,
+                          "data_parallel_size": dp,
+                          "micro_batch_size": TRAINER["mbs"] // dp,
+                          "gradient_accumulation_steps": 1}
+    config["optimizer"] = dict(config["optimizer"], zero=dp > 1)
+    config["trainer"].update(train_iterations=steps, save_interval=DIST["save_interval"],
+                             eval_interval=None)
+    config["runner"] = {"default_gpu_count": dp * mp, "script": DIST["script"],
+                        "master_port": free_port()}
+    return config
+
+
+def dist_records(log_dir: Path, world: int) -> list:
+    """Each rank's records, by rank: ``{"start", "steps": {step: rec}, "end"}``."""
+    out = []
+    for r in range(world):
+        path = log_dir / f"rank{r}.jsonl"
+        recs = [json.loads(line) for line in path.read_text().splitlines()] \
+            if path.is_file() else []
+        out.append({"start": next((x for x in recs if x["kind"] == "start"), None),
+                    "steps": {x["step"]: x for x in recs if x["kind"] == "step"},
+                    "end": next((x for x in recs if x["kind"] == "end"), None)})
+    return out
+
+
+def start_runner(config: dict) -> tuple:
+    """``runner_main`` over ``config`` on a thread of this process (it only
+    spawns and watches the workers); returns (thread, result dict)."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.runner import runner_main
+
+    result = {}
+
+    def run():
+        try:
+            result["rc"] = runner_main(TransformerConfig.from_dict(config).runner, config)
+        except BaseException as e:  # re-raised by the caller after the join
+            result["error"] = e
+
+    thread = threading.Thread(target=run, name="phase19-runner", daemon=True)
+    thread.start()
+    return thread, result
+
+
+def join_runner(thread: threading.Thread, result: dict, what: str, log_dir: Path) -> None:
+    thread.join(timeout=DIST["timeout_s"])
+    if thread.is_alive():
+        raise AssertionError(f"{what}: the runner did not end within {DIST['timeout_s']}s")
+    if "error" in result:
+        raise result["error"]
+    if result.get("rc") != 0:
+        logs = sorted(log_dir.glob("*.log"))
+        tail = logs[0].read_text()[-3000:] if logs else ""
+        raise AssertionError(f"{what}: runner_main exited {result.get('rc')}\n{tail}")
+
+
+def dist_cpu_logits(step_dir: Path, config: dict) -> torch.Tensor:
+    """The probe row's logits in f32 on the CPU (the plain versions) from
+    the merged checkpoint ``step_dir``, loaded by one rank."""
+    from scaling_tpu_torch.checkpoint import load_model_checkpoint
+    from scaling_tpu_torch.models.transformer import TransformerConfig, TransformerModel
+    from scaling_tpu_torch.parallel import ParallelModule
+
+    cfg = TransformerConfig.from_dict(dict(config, topology={
+        "micro_batch_size": 1, "gradient_accumulation_steps": 1}))
+    arch32 = dataclasses.replace(cfg.transformer_architecture, precision="float32")
+    module = ParallelModule(TransformerModel(arch32, device="cpu"), cfg.topology)
+    params = dict(module.model.named_parameters())
+    load_model_checkpoint(step_dir, {key: params[name]
+                                     for name, key in module.ckpt_keys().items()})
+    module.model.eval()
+    with torch.no_grad():
+        return module.forward({"token_ids": dist_probe_row(arch32)})["activations"][0]
+
+
+def check_dist_launches(what: str, steps: dict, plain: dict, want: dict) -> dict:
+    """A rank's launches in step 2 (step 2's counters less step 1's) equal
+    ``want`` for K2-K5, and no plain version ran; returns the step's."""
+    got = {k: steps[2]["kernel"].get(k, 0) - steps[1]["kernel"].get(k, 0) for k in DIST_KERNELS}
+    if want is not None and got != want:
+        raise AssertionError(f"{what}: launches in step 2 {got}, the one-rank run's {want}")
+    if any(v <= 0 for v in got.values()):
+        raise AssertionError(f"{what}: a kernel was not launched in step 2: {got}")
+    if sum(plain.values()) != 0:
+        raise AssertionError(f"{what}: plain versions ran on the card: {plain}")
+    return got
+
+
+def dist_phase(base: dict, device: str = "cuda") -> dict:
+    """Phase 19: see the module docstring (19). Returns the launches of the
+    four ranks' run, summed over the ranks, by path."""
+    from scaling_tpu_torch.resilience import read_mesh_meta, verify_checkpoint
+
+    dp, mp, world = DIST["dp"], DIST["mp"], DIST["dp"] * DIST["mp"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    t0 = time.monotonic()
+    runners = []  # each runner's (thread, result), joined before the files go
+    try:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()  # the card's memory to the workers
+        prefixes = base["prefixes"]
+        sharded_cfg = dist_config(prefixes, root, "sharded", dp, mp, DIST["steps"])
+        one_cfg = dist_config(prefixes, root, "one", 1, 1, DIST["ref_steps"], save=False)
+        sharded_logs, one_logs = root / "sharded" / "logs", root / "one" / "logs"
+        sharded, one = start_runner(sharded_cfg), start_runner(one_cfg)
+        runners += [sharded, one]
+        # SIGTERM to rank 3 once its step-3 record is written
+        deadline = time.monotonic() + DIST["timeout_s"]
+        target = DIST["sigterm_rank"]
+        while True:
+            recs = dist_records(sharded_logs, world)[target]
+            if DIST["sigterm_after"] in recs["steps"]:
+                os.kill(recs["start"]["pid"], signal.SIGTERM)
+                break
+            if not sharded[0].is_alive() or time.monotonic() > deadline:
+                join_runner(*sharded, "phase 19's four ranks", sharded_logs)
+                raise AssertionError(f"phase 19: no step-{DIST['sigterm_after']} record of "
+                                     f"rank {target}")
+            time.sleep(0.02)
+        # (d)'s one-rank child starts now, beside the four ranks' last step and
+        # save: the step-2 checkpoint was durable before any rank's step 3
+        ckpt = root / "sharded" / "ckpt"
+        stop = DIST["stop_step"]
+        resume_cfg = dist_config(prefixes, root, "resume", 1, 1, stop,
+                                 load_dir=ckpt / "global_step2", save=False)
+        resume = start_runner(resume_cfg)
+        runners.append(resume)
+        join_runner(*sharded, "phase 19's four ranks", sharded_logs)
+        join_runner(*one, "phase 19's one-rank run", one_logs)
+        ranks, ref = dist_records(sharded_logs, world), dist_records(one_logs, 1)[0]
+        run_s = time.monotonic() - t0
+        # (e) every rank stopped at the same step, with a checkpoint that verifies
+        stops = [r["end"]["iterations"] if r["end"] else None for r in ranks]
+        latest = (ckpt / "latest").read_text().strip()
+        problems = verify_checkpoint(ckpt / f"global_step{stop}")
+        print(f"  (e) SIGTERM to rank {target} after its step-{DIST['sigterm_after']} record: "
+              f"exit 0 on every rank, stopped at steps {stops}, preempted "
+              f"{[r['end']['preempted'] for r in ranks]}; latest {latest}, its verification "
+              f"{problems or 'clean'}")
+        if stops != [stop] * world or latest != f"global_step{stop}" or problems:
+            raise AssertionError(f"phase 19 (e): ranks stopped at {stops}, latest {latest}, "
+                                 f"{problems}")
+        # (a) the losses of steps 1-2 against the one-rank run's
+        losses = [ranks[0]["steps"][s]["loss"] for s in sorted(ranks[0]["steps"])]
+        ref_losses = [ref["steps"][s]["loss"] for s in range(1, DIST["ref_steps"] + 1)]
+        diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        print(f"  (a) losses of the four ranks {losses}; the one-rank run's {ref_losses}; "
+              f"|diff| {diffs} (tol {DIST['loss_tol']})")
+        if not all(math.isfinite(x) for x in losses) or max(diffs) > DIST["loss_tol"]:
+            raise AssertionError(f"phase 19 (a): losses {losses} vs {ref_losses}")
+        # (c) each rank launches K2-K5 as often a step as the one-rank run, no plain
+        want = check_dist_launches("phase 19 one rank", ref["steps"], ref["end"]["plain"], None)
+        for r, rec in enumerate(ranks):
+            check_dist_launches(f"phase 19 rank {r}", rec["steps"], rec["end"]["plain"], want)
+        arch = sharded_cfg["transformer_architecture"]
+        heads = arch["num_attention_heads"]
+        print(f"  (c) launches in step 2 on each of the four ranks {want} (K4/K5 on "
+              f"{heads // mp} query and {(arch.get('attention_num_kv_heads') or heads) // mp} "
+              "kv heads), the one-rank run's the same; no plain version on any rank")
+        # (b) the probe row's logits at the step-4 weights against the CPU's
+        t_cpu = time.monotonic()
+        card = torch.from_numpy(np.load(sharded_logs / "probe_logits.npy"))
+        cpu = dist_cpu_logits(ckpt / f"global_step{stop}", sharded_cfg)
+        scale = cpu.abs().max().item()
+        err = (card - cpu).abs().max().item() / scale
+        uniform = ((cpu.amax(-1) - cpu.amin(-1)) / 2).max().item() / scale
+        print(f"  (b) probe row ({DIST['probe_tokens']} tokens) at the step-{stop} weights, the "
+              f"four ranks' forward vs the f32 CPU forward of the merged checkpoint: "
+              f"max_abs_err={err * scale:.4e} max|logit|={scale:.4e} err/max|logit|={err:.3e} "
+              f"(tol {DIST['logit_tol']}; constant logits would give >= {uniform:.3e}) "
+              f"({time.monotonic() - t_cpu:.1f}s)")
+        if not uniform > DIST["logit_tol"] or not err <= DIST["logit_tol"]:
+            raise AssertionError(f"phase 19 (b): err {err}, constant logits {uniform}")
+        # (d) a one-rank child resumes the step-2 checkpoint to step 4
+        mesh = read_mesh_meta(ckpt / "global_step2")
+        join_runner(*resume, "phase 19's one-rank resume", root / "resume" / "logs")
+        resumed = dist_records(root / "resume" / "logs", 1)[0]
+        got = [resumed["steps"][s]["loss"] for s in range(3, stop + 1)]
+        want_l = [ranks[0]["steps"][s]["loss"] for s in range(3, stop + 1)]
+        rdiff = [abs(a - b) for a, b in zip(got, want_l)]
+        topo = mesh["topology"]
+        print(f"  (d) MESH.json of step 2: dp {topo['data_parallel_size']} x mp "
+              f"{topo['model_parallel_size']}, zero_stage {mesh['optimizer']['zero_stage']}; a "
+              f"one-rank child resumed it: steps 3-{stop} losses {got}, the four ranks' "
+              f"{want_l}, |diff| {rdiff} (tol {DIST['loss_tol']})")
+        if (topo["data_parallel_size"], topo["model_parallel_size"]) != (dp, mp) or \
+                max(rdiff) > DIST["loss_tol"]:
+            raise AssertionError(f"phase 19 (d): {topo}, {got} vs {want_l}")
+        # memory, layout, collective bytes, step time
+        start = ranks[0]["start"]
+        describe = start["describe"]
+        print(f"  backend {describe['backend']}, {start['local_world_size']} ranks on "
+              f"{torch.cuda.device_count()} device(s) ({start['device']} each); bytes staged "
+              f"through the host a step: 0 (every collective runs on the CUDA tensors)")
+        n_params = ref["end"]["param_bytes"] // 2  # bf16
+        for r, rec in enumerate(ranks):
+            end = rec["end"]
+            print(f"  rank {r}: max_memory_allocated {end['max_allocated'] / 1e9:.3f} GB "
+                  f"(the one-rank run's {ref['end']['max_allocated'] / 1e9:.3f} GB); parameters "
+                  f"{end['param_bytes'] / 1e9:.4f} GB (expected {2 * n_params / mp / 1e9:.4f}: "
+                  f"/mp), optimizer state {end['optimizer_bytes'] / 1e9:.4f} GB (expected "
+                  f"{12 * n_params / (mp * dp) / 1e9:.4f}: /(mp*dp))")
+        stats = [rec["steps"] for rec in ranks]
+        per_step = {k: stats[0][3]["stats"].get(k, 0) - stats[0][2]["stats"].get(k, 0)
+                    for k in stats[0][3]["stats"]}
+        print(f"  rank 0's collectives in step 3: "
+              + ", ".join(f"{k} {v}" for k, v in sorted(per_step.items())))
+        # steps 3 and 4 (step 2's record comes after its save; each after a pause)
+        times = [stats[0][s]["t"] - stats[0][s - 1]["t"] - DIST["pause_s"] for s in (3, 4)]
+        ref_t = ref["steps"][2]["t"] - ref["steps"][1]["t"] - DIST["pause_s"]
+        print(f"  step time with four ranks sharing one card (not a scaling figure), steps "
+              f"3-4: {[round(t * 1e3, 1) for t in times]} ms (step 4 beside the one-rank "
+              f"resume child's start); the one-rank run's step 2 "
+              f"{ref_t * 1e3:.1f} ms (host clock between step records, less the pause; run "
+              f"wall {run_s:.1f}s)")
+        total: dict = {}
+        for rec in ranks:
+            for k, v in rec["end"]["kernel"].items():
+                total[k] = total.get(k, 0) + v
+        return {"dist_4ranks": total}
+    finally:
+        for thread, _ in runners:  # after a failed check: the runners end on their own
+            thread.join(timeout=DIST["timeout_s"])
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def add_launches(rows: list, launches_by_path: dict) -> None:
     """``launches``: the sum over the main-path runs; ``launches_by_path``:
     each run's own count (``launches_by_path`` maps a run's name to the
@@ -5592,6 +5966,11 @@ def main() -> int:
     ladder = {}
     launches_by_path.update(tooling_phase(trainer_run["base"], ladder_out=ladder))
     lap("tooling (17)")
+    print(f"== dist (phase 19): phase 8's model and data at dp {DIST['dp']} x mp {DIST['mp']} "
+          "with ZeRO-1, four worker processes of runner_main sharing the card (gloo); a "
+          "one-rank run beside it; SIGTERM to rank 3; a one-rank resume")
+    launches_by_path.update(dist_phase(trainer_run["base"]))
+    lap("dist (19)")
     print("== modes (phase 13): speculative decoding, whole-prompt prefill, separate "
           "forwards; crash replay, drain, a wedged tick and overload in child benches")
     launches_by_path.update(modes_phase(serve_native, served["tokens"]))
@@ -5634,5 +6013,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--supervise-runner"]:
         sys.exit(relaunch_supervisor(sys.argv[2]))
     if any(a.startswith("--payload=") for a in sys.argv[1:]):
-        sys.exit(relaunch_worker())
+        sys.exit(relaunch_worker() if "CHIP_SMOKE_RECORDS" in os.environ else dist_worker())
     sys.exit(main())

@@ -11,9 +11,12 @@ One :class:`~.callgraph.CallGraph` is built per run and shared by every
 whole-program consumer — the lint's STA009-STA016 and the ``protocol``
 inventory — so ``all`` pays the AST walk once.
 
-The audit runs on the CPU unless ``--device cuda`` is given; on the card
-it prints the report and compares nothing (the card's torch may lower
-ops differently from the torch that pinned the goldens).
+The audit runs on the card unless ``--device cpu`` is given, as every
+entry point of the port does; without a card it raises (the static
+sections, lint and protocol, need no device and run first). The goldens
+are CPU counts: only ``--device cpu`` compares with them; on the card it
+prints the report and compares nothing (the card's torch may lower ops
+differently from the torch that pinned the goldens).
 """
 
 from __future__ import annotations
@@ -148,9 +151,9 @@ def main(argv=None) -> int:
     parser.add_argument("--sections",
                         help="comma list of audit sections "
                              "(default: all; see dispatch_audit.SECTIONS)")
-    parser.add_argument("--device", default="cpu",
-                        help="where the audit runs (cpu: compared with the "
-                             "goldens; cuda: printed only)")
+    parser.add_argument("--device", default="cuda",
+                        help="where the audit runs (cuda by default: printed only; "
+                             "cpu: compared with the goldens)")
     parser.add_argument("--goldens", help="override the golden-report directory")
     parser.add_argument("--repin", action="store_true",
                         help="rewrite the goldens from the current tree")

@@ -223,7 +223,7 @@ def audit_engine_tick(engine) -> dict:
 
 
 # ------------------------------------------------------------ sections
-def audit_train_section(device: str = "cpu", seq: int = 128, mbs: int = 2) -> dict:
+def audit_train_section(device: str = "cuda", seq: int = 128, mbs: int = 2) -> dict:
     """One optimizer step of the train bench's toy model (bf16, fused
     RMSNorm, flash attention, 2 layers), after one unaudited step (the
     optimizer's state exists from then on, as on every later step)."""
@@ -247,7 +247,7 @@ def audit_train_section(device: str = "cpu", seq: int = 128, mbs: int = 2) -> di
     })
 
 
-def audit_decode_section(device: str = "cpu", prompt_len: int = 4,
+def audit_decode_section(device: str = "cuda", prompt_len: int = 4,
                          max_tokens: int = 10) -> dict:
     """``generate`` with the fused decode (done checked every
     ``DONE_CHECK_EVERY`` = 8 steps) on the serving toy, 10 tokens so one
@@ -266,7 +266,7 @@ def audit_decode_section(device: str = "cpu", prompt_len: int = 4,
     return report
 
 
-def audit_serve_decode_section(device: str = "cpu") -> dict:
+def audit_serve_decode_section(device: str = "cuda") -> dict:
     """The serving engine's mixed tick on the toy: three requests (prompts
     of 5, 9 and 3 tokens, 4 new tokens each) through 2 slots; the fourth
     tick (decode and prefill-chunk rows together) is audited, and the
@@ -300,7 +300,7 @@ SECTIONS = {
 }
 
 
-def run_audit(sections: Optional[Sequence[str]] = None, device: str = "cpu") -> dict:
+def run_audit(sections: Optional[Sequence[str]] = None, device: str = "cuda") -> dict:
     names = list(sections) if sections else list(SECTIONS)
     unknown = [n for n in names if n not in SECTIONS]
     if unknown:

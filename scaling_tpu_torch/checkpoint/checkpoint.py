@@ -22,6 +22,13 @@ Parameters are matched by their JAX key (``layer_{i}_{Class}.{name}``,
 ``ParallelModule.ckpt_keys``), so a checkpoint of either package loads
 in the other. Non-strict loading follows ``enforce_allow_lists``.
 
+Over several ranks a checkpoint is still JAX's merged layout: each leaf is
+gathered whole (``gather``: the ranks' slices put together on every rank
+of the groups, the whole leaf handed back on the writing rank and None on
+the others) and only the writing rank writes; a load gives each rank its
+slice of the merged arrays (``shard``), read from views of the mapped
+files. Both go leaf by leaf, so the host holds one layer at a time.
+
 Every save takes its own host copy of each tensor before it returns
 (``_to_numpy``); with an ``AsyncCheckpointWriter`` the serialisation,
 crc32 and write of each file then run on the writer's thread while the
@@ -55,6 +62,10 @@ from ..resilience.manifest import crc32_combine
 
 PathLike = Union[Path, str]
 Recorder = Callable[[Path, int, str], None]
+# (JAX key, this rank's tensor) -> the whole leaf on the writing rank, else None
+Gather = Callable[[str, torch.Tensor], Optional[torch.Tensor]]
+# (JAX key, the whole leaf in the port's layout) -> this rank's slice
+Shard = Callable[[str, torch.Tensor], torch.Tensor]
 OPT_FIELDS = ("master", "exp_avg", "exp_avg_sq")
 _KEY_RE = re.compile(r"layer_(\d+)_([A-Za-z0-9]+)\.(.+)")
 
@@ -141,10 +152,16 @@ def _from_numpy(key: str, arr: np.ndarray, device=None) -> torch.Tensor:
     return from_jax_layout(key, t)
 
 
-def _copy_in(target: torch.Tensor, key: str, arr: np.ndarray, what: str) -> None:
-    """``target`` takes the stored ``arr`` (in the JAX layout), in place;
-    nothing keeps a view of ``arr`` once this returns."""
-    value = _from_numpy(key, arr, target.device)
+def _copy_in(target: torch.Tensor, key: str, arr: np.ndarray, what: str,
+             shard: Optional[Shard] = None) -> None:
+    """``target`` takes the stored ``arr`` (in the JAX layout), or with
+    ``shard`` its slice of it, in place; nothing keeps a view of ``arr``
+    once this returns."""
+    if shard is None:
+        value = _from_numpy(key, arr, target.device)
+    else:  # the slice of the mapped array goes to the device, not the whole
+        value = shard(key, from_jax_layout(key, torch.from_numpy(np.asarray(arr))))
+        value = value.to(target.device)
     if tuple(value.shape) != tuple(target.shape):
         raise ValueError(f"{what} shape mismatch for {key}: checkpoint "
                          f"{tuple(value.shape)} vs model {tuple(target.shape)}")
@@ -275,19 +292,30 @@ def _emit(writer: Optional[AsyncCheckpointWriter], path: Path, arrays: Dict[str,
         writer.submit(_write_npz, path, arrays, recorder)
 
 
-def save_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
+def _whole(gather: Optional[Gather], key: str, t: torch.Tensor) -> Optional[torch.Tensor]:
+    return t if gather is None else gather(key, t)
+
+
+def save_model_checkpoint(dir: Optional[PathLike], params: Mapping[str, torch.Tensor],
                           recorder: Optional[Recorder] = None,
-                          writer: Optional[AsyncCheckpointWriter] = None) -> None:
+                          writer: Optional[AsyncCheckpointWriter] = None,
+                          gather: Optional[Gather] = None) -> None:
     """One npz per layer. ``params`` maps JAX keys to the port's tensors;
-    with ``writer`` the files are written on its thread."""
-    path = Path(dir)
-    path.mkdir(parents=True, exist_ok=True)
+    with ``writer`` the files are written on its thread. With ``gather``
+    every rank calls this, and a rank whose ``gather`` hands back None
+    (``dir`` None there) writes nothing."""
+    path = None if dir is None else Path(dir)
+    if path is not None:
+        path.mkdir(parents=True, exist_ok=True)
     groups: Dict[Tuple[int, str], Dict[str, str]] = {}
     for key in params:
         index, cls, name = _split_key(key)
         groups.setdefault((index, cls), {})[name] = key
     for (index, cls), names in groups.items():  # host copies one layer at a time
-        arrays = {name: _to_numpy(key, params[key]) for name, key in names.items()}
+        whole = {name: _whole(gather, key, params[key]) for name, key in names.items()}
+        if path is None:
+            continue
+        arrays = {name: _to_numpy(names[name], t) for name, t in whole.items()}
         _emit(writer, path / f"model_state_layer_{index}_{cls}.npz", arrays, recorder)
 
 
@@ -322,9 +350,11 @@ def load_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
                           allowed_missing_keys: Optional[List[str]] = None,
                           allowed_unexpected_keys: Optional[List[str]] = None,
                           ignore_keys: Optional[List[str]] = None,
-                          restored_keys: Optional[Set[str]] = None) -> None:
+                          restored_keys: Optional[Set[str]] = None,
+                          shard: Optional[Shard] = None) -> None:
     """Copy the checkpoint's values into ``params`` (JAX key -> tensor), in
-    place, cast to each tensor's dtype. Missing or unexpected keys raise
+    place, cast to each tensor's dtype; with ``shard``, each tensor's slice
+    of the stored leaf. Missing or unexpected keys raise
     unless an allow list matches them; ``ignore_keys`` keeps the current
     values. The keys taken from the checkpoint are added to
     ``restored_keys`` when it is a set."""
@@ -349,7 +379,7 @@ def load_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
             f, name = available[key]
             if f not in opened:
                 opened[f] = _open_artifact(f)
-            _copy_in(t, key, opened[f][name], "parameter")
+            _copy_in(t, key, opened[f][name], "parameter", shard)
             if restored_keys is not None:
                 restored_keys.add(key)
     finally:
@@ -357,15 +387,18 @@ def load_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
             z.close()
 
 
-def save_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer, keys: Mapping[str, str],
-                              recorder: Optional[Recorder] = None,
-                              writer: Optional[AsyncCheckpointWriter] = None) -> None:
+def save_optimizer_checkpoint(dir: Optional[PathLike], optimizer: Optimizer,
+                              keys: Mapping[str, str], recorder: Optional[Recorder] = None,
+                              writer: Optional[AsyncCheckpointWriter] = None,
+                              gather: Optional[Gather] = None) -> None:
     """One ``optimizer_state_layer_{i}.npz`` per layer (on ``writer``'s
     thread when given) and ``optimizer_state.json``. ``keys`` maps the
     port's parameter names to their JAX keys; parameters without optimizer
-    state get ``(0,)`` placeholders."""
-    path = Path(dir)
-    path.mkdir(parents=True, exist_ok=True)
+    state get ``(0,)`` placeholders. ``gather`` and ``dir`` None: as in
+    ``save_model_checkpoint``."""
+    path = None if dir is None else Path(dir)
+    if path is not None:
+        path.mkdir(parents=True, exist_ok=True)
     state = optimizer.state
     per_layer: Dict[int, List[Tuple[str, str]]] = {}
     for name, key in keys.items():
@@ -375,10 +408,14 @@ def save_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer, keys: Mapping
         for name, key in members:
             for field in OPT_FIELDS:
                 tensors = getattr(state, field)
-                arrays[f"{field}.{_split_key(key)[2]}"] = (
-                    _to_numpy(key, tensors[name]) if name in tensors
-                    else np.zeros((0,), np.float32))
-        _emit(writer, path / f"optimizer_state_layer_{index}.npz", arrays, recorder)
+                whole = _whole(gather, key, tensors[name]) if name in tensors else None
+                if path is not None:
+                    arrays[f"{field}.{_split_key(key)[2]}"] = (
+                        np.zeros((0,), np.float32) if whole is None else _to_numpy(key, whole))
+        if path is not None:
+            _emit(writer, path / f"optimizer_state_layer_{index}.npz", arrays, recorder)
+    if path is None:
+        return
     ls = state.loss_scaler
     scalars = {"step": int(state.step),
                "loss_scaler": {"current_scale": float(ls.current_scale),
@@ -391,10 +428,11 @@ def save_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer, keys: Mapping
 
 @torch.no_grad()
 def load_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer,
-                              keys: Mapping[str, str]) -> None:
+                              keys: Mapping[str, str], shard: Optional[Shard] = None) -> None:
     """Load masters, moments, the step and the loss scaler's state into
-    ``optimizer``, in place. Raises FileNotFoundError when the checkpoint
-    has no optimizer state (pruned or never written)."""
+    ``optimizer``, in place (with ``shard``, each state's slice). Raises
+    FileNotFoundError when the checkpoint has no optimizer state (pruned
+    or never written)."""
     path = Path(dir)
     scalars = json.loads((path / "optimizer_state.json").read_text())
     opened: Dict[Path, _NpzReader] = {}
@@ -416,7 +454,7 @@ def load_optimizer_checkpoint(dir: PathLike, optimizer: Optimizer,
             index, _, pname = _split_key(key)
             for field in OPT_FIELDS:
                 _copy_in(getattr(state, field)[name], key, entry(field, index, pname),
-                         f"optimizer {field}")
+                         f"optimizer {field}", shard)
     finally:
         for z in opened.values():
             z.close()

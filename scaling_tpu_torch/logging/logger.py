@@ -1,6 +1,5 @@
 """Console, per-rank log file, per-step metrics JSONL, the events file and
-TensorBoard (counterpart of scaling_tpu/logging/logger.py on one device,
-rank 0).
+TensorBoard (counterpart of scaling_tpu/logging/logger.py).
 
 ``logger`` is the process's logger, as in the JAX package;
 ``logger.configure(config)`` wires its sinks. It sends the
@@ -15,6 +14,11 @@ numeric metric as a scalar under ``<log_dir>/tensorboard``
 lifecycle event to the events file (``SCALING_TPU_EVENTS_PATH``, else
 ``events_path``) and mirrors it to the log. wandb is not installed and
 stays refused by name.
+
+A worker of several ranks sets its rank (``set_rank``): its console lines
+and ``rank_{r}.log`` carry it, and only global rank 0 writes step records
+and events (``metrics_ranks`` and ``tensorboard_ranks`` choose others),
+as the JAX controller alone writes them.
 """
 
 from __future__ import annotations
@@ -110,29 +114,36 @@ class Logger:
         self._log = logging.getLogger(LOGGER_NAME)
         self._log.propagate = False
         self._tb_writer: Any = None
+        self.rank = 0
         self.configure(config or LoggerConfig(), name)
+
+    def set_rank(self, rank: int) -> None:
+        """This process's global rank; the sinks are wired again for it."""
+        self.rank = rank
+        self.configure(self.config, self._name)
 
     def configure(self, config: LoggerConfig, name: str = "") -> None:
         self.config = config
+        self._name = name
         self._log.setLevel(_LEVELS[config.log_level])
         for h in list(self._log.handlers):
             self._log.removeHandler(h)
             h.close()
-        prefix = "[rank 0]" + (f" [{name}]" if name else "")
+        prefix = f"[rank {self.rank}]" + (f" [{name}]" if name else "")
         fmt = logging.Formatter(f"[%(asctime)s] {prefix} [%(levelname)s] %(message)s")
         handlers: List[logging.Handler] = [_Stdout()]
         if config.metrics_path:  # the registry's flushes fall back to it
             Path(config.metrics_path).parent.mkdir(parents=True, exist_ok=True)
         if config.log_dir:
             Path(config.log_dir).mkdir(parents=True, exist_ok=True)
-            handlers.append(logging.FileHandler(Path(config.log_dir) / "rank_0.log"))
+            handlers.append(logging.FileHandler(Path(config.log_dir) / f"rank_{self.rank}.log"))
         for h in handlers:
             h.setFormatter(fmt)
             self._log.addHandler(h)
         if self._tb_writer is not None:
             self._tb_writer.close()
             self._tb_writer = None
-        if config.use_tensorboard and _rank_enabled(config.tensorboard_ranks):
+        if config.use_tensorboard and _rank_enabled(config.tensorboard_ranks, self.rank):
             from torch.utils.tensorboard import SummaryWriter
 
             self._tb_writer = SummaryWriter(
@@ -166,7 +177,7 @@ class Logger:
         mirrored to the log at ``_level``. Without an events file only the
         mirror line is written, and with the mirror's level off as well the
         record is not even built (spans run on every tick and step)."""
-        path = self.events_path()
+        path = self.events_path() if self.rank == 0 else None
         if not path and not self._log.isEnabledFor(_LEVELS.get(_level, logging.INFO)):
             return
         record = {"event": event, "ts": time.time(), **fields}
@@ -195,7 +206,7 @@ class Logger:
         ``SCALING_TPU_METRICS_PATH`` environment variable, then
         ``metrics_path``, then ``<log_dir>/metrics_rank_0.jsonl``."""
         c = self.config
-        if not _rank_enabled(c.metrics_ranks):
+        if not _rank_enabled(c.metrics_ranks, self.rank):
             return None
         env = os.environ.get("SCALING_TPU_METRICS_PATH")
         if env:
@@ -205,17 +216,17 @@ class Logger:
         if c.metrics_path:
             return Path(c.metrics_path)
         if c.log_dir:
-            return Path(c.log_dir) / "metrics_rank_0.jsonl"
+            return Path(c.log_dir) / f"metrics_rank_{self.rank}.jsonl"
         return None
 
     def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
-        if not _rank_enabled(self.config.metrics_ranks):
+        if not _rank_enabled(self.config.metrics_ranks, self.rank):
             return
         numeric = {k: float(v) for k, v in metrics.items() if v is not None}
         self.info(f"step {step} | " + " | ".join(f"{k}: {v:.6g}" for k, v in numeric.items()))
         path = self.metrics_path()
         if path is not None:
-            record = {"kind": "step", "step": step, "ts": time.time(), "host": _host_id(),
+            record = {"kind": "step", "step": step, "ts": time.time(), "host": _host_id(self.rank),
                       "metrics": {k: (v if math.isfinite(v) else None)
                                   for k, v in numeric.items()}}
             try:

@@ -26,6 +26,11 @@ its linears transposed, a CLIP ResNet's convolution kernels permuted from
 JAX's ``(kh, kw, in, out)`` to PyTorch's ``(out, in, kh, kw)``, a CLIP
 tower's position embedding as stored and its flattened patch kernel
 transposed as a linear's.
+
+With ``topology`` (a ``TopologyConfig`` of several ranks) and ``rank``,
+``params_from_jax`` returns that rank's shards: each leaf's contiguous
+slice over the model group along the dim JAX's partition spec names
+(``jax_partition_spec``), as ``TransformerModel`` builds them.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from ...parallel.parallel_module import from_jax_layout
+from ...parallel.parallel_module import from_jax_layout, jax_partition_spec, port_dim, slice_of
+from ...topology.topology import rank_coords
 from .config import TransformerArchitectureConfig
 
 
@@ -56,12 +62,23 @@ def param_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if name.endswith("router.weight") else dtype
 
 
-def params_from_jax(np_params: Mapping[str, Any],
-                    arch: TransformerArchitectureConfig) -> Dict[str, torch.Tensor]:
+def params_from_jax(np_params: Mapping[str, Any], arch: TransformerArchitectureConfig,
+                    topology: Any = None, rank: int = 0) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's state dict, in the
-    architecture's dtype (a MoE router in f32)."""
+    architecture's dtype (a MoE router in f32); with ``topology`` and
+    ``rank``, that rank's shards."""
+    mp = 1 if topology is None else topology.model_parallel_size
+    mp_rank = 0
+    if mp > 1:
+        mp_rank = rank_coords((1, topology.data_parallel_size, 1, mp), rank)[3]
     state: Dict[str, torch.Tensor] = {}
     for name, value in _flatten(np_params).items():
         tensor = from_jax_layout(name, torch.from_numpy(np.array(value, dtype=np.float32)))
+        if mp > 1:
+            layer, rest = name.split(".", 1)
+            spec = jax_partition_spec(f"{layer}_Layer.{rest}", tensor.ndim)
+            if "model" in spec:
+                dim = port_dim(name, tensor.ndim, spec.index("model"))
+                tensor = slice_of(tensor, dim, mp_rank, mp)
         state[f"layers.{name}"] = tensor.contiguous().to(param_dtype(name, arch.dtype))
     return state

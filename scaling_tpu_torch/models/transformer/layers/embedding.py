@@ -7,7 +7,8 @@ over earlier ones, a start clamped so that the span fits, as JAX's
 ``dynamic_update_slice`` clamps it); the soft prompt (``softprompt_config``)
 written over the first ``n_tokens`` positions; then embedding dropout at
 the site ``layer_0.embedding`` in a training pass. ``finetunable_token_ids``
-is accepted and inert, as in the JAX package (see the config)."""
+is accepted and inert, as in the JAX package (see the config). Over a
+model group the table is vocab-parallel (``nn.linear.VocabParallelEmbedding``)."""
 
 from __future__ import annotations
 
@@ -16,16 +17,17 @@ from typing import Optional
 import torch
 
 from ....nn.base_layer import DropoutContext, dropout
-from ....nn.linear import Embedding
+from ....nn.linear import ModelShard, VocabParallelEmbedding
 from ..config import TransformerArchitectureConfig
 from ..image_encoder import ImageEncoder
 
 
 class EmbeddingInput(torch.nn.Module):
-    def __init__(self, arch: TransformerArchitectureConfig, device=None):
+    def __init__(self, arch: TransformerArchitectureConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
-        self.embedding = Embedding(arch.vocab_size, arch.hidden_size,
-                                   dtype=arch.dtype, device=device)
+        self.embedding = VocabParallelEmbedding(arch.vocab_size, arch.hidden_size,
+                                                dtype=arch.dtype, device=device, shard=shard)
         self.dropout_rate = arch.dropout_embedding
         self.image_encoder: Optional[ImageEncoder] = None
         if arch.image_encoder:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ....nn.attention import ParallelSelfAttention
 from ....nn.base_layer import DropoutContext, dropout
+from ....nn.linear import ModelShard
 from ....nn.mlp import ParallelMLP, ParallelSwiGLUMLP
 from ....nn.moe import ParallelMoEMLP
 from ....nn.norm import get_norm
@@ -65,7 +66,7 @@ class Adapter(torch.nn.Module):
 
 class TransformerLayer(torch.nn.Module):
     def __init__(self, arch: TransformerArchitectureConfig, layer_index: int = 0,
-                 device=None):
+                 device=None, shard: ModelShard = ModelShard()):
         super().__init__()
         self.layer_index = layer_index
         self.site = f"layer_{layer_index + 1}"  # the layer's name in the stack
@@ -99,6 +100,7 @@ class TransformerLayer(torch.nn.Module):
             bitfit_bias_name=bitfit,
             lora_config=arch.lora_config,
             site=f"{self.site}.attention",
+            shard=shard,
         )
         self.post_attention_layernorm = get_norm(arch.norm_type, arch.hidden_size, **norm)
         if arch.is_moe:
@@ -111,11 +113,12 @@ class TransformerLayer(torch.nn.Module):
         elif arch.mlp_type == "swiglu":
             self.mlp = ParallelSwiGLUMLP(arch.hidden_size, arch.mlp_factor,
                                          bias=arch.mlp_bias, dtype=arch.dtype, device=device,
-                                         bitfit_bias_name=bitfit)
+                                         bitfit_bias_name=bitfit, shard=shard)
         else:
             self.mlp = ParallelMLP(arch.hidden_size, arch.mlp_factor,
                                    activation=arch.activation_function, bias=arch.mlp_bias,
-                                   dtype=arch.dtype, device=device, bitfit_bias_name=bitfit)
+                                   dtype=arch.dtype, device=device, bitfit_bias_name=bitfit,
+                                   shard=shard)
         self.adapter_attention: Optional[str] = None  # child names, as the JAX param keys
         self.adapter_mlp: Optional[str] = None
         cfg = arch.adapter_config

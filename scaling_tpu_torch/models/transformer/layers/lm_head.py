@@ -10,6 +10,10 @@ holds that module without registering it, so the table is one
 state dict, under the embedding layer's name (``layer_0``), as the JAX
 package keeps it once under the tied spec's owner. Autograd adds the
 gradients of both uses into it, and the optimizer keeps one state for it.
+
+Over a model group the head's product is vocab-parallel (the untied
+head's rows, or the tied table's shard) and its logits are all-gathered
+to the full vocabulary before the loss, as JAX does.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ....nn.linear import Linear, xavier_normal_
+from ....nn.linear import ColumnParallelLinear, ModelShard, xavier_normal_
+from ....parallel.collectives import copy_to_model_region, gather_from_model_region
 from ....nn.norm import get_norm
 from ..config import TransformerArchitectureConfig
 from .embedding import EmbeddingInput
@@ -37,7 +42,7 @@ class LayerNormWrapper(torch.nn.Module):
         return self.norm(h)
 
 
-class _ZeroInitLinear(Linear):
+class _ZeroInitLinear(ColumnParallelLinear):
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> None:
         self.weight.zero_()
@@ -48,12 +53,14 @@ class TransformerLMHead(torch.nn.Module):
     with ``readout_zero_init``, it starts at zero (the width correction is
     the head's ``1/m`` learning rate, not a logit multiplier)."""
 
-    def __init__(self, arch: TransformerArchitectureConfig, device=None):
+    def __init__(self, arch: TransformerArchitectureConfig, device=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         mup = arch.mup
-        linear = _ZeroInitLinear if mup is not None and mup.readout_zero_init else Linear
+        linear = (_ZeroInitLinear if mup is not None and mup.readout_zero_init
+                  else ColumnParallelLinear)
         self.linear = linear(arch.hidden_size, arch.vocab_size, bias=False, dtype=arch.dtype,
-                             device=device)
+                             device=device, shard=shard, gather_output=True)
         # the multiplier in the logits' dtype, as the JAX head casts it
         self.logit_mult = (None if mup is None
                            else float(torch.tensor(mup.output_mult, dtype=arch.dtype)))
@@ -69,7 +76,10 @@ class TransformerLMHeadTied(torch.nn.Module):
         object.__setattr__(self, "tied_embedding", embedding)  # not a submodule
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return F.linear(h, self.tied_embedding.embedding.weight)
+        table = self.tied_embedding.embedding
+        group = table.shard.group
+        return gather_from_model_region(
+            F.linear(copy_to_model_region(h, group), table.weight), group)
 
 
 class TransformerEmbeddingHead(torch.nn.Module):

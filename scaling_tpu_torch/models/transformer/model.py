@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ...nn.linear import Embedding
+from ...nn.linear import Embedding, ModelShard
 from ...nn.lora import ParallelLoRa
 from ...nn.norm import LayerNorm, RMSNorm
 from ...ops.cross_entropy import cross_entropy_from_logits
@@ -36,28 +36,45 @@ from .layers import (
 )
 
 
-def get_transformer_layers(arch: TransformerArchitectureConfig,
-                           device=None) -> Dict[str, torch.nn.Module]:
+def get_transformer_layers(arch: TransformerArchitectureConfig, device=None,
+                           shard: ModelShard = ModelShard()) -> Dict[str, torch.nn.Module]:
     """EmbeddingInput -> L x TransformerLayer -> final norm -> LM head (tied
-    to the embedding's table with ``weight_tying``) [-> embedding head]."""
-    embedding = EmbeddingInput(arch, device)
+    to the embedding's table with ``weight_tying``) [-> embedding head];
+    split over the model group of ``shard``."""
+    embedding = EmbeddingInput(arch, device, shard)
     layers: Dict[str, torch.nn.Module] = {"layer_0": embedding}
     for i in range(arch.num_layers):
-        layers[f"layer_{i + 1}"] = TransformerLayer(arch, i, device)
+        layers[f"layer_{i + 1}"] = TransformerLayer(arch, i, device, shard)
     layers[f"layer_{arch.num_layers + 1}"] = LayerNormWrapper(arch, device)
     layers[f"layer_{arch.num_layers + 2}"] = (
         TransformerLMHeadTied(embedding) if arch.weight_tying
-        else TransformerLMHead(arch, device))
+        else TransformerLMHead(arch, device, shard))
     if arch.embedding_head_config is not None:
         layers[f"layer_{arch.num_layers + 3}"] = TransformerEmbeddingHead(arch, device)
     return layers
 
 
+# model features whose sharded form (expert parallelism, the sharded image
+# encoder and adapters) is not ported: refused by name over several ranks
+_ONE_RANK_ONLY = ("is_moe", "image_encoder", "lora_config")
+
+
 class TransformerModel(torch.nn.Module):
-    def __init__(self, arch: TransformerArchitectureConfig, device=None):
+    """The layer stack; with a ``topology`` of several ranks, this rank's
+    shards of it (``nn.linear.ModelShard``)."""
+
+    def __init__(self, arch: TransformerArchitectureConfig, device=None, topology=None):
         super().__init__()
+        if topology is not None and topology.world_size > 1:
+            for name in _ONE_RANK_ONLY:
+                if getattr(arch, name):
+                    raise NotImplementedError(
+                        f"{name.removeprefix('is_')} under data_parallel_size "
+                        f"{topology.data_parallel_size} x model_parallel_size "
+                        f"{topology.model_parallel_size} is not ported")
         self.architecture = arch
-        self.layers = torch.nn.ModuleDict(get_transformer_layers(arch, device))
+        self.layers = torch.nn.ModuleDict(get_transformer_layers(arch, device,
+                                                                 ModelShard.of(topology)))
 
     @property
     def embedding(self) -> EmbeddingInput:
@@ -105,17 +122,20 @@ def per_token_loss(logits: torch.Tensor, targets: torch.Tensor
     return token_loss, correct
 
 
-def loss_function(output: Dict[str, Any], batch: Dict[str, Any]):
+def loss_function(output: Dict[str, Any], batch: Dict[str, Any],
+                  denominator: Optional[torch.Tensor] = None):
     """Cross entropy weighted by ``loss_weights`` (a weighted mean) and
     accuracy under the same weights; a MoE model's ``aux_loss`` (already
-    scaled by its coefficient) is added and reported as ``moe_aux_loss``."""
+    scaled by its coefficient) is added and reported as ``moe_aux_loss``.
+    ``denominator``: the weights' sum over the global batch (a data rank
+    passes it; its result is then its share of the global loss)."""
     targets = batch["target_token_ids"]
     loss_weights = batch.get("loss_weights")
     if loss_weights is None:
         loss_weights = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
     loss_weights = loss_weights.float()
     token_loss, correct = per_token_loss(output["activations"], targets)
-    denom = loss_weights.sum().clamp_min(1.0)
+    denom = (loss_weights.sum() if denominator is None else denominator).clamp_min(1.0)
     loss = (token_loss * loss_weights).sum() / denom
     accuracy = (correct * loss_weights).sum() / denom
     metrics = {"accuracy": accuracy}
@@ -225,14 +245,22 @@ def get_parameter_groups(config: TransformerConfig, model: TransformerModel
     return groups
 
 
-def init_optimizer(config: TransformerConfig, model: TransformerModel) -> Optimizer:
+def init_optimizer(config: TransformerConfig, model: TransformerModel,
+                   module: Optional[ParallelModule] = None) -> Optimizer:
+    """AdamW over the model's parameter groups; over several ranks
+    (``module.layout``), with its leaves' layouts and ZeRO as configured."""
     params = dict(model.named_parameters())
+    layout = None if module is None else module.layout
     return Optimizer(config.optimizer, get_parameter_groups(config, model), params,
-                     keys={name: jax_param_key(model, name) for name in params})
+                     keys={name: jax_param_key(model, name) for name in params},
+                     layouts=None if layout is None else module.leaf_layouts(
+                         zero=config.optimizer.zero),
+                     topology=layout)
 
 
-def init_model(config: TransformerConfig, device=None) -> ParallelModule:
-    """The model with random weights from ``trainer.seed``, behind its
-    one-device ParallelModule."""
-    model = TransformerModel(config.transformer_architecture, device=device)
-    return ParallelModule(model.init_random_(config.seed), config.topology)
+def init_model(config: TransformerConfig, device=None, topology=None) -> ParallelModule:
+    """The model with random weights from ``trainer.seed`` behind its
+    ParallelModule; with a ``topology`` of several ranks, this rank's shards
+    (``parallel.Topology``)."""
+    model = TransformerModel(config.transformer_architecture, device=device, topology=topology)
+    return ParallelModule(model.init_random_(config.seed), config.topology, topology)

@@ -14,7 +14,12 @@ handler installed. With ``image_encoder_clip_checkpoint`` the pretrained
 CLIP trunk is spliced in after the load, on a fresh run only
 (``apply_pretrained_clip``). ``python -m scaling_tpu_torch.models.transformer.train
 --payload=<base64 config>`` is the worker a runner launches
-(``worker_main``): it trains on ``cuda:{LOCAL_SLOT}``.
+(``worker_main``): it joins the launch's process group and trains on
+``cuda:(LOCAL_SLOT % device_count)``. A config of several ranks
+(``topology`` with ``data_parallel_size`` or ``model_parallel_size``
+above 1) builds this rank's ``Topology`` and shards; the SIGTERM handler
+is then installed on every rank, which agree on a preemption at each
+step boundary.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from ...logging import logger
 from ...profiler import Profiler
 from ...resilience import controlplane_from_env
 from ...runner import LaunchConfig, initialize_distributed
+from ...topology import Topology
+from ...topology.topology import rank_device
 from ...trainer import BaseTrainer
 from .config import TransformerConfig
 from .context import TransformerContext
@@ -144,14 +151,19 @@ def build_trainer(config: TransformerConfig, device=None,
     ``glue`` (``DeterminedGlue.detect()``) the trainer reports to it, and
     the experiment's latest checkpoint wins over ``load_dir``."""
     device = resolve_device(device)
+    layout = (Topology(config.topology, device=device) if config.topology.world_size > 1
+              else None)
     logger.configure(config.logger, name="transformer")
+    if layout is not None:
+        logger.set_rank(layout.global_rank)
+        logger.info(f"layout: {layout.describe()}")
     logger.info(f"config: {config.to_dict()}")
-    module = init_model(config, device=device)
+    module = init_model(config, device=device, topology=layout)
     trainer = TransformerTrainer(
         config=config.trainer,
         context=TransformerContext(config=config, topology=config.topology),
         parallel_module=module,
-        optimizer=init_optimizer(config, module.model),
+        optimizer=init_optimizer(config, module.model, module),
         loss_function=loss_function,
         dataset=_read_dataset(config, config.data.data_prefixes),
         dataset_evaluation=_read_dataset(config, config.data.validation_data_prefixes),
@@ -167,13 +179,14 @@ def build_trainer(config: TransformerConfig, device=None,
         flops_per_token=get_flops_per_token(param_count, arch.num_layers, arch.hidden_size,
                                             arch.sequence_length),
         tokens_per_step=topo.global_batch_size * arch.sequence_length,
-        world_size=1,
+        world_size=topo.world_size,
         peak_tflops=H100_BF16_TFLOPS if device.type == "cuda" else None)
     # under the supervisor: heartbeats (or a healthy worker reads as hung
     # after the startup grace), the coordinated drain, the commit barrier
     cp = controlplane_from_env()
     if cp is not None:
         trainer.attach_control_plane(cp, shared_save_dir=config.trainer.multihost_shared_save_dir)
+    if cp is not None or layout is not None:
         trainer.install_preemption_handler()
     if glue is None:
         trainer.initialize(load_checkpoint=config.trainer.load_dir is not None)
@@ -257,11 +270,15 @@ def worker_main(argv: Optional[List[str]] = None, device=None) -> TransformerTra
     """The worker of a runner: the config from ``--payload``, trained by
     ``main`` on ``device``, by default the card of the launch's slot."""
     launch = LaunchConfig.from_launcher_args(argv)
-    initialize_distributed(launch)
     if launch.payload is None:
         raise ValueError("--payload is required")
-    return main(TransformerConfig.from_dict(launch.payload),
-                device=device or f"cuda:{launch.local_slot}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = rank_device("cuda", launch.local_slot)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    initialize_distributed(launch, device_type=dev.type)
+    return main(TransformerConfig.from_dict(launch.payload), device=dev)
 
 
 if __name__ == "__main__":

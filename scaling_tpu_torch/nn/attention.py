@@ -39,6 +39,22 @@ attention_control.py``) is log-additive or multiplicative on the unfused
 paths; the paged path refuses it, and local-window heads, by name, as the
 JAX layer does. Context parallelism is not ported.
 
+Over a model group (``shard``, ``nn.linear.ModelShard``) the input enters
+the model region once; q, k and v (or the fused, head-major
+``query_key_value``) are column-parallel, so each rank attends its
+contiguous ``n / mp`` query heads and ``n_kv / mp`` kv heads with the
+same paths (K4/K5 on the local heads), and the output projection is
+row-parallel. Where ``n_kv % mp != 0`` each rank holds ``1 / mp`` of the
+kv projections' columns; the group gathers the whole k and v and each
+rank repeats them as JAX's context-parallel path does (``mp /
+gcd(n_kv, mp)`` copies a head, or the full GQA repeat where that does not
+divide it) and keeps its slice; their gradient is summed back over the
+group. The key/query norms then see the local heads only, so their
+parameters enter the model region in the forward: the region's backward
+sums their gradients over the group. Local-window heads, LoRA, score
+manipulations and the cached decode paths raise by name under model
+parallelism.
+
 The pool and the dense cache are updated IN PLACE: the writers put the
 new tokens' K/V into the tensors the caller holds, so no updated caches
 are handed back (the JAX package returns new arrays and absorbs them).
@@ -55,7 +71,8 @@ import torch
 from ..ops.flash_attention import HEAD_DIMS, flash_attention
 from ..ops.paged_attention import paged_attention
 from .base_layer import DropoutContext, dropout
-from .linear import Linear
+from ..parallel.collectives import copy_to_model_region, gather_shared_from_model_region
+from .linear import ColumnParallelLinear, ModelShard, RowParallelLinear
 from .lora import LoRAModuleType, LoRaConfig, ParallelLoRa
 from .masked_softmax import MaskedSoftmax, MaskedSoftmaxConfig
 from .norm import get_norm
@@ -228,7 +245,8 @@ class ParallelSelfAttention(torch.nn.Module):
                  fused_norm: bool = False,
                  dtype: torch.dtype = torch.float32, device=None,
                  bitfit_bias_name: Optional[str] = None,
-                 lora_config: Optional[LoRaConfig] = None, site: str = "attention"):
+                 lora_config: Optional[LoRaConfig] = None, site: str = "attention",
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         if hidden_size % num_attention_heads:
             raise ValueError("hidden_size must divide over num_attention_heads")
@@ -246,15 +264,35 @@ class ParallelSelfAttention(torch.nn.Module):
             scaling_factor if scaling_factor is not None
             else 1.0 / math.sqrt(self.head_dim)
         )
-        common = dict(bias=bias, dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name)
+        self.shard = shard
+        if shard.size > 1:
+            for name, value in (("num_local_attention_heads", num_local_attention_heads),
+                                ("lora_config", lora_config)):
+                if value:
+                    raise NotImplementedError(f"{name} under model_parallel_size "
+                                              f"{shard.size} is not ported")
+        # this rank's heads; kv_shared: the repeat of the gathered kv heads
+        # when they do not split over the group
+        self.local_heads = shard.split(num_attention_heads, "num_attention_heads")
+        self.kv_shared: Optional[int] = None
+        if self.num_kv_heads % shard.size:
+            rep = shard.size // math.gcd(self.num_kv_heads, shard.size)
+            self.kv_shared = rep if self.num_repeat_kv % rep == 0 else self.num_repeat_kv
+            self.local_kv_heads = self.num_kv_heads * self.kv_shared // shard.size
+        else:
+            self.local_kv_heads = self.num_kv_heads // shard.size
+        common = dict(bias=bias, dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name,
+                      shard=shard)
         if qkv_in_one:
-            self.query_key_value = Linear(hidden_size, 3 * hidden_size, **common)
+            self.query_key_value = ColumnParallelLinear(hidden_size, 3 * hidden_size,
+                                                        copy_input=False, **common)
         else:
             kv_size = self.num_kv_heads * self.head_dim
-            self.query = Linear(hidden_size, hidden_size, **common)
-            self.key = Linear(hidden_size, kv_size, **common)
-            self.value = Linear(hidden_size, kv_size, **common)
-        self.dense = Linear(hidden_size, hidden_size, **common)
+            self.query = ColumnParallelLinear(hidden_size, hidden_size, copy_input=False,
+                                              **common)
+            self.key = ColumnParallelLinear(hidden_size, kv_size, copy_input=False, **common)
+            self.value = ColumnParallelLinear(hidden_size, kv_size, copy_input=False, **common)
+        self.dense = RowParallelLinear(hidden_size, hidden_size, **common)
         self.rotary_embedding = rotary
         self.key_query_norm = key_query_norm
         if key_query_norm:
@@ -290,17 +328,39 @@ class ParallelSelfAttention(torch.nn.Module):
         name = self.lora_modules.get(module_type)
         return None if name is None else getattr(self, name)
 
+    def _shared_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the gathered, repeated kv heads."""
+        b, s = t.shape[:2]
+        t = gather_shared_from_model_region(t, self.shard.group).reshape(
+            b, s, self.num_kv_heads, self.head_dim)
+        t = repeat_kv(t, self.kv_shared)
+        return t[:, :, self.shard.rows(t.shape[2])]
+
+    def _norm(self, norm: torch.nn.Module, t: torch.Tensor) -> torch.Tensor:
+        """The key or query ``norm`` of ``t``. Over a model group each rank
+        normalises its own heads, so the norm's parameters enter the model
+        region: their gradients are summed over the group."""
+        if self.shard.size == 1:
+            return norm(t)
+        return torch.func.functional_call(norm, {
+            name: copy_to_model_region(p, self.shard.group)
+            for name, p in norm.named_parameters()}, (t,))
+
     def _qkv(self, x: torch.Tensor, ctx: Optional[DropoutContext] = None):
         b, s, _ = x.shape
+        x = copy_to_model_region(x, self.shard.group)
         if self.qkv_in_one:
             qkv = self.query_key_value(x).reshape(
-                b, s, self.num_attention_heads, 3 * self.head_dim
+                b, s, self.local_heads, 3 * self.head_dim
             )
             q, k, v = qkv.split(self.head_dim, dim=-1)
         else:
-            q = self.query(x).reshape(b, s, self.num_attention_heads, self.head_dim)
-            k = self.key(x).reshape(b, s, self.num_kv_heads, self.head_dim)
-            v = self.value(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+            q = self.query(x).reshape(b, s, self.local_heads, self.head_dim)
+            if self.kv_shared is not None:
+                k, v = self._shared_kv(self.key(x)), self._shared_kv(self.value(x))
+            else:
+                k = self.key(x).reshape(b, s, self.local_kv_heads, self.head_dim)
+                v = self.value(x).reshape(b, s, self.local_kv_heads, self.head_dim)
         if self.lora_modules:  # in the JAX order: query, key, value
             out = []
             for t, module_type in ((q, LoRAModuleType.QUERY), (k, LoRAModuleType.KEY),
@@ -322,9 +382,13 @@ class ParallelSelfAttention(torch.nn.Module):
         log-additive or, with ``scores_log_additive=False``, multiplicative.
         Returns the output, or ``(output, (k, v))`` with ``return_kv`` (the
         new tokens' K/V after rotary)."""
+        if self.shard.size > 1 and (kv_cache is not None or scores_manipulation is not None):
+            raise NotImplementedError(
+                f"{'a KV cache' if kv_cache is not None else 'a score manipulation (AtMan)'} "
+                f"under model_parallel_size {self.shard.size} is not ported")
         q, k, v = self._qkv(x, ctx)
         if self.key_query_norm:
-            q, k = self.norm_query(q), self.norm_key(k)
+            q, k = self._norm(self.norm_query, q), self._norm(self.norm_key, k)
         if self.rotary_embedding is not None:
             q, k = self.rotary_embedding(q, k, position_ids)
         if kv_cache is not None and not self.causal:
@@ -371,7 +435,8 @@ class ParallelSelfAttention(torch.nn.Module):
         def probs_dropout(site: str):
             if ctx is None or self.dropout_attention_probs == 0.0:
                 return None
-            return lambda p: dropout(p, self.dropout_attention_probs, ctx, site)
+            return lambda p: dropout(p, self.dropout_attention_probs, ctx, site,
+                                     head_shard=(1, self.shard.rank, self.shard.size))
 
         probs_site = f"{self.site}.attention_probs"
         if n_local == 0:
@@ -460,7 +525,7 @@ class ParallelSelfAttention(torch.nn.Module):
     def _project_out(self, out: torch.Tensor,
                      ctx: Optional[DropoutContext] = None) -> torch.Tensor:
         b, s = out.shape[:2]
-        out = out.reshape(b, s, self.hidden_size)
+        out = out.reshape(b, s, self.local_heads * self.head_dim)
         y = self.dense(out)
         lora = self._lora(LoRAModuleType.DENSE)
         return y if lora is None else y + lora(out, ctx)

@@ -17,6 +17,12 @@ the recompute of ``torch.utils.checkpoint`` draws the forward's masks
 again, a resume draws the masks of the run it resumes, and nothing of
 the RNG goes into a checkpoint. A ``mask_source`` may stand in for the
 draw; the parity tests replay the JAX package's masks through it.
+
+Over several ranks the masks are the one-rank masks' slices, as JAX
+draws one global mask: a context with ``batch_shard=(rank, size)`` (the
+data rank) draws each mask at ``size`` times the local batch and keeps
+its rows, and a call with ``head_shard=(dim, rank, size)`` (a model
+rank's heads) draws the whole head dim and keeps its slice.
 """
 
 from __future__ import annotations
@@ -53,25 +59,33 @@ def draw_mask(key: Tuple, site: str, shape: Sequence[int], keep: float,
 class DropoutContext:
     """The dropout state of one forward: a key and the mask source."""
 
-    def __init__(self, key: Tuple, mask_source: Optional[MaskSource] = None):
+    def __init__(self, key: Tuple, mask_source: Optional[MaskSource] = None,
+                 batch_shard: Tuple[int, int] = (0, 1)):
         self.key = tuple(key)
         self.mask_source = mask_source or draw_mask
+        self.batch_shard = batch_shard
 
     def for_micro_batch(self, index: int) -> "DropoutContext":
         """The context of micro-batch ``index`` (JAX ``fold_in(key, index)``)."""
-        return DropoutContext(self.key + (int(index),), self.mask_source)
+        return DropoutContext(self.key + (int(index),), self.mask_source, self.batch_shard)
 
-    def dropout(self, x: torch.Tensor, rate: float, site: str) -> torch.Tensor:
+    def dropout(self, x: torch.Tensor, rate: float, site: str,
+                head_shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
         if rate == 0.0:
             return x
         keep = 1.0 - rate
-        mask = self.mask_source(self.key, site, x.shape, keep, x.device)
+        shape, index = list(x.shape), [slice(None)] * x.ndim
+        for dim, rank, size in ((0,) + self.batch_shard, head_shard or (0, 0, 1)):
+            if size > 1:
+                index[dim] = slice(rank * shape[dim], (rank + 1) * shape[dim])
+                shape[dim] *= size
+        mask = self.mask_source(self.key, site, shape, keep, x.device)[tuple(index)]
         return torch.where(mask.to(x.device), x / keep, 0).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, ctx: Optional[DropoutContext],
-            site: str) -> torch.Tensor:
+            site: str, head_shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Dropout at ``site``; the identity without a context or at rate 0."""
     if ctx is None or rate == 0.0:
         return x
-    return ctx.dropout(x, rate, site)
+    return ctx.dropout(x, rate, site, head_shard)

@@ -1,24 +1,79 @@
-"""Linear layers and the token embedding, on one device.
+"""Linear layers and the token embedding, whole or split over the model
+group (counterpart of scaling_tpu/nn/linear.py).
 
-Counterpart of scaling_tpu/nn/linear.py at model-parallel size 1: the
-products are plain ``F.linear``, as the JAX package leaves them to XLA.
-Weights use PyTorch's ``(out, in)`` layout; the JAX package stores
+The products are plain ``F.linear``, as the JAX package leaves them to
+XLA. Weights use PyTorch's ``(out, in)`` layout; the JAX package stores
 ``(in, out)``, which ``models/transformer/convert.py`` transposes.
+
+Over a model group of ``mp`` ranks (``ModelShard``), with JAX's partition
+specs and names: ``ColumnParallelLinear`` keeps rank ``r``'s contiguous
+``1/mp`` of the output rows (and of the bias), ``RowParallelLinear`` its
+``1/mp`` of the input columns, summed over the group after the product,
+with its bias replicated and added once, after the sum;
+``VocabParallelEmbedding`` its ``1/mp`` of the vocabulary rows: ids
+outside the slice look up zeros and the group sums. A column-parallel
+linear enters the model region (``copy_to_model_region``) unless its
+caller already did (``copy_input=False``: the attention and the MLP enter
+once for all their column products); with ``gather_output`` its output is
+all-gathered (the LM head's logits).
 
 Parameters are allocated uninitialised; ``init_`` fills them from an
 explicit ``torch.Generator`` with the JAX package's initialiser
 (xavier normal, ``std = sqrt(2 / (fan_in + fan_out))``, zero biases), or
-a state dict is loaded over them. Under BitFit (``bitfit_bias_name``) a
+a state dict is loaded over them. A split layer draws the whole leaf from
+the generator and keeps its slice, so a rank's shard is the slice of the
+one-rank initialisation from the same seed. Under BitFit (``bitfit_bias_name``) a
 linear's bias is named ``bias_{name}``, as in the JAX layers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import (
+    copy_to_model_region,
+    gather_from_model_region,
+    reduce_from_model_region,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """A layer's place in the model group: ``size`` ranks, this one
+    ``rank``, ``group`` the process group (None for one rank)."""
+
+    size: int = 1
+    rank: int = 0
+    group: Any = None
+
+    @classmethod
+    def of(cls, topology) -> "ModelShard":
+        if topology is None or topology.model_parallel_size == 1:
+            return cls()
+        return cls(topology.model_parallel_size, topology.model_parallel_rank,
+                   topology.model_group)
+
+    def split(self, n: int, what: str) -> int:
+        if n % self.size:
+            raise ValueError(f"{what} {n} does not split over model_parallel_size {self.size}")
+        return n // self.size
+
+    def rows(self, n: int) -> slice:
+        """This rank's contiguous slice of ``n`` rows."""
+        per = n // self.size
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+
+def _draw_slice(full_shape, dim: int, shard: ModelShard, draw) -> torch.Tensor:
+    """``draw(shape)`` of the whole leaf, narrowed to this rank's slice."""
+    full = draw(full_shape)
+    return full if shard.size == 1 else full[(slice(None),) * dim + (shard.rows(
+        full_shape[dim]),)]
 
 
 def xavier_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -58,6 +113,67 @@ class Linear(torch.nn.Linear):
         return F.linear(x, self.weight, self.host_bias)
 
 
+class ColumnParallelLinear(Linear):
+    """``Linear`` with this rank's slice of the output features."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 bitfit_bias_name: Optional[str] = None, shard: ModelShard = ModelShard(),
+                 copy_input: bool = True, gather_output: bool = False):
+        super().__init__(in_features, shard.split(out_features, "out_features"), bias=bias,
+                         dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name)
+        self.shard, self.global_out = shard, out_features
+        self.copy_input, self.gather_output = copy_input, gather_output
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        std = math.sqrt(2.0 / (self.in_features + self.global_out))
+        w = self.weight
+        self.weight.copy_(_draw_slice(
+            (self.global_out, self.in_features), 0, self.shard,
+            lambda shape: torch.empty(shape, dtype=w.dtype, device=w.device).normal_(
+                0.0, std, generator=generator)))
+        if self.host_bias is not None:
+            self.host_bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.copy_input:
+            x = copy_to_model_region(x, self.shard.group)
+        y = F.linear(x, self.weight, self.host_bias)
+        return gather_from_model_region(y, self.shard.group) if self.gather_output else y
+
+
+class RowParallelLinear(Linear):
+    """``Linear`` with this rank's slice of the input features; the
+    partial products are summed over the model group, then the bias (whole
+    on every rank) is added."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 bitfit_bias_name: Optional[str] = None, shard: ModelShard = ModelShard()):
+        super().__init__(shard.split(in_features, "in_features"), out_features, bias=bias,
+                         dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name)
+        self.shard, self.global_in = shard, in_features
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        std = math.sqrt(2.0 / (self.global_in + self.out_features))
+        w = self.weight
+        self.weight.copy_(_draw_slice(
+            (self.out_features, self.global_in), 1, self.shard,
+            lambda shape: torch.empty(shape, dtype=w.dtype, device=w.device).normal_(
+                0.0, std, generator=generator)))
+        if self.host_bias is not None:
+            self.host_bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard.size == 1:
+            return F.linear(x, self.weight, self.host_bias)
+        y = reduce_from_model_region(F.linear(x, self.weight), self.shard.group)
+        bias = self.host_bias
+        return y if bias is None else y + bias
+
+
 class Embedding(torch.nn.Embedding):
     """Token embedding, ``weight`` is ``(vocab, hidden)`` as in the JAX
     package's VocabParallelEmbedding."""
@@ -71,3 +187,34 @@ class Embedding(torch.nn.Embedding):
         vocab, hidden = self.weight.shape
         self.weight.normal_(0.0, math.sqrt(2.0 / (vocab + hidden)),
                             generator=generator)
+
+
+class VocabParallelEmbedding(Embedding):
+    """``Embedding`` with this rank's slice of the vocabulary rows."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 shard: ModelShard = ModelShard()):
+        super().__init__(shard.split(num_embeddings, "vocab_size"), embedding_dim, dtype=dtype,
+                         device=device)
+        self.shard, self.global_vocab = shard, num_embeddings
+        self.vocab_start = shard.rows(num_embeddings).start
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        hidden = self.weight.shape[1]
+        std = math.sqrt(2.0 / (self.global_vocab + hidden))
+        w = self.weight
+        self.weight.copy_(_draw_slice(
+            (self.global_vocab, hidden), 0, self.shard,
+            lambda shape: torch.empty(shape, dtype=w.dtype, device=w.device).normal_(
+                0.0, std, generator=generator)))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.shard.size == 1:
+            return super().forward(ids)
+        local = ids - self.vocab_start
+        outside = (local < 0) | (local >= self.num_embeddings)
+        y = F.embedding(local.masked_fill(outside, 0), self.weight)
+        y = y.masked_fill(outside[..., None], 0)
+        return reduce_from_model_region(y, self.shard.group)

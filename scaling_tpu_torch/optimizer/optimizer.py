@@ -1,5 +1,5 @@
 """Mixed-precision AdamW with f32 master weights (counterpart of
-scaling_tpu/optimizer/optimizer.py, without ZeRO).
+scaling_tpu/optimizer/optimizer.py), with ZeRO stage 1.
 
 The compute parameters stay in the model's dtype (bf16 for the bench
 model); the optimizer keeps an f32 master copy of every optimised
@@ -20,6 +20,18 @@ separate f32 masters. With ``debug_log`` the output's ``debug_dict``
 holds each parameter's clipped gradient norm, by its JAX key, as device
 tensors (one ``_foreach_norm``, no host sync); nothing logs it, as in the
 JAX trainer.
+
+Over several ranks (``layouts`` and ``topology`` given) the gradients
+arrive summed over the data group, and the clipping norm is the global
+one: each rank adds the squared norms of the pieces it owns (a leaf split
+over the model group on every model rank, a whole one on model rank 0
+only; a ZeRO slice on every data rank, a whole leaf on data rank 0 only)
+and the world sums them, so no leaf is counted twice. With ``zero: true``
+(stage 1, ``zero_stage`` 1) the f32 masters and both moments are kept for
+this rank's data slice of each leaf (``LeafLayout.data_dim``; leaves no
+dim of which ``dp`` divides stay whole), the update runs on the slices,
+and the updated parameters are all-gathered over the data group. Stage 3
+is a later slice and raises by name; stage 2 raises as in JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ import math
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.collectives import all_gather_cat, all_reduce_
 from .learning_rate_scheduler import LearningRateScheduler, LearningRateSchedulerConfig
 from .loss_scaler import LossScaler, LossScalerConfig, LossScalerState, has_inf_or_nan
 
@@ -40,7 +54,7 @@ class OptimizerConfig:
     beta2: float = 0.95
     eps: float = 1e-8
     gradient_clipping: float = 0.0  # clip the global L2 norm to this; 0 = off
-    allreduce_bucket_size: int = 500000000  # config parity; one device
+    allreduce_bucket_size: int = 500000000  # config parity: one flat all-reduce a step
     loss_scaler: LossScalerConfig = LossScalerConfig()
     zero: bool = False
     zero_stage: int = 1
@@ -48,10 +62,14 @@ class OptimizerConfig:
     debug_log: bool = False
 
     def __post_init__(self):
-        if self.zero:
-            raise NotImplementedError("ZeRO is not ported (one device)")
-        if self.zero_stage != 1:
+        if self.zero_stage == 2:
+            raise ValueError("zero_stage 2 is implicit (gradients are reduced before the "
+                             "update); use 1 or 3")
+        if self.zero_stage != 1 and not self.zero:
             raise ValueError(f"zero_stage {self.zero_stage} requires zero: true")
+        if self.zero_stage == 3:
+            raise NotImplementedError("zero_stage 3 (sharded parameters) is not ported; "
+                                      "zero_stage 1 shards the optimizer state")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "OptimizerConfig":
@@ -108,8 +126,14 @@ class Optimizer:
 
     def __init__(self, config: OptimizerConfig, parameter_groups: List[OptimizerParamGroup],
                  params: Mapping[str, torch.nn.Parameter],
-                 keys: Optional[Mapping[str, str]] = None):
+                 keys: Optional[Mapping[str, str]] = None,
+                 layouts: Optional[Mapping[str, Any]] = None, topology: Any = None):
         self.config = config
+        # over several ranks: each leaf's LeafLayout and the run's Topology
+        self.topology = topology if topology is not None and topology.world_size > 1 else None
+        self.layouts = dict(layouts or {})
+        if config.debug_log and self.topology is not None:
+            raise NotImplementedError("optimizer.debug_log over several ranks is not ported")
         self.parameter_groups = parameter_groups
         self.params = dict(params)
         self.keys = {n: n for n in self.params} if keys is None else dict(keys)
@@ -126,12 +150,39 @@ class Optimizer:
         if missing:
             raise ValueError(f"parameter group keys not found in model: {sorted(missing)[:5]}")
         self.optimized = [n for names in self.group_names for n in names]
+        topo = self.topology
+        zero = config.zero and topo is not None and topo.data_parallel_size > 1
+        # the port dim of each ZeRO-sliced leaf's data slice
+        self.zero_dims: Dict[str, int] = {
+            n: self.layouts[n].data_dim for n in self.optimized
+            if zero and self.layouts[n].data_dim is not None}
+        self._owned = [self._owns(n) for n in self.optimized]
         self.state = self.init_state()
+
+    def _owns(self, name: str) -> bool:
+        """Whether this rank counts ``name``'s piece in the global norm."""
+        topo = self.topology
+        if topo is None:
+            return True
+        layout = self.layouts[name]
+        if layout.model_dim is None and topo.model_parallel_rank != 0:
+            return False
+        return name in self.zero_dims or topo.data_parallel_rank == 0
+
+    def piece(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO slice of ``name``'s local tensor ``t`` (a view;
+        ``t`` itself for a leaf that is not sliced)."""
+        d = self.zero_dims.get(name)
+        if d is None:
+            return t
+        dp, rank = self.topology.data_parallel_size, self.topology.data_parallel_rank
+        n = t.shape[d] // dp
+        return t.narrow(d, rank * n, n)
 
     @torch.no_grad()
     def init_state(self) -> OptimizerState:
         """Fresh state: f32 masters copied from the parameters, zero moments."""
-        master = {n: self.params[n].detach().to(torch.float32, copy=True)
+        master = {n: self.piece(n, self.params[n].detach()).to(torch.float32, copy=True)
                   for n in self.optimized}
         return OptimizerState(
             step=0, master=master,
@@ -155,12 +206,19 @@ class Optimizer:
         they are scaled in place). Updates the parameters and the state."""
         c = self.config
         state = self.state
-        g32 = [grads[n] for n in self.optimized]
+        g32 = [self.piece(n, grads[n]) for n in self.optimized]
         if c.loss_scaler.enable:
             torch._foreach_mul_(g32, 1.0 / state.loss_scaler.current_scale)
         norms = list(torch._foreach_norm(g32))
-        raw_overflow = has_inf_or_nan(norms)
-        global_norm = torch.stack(norms).square().sum().sqrt()
+        if self.topology is None:
+            raw_overflow = has_inf_or_nan(norms)
+            global_norm = torch.stack(norms).square().sum().sqrt()
+        else:
+            owned = [n for n, own in zip(norms, self._owned) if own]
+            sq = (torch.stack(owned).square().sum() if owned
+                  else torch.zeros((), device=norms[0].device))
+            global_norm = all_reduce_(sq, dist.group.WORLD).sqrt()
+            raw_overflow = has_inf_or_nan([global_norm])
         if c.gradient_clipping > 0.0:
             coeff = torch.clamp(c.gradient_clipping / (global_norm + 1e-6), max=1.0)
             torch._foreach_mul_(g32, coeff)
@@ -228,4 +286,8 @@ class Optimizer:
             torch._foreach_div_(denom, math.sqrt(bc2))
             torch._foreach_add_(denom, c.eps)
             torch._foreach_addcdiv_(masters, avgs, denom, value=-(lr / bc1))
-            torch._foreach_copy_([self.params[n] for n in names], masters)
+            torch._foreach_copy_([self.piece(n, self.params[n]) for n in names], masters)
+        for n in self.zero_dims:  # the updated slices to every data rank
+            p = self.params[n]
+            p.copy_(all_gather_cat(self.piece(n, p), self.topology.data_group,
+                                   self.zero_dims[n]))

@@ -1,6 +1,7 @@
-"""The model's forward and training step on one device (counterpart of
+"""The model's forward and training step (counterpart of
 ``ParallelModule.forward`` and ``build_train_step`` of
-scaling_tpu/parallel/parallel_module.py at world size 1).
+scaling_tpu/parallel/parallel_module.py), on one rank or on this rank's
+shards of a data x model layout (``topology.Topology``).
 
 ``forward`` runs the layer stack over a batch dict (``token_ids``,
 ``position_ids``, ``segment_ids``; for a model with an image encoder
@@ -30,13 +31,26 @@ its key; the masks are a function of the key and each site's static id,
 so the recompute of ``every_layer`` draws the forward's masks again.
 Parameters of no optimizer group are frozen (``requires_grad`` off): no
 gradient is computed for them, as JAX's ``stop_gradient`` removes theirs.
+
+Over several ranks each rank holds the slices of its model rank
+(``leaf_layouts``: the dim of each leaf split over the model group, from
+JAX's partition spec, and under ZeRO the dim of its optimizer slice over
+the data group, ``spec_with_data_axis``'s rule) and steps on its data
+rank's rows of each global micro-batch. The loss is the global batch's:
+each rank divides its weighted sum by the data group's summed weights
+(one all-reduce a step), so the gradients summed over the data group
+(one flat all-reduce a step) are the one-rank step's, also where the
+weights differ between ranks. The key/query norm gains' gradients, which
+each model rank takes from its own heads, are summed over the model
+group. Dropout masks are the one-rank masks' rows (``DropoutContext``'s
+``batch_shard``).
 """
 
 from __future__ import annotations
 
 import functools
 import re
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -48,6 +62,7 @@ from torch.utils.checkpoint import (
 from ..nn.base_layer import DropoutContext, MaskSource
 from ..optimizer import Optimizer, OptimizerStepOutput
 from ..topology import ActivationCheckpointingType, TopologyConfig
+from .collectives import all_gather_cat, all_reduce_, flat_all_reduce_
 
 
 def jax_param_key(model: torch.nn.Module, name: str) -> str:
@@ -81,6 +96,14 @@ def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
     if t.ndim == 4:
         return t.permute(2, 3, 1, 0)
     return t.t() if transposed_in_jax(name, t.ndim) else t
+
+
+def port_dim(name: str, ndim: int, jax_dim: int) -> int:
+    """The port's dim of the JAX layout's dim ``jax_dim`` (``to_jax_layout``
+    read backwards)."""
+    if ndim == 4:
+        return (2, 3, 1, 0)[jax_dim]
+    return 1 - jax_dim if transposed_in_jax(name, ndim) else jax_dim
 
 
 def from_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -145,6 +168,40 @@ def jax_partition_spec(key: str, ndim: int) -> tuple:
     return ("model",) if linear_bias and module not in _ROW_PARALLEL else (None,) * ndim
 
 
+def spec_with_data_axis(spec: tuple, shape: tuple, dp: int) -> tuple:
+    """ZeRO's placement rule (``spec_with_data_axis`` of
+    scaling_tpu/parallel/sharding.py): ``data`` on the last free dim of the
+    JAX-layout ``shape`` that ``dp`` divides; the spec unchanged when the
+    data axis is used already or no dim divides."""
+    spec = list(spec) + [None] * (len(shape) - len(spec))
+    if dp <= 1 or "data" in spec:
+        return tuple(spec)
+    for d in reversed(range(len(shape))):
+        if spec[d] is None and shape[d] % dp == 0 and shape[d] > 0:
+            spec[d] = "data"
+            break
+    return tuple(spec)
+
+
+class LeafLayout(NamedTuple):
+    """Where a parameter's slices live: its JAX key, its global shape in the
+    port's layout, the port dim split over the model group and the port
+    dim of its ZeRO slice over the data group (None: whole)."""
+
+    key: str
+    shape: Tuple[int, ...]
+    model_dim: Optional[int]
+    data_dim: Optional[int]
+
+
+def slice_of(t: torch.Tensor, dim: Optional[int], rank: int, size: int) -> torch.Tensor:
+    """Rank ``rank``'s contiguous ``1/size`` of ``t`` along ``dim`` (a view)."""
+    if dim is None or size == 1:
+        return t
+    n = t.shape[dim] // size
+    return t.narrow(dim, rank * n, n)
+
+
 # the products JAX's dots_with_no_batch_dims_saveable keeps: a 2-D input
 # times a matrix (F.linear flattens (b, s, h) into one), with or without bias
 SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -166,9 +223,96 @@ _SAVE_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, sav
 
 
 class ParallelModule:
-    def __init__(self, model: torch.nn.Module, topology: TopologyConfig):
+    """The model behind its forward, loss and training step. ``topology``
+    is the config's section; ``layout`` the ``topology.Topology`` of a run
+    of several ranks (None: one rank)."""
+
+    def __init__(self, model: torch.nn.Module, topology: TopologyConfig, layout=None):
         self.model = model
         self.topology = topology
+        self.layout = layout if layout is not None and layout.world_size > 1 else None
+
+    @property
+    def data_group(self):
+        return None if self.layout is None else self.layout.data_group
+
+    @property
+    def model_group(self):
+        return None if self.layout is None else self.layout.model_group
+
+    def leaf_layouts(self, zero: bool = False) -> Dict[str, LeafLayout]:
+        """Each parameter's ``LeafLayout`` by the port's name, from JAX's
+        partition spec of its key; ``zero``: with the ZeRO slice dims."""
+        lay = self.layout
+        mp = 1 if lay is None else lay.model_parallel_size
+        dp = 1 if lay is None else lay.data_parallel_size
+        out = {}
+        for name, p in self.model.named_parameters():
+            key = jax_param_key(self.model, name)
+            spec = jax_partition_spec(key, p.ndim)
+            shape = list(p.shape)
+            model_dim = None
+            if mp > 1 and "model" in spec:
+                model_dim = port_dim(key, p.ndim, spec.index("model"))
+                shape[model_dim] *= mp
+            data_dim = None
+            if zero and dp > 1:
+                jax_shape = tuple(to_jax_layout(key, torch.empty(shape, device="meta")).shape)
+                zspec = spec_with_data_axis(spec, jax_shape, dp)
+                if "data" in zspec and "data" not in spec:
+                    data_dim = port_dim(key, p.ndim, zspec.index("data"))
+            out[name] = LeafLayout(key, tuple(shape), model_dim, data_dim)
+        return out
+
+    def gather_leaf(self, name: str, t: torch.Tensor,
+                    data_dim: Optional[int] = None) -> Optional[torch.Tensor]:
+        """The whole leaf ``name`` from this rank's ``t`` (its model slice,
+        or with ``data_dim`` its ZeRO slice of that), on global rank 0; None
+        on the others. Every rank calls it, leaf by leaf in one order."""
+        lay = self.layout
+        if lay is None:
+            return t
+        if data_dim is not None:
+            t = all_gather_cat(t, lay.data_group, data_dim)
+        model_dim = self.layouts[name].model_dim
+        if model_dim is not None:
+            t = all_gather_cat(t, lay.model_group, model_dim)
+        return t if lay.global_rank == 0 else None
+
+    def shard_leaf(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's model slice of the whole leaf ``name`` (a view)."""
+        lay = self.layout
+        if lay is None:
+            return whole
+        return slice_of(whole, self.layouts[name].model_dim, lay.model_parallel_rank,
+                        lay.model_parallel_size)
+
+    @functools.cached_property
+    def layouts(self) -> Dict[str, LeafLayout]:
+        return self.leaf_layouts()
+
+    def loss(self, output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+             loss_function: Callable, denominator: Optional[torch.Tensor] = None):
+        """``loss_function`` on this rank's rows; over a data group, with the
+        global batch's summed loss weights as the denominator (summed here
+        unless given), so that the data group's sum of the results is the
+        global batch's loss and metrics."""
+        if self.data_group is None:
+            return loss_function(output, batch)
+        if denominator is None:
+            denominator = self.weight_sums([batch])[0]
+        return loss_function(output, batch, denominator=denominator)
+
+    def weight_sums(self, micro_batches) -> torch.Tensor:
+        """Each micro-batch's loss weights summed over the data group, one
+        all-reduce for all of them."""
+        sums = []
+        for mb in micro_batches:
+            w = mb.get("loss_weights")
+            sums.append(torch.tensor(float(mb["target_token_ids"].numel()),
+                                     device=mb["target_token_ids"].device)
+                        if w is None else w.float().sum())
+        return all_reduce_(torch.stack(sums), self.data_group)
 
     def ckpt_keys(self) -> Dict[str, str]:
         """The JAX key of each parameter, by the port's name, in the
@@ -246,6 +390,9 @@ class ParallelModule:
         optimizer.freeze_frozen_params()
         params = [optimizer.params[n] for n in optimizer.optimized]
         buffers = [torch.empty_like(p, dtype=torch.float32) for p in params]
+        lay = self.layout
+        batch_shard = (0, 1) if lay is None else (lay.data_parallel_rank,
+                                                 lay.data_parallel_size)
 
         def step(micro_batches: Dict[str, torch.Tensor], dropout_key: Optional[Tuple] = None):
             if dropout_key is None and has_dropout:
@@ -253,13 +400,16 @@ class ParallelModule:
             self.model.train()
             loss_sum = torch.zeros((), dtype=torch.float32, device=buffers[0].device)
             metrics_sum: Dict[str, torch.Tensor] = {}
-            for i in range(gas):
-                mb = {k: v[i] for k, v in micro_batches.items()}
+            mbs = [{k: v[i] for k, v in micro_batches.items()} for i in range(gas)]
+            dens = None if self.data_group is None else self.weight_sums(mbs)
+            for i, mb in enumerate(mbs):
                 ctx = (None if dropout_key is None
-                       else DropoutContext(dropout_key, mask_source).for_micro_batch(i))
+                       else DropoutContext(dropout_key, mask_source,
+                                           batch_shard).for_micro_batch(i))
                 for p in params:
                     p.grad = None
-                loss, metrics = loss_function(self.forward(mb, ctx), mb)
+                loss, metrics = self.loss(self.forward(mb, ctx), mb, loss_function,
+                                          None if dens is None else dens[i])
                 scaled = optimizer.scale_loss(loss.float() / gas)
                 if scaled.requires_grad:  # else no trained parameter reaches the loss
                     scaled.backward()
@@ -273,6 +423,13 @@ class ParallelModule:
                     metrics_sum[k] = metrics_sum.get(k, 0.0) + v.detach().float()
             for p in params:
                 p.grad = None
+            if self.data_group is not None:
+                flat_all_reduce_(buffers, self.data_group)
+                # the reported loss and metrics: the global batch's
+                names = sorted(metrics_sum)
+                summed = all_reduce_(torch.stack([loss_sum] + [metrics_sum[k] for k in names]),
+                                     self.data_group)
+                loss_sum, metrics_sum = summed[0], dict(zip(names, summed[1:]))
             out = optimizer.step(dict(zip(optimizer.optimized, buffers)))
             return loss_sum / gas, {k: v / gas for k, v in metrics_sum.items()}, out
 

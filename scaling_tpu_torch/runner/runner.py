@@ -5,13 +5,18 @@
 run's config riding along as a base64 payload (``--payload``) and the
 launch contract in its environment. With ``supervise`` it hands over to
 ``runner.supervise``; without, it babysits: a worker that exits
-non-zero takes the others down. Hosts other than this one would need the
-ssh launch, which is not ported: they raise ``NotImplementedError``.
+non-zero takes the others down (SIGTERM, then SIGKILL after a grace: a
+peer may be stuck in a collective whose other side is gone). Hosts other
+than this one would need the ssh launch, which is not ported: they raise
+``NotImplementedError``.
 
-On the worker's side ``initialize_distributed`` is a no-op for one
-process; a world of more processes is not ported and raises. Nothing
-here touches the card: the launcher and the supervisor must leave all
-of its memory to the workers.
+On the worker's side ``initialize_distributed`` joins the workers into
+one ``torch.distributed`` process group from the environment the
+launcher wrote (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
+``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``), with the backend of
+``topology.choose_backend``; it is a no-op for one process. Nothing here
+touches the card: the launcher and the supervisor must leave all of its
+memory to the workers.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from .config import DEFAULT_SCRIPT, LaunchConfig, RunnerConfig
 
 # the one definition of "local": spawn and teardown consult it
 LOCAL_HOSTS = ("localhost", "127.0.0.1")
+# seconds a torn-down worker has between SIGTERM and SIGKILL
+TEARDOWN_GRACE_S = 10.0
 
 
 def get_resource_pool(config: RunnerConfig) -> Dict[str, int]:
@@ -145,7 +152,7 @@ def runner_main(config: RunnerConfig, payload: Any) -> int:
     procs = [spawn_worker(config, host, worker_env(pool, workers, i, master_addr,
                                                    config.master_port), encoded)
              for i, (host, _slot) in enumerate(workers)]
-    exit_code = 0
+    exit_code, torn_down = 0, False
     try:
         while procs:
             for p in list(procs):
@@ -153,28 +160,54 @@ def runner_main(config: RunnerConfig, payload: Any) -> int:
                 if ret is None:
                     continue
                 procs.remove(p)
-                if ret != 0:
+                if ret != 0:  # the last non-zero code seen, as the JAX runner returns
                     exit_code = ret
-                    get_fault_plan().fire("runner.worker.kill")
-                    with span("runner.teardown", rc=ret):
-                        for other in procs:
-                            other.terminate()
+                    if not torn_down:
+                        torn_down = True
+                        get_fault_plan().fire("runner.worker.kill")
+                        with span("runner.teardown", rc=ret):
+                            _terminate(procs)
             time.sleep(0.2)
     except KeyboardInterrupt:
         get_fault_plan().fire("runner.worker.kill")
         with span("runner.teardown", rc=130):
-            for p in procs:
-                p.terminate()
+            _terminate(procs)
         exit_code = 130
     return exit_code
 
 
-def initialize_distributed(launch_config: Optional[LaunchConfig] = None) -> None:
-    """The worker's bootstrap: nothing to join for one process. A world
-    of several processes (data parallelism over ``torch.distributed``)
-    is not ported."""
+def _terminate(procs: List[subprocess.Popen]) -> None:
+    """SIGTERM to every process of ``procs``, SIGKILL to those alive
+    ``TEARDOWN_GRACE_S`` later."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    deadline = time.monotonic() + TEARDOWN_GRACE_S
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def initialize_distributed(launch_config: Optional[LaunchConfig] = None,
+                           device_type: str = "cuda") -> str:
+    """The worker's bootstrap: join the launch's process group (one rank a
+    worker process) over the launcher's ``MASTER_ADDR:MASTER_PORT``, with
+    the backend ``topology.choose_backend`` picks for ``device_type`` and
+    the workers on this host. Returns the backend, or ``"none"`` for one
+    process. A worker started without the launcher's environment raises."""
     num_processes = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
-    if num_processes > 1:
-        raise NotImplementedError(
-            f"a launch of {num_processes} worker processes: training across processes is "
-            "not ported; give the runner one slot (default_gpu_count: 1)")
+    if num_processes <= 1:
+        return "none"
+    missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_WORLD_SIZE")
+               if k not in os.environ]
+    if missing:
+        raise ValueError(f"a launch of {num_processes} worker processes needs the "
+                         f"launcher's environment; missing {missing}")
+    from ..topology import init_distributed
+
+    return init_distributed(num_processes, int(os.environ["RANK"]), os.environ["MASTER_ADDR"],
+                            int(os.environ["MASTER_PORT"]), device_type=device_type,
+                            local_world_size=int(os.environ["LOCAL_WORLD_SIZE"]))

@@ -1,11 +1,17 @@
 """The ``topology`` section of a config (a subset of
-scaling_tpu/topology/config.py's ``TopologyConfig``): the port trains on
-one device, so every parallel size must be 1. It reads the batch split
-(``micro_batch_size``, ``gradient_accumulation_steps``,
-``global_batch_size``: two of the three, as in the JAX config) and
+scaling_tpu/topology/config.py's ``TopologyConfig``): data and model
+(tensor) parallelism over several worker processes, with JAX's derivation
+of the sizes (three of ``model_parallel_size``, ``pipe_parallel_size``,
+``data_parallel_size`` and ``world_size`` determine the fourth; a config
+that gives fewer takes 1 for each missing parallel size) and of the batch
+split (two of ``micro_batch_size``, ``gradient_accumulation_steps`` and
+``global_batch_size``, with ``global = micro x accumulation x data``), and
 ``activation_checkpointing_type`` (``disabled``, ``every_layer`` or
 ``every_layer_save_dots``).
-Any other value raises NotImplementedError and an unknown key
+
+Pipeline and context parallelism, virtual pipeline stages, token slices,
+sequence parallelism and the ``every_pipe_stage`` remat mode are not
+ported: each raises NotImplementedError by name. An unknown key raises
 ValueError; the JAX key names are kept.
 """
 
@@ -21,11 +27,18 @@ class ActivationCheckpointingType:
     EVERY_LAYER_SAVE_DOTS = "every_layer_save_dots"  # per-layer remat keeping matmul outputs
 
 
-_PARALLEL = ("model_parallel_size", "pipe_parallel_size", "data_parallel_size",
-             "context_parallel_size", "world_size", "pipe_virtual_size", "pipe_token_slices")
-# keys at these values change nothing on one device
-_INERT = {"global_rank": (None, 0), "local_slot": (None, 0),
-          "context_parallel_variant": ("ring",), "sequence_parallel": (False,),
+# key -> (the value that leaves it off, why it is refused)
+_REFUSED = {
+    "pipe_parallel_size": (1, "pipeline parallelism is not ported"),
+    "context_parallel_size": (1, "context parallelism (ring, Ulysses) is not ported"),
+    "pipe_virtual_size": (1, "virtual pipeline stages are not ported"),
+    "pipe_token_slices": (1, "pipeline token slices are not ported"),
+    "sequence_parallel": (False, "sequence parallelism is not ported"),
+}
+# keys at these values change nothing here; the launcher gives each
+# process its rank (``global_rank``) and slot (``local_slot``)
+_INERT = {"global_rank": None, "local_slot": None,
+          "context_parallel_variant": ("ring", "ulysses"),
           "pipe_partition_method": ("uniform", "balanced"),
           "pipe_partition_overwrite": (None,)}
 
@@ -35,10 +48,18 @@ class TopologyConfig:
     micro_batch_size: int
     gradient_accumulation_steps: int = 1
     activation_checkpointing_type: str = ActivationCheckpointingType.DISABLED
+    model_parallel_size: int = 1
+    data_parallel_size: int = 1
 
     def __post_init__(self):
         if self.micro_batch_size <= 0 or self.gradient_accumulation_steps <= 0:
             raise ValueError("micro_batch_size and gradient_accumulation_steps must be > 0")
+        if self.model_parallel_size <= 0 or self.data_parallel_size <= 0:
+            raise ValueError("model_parallel_size and data_parallel_size must be > 0")
+        if self.activation_checkpointing_type == "every_pipe_stage":
+            raise NotImplementedError(
+                "activation_checkpointing_type 'every_pipe_stage' is not ported (it needs "
+                "pipeline parallelism)")
         if self.activation_checkpointing_type not in (
                 ActivationCheckpointingType.DISABLED, ActivationCheckpointingType.EVERY_LAYER,
                 ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS):
@@ -47,20 +68,47 @@ class TopologyConfig:
                 "not ported (disabled, every_layer, every_layer_save_dots)")
 
     @property
+    def world_size(self) -> int:
+        return self.model_parallel_size * self.data_parallel_size
+
+    @property
+    def pipe_parallel_size(self) -> int:
+        return 1
+
+    @property
+    def context_parallel_size(self) -> int:
+        return 1
+
+    @property
     def global_batch_size(self) -> int:
-        return self.micro_batch_size * self.gradient_accumulation_steps
+        return self.micro_batch_size * self.gradient_accumulation_steps * self.data_parallel_size
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TopologyConfig":
         d = dict(d)
-        for key in _PARALLEL:
+        for key, (off, why) in _REFUSED.items():
             value = d.pop(key, None)
-            if value not in (None, 1):
-                raise NotImplementedError(f"{key}={value}: the port trains on one device")
+            if value is not None and value != off:
+                raise NotImplementedError(f"{key}={value!r}: {why}")
         for key, values in _INERT.items():
-            value = d.pop(key, values[0])
-            if value not in values:
+            value = d.pop(key, None)
+            if values is not None and value is not None and value not in values:
                 raise NotImplementedError(f"{key}={value!r} is not ported")
+        mp = d.pop("model_parallel_size", None)
+        dp = d.pop("data_parallel_size", None)
+        world = d.pop("world_size", None)
+        pp = 1
+        if sum(v is not None for v in (mp, dp, world)) < 2:  # JAX: three of four, pp given
+            mp, dp = mp or 1, dp or 1
+        if world is None:
+            world = mp * pp * dp
+        if mp is None:
+            mp = world // (pp * dp)
+        if dp is None:
+            dp = world // (mp * pp)
+        if mp * pp * dp != world:
+            raise ValueError(f"world_size {world} does not equal model_parallel_size ({mp}) x "
+                             f"pipe_parallel_size ({pp}) x data_parallel_size ({dp})")
         gbs: Optional[int] = d.pop("global_batch_size", None)
         mbs = d.pop("micro_batch_size", None)
         gas = d.pop("gradient_accumulation_steps", None)
@@ -68,14 +116,15 @@ class TopologyConfig:
             raise ValueError("two of global_batch_size, micro_batch_size and "
                              "gradient_accumulation_steps must be set")
         if mbs is None:
-            mbs = gbs // gas
+            mbs = gbs // (gas * dp)
         if gas is None:
-            gas = gbs // mbs
-        if gbs is not None and gbs != mbs * gas:
+            gas = gbs // (mbs * dp)
+        if gbs is not None and gbs != mbs * gas * dp:
             raise ValueError(f"global_batch_size {gbs} != micro_batch_size {mbs} x "
-                             f"gradient_accumulation_steps {gas}")
+                             f"gradient_accumulation_steps {gas} x data_parallel_size {dp}")
         ckpt = d.pop("activation_checkpointing_type", ActivationCheckpointingType.DISABLED)
         if d:
             raise ValueError(f"unknown topology keys: {sorted(d)}")
         return cls(micro_batch_size=mbs, gradient_accumulation_steps=gas,
-                   activation_checkpointing_type=ckpt)
+                   activation_checkpointing_type=ckpt, model_parallel_size=mp,
+                   data_parallel_size=dp)

@@ -1,5 +1,6 @@
-"""The training loop, its checkpoints and its supervision on one device
-(counterpart of scaling_tpu/trainer/trainer.py).
+"""The training loop, its checkpoints and its supervision, on one rank or
+on each rank of a data x model layout (counterpart of
+scaling_tpu/trainer/trainer.py).
 
 ``run_training`` drives: train step -> periodic save -> periodic eval ->
 metric logging, for ``train_iterations`` steps. Checkpoints follow the
@@ -48,6 +49,18 @@ in one copy per step on the loop's thread (``batch_to_model_input``).
 The orbax backend is not ported: ``checkpoint_backend`` raises
 NotImplementedError at any value but the default.
 
+Over several ranks (``ParallelModule.layout``), as JAX's single
+controller does: each data rank reads its rows of every global
+micro-batch and ``consumed_samples`` stays global; global rank 0 alone
+writes the checkpoint (every leaf gathered whole, JAX's merged layout,
+``MESH.json`` naming the layout and the ZeRO stage), and the others wait
+at a barrier until ``latest`` is durable; a load gives each rank its
+slices and rescales the cursors to the run's layout; a SIGTERM to any
+rank becomes every rank's save at the same step through one all-reduce
+of the flags at each step boundary, so no rank waits in a collective
+that a peer left. Records, events and step metrics come from rank 0
+(``logger``'s rank).
+
 Observability, as in the JAX trainer: the spans ``step.data``,
 ``step.fwdbwd`` (host dispatch only: the device work shows in
 ``step.sync``, which holds the loss's fetch), ``step.sync``,
@@ -87,6 +100,7 @@ from ..context import BaseContext
 from ..data import DataLoader
 from ..logging.logger import logger
 from ..nn.base_layer import dropout_key
+from ..parallel.collectives import all_reduce_, any_rank, barrier
 from ..obs import StepTelemetry, derive_trace_id, span, trace_context
 from ..optimizer import Optimizer
 from ..parallel import ParallelModule
@@ -234,6 +248,11 @@ class BaseTrainer:
         self.profiler = profiler
         self.topology = context.topology
         self.device = next(parallel_module.model.parameters()).device
+        # the run's Topology over several ranks (None: one rank)
+        self.layout = parallel_module.layout
+        if self.layout is not None and config.save_checkpoint_async:
+            raise NotImplementedError("trainer.save_checkpoint_async over several ranks is "
+                                      "not ported")
         self.dataloader: Optional[DataLoader] = None
         self.dataloader_evaluation: Optional[DataLoader] = None
         self._train_step: Optional[Callable] = None
@@ -332,10 +351,13 @@ class BaseTrainer:
         self._prefetch_queue = self._prefetch_thread = self._prefetch_stop = None
 
     def _loader(self, dataset: Any, consumed: int) -> DataLoader:
+        lay = self.layout
         return DataLoader(seed=self.config.seed, consumed_samples=consumed, dataset=dataset,
                           micro_batch_size=self.topology.micro_batch_size,
                           retry_attempts=self.config.io_retry_attempts,
-                          retry_backoff=self.config.io_retry_backoff_seconds)
+                          retry_backoff=self.config.io_retry_backoff_seconds,
+                          data_parallel_size=1 if lay is None else lay.data_parallel_size,
+                          dp_rank=0 if lay is None else lay.data_parallel_rank)
 
     # Deliberately lock-free: ``dataloader`` is assigned here BEFORE
     # ``_start_prefetch`` spawns the worker (thread start happens-before
@@ -439,10 +461,17 @@ class BaseTrainer:
         losses, metric_list = [], []
         for _ in range(max(self.config.eval_iterations, 1)):
             batch = self.batch_to_model_input(next(self.dataloader_evaluation), self.device)
-            loss, metrics = self.loss_function(self.module.forward(batch), batch)
+            loss, metrics = self.module.loss(self.module.forward(batch), batch,
+                                             self.loss_function)
+            if self.layout is not None:  # the data ranks' shares of the global batch's
+                names = sorted(metrics)
+                summed = all_reduce_(torch.stack([loss.float()] + [
+                    metrics[k].float() for k in names]), self.layout.data_group)
+                loss, metrics = summed[0], dict(zip(names, summed[1:]))
             losses.append(float(loss))
             metric_list.append({k: float(v) for k, v in metrics.items()})
-            self.context.consumed_eval_samples += self.topology.micro_batch_size
+            self.context.consumed_eval_samples += (self.topology.micro_batch_size
+                                                   * self.topology.data_parallel_size)
         return EvaluationStepOutput(
             loss=float(np.mean(losses)),
             metrics={k: float(np.mean([m[k] for m in metric_list])) for k in metric_list[0]},
@@ -482,7 +511,9 @@ class BaseTrainer:
         release the others at the same boundary."""
         cp = self._control_plane
         if cp is None:
-            return self._preempted
+            # over several ranks a flag is obeyed only where the ranks agree
+            # on it, after a step (_preemption_requested)
+            return self._preempted and self.layout is None
         step = self.context.iterations
         # the first iteration still builds and loads the kernels: the
         # supervisor's startup grace applies to ``starting``
@@ -576,8 +607,14 @@ class BaseTrainer:
             # another host broadcast a preemption since the last check
             if self._control_plane.get_flag(PREEMPT_FLAG) is not None:
                 self._preempted = True
-        return self._preempted or (self.external_preemption is not None
-                                   and self.external_preemption())
+        requested = self._preempted or (self.external_preemption is not None
+                                        and self.external_preemption())
+        if self.layout is not None:
+            # every rank asks at every step boundary: one rank's SIGTERM is
+            # every rank's save at this step
+            requested = any_rank(requested, self.layout.host_group)
+            self._preempted = self._preempted or requested
+        return requested
 
     def _preemption_exit(self) -> None:
         # a SIGTERM during the step passed no checkin: broadcast (and
@@ -778,10 +815,12 @@ class BaseTrainer:
         return Path(vocab) if vocab and Path(vocab).is_file() else None
 
     def _current_topology_dict(self) -> dict:
-        """The JAX trainer's topology record at world size 1."""
+        """The JAX trainer's topology record."""
         t = self.topology
-        return {"world_size": 1, "pipe_parallel_size": 1, "data_parallel_size": 1,
-                "context_parallel_size": 1, "model_parallel_size": 1, "pipe_virtual_size": 1,
+        return {"world_size": t.world_size, "pipe_parallel_size": 1,
+                "data_parallel_size": t.data_parallel_size,
+                "context_parallel_size": 1, "model_parallel_size": t.model_parallel_size,
+                "pipe_virtual_size": 1,
                 "pipe_token_slices": 1, "micro_batch_size": t.micro_batch_size,
                 "gradient_accumulation_steps": t.gradient_accumulation_steps,
                 "global_batch_size": t.global_batch_size, "num_hosts": self._num_hosts()}
@@ -793,22 +832,51 @@ class BaseTrainer:
             return self._control_plane.num_hosts
         return int(os.environ.get(ENV_NUM_HOSTS, "1"))
 
-    @staticmethod
-    def _param_records(params: Dict[str, torch.Tensor]) -> dict:
+    def _param_records(self, params: Dict[str, torch.Tensor]) -> dict:
         """JAX key -> global shape in the JAX layout, dtype and the JAX
         partition spec, for ``MESH.json``."""
+        shapes = {lay.key: lay.shape for lay in self.module.layouts.values()}
         records = {}
         for key, t in params.items():
-            records[key] = param_record(tuple(to_jax_layout(key, t).shape), str(t.dtype).removeprefix("torch."),
+            whole = torch.empty(shapes.get(key, t.shape), device="meta")
+            records[key] = param_record(tuple(to_jax_layout(key, whole).shape),
+                                        str(t.dtype).removeprefix("torch."),
                                         jax_partition_spec(key, t.ndim))
         return records
 
     def _mesh_meta(self, params: Dict[str, torch.Tensor]) -> dict:
+        opt = self.optimizer.config
         return build_mesh_meta(
             topology=self._current_topology_dict(), params=self._param_records(params),
-            optimizer={"zero_stage": 0, "fields": ["master", "exp_avg", "exp_avg_sq"],
+            optimizer={"zero_stage": int(opt.zero_stage) if opt.zero else 0,
+                       "fields": ["master", "exp_avg", "exp_avg_sq"],
                        "layout": "global-per-layer"},
             step=self.context.iterations)
+
+    def _leaf_gather(self, state: bool):
+        """The checkpoint's gather of each leaf by JAX key (``state``: of the
+        optimizer's slices) over several ranks; None on one rank."""
+        if self.layout is None:
+            return None
+        names = {key: name for name, key in self.module.ckpt_keys().items()}
+        zero = self.optimizer.zero_dims
+
+        def gather(key: str, t: torch.Tensor):
+            name = names[key]
+            return self.module.gather_leaf(name, t, zero.get(name) if state else None)
+        return gather
+
+    def _leaf_shard(self, state: bool):
+        """The load's slice of each whole leaf by JAX key; None on one rank."""
+        if self.layout is None:
+            return None
+        names = {key: name for name, key in self.module.ckpt_keys().items()}
+
+        def shard(key: str, whole: torch.Tensor) -> torch.Tensor:
+            name = names[key]
+            t = self.module.shard_leaf(name, whole)
+            return self.optimizer.piece(name, t) if state else t
+        return shard
 
     def save_checkpoint(self, dir: Optional[Union[Path, str]] = None) -> Path:
         """Stage, manifest, fsync and rename onto ``global_step{N}``, then
@@ -827,6 +895,8 @@ class BaseTrainer:
 
     def _save_checkpoint_inner(self, dir: Optional[Union[Path, str]] = None) -> Path:
         base = Path(dir or self.config.save_dir)
+        if self.layout is not None:
+            return self._save_sharded(base)
         base.mkdir(parents=True, exist_ok=True)
         writer = None
         if self.config.save_checkpoint_async:
@@ -845,14 +915,7 @@ class BaseTrainer:
             save_model_checkpoint(stage, params, recorder=commit.record, writer=writer)
             save_optimizer_checkpoint(stage, self.optimizer, self.module.ckpt_keys(),
                                       recorder=commit.record, writer=writer)
-            write_mesh_meta(stage, self._mesh_meta(params))
-            self.context.save_checkpoint(stage)
-            config = self._config_dict()
-            if config is not None:  # the architecture and tokenizer travel with the weights
-                (stage / "config.yml").write_text(yaml.safe_dump(config, sort_keys=False))
-                vocab = self._vocab_file()
-                if vocab is not None:
-                    shutil.copyfile(vocab, stage / "vocab.json")
+            self._write_stage_meta(stage, params)
         step_dir = commit.final_dir
         if writer is None:
             commit.finalize()
@@ -869,6 +932,51 @@ class BaseTrainer:
             else:
                 writer.submit(self._prune_past_optimizer_states, base, step_dir)
         self._last_saved_step = self.context.iterations
+        return step_dir
+
+    def _write_stage_meta(self, stage: Path, params: Dict[str, torch.Tensor]) -> None:
+        """``MESH.json``, ``context.json`` and, with a config, ``config.yml``
+        and ``vocab.json``: the architecture and tokenizer travel with the
+        weights."""
+        write_mesh_meta(stage, self._mesh_meta(params))
+        self.context.save_checkpoint(stage)
+        config = self._config_dict()
+        if config is not None:
+            (stage / "config.yml").write_text(yaml.safe_dump(config, sort_keys=False))
+            vocab = self._vocab_file()
+            if vocab is not None:
+                shutil.copyfile(vocab, stage / "vocab.json")
+
+    def _save_sharded(self, base: Path) -> Path:
+        """The save of a run of several ranks: every rank gathers each leaf
+        with the others; global rank 0 writes, commits and moves ``latest``
+        synchronously; then every rank meets at a barrier."""
+        writing = self.layout.global_rank == 0
+        step = self.context.iterations
+        commit = stage = None
+        if writing:
+            base.mkdir(parents=True, exist_ok=True)
+            commit = CheckpointCommit(base, step)
+            stage = commit.tmp_dir
+        params = self._ckpt_params()
+        with span("ckpt.stage", step=step, backend="npz"):
+            save_model_checkpoint(stage, params, recorder=commit and commit.record,
+                                  gather=self._leaf_gather(False))
+            save_optimizer_checkpoint(stage, self.optimizer, self.module.ckpt_keys(),
+                                      recorder=commit and commit.record,
+                                      gather=self._leaf_gather(True))
+        step_dir = base / f"global_step{step}"
+        if writing:
+            self._write_stage_meta(stage, params)
+            commit.finalize()
+            with span("ckpt.latest", step=step):  # the ranks meet at the barrier below
+                commit.update_latest()
+            step_dir = commit.final_dir
+            logger.info(f"saved checkpoint {step_dir}")
+            if self.config.delete_past_optimizer_states:
+                self._prune_past_optimizer_states(base, step_dir)
+        barrier()  # latest is durable before any rank goes on
+        self._last_saved_step = step
         return step_dir
 
     @staticmethod
@@ -957,7 +1065,8 @@ class BaseTrainer:
                               allowed_missing_keys=c.allowed_missing_keys_in_checkpoint,
                               allowed_unexpected_keys=c.allowed_unexpected_keys_in_checkpoint,
                               ignore_keys=c.ignore_keys_in_checkpoint,
-                              restored_keys=self.restored_model_keys)
+                              restored_keys=self.restored_model_keys,
+                              shard=self._leaf_shard(False))
         if c.merge_lora_after_loading_checkpoint:
             self.module.merge_lora_weights()
             logger.info("merged LoRA deltas into base weights after load")
@@ -966,7 +1075,8 @@ class BaseTrainer:
         # weights and the LoRA's B back with the first step
         if c.load_optimizer_states and not c.merge_lora_after_loading_checkpoint:
             try:
-                load_optimizer_checkpoint(step_dir, self.optimizer, self.module.ckpt_keys())
+                load_optimizer_checkpoint(step_dir, self.optimizer, self.module.ckpt_keys(),
+                                          shard=self._leaf_shard(True))
                 self.optimizer_states_loaded = True
             except FileNotFoundError:
                 logger.warning(f"optimizer states absent in {step_dir}")
@@ -978,12 +1088,12 @@ class BaseTrainer:
             self.context.load_checkpoint(step_dir)
             # the cursors count global samples: the same numbers resume the
             # stream when this run's batch grid divides them
-            mbs = self.topology.micro_batch_size
+            mbs, dp = self.topology.micro_batch_size, self.topology.data_parallel_size
             ctx = self.context
             ctx.consumed_samples = rescale_consumed_samples(
-                ctx.consumed_samples, micro_batch_size=mbs, data_parallel_size=1)
+                ctx.consumed_samples, micro_batch_size=mbs, data_parallel_size=dp)
             ctx.consumed_eval_samples = rescale_consumed_samples(
-                ctx.consumed_eval_samples, micro_batch_size=mbs, data_parallel_size=1,
+                ctx.consumed_eval_samples, micro_batch_size=mbs, data_parallel_size=dp,
                 what="consumed_eval_samples", on_misaligned="floor")
         logger.info(f"loaded checkpoint {step_dir}")
 

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from scaling_tpu_torch.analysis import dispatch_audit
 from scaling_tpu_torch.analysis.lint import RULES, lint_paths, parse_suppressions
@@ -239,8 +240,20 @@ def gate_run(tmp_path_factory):
     from scaling_tpu_torch.analysis.cli import main
 
     out = tmp_path_factory.mktemp("gate") / "report.json"
-    rc = main(["all", "--json", str(out)])
+    rc = main(["all", "--device", "cpu", "--json", str(out)])
     return rc, json.loads(out.read_text())
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
+def test_the_audit_asks_for_the_card_unless_told_cpu():
+    """Without ``--device`` the audit runs on the card, as every entry point
+    of the port does: without one it raises through ``resolve_device``."""
+    from scaling_tpu_torch.analysis.cli import main
+
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["audit", "--sections", "train_single"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        dispatch_audit.run_audit(["train_single"])
 
 
 def test_the_ported_tree_passes_its_gate(gate_run):
@@ -259,7 +272,8 @@ def test_the_ported_tree_passes_its_gate(gate_run):
     syncs = {(f["path"], f["line"]) for f in lint["findings"] if f["rule"] == "STA010"}
     files = {p for p, _ in syncs}
     assert files == {"scaling_tpu_torch/trainer/trainer.py",
-                     "scaling_tpu_torch/serve/engine.py", "scaling_tpu_torch/obs/spans.py"}
+                     "scaling_tpu_torch/serve/engine.py", "scaling_tpu_torch/obs/spans.py",
+                     "scaling_tpu_torch/parallel/collectives.py"}
     assert payload["protocol"]["drift"] == [] and payload["audit"]["drift"] == []
 
 

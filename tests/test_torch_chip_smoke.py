@@ -763,6 +763,8 @@ def test_modes_in_process_runs_on_the_cpu_at_toy_size(monkeypatch, capsys):
         monkeypatch.setitem(chip_smoke.SERVE, key, value)
     monkeypatch.setitem(chip_smoke.MODES, "first_token_prompt", 40)
     monkeypatch.setitem(chip_smoke.MODES, "segment", (2, 4))
+    monkeypatch.setitem(chip_smoke.MODES, "requests", 4)
+    monkeypatch.setitem(chip_smoke.MODES, "separate_requests", 2)
     monkeypatch.setattr(chip_smoke, "check_mode_launches", lambda what, stats, needed: None)
     widths = []
     monkeypatch.setattr(chip_smoke, "check_k1_widths",

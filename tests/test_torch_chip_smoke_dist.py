@@ -1,0 +1,63 @@
+"""Phase 19 of ``chip_smoke.py`` (dp 2 x mp 2 with ZeRO-1 through
+``runner_main``) at toy size on the CPU: four gloo worker processes and a
+one-rank run beside them, SIGTERM to rank 3, a one-rank resume of the
+step-2 checkpoint. The intact run passes (a)-(e); a run whose
+row-parallel products are not summed over the model group fails the
+loss or the logit check, and a run where one rank runs the plain
+versions fails the launch check. The workers are
+``tests/test_torch_dist_helpers.py``'s ``phase19_worker``, which counts
+the CPU's plain runs as the card's launches."""
+
+import pathlib
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
+
+
+def _toy_dist(monkeypatch, tmp_path, fault: str) -> dict:
+    for key, value in dict(model="toy", seq=128, mbs=4, tokens=20_000, valid_tokens=2_000,
+                           doc_len=(16, 400)).items():
+        monkeypatch.setitem(chip_smoke.TRAINER, key, value)
+    monkeypatch.setitem(chip_smoke.DIST, "script", "tests.test_torch_dist_helpers")
+    monkeypatch.setitem(chip_smoke.DIST, "pause_s", 0.2)
+    monkeypatch.setitem(chip_smoke.DIST, "timeout_s", 100)
+    monkeypatch.setenv("PHASE19_FAULT", fault)
+    vocab = chip_smoke.trainer_arch()["vocab_size"]
+    root = tmp_path / "data"
+    root.mkdir()
+    prefixes = chip_smoke.write_token_datasets(root, vocab)
+    return {"prefixes": {k: prefixes[k] for k in ("a", "b")}}  # what phase 8 keeps
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("", None),
+    ("skip_row_reduction", r"phase 19 \((a|b)\)"),
+    ("plain_rank_1", r"phase 19 rank 1"),
+], ids=["intact", "row_reduction_skipped", "plain_on_rank_1"])
+def test_dist_phase_on_the_cpu_tells_a_wrong_layout(monkeypatch, tmp_path, capsys, fault,
+                                                    match):
+    base = _toy_dist(monkeypatch, tmp_path, fault)
+    if match is None:
+        launches = chip_smoke.dist_phase(base, device="cpu")
+        out = capsys.readouterr().out
+        assert "(e) SIGTERM to rank 3" in out and "stopped at steps [4, 4, 4, 4]" in out
+        assert "(d) MESH.json of step 2: dp 2 x mp 2, zero_stage 1" in out
+        assert "backend gloo, 4 ranks" in out
+        layers = chip_smoke.trainer_arch()["num_layers"]
+        assert launches["dist_4ranks"]["flash_attention_bwd"] == 4 * 4 * layers
+        return
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.dist_phase(base, device="cpu")
+
+
+def test_dist_probe_row_fits_the_model():
+    arch = type("Arch", (), {"sequence_length": 128, "vocab_size": 50})()
+    row = chip_smoke.dist_probe_row(arch)
+    assert row.shape == (1, 128) and row.dtype == torch.int32 and int(row.max()) < 50
+    assert torch.equal(row, chip_smoke.dist_probe_row(arch))

@@ -193,7 +193,7 @@ assert tune_main(["--serve", "--devices", "1", "--check-golden"]) == 0
 assert tune_main(["--devices", "1", "--mbs-ladder", "4,8,16,32", "--check-golden"]) == 0
 from scaling_tpu_torch.analysis.cli import main as analysis_main
 assert analysis_main(["protocol"]) == 0
-assert analysis_main(["audit", "--sections", "serve_decode"]) == 0
+assert analysis_main(["audit", "--device", "cpu", "--sections", "serve_decode"]) == 0
 print("tools: tuner, analyzer and Determined glue ran")
 """
 
@@ -366,6 +366,51 @@ def test_runner_supervises_a_worker_with_jax_blocked():
     assert "supervised: rc=0 latest=global_step3 heartbeat=3:done" in proc.stdout
 
 
+BLOCKED_TWO_RANKS = r"""
+import json, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["scaling_tpu"] = None
+from pathlib import Path
+import numpy as np
+from scaling_tpu_torch.data import MemoryMapDatasetBuilder
+from scaling_tpu_torch.resilience import read_mesh_meta, verify_checkpoint
+from scaling_tpu_torch.runner import RunnerConfig, runner_main
+from scaling_tpu_torch.serve.bench import MODELS
+root = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+with MemoryMapDatasetBuilder(root / "tokens", dtype=np.uint16) as builder:
+    for _ in range(40):
+        builder.add(np.append(rng.integers(1, 512, size=rng.integers(16, 200)), 0))
+payload = {
+    "topology": {"model_parallel_size": 2, "data_parallel_size": 1, "pipe_parallel_size": 1,
+                 "micro_batch_size": 2, "gradient_accumulation_steps": 1},
+    "transformer_architecture": dict(MODELS["toy"], sequence_length=64),
+    "trainer": {"train_iterations": 2, "save_interval": 2, "save_dir": str(root / "ckpt")},
+    "data": {"data_prefixes": [str(root / "tokens")]},
+    "logger": {"log_dir": str(root / "logs")}}
+config = RunnerConfig.from_dict({"hosts": ["localhost"], "default_gpu_count": 2,
+                                 "script": "tests.test_torch_isolation", "master_port": int(sys.argv[1])})
+rc = runner_main(config, payload)
+step = root / "ckpt" / "global_step2"
+mesh = read_mesh_meta(step)["topology"]
+print(f"two ranks: rc={rc} latest={(root / 'ckpt' / 'latest').read_text()} "
+      f"mp={mesh['model_parallel_size']} verify={verify_checkpoint(step)}")
+sys.exit(rc)
+"""
+
+
+def test_two_ranks_train_a_step_with_jax_blocked():
+    """``runner_main`` with two local slots in a process where JAX and the
+    JAX package cannot be imported: two gloo workers that block both too
+    train 2 steps at model-parallel size 2 and save a merged checkpoint."""
+    from .test_torch_dist_helpers import free_port
+
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_TWO_RANKS, str(free_port())],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "two ranks: rc=0 latest=global_step2 mp=2 verify=[]" in proc.stdout
+
+
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(import jax\b|from jax\b|import scaling_tpu\.|import scaling_tpu\s*$|"
@@ -435,7 +480,8 @@ def test_config_raises_on_keys_it_does_not_support():
 
 
 if __name__ == "__main__":
-    # the worker of test_runner_supervises_a_worker_with_jax_blocked
+    # the worker of test_runner_supervises_a_worker_with_jax_blocked and
+    # test_two_ranks_train_a_step_with_jax_blocked
     sys.modules["jax"] = None
     sys.modules["scaling_tpu"] = None
     from scaling_tpu_torch.models.transformer.train import worker_main

@@ -217,9 +217,13 @@ def test_other_hosts_and_several_processes_are_refused_by_name(tmp_path, monkeyp
     with pytest.raises(NotImplementedError, match="ssh launch"):
         port_runner.spawn_worker(RunnerConfig(), "tpu-b", {}, "cGF5bG9hZA==")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
-    initialize_distributed()
+    assert initialize_distributed() == "none"
+    # several processes join one process group (test_torch_distributed_trainer.py);
+    # without the launcher's environment the worker refuses by name
     monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="2 worker processes"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="2 worker processes needs the launcher's environment"):
         initialize_distributed()
 
 

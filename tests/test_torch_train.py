@@ -318,11 +318,11 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
     assert config.optimizer.gradient_clipping == 1.0
     bad = [
         ({"topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
-                       "data_parallel_size": 2}}, NotImplementedError),
+                       "pipe_parallel_size": 2}}, NotImplementedError),
         ({"topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
                        "activation_checkpointing_type": "every_pipe_stage"}},
          NotImplementedError),
-        ({"optimizer": {"zero": True}}, NotImplementedError),
+        ({"optimizer": {"zero": True, "zero_stage": 3}}, NotImplementedError),
         ({"training": {"use_separate_lr_on_embedding": True}}, ValueError),
         ({"trainer": {"seed": 0, "checkpoint_backend": "orbax"}}, NotImplementedError),
         ({"optimizer": {"betaa": 0.9}}, ValueError),
