@@ -42,8 +42,8 @@ Phases, each of which must pass:
    print step ms, tokens/s, MFU, peak memory and the losses; one profiled
    step gives the device's busy time, its idle share and the device time
    by kernel group;
-6. generate with two models at full width and depth (random weights from
-   seed 0): (a) the same 0.5B model, (b) its widths in the JAX default
+6. generate with two models at full width, cut to 2 of their 8 layers
+   (``GEN["layers"]``; random weights from seed 0): (a) the same 0.5B model, (b) its widths in the JAX default
    architecture (layernorm, GELU MLP x4, tied head, key/query norm), bf16
    with flash. 8 prompts of 256-1024 tokens (the longest exactly 1024, so
    the left-padded prefill runs K4) and 128 greedy tokens each, four times
@@ -244,7 +244,8 @@ Phases, each of which must pass:
 15. mixture-of-experts and muP, after phase 6: ``0.5b-moe`` (the 0.5B
    widths, 8 routed SwiGLU experts, top-2, capacity 1.25, aux 0.01, muP
    from a 256-wide base: attention scale 1/32, the head's output_mult 2,
-   its 1/8 learning rate by fan-in) at full width and depth from seed 0.
+   its 1/8 learning rate by fan-in) at full width, cut to 2 of its 8 layers
+   (``MOE["layers"]``), from seed 0.
    (a) one MoE layer at b 4, s 2048 in f32 on the card and on the CPU:
    at least 0.999 of the tokens routed alike (expert set and kept
    flags), their outputs within 1e-4 of max |y|, the aux losses within
@@ -336,6 +337,38 @@ Phases, each of which must pass:
    byte is staged through the host), rank 0's collective bytes in a step,
    and the step time, taken with four ranks sharing one card (not a
    scaling figure);
+20. pipeline parallelism, beside phase 19 (``PIPE``; its lines follow
+   phase 19's): ``runner_main`` with
+   4 local slots starts 4 ``train run`` workers of phase 8's data and the
+   0.5B model at full width cut to 4 of its 8 layers, at pp 2 x vpp 2 x dp
+   2 (each stage holds two round-robin chunks of one layer) with ZeRO-1,
+   ``every_pipe_stage`` and accumulation 4 (micro-batch 1 a data rank),
+   saving every 2 steps, sharing the card through gloo; activations and
+   their gradients cross by the stage transport (a broadcast over a
+   two-rank group a direction). Once the step-2 checkpoint is durable a
+   one-rank child of the same model and global batch (micro-batch 2, the
+   same remat mode) starts beside the four ranks and resumes it to step 4;
+   rank 3 (the last stage of data rank 1) gets SIGTERM once its step-3
+   record is written. Checks,
+   each failing the phase: (a) the child's step-3 and step-4 losses within
+   0.02 of the four ranks', all finite, and the pipelined backward of
+   those steps against the child's from the same weights: the global
+   gradient norm and each logical layer's Adam first moment (its norm
+   over the ranks' pieces, each counted once) within a relative 0.01;
+   (b) the probe row's logits of the
+   four ranks' forward (the last stage's) at the step-4 weights within
+   0.05 of max |logit| of a CPU f32 forward of the merged step-4
+   checkpoint (constant logits cannot pass); (c) the step-2 launches of
+   K2-K5 summed over the two stages of each data rank equal to the one-rank
+   child's step-4 launches, no plain version on any rank; (d) every rank
+   stops at step 4 and exits 0, ``latest`` names step 4, which verifies,
+   and ``MESH.json`` of step 2 names pp 2 x vpp 2; (e) each rank's
+   ``max_memory_allocated`` and parameter bytes printed beside the
+   child's. Prints the transport's bytes a step beside the schedule's
+   count, ``obs report``'s pipeline section over the four ranks' run
+   directory (the predicted bubble) beside each rank's measured share of a
+   step spent waiting for the transport (a reading: four ranks share one
+   card), and the step times;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -369,6 +402,7 @@ import tempfile
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -454,8 +488,10 @@ EVAL_NATS = 0.05  # evaluate's loss on the step-6 checkpoint vs the trainer's st
 EVAL_REF_NATS = 1e-5
 # generation: 8 prompts of 256-1024 tokens (the longest exactly 1024, so the
 # left-padded prefill is 1024 wide and K4 runs), 128 greedy tokens each
-GEN = dict(batch=8, prompt_len=(256, 1024), max_tokens=128, seed=0, profile=(16, 48))
-GEN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through 8 layers vs f32
+# at 2 of the 8 layers, as phases 8-12 (a depth cut: phase 20's time came out
+# of phases 6 and 15)
+GEN = dict(batch=8, prompt_len=(256, 1024), max_tokens=128, seed=0, profile=(16, 48), layers=2)
+GEN_LOGIT_TOL = 0.05  # max |logit error| / max |logit|: bf16 through the layers vs f32
 # phase 10: a 5-step observed Trainer run, profiler window at steps 2-3; the
 # repetitions of the host-cost measurement
 # turns in mirrored order, so that a drift over the turns weighs on each kind
@@ -501,7 +537,7 @@ FLEET = dict(n_requests=32, rate=128.0, prompt_len=(128, 1024), output_len=(64, 
 # 5's training and (c) phase 4's serving with routing captured on the card
 # and on the CPU: at most flip_share of the (token, layer) decisions differ
 MOE = dict(model="0.5b-moe", layer_shape=(4, 2048), route_agree=0.999, layer_tol=1e-4,
-           aux_rtol=1e-3, flip_share=0.05)
+           aux_rtol=1e-3, flip_share=0.05, layers=2)
 # phase 6: AtMan controls on the 0.5B model at a 4 x 1024 batch, both variants.
 # Factor 1 against the uncontrolled unfused logits: bitwise under the
 # log-additive variant (its offset is 0), within tol of max |logit| under the
@@ -560,6 +596,16 @@ TUNE = dict(block_sizes=(8, 16, 32), reps=20, requests=16, ladder="4,8,16,32")
 DIST = dict(dp=2, mp=2, steps=8, save_interval=2, sigterm_rank=3, sigterm_after=3,
             stop_step=4, ref_steps=2, pause_s=0.5, loss_tol=0.02, logit_tol=0.05,
             probe_tokens=512, timeout_s=420, script="chip_smoke")
+# phase 20: phase 8's data and the 0.5B model at full width, 4 of its 8
+# layers (pp * vpp = 4 needs 4), at pp 2 x vpp 2 x dp 2 with ZeRO-1,
+# every_pipe_stage and accumulation 4, four worker processes of runner_main
+# sharing the card through gloo; a one-rank child of the same model and
+# global batch, started once the step-2 checkpoint is durable, resumes it to
+# step 4; rank 3 gets SIGTERM once its step-3 record is written, so every
+# rank stops and saves at step 4; phase 19's tolerances and probe row
+PIPE = dict(pp=2, vpp=2, dp=2, layers=4, mbs=1, gas=4, steps=8, save_interval=2,
+            sigterm_rank=3, sigterm_after=3, stop_step=4, pause_s=0.5, timeout_s=480,
+            remat="every_pipe_stage", update_rtol=0.01)
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
                     weight_tying=True, key_query_norm=True)
@@ -1451,10 +1497,25 @@ def train(model: str = "0.5b") -> dict:
 # ------------------------------------------------------------ generation
 def generation_models() -> dict:
     """(a) the bench 0.5B model; (b) the same widths in the JAX default
-    architecture (layernorm, GELU MLP x4, tied head, key/query norm)."""
+    architecture (layernorm, GELU MLP x4, tied head, key/query norm); both
+    cut to ``GEN["layers"]`` layers."""
     from scaling_tpu_torch.serve.bench import MODELS
 
-    return {"0.5b": MODELS["0.5b"], "0.5b_default_arch": dict(MODELS["0.5b"], **DEFAULT_ARCH)}
+    cut = dict(MODELS["0.5b"], num_layers=GEN["layers"])
+    return {"0.5b": cut, "0.5b_default_arch": dict(cut, **DEFAULT_ARCH)}
+
+
+def cut_model(name: str, layers: int) -> str:
+    """``name`` of the serving and training benches' model tables cut to
+    ``layers`` layers, registered in both tables of this process under a
+    name of its own, which it returns."""
+    from scaling_tpu_torch.serve import bench as serve_bench
+    from scaling_tpu_torch.train import bench as train_bench
+
+    cut = f"{name}-{layers}l"
+    for table in (serve_bench.MODELS, train_bench.MODELS):
+        table[cut] = dict(table[name], num_layers=layers)
+    return cut
 
 
 def generation_prompts(vocab: int) -> list:
@@ -1591,8 +1652,8 @@ def check_generation_launches(name: str, kernel: dict, plain: dict, needed: tupl
 
 
 def generation_phase(name: str, arch_dict: dict, device: str = "cuda") -> dict:
-    """``generate`` with one model at full width and depth (random weights
-    from seed 0): the batch of ``generation_prompts`` four times (tokens
+    """``generate`` with one model at full width (random weights from seed
+    0; ``GEN["layers"]`` deep): the batch of ``generation_prompts`` four times (tokens
     checked, repeated bitwise, timed, profiled) and one 1-D prompt, launch
     counters reset just before and read just after; then the most-padded
     row recomputed on the CPU. Returns the counters."""
@@ -4514,11 +4575,12 @@ def moe_phase() -> dict:
     K1-K5 launched on (b) and (c) and no plain version. Returns each path's
     launch counters."""
     check_moe_layer(moe_layer_check())
-    print(f"  (b) train {MOE['model']} (full width and depth, random weights, seed 0; mbs "
-          f"{TRAIN_MBS}, seq {TRAIN_SEQ})")
-    trained = train(MOE["model"])
+    model = cut_model(MOE["model"], MOE["layers"])
+    print(f"  (b) train {MOE['model']} (full width, {MOE['layers']} of its 8 layers, random "
+          f"weights, seed 0; mbs {TRAIN_MBS}, seq {TRAIN_SEQ})")
+    trained = train(model)
     print("  (c) serve it at phase 4's settings and traffic, native KV")
-    served = serve("native", MOE["model"])
+    served = serve("native", model)
     launched = Counter(trained["launches"]) + Counter(served["launches"])
     needed = ("paged_attention", "rms_norm", "rms_norm_bwd", "flash_attention_fwd",
               "flash_attention_bwd")
@@ -5537,8 +5599,12 @@ def dist_worker() -> int:
     start its pid, backend and device; at its end the iterations, this
     rank's parameter and optimizer bytes, and rank 0's logits of the probe
     row at the final weights (``probe_logits.npy``), the forward run by
-    every rank of the layout. ``CHIP_SMOKE_WORKER_DEVICE`` names another
-    device than the slot's card (the CPU tests)."""
+    every rank of the layout (over pipe stages the last stage's first data
+    and model rank writes them). A step's record also carries the global
+    gradient norm and ``moment_sq``: the squared norm of the Adam first
+    moments of the pieces this rank counts in the global norm, by logical
+    layer (``moment_sq_by_layer``). ``CHIP_SMOKE_WORKER_DEVICE`` names
+    another device than the slot's card (the CPU tests)."""
     from scaling_tpu_torch.logging.logger import append_jsonl_line
     from scaling_tpu_torch.models.transformer import train
     from scaling_tpu_torch.ops import launches
@@ -5559,7 +5625,7 @@ def dist_worker() -> int:
         trainer = build(config, device, glue=glue)
         lay = trainer.layout
         append_jsonl_line(records, json.dumps({
-            "kind": "start", "pid": os.getpid(), "rank": launch.global_rank,
+            "kind": "start", "pid": os.getpid(), "rank": launch.global_rank, "t": time.time(),
             "device": str(trainer.device), "describe": None if lay is None else lay.describe(),
             "local_world_size": int(os.environ.get("LOCAL_WORLD_SIZE", "1"))}))
 
@@ -5570,8 +5636,11 @@ def dist_worker() -> int:
                 "kind": "step", "step": step, "loss": metrics["loss"], "t": time.time(),
                 "kernel": dict(launches.KERNEL), "plain": dict(launches.PLAIN),
                 "max_allocated": max_allocated(trainer.device),
-                "stats": dict(collectives.STATS)}))
-            time.sleep(DIST["pause_s"])
+                "stats": dict(collectives.STATS),
+                "grad_norm": metrics.get("global_grad_norm"),
+                "moment_sq": moment_sq_by_layer(trainer.optimizer)}))
+            time.sleep(PIPE["pause_s"] if lay is not None and lay.pipe_parallel_size > 1
+                       else DIST["pause_s"])
 
         trainer.metrics_hooks.append(record)
         return trainer
@@ -5581,10 +5650,10 @@ def dist_worker() -> int:
     row = dist_probe_row(trainer.module.model.architecture).to(trainer.device)
     trainer.module.model.eval()
     with torch.no_grad():
-        logits = trainer.module.forward({"token_ids": row})["activations"]
-    rank = launch.global_rank
-    if rank == 0:
-        np.save(log_dir / "probe_logits.npy", logits[0].float().cpu().numpy())
+        out = trainer.module.forward({"token_ids": row})  # every rank: a pipe runs it stagewise
+    lay = trainer.layout
+    if out is not None and (lay is None or lay.data_parallel_rank == lay.model_parallel_rank == 0):
+        np.save(log_dir / "probe_logits.npy", out["activations"][0].float().cpu().numpy())
     opt = trainer.optimizer.state
     append_jsonl_line(records, json.dumps({
         "kind": "end", "iterations": trainer.context.iterations,
@@ -5596,6 +5665,20 @@ def dist_worker() -> int:
         "max_allocated": max_allocated(trainer.device),
         "kernel": dict(launches.KERNEL), "plain": dict(launches.PLAIN)}))
     return 0
+
+
+def moment_sq_by_layer(optimizer) -> dict:
+    """The squared norm of the Adam first moments of the pieces this rank
+    counts in the global norm (each piece on one rank), by logical layer
+    (``layer_0`` the embedding, the edges after the layers by name)."""
+    sums: dict = {}
+    for name, owned in zip(optimizer.optimized, optimizer._owned):
+        if owned:
+            key = name.split(".")[1] if name.startswith("layers.") else name
+            sq = optimizer.state.exp_avg[name].float().square().sum()
+            sums[key] = sums[key] + sq if key in sums else sq
+    values = torch.stack(list(sums.values())).tolist() if sums else []
+    return dict(zip(sums, values))
 
 
 def free_port() -> int:
@@ -5826,7 +5909,8 @@ def dist_phase(base: dict, device: str = "cuda") -> dict:
         # steps 3 and 4 (step 2's record comes after its save; each after a pause)
         times = [stats[0][s]["t"] - stats[0][s - 1]["t"] - DIST["pause_s"] for s in (3, 4)]
         ref_t = ref["steps"][2]["t"] - ref["steps"][1]["t"] - DIST["pause_s"]
-        print(f"  step time with four ranks sharing one card (not a scaling figure), steps "
+        print(f"  step time with four ranks sharing one card, in the script with phase 20's "
+              f"beside them (not a scaling figure), steps "
               f"3-4: {[round(t * 1e3, 1) for t in times]} ms (step 4 beside the one-rank "
               f"resume child's start); the one-rank run's step 2 "
               f"{ref_t * 1e3:.1f} ms (host clock between step records, less the pause; run "
@@ -5839,6 +5923,211 @@ def dist_phase(base: dict, device: str = "cuda") -> dict:
     finally:
         for thread, _ in runners:  # after a failed check: the runners end on their own
             thread.join(timeout=DIST["timeout_s"])
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------- phase 20: pipelining
+def pipe_config(prefixes: dict, root: Path, name: str, pp: int, vpp: int, dp: int, mbs: int,
+                steps: int, load_dir=None, save: bool = True) -> dict:
+    """Phase 8's config at the 0.5B widths cut to ``PIPE["layers"]`` layers,
+    at pp x vpp x dp (ZeRO-1 when dp > 1) with ``PIPE["remat"]`` and
+    accumulation ``PIPE["gas"]``, saving every ``save_interval`` steps, no
+    evaluation, under ``runner_main`` with one slot a rank; the events file
+    beside the logs (``obs report``'s pipeline section)."""
+    config = dist_config(prefixes, root, name, dp, 1, steps, load_dir=load_dir, save=save)
+    config["transformer_architecture"] = dict(config["transformer_architecture"],
+                                              num_layers=PIPE["layers"])
+    config["topology"] = {"model_parallel_size": 1, "pipe_parallel_size": pp,
+                          "pipe_virtual_size": vpp, "data_parallel_size": dp,
+                          "micro_batch_size": mbs, "gradient_accumulation_steps": PIPE["gas"],
+                          "activation_checkpointing_type": PIPE["remat"]}
+    config["trainer"]["save_interval"] = PIPE["save_interval"]
+    config["logger"] = dict(config["logger"], events_path=str(root / name / "events.jsonl"))
+    config["runner"]["default_gpu_count"] = pp * dp
+    return config
+
+
+def stage_launches(recs: list, step: int) -> dict:
+    """K2-K5 launched in ``step`` (its counters less the step before's),
+    summed over ``recs``' ranks."""
+    return {k: sum(r["steps"][step]["kernel"].get(k, 0) - r["steps"][step - 1]["kernel"].get(k, 0)
+                   for r in recs) for k in DIST_KERNELS}
+
+
+def transport_per_step(pp: int, vpp: int, gas: int, stage: int, act_bytes: int) -> int:
+    """The bytes a step's schedule sends from ``stage``."""
+    from scaling_tpu_torch.parallel.pipeline_schedule import executor_schedule
+
+    sends = sum(i.name in ("send_activation", "send_grad")
+                for i in executor_schedule(pp, stage, gas, vpp).instructions())
+    return sends * act_bytes
+
+
+def pipe_phase(base: dict, device: str = "cuda", say=print) -> dict:
+    """Phase 20: see the module docstring (20). Returns the launches of the
+    four ranks' run, summed over the ranks, by path. ``say`` takes its
+    lines (``main`` runs it beside phase 19 and prints them after)."""
+    from scaling_tpu_torch.resilience import read_mesh_meta, verify_checkpoint
+
+    pp, vpp, dp = PIPE["pp"], PIPE["vpp"], PIPE["dp"]
+    world, stop = pp * dp, PIPE["stop_step"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_"))
+    t0 = time.monotonic()
+    runners = []
+    try:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()  # the card's memory to the workers
+        prefixes = base["prefixes"]
+        piped_cfg = pipe_config(prefixes, root, "piped", pp, vpp, dp, PIPE["mbs"], PIPE["steps"])
+        logs = root / "piped" / "logs"
+        piped = start_runner(piped_cfg)
+        runners.append(piped)
+        deadline = time.monotonic() + PIPE["timeout_s"]
+        target = PIPE["sigterm_rank"]
+        ckpt = root / "piped" / "ckpt"
+        child_cfg = pipe_config(prefixes, root, "child", 1, 1, 1, PIPE["mbs"] * dp, stop,
+                                load_dir=ckpt / "global_step2", save=False)
+        child = None
+        while True:
+            if child is None and (ckpt / "latest").is_file() and \
+                    (ckpt / "latest").read_text().strip() == "global_step2":
+                # the step-2 checkpoint is durable: the child starts beside the ranks
+                child = start_runner(child_cfg)
+                runners.append(child)
+            recs = dist_records(logs, world)[target]
+            if child is not None and PIPE["sigterm_after"] in recs["steps"]:
+                os.kill(recs["start"]["pid"], signal.SIGTERM)
+                break
+            if not piped[0].is_alive() or time.monotonic() > deadline:
+                join_runner(*piped, "phase 20's four ranks", logs)
+                raise AssertionError(f"phase 20: no step-{PIPE['sigterm_after']} record of "
+                                     f"rank {target}, or no durable step-2 checkpoint")
+            time.sleep(0.02)
+        join_runner(*piped, "phase 20's four ranks", logs)
+        ranks = dist_records(logs, world)
+        run_s = time.monotonic() - t0
+        # (d) every rank stopped at the same step, with a checkpoint that verifies
+        stops = [r["end"]["iterations"] if r["end"] else None for r in ranks]
+        latest = (ckpt / "latest").read_text().strip()
+        problems = verify_checkpoint(ckpt / f"global_step{stop}")
+        mesh = read_mesh_meta(ckpt / "global_step2")["topology"]
+        say(f"  (d) SIGTERM to rank {target} after its step-{PIPE['sigterm_after']} record: "
+              f"exit 0 on every rank, stopped at steps {stops}, preempted "
+              f"{[r['end']['preempted'] for r in ranks]}; latest {latest}, its verification "
+              f"{problems or 'clean'}; MESH.json of step 2: pp {mesh['pipe_parallel_size']} x "
+              f"vpp {mesh['pipe_virtual_size']} x dp {mesh['data_parallel_size']}")
+        if stops != [stop] * world or latest != f"global_step{stop}" or problems or (
+                mesh["pipe_parallel_size"], mesh["pipe_virtual_size"]) != (pp, vpp):
+            raise AssertionError(f"phase 20 (d): ranks stopped at {stops}, latest {latest}, "
+                                 f"{problems}, {mesh}")
+        # (b) the probe row's logits at the step-4 weights against the CPU's
+        t_cpu = time.monotonic()
+        card = torch.from_numpy(np.load(logs / "probe_logits.npy"))
+        cpu = dist_cpu_logits(ckpt / f"global_step{stop}", piped_cfg)
+        scale = cpu.abs().max().item()
+        err = (card - cpu).abs().max().item() / scale
+        uniform = ((cpu.amax(-1) - cpu.amin(-1)) / 2).max().item() / scale
+        say(f"  (b) probe row ({DIST['probe_tokens']} tokens) at the step-{stop} weights, the "
+              f"four ranks' forward vs the f32 CPU forward of the merged checkpoint: "
+              f"max_abs_err={err * scale:.4e} max|logit|={scale:.4e} err/max|logit|={err:.3e} "
+              f"(tol {DIST['logit_tol']}; constant logits would give >= {uniform:.3e}) "
+              f"({time.monotonic() - t_cpu:.1f}s)")
+        if not uniform > DIST["logit_tol"] or not err <= DIST["logit_tol"]:
+            raise AssertionError(f"phase 20 (b): err {err}, constant logits {uniform}")
+        # (a) the child's losses of steps 3-4 against the four ranks'
+        join_runner(*child, "phase 20's one-rank child", root / "child" / "logs")
+        one = dist_records(root / "child" / "logs", 1)[0]
+        got = [one["steps"][s]["loss"] for s in range(3, stop + 1)]
+        want = [ranks[0]["steps"][s]["loss"] for s in range(3, stop + 1)]
+        diffs = [abs(a - b) for a, b in zip(got, want)]
+        say(f"  (a) a one-rank child resumed the step-2 checkpoint: steps 3-{stop} losses "
+              f"{got}; the four ranks' {want}; |diff| {diffs} (tol {DIST['loss_tol']})")
+        if not all(math.isfinite(x) for x in got + want) or max(diffs) > DIST["loss_tol"]:
+            raise AssertionError(f"phase 20 (a): losses {got} vs {want}")
+        # (a) the pipelined backward of steps 3-4 against the child's from the same weights
+        steps = range(3, stop + 1)
+        worst = {}
+        for s in steps:
+            norms = one["steps"][s]["grad_norm"], ranks[0]["steps"][s]["grad_norm"]
+            worst[f"grad norm, step {s}"] = abs(norms[1] - norms[0]) / norms[0]
+            child_m = one["steps"][s]["moment_sq"]
+            for k, v in child_m.items():
+                piped = sum(r["steps"][s]["moment_sq"].get(k, 0.0) for r in ranks)
+                worst[f"{k} first moment, step {s}"] = abs(
+                    math.sqrt(piped) - math.sqrt(v)) / math.sqrt(v)
+        far = max(worst, key=worst.get)
+        say(f"  (a) the pipelined backward of steps 3-{stop} against the child's from the same "
+            f"weights: global gradient norms {[ranks[0]['steps'][s]['grad_norm'] for s in steps]}, "
+            f"the child's {[one['steps'][s]['grad_norm'] for s in steps]}; the largest relative "
+            f"difference over them and {len(child_m)} layers' Adam first moments "
+            f"{worst[far]:.3e} ({far}; tol {PIPE['update_rtol']})")
+        if not all(math.isfinite(v) for v in worst.values()) or worst[far] > PIPE["update_rtol"]:
+            raise AssertionError(f"phase 20 (a): {far} differs by {worst[far]} from the child's")
+        # (c) K2-K5 a step over the two stages of each data rank, the child's
+        child_launches = stage_launches([one], stop)
+        for d in range(dp):
+            stages = [ranks[p * dp + d] for p in range(pp)]
+            got_l = stage_launches(stages, 2)
+            if got_l != child_launches or any(v <= 0 for v in got_l.values()):
+                raise AssertionError(f"phase 20 (c): data rank {d}'s stages launched {got_l} in "
+                                     f"step 2, the one-rank child {child_launches} in step {stop}")
+        plain = {r: rec["end"]["plain"] for r, rec in enumerate(ranks + [one])}
+        if any(sum(v.values()) for v in plain.values()):
+            raise AssertionError(f"phase 20 (c): plain versions ran on the card: {plain}")
+        by_rank = [stage_launches([r], 2) for r in ranks]
+        say(f"  (c) launches in step 2 over the two stages of each data rank "
+              f"{child_launches}, the one-rank child's in step {stop} the same (K4 twice a layer "
+              f"under every_pipe_stage); by rank {by_rank}; no plain version on any rank")
+        # (e) memory and parameters beside the child's
+        for r, rec in enumerate(ranks):
+            end = rec["end"]
+            say(f"  (e) rank {r} (stage {r // dp}, data rank {r % dp}): max_memory_allocated "
+                  f"{end['max_allocated'] / 1e9:.3f} GB (the child's "
+                  f"{one['end']['max_allocated'] / 1e9:.3f} GB); parameters "
+                  f"{end['param_bytes'] / 1e9:.4f} GB (the child's "
+                  f"{one['end']['param_bytes'] / 1e9:.4f}), optimizer state "
+                  f"{end['optimizer_bytes'] / 1e9:.4f} GB (the child's "
+                  f"{one['end']['optimizer_bytes'] / 1e9:.4f})")
+        # the transport's bytes and waits, the predicted bubble, the step times
+        arch = piped_cfg["transformer_architecture"]
+        act = PIPE["mbs"] * arch["sequence_length"] * arch["hidden_size"] * 2  # bf16
+        for r, rec in enumerate(ranks):
+            st = {k: rec["steps"][3]["stats"].get(k, 0) - rec["steps"][2]["stats"].get(k, 0)
+                  for k in rec["steps"][3]["stats"]}
+            want_b = transport_per_step(pp, vpp, PIPE["gas"], r // dp, act)
+            step_s = rec["steps"][3]["t"] - rec["steps"][2]["t"] - PIPE["pause_s"]
+            wait_s = st.get("p2p_recv_wait_ns", 0) / 1e9
+            say(f"  rank {r}: step 3 sends {st.get('p2p_send_bytes', 0)} bytes by the "
+                  f"transport (the schedule's count {want_b}), receives "
+                  f"{st.get('p2p_recv_bytes', 0)}; all-reduce {st.get('all_reduce_bytes', 0)}, "
+                  f"all-gather {st.get('all_gather_bytes', 0)}, broadcast "
+                  f"{st.get('broadcast_bytes', 0)} bytes; step {step_s * 1e3:.1f} ms, of it "
+                  f"{wait_s * 1e3:.1f} ms waiting for the transport (share "
+                  f"{wait_s / step_s:.3f})")
+            if st.get("p2p_send_bytes", 0) != want_b:
+                raise AssertionError(f"phase 20: rank {r} sent {st.get('p2p_send_bytes')} "
+                                     f"bytes in step 3, the schedule {want_b}")
+        from scaling_tpu_torch.obs.report import load_run_dir, pipeline_section
+
+        say("  obs report's pipeline section over the four ranks' run directory (rank 0's "
+            "spans):")
+        for line in pipeline_section(load_run_dir(root / "piped"))[1:]:
+            say(f"    {line}")
+        child_step = one["steps"][stop]["t"] - one["steps"][stop - 1]["t"] - PIPE["pause_s"]
+        say(f"  step time with four ranks sharing one card, in the script with phase 19's "
+            f"beside them (not a scaling figure), steps 3-4: "
+              f"{[round((ranks[0]['steps'][s]['t'] - ranks[0]['steps'][s - 1]['t'] - PIPE['pause_s']) * 1e3, 1) for s in (3, 4)]} "
+              f"ms; the child's step {stop} {child_step * 1e3:.1f} ms (host clock between step "
+              f"records, less the pause; run wall {run_s:.1f}s)")
+        total: dict = {}
+        for rec in ranks:
+            for k, v in rec["end"]["kernel"].items():
+                total[k] = total.get(k, 0) + v
+        return {"pipe_4ranks": total}
+    finally:
+        for thread, _ in runners:
+            thread.join(timeout=PIPE["timeout_s"])
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -5892,7 +6181,8 @@ def main() -> int:
     launches_by_path["train"] = trained["launches"]
     lap("train (5)")
     for name, arch in generation_models().items():
-        print(f"== generate {name} (full width and depth, random weights, seed 0)")
+        print(f"== generate {name} (full width, {GEN['layers']} of 8 layers, random weights, "
+              "seed 0)")
         launches_by_path[f"generate_{name}"] = generation_phase(name, arch)
     print(f"== atman: the 0.5B model's logits of {ATMAN['batch']} x {ATMAN['seq']} tokens "
           "under attention controls, both variants")
@@ -5966,11 +6256,24 @@ def main() -> int:
     ladder = {}
     launches_by_path.update(tooling_phase(trainer_run["base"], ladder_out=ladder))
     lap("tooling (17)")
+    # phases 19 and 20 side by side (their checks hold no time; their step
+    # times, four ranks sharing the card, are no scaling figures either way)
     print(f"== dist (phase 19): phase 8's model and data at dp {DIST['dp']} x mp {DIST['mp']} "
           "with ZeRO-1, four worker processes of runner_main sharing the card (gloo); a "
-          "one-rank run beside it; SIGTERM to rank 3; a one-rank resume")
-    launches_by_path.update(dist_phase(trainer_run["base"]))
-    lap("dist (19)")
+          "one-rank run beside it; SIGTERM to rank 3; a one-rank resume; phase 20 runs beside "
+          "it, its lines follow")
+    pipe_lines: list = []
+    with ThreadPoolExecutor(1) as pool:
+        piped = pool.submit(pipe_phase, trainer_run["base"], "cuda", pipe_lines.append)
+        launches_by_path.update(dist_phase(trainer_run["base"]))
+        launches_by_path.update(piped.result())
+    print(f"== pipe (phase 20), beside phase 19: phase 8's data and the 0.5B model at "
+          f"{PIPE['layers']} layers, pp {PIPE['pp']} x vpp {PIPE['vpp']} x dp {PIPE['dp']} with "
+          f"ZeRO-1, {PIPE['remat']}, accumulation {PIPE['gas']}: four worker processes of "
+          "runner_main sharing the card (gloo); a one-rank child resumes the step-2 checkpoint; "
+          "SIGTERM to rank 3")
+    print("\n".join(pipe_lines))
+    lap("dist, pipe (19, 20)")
     print("== modes (phase 13): speculative decoding, whole-prompt prefill, separate "
           "forwards; crash replay, drain, a wedged tick and overload in child benches")
     launches_by_path.update(modes_phase(serve_native, served["tokens"]))

@@ -351,13 +351,15 @@ def load_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
                           allowed_unexpected_keys: Optional[List[str]] = None,
                           ignore_keys: Optional[List[str]] = None,
                           restored_keys: Optional[Set[str]] = None,
-                          shard: Optional[Shard] = None) -> None:
+                          shard: Optional[Shard] = None,
+                          other_stages: Optional[Set[str]] = None) -> None:
     """Copy the checkpoint's values into ``params`` (JAX key -> tensor), in
     place, cast to each tensor's dtype; with ``shard``, each tensor's slice
     of the stored leaf. Missing or unexpected keys raise
     unless an allow list matches them; ``ignore_keys`` keeps the current
-    values. The keys taken from the checkpoint are added to
-    ``restored_keys`` when it is a set."""
+    values; ``other_stages``: the keys other pipe stages load, neither
+    expected nor unexpected here. The keys taken from the checkpoint are
+    added to ``restored_keys`` when it is a set."""
     path = Path(dir)
     available: Dict[str, Tuple[Path, str]] = {}
     for f in sorted(path.glob("model_state_layer_*.npz")):
@@ -368,6 +370,8 @@ def load_model_checkpoint(dir: PathLike, params: Mapping[str, torch.Tensor],
                 if member.endswith(".npy"):
                     name = member[:-len(".npy")]
                     available[f"layer_{int(m.group(1))}_{layer_class}.{name}"] = (f, name)
+    for key in other_stages or ():
+        available.pop(key, None)
     enforce_allow_lists(params, available, _compile(allowed_missing_keys),
                         _compile(allowed_unexpected_keys))
     ignore = _compile(ignore_keys)
@@ -395,7 +399,9 @@ def save_optimizer_checkpoint(dir: Optional[PathLike], optimizer: Optimizer,
     thread when given) and ``optimizer_state.json``. ``keys`` maps the
     port's parameter names to their JAX keys; parameters without optimizer
     state get ``(0,)`` placeholders. ``gather`` and ``dir`` None: as in
-    ``save_model_checkpoint``."""
+    ``save_model_checkpoint``; ``gather`` is called for every key, with None
+    where this rank keeps no state for it (another pipe stage's leaf, or a
+    frozen one), and hands back None where no rank does."""
     path = None if dir is None else Path(dir)
     if path is not None:
         path.mkdir(parents=True, exist_ok=True)
@@ -408,7 +414,8 @@ def save_optimizer_checkpoint(dir: Optional[PathLike], optimizer: Optimizer,
         for name, key in members:
             for field in OPT_FIELDS:
                 tensors = getattr(state, field)
-                whole = _whole(gather, key, tensors[name]) if name in tensors else None
+                whole = (_whole(gather, key, tensors.get(name))
+                         if name in tensors or gather is not None else None)
                 if path is not None:
                     arrays[f"{field}.{_split_key(key)[2]}"] = (
                         np.zeros((0,), np.float32) if whole is None else _to_numpy(key, whole))

@@ -9,6 +9,16 @@ with an ``embedding_head_config``, ``layer_{L+3}`` the embedding head, so a
 parameter ``layer_3/attention/query/weight`` there is
 ``layers.layer_3.attention.query.weight`` here, and its JAX optimizer key
 ``layer_3_TransformerLayer.attention.query.weight`` (``jax_param_key``).
+
+Under pipeline parallelism a stage builds only its layers
+(``parallel.pipeline.stage_plan``), under their logical names, so the keys
+do not move: the first stage ``layer_0``, the last stage the final norm
+and the head, every stage its chunks of transformer layers. A tied head
+on the last stage projects with a copy of the embedding table held under
+``layer_0`` there (the table alone, a soft prompt stays on the first
+stage). The initialisation is the one-rank model's: ``init_random_``
+walks every logical layer in order with one generator, building each
+layer this stage lacks for its draws and dropping it.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from ...ops.cross_entropy import cross_entropy_from_logits
 from ...optimizer import Optimizer, OptimizerParamGroup
 from ...parallel import ParallelModule
 from ...parallel.parallel_module import jax_param_key
+from ...parallel.pipeline import StagePlan, stage_plan
 from .config import TransformerArchitectureConfig, TransformerConfig
 from .layers import (
     EmbeddingInput,
@@ -36,22 +47,57 @@ from .layers import (
 )
 
 
+def num_logical_layers(arch: TransformerArchitectureConfig) -> int:
+    return arch.num_layers + (4 if arch.embedding_head_config is not None else 3)
+
+
+def build_layer(arch: TransformerArchitectureConfig, index: int, device=None,
+                shard: ModelShard = ModelShard(),
+                embedding: Optional[EmbeddingInput] = None) -> torch.nn.Module:
+    """Logical layer ``index`` of the stack: the embedding, a transformer
+    layer, the final norm, the LM head (tied to ``embedding``'s table with
+    ``weight_tying``) or the embedding head; split over ``shard``."""
+    n = arch.num_layers
+    if index == 0:
+        return EmbeddingInput(arch, device, shard)
+    if index <= n:
+        return TransformerLayer(arch, index - 1, device, shard)
+    if index == n + 1:
+        return LayerNormWrapper(arch, device)
+    if index == n + 2:
+        return (TransformerLMHeadTied(embedding) if arch.weight_tying
+                else TransformerLMHead(arch, device, shard))
+    return TransformerEmbeddingHead(arch, device)
+
+
 def get_transformer_layers(arch: TransformerArchitectureConfig, device=None,
                            shard: ModelShard = ModelShard()) -> Dict[str, torch.nn.Module]:
     """EmbeddingInput -> L x TransformerLayer -> final norm -> LM head (tied
     to the embedding's table with ``weight_tying``) [-> embedding head];
     split over the model group of ``shard``."""
-    embedding = EmbeddingInput(arch, device, shard)
-    layers: Dict[str, torch.nn.Module] = {"layer_0": embedding}
-    for i in range(arch.num_layers):
-        layers[f"layer_{i + 1}"] = TransformerLayer(arch, i, device, shard)
-    layers[f"layer_{arch.num_layers + 1}"] = LayerNormWrapper(arch, device)
-    layers[f"layer_{arch.num_layers + 2}"] = (
-        TransformerLMHeadTied(embedding) if arch.weight_tying
-        else TransformerLMHead(arch, device, shard))
-    if arch.embedding_head_config is not None:
-        layers[f"layer_{arch.num_layers + 3}"] = TransformerEmbeddingHead(arch, device)
+    layers: Dict[str, torch.nn.Module] = {}
+    for i in range(num_logical_layers(arch)):
+        layers[f"layer_{i}"] = build_layer(arch, i, device, shard, layers.get("layer_0"))
     return layers
+
+
+def stage_layer_indices(arch: TransformerArchitectureConfig, plan: StagePlan) -> List[int]:
+    """The logical layers pipe stage ``plan`` holds: the embedding on the
+    first, its transformer layers, the final norm and the heads on the last
+    (and there a tied head's table, under ``layer_0``)."""
+    out = [0] if plan.first or (plan.last and arch.weight_tying) else []
+    out += [i + 1 for i in plan.layers]
+    if plan.last:
+        out += list(range(arch.num_layers + 1, num_logical_layers(arch)))
+    return out
+
+
+def _table_only(embedding: EmbeddingInput) -> EmbeddingInput:
+    """The last stage's copy of a tied embedding: its table alone."""
+    if embedding.softprompt is not None:
+        delattr(embedding, embedding.softprompt)
+        embedding.softprompt = None
+    return embedding
 
 
 # model features whose sharded form (expert parallelism, the sharded image
@@ -61,7 +107,8 @@ _ONE_RANK_ONLY = ("is_moe", "image_encoder", "lora_config")
 
 class TransformerModel(torch.nn.Module):
     """The layer stack; with a ``topology`` of several ranks, this rank's
-    shards of it (``nn.linear.ModelShard``)."""
+    shards of it (``nn.linear.ModelShard``) and, over several pipe stages,
+    this stage's layers (``plan``; None: the whole stack)."""
 
     def __init__(self, arch: TransformerArchitectureConfig, device=None, topology=None):
         super().__init__()
@@ -69,12 +116,34 @@ class TransformerModel(torch.nn.Module):
             for name in _ONE_RANK_ONLY:
                 if getattr(arch, name):
                     raise NotImplementedError(
-                        f"{name.removeprefix('is_')} under data_parallel_size "
+                        f"{name.removeprefix('is_')} under pipe_parallel_size "
+                        f"{topology.pipe_parallel_size} x data_parallel_size "
                         f"{topology.data_parallel_size} x model_parallel_size "
                         f"{topology.model_parallel_size} is not ported")
         self.architecture = arch
-        self.layers = torch.nn.ModuleDict(get_transformer_layers(arch, device,
-                                                                 ModelShard.of(topology)))
+        self.shard = ModelShard.of(topology)
+        self.plan: Optional[StagePlan] = None
+        if topology is not None and topology.pipe_parallel_size > 1:
+            self.plan = stage_plan(topology.config, arch.num_layers, topology.pipe_parallel_rank)
+        layers: Dict[str, torch.nn.Module] = {}
+        for i in self.layer_indices:
+            layers[f"layer_{i}"] = build_layer(arch, i, device, self.shard, layers.get("layer_0"))
+        if self.tied_copy:
+            _table_only(layers["layer_0"])
+        self.layers = torch.nn.ModuleDict(layers)
+
+    @property
+    def layer_indices(self) -> List[int]:
+        """The logical layers this model holds, in order."""
+        if self.plan is None:
+            return list(range(num_logical_layers(self.architecture)))
+        return stage_layer_indices(self.architecture, self.plan)
+
+    @property
+    def tied_copy(self) -> bool:
+        """Whether ``layer_0`` here is the last stage's copy of a tied table."""
+        return self.plan is not None and self.plan.last and not self.plan.first \
+            and self.architecture.weight_tying
 
     @property
     def embedding(self) -> EmbeddingInput:
@@ -82,7 +151,9 @@ class TransformerModel(torch.nn.Module):
 
     @property
     def transformer_layers(self):
-        return [self.layers[f"layer_{i + 1}"] for i in range(self.architecture.num_layers)]
+        """This model's transformer layers, in order."""
+        layers = range(self.architecture.num_layers) if self.plan is None else self.plan.layers
+        return [self.layers[f"layer_{i + 1}"] for i in layers]
 
     @property
     def final_norm(self) -> LayerNormWrapper:
@@ -103,14 +174,24 @@ class TransformerModel(torch.nn.Module):
         device, with the JAX package's initialisers (xavier normal linears
         and embedding, zero biases, unit norm gains). The draws differ from
         ``jax.random``'s; tests that compare the packages carry weights
-        across with ``convert.params_from_jax`` instead."""
+        across with ``convert.params_from_jax`` instead. A pipe stage draws
+        every logical layer in order, building each one it lacks (and the
+        whole embedding behind a tied copy) for its draws alone, so its
+        layers hold the one-rank model's values."""
         device = next(self.parameters()).device
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        for module in self.modules():
-            init = getattr(module, "init_", None)
-            if init is not None:
-                init(gen)
+        for i in range(num_logical_layers(self.architecture)):
+            name = f"layer_{i}"
+            own = name in self.layers and not (i == 0 and self.tied_copy)
+            layer = self.layers[name] if own else build_layer(self.architecture, i, device,
+                                                               self.shard)
+            for module in layer.modules():
+                init = getattr(module, "init_", None)
+                if init is not None:
+                    init(gen)
+            if i == 0 and self.tied_copy:
+                self.embedding.embedding.weight.copy_(layer.embedding.weight)
         return self
 
 

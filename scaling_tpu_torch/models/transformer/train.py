@@ -16,8 +16,9 @@ CLIP trunk is spliced in after the load, on a fresh run only
 --payload=<base64 config>`` is the worker a runner launches
 (``worker_main``): it joins the launch's process group and trains on
 ``cuda:(LOCAL_SLOT % device_count)``. A config of several ranks
-(``topology`` with ``data_parallel_size`` or ``model_parallel_size``
-above 1) builds this rank's ``Topology`` and shards; the SIGTERM handler
+(``topology`` with ``data_parallel_size``, ``model_parallel_size`` or
+``pipe_parallel_size`` above 1) builds this rank's ``Topology``, its
+shards and its pipe stage's layers; the SIGTERM handler
 is then installed on every rank, which agree on a preemption at each
 step boundary.
 """

@@ -13,7 +13,8 @@ time. Here the masks of a training step come from explicit
 the context's key (the trainer seed, the tag ``"dropout"``, the
 iteration and the micro-batch index) and the STATIC site id of the call
 (``layer_3.attention.query_lora``). No generator state is carried, so
-the recompute of ``torch.utils.checkpoint`` draws the forward's masks
+a remat region's recompute (``parallel_module.remat``, or
+``torch.utils.checkpoint`` under save_dots) draws the forward's masks
 again, a resume draws the masks of the run it resumes, and nothing of
 the RNG goes into a checkpoint. A ``mask_source`` may stand in for the
 draw; the parity tests replay the JAX package's masks through it.

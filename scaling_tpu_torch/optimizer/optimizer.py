@@ -25,10 +25,12 @@ Over several ranks (``layouts`` and ``topology`` given) the gradients
 arrive summed over the data group, and the clipping norm is the global
 one: each rank adds the squared norms of the pieces it owns (a leaf split
 over the model group on every model rank, a whole one on model rank 0
-only; a ZeRO slice on every data rank, a whole leaf on data rank 0 only)
-and the world sums them, so no leaf is counted twice. With ``zero: true``
+only; a ZeRO slice on every data rank, a whole leaf on data rank 0 only;
+each pipe stage its own layers, and a tied table on the first stage only,
+not the last stage's copy) and the world sums them, so no leaf is counted
+twice and every rank clips, and skips on overflow, alike. With ``zero: true``
 (stage 1, ``zero_stage`` 1) the f32 masters and both moments are kept for
-this rank's data slice of each leaf (``LeafLayout.data_dim``; leaves no
+this rank's data slice of each leaf (over its pipe stage's data group) (``LeafLayout.data_dim``; leaves no
 dim of which ``dp`` divides stay whole), the update runs on the slices,
 and the updated parameters are all-gathered over the data group. Stage 3
 is a later slice and raises by name; stage 2 raises as in JAX.
@@ -165,6 +167,8 @@ class Optimizer:
         if topo is None:
             return True
         layout = self.layouts[name]
+        if not layout.stored:
+            return False
         if layout.model_dim is None and topo.model_parallel_rank != 0:
             return False
         return name in self.zero_dims or topo.data_parallel_rank == 0

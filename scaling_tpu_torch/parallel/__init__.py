@@ -1,7 +1,8 @@
-"""The training step, whole or sharded, and the collectives (counterpart of
-scaling_tpu/parallel/). ``ParallelModule`` is imported on first use: the
-layers and the optimizer import ``parallel.collectives``, which
-``parallel_module`` imports them back through."""
+"""The training step, whole, sharded or pipelined, the pipeline's schedules
+and the collectives (counterpart of scaling_tpu/parallel/).
+``ParallelModule`` is imported on first use: the layers and the optimizer
+import ``parallel.collectives``, which ``parallel_module`` imports them
+back through."""
 
 __all__ = ["ParallelModule"]
 

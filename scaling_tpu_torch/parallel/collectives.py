@@ -1,5 +1,7 @@
-"""The collectives of data and tensor parallelism (what GSPMD derives for
-the JAX package from its partition specs, scaling_tpu/parallel/sharding.py).
+"""The collectives of data, tensor and pipeline parallelism (what GSPMD
+derives for the JAX package from its partition specs,
+scaling_tpu/parallel/sharding.py, and the collective-permutes of its
+spatial pipeline, scaling_tpu/parallel/pipeline.py).
 
 This is the one module of the port that calls ``torch.distributed``
 collectives, so every byte they move is counted here (``STATS``):
@@ -18,20 +20,39 @@ collectives, so every byte they move is counted here (``STATS``):
 - ``all_reduce_``, ``flat_all_reduce_``, ``all_gather_cat``, ``barrier``,
   ``any_rank``: the
   data group's gradient reduction, ZeRO's parameter gather, the
-  checkpoint's gather and the step boundary's agreement.
+  checkpoint's gather and the step boundary's agreement;
+- ``broadcast_``: the pipe group's loss and metrics from the last stage,
+  and the checkpoint's leaves from their stage to the writing rank;
+  ``broadcast_object`` / ``gather_objects``: host objects (the metrics'
+  names, the stages' optimised parameters) over a group;
+- ``p2p_send`` / ``p2p_recv``: the stage transport, an activation to the
+  next stage or a gradient to the previous one (counted as ``p2p_send_*``
+  and ``p2p_recv_*``, and the receiver's host wait as
+  ``p2p_recv_wait_ns``).
 
 A group of one rank (or none) makes each of them the identity. Under the
 gloo backend (ranks that share a card, ``topology.choose_backend``) the
 collectives run on the CUDA tensors themselves: ``dist_probe.py`` found on
 the H100 machine with torch 2.11 that gloo takes every collective the port
 calls on CUDA tensors (PERF.md), so nothing is staged through the host.
-Point-to-point ``send``/``recv`` is the one it refused; the port sends
-nothing point to point.
+Point-to-point ``send``/``recv`` is the one it refused, so the stage
+transport is a ``broadcast`` over a two-rank group with the sender as its
+source, which gloo takes on the card and NCCL where each rank has a card
+of its own: one path for both backends. A broadcast is a collective, so
+the two ends must issue a group's transfers in one order. Each direction
+of each stage pair is a group of its own (``Topology.channels``), which
+carries its transfers in the order the schedule produces them at the
+sender and consumes them at the receiver, the same order; the sender's
+broadcast is asynchronous (it returns a handle and the sender goes on), the
+receiver's waits for the data, as the schedule simulator models a send and
+a receive. The shapes are static (``(micro_batch_size, sequence,
+hidden)`` in the compute dtype), so the receiver allocates the buffer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import time
+from typing import Any, Dict, List
 
 import torch
 import torch.distributed as dist
@@ -79,6 +100,53 @@ def chunk_of(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     if n == 1:
         return t
     return t.chunk(n, dim=dim)[group_rank(group)].contiguous()
+
+
+def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` of global rank ``src`` on every rank of ``group``, in place."""
+    if _size(group) == 1:
+        return t
+    _count("broadcast", t.numel() * t.element_size())
+    dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def broadcast_object(obj: Any, src: int, group) -> Any:
+    """Global rank ``src``'s picklable ``obj`` on every rank of ``group``."""
+    if _size(group) == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+def gather_objects(obj: Any, group) -> List[Any]:
+    """Every rank's picklable ``obj`` of ``group``, in group-rank order."""
+    if _size(group) == 1:
+        return [obj]
+    out: List[Any] = [None] * _size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def p2p_send(t: torch.Tensor, group):
+    """Start sending ``t`` to the other rank of the two-rank ``group``;
+    returns the handle to wait on. ``t`` must stay unchanged until then, and
+    may be written (with its own values) when the transfer ends: gloo copies
+    a CUDA tensor's result back into it."""
+    _count("p2p_send", t.numel() * t.element_size())
+    return dist.broadcast(t, src=dist.get_rank(), group=group, async_op=True)
+
+
+def p2p_recv(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Receive into ``t`` what global rank ``src`` sends over ``group``; the
+    host's wait is added to ``STATS["p2p_recv_wait_ns"]``."""
+    _count("p2p_recv", t.numel() * t.element_size())
+    start = time.perf_counter_ns()
+    dist.broadcast(t, src=src, group=group)
+    STATS["p2p_recv_wait_ns"] = STATS.get("p2p_recv_wait_ns", 0) + (
+        time.perf_counter_ns() - start)
+    return t
 
 
 def barrier(group=None) -> None:

@@ -1,7 +1,7 @@
 """The model's forward and training step (counterpart of
 ``ParallelModule.forward`` and ``build_train_step`` of
 scaling_tpu/parallel/parallel_module.py), on one rank or on this rank's
-shards of a data x model layout (``topology.Topology``).
+shards of a pipe x data x model layout (``topology.Topology``).
 
 ``forward`` runs the layer stack over a batch dict (``token_ids``,
 ``position_ids``, ``segment_ids``; for a model with an image encoder
@@ -9,12 +9,11 @@ shards of a data x model layout (``topology.Topology``).
 which the embedding splices) and, for a MoE model, sums the
 layers' load-balance losses into ``aux_loss`` in layer order, as the JAX
 IO dict carries it; with ``activation_checkpointing_type:
-every_layer`` each layer of the stack runs under
-``torch.utils.checkpoint`` (non-reentrant) and is recomputed in the
-backward, as the JAX forward wraps each layer in ``jax.checkpoint``.
-``every_layer_save_dots`` is JAX's ``remat_policy``,
-``dots_with_no_batch_dims_saveable``: a selective-checkpoint policy
-(``save_dots_policy``) keeps the outputs of ``aten.mm`` and
+every_layer`` each layer of the stack is one remat region (``remat``) and
+is recomputed in the backward, as the JAX forward wraps each layer in
+``jax.checkpoint``. ``every_layer_save_dots`` is JAX's ``remat_policy``,
+``dots_with_no_batch_dims_saveable``: under ``torch.utils.checkpoint``
+(non-reentrant) a selective-checkpoint policy (``save_dots_policy``) keeps the outputs of ``aten.mm`` and
 ``aten.addmm`` (the linears, LoRA's products and the head: dots with no
 batch dimension) and recomputes everything else, ``aten.bmm`` (the
 unfused attention's products, the MoE experts') and the kernels K2-K5
@@ -44,6 +43,17 @@ weights differ between ranks. The key/query norm gains' gradients, which
 each model rank takes from its own heads, are summed over the model
 group. Dropout masks are the one-rank masks' rows (``DropoutContext``'s
 ``batch_shard``).
+
+Over several pipe stages (``model.plan``) the step is
+``pipeline_engine.PipelineEngine``'s, which runs this rank's instruction
+stream of the schedule; ``forward`` runs one micro-batch through the
+stages (the last stage returns the output, the others None) and
+``eval_loss`` hands every rank the loss. ``every_pipe_stage`` remats each
+stage's chunk of layers as one region there (``remat`` too); at one stage
+it is per-layer remat of the transformer layers, the edges not rematted. A checkpoint's
+leaf is gathered to global rank 0 from the stage that holds it
+(``gather_leaf``), so the files are the one-rank model's at every pipe
+layout.
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ from torch.utils.checkpoint import (
 from ..nn.base_layer import DropoutContext, MaskSource
 from ..optimizer import Optimizer, OptimizerStepOutput
 from ..topology import ActivationCheckpointingType, TopologyConfig
-from .collectives import all_gather_cat, all_reduce_, flat_all_reduce_
+from .collectives import all_gather_cat, all_reduce_, broadcast_, flat_all_reduce_
 
 
 def jax_param_key(model: torch.nn.Module, name: str) -> str:
@@ -185,13 +195,31 @@ def spec_with_data_axis(spec: tuple, shape: tuple, dp: int) -> tuple:
 
 class LeafLayout(NamedTuple):
     """Where a parameter's slices live: its JAX key, its global shape in the
-    port's layout, the port dim split over the model group and the port
-    dim of its ZeRO slice over the data group (None: whole)."""
+    port's layout, the port dim split over the model group, the port dim
+    of its ZeRO slice over the data group (None: whole), and whether this
+    stage's copy is the stored one (False for the last stage's copy of a
+    tied table: the first stage's is stored and counted)."""
 
     key: str
     shape: Tuple[int, ...]
     model_dim: Optional[int]
     data_dim: Optional[int]
+    stored: bool = True
+
+
+def positions_and_segments(batch: Dict[str, torch.Tensor]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batch's ``position_ids`` and ``segment_ids``, by default
+    ``0 .. s-1`` and one segment."""
+    tokens = batch["token_ids"]
+    b, s = tokens.shape
+    pos = batch.get("position_ids")
+    if pos is None:
+        pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    seg = batch.get("segment_ids")
+    if seg is None:
+        seg = torch.zeros(b, s, dtype=torch.int32, device=tokens.device)
+    return pos, seg
 
 
 def slice_of(t: torch.Tensor, dim: Optional[int], rank: int, size: int) -> torch.Tensor:
@@ -222,6 +250,50 @@ def save_dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 _SAVE_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, save_dots_policy)
 
 
+class Remat(torch.autograd.Function):
+    """``fn(*args)`` as one remat region (``remat``): the forward runs
+    ``fn`` without a graph and keeps only the tensor arguments; the
+    backward runs it again with one and back-propagates through it, which
+    adds the region's parameter gradients to their ``.grad`` and returns
+    the arguments'. The parameters are inputs only so that the output needs
+    a gradient where no argument does (a frozen embedding's token ids).
+    ``torch.utils.checkpoint`` does the same, but its first call imports
+    ``torch._dynamo``: 13.4 s in a fresh process on the card's machine,
+    16.1-16.5 s with four started at once (PERF.md "PR 19"), which every
+    worker process would pay on its first step. ``every_layer_save_dots``
+    keeps it: its policy needs the dispatch mode."""
+
+    @staticmethod
+    def forward(ctx, fn, n_args, *inputs):
+        args = inputs[:n_args]
+        ctx.fn, ctx.n_inputs = fn, len(inputs)
+        ctx.tensor_at = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        ctx.args = [None if i in ctx.tensor_at else a for i, a in enumerate(args)]
+        ctx.save_for_backward(*(args[i] for i in ctx.tensor_at))
+        with torch.no_grad():
+            return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        args = list(ctx.args)
+        for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
+            args[i] = t.detach().requires_grad_(ctx.needs_input_grad[2 + i])
+        with torch.enable_grad():
+            out = ctx.fn(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+        if pairs:
+            torch.autograd.backward(*zip(*pairs))
+        arg_grads = [args[i].grad if i in ctx.tensor_at else None for i in range(len(args))]
+        return (None, None, *arg_grads) + (None,) * (ctx.n_inputs - len(args))
+
+
+def remat(fn: Callable, args: tuple, params) -> Any:
+    """``fn(*args)`` recomputed in the backward; ``params``: the parameters
+    ``fn`` reads (those that need no gradient are left out)."""
+    return Remat.apply(fn, len(args), *args, *(p for p in params if p.requires_grad))
+
+
 class ParallelModule:
     """The model behind its forward, loss and training step. ``topology``
     is the config's section; ``layout`` the ``topology.Topology`` of a run
@@ -231,6 +303,12 @@ class ParallelModule:
         self.model = model
         self.topology = topology
         self.layout = layout if layout is not None and layout.world_size > 1 else None
+        # this stage's layers over several pipe stages (None: the whole stack)
+        self.plan = getattr(model, "plan", None)
+
+    @property
+    def pipe_group(self):
+        return None if self.layout is None else self.layout.pipe_group
 
     @property
     def data_group(self):
@@ -261,23 +339,69 @@ class ParallelModule:
                 zspec = spec_with_data_axis(spec, jax_shape, dp)
                 if "data" in zspec and "data" not in spec:
                     data_dim = port_dim(key, p.ndim, zspec.index("data"))
-            out[name] = LeafLayout(key, tuple(shape), model_dim, data_dim)
+            stored = lay is None or self.owner_stage(name) == lay.pipe_parallel_rank
+            out[name] = LeafLayout(key, tuple(shape), model_dim, data_dim, stored)
         return out
 
-    def gather_leaf(self, name: str, t: torch.Tensor,
-                    data_dim: Optional[int] = None) -> Optional[torch.Tensor]:
+    def gather_leaf(self, name: str, t: Optional[torch.Tensor],
+                    data_dim: Optional[int] = None,
+                    dtype: Optional[torch.dtype] = None) -> Optional[torch.Tensor]:
         """The whole leaf ``name`` from this rank's ``t`` (its model slice,
         or with ``data_dim`` its ZeRO slice of that), on global rank 0; None
-        on the others. Every rank calls it, leaf by leaf in one order."""
+        on the others. Every rank calls it, leaf by leaf in one order. Over
+        several pipe stages ``t`` is None on the stages that do not hold the
+        leaf, and the holder's first data and model rank broadcasts it over
+        its pipe group to the first stage (``dtype``: the leaf's there)."""
         lay = self.layout
         if lay is None:
             return t
-        if data_dim is not None:
-            t = all_gather_cat(t, lay.data_group, data_dim)
-        model_dim = self.layouts[name].model_dim
-        if model_dim is not None:
-            t = all_gather_cat(t, lay.model_group, model_dim)
+        owner = self.owner_stage(name)
+        if lay.pipe_parallel_rank == owner:
+            if data_dim is not None:
+                t = all_gather_cat(t, lay.data_group, data_dim)
+            model_dim = self.layouts[name].model_dim
+            if model_dim is not None:
+                t = all_gather_cat(t, lay.model_group, model_dim)
+        if owner != 0 and lay.data_parallel_rank == 0 and lay.model_parallel_rank == 0:
+            if lay.pipe_parallel_rank == owner:
+                # a copy: gloo writes the result back into a CUDA source too
+                t = t.detach().clone(memory_format=torch.contiguous_format)
+            else:
+                shape, own_dtype = self.whole_leaves[name]
+                t = torch.empty(shape, dtype=dtype or own_dtype,
+                                device=next(self.model.parameters()).device)
+            broadcast_(t, lay.stage_rank(owner), lay.pipe_group)
         return t if lay.global_rank == 0 else None
+
+    def owner_stage(self, name: str) -> int:
+        """The pipe stage whose copy of parameter ``name`` is stored (0 at
+        one stage; a tied table's is the first stage's)."""
+        if self.plan is None:
+            return 0
+        from .pipeline import stage_of_layer
+
+        index = int(name.split(".")[1].removeprefix("layer_"))
+        return stage_of_layer(self.topology, self.model.architecture.num_layers, index)
+
+    @functools.cached_property
+    def whole_model(self) -> torch.nn.Module:
+        """The whole one-rank stack on the meta device (names, keys, global
+        shapes and dtypes of every stage's leaves)."""
+        return type(self.model)(self.model.architecture, device="meta")
+
+    @functools.cached_property
+    def whole_leaves(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """Every parameter of the whole stack: name -> (global shape in the
+        port's layout, dtype), in the stack's order."""
+        return {n: (tuple(p.shape), p.dtype) for n, p in self.whole_model.named_parameters()}
+
+    def whole_ckpt_keys(self) -> Dict[str, str]:
+        """``ckpt_keys`` of the whole stack: every stage's parameters, in
+        the one-rank model's order (the order every rank gathers them in)."""
+        if self.plan is None:
+            return self.ckpt_keys()
+        whole = self.whole_model
+        return {name: jax_param_key(whole, name) for name, _ in whole.named_parameters()}
 
     def shard_leaf(self, name: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's model slice of the whole leaf ``name`` (a view)."""
@@ -330,50 +454,92 @@ class ParallelModule:
         for layer in self.model.transformer_layers:
             layer.merge_lora_weights()
 
+    def run(self, layer: Callable, *args, edge: bool = False):
+        """``layer(*args)``, under the config's per-layer remat mode in a
+        training pass; ``every_pipe_stage`` remats no single layer, and at
+        one stage the transformer layers but not the edges (``edge``)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return layer(*args)
+        mode = self.topology.activation_checkpointing_type
+        if mode == ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS:
+            return checkpoint(layer, *args, use_reentrant=False, context_fn=_SAVE_DOTS_CONTEXT)
+        if mode == ActivationCheckpointingType.EVERY_PIPE_STAGE and (edge or self.plan is not None):
+            return layer(*args)
+        return remat(layer, args, layer.parameters())
+
+    def embed(self, batch: Dict[str, torch.Tensor],
+              ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+        return self.run(self.model.embedding, batch["token_ids"], ctx,
+                        batch.get("input_images"), batch.get("input_image_locations"),
+                        batch.get("input_image_mask"), edge=True)
+
+    def run_layers(self, layers, h: torch.Tensor, batch: Dict[str, torch.Tensor],
+                   ctx: Optional[DropoutContext] = None):
+        """``h`` through ``layers`` (transformer layers) with the batch's
+        positions and segments; with a MoE model also the layers' summed
+        load-balance losses, in layer order."""
+        pos, seg = positions_and_segments(batch)
+        moe = self.model.architecture.is_moe
+        aux = torch.zeros((), dtype=torch.float32, device=h.device) if moe else None
+        for layer in layers:
+            if moe:
+                h, layer_aux = self.run(layer, h, pos, None, seg, None, None, False, ctx, True)
+                aux = aux + layer_aux
+            else:
+                h = self.run(layer, h, pos, None, seg, None, None, False, ctx)
+        return h, aux
+
+    def head(self, h: torch.Tensor, batch: Dict[str, torch.Tensor],
+             aux: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The final norm and the heads over ``h``: ``{"activations":
+        logits}`` [``"embeddings"``] [``"aux_loss"``]."""
+        m = self.model
+        h = self.run(m.final_norm, h, edge=True)
+        out = {"activations": self.run(m.lm_head, h, edge=True)}
+        if aux is not None:
+            out["aux_loss"] = aux
+        if m.embedding_head is not None:
+            out["embeddings"] = self.run(m.embedding_head, h, batch.get("loss_weights"),
+                                         edge=True)
+        return out
+
     def forward(self, batch: Dict[str, torch.Tensor],
-                ctx: Optional[DropoutContext] = None) -> Dict[str, torch.Tensor]:
+                ctx: Optional[DropoutContext] = None) -> Optional[Dict[str, torch.Tensor]]:
         """The stack over ``batch``; returns ``{"activations": logits}``,
         with ``"embeddings"`` beside them when the model has an embedding
         head and ``"aux_loss"`` when it is a MoE model. ``ctx``: the dropout
-        context of a training pass, None for a deterministic one."""
-        m = self.model
-        tokens = batch["token_ids"]
-        b, s = tokens.shape
-        pos = batch.get("position_ids")
-        if pos is None:
-            pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-        seg = batch.get("segment_ids")
-        if seg is None:
-            seg = torch.zeros(b, s, dtype=torch.int32, device=tokens.device)
+        context of a training pass, None for a deterministic one. Over
+        several pipe stages every rank of the pipe calls it: the last stage
+        returns the output, the others None."""
+        if self.plan is not None:
+            return self.engine.forward(batch, ctx)
+        h = self.embed(batch, ctx)
+        h, aux = self.run_layers(self.model.transformer_layers, h, batch, ctx)
+        return self.head(h, batch, aux)
 
-        save_dots = (self.topology.activation_checkpointing_type
-                     == ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS)
+    @functools.cached_property
+    def engine(self):
+        from .pipeline_engine import PipelineEngine
 
-        def run(layer: Callable, *args):
-            if self.remat and torch.is_grad_enabled():
-                if save_dots:
-                    return checkpoint(layer, *args, use_reentrant=False,
-                                      context_fn=_SAVE_DOTS_CONTEXT)
-                return checkpoint(layer, *args, use_reentrant=False)
-            return layer(*args)
+        return PipelineEngine(self)
 
-        h = run(m.embedding, tokens, ctx, batch.get("input_images"),
-                batch.get("input_image_locations"), batch.get("input_image_mask"))
-        moe = m.architecture.is_moe
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device) if moe else None
-        for layer in m.transformer_layers:
-            if moe:
-                h, layer_aux = run(layer, h, pos, None, seg, None, None, False, ctx, True)
-                aux = aux + layer_aux
-            else:
-                h = run(layer, h, pos, None, seg, None, None, False, ctx)
-        h = run(m.final_norm, h)
-        out = {"activations": run(m.lm_head, h)}
-        if moe:
-            out["aux_loss"] = aux
-        if m.embedding_head is not None:
-            out["embeddings"] = run(m.embedding_head, h, batch.get("loss_weights"))
-        return out
+    def eval_loss(self, batch: Dict[str, torch.Tensor], loss_function: Callable
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss and metrics of a deterministic forward of ``batch``, the
+        global batch's on every rank (summed over the data group, from the
+        last stage over the pipe group)."""
+        out = self.forward(batch)
+        loss = metrics = None
+        if out is not None:
+            loss, metrics = self.loss(out, batch, loss_function)
+            if self.data_group is not None:
+                names = sorted(metrics)
+                summed = all_reduce_(torch.stack([loss.float()] + [
+                    metrics[k].float() for k in names]), self.data_group)
+                loss, metrics = summed[0], dict(zip(names, summed[1:]))
+        if self.plan is not None:
+            loss, metrics = self.engine.share_from_last_stage(loss, metrics)
+        return loss, metrics
 
     def build_train_step(self, optimizer: Optimizer, loss_function: Callable,
                          mask_source: Optional[MaskSource] = None
@@ -385,6 +551,8 @@ class ParallelModule:
         ``mask_source`` replaces the masks' draw (tests replay the JAX
         package's masks through it). Returns (mean loss, mean metrics,
         optimizer output)."""
+        if self.plan is not None:
+            return self.engine.build_train_step(optimizer, loss_function, mask_source)
         gas = self.topology.gradient_accumulation_steps
         has_dropout = self.model.architecture.has_dropout
         optimizer.freeze_frozen_params()

@@ -1,9 +1,27 @@
-"""The pipeline schedule simulator the cost model prices pipeline bubbles
-with: the port's copy of the instruction DSL and ``SimulationEngine`` of
-``scaling_tpu/parallel/pipeline_schedule.py`` (pure Python, no devices).
-The port runs no pipeline yet; the tuner's scoring of a hand-built
-``pp > 1`` layout replays its schedule through this copy, so its bubble
-fraction is the JAX tuner's.
+"""The pipeline schedules' instruction DSL and their simulator (the port's
+copy of scaling_tpu/parallel/pipeline_schedule.py; pure Python, no
+devices).
+
+Each schedule gives one pipe rank's instruction stream for a step:
+``PipelineScheduleTrain`` (1F1B: warm-up forwards, then one forward and
+one backward in turn, then the cool-down backwards),
+``PipelineScheduleInterleaved`` (virtual stages: micro-batches in groups
+of ``pp`` circulate ``virtual_size`` rounds through the stage ring, every
+forward work item first, then their backwards in reverse),
+``PipelineScheduleFillDrain`` (its ``virtual_size`` 1 degenerate),
+``PipelineScheduleTokenSlice`` and ``PipelineScheduleInference``. The
+port's executor (``parallel.pipeline_engine``) runs the streams of
+``schedule_class_for`` as they stand, the ones JAX's tests pin: 1F1B
+without virtual stages, the interleaved stream with them.
+
+``SimulationEngine`` replays the streams with instruction durations into
+per-rank timelines (sends post and go on, a receive waits for its send):
+the tuner prices pipeline bubbles with it (``simulate_layout``),
+``durations_from_profile`` calibrates it from a run directory's spans
+(``_durations_from_run_dir``, which ``obs report`` shares its span
+aggregation with), and ``illustrate`` draws its timeline as text.
+``visualize`` draws it with matplotlib, which the card's machine lacks:
+it raises NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -468,6 +486,30 @@ def schedule_class_for(virtual_size: int = 1, token_slices: int = 1):
     return PipelineScheduleFillDrain
 
 
+def executor_schedule(pipe_parallel_size: int, pipe_parallel_rank: int,
+                      gradient_accumulation_steps: int,
+                      virtual_size: int = 1) -> PipelineScheduleBase:
+    """The schedule the port's executor runs on a rank: 1F1B
+    (``PipelineScheduleTrain``) without virtual stages, the interleaved
+    stream with them."""
+    if virtual_size > 1:
+        return PipelineScheduleInterleaved(pipe_parallel_size, pipe_parallel_rank,
+                                           gradient_accumulation_steps, virtual_size)
+    return PipelineScheduleTrain(pipe_parallel_size, pipe_parallel_rank,
+                                 gradient_accumulation_steps)
+
+
+def work_items(gradient_accumulation_steps: int, pipe_parallel_size: int,
+               virtual_size: int = 1) -> List[tuple]:
+    """The (micro-batch, round) of each forward of ``executor_schedule``'s
+    stream, in order (its backwards take them in reverse under virtual
+    stages, in order under 1F1B)."""
+    if virtual_size > 1:
+        return _interleaved_work_items(gradient_accumulation_steps, pipe_parallel_size,
+                                       virtual_size)
+    return [(m, 0) for m in range(gradient_accumulation_steps)]
+
+
 def simulate_layout(
     pipe_parallel_size: int,
     gradient_accumulation_steps: int,
@@ -501,3 +543,105 @@ def simulate_layout(
     idle = result["idle_fraction"]
     result["bubble_fraction"] = sum(idle) / len(idle) if idle else 0.0
     return result
+
+
+def durations_from_profile(
+    observations: Optional[list],
+    gradient_accumulation_steps: int,
+    run_dir=None,
+) -> Dict[str, float]:
+    """Simulator instruction durations from a real measurement: from a run
+    directory's ``step.fwdbwd`` / ``step.sync`` / ``step.data`` spans
+    (``_durations_from_run_dir``) where it has them, else the profile's
+    mean ``step_time`` split with JAX's 3.2 factor (forward 1, backward 2,
+    the rest small multiples of the unit)."""
+    gas = gradient_accumulation_steps
+    if run_dir is not None:
+        calibrated = _durations_from_run_dir(run_dir, gas)
+        if calibrated is not None:
+            return calibrated
+    steps = [o["step_time"] for o in (observations or []) if "step_time" in o]
+    if not steps:
+        raise ValueError("profile has no step_time observations")
+    unit = sum(steps) / len(steps) / (gas * 3.2)
+    return _unit_durations(unit, 0.05 * unit)
+
+
+def _unit_durations(unit: float, load: float) -> Dict[str, float]:
+    return {
+        "forward_pass": unit,
+        "backward_pass": 2.0 * unit,
+        "loss": 0.1 * unit,
+        "optimizer_step": 0.1 * unit,
+        "load_micro_batch": load,
+        "store_micro_batch": 0.05 * unit,
+        "recv_activation": 0.05 * unit,
+        "send_activation": 0.05 * unit,
+        "send_grad": 0.05 * unit,
+        "recv_grad": 0.05 * unit,
+    }
+
+
+def _durations_from_run_dir(run_dir, gas: int) -> Optional[Dict[str, float]]:
+    """Span-calibrated instruction durations, or None when the run dir has
+    no ``step.fwdbwd`` spans: the median per-step compute (dispatch and
+    drain, amortised as the obs report does, ``step_span_sums``) split as
+    forward 1 and backward 2 per micro-batch, the load from the median
+    ``step.data`` span."""
+    from ..obs.report import load_run_dir, step_compute_samples, step_span_sums
+
+    data = load_run_dir(run_dir)
+    by_host = step_span_sums(data.spans, ("step.fwdbwd", "step.sync", "step.data"))
+    recs = [rec for steps in by_host.values() for rec in steps.values()
+            if "step.fwdbwd" in rec]
+    if not recs:
+        return None
+    compute = sorted(step_compute_samples(
+        step_span_sums(data.spans, ("step.fwdbwd", "step.sync"))))
+    unit = compute[len(compute) // 2] / (gas * 3.0)
+    datas = sorted(r["step.data"] for r in recs if "step.data" in r)
+    return _unit_durations(unit, datas[len(datas) // 2] / gas if datas else 0.05 * unit)
+
+
+def illustrate(
+    pipe_parallel_size: int,
+    gradient_accumulation_steps: int,
+    schedule_cls=PipelineScheduleTrain,
+    width: int = 100,
+    durations: Optional[Dict[str, float]] = None,
+) -> str:
+    """An ASCII timeline of a simulated schedule: one row per pipe rank of
+    F/B/L/O/d/s cells, then the total and each rank's idle share; a
+    deadlocked replay is framed by a banner."""
+    result = SimulationEngine(pipe_parallel_size=pipe_parallel_size,
+                              gradient_accumulation_steps=gradient_accumulation_steps,
+                              durations=durations or {}).simulate(schedule_cls)
+    total = result["total_time"] or 1.0
+    rows = [[" "] * width for _ in range(pipe_parallel_size)]
+    glyphs = {"forward_pass": "F", "backward_pass": "B", "optimizer_step": "O",
+              "loss": "L", "load_micro_batch": "d", "store_micro_batch": "s"}
+    for ev in result["timeline"]:
+        g = glyphs.get(ev["name"])
+        if g is None:
+            continue
+        lo = int(ev["start"] / total * (width - 1))
+        hi = max(lo + 1, int(ev["end"] / total * (width - 1)))
+        for c in range(lo, min(hi, width)):
+            rows[ev["rank"]][c] = g
+    lines = [f"rank {r}: |{''.join(row)}|" for r, row in enumerate(rows)]
+    idle = ", ".join(f"{i:.0%}" for i in result["idle_fraction"])
+    lines.append(f"total {result['total_time']:.2f}s  idle per rank: {idle}")
+    if result["deadlocked"]:
+        banner = ("!! DEADLOCK: schedule never completed — unmatched sends/recvs; "
+                  "the timeline above is PARTIAL and its idle numbers meaningless")
+        lines.insert(0, banner)
+        lines.append(banner)
+    return "\n".join(lines)
+
+
+def visualize(*args, **kwargs) -> None:
+    """JAX's PNG Gantt timeline needs matplotlib, which the port's
+    machines lack: refused by name (``illustrate`` draws the same timeline
+    as text)."""
+    raise NotImplementedError("pipeline_schedule.visualize (a matplotlib PNG) is not ported; "
+                              "illustrate() draws the timeline as text")

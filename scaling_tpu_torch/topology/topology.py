@@ -11,18 +11,26 @@ what JAX's give for every grid.
 
 ``Topology`` holds this process's rank (from the process group, not from
 ``config.global_rank``), its device, and the per-axis process groups:
-the model group (the ranks of one data rank, which split the weights)
-and the data group (the ranks of one model rank, which split the batch
-and, under ZeRO, the optimizer state), and under NCCL a gloo group of the
-world for host-side agreement (``host_group``). Every rank creates every group, in
-one order (``torch.distributed.new_group`` is collective over the world).
+the model group (the ranks of one pipe stage and data rank, which split
+the weights), the data group (the ranks of one stage and model rank,
+which split the batch and, under ZeRO, the optimizer state), the pipe
+group (the stages of one data and model rank: the loss's broadcast and
+the checkpoint's gather), the stage transport's channels (a two-rank
+group for each direction of each adjacent stage pair, and under
+interleaved virtual stages for the wrap from the last stage to the first
+and back: ``channel``), the tied group (the first and the last stage,
+which hold the two copies of a tied embedding table), and under NCCL a
+gloo group of the world for host-side agreement (``host_group``). Every
+rank creates every group, in one order (``torch.distributed.new_group``
+is collective over the world).
 
 The backend rule (``choose_backend``) is decided before
 ``init_process_group`` and never by trying one backend and catching its
 failure: NCCL where each local rank has a card of its own; gloo where
 ranks share a card (NCCL refuses two ranks on one device) or run on the
-CPU. ``parallel/collectives.py`` stages through the host the collectives
-that gloo does not take on CUDA tensors.
+CPU. Under gloo the collectives run on the CUDA tensors themselves, and the
+stage transport is a broadcast, which gloo takes there
+(``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -89,27 +97,62 @@ class Topology:
         # host_group: a gloo group of the world for host-side agreement
         # (None under gloo, whose world group takes CPU tensors already)
         self.model_group = self.data_group = self.host_group = None
+        self.pipe_group = self.tied_group = None
         self.model_ranks = [global_rank]
         self.data_ranks = [global_rank]
+        self.pipe_ranks = [global_rank]
+        # (source stage, destination stage) -> this rank's two-rank group
+        self.channels: Dict[Tuple[int, int], object] = {}
         if config.world_size > 1:
             self._new_groups()
             if self.backend != "gloo":
                 self.host_group = dist.new_group(backend="gloo")
 
     def _new_groups(self) -> None:
-        """Every model group, then every data group, in rank order, on
-        every rank."""
-        mp, dp = self.model_parallel_size, self.data_parallel_size
+        """Every model group, then every data group, every pipe group, the
+        channels and the tied groups, in rank order, on every rank."""
+        pp, dp, mp = self.pipe_parallel_size, self.data_parallel_size, self.model_parallel_size
+        for p in range(pp):
+            for d in range(dp):
+                ranks = [self.get_global_rank(p, d, m) for m in range(mp)]
+                group = dist.new_group(ranks)
+                if self.global_rank in ranks:
+                    self.model_group, self.model_ranks = group, ranks
+        for p in range(pp):
+            for m in range(mp):
+                ranks = [self.get_global_rank(p, d, m) for d in range(dp)]
+                group = dist.new_group(ranks)
+                if self.global_rank in ranks:
+                    self.data_group, self.data_ranks = group, ranks
+        if pp == 1:
+            return
         for d in range(dp):
-            ranks = [self.get_global_rank(0, d, m) for m in range(mp)]
-            group = dist.new_group(ranks)
-            if self.global_rank in ranks:
-                self.model_group, self.model_ranks = group, ranks
-        for m in range(mp):
-            ranks = [self.get_global_rank(0, d, m) for d in range(dp)]
-            group = dist.new_group(ranks)
-            if self.global_rank in ranks:
-                self.data_group, self.data_ranks = group, ranks
+            for m in range(mp):
+                ranks = [self.get_global_rank(p, d, m) for p in range(pp)]
+                group = dist.new_group(ranks)
+                if self.global_rank in ranks:
+                    self.pipe_group, self.pipe_ranks = group, ranks
+                    if pp == 2:  # the first and last stage: the pipe group itself
+                        self.tied_group = group
+        for d in range(dp):
+            for m in range(mp):
+                for src, dst in channel_pairs(pp, self.config.pipe_virtual_size):
+                    ranks = [self.get_global_rank(src, d, m), self.get_global_rank(dst, d, m)]
+                    group = dist.new_group(sorted(ranks))
+                    if self.global_rank in ranks:
+                        self.channels[(src, dst)] = group
+        if pp > 2:
+            for d in range(dp):
+                for m in range(mp):
+                    ranks = [self.get_global_rank(0, d, m), self.get_global_rank(pp - 1, d, m)]
+                    group = dist.new_group(ranks)
+                    if self.global_rank in ranks:
+                        self.tied_group = group
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of pipe stage ``stage`` at this rank's data and
+        model rank."""
+        return self.get_global_rank(stage, self.data_parallel_rank, self.model_parallel_rank)
 
     # ------------------------------------------------------------- sizes
     @property
@@ -126,7 +169,11 @@ class Topology:
 
     @property
     def pipe_parallel_size(self) -> int:
-        return 1
+        return self.config.pipe_parallel_size
+
+    @property
+    def pipe_virtual_size(self) -> int:
+        return self.config.pipe_virtual_size
 
     @property
     def context_parallel_size(self) -> int:
@@ -196,9 +243,25 @@ class Topology:
 
     def describe(self) -> Dict[str, object]:
         """The layout as the logs and ``chip_smoke.py`` print it."""
-        return {"world_size": self.world_size, "data_parallel_size": self.data_parallel_size,
+        return {"world_size": self.world_size, "pipe_parallel_size": self.pipe_parallel_size,
+                "pipe_virtual_size": self.pipe_virtual_size,
+                "data_parallel_size": self.data_parallel_size,
                 "model_parallel_size": self.model_parallel_size, "backend": self.backend,
                 "global_rank": self.global_rank, "device": str(self.device)}
+
+
+def channel_pairs(pp: int, vpp: int = 1) -> List[Tuple[int, int]]:
+    """The (source, destination) stages of the stage transport's channels,
+    in creation order: each adjacent pair's two directions and, under
+    interleaved virtual stages over more than two stages, the wrap from the
+    last stage to the first and back (at two stages the wrap is the same
+    pair of ranks, whose channels the linear hops already made)."""
+    pairs = []
+    for s in range(pp - 1):
+        pairs += [(s, s + 1), (s + 1, s)]
+    if vpp > 1 and pp > 2:
+        pairs += [(pp - 1, 0), (0, pp - 1)]
+    return pairs
 
 
 def grid_rank(sizes: Tuple[int, int, int, int], pipe_rank: int, data_rank: int,

@@ -59,7 +59,12 @@ slices and rescales the cursors to the run's layout; a SIGTERM to any
 rank becomes every rank's save at the same step through one all-reduce
 of the flags at each step boundary, so no rank waits in a collective
 that a peer left. Records, events and step metrics come from rank 0
-(``logger``'s rank).
+(``logger``'s rank). Over several pipe stages every stage reads the same
+micro-batches of its data rank, the step hands the last stage's loss and
+metrics to every stage (so rank 0's records carry them), the save gathers
+every stage's leaves to rank 0 (the files are the one-rank model's at any
+pipe layout), a load gives each stage its own leaves, and the run logs the
+``pipeline-config`` event that ``obs report``'s pipeline section reads.
 
 Observability, as in the JAX trainer: the spans ``step.data``,
 ``step.fwdbwd`` (host dispatch only: the device work shows in
@@ -100,7 +105,7 @@ from ..context import BaseContext
 from ..data import DataLoader
 from ..logging.logger import logger
 from ..nn.base_layer import dropout_key
-from ..parallel.collectives import all_reduce_, any_rank, barrier
+from ..parallel.collectives import any_rank, barrier, gather_objects
 from ..obs import StepTelemetry, derive_trace_id, span, trace_context
 from ..optimizer import Optimizer
 from ..parallel import ParallelModule
@@ -461,13 +466,7 @@ class BaseTrainer:
         losses, metric_list = [], []
         for _ in range(max(self.config.eval_iterations, 1)):
             batch = self.batch_to_model_input(next(self.dataloader_evaluation), self.device)
-            loss, metrics = self.module.loss(self.module.forward(batch), batch,
-                                             self.loss_function)
-            if self.layout is not None:  # the data ranks' shares of the global batch's
-                names = sorted(metrics)
-                summed = all_reduce_(torch.stack([loss.float()] + [
-                    metrics[k].float() for k in names]), self.layout.data_group)
-                loss, metrics = summed[0], dict(zip(names, summed[1:]))
+            loss, metrics = self.module.eval_loss(batch, self.loss_function)
             losses.append(float(loss))
             metric_list.append({k: float(v) for k, v in metrics.items()})
             self.context.consumed_eval_samples += (self.topology.micro_batch_size
@@ -672,6 +671,12 @@ class BaseTrainer:
     def run_training(self, log_metrics_fn: Optional[Callable] = None) -> None:
         if self.config.train_iterations is None:
             raise ValueError("trainer.train_iterations must be set to run training")
+        topo = self.topology
+        if topo.pipe_parallel_size > 1:
+            # the schedule's shape, which obs report's pipeline section reads
+            logger.log_event("pipeline-config", pp=topo.pipe_parallel_size,
+                             virtual=topo.pipe_virtual_size, token_slices=1,
+                             gas=topo.gradient_accumulation_steps)
         # the tuner's predicted step time for this run's layout (exported by
         # ``python -m scaling_tpu_torch.tune`` as SCALING_TPU_TUNER_PREDICTION),
         # logged into the run's events so ``obs report`` scores prediction
@@ -817,10 +822,10 @@ class BaseTrainer:
     def _current_topology_dict(self) -> dict:
         """The JAX trainer's topology record."""
         t = self.topology
-        return {"world_size": t.world_size, "pipe_parallel_size": 1,
+        return {"world_size": t.world_size, "pipe_parallel_size": t.pipe_parallel_size,
                 "data_parallel_size": t.data_parallel_size,
                 "context_parallel_size": 1, "model_parallel_size": t.model_parallel_size,
-                "pipe_virtual_size": 1,
+                "pipe_virtual_size": t.pipe_virtual_size,
                 "pipe_token_slices": 1, "micro_batch_size": t.micro_batch_size,
                 "gradient_accumulation_steps": t.gradient_accumulation_steps,
                 "global_batch_size": t.global_batch_size, "num_hosts": self._num_hosts()}
@@ -834,8 +839,12 @@ class BaseTrainer:
 
     def _param_records(self, params: Dict[str, torch.Tensor]) -> dict:
         """JAX key -> global shape in the JAX layout, dtype and the JAX
-        partition spec, for ``MESH.json``."""
+        partition spec, for ``MESH.json`` (over several pipe stages every
+        stage's leaves, from the whole stack)."""
         shapes = {lay.key: lay.shape for lay in self.module.layouts.values()}
+        if self.module.plan is not None:
+            whole = dict(self.module.whole_model.named_parameters())
+            params = {key: whole[name] for name, key in self.module.whole_ckpt_keys().items()}
         records = {}
         for key, t in params.items():
             whole = torch.empty(shapes.get(key, t.shape), device="meta")
@@ -855,16 +864,35 @@ class BaseTrainer:
 
     def _leaf_gather(self, state: bool):
         """The checkpoint's gather of each leaf by JAX key (``state``: of the
-        optimizer's slices) over several ranks; None on one rank."""
+        optimizer's slices) over several ranks; None on one rank. A leaf of
+        another pipe stage comes as None; an optimizer state no stage keeps
+        (a frozen leaf) is None everywhere."""
         if self.layout is None:
             return None
-        names = {key: name for name, key in self.module.ckpt_keys().items()}
+        names = {key: name for name, key in self.module.whole_ckpt_keys().items()}
         zero = self.optimizer.zero_dims
+        optimized = self._optimized_by_any_stage() if state else None
 
-        def gather(key: str, t: torch.Tensor):
+        def gather(key: str, t: Optional[torch.Tensor]):
             name = names[key]
-            return self.module.gather_leaf(name, t, zero.get(name) if state else None)
+            if state and name not in optimized:
+                return None
+            return self.module.gather_leaf(name, t, zero.get(name) if state else None,
+                                           torch.float32 if state else None)
         return gather
+
+    def _optimized_by_any_stage(self) -> set:
+        """The optimised parameters' names over the pipe (one exchange of
+        names among its stages; this rank's own at one stage)."""
+        every = gather_objects(sorted(self.optimizer.optimized), self.layout.pipe_group)
+        return set().union(*every)
+
+    def _other_stages_keys(self) -> set:
+        """The JAX keys that only other pipe stages hold (empty at one)."""
+        if self.module.plan is None:
+            return set()
+        return set(self.module.whole_ckpt_keys().values()) - set(
+            self.module.ckpt_keys().values())
 
     def _leaf_shard(self, state: bool):
         """The load's slice of each whole leaf by JAX key; None on one rank."""
@@ -947,6 +975,7 @@ class BaseTrainer:
             if vocab is not None:
                 shutil.copyfile(vocab, stage / "vocab.json")
 
+    @torch.no_grad()
     def _save_sharded(self, base: Path) -> Path:
         """The save of a run of several ranks: every rank gathers each leaf
         with the others; global rank 0 writes, commits and moves ``latest``
@@ -959,10 +988,13 @@ class BaseTrainer:
             commit = CheckpointCommit(base, step)
             stage = commit.tmp_dir
         params = self._ckpt_params()
+        keys = self.module.whole_ckpt_keys()
+        local = dict(self.module.model.named_parameters())
+        everywhere = {key: local.get(name) for name, key in keys.items()}
         with span("ckpt.stage", step=step, backend="npz"):
-            save_model_checkpoint(stage, params, recorder=commit and commit.record,
+            save_model_checkpoint(stage, everywhere, recorder=commit and commit.record,
                                   gather=self._leaf_gather(False))
-            save_optimizer_checkpoint(stage, self.optimizer, self.module.ckpt_keys(),
+            save_optimizer_checkpoint(stage, self.optimizer, keys,
                                       recorder=commit and commit.record,
                                       gather=self._leaf_gather(True))
         step_dir = base / f"global_step{step}"
@@ -1066,7 +1098,8 @@ class BaseTrainer:
                               allowed_unexpected_keys=c.allowed_unexpected_keys_in_checkpoint,
                               ignore_keys=c.ignore_keys_in_checkpoint,
                               restored_keys=self.restored_model_keys,
-                              shard=self._leaf_shard(False))
+                              shard=self._leaf_shard(False),
+                              other_stages=self._other_stages_keys())
         if c.merge_lora_after_loading_checkpoint:
             self.module.merge_lora_weights()
             logger.info("merged LoRA deltas into base weights after load")

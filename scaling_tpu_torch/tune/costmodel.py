@@ -22,11 +22,12 @@ Ingredients:
 
 The generation table describes the card: an H100 SXM's dense bf16 peak
 and its NVLink rate inside a domain, the host NIC across domains.
-Pipeline layouts are priced through a copy of the JAX package's schedule
-simulator (``_schedule.simulate_layout``) — bubble fractions come from
-replaying the actual schedule (fill-drain / interleaved / token-slice).
-The port trains on one device; the scoring of a hand-built layout of
-more devices is the JAX tuner's math, unchanged.
+Pipeline layouts are priced through the port's schedule simulator
+(``parallel.pipeline_schedule.simulate_layout``, the copy of the JAX
+package's that the pipeline executor runs the streams of): bubble
+fractions come from replaying the actual schedule (fill-drain /
+interleaved / token-slice). The scoring of a hand-built layout of more
+devices is the JAX tuner's math, unchanged.
 """
 
 from __future__ import annotations
@@ -553,7 +554,7 @@ def score_layout(
 
     bubble = 0.0
     if L.pp > 1:
-        from ._schedule import simulate_layout
+        from ..parallel.pipeline_schedule import simulate_layout
 
         gas = L.gradient_accumulation_steps
         unit = compute_s / (3.0 * gas)

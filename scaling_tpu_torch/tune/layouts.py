@@ -10,10 +10,12 @@ port's ``TopologyConfig`` (``topology/config.py``), so the tuner can
 never rank a layout the trainer would reject — plus the model-shape
 divisibility rules the layer stack imposes.
 
-The port trains on one device: its ``TopologyConfig`` admits a world of
-one, where the space is the micro-batch ladder. ``enumerate_layouts``
-for more devices raises NotImplementedError until the port runs on
-several; a hand-built ``Layout`` of any size can still be scored.
+The port's ``TopologyConfig`` admits data, model and pipeline
+parallelism (virtual stages too), so a hand-built ``Layout`` of those
+axes validates and is scored. ``enumerate_layouts`` over more than one
+device raises NotImplementedError by name: the search of a device count's
+layouts is not ported, and on one device the space is the micro-batch
+ladder.
 """
 
 from __future__ import annotations
@@ -249,13 +251,13 @@ def enumerate_layouts(
     so the ranked report stays readable; without a ladder labels (and
     the pinned golden) are byte-identical to before.
 
-    ``n_devices > 1`` raises NotImplementedError: the port trains on one
-    device, and a ranking of layouts it cannot run would mislead."""
+    ``n_devices > 1`` raises NotImplementedError: the search over several
+    devices is not ported (a hand-built layout validates and is scored)."""
     if n_devices > 1:
         raise NotImplementedError(
-            f"enumerate_layouts on {n_devices} devices: the port trains on one "
-            "device; multi-device layouts wait for the port's several-device "
-            "training (score a hand-built Layout with costmodel.score_layout)")
+            f"enumerate_layouts on {n_devices} devices is not ported: the tuner searches one "
+            "device's micro-batch ladder (score a hand-built Layout with "
+            "costmodel.score_layout)")
     if n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
     mbs_options = sorted({int(micro_batch_size), *(mbs_ladder or ())})

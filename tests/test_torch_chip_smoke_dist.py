@@ -1,10 +1,13 @@
-"""Phase 19 of ``chip_smoke.py`` (dp 2 x mp 2 with ZeRO-1 through
-``runner_main``) at toy size on the CPU: four gloo worker processes and a
+"""Phases 19 and 20 of ``chip_smoke.py`` (dp 2 x mp 2 with ZeRO-1, and pp 2
+x vpp 2 x dp 2 with ZeRO-1 and ``every_pipe_stage``, through
+``runner_main``) at toy size on the CPU: four gloo worker processes, a
 one-rank run beside them, SIGTERM to rank 3, a one-rank resume of the
-step-2 checkpoint. The intact run passes (a)-(e); a run whose
+step-2 checkpoint. The intact runs pass their checks; a phase-19 run whose
 row-parallel products are not summed over the model group fails the
-loss or the logit check, and a run where one rank runs the plain
-versions fails the launch check. The workers are
+loss or the logit check, a phase-20 run whose stages send zeros for their
+inputs' gradients fails the check of the pipelined backward against the
+one-rank child's, and a run where one rank runs the plain versions fails
+the launch check. The workers are
 ``tests/test_torch_dist_helpers.py``'s ``phase19_worker``, which counts
 the CPU's plain runs as the card's launches."""
 
@@ -61,3 +64,26 @@ def test_dist_probe_row_fits_the_model():
     row = chip_smoke.dist_probe_row(arch)
     assert row.shape == (1, 128) and row.dtype == torch.int32 and int(row.max()) < 50
     assert torch.equal(row, chip_smoke.dist_probe_row(arch))
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("", None),
+    ("plain_rank_2", r"phase 20 \(c\)"),
+    ("zero_send_grad", r"phase 20 \(a\)"),
+], ids=["intact", "plain_on_rank_2", "zero_send_grad"])
+def test_pipe_phase_on_the_cpu_tells_a_wrong_run(monkeypatch, tmp_path, capsys, fault, match):
+    base = _toy_dist(monkeypatch, tmp_path, fault)
+    monkeypatch.setitem(chip_smoke.PIPE, "pause_s", 0.2)
+    monkeypatch.setitem(chip_smoke.PIPE, "timeout_s", 100)
+    if match is not None:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.pipe_phase(base, device="cpu")
+        return
+    launches = chip_smoke.pipe_phase(base, device="cpu")
+    out = capsys.readouterr().out
+    assert "stopped at steps [4, 4, 4, 4]" in out
+    assert "MESH.json of step 2: pp 2 x vpp 2 x dp 2" in out
+    assert "schedule: interleaved(v=2) pp=2 gas=4" in out
+    # every rank ran 4 steps and the probe's forward: K5 once a layer and micro-batch
+    gas, layers = chip_smoke.PIPE["gas"], chip_smoke.PIPE["layers"]
+    assert launches["pipe_4ranks"]["flash_attention_bwd"] == 2 * 4 * gas * layers

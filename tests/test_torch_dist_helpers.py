@@ -80,14 +80,14 @@ def run_ranks(fn: Callable, world: int, *args, timeout: float = 90.0) -> List[An
     return out
 
 
-def topology(mp: int, dp: int, mbs: int = 2, gas: int = 1):
-    """This rank's ``Topology`` of a dp x mp layout (inside ``run_ranks``)."""
+def topology(mp: int, dp: int, mbs: int = 2, gas: int = 1, pp: int = 1, vpp: int = 1):
+    """This rank's ``Topology`` of a pp x dp x mp layout (inside ``run_ranks``)."""
     from scaling_tpu_torch.topology import Topology, TopologyConfig
 
     return Topology(TopologyConfig.from_dict({
-        "model_parallel_size": mp, "data_parallel_size": dp, "pipe_parallel_size": 1,
-        "micro_batch_size": mbs, "gradient_accumulation_steps": gas}),
-        device=torch.device("cpu"))
+        "model_parallel_size": mp, "data_parallel_size": dp, "pipe_parallel_size": pp,
+        "pipe_virtual_size": vpp, "micro_batch_size": mbs,
+        "gradient_accumulation_steps": gas}), device=torch.device("cpu"))
 
 
 def build_layer(kind: str, cfg: dict, shard):
@@ -227,7 +227,8 @@ def phase19_worker() -> None:
     plain versions, as often as the card launches the kernels, so they are
     counted as launches (into ``launches.KERNEL``) unless ``PHASE19_FAULT``
     is ``plain_rank_<r>`` on rank ``r``; ``skip_row_reduction`` leaves the
-    row-parallel products unsummed."""
+    row-parallel products unsummed; ``zero_send_grad`` sends zeros where a
+    pipe stage sends the gradient of its input."""
     import os
     import sys
     from pathlib import Path
@@ -244,6 +245,18 @@ def phase19_worker() -> None:
             launches.KERNEL if counter is launches.PLAIN else counter, key)
     if fault == "skip_row_reduction":
         linear.reduce_from_model_region = lambda x, group: x
+    if fault == "zero_send_grad":
+        from scaling_tpu_torch.parallel import pipeline_engine
+
+        send = pipeline_engine.PipelineEngine._send
+
+        def zeros_for_grads(engine, t, peer, sends):
+            # a training step's activation has a graph behind it, a gradient none
+            if torch.is_grad_enabled() and t.grad_fn is None:
+                t = torch.zeros_like(t)
+            send(engine, t, peer, sends)
+
+        pipeline_engine.PipelineEngine._send = zeros_for_grads
     os.environ["CHIP_SMOKE_WORKER_DEVICE"] = "cpu"
     chip_smoke.dist_worker()
 

@@ -381,9 +381,11 @@ rng = np.random.default_rng(0)
 with MemoryMapDatasetBuilder(root / "tokens", dtype=np.uint16) as builder:
     for _ in range(40):
         builder.add(np.append(rng.integers(1, 512, size=rng.integers(16, 200)), 0))
+topology = {"model_parallel_size": 2, "data_parallel_size": 1, "pipe_parallel_size": 1,
+            "micro_batch_size": 2, "gradient_accumulation_steps": 1}
+topology.update(json.loads(sys.argv[2]) if len(sys.argv) > 2 else {})
 payload = {
-    "topology": {"model_parallel_size": 2, "data_parallel_size": 1, "pipe_parallel_size": 1,
-                 "micro_batch_size": 2, "gradient_accumulation_steps": 1},
+    "topology": topology,
     "transformer_architecture": dict(MODELS["toy"], sequence_length=64),
     "trainer": {"train_iterations": 2, "save_interval": 2, "save_dir": str(root / "ckpt")},
     "data": {"data_prefixes": [str(root / "tokens")]},
@@ -394,7 +396,8 @@ rc = runner_main(config, payload)
 step = root / "ckpt" / "global_step2"
 mesh = read_mesh_meta(step)["topology"]
 print(f"two ranks: rc={rc} latest={(root / 'ckpt' / 'latest').read_text()} "
-      f"mp={mesh['model_parallel_size']} verify={verify_checkpoint(step)}")
+      f"mp={mesh['model_parallel_size']} verify={verify_checkpoint(step)} "
+      f"pp={mesh['pipe_parallel_size']}")
 sys.exit(rc)
 """
 
@@ -409,6 +412,22 @@ def test_two_ranks_train_a_step_with_jax_blocked():
                           cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "two ranks: rc=0 latest=global_step2 mp=2 verify=[]" in proc.stdout
+
+
+def test_two_pipe_ranks_train_a_step_with_jax_blocked():
+    """The same with two pipe stages (1F1B, accumulation 2, ``every_pipe_stage``):
+    each worker builds its stage, the activations and gradients cross by the
+    stage transport, and rank 0 writes every stage's leaves."""
+    from .test_torch_dist_helpers import free_port
+
+    topology = {"model_parallel_size": 1, "pipe_parallel_size": 2,
+                "gradient_accumulation_steps": 2,
+                "activation_checkpointing_type": "every_pipe_stage"}
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_TWO_RANKS, str(free_port()),
+                           json.dumps(topology)],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "two ranks: rc=0 latest=global_step2 mp=1 verify=[] pp=2" in proc.stdout
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
@@ -480,8 +499,9 @@ def test_config_raises_on_keys_it_does_not_support():
 
 
 if __name__ == "__main__":
-    # the worker of test_runner_supervises_a_worker_with_jax_blocked and
-    # test_two_ranks_train_a_step_with_jax_blocked
+    # the worker of test_runner_supervises_a_worker_with_jax_blocked,
+    # test_two_ranks_train_a_step_with_jax_blocked and
+    # test_two_pipe_ranks_train_a_step_with_jax_blocked
     sys.modules["jax"] = None
     sys.modules["scaling_tpu"] = None
     from scaling_tpu_torch.models.transformer.train import worker_main

@@ -318,10 +318,10 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
     assert config.optimizer.gradient_clipping == 1.0
     bad = [
         ({"topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
-                       "pipe_parallel_size": 2}}, NotImplementedError),
-        ({"topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
-                       "activation_checkpointing_type": "every_pipe_stage"}},
+                       "pipe_parallel_size": 2, "pipe_token_slices": 2}},
          NotImplementedError),
+        ({"topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
+                       "sequence_parallel": True}}, NotImplementedError),
         ({"optimizer": {"zero": True, "zero_stage": 3}}, NotImplementedError),
         ({"training": {"use_separate_lr_on_embedding": True}}, ValueError),
         ({"trainer": {"seed": 0, "checkpoint_backend": "orbax"}}, NotImplementedError),
