@@ -369,6 +369,32 @@ Phases, each of which must pass:
    directory (the predicted bubble) beside each rank's measured share of a
    step spent waiting for the transport (a reading: four ranks share one
    card), and the step times;
+21. sequence splitting, beside phases 19 and 20 (``SPLIT``; its lines
+   follow phase 20's; (a) and (b) start once every process of phase 19 has
+   ended, for the card's memory): ``runner_main`` starts (a) 4 workers of phase 19's
+   model and data at context_parallel_size 2 x dp 2, ring attention, ZeRO-1
+   (micro-batch 2 a data rank, each context rank its 1024 tokens of each
+   sequence) and (b) 2 workers at context_parallel_size 2, Ulysses
+   attention, for 2 steps, both held to phase 19's one-rank run; and (c),
+   started with phase 20's child once phase 20's step-2 checkpoint is
+   durable, 2 workers of phase 20's model at pp 2 x pipe_token_slices 2
+   with every_pipe_stage (micro-batch 2, accumulation 4: the child's global
+   batch) that resume it to step 4, held to the child. Checks, each
+   failing the phase: the losses of the run's steps within 0.02 of the
+   reference's, all finite; the global gradient norm and each logical
+   layer's Adam first moment (its norm over the ranks' pieces, each
+   counted once) within a relative 0.01; K2-K5 a step against the layout's
+   count from the reference's: each context rank launches K2/K3 as often as
+   one rank, the ring no K4/K5 (unfused, as JAX's), Ulysses K4/K5 as often
+   as one rank (the whole 2048-token sequence of 8 query and 2 kv heads),
+   the two stages under S slices S times one rank's K2/K3 and no K4/K5
+   (the slice cache is unfused in both packages); no plain version on any
+   rank; the collective bytes of a step equal to their count from the
+   shapes: the ring's K/V and segment hops and its f32 dK/dV hops,
+   Ulysses's four all-to-alls a layer each way and its segment gather, the
+   slice transport's hops (each 1/S of an unsliced micro-batch's). Prints
+   each rank's ``max_memory_allocated`` beside the reference's and the
+   step times;
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -402,7 +428,7 @@ import tempfile
 import threading
 import time
 from collections import Counter
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -606,6 +632,13 @@ DIST = dict(dp=2, mp=2, steps=8, save_interval=2, sigterm_rank=3, sigterm_after=
 PIPE = dict(pp=2, vpp=2, dp=2, layers=4, mbs=1, gas=4, steps=8, save_interval=2,
             sigterm_rank=3, sigterm_after=3, stop_step=4, pause_s=0.5, timeout_s=480,
             remat="every_pipe_stage", update_rtol=0.01)
+# phase 21: sequence splitting. (a) ring at cp 2 x dp 2 with ZeRO-1 and (b)
+# Ulysses at cp 2, phase 19's model, data and global batch, each held to
+# phase 19's one-rank run (the same config from the same initialisation);
+# (c) token slices at pp 2 x S 2 with every_pipe_stage, phase 20's model and
+# global batch, resuming phase 20's step-2 checkpoint beside phase 20's
+# one-rank child, and held to it; phase 19's and 20's tolerances
+SPLIT = dict(cp=2, dp=2, steps=2, ts=2, timeout_s=480)
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
                     weight_tying=True, key_query_norm=True)
@@ -5652,7 +5685,8 @@ def dist_worker() -> int:
     with torch.no_grad():
         out = trainer.module.forward({"token_ids": row})  # every rank: a pipe runs it stagewise
     lay = trainer.layout
-    if out is not None and (lay is None or lay.data_parallel_rank == lay.model_parallel_rank == 0):
+    if out is not None and (lay is None or lay.data_parallel_rank == lay.model_parallel_rank
+                            == lay.context_parallel_rank == 0):
         np.save(log_dir / "probe_logits.npy", out["activations"][0].float().cpu().numpy())
     opt = trainer.optimizer.state
     append_jsonl_line(records, json.dumps({
@@ -5786,9 +5820,21 @@ def check_dist_launches(what: str, steps: dict, plain: dict, want: dict) -> dict
     return got
 
 
-def dist_phase(base: dict, device: str = "cuda") -> dict:
+def dist_phase(base: dict, device: str = "cuda", share=None) -> dict:
     """Phase 19: see the module docstring (19). Returns the launches of the
-    four ranks' run, summed over the ranks, by path."""
+    four ranks' run, summed over the ranks, by path. ``share`` (a
+    ``Future``) gets the one-rank run's records once every process of the
+    phase has ended (phase 21 holds its layouts to them and starts then), or
+    the error that ended the phase first."""
+    try:
+        return _dist_phase(base, device, share)
+    except BaseException as e:
+        if share is not None and not share.done():
+            share.set_exception(e)
+        raise
+
+
+def _dist_phase(base: dict, device: str, share) -> dict:
     from scaling_tpu_torch.resilience import read_mesh_meta, verify_checkpoint
 
     dp, mp, world = DIST["dp"], DIST["mp"], DIST["dp"] * DIST["mp"]
@@ -5875,6 +5921,8 @@ def dist_phase(base: dict, device: str = "cuda") -> dict:
         # (d) a one-rank child resumes the step-2 checkpoint to step 4
         mesh = read_mesh_meta(ckpt / "global_step2")
         join_runner(*resume, "phase 19's one-rank resume", root / "resume" / "logs")
+        if share is not None:  # every process of phase 19 has ended: phase 21 may start
+            share.set_result(ref)
         resumed = dist_records(root / "resume" / "logs", 1)[0]
         got = [resumed["steps"][s]["loss"] for s in range(3, stop + 1)]
         want_l = [ranks[0]["steps"][s]["loss"] for s in range(3, stop + 1)]
@@ -5963,10 +6011,12 @@ def transport_per_step(pp: int, vpp: int, gas: int, stage: int, act_bytes: int) 
     return sends * act_bytes
 
 
-def pipe_phase(base: dict, device: str = "cuda", say=print) -> dict:
+def pipe_phase(base: dict, device: str = "cuda", say=print, say_slices=None) -> dict:
     """Phase 20: see the module docstring (20). Returns the launches of the
     four ranks' run, summed over the ranks, by path. ``say`` takes its
-    lines (``main`` runs it beside phase 19 and prints them after)."""
+    lines (``main`` runs it beside phase 19 and prints them after). With
+    ``say_slices`` it also runs phase 21 (c) beside the child, which it is
+    held to, and gives that check's lines to ``say_slices``."""
     from scaling_tpu_torch.resilience import read_mesh_meta, verify_checkpoint
 
     pp, vpp, dp = PIPE["pp"], PIPE["vpp"], PIPE["dp"]
@@ -5988,13 +6038,21 @@ def pipe_phase(base: dict, device: str = "cuda", say=print) -> dict:
         ckpt = root / "piped" / "ckpt"
         child_cfg = pipe_config(prefixes, root, "child", 1, 1, 1, PIPE["mbs"] * dp, stop,
                                 load_dir=ckpt / "global_step2", save=False)
-        child = None
+        child = sliced = None
+        sliced_cfg = None
+        if say_slices is not None:  # phase 21 (c): the child's config at pp 2 x S 2
+            sliced_cfg = pipe_config(prefixes, root, "sliced", 2, 1, 1, PIPE["mbs"] * dp, stop,
+                                     load_dir=ckpt / "global_step2", save=False)
+            sliced_cfg["topology"]["pipe_token_slices"] = SPLIT["ts"]
         while True:
             if child is None and (ckpt / "latest").is_file() and \
                     (ckpt / "latest").read_text().strip() == "global_step2":
                 # the step-2 checkpoint is durable: the child starts beside the ranks
                 child = start_runner(child_cfg)
                 runners.append(child)
+                if sliced_cfg is not None:
+                    sliced = start_runner(sliced_cfg)
+                    runners.append(sliced)
             recs = dist_records(logs, world)[target]
             if child is not None and PIPE["sigterm_after"] in recs["steps"]:
                 os.kill(recs["start"]["pid"], signal.SIGTERM)
@@ -6124,11 +6182,215 @@ def pipe_phase(base: dict, device: str = "cuda", say=print) -> dict:
         for rec in ranks:
             for k, v in rec["end"]["kernel"].items():
                 total[k] = total.get(k, 0) + v
-        return {"pipe_4ranks": total}
+        out = {"pipe_4ranks": total}
+        if sliced is not None:
+            join_runner(*sliced, "phase 21 (c)'s two ranks", root / "sliced" / "logs")
+            out.update(slices_check(dist_records(root / "sliced" / "logs", 2), one, sliced_cfg,
+                                    say_slices))
+        return out
     finally:
         for thread, _ in runners:
             thread.join(timeout=PIPE["timeout_s"])
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ----------------------------------------------- phase 21: sequence splitting
+def step_delta(rec: dict, step: int, field: str) -> dict:
+    """``field``'s counters in ``step``: its record's less the step before's."""
+    now, before = rec["steps"][step][field], rec["steps"][step - 1][field]
+    return {k: now.get(k, 0) - before.get(k, 0) for k in set(now) | set(before)}
+
+
+def split_check(what: str, ranks: list, ref: dict, steps: list, ref_steps: list,
+                groups: list, want_launches: dict, want_bytes: dict, say) -> dict:
+    """The checks of a phase 21 launch against its reference's records:
+    the losses of ``steps`` against ``ref_steps`` (0.02); the global
+    gradient norm and each logical layer's Adam first moment, summed over
+    the ranks' pieces, relative ``PIPE["update_rtol"]``; K2-K5 in the last
+    step summed over each group of ranks equal to ``want_launches``, no plain
+    version; each rank's collective bytes of the last step equal to
+    ``want_bytes`` (by ``collectives.STATS`` key). Prints the readings, each
+    rank's memory and the step times; returns the launches of the run."""
+    got = [ranks[0]["steps"][s]["loss"] for s in steps]
+    want = [ref["steps"][s]["loss"] for s in ref_steps]
+    diffs = [abs(a - b) for a, b in zip(got, want)]
+    say(f"  {what}: losses of steps {steps} {got}; the reference's {want}; |diff| {diffs} "
+        f"(tol {DIST['loss_tol']})")
+    if not all(math.isfinite(x) for x in got + want) or max(diffs) > DIST["loss_tol"]:
+        raise AssertionError(f"phase 21 {what}: losses {got} vs {want}")
+    worst = {}
+    for s, r in zip(steps, ref_steps):
+        norms = ref["steps"][r]["grad_norm"], ranks[0]["steps"][s]["grad_norm"]
+        worst[f"grad norm, step {s}"] = abs(norms[1] - norms[0]) / norms[0]
+        for k, v in ref["steps"][r]["moment_sq"].items():
+            split = sum(rec["steps"][s]["moment_sq"].get(k, 0.0) for rec in ranks)
+            worst[f"{k} first moment, step {s}"] = abs(
+                math.sqrt(split) - math.sqrt(v)) / math.sqrt(v)
+    far = max(worst, key=worst.get)
+    say(f"  {what}: global gradient norms {[ranks[0]['steps'][s]['grad_norm'] for s in steps]}, "
+        f"the reference's {[ref['steps'][r]['grad_norm'] for r in ref_steps]}; the largest "
+        f"relative difference over them and the layers' Adam first moments {worst[far]:.3e} "
+        f"({far}; tol {PIPE['update_rtol']})")
+    if not all(math.isfinite(v) for v in worst.values()) or worst[far] > PIPE["update_rtol"]:
+        raise AssertionError(f"phase 21 {what}: {far} differs by {worst[far]}")
+    last = steps[-1]
+    for group in groups:
+        launched = {k: sum(step_delta(ranks[r], last, "kernel").get(k, 0) for r in group)
+                    for k in DIST_KERNELS}
+        if launched != want_launches:
+            raise AssertionError(f"phase 21 {what}: ranks {group} launched {launched} in step "
+                                 f"{last}, the layout's count {want_launches}")
+    plain = {r: rec["end"]["plain"] for r, rec in enumerate(ranks)}
+    if any(sum(v.values()) for v in plain.values()):
+        raise AssertionError(f"phase 21 {what}: plain versions ran on the card: {plain}")
+    say(f"  {what}: K2-K5 in step {last} over each of {groups}: {want_launches} (the layout's "
+        f"count from the reference's); no plain version on any rank")
+    for r, rec in enumerate(ranks):
+        moved = step_delta(rec, last, "stats")
+        for key, n in want_bytes.items():
+            if moved.get(key, 0) != n:
+                raise AssertionError(f"phase 21 {what}: rank {r} moved {moved.get(key, 0)} "
+                                     f"{key} in step {last}, the count from the shapes {n}")
+        step_s = rec["steps"][last]["t"] - rec["steps"][last - 1]["t"] - DIST["pause_s"]
+        say(f"  {what} rank {r}: step {last} moved "
+            + ", ".join(f"{k} {v}" for k, v in sorted(moved.items())
+                        if k.endswith("_bytes") and v)
+            + f" (the count from the shapes: {want_bytes}); max_memory_allocated "
+            f"{rec['end']['max_allocated'] / 1e9:.3f} GB (the reference's "
+            f"{ref['end']['max_allocated'] / 1e9:.3f} GB); step {step_s * 1e3:.1f} ms "
+            "(host clock between step records, less the pause; ranks share the card)")
+    total: dict = {}
+    for rec in ranks:
+        for k, v in rec["end"]["kernel"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def split_config(prefixes: dict, root: Path, name: str, cp: int, variant: str,
+                 dp: int) -> dict:
+    """Phase 19's config at cp x dp (ZeRO-1 when dp > 1) with ``variant``
+    attention, for ``SPLIT["steps"]`` steps, not saving."""
+    config = dist_config(prefixes, root, name, dp, 1, SPLIT["steps"], save=False)
+    config["topology"].update(context_parallel_size=cp, context_parallel_variant=variant)
+    config["runner"]["default_gpu_count"] = cp * dp
+    return config
+
+
+def split_phase(base: dict, reference, device: str = "cuda", say=print) -> dict:
+    """Phase 21 (a) and (b): see the module docstring (21). ``reference``
+    (a ``Future``) gives phase 19's one-rank records once every process of
+    phase 19 has ended; the runs start then. Started beside phase 19's
+    ranks, they took the card's used memory to 80.47-81.56 GB of its 85.02;
+    after its four ranks, beside its resume child, to 67.80-77.70 (PERF.md
+    "PR 20"). Returns the launches of each run, summed over its ranks, by
+    path."""
+    cp, dp = SPLIT["cp"], SPLIT["dp"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
+    runs = {"ring": (cp, "ring", dp), "ulysses": (cp, "ulysses", 1)}
+    runners = {}
+    try:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        configs = {name: split_config(base["prefixes"], root, name, *layout)
+                   for name, layout in runs.items()}
+        ref = reference.result(timeout=DIST["timeout_s"])
+        for name, cfg in configs.items():
+            runners[name] = start_runner(cfg)
+        for name, (thread, result) in runners.items():
+            join_runner(thread, result, f"phase 21 ({name})", root / name / "logs")
+        arch = configs["ring"]["transformer_architecture"]
+        layers, seq = arch["num_layers"], arch["sequence_length"]
+        heads, kv_heads = arch["num_attention_heads"], arch["attention_num_kv_heads"]
+        d = arch["hidden_size"] // heads
+        s_loc, base_launch = seq // cp, step_delta(ref, SPLIT["steps"], "kernel")
+        one = {k: base_launch.get(k, 0) for k in DIST_KERNELS}
+        out = {}
+        for name, (_, variant, run_dp) in runs.items():
+            world = cp * run_dp
+            ranks = dist_records(root / name / "logs", world)
+            b = TRAINER["mbs"] // run_dp  # a data rank's micro-batch
+            kv = 2 * b * s_loc * kv_heads * d * 2  # K and V of a slice, bf16
+            seg = b * s_loc * 4
+            if variant == "ring":
+                # per layer: (cp - 1) K/V and segment hops each way, cp f32 dK/dV hops
+                want_bytes = {"ring_send_bytes": layers * (
+                    2 * (cp - 1) * (kv + seg) + cp * 2 * kv)}
+                launches = dict(one, flash_attention_fwd=0, flash_attention_bwd=0)
+            else:
+                q = b * s_loc * heads * d * 2
+                # per layer: q, k, v and the output each way; the segment ids' gather
+                want_bytes = {"all_to_all_bytes": layers * 2 * (2 * q + kv),
+                              "all_gather_bytes": layers * cp * seg}
+                launches = one
+            label = {"ring": f"(a) ring, cp {cp} x dp {run_dp} with ZeRO-1",
+                     "ulysses": f"(b) Ulysses, cp {cp}"}[name]
+            out[f"split_{name}"] = split_check(
+                label, ranks, ref, [1, 2], [1, 2], [[r] for r in range(world)], launches,
+                want_bytes, say)
+        return out
+    finally:
+        for thread, _ in runners.values():
+            thread.join(timeout=SPLIT["timeout_s"])
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def slices_check(ranks: list, child: dict, config: dict, say) -> dict:
+    """Phase 21 (c): the two stages at pp 2 x S token slices, resumed from
+    phase 20's step-2 checkpoint, against phase 20's one-rank child."""
+    from scaling_tpu_torch.parallel.pipeline_schedule import executor_schedule
+
+    S, stop = SPLIT["ts"], PIPE["stop_step"]
+    arch, topo = config["transformer_architecture"], config["topology"]
+    act = topo["micro_batch_size"] * arch["sequence_length"] * arch["hidden_size"] * 2 // S
+    steps = list(range(3, stop + 1))
+    want = stage_launches([child], stop)
+    launches = {k: S * want[k] if k in ("rms_norm", "rms_norm_bwd") else 0
+                for k in DIST_KERNELS}
+    total = split_check(f"(c) token slices, pp 2 x S {S}, {topo['activation_checkpointing_type']}",
+                        ranks, child, steps, steps, [[0, 1]], launches, {}, say)
+    for stage, rec in enumerate(ranks):
+        sends = sum(i.name in ("send_activation", "send_grad") for i in executor_schedule(
+            2, stage, topo["gradient_accumulation_steps"], 1, S).instructions())
+        moved = step_delta(rec, stop, "stats").get("p2p_send_bytes", 0)
+        say(f"  (c) stage {stage}: the transport sent {moved} bytes in step {stop} in "
+            f"{sends} hops of {act} (1/{S} of an unsliced micro-batch's); the schedule's "
+            f"count {sends * act}")
+        if moved != sends * act:
+            raise AssertionError(f"phase 21 (c): stage {stage} sent {moved} bytes, the "
+                                 f"schedule's count {sends * act}")
+    say("  (c) the step-2 checkpoint: not compared, phase 20's one-rank child saves none")
+    return {"split_slices": total}
+
+
+class CardMemory:
+    """The card's used memory, every process's (``torch.cuda.mem_get_info``),
+    sampled on a thread from ``start`` to ``stop``."""
+
+    def __init__(self, period_s: float = 0.25):
+        self.period_s, self.peak = period_s, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="card-memory", daemon=True)
+
+    def _used(self) -> int:
+        free, total = torch.cuda.mem_get_info()
+        self.total = total
+        return total - free
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self._used())
+            time.sleep(self.period_s)
+
+    def start(self) -> "CardMemory":
+        self.before, self.own = self._used(), torch.cuda.memory_allocated()
+        self._thread.start()
+        return self
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        return {"before": self.before, "own": self.own, "peak": self.peak, "total": self.total}
 
 
 def add_launches(rows: list, launches_by_path: dict) -> None:
@@ -6263,17 +6525,37 @@ def main() -> int:
           "one-rank run beside it; SIGTERM to rank 3; a one-rank resume; phase 20 runs beside "
           "it, its lines follow")
     pipe_lines: list = []
-    with ThreadPoolExecutor(1) as pool:
-        piped = pool.submit(pipe_phase, trainer_run["base"], "cuda", pipe_lines.append)
-        launches_by_path.update(dist_phase(trainer_run["base"]))
+    split_lines: list = []
+    one_rank = Future()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_used = CardMemory().start()
+    with ThreadPoolExecutor(2) as pool:
+        piped = pool.submit(pipe_phase, trainer_run["base"], "cuda", pipe_lines.append,
+                            split_lines.append)
+        split = pool.submit(split_phase, trainer_run["base"], one_rank, "cuda",
+                            split_lines.append)
+        launches_by_path.update(dist_phase(trainer_run["base"], share=one_rank))
         launches_by_path.update(piped.result())
+        launches_by_path.update(split.result())
+    used = card_used.stop()
     print(f"== pipe (phase 20), beside phase 19: phase 8's data and the 0.5B model at "
           f"{PIPE['layers']} layers, pp {PIPE['pp']} x vpp {PIPE['vpp']} x dp {PIPE['dp']} with "
           f"ZeRO-1, {PIPE['remat']}, accumulation {PIPE['gas']}: four worker processes of "
           "runner_main sharing the card (gloo); a one-rank child resumes the step-2 checkpoint; "
           "SIGTERM to rank 3")
     print("\n".join(pipe_lines))
-    lap("dist, pipe (19, 20)")
+    print(f"== split (phase 21), beside phases 19 and 20: (a) ring at cp {SPLIT['cp']} x dp "
+          f"{SPLIT['dp']} with ZeRO-1 and (b) Ulysses at cp {SPLIT['cp']}, phase 19's model, "
+          f"data and global batch, held to phase 19's one-rank run; (c) pp 2 x "
+          f"pipe_token_slices {SPLIT['ts']}, {PIPE['remat']}, resuming phase 20's step-2 "
+          "checkpoint beside its one-rank child and held to it")
+    print("\n".join(split_lines))
+    print(f"  the card's used memory over phases 19-21 (every process's, torch.cuda.mem_get_info "
+          f"sampled every 0.25 s): before {used['before'] / 1e9:.2f} GB (this process's own "
+          f"allocated {used['own'] / 1e9:.2f} GB), peak {used['peak'] / 1e9:.2f} GB of "
+          f"{used['total'] / 1e9:.2f} GB")
+    lap("dist, pipe, split (19, 20, 21)")
     print("== modes (phase 13): speculative decoding, whole-prompt prefill, separate "
           "forwards; crash replay, drain, a wedged tick and overload in child benches")
     launches_by_path.update(modes_phase(serve_native, served["tokens"]))

@@ -12,7 +12,11 @@ scales its scores by ``sqrt(base_head_dim) / head_dim``.
 In a training pass (a ``DropoutContext`` given) the attention's and the
 MLP's outputs go through dropout, then through the bottleneck adapters
 (``adapter_config``) when there are any, before each residual, in the
-JAX order. LoRA deltas live in the attention (``nn.attention``).
+JAX order. LoRA deltas live in the attention (``nn.attention``). Under
+context parallelism (``context``) the attention crosses the context group;
+a pipeline's token slice attends over its earlier slices through a
+``nn.attention.TokenSliceCache`` and hands its own K/V back
+(``return_kv``).
 The layer's dropout sites are ``layer_{i}.after_attention`` and
 ``layer_{i}.after_mlp``, ``layer_{i}`` its name in the stack.
 """
@@ -25,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ....nn.attention import ParallelSelfAttention
-from ....nn.base_layer import DropoutContext, dropout
+from ....nn.base_layer import ContextShard, DropoutContext, dropout
 from ....nn.linear import ModelShard
 from ....nn.mlp import ParallelMLP, ParallelSwiGLUMLP
 from ....nn.moe import ParallelMoEMLP
@@ -66,7 +70,8 @@ class Adapter(torch.nn.Module):
 
 class TransformerLayer(torch.nn.Module):
     def __init__(self, arch: TransformerArchitectureConfig, layer_index: int = 0,
-                 device=None, shard: ModelShard = ModelShard()):
+                 device=None, shard: ModelShard = ModelShard(),
+                 context: ContextShard = ContextShard()):
         super().__init__()
         self.layer_index = layer_index
         self.site = f"layer_{layer_index + 1}"  # the layer's name in the stack
@@ -101,6 +106,7 @@ class TransformerLayer(torch.nn.Module):
             lora_config=arch.lora_config,
             site=f"{self.site}.attention",
             shard=shard,
+            context=context,
         )
         self.post_attention_layernorm = get_norm(arch.norm_type, arch.hidden_size, **norm)
         if arch.is_moe:

@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ...nn.base_layer import ContextShard
 from ...nn.linear import Embedding, ModelShard
 from ...nn.lora import ParallelLoRa
 from ...nn.norm import LayerNorm, RMSNorm
@@ -53,15 +54,17 @@ def num_logical_layers(arch: TransformerArchitectureConfig) -> int:
 
 def build_layer(arch: TransformerArchitectureConfig, index: int, device=None,
                 shard: ModelShard = ModelShard(),
-                embedding: Optional[EmbeddingInput] = None) -> torch.nn.Module:
+                embedding: Optional[EmbeddingInput] = None,
+                context: ContextShard = ContextShard()) -> torch.nn.Module:
     """Logical layer ``index`` of the stack: the embedding, a transformer
     layer, the final norm, the LM head (tied to ``embedding``'s table with
-    ``weight_tying``) or the embedding head; split over ``shard``."""
+    ``weight_tying``) or the embedding head; split over ``shard``, its
+    attention across the context group ``context``."""
     n = arch.num_layers
     if index == 0:
         return EmbeddingInput(arch, device, shard)
     if index <= n:
-        return TransformerLayer(arch, index - 1, device, shard)
+        return TransformerLayer(arch, index - 1, device, shard, context)
     if index == n + 1:
         return LayerNormWrapper(arch, device)
     if index == n + 2:
@@ -107,8 +110,9 @@ _ONE_RANK_ONLY = ("is_moe", "image_encoder", "lora_config")
 
 class TransformerModel(torch.nn.Module):
     """The layer stack; with a ``topology`` of several ranks, this rank's
-    shards of it (``nn.linear.ModelShard``) and, over several pipe stages,
-    this stage's layers (``plan``; None: the whole stack)."""
+    shards of it (``nn.linear.ModelShard``), its attention across the
+    context group (``nn.base_layer.ContextShard``) and, over several pipe
+    stages, this stage's layers (``plan``; None: the whole stack)."""
 
     def __init__(self, arch: TransformerArchitectureConfig, device=None, topology=None):
         super().__init__()
@@ -118,16 +122,26 @@ class TransformerModel(torch.nn.Module):
                     raise NotImplementedError(
                         f"{name.removeprefix('is_')} under pipe_parallel_size "
                         f"{topology.pipe_parallel_size} x data_parallel_size "
-                        f"{topology.data_parallel_size} x model_parallel_size "
+                        f"{topology.data_parallel_size} x context_parallel_size "
+                        f"{topology.context_parallel_size} x model_parallel_size "
                         f"{topology.model_parallel_size} is not ported")
+            split = {"context_parallel_size": topology.context_parallel_size,
+                     "pipe_token_slices": topology.pipe_token_slices}
+            for knob, size in split.items():
+                if size > 1 and arch.embedding_head_config is not None:
+                    raise NotImplementedError(
+                        f"an embedding head (it pools the whole sequence) under {knob} {size} "
+                        "is not ported")
         self.architecture = arch
         self.shard = ModelShard.of(topology)
+        self.context = ContextShard.of(topology)
         self.plan: Optional[StagePlan] = None
         if topology is not None and topology.pipe_parallel_size > 1:
             self.plan = stage_plan(topology.config, arch.num_layers, topology.pipe_parallel_rank)
         layers: Dict[str, torch.nn.Module] = {}
         for i in self.layer_indices:
-            layers[f"layer_{i}"] = build_layer(arch, i, device, self.shard, layers.get("layer_0"))
+            layers[f"layer_{i}"] = build_layer(arch, i, device, self.shard, layers.get("layer_0"),
+                                               self.context)
         if self.tied_copy:
             _table_only(layers["layer_0"])
         self.layers = torch.nn.ModuleDict(layers)

@@ -14,6 +14,17 @@ one of three attention paths, and the output projection:
   carries them, with an optional additive score term (the left-pad mask
   of ragged prompts). Under left padding a row's rotary positions lag its
   slots: ``position_ids`` stay the rotary clock, the slots the causal one.
+  The JAX layer's 3-tuple cache also carries pipeline token slices; here
+  they have a cache of their own (below);
+- the token-slice cache of a pipeline stage (``TokenSliceCache``,
+  TeraPipe): the K/V and segment ids of a micro-batch's earlier token
+  slices, tensors that autograd may differentiate. The dense cache is
+  written in place, which autograd cannot take: the next slice's write
+  would change what an earlier slice's graph saved. So the slice's queries
+  attend over the concatenation of the earlier slices' K/V and its own,
+  unfused, each query at or before its own slot and in its own segment;
+  the layer hands the slice's K/V back (``return_kv``) for the slices after
+  it. Under model parallelism the cache holds the rank's own kv heads;
   The trailing local-window heads also keep to ``slot_q - slot_k <=
   window``, the rule of the uncached forward (the JAX package's dense
   cache drops the window, so its cached decode parts from its own
@@ -25,7 +36,17 @@ one of three attention paths, and the output projection:
   ``ops.flash_attention``) with unrepeated KV, and the unfused path
   (``multi_head_attention`` over a ``segment_ids_to_mask`` mask and
   ``MaskedSoftmax``). There is no TPU gate here: on the CPU the flash
-  path runs the kernels' plain versions.
+  path runs the kernels' plain versions. Under context parallelism
+  (``context``, a ``base_layer.ContextShard``) each rank holds a slice of
+  the sequence and the attention crosses the context group: ring attention
+  (``ops.ring_attention``, unfused, as JAX's) or Ulysses attention
+  (``ops.ulysses_attention``, K4/K5 on the whole sequence of a head shard
+  where the flash gate takes it). K/V are repeated only as far as the model
+  group (and for Ulysses the context group) must divide the kv heads, by
+  JAX's rule: ``div / gcd(n_kv, div)`` copies a head, the full GQA repeat
+  where that does not divide it. Score manipulations, local-window heads
+  and probability dropout raise by name there, where the JAX layer
+  asserts.
 
 With a ``lora_config`` each named projection gets a ``ParallelLoRa``
 delta (``{query,key,value,dense}_{name}``): q, k and v add theirs after
@@ -37,7 +58,7 @@ routes away from K4/K5 through ``flash_path_active``, as in the JAX
 layer. A score manipulation (AtMan controls, ``models/transformer/
 attention_control.py``) is log-additive or multiplicative on the unfused
 paths; the paged path refuses it, and local-window heads, by name, as the
-JAX layer does. Context parallelism is not ported.
+JAX layer does.
 
 Over a model group (``shard``, ``nn.linear.ModelShard``) the input enters
 the model region once; q, k and v (or the fused, head-major
@@ -52,8 +73,8 @@ divide it) and keeps its slice; their gradient is summed back over the
 group. The key/query norms then see the local heads only, so their
 parameters enter the model region in the forward: the region's backward
 sums their gradients over the group. Local-window heads, LoRA, score
-manipulations and the cached decode paths raise by name under model
-parallelism.
+manipulations and the cached decode paths (but the token-slice cache)
+raise by name under model parallelism.
 
 The pool and the dense cache are updated IN PLACE: the writers put the
 new tokens' K/V into the tensors the caller holds, so no updated caches
@@ -70,7 +91,7 @@ import torch
 
 from ..ops.flash_attention import HEAD_DIMS, flash_attention
 from ..ops.paged_attention import paged_attention
-from .base_layer import DropoutContext, dropout
+from .base_layer import ContextShard, DropoutContext, dropout
 from ..parallel.collectives import copy_to_model_region, gather_shared_from_model_region
 from .linear import ColumnParallelLinear, ModelShard, RowParallelLinear
 from .lora import LoRAModuleType, LoRaConfig, ParallelLoRa
@@ -170,6 +191,19 @@ def dense_kv_write(cache: Tuple[torch.Tensor, ...], k: torch.Tensor, v: torch.Te
         cache[2][:, offset:offset + s] = 0 if segment_ids is None else segment_ids
 
 
+@dataclasses.dataclass
+class TokenSliceCache:
+    """One layer's K/V of a micro-batch's earlier token slices at a pipe
+    stage: ``keys`` and ``values`` ``(b, s_j, n_kv_local, d)`` each, after
+    rotary, and the slices' ``segments`` ``(b, s_j)``, in slice order. The
+    slice reads them as they are (no copy is written): autograd carries its
+    gradient into them."""
+
+    keys: Tuple[torch.Tensor, ...] = ()
+    values: Tuple[torch.Tensor, ...] = ()
+    segments: Tuple[torch.Tensor, ...] = ()
+
+
 def flash_path_active(*, kernel_is_flash: bool, causal: bool,
                       dropout_attention_probs: float, deterministic: bool,
                       context_parallel_size: int, seq_len: int, head_dim: int,
@@ -246,7 +280,7 @@ class ParallelSelfAttention(torch.nn.Module):
                  dtype: torch.dtype = torch.float32, device=None,
                  bitfit_bias_name: Optional[str] = None,
                  lora_config: Optional[LoRaConfig] = None, site: str = "attention",
-                 shard: ModelShard = ModelShard()):
+                 shard: ModelShard = ModelShard(), context: ContextShard = ContextShard()):
         super().__init__()
         if hidden_size % num_attention_heads:
             raise ValueError("hidden_size must divide over num_attention_heads")
@@ -271,16 +305,29 @@ class ParallelSelfAttention(torch.nn.Module):
                 if value:
                     raise NotImplementedError(f"{name} under model_parallel_size "
                                               f"{shard.size} is not ported")
+        self.context = context
+        if context.size > 1:
+            for name, value in (("num_local_attention_heads (local-window heads)",
+                                 num_local_attention_heads),
+                                ("dropout_attention_probs (attention-probability dropout)",
+                                 dropout_attention_probs)):
+                if value:
+                    raise NotImplementedError(f"{name} under context_parallel_size "
+                                              f"{context.size} is unsupported, as in JAX")
         # this rank's heads; kv_shared: the repeat of the gathered kv heads
-        # when they do not split over the group
+        # when they do not split over the group; context_kv_rep: the repeat
+        # of the local kv heads that Ulysses's split over the context group
+        # needs (JAX's rule over div = mp x cp; mp alone for the ring)
         self.local_heads = shard.split(num_attention_heads, "num_attention_heads")
-        self.kv_shared: Optional[int] = None
-        if self.num_kv_heads % shard.size:
-            rep = shard.size // math.gcd(self.num_kv_heads, shard.size)
-            self.kv_shared = rep if self.num_repeat_kv % rep == 0 else self.num_repeat_kv
-            self.local_kv_heads = self.num_kv_heads * self.kv_shared // shard.size
-        else:
-            self.local_kv_heads = self.num_kv_heads // shard.size
+        div = shard.size * (context.size if context.variant == "ulysses" else 1)
+        rep = 1
+        if self.num_kv_heads % div:
+            rep = div // math.gcd(self.num_kv_heads, div)
+            if self.num_repeat_kv % rep:
+                rep = self.num_repeat_kv  # the full repeat
+        self.kv_shared: Optional[int] = rep if self.num_kv_heads % shard.size else None
+        self.context_kv_rep = 1 if self.kv_shared is not None else rep
+        self.local_kv_heads = self.num_kv_heads * (self.kv_shared or 1) // shard.size
         common = dict(bias=bias, dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name,
                       shard=shard)
         if qkv_in_one:
@@ -382,10 +429,16 @@ class ParallelSelfAttention(torch.nn.Module):
         log-additive or, with ``scores_log_additive=False``, multiplicative.
         Returns the output, or ``(output, (k, v))`` with ``return_kv`` (the
         new tokens' K/V after rotary)."""
-        if self.shard.size > 1 and (kv_cache is not None or scores_manipulation is not None):
+        sliced = isinstance(kv_cache, TokenSliceCache)
+        if self.shard.size > 1 and ((kv_cache is not None and not sliced)
+                                    or scores_manipulation is not None):
             raise NotImplementedError(
                 f"{'a KV cache' if kv_cache is not None else 'a score manipulation (AtMan)'} "
                 f"under model_parallel_size {self.shard.size} is not ported")
+        if self.context.size > 1 and (kv_cache is not None or scores_manipulation is not None):
+            raise NotImplementedError(
+                f"{'a KV cache' if kv_cache is not None else 'a score manipulation (AtMan)'} "
+                f"under context_parallel_size {self.context.size} is unsupported, as in JAX")
         q, k, v = self._qkv(x, ctx)
         if self.key_query_norm:
             q, k = self._norm(self.norm_query, q), self._norm(self.norm_key, k)
@@ -401,6 +454,9 @@ class ParallelSelfAttention(torch.nn.Module):
                 raise NotImplementedError(
                     "local-window heads are unsupported on the paged decode path")
             out = self._paged_attention(q, k, v, kv_cache)
+        elif sliced:
+            out = self._slice_cache_attention(q, k, v, kv_cache, segment_ids,
+                                              scores_manipulation, ctx)
         elif kv_cache is not None:
             out = self._dense_cache_attention(q, k, v, kv_cache, cache_offset, segment_ids,
                                               scores_manipulation, scores_log_additive)
@@ -420,6 +476,8 @@ class ParallelSelfAttention(torch.nn.Module):
         if segment_ids is None:
             segment_ids = torch.zeros(b, s, dtype=torch.int32, device=q.device)
         n_local = self.num_local_attention_heads
+        if self.context.size > 1:
+            return self._context_attention(q, k, v, segment_ids)
         if flash_path_active(
             kernel_is_flash=self.use_flash, causal=self.causal,
             dropout_attention_probs=self.dropout_attention_probs,
@@ -461,6 +519,51 @@ class ParallelSelfAttention(torch.nn.Module):
                                      self.masked_softmax, scores_manipulation,
                                      probs_dropout(probs_site), log_additive)
         return torch.cat([out_g, out_l], dim=2)
+
+    def _context_attention(self, q, k, v, segment_ids: torch.Tensor) -> torch.Tensor:
+        """This rank's sequence slice across the context group: ring or
+        Ulysses attention (the CP dispatch of the JAX layer), K/V repeated
+        as far as the split over the groups needs."""
+        from ..ops.ring_attention import ring_attention
+        from ..ops.ulysses_attention import ulysses_attention
+
+        k, v = repeat_kv(k, self.context_kv_rep), repeat_kv(v, self.context_kv_rep)
+        attend = ulysses_attention if self.context.variant == "ulysses" else ring_attention
+        return attend(q, k, v, segment_ids, self.context, causal=self.causal,
+                      sm_scale=self.scaling_factor)
+
+    def _slice_cache_attention(self, q, k, v, cache: TokenSliceCache,
+                               segment_ids: Optional[torch.Tensor],
+                               scores_manipulation: Optional[torch.Tensor],
+                               ctx: Optional[DropoutContext]) -> torch.Tensor:
+        """A token slice over the earlier slices' K/V and its own: query
+        ``i`` of the slice (slot ``offset + i``) attends to slots at or
+        before its own within its segment, as the whole sequence's causal
+        mask has it. Probability dropout draws the whole sequence's mask and
+        keeps the slice's rows and its prefix of keys."""
+        if scores_manipulation is not None or self.num_local_attention_heads:
+            raise NotImplementedError(
+                "a score manipulation or local-window heads under pipe_token_slices is "
+                "unsupported (training with token slices attends globally)")
+        b, s = q.shape[:2]
+        seg_q = (torch.zeros(b, s, dtype=torch.int32, device=q.device)
+                 if segment_ids is None else segment_ids)
+        keys = torch.cat([*cache.keys, k], dim=1)
+        values = torch.cat([*cache.values, v], dim=1)
+        segs = torch.cat([*cache.segments, seg_q], dim=1)
+        end = keys.shape[1]
+        slots_q = (end - s) + torch.arange(s, device=q.device)
+        allowed = (torch.arange(end, device=q.device)[None, :] <= slots_q[:, None])[None] & (
+            segs[:, None, :] == seg_q[:, :, None])
+        dropout_fn = None
+        if ctx is not None and self.dropout_attention_probs > 0.0:
+            def dropout_fn(p):
+                return dropout(p, self.dropout_attention_probs, ctx,
+                               f"{self.site}.attention_probs",
+                               head_shard=(1, self.shard.rank, self.shard.size), seq_dim=2,
+                               key_dim=3)
+        return multi_head_attention(q, keys, values, ~allowed[:, None], self.scaling_factor,
+                                    self.masked_softmax, dropout_fn=dropout_fn)
 
     def _dense_cache_attention(self, q, k, v, cache, offset: int,
                                segment_ids: Optional[torch.Tensor],

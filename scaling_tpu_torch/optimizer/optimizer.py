@@ -27,7 +27,8 @@ one: each rank adds the squared norms of the pieces it owns (a leaf split
 over the model group on every model rank, a whole one on model rank 0
 only; a ZeRO slice on every data rank, a whole leaf on data rank 0 only;
 each pipe stage its own layers, and a tied table on the first stage only,
-not the last stage's copy) and the world sums them, so no leaf is counted
+not the last stage's copy; context rank 0 only, the others hold the same
+replicas) and the world sums them, so no leaf is counted
 twice and every rank clips, and skips on overflow, alike. With ``zero: true``
 (stage 1, ``zero_stage`` 1) the f32 masters and both moments are kept for
 this rank's data slice of each leaf (over its pipe stage's data group) (``LeafLayout.data_dim``; leaves no
@@ -167,7 +168,7 @@ class Optimizer:
         if topo is None:
             return True
         layout = self.layouts[name]
-        if not layout.stored:
+        if not layout.stored or topo.context_parallel_rank != 0:
             return False
         if layout.model_dim is None and topo.model_parallel_rank != 0:
             return False

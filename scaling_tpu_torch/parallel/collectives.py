@@ -28,7 +28,15 @@ collectives, so every byte they move is counted here (``STATS``):
 - ``p2p_send`` / ``p2p_recv``: the stage transport, an activation to the
   next stage or a gradient to the previous one (counted as ``p2p_send_*``
   and ``p2p_recv_*``, and the receiver's host wait as
-  ``p2p_recv_wait_ns``).
+  ``p2p_recv_wait_ns``);
+- ``ring_send`` / ``ring_recv``: a hop of ring attention's K/V blocks (and
+  of their gradients' accumulators) to the next context rank, the same
+  two-rank broadcast as the stage transport, both ends asynchronous
+  (counted as ``ring_send_*`` and ``ring_recv_*``);
+- ``all_to_all``: Ulysses's exchange of a sequence shard for a head shard
+  over the context group, an autograd Function whose backward is the
+  inverse exchange (counted as ``all_to_all_*``, each call the whole tensor
+  it is given).
 
 A group of one rank (or none) makes each of them the identity. Under the
 gloo backend (ranks that share a card, ``topology.choose_backend``) the
@@ -147,6 +155,51 @@ def p2p_recv(t: torch.Tensor, src: int, group) -> torch.Tensor:
     STATS["p2p_recv_wait_ns"] = STATS.get("p2p_recv_wait_ns", 0) + (
         time.perf_counter_ns() - start)
     return t
+
+
+def ring_send(t: torch.Tensor, group):
+    """Start sending ``t`` over a ring hop's two-rank ``group`` (this rank
+    its source); returns the handle. As ``p2p_send``: ``t`` must be a tensor
+    of its own, which gloo may write back into when the transfer ends."""
+    _count("ring_send", t.numel() * t.element_size())
+    return dist.broadcast(t, src=dist.get_rank(), group=group, async_op=True)
+
+
+def ring_recv(t: torch.Tensor, src: int, group):
+    """Start receiving into ``t`` what global rank ``src`` sends over a ring
+    hop's ``group``; returns the handle to wait on before ``t`` is read."""
+    _count("ring_recv", t.numel() * t.element_size())
+    return dist.broadcast(t, src=src, group=group, async_op=True)
+
+
+def _all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    n = _size(group)
+    send = torch.stack(x.chunk(n, dim=split_dim))  # piece j goes to rank j
+    out = torch.empty_like(send)
+    _count("all_to_all", send.numel() * send.element_size())
+    dist.all_to_all_single(out, send, group=group)
+    return torch.cat(out.unbind(0), dim=concat_dim)  # piece i came from rank i
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.split_dim, ctx.concat_dim = group, split_dim, concat_dim
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group, ctx.concat_dim, ctx.split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """JAX's tiled ``all_to_all``: ``x`` cut into ``n`` pieces along
+    ``split_dim``, piece ``j`` sent to group rank ``j``, the pieces received
+    concatenated along ``concat_dim`` in group-rank order; the gradient
+    goes back by the inverse exchange."""
+    if _size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim % x.ndim, concat_dim % x.ndim)
 
 
 def barrier(group=None) -> None:

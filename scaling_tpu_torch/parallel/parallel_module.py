@@ -44,6 +44,18 @@ each model rank takes from its own heads, are summed over the model
 group. Dropout masks are the one-rank masks' rows (``DropoutContext``'s
 ``batch_shard``).
 
+Under context parallelism (``context_parallel_size`` cp) the context ranks
+of a data rank read the same micro-batches and each keeps its contiguous
+``1/cp`` of the sequence (``sequence_slice``, JAX's ``P(data, context)``),
+the positions and segments made explicit first, so that every slice keeps
+its absolute positions (a slice that took the default ``0 .. s-1`` would
+turn its rotary angles wrong). The loss divides by the weights summed over
+the data x context group (``grad_group``), and the gradients and the
+reported loss are summed over it; ZeRO's slices stay cut over the data
+group. Dropout masks are the one-rank masks' sequence slices
+(``DropoutContext``'s ``seq_shard``). ``forward`` gathers the logits of the
+slices, so that it returns the one-rank output at every layout.
+
 Over several pipe stages (``model.plan``) the step is
 ``pipeline_engine.PipelineEngine``'s, which runs this rank's instruction
 stream of the schedule; ``forward`` runs one micro-batch through the
@@ -73,6 +85,10 @@ from ..nn.base_layer import DropoutContext, MaskSource
 from ..optimizer import Optimizer, OptimizerStepOutput
 from ..topology import ActivationCheckpointingType, TopologyConfig
 from .collectives import all_gather_cat, all_reduce_, broadcast_, flat_all_reduce_
+
+# the batch's leaves with a sequence dim (dim 1), which sequence splitting cuts
+SEQUENCE_KEYS = ("token_ids", "target_token_ids", "loss_weights", "position_ids",
+                 "segment_ids")
 
 
 def jax_param_key(model: torch.nn.Module, name: str) -> str:
@@ -222,6 +238,25 @@ def positions_and_segments(batch: Dict[str, torch.Tensor]
     return pos, seg
 
 
+def sequence_slice(batch: Dict[str, torch.Tensor], rank: int, size: int,
+                   what: str = "context_parallel_size") -> Dict[str, torch.Tensor]:
+    """Slice ``rank`` of ``size`` contiguous slices of the batch's sequence
+    (views), its positions and segments made explicit first: each slice
+    keeps the absolute positions of its tokens. ``what`` names the knob in
+    the error when ``size`` does not divide the sequence."""
+    if size == 1:
+        return batch
+    for key in batch:
+        if key not in SEQUENCE_KEYS:
+            raise NotImplementedError(f"{key} under {what} {size} is not ported")
+    s = batch["token_ids"].shape[1]
+    if s % size:
+        raise ValueError(f"{what} ({size}) must divide the sequence length ({s})")
+    pos, seg = positions_and_segments(batch)
+    full = dict(batch, position_ids=pos, segment_ids=seg)
+    return {k: slice_of(v, 1, rank, size) for k, v in full.items()}
+
+
 def slice_of(t: torch.Tensor, dim: Optional[int], rank: int, size: int) -> torch.Tensor:
     """Rank ``rank``'s contiguous ``1/size`` of ``t`` along ``dim`` (a view)."""
     if dim is None or size == 1:
@@ -317,6 +352,32 @@ class ParallelModule:
     @property
     def model_group(self):
         return None if self.layout is None else self.layout.model_group
+
+    @property
+    def grad_group(self):
+        """The ranks of one model slice (data x context): the loss's and the
+        gradients' sum."""
+        return None if self.layout is None else self.layout.grad_group
+
+    @property
+    def context_size(self) -> int:
+        return 1 if self.layout is None else self.layout.context_parallel_size
+
+    def context_slice(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This context rank's slice of ``batch`` (the batch itself at cp 1)."""
+        if self.context_size == 1:
+            return batch
+        return sequence_slice(batch, self.layout.context_parallel_rank, self.context_size)
+
+    def dropout_context(self, key: Tuple, mask_source: Optional[MaskSource] = None
+                        ) -> DropoutContext:
+        """The step's dropout context at this rank's data and context shard."""
+        lay = self.layout
+        if lay is None:
+            return DropoutContext(key, mask_source)
+        return DropoutContext(key, mask_source,
+                              (lay.data_parallel_rank, lay.data_parallel_size),
+                              (lay.context_parallel_rank, lay.context_parallel_size))
 
     def leaf_layouts(self, zero: bool = False) -> Dict[str, LeafLayout]:
         """Each parameter's ``LeafLayout`` by the port's name, from JAX's
@@ -417,26 +478,27 @@ class ParallelModule:
 
     def loss(self, output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
              loss_function: Callable, denominator: Optional[torch.Tensor] = None):
-        """``loss_function`` on this rank's rows; over a data group, with the
-        global batch's summed loss weights as the denominator (summed here
-        unless given), so that the data group's sum of the results is the
-        global batch's loss and metrics."""
-        if self.data_group is None:
+        """``loss_function`` on this rank's rows (and sequence slice); over
+        a data x context group, with the global batch's summed loss weights as
+        the denominator (summed here unless given), so that the group's sum of
+        the results is the global batch's loss and metrics; a ``denominator``
+        given is used on one rank too (a pipeline's token slice)."""
+        if self.grad_group is None and denominator is None:
             return loss_function(output, batch)
         if denominator is None:
             denominator = self.weight_sums([batch])[0]
         return loss_function(output, batch, denominator=denominator)
 
     def weight_sums(self, micro_batches) -> torch.Tensor:
-        """Each micro-batch's loss weights summed over the data group, one
-        all-reduce for all of them."""
+        """Each micro-batch's loss weights summed over the data x context
+        group, one all-reduce for all of them."""
         sums = []
         for mb in micro_batches:
             w = mb.get("loss_weights")
             sums.append(torch.tensor(float(mb["target_token_ids"].numel()),
                                      device=mb["target_token_ids"].device)
                         if w is None else w.float().sum())
-        return all_reduce_(torch.stack(sums), self.data_group)
+        return all_reduce_(torch.stack(sums), self.grad_group)
 
     def ckpt_keys(self) -> Dict[str, str]:
         """The JAX key of each parameter, by the port's name, in the
@@ -510,9 +572,20 @@ class ParallelModule:
         head and ``"aux_loss"`` when it is a MoE model. ``ctx``: the dropout
         context of a training pass, None for a deterministic one. Over
         several pipe stages every rank of the pipe calls it: the last stage
-        returns the output, the others None."""
+        returns the output, the others None. Under context parallelism
+        every rank of the context group calls it with the whole batch and
+        gets the whole output (each rank's slice, gathered)."""
         if self.plan is not None:
             return self.engine.forward(batch, ctx)
+        if self.context_size == 1:
+            return self.local_forward(batch, ctx)
+        out = self.local_forward(self.context_slice(batch), ctx)
+        return {k: all_gather_cat(v, self.layout.context_group, 1) if v.ndim >= 2 else v
+                for k, v in out.items()}
+
+    def local_forward(self, batch: Dict[str, torch.Tensor],
+                      ctx: Optional[DropoutContext] = None) -> Dict[str, torch.Tensor]:
+        """``forward`` of one stage over this rank's slice of the batch."""
         h = self.embed(batch, ctx)
         h, aux = self.run_layers(self.model.transformer_layers, h, batch, ctx)
         return self.head(h, batch, aux)
@@ -528,14 +601,18 @@ class ParallelModule:
         """The loss and metrics of a deterministic forward of ``batch``, the
         global batch's on every rank (summed over the data group, from the
         last stage over the pipe group)."""
-        out = self.forward(batch)
+        if self.plan is None:
+            batch = self.context_slice(batch)
+            out = self.local_forward(batch)
+        else:
+            out = self.forward(batch)
         loss = metrics = None
         if out is not None:
             loss, metrics = self.loss(out, batch, loss_function)
-            if self.data_group is not None:
+            if self.grad_group is not None:
                 names = sorted(metrics)
                 summed = all_reduce_(torch.stack([loss.float()] + [
-                    metrics[k].float() for k in names]), self.data_group)
+                    metrics[k].float() for k in names]), self.grad_group)
                 loss, metrics = summed[0], dict(zip(names, summed[1:]))
         if self.plan is not None:
             loss, metrics = self.engine.share_from_last_stage(loss, metrics)
@@ -558,9 +635,6 @@ class ParallelModule:
         optimizer.freeze_frozen_params()
         params = [optimizer.params[n] for n in optimizer.optimized]
         buffers = [torch.empty_like(p, dtype=torch.float32) for p in params]
-        lay = self.layout
-        batch_shard = (0, 1) if lay is None else (lay.data_parallel_rank,
-                                                 lay.data_parallel_size)
 
         def step(micro_batches: Dict[str, torch.Tensor], dropout_key: Optional[Tuple] = None):
             if dropout_key is None and has_dropout:
@@ -568,15 +642,15 @@ class ParallelModule:
             self.model.train()
             loss_sum = torch.zeros((), dtype=torch.float32, device=buffers[0].device)
             metrics_sum: Dict[str, torch.Tensor] = {}
-            mbs = [{k: v[i] for k, v in micro_batches.items()} for i in range(gas)]
-            dens = None if self.data_group is None else self.weight_sums(mbs)
+            mbs = [self.context_slice({k: v[i] for k, v in micro_batches.items()})
+                   for i in range(gas)]
+            dens = None if self.grad_group is None else self.weight_sums(mbs)
             for i, mb in enumerate(mbs):
                 ctx = (None if dropout_key is None
-                       else DropoutContext(dropout_key, mask_source,
-                                           batch_shard).for_micro_batch(i))
+                       else self.dropout_context(dropout_key, mask_source).for_micro_batch(i))
                 for p in params:
                     p.grad = None
-                loss, metrics = self.loss(self.forward(mb, ctx), mb, loss_function,
+                loss, metrics = self.loss(self.local_forward(mb, ctx), mb, loss_function,
                                           None if dens is None else dens[i])
                 scaled = optimizer.scale_loss(loss.float() / gas)
                 if scaled.requires_grad:  # else no trained parameter reaches the loss
@@ -591,12 +665,12 @@ class ParallelModule:
                     metrics_sum[k] = metrics_sum.get(k, 0.0) + v.detach().float()
             for p in params:
                 p.grad = None
-            if self.data_group is not None:
-                flat_all_reduce_(buffers, self.data_group)
+            if self.grad_group is not None:
+                flat_all_reduce_(buffers, self.grad_group)
                 # the reported loss and metrics: the global batch's
                 names = sorted(metrics_sum)
                 summed = all_reduce_(torch.stack([loss_sum] + [metrics_sum[k] for k in names]),
-                                     self.data_group)
+                                     self.grad_group)
                 loss_sum, metrics_sum = summed[0], dict(zip(names, summed[1:]))
             out = optimizer.step(dict(zip(optimizer.optimized, buffers)))
             return loss_sum / gas, {k: v / gas for k, v in metrics_sum.items()}, out

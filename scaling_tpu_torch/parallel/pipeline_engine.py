@@ -39,14 +39,38 @@ stages, the interleaved stream with them) as it stands:
 
 Dropout masks are a function of the step's key, the micro-batch and each
 site's static id, so they are the one-stage step's at every layout.
+
+With ``pipe_token_slices`` S (TeraPipe; ``PipelinedBody._token_sliced`` of
+the JAX package) the work items are the (micro-batch, slice) pairs: each
+micro-batch's sequence splits into S contiguous slices (``sequence_slice``,
+positions and segments made explicit first, so each slice keeps its
+absolute positions), which cross the stages as the stream's items, each
+transfer ``1/S`` of a micro-batch's. A slice attends over the earlier
+slices of its micro-batch through each layer's ``TokenSliceCache``: the
+K/V that those slices' forwards handed back, kept as leaves that require a
+gradient. The backwards run in the stream's reverse order, so slice k's
+backward comes before those of the slices it read: it adds their K/V's
+gradients into the leaves' ``.grad``, and slice j's backward then
+back-propagates its output and its own K/V together, with the received
+gradient and the leaves' accumulated ones. Under ``every_pipe_stage`` the
+remat region gives back the slice's K/V as outputs beside its activation,
+and takes the earlier slices' as inputs; ``every_layer`` does so layer by
+layer. The loss is the one-stage step's: each slice's token losses over
+the micro-batch's summed weights. Dropout masks are the one-stage step's,
+cut to the slice (``DropoutContext.for_seq_shard``). Parameter gradients
+add up over a micro-batch's slices, then go into the f32 buffers in
+micro-batch order. A deterministic ``forward`` runs the whole sequence,
+which gives the sliced step's function without the cache.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..nn.attention import TokenSliceCache
 from ..nn.base_layer import DropoutContext, MaskSource
 from ..topology import ActivationCheckpointingType
 from .collectives import (
@@ -57,7 +81,7 @@ from .collectives import (
     p2p_recv,
     p2p_send,
 )
-from .parallel_module import remat
+from .parallel_module import _SAVE_DOTS_CONTEXT, checkpoint, remat, sequence_slice
 from .pipeline_schedule import executor_schedule, work_items
 
 
@@ -76,8 +100,9 @@ class PipelineEngine:
         arch = model.architecture
         self.hidden, self.dtype = arch.hidden_size, arch.dtype
         self.device = next(model.parameters()).device
-        self.stage_remat = (module.topology.activation_checkpointing_type
-                            == ActivationCheckpointingType.EVERY_PIPE_STAGE)
+        self.remat_mode = module.topology.activation_checkpointing_type
+        self.stage_remat = self.remat_mode == ActivationCheckpointingType.EVERY_PIPE_STAGE
+        self.slices = module.topology.pipe_token_slices
         self._metric_names: Optional[List[str]] = None
 
     # ------------------------------------------------------------ pieces
@@ -99,6 +124,51 @@ class PipelineEngine:
         if self.stage_remat and torch.is_grad_enabled():
             return remat(run, (h,), [p for layer in self.chunks[rnd] for p in layer.parameters()])
         return run(h)
+
+    def run_slice(self, h: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  ctx: Optional[DropoutContext], prior: List[Tuple]) -> Tuple[torch.Tensor, list]:
+        """A token slice through this stage's layers: ``prior[j]`` is layer
+        ``j``'s (keys, values, segments) of the micro-batch's earlier slices.
+        Returns the output and each layer's (k, v) of this slice, under the
+        config's remat mode (the stage, or each layer, one region whose
+        outputs are the activation and the K/V)."""
+        pos, seg = batch["position_ids"], batch["segment_ids"]
+        layers = self.chunks[0]
+
+        def one(layer, segments, x, *kv):
+            n = len(kv) // 2
+            x, (k, v) = layer(x, pos, TokenSliceCache(kv[:n], kv[n:], segments), seg, None,
+                              None, True, ctx)
+            return x, k, v
+
+        def stage(x, *flat):
+            out, at = [], 0
+            for layer, (keys, _, segments) in zip(layers, prior):
+                n = 2 * len(keys)
+                x, k, v = one(layer, segments, x, *flat[at:at + n])
+                out += [k, v]
+                at += n
+            return (x, *out)
+
+        flat = [t for keys, values, _ in prior for t in (*keys, *values)]
+        training = torch.is_grad_enabled()
+        if self.stage_remat and training:
+            out = remat(stage, (h, *flat), [p for layer in layers for p in layer.parameters()])
+            return out[0], [(out[1 + 2 * j], out[2 + 2 * j]) for j in range(len(layers))]
+        kvs = []
+        for layer, (keys, values, segments) in zip(layers, prior):
+            fn = functools.partial(one, layer, segments)
+            args = (h, *keys, *values)
+            if training and self.remat_mode == ActivationCheckpointingType.EVERY_LAYER:
+                h, k, v = remat(fn, args, layer.parameters())
+            elif (training and self.remat_mode
+                  == ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS):
+                h, k, v = checkpoint(fn, *args, use_reentrant=False,
+                                     context_fn=_SAVE_DOTS_CONTEXT)
+            else:
+                h, k, v = fn(*args)
+            kvs.append((k, v))
+        return h, kvs
 
     def _peer(self, ins, default: int) -> int:
         return default if ins.peer is None else ins.peer
@@ -131,6 +201,27 @@ class PipelineEngine:
         broadcast_(t, last, lay.pipe_group)
         return t[0], dict(zip(names, t[1:]))
 
+    def optimizer_step(self, optimizer, names: List[str], buffers: List[torch.Tensor],
+                       sends: list, loss_sum: torch.Tensor, metrics_sum: Dict[str, torch.Tensor]):
+        """The stream's last instruction: the sends waited for, the data
+        group's reduction, the loss and metrics summed over the data group and
+        handed from the last stage to every stage, the optimizer's step.
+        Returns (loss sum, metric sums, the optimizer's output)."""
+        module = self.module
+        for work, _ in sends:
+            work.wait()
+        sends.clear()
+        if module.data_group is not None:
+            flat_all_reduce_(buffers, module.data_group)
+        loss_out = metrics_out = None
+        if self.plan.last:
+            keys = sorted(metrics_sum)
+            summed = all_reduce_(torch.stack([loss_sum] + [metrics_sum[k] for k in keys]),
+                                 module.data_group)
+            loss_out, metrics_out = summed[0], dict(zip(keys, summed[1:]))
+        loss_out, metrics_out = self.share_from_last_stage(loss_out, metrics_out)
+        return loss_out, metrics_out, optimizer.step(dict(zip(names, buffers)))
+
     # ----------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor],
@@ -157,6 +248,8 @@ class PipelineEngine:
     # -------------------------------------------------------- train step
     def build_train_step(self, optimizer, loss_function: Callable,
                          mask_source: Optional[MaskSource] = None) -> Callable:
+        if self.slices > 1:
+            return self.build_sliced_step(optimizer, loss_function, mask_source)
         module, lay, plan = self.module, self.lay, self.plan
         gas = module.topology.gradient_accumulation_steps
         has_dropout = module.model.architecture.has_dropout
@@ -250,20 +343,133 @@ class PipelineEngine:
                     if tied:
                         all_reduce_(buffers[tied[0]], lay.tied_group)
                 elif kind == "optimizer_step":
-                    for work, _ in sends:
-                        work.wait()
-                    sends.clear()
-                    if module.data_group is not None:
-                        flat_all_reduce_(buffers, module.data_group)
-                    loss_out = metrics_out = None
-                    if plan.last:
-                        keys = sorted(metrics_sum)
-                        summed = all_reduce_(torch.stack(
-                            [loss_sum] + [metrics_sum[k] for k in keys]), module.data_group)
-                        loss_out, metrics_out = summed[0], dict(zip(keys, summed[1:]))
-                    loss_out, metrics_out = self.share_from_last_stage(loss_out, metrics_out)
-                    out = optimizer.step(dict(zip(names, buffers)))
-                    loss_sum, metrics_sum = loss_out, metrics_out
+                    loss_sum, metrics_sum, out = self.optimizer_step(
+                        optimizer, names, buffers, sends, loss_sum, metrics_sum)
+            return loss_sum / gas, {k: v / gas for k, v in metrics_sum.items()}, out
+
+        return step
+
+    def build_sliced_step(self, optimizer, loss_function: Callable,
+                          mask_source: Optional[MaskSource] = None) -> Callable:
+        """The step under ``pipe_token_slices``: the token-slice stream's
+        instructions over (micro-batch, slice) work items (see the module
+        docstring)."""
+        module, lay, plan, S = self.module, self.lay, self.plan, self.slices
+        gas = module.topology.gradient_accumulation_steps
+        has_dropout = module.model.architecture.has_dropout
+        optimizer.freeze_frozen_params()
+        names = list(optimizer.optimized)
+        params = [optimizer.params[n] for n in names]
+        buffers = [torch.empty_like(p, dtype=torch.float32) for p in params]
+        tied = ([i for i, n in enumerate(names) if n == "layers.layer_0.embedding.weight"]
+                if module.model.architecture.weight_tying and (plan.first or plan.last) else [])
+        instructions = executor_schedule(self.pp, self.stage, gas, 1, S).instructions()
+        forwards = work_items(gas, self.pp, 1, S)
+        backwards = list(reversed(forwards))
+        n_layers = len(self.chunks[0])
+
+        def step(micro_batches: Dict[str, torch.Tensor], dropout_key: Optional[Tuple] = None):
+            if dropout_key is None and has_dropout:
+                raise ValueError("the model has dropout: the step needs its dropout key")
+            module.model.train()
+            mbs = [{k: v[i] for k, v in micro_batches.items()} for i in range(gas)]
+            parts = [[sequence_slice(mb, k, S, "pipe_token_slices") for k in range(S)]
+                     for mb in mbs]
+            shape = tuple(parts[0][0]["token_ids"].shape) + (self.hidden,)
+            dens = module.weight_sums(mbs) if plan.last else None
+            for b in buffers:
+                b.zero_()
+            items: Dict[Tuple[int, int], Dict[str, Any]] = {}
+            # micro-batch -> each layer's (keys, values, segments) of its slices so far
+            caches: Dict[int, List[Tuple[list, list, list]]] = {}
+            pending: Dict[int, List[torch.Tensor]] = {}
+            next_m = 0
+            sends: list = []
+            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+            metrics_sum: Dict[str, torch.Tensor] = {}
+            fi = bi = 0
+            out = None
+            for ins in instructions:
+                kind = ins.name
+                if kind == "recv_activation":
+                    x = self._recv(self.stage - 1, shape)
+                    items[forwards[fi]] = {"input": x.requires_grad_()}
+                elif kind == "forward_pass":
+                    m, k = forwards[fi]
+                    fi += 1
+                    item = items.setdefault((m, k), {})
+                    batch = parts[m][k]
+                    ctx = (None if dropout_key is None else module.dropout_context(
+                        dropout_key, mask_source).for_micro_batch(m).for_seq_shard(k, S))
+                    h = item["input"] if "input" in item else module.embed(batch, ctx)
+                    prior = caches.setdefault(m, [([], [], []) for _ in range(n_layers)])
+                    item["output"], kvs = self.run_slice(
+                        h, batch, ctx, [(tuple(a), tuple(b), tuple(c)) for a, b, c in prior])
+                    item["kv"] = kvs if k < S - 1 else []
+                    if k < S - 1:  # later slices read them as leaves
+                        leaves = []
+                        for (keys, values, segments), (kk, vv) in zip(prior, kvs):
+                            lk, lv = kk.detach().requires_grad_(), vv.detach().requires_grad_()
+                            keys.append(lk)
+                            values.append(lv)
+                            segments.append(batch["segment_ids"])
+                            leaves += [lk, lv]
+                        item["leaves"] = leaves
+                elif kind == "send_activation":
+                    self._send(items[forwards[fi - 1]]["output"], self.stage + 1, sends)
+                elif kind == "loss":
+                    m, k = forwards[fi - 1]
+                    item = items[(m, k)]
+                    batch = parts[m][k]
+                    loss, metrics = module.loss(module.head(item.pop("output"), batch), batch,
+                                                loss_function, dens[m])
+                    item["loss"] = optimizer.scale_loss(loss.float() / gas)
+                    loss_sum += loss.detach().float()
+                    for key, v in metrics.items():
+                        metrics_sum[key] = metrics_sum.get(key, 0.0) + v.detach().float()
+                elif kind == "recv_grad":
+                    items[backwards[bi]]["grad"] = self._recv(self.stage + 1, shape)
+                elif kind == "backward_pass":
+                    m, k = backwards[bi]
+                    bi += 1
+                    item = items[(m, k)]
+                    if k == S - 1:  # the micro-batch's first backward
+                        for p in params:
+                            p.grad = None
+                    if "loss" in item:
+                        roots, grads = [item.pop("loss")], [None]
+                    else:
+                        roots, grads = [item.pop("output")], [item.pop("grad")]
+                    for (kk, vv), i in zip(item.pop("kv"), range(0, 2 * n_layers, 2)):
+                        lk, lv = item["leaves"][i], item["leaves"][i + 1]
+                        roots += [kk, vv]
+                        grads += [torch.zeros_like(lk) if lk.grad is None else lk.grad,
+                                  torch.zeros_like(lv) if lv.grad is None else lv.grad]
+                    pairs = [(r, g) for r, g in zip(roots, grads) if r.requires_grad]
+                    if pairs:  # else nothing trained reaches this item
+                        torch.autograd.backward(*zip(*pairs))
+                    item.pop("leaves", None)
+                    if k == 0:  # the micro-batch's last backward
+                        del caches[m]
+                        pending[m] = [torch.zeros_like(p) if p.grad is None else p.grad
+                                      for p in params]
+                        for p in params:
+                            p.grad = None
+                        while next_m in pending:  # micro-batch order, as one stage adds
+                            torch._foreach_add_(buffers, pending.pop(next_m))
+                            next_m += 1
+                    if "input" not in item:  # the first stage keeps no input
+                        del items[(m, k)]
+                elif kind == "send_grad":
+                    x = items.pop(backwards[bi - 1])["input"]
+                    self._send(torch.zeros_like(x) if x.grad is None else x.grad,
+                               self.stage - 1, sends)
+                elif kind == "reduce_tied_grads":
+                    if tied:
+                        all_reduce_(buffers[tied[0]], lay.tied_group)
+                elif kind == "optimizer_step":
+                    loss_sum, metrics_sum, out = self.optimizer_step(
+                        optimizer, names, buffers, sends, loss_sum, metrics_sum)
             return loss_sum / gas, {k: v / gas for k, v in metrics_sum.items()}, out
 
         return step

@@ -11,8 +11,11 @@ forward work item first, then their backwards in reverse),
 ``PipelineScheduleFillDrain`` (its ``virtual_size`` 1 degenerate),
 ``PipelineScheduleTokenSlice`` and ``PipelineScheduleInference``. The
 port's executor (``parallel.pipeline_engine``) runs the streams of
-``schedule_class_for`` as they stand, the ones JAX's tests pin: 1F1B
-without virtual stages, the interleaved stream with them.
+``executor_schedule`` as they stand: 1F1B without virtual stages or token
+slices, the interleaved stream with virtual stages, and the token-slice
+stream with ``pipe_token_slices`` (every (micro-batch, slice) forward in
+m-major order, then their backwards in reverse, each transfer tagged with
+its slice).
 
 ``SimulationEngine`` replays the streams with instruction durations into
 per-rank timelines (sends post and go on, a receive waits for its send):
@@ -488,10 +491,17 @@ def schedule_class_for(virtual_size: int = 1, token_slices: int = 1):
 
 def executor_schedule(pipe_parallel_size: int, pipe_parallel_rank: int,
                       gradient_accumulation_steps: int,
-                      virtual_size: int = 1) -> PipelineScheduleBase:
+                      virtual_size: int = 1, token_slices: int = 1) -> PipelineScheduleBase:
     """The schedule the port's executor runs on a rank: 1F1B
-    (``PipelineScheduleTrain``) without virtual stages, the interleaved
-    stream with them."""
+    (``PipelineScheduleTrain``) without virtual stages or token slices, the
+    interleaved stream with virtual stages, the token-slice stream with
+    token slices."""
+    if virtual_size > 1 and token_slices > 1:
+        raise ValueError("virtual stages and token slices are mutually exclusive")
+    if token_slices > 1:
+        return PipelineScheduleTokenSlice(pipe_parallel_size, pipe_parallel_rank,
+                                          gradient_accumulation_steps,
+                                          token_slices=token_slices)
     if virtual_size > 1:
         return PipelineScheduleInterleaved(pipe_parallel_size, pipe_parallel_rank,
                                            gradient_accumulation_steps, virtual_size)
@@ -500,10 +510,13 @@ def executor_schedule(pipe_parallel_size: int, pipe_parallel_rank: int,
 
 
 def work_items(gradient_accumulation_steps: int, pipe_parallel_size: int,
-               virtual_size: int = 1) -> List[tuple]:
+               virtual_size: int = 1, token_slices: int = 1) -> List[tuple]:
     """The (micro-batch, round) of each forward of ``executor_schedule``'s
-    stream, in order (its backwards take them in reverse under virtual
-    stages, in order under 1F1B)."""
+    stream, in order, or under token slices its (micro-batch, slice); the
+    backwards take them in reverse under virtual stages and token slices,
+    in order under 1F1B."""
+    if token_slices > 1:
+        return [(m, k) for m in range(gradient_accumulation_steps) for k in range(token_slices)]
     if virtual_size > 1:
         return _interleaved_work_items(gradient_accumulation_steps, pipe_parallel_size,
                                        virtual_size)

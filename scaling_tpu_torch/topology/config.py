@@ -1,22 +1,28 @@
 """The ``topology`` section of a config (a subset of
-scaling_tpu/topology/config.py's ``TopologyConfig``): data, model (tensor)
-and pipeline parallelism over several worker processes, with JAX's
+scaling_tpu/topology/config.py's ``TopologyConfig``): data, model (tensor),
+context and pipeline parallelism over several worker processes, with JAX's
 derivation of the sizes (three of ``model_parallel_size``,
 ``pipe_parallel_size``, ``data_parallel_size`` and ``world_size`` determine
-the fourth; a config that gives fewer takes 1 for each missing parallel
-size) and of the batch split (two of ``micro_batch_size``,
-``gradient_accumulation_steps`` and ``global_batch_size``, with ``global =
-micro x accumulation x data``), interleaved virtual stages
-(``pipe_virtual_size``, with JAX's checks: it needs ``pipe_parallel_size``
-above 1 and an accumulation that ``pipe_parallel_size`` divides), the
-stage partition (``pipe_partition_method``, ``pipe_partition_overwrite``:
-the uniform one, as JAX's executor places the layers; ``parallel.pipeline``),
-and ``activation_checkpointing_type`` (``disabled``, ``every_layer``,
-``every_layer_save_dots`` or ``every_pipe_stage``).
+the fourth, ``context_parallel_size`` counted into the world; a config that
+gives fewer takes 1 for each missing parallel size) and of the batch split
+(two of ``micro_batch_size``, ``gradient_accumulation_steps`` and
+``global_batch_size``, with ``global = micro x accumulation x data``: the
+context ranks of a data rank split its micro-batches along the sequence),
+interleaved virtual stages (``pipe_virtual_size``, with JAX's checks: it
+needs ``pipe_parallel_size`` above 1 and an accumulation that
+``pipe_parallel_size`` divides), TeraPipe token slices
+(``pipe_token_slices``: it needs ``pipe_parallel_size`` above 1 and
+excludes virtual stages), context parallelism (``context_parallel_size``,
+which excludes pipelining, and ``context_parallel_variant``, ``ring`` or
+``ulysses``), the stage partition (``pipe_partition_method``,
+``pipe_partition_overwrite``: the uniform one, as JAX's executor places the
+layers; ``parallel.pipeline``), and ``activation_checkpointing_type``
+(``disabled``, ``every_layer``, ``every_layer_save_dots`` or
+``every_pipe_stage``).
 
-Context parallelism, token slices and sequence parallelism are not
-ported: each raises NotImplementedError by name. An unknown key raises
-ValueError; the JAX key names are kept.
+Sequence parallelism is not ported: it raises NotImplementedError by name.
+An unknown key raises ValueError; the JAX key names and check messages are
+kept.
 """
 
 from __future__ import annotations
@@ -34,15 +40,13 @@ class ActivationCheckpointingType:
 
 # key -> (the value that leaves it off, why it is refused)
 _REFUSED = {
-    "context_parallel_size": (1, "context parallelism (ring, Ulysses) is not ported"),
-    "pipe_token_slices": (1, "pipeline token slices are not ported"),
     "sequence_parallel": (False, "sequence parallelism is not ported"),
 }
 # keys at these values change nothing here; the launcher gives each
 # process its rank (``global_rank``) and slot (``local_slot``)
-_INERT = {"global_rank": None, "local_slot": None,
-          "context_parallel_variant": ("ring", "ulysses")}
+_INERT = {"global_rank": None, "local_slot": None}
 PARTITION_METHODS = ("uniform", "balanced")
+CONTEXT_PARALLEL_VARIANTS = ("ring", "ulysses")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,14 +60,22 @@ class TopologyConfig:
     pipe_virtual_size: int = 1
     pipe_partition_method: str = "uniform"
     pipe_partition_overwrite: Optional[Tuple[int, ...]] = None
+    pipe_token_slices: int = 1
+    context_parallel_size: int = 1
+    context_parallel_variant: str = "ring"
 
     def __post_init__(self):
         if self.micro_batch_size <= 0 or self.gradient_accumulation_steps <= 0:
             raise ValueError("micro_batch_size and gradient_accumulation_steps must be > 0")
         if min(self.model_parallel_size, self.data_parallel_size, self.pipe_parallel_size,
-               self.pipe_virtual_size) <= 0:
-            raise ValueError("model_parallel_size, data_parallel_size, pipe_parallel_size and "
-                             "pipe_virtual_size must be > 0")
+               self.pipe_virtual_size, self.pipe_token_slices,
+               self.context_parallel_size) <= 0:
+            raise ValueError("model_parallel_size, data_parallel_size, pipe_parallel_size, "
+                             "pipe_virtual_size, pipe_token_slices and context_parallel_size "
+                             "must be > 0")
+        if self.context_parallel_variant not in CONTEXT_PARALLEL_VARIANTS:
+            raise ValueError(f"context_parallel_variant {self.context_parallel_variant!r}: "
+                             f"expected one of {CONTEXT_PARALLEL_VARIANTS}")
         if self.activation_checkpointing_type not in (
                 ActivationCheckpointingType.DISABLED, ActivationCheckpointingType.EVERY_LAYER,
                 ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS,
@@ -75,9 +87,19 @@ class TopologyConfig:
             raise NotImplementedError(
                 f"pipe_partition_method={self.pipe_partition_method!r} is not ported")
         # JAX's checks (scaling_tpu/topology/config.py)
+        if self.context_parallel_size > 1 and self.pipe_parallel_size > 1:
+            raise ValueError("context_parallel_size > 1 requires pipe_parallel_size == 1 "
+                             "(ring attention replaces pipelining for long sequences)")
         if self.pipe_virtual_size > 1 and self.pipe_parallel_size < 2:
             raise ValueError("pipe_virtual_size > 1 requires pipe_parallel_size > 1 (virtual "
                              "stages interleave over the physical stage ring)")
+        if self.pipe_token_slices > 1 and self.pipe_parallel_size < 2:
+            raise ValueError("pipe_token_slices > 1 requires pipe_parallel_size > 1 (token "
+                             "slices pipeline through the physical stages)")
+        if self.pipe_virtual_size > 1 and self.pipe_token_slices > 1:
+            raise ValueError("pipe_virtual_size and pipe_token_slices are mutually exclusive "
+                             "(the executor interleaves micro-batches OR token slices, not "
+                             "both)")
         if self.pipe_virtual_size > 1 and (
                 self.gradient_accumulation_steps % self.pipe_parallel_size):
             raise ValueError(
@@ -87,11 +109,8 @@ class TopologyConfig:
 
     @property
     def world_size(self) -> int:
-        return self.model_parallel_size * self.data_parallel_size * self.pipe_parallel_size
-
-    @property
-    def context_parallel_size(self) -> int:
-        return 1
+        return (self.model_parallel_size * self.data_parallel_size * self.pipe_parallel_size
+                * self.context_parallel_size)
 
     @property
     def global_batch_size(self) -> int:
@@ -111,20 +130,22 @@ class TopologyConfig:
         mp = d.pop("model_parallel_size", None)
         dp = d.pop("data_parallel_size", None)
         pp = d.pop("pipe_parallel_size", None)
+        cp = d.pop("context_parallel_size", None) or 1
         world = d.pop("world_size", None)
         if sum(v is not None for v in (mp, pp, dp, world)) < 3:  # JAX: three of four
             mp, pp, dp = mp or 1, pp or 1, dp or 1
         if world is None:
-            world = mp * pp * dp
+            world = mp * pp * dp * cp
         if mp is None:
-            mp = world // (pp * dp)
+            mp = world // (pp * dp * cp)
         if pp is None:
-            pp = world // (mp * dp)
+            pp = world // (mp * dp * cp)
         if dp is None:
-            dp = world // (mp * pp)
-        if mp * pp * dp != world:
+            dp = world // (mp * pp * cp)
+        if mp * pp * dp * cp != world:
             raise ValueError(f"world_size {world} does not equal model_parallel_size ({mp}) x "
-                             f"pipe_parallel_size ({pp}) x data_parallel_size ({dp})")
+                             f"pipe_parallel_size ({pp}) x data_parallel_size ({dp}) x "
+                             f"context_parallel_size ({cp})")
         gbs: Optional[int] = d.pop("global_batch_size", None)
         mbs = d.pop("micro_batch_size", None)
         gas = d.pop("gradient_accumulation_steps", None)
@@ -142,10 +163,14 @@ class TopologyConfig:
         vpp = d.pop("pipe_virtual_size", None) or 1
         method = d.pop("pipe_partition_method", None) or "uniform"
         overwrite = d.pop("pipe_partition_overwrite", None)
+        slices = d.pop("pipe_token_slices", None) or 1
+        variant = d.pop("context_parallel_variant", None) or "ring"
         if d:
             raise ValueError(f"unknown topology keys: {sorted(d)}")
         return cls(micro_batch_size=mbs, gradient_accumulation_steps=gas,
                    activation_checkpointing_type=ckpt, model_parallel_size=mp,
                    data_parallel_size=dp, pipe_parallel_size=pp, pipe_virtual_size=vpp,
                    pipe_partition_method=method,
-                   pipe_partition_overwrite=None if overwrite is None else tuple(overwrite))
+                   pipe_partition_overwrite=None if overwrite is None else tuple(overwrite),
+                   pipe_token_slices=slices, context_parallel_size=cp,
+                   context_parallel_variant=variant)

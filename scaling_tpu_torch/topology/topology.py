@@ -11,18 +11,24 @@ what JAX's give for every grid.
 
 ``Topology`` holds this process's rank (from the process group, not from
 ``config.global_rank``), its device, and the per-axis process groups:
-the model group (the ranks of one pipe stage and data rank, which split
-the weights), the data group (the ranks of one stage and model rank,
-which split the batch and, under ZeRO, the optimizer state), the pipe
-group (the stages of one data and model rank: the loss's broadcast and
-the checkpoint's gather), the stage transport's channels (a two-rank
-group for each direction of each adjacent stage pair, and under
-interleaved virtual stages for the wrap from the last stage to the first
-and back: ``channel``), the tied group (the first and the last stage,
-which hold the two copies of a tied embedding table), and under NCCL a
-gloo group of the world for host-side agreement (``host_group``). Every
-rank creates every group, in one order (``torch.distributed.new_group``
-is collective over the world).
+the model group (the ranks of one pipe stage, data and context rank,
+which split the weights), the data group (the ranks of one stage, context
+and model rank, which split the batch and, under ZeRO, the optimizer
+state), the context group (the ranks of one data and model rank, which
+split each micro-batch's sequence: Ulysses's all-to-alls), the gradient
+group (data x context: the ranks that hold one model slice, over which the
+gradients and the loss are summed; the data group at ``cp`` 1), the ring's
+channels (a two-rank group for each hop ``c -> c + 1 mod cp`` of the
+context ranks of one data and model rank: ``ring_send`` to the next,
+``ring_recv`` from the previous), the pipe group (the stages of one data
+and model rank: the loss's broadcast and the checkpoint's gather), the
+stage transport's channels (a two-rank group for each direction of each
+adjacent stage pair, and under interleaved virtual stages for the wrap
+from the last stage to the first and back: ``channel``), the tied group
+(the first and the last stage, which hold the two copies of a tied
+embedding table), and under NCCL a gloo group of the world for host-side
+agreement (``host_group``). Every rank creates every group, in one order
+(``torch.distributed.new_group`` is collective over the world).
 
 The backend rule (``choose_backend``) is decided before
 ``init_process_group`` and never by trying one backend and catching its
@@ -97,9 +103,13 @@ class Topology:
         # host_group: a gloo group of the world for host-side agreement
         # (None under gloo, whose world group takes CPU tensors already)
         self.model_group = self.data_group = self.host_group = None
+        self.context_group = self.grad_group = None
+        self.ring_send = self.ring_recv = None
         self.pipe_group = self.tied_group = None
         self.model_ranks = [global_rank]
         self.data_ranks = [global_rank]
+        self.context_ranks = [global_rank]
+        self.grad_ranks = [global_rank]
         self.pipe_ranks = [global_rank]
         # (source stage, destination stage) -> this rank's two-rank group
         self.channels: Dict[Tuple[int, int], object] = {}
@@ -109,21 +119,30 @@ class Topology:
                 self.host_group = dist.new_group(backend="gloo")
 
     def _new_groups(self) -> None:
-        """Every model group, then every data group, every pipe group, the
-        channels and the tied groups, in rank order, on every rank."""
+        """Every model group, then every data group, under context
+        parallelism every context group, gradient group and ring channel,
+        then every pipe group, the channels and the tied groups, in rank
+        order, on every rank."""
         pp, dp, mp = self.pipe_parallel_size, self.data_parallel_size, self.model_parallel_size
+        cp = self.context_parallel_size
         for p in range(pp):
             for d in range(dp):
-                ranks = [self.get_global_rank(p, d, m) for m in range(mp)]
-                group = dist.new_group(ranks)
-                if self.global_rank in ranks:
-                    self.model_group, self.model_ranks = group, ranks
+                for c in range(cp):
+                    ranks = [self.get_global_rank(p, d, m, c) for m in range(mp)]
+                    group = dist.new_group(ranks)
+                    if self.global_rank in ranks:
+                        self.model_group, self.model_ranks = group, ranks
         for p in range(pp):
-            for m in range(mp):
-                ranks = [self.get_global_rank(p, d, m) for d in range(dp)]
-                group = dist.new_group(ranks)
-                if self.global_rank in ranks:
-                    self.data_group, self.data_ranks = group, ranks
+            for c in range(cp):
+                for m in range(mp):
+                    ranks = [self.get_global_rank(p, d, m, c) for d in range(dp)]
+                    group = dist.new_group(ranks)
+                    if self.global_rank in ranks:
+                        self.data_group, self.data_ranks = group, ranks
+        if cp > 1:
+            self._new_context_groups()
+        else:
+            self.grad_group, self.grad_ranks = self.data_group, self.data_ranks
         if pp == 1:
             return
         for d in range(dp):
@@ -148,6 +167,42 @@ class Topology:
                     group = dist.new_group(ranks)
                     if self.global_rank in ranks:
                         self.tied_group = group
+
+    def _new_context_groups(self) -> None:
+        """Every context group, every gradient group (data x context) and
+        every ring hop's channel (``c -> c + 1 mod cp``, two ranks: at
+        ``cp`` 2 the two hops join one pair of ranks, each a group of its
+        own). The pipe is 1 under context parallelism."""
+        dp, cp, mp = self.data_parallel_size, self.context_parallel_size, self.model_parallel_size
+        for d in range(dp):
+            for m in range(mp):
+                ranks = [self.get_global_rank(0, d, m, c) for c in range(cp)]
+                group = dist.new_group(ranks)
+                if self.global_rank in ranks:
+                    self.context_group, self.context_ranks = group, ranks
+        for m in range(mp):
+            ranks = sorted(self.get_global_rank(0, d, m, c) for d in range(dp)
+                           for c in range(cp))
+            group = dist.new_group(ranks)
+            if self.global_rank in ranks:
+                self.grad_group, self.grad_ranks = group, ranks
+        for d in range(dp):
+            for m in range(mp):
+                for c in range(cp):
+                    src = self.get_global_rank(0, d, m, c)
+                    dst = self.get_global_rank(0, d, m, (c + 1) % cp)
+                    group = dist.new_group(sorted([src, dst]))
+                    if self.global_rank == src:
+                        self.ring_send = group
+                    if self.global_rank == dst:
+                        self.ring_recv = group
+
+    def context_rank(self, context_parallel_rank: int) -> int:
+        """The global rank of context rank ``context_parallel_rank`` at this
+        rank's data and model rank (the pipe is 1 under context
+        parallelism)."""
+        return self.get_global_rank(0, self.data_parallel_rank, self.model_parallel_rank,
+                                    context_parallel_rank)
 
     def stage_rank(self, stage: int) -> int:
         """The global rank of pipe stage ``stage`` at this rank's data and
@@ -177,7 +232,15 @@ class Topology:
 
     @property
     def context_parallel_size(self) -> int:
-        return 1
+        return self.config.context_parallel_size
+
+    @property
+    def context_parallel_variant(self) -> str:
+        return self.config.context_parallel_variant
+
+    @property
+    def pipe_token_slices(self) -> int:
+        return self.config.pipe_token_slices
 
     @property
     def micro_batch_size(self) -> int:
@@ -224,6 +287,10 @@ class Topology:
         return self.data_parallel_rank_of(self.global_rank)
 
     @property
+    def context_parallel_rank(self) -> int:
+        return self.context_parallel_rank_of(self.global_rank)
+
+    @property
     def model_parallel_rank(self) -> int:
         return self.model_parallel_rank_of(self.global_rank)
 
@@ -245,7 +312,10 @@ class Topology:
         """The layout as the logs and ``chip_smoke.py`` print it."""
         return {"world_size": self.world_size, "pipe_parallel_size": self.pipe_parallel_size,
                 "pipe_virtual_size": self.pipe_virtual_size,
+                "pipe_token_slices": self.pipe_token_slices,
                 "data_parallel_size": self.data_parallel_size,
+                "context_parallel_size": self.context_parallel_size,
+                "context_parallel_variant": self.context_parallel_variant,
                 "model_parallel_size": self.model_parallel_size, "backend": self.backend,
                 "global_rank": self.global_rank, "device": str(self.device)}
 

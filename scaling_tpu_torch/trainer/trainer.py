@@ -64,7 +64,13 @@ micro-batches of its data rank, the step hands the last stage's loss and
 metrics to every stage (so rank 0's records carry them), the save gathers
 every stage's leaves to rank 0 (the files are the one-rank model's at any
 pipe layout), a load gives each stage its own leaves, and the run logs the
-``pipeline-config`` event that ``obs report``'s pipeline section reads.
+``pipeline-config`` event (with its token slices) that ``obs report``'s
+pipeline section reads. Under context parallelism the context ranks of a
+data rank read the same micro-batches and each trains on its slice of the
+sequence (``ParallelModule``); the parameters are replicated over them, so
+the save gathers from context rank 0's groups and a load gives every
+context rank the same leaves. ``MESH.json`` carries the real
+``context_parallel_size`` and ``pipe_token_slices``.
 
 Observability, as in the JAX trainer: the spans ``step.data``,
 ``step.fwdbwd`` (host dispatch only: the device work shows in
@@ -675,7 +681,8 @@ class BaseTrainer:
         if topo.pipe_parallel_size > 1:
             # the schedule's shape, which obs report's pipeline section reads
             logger.log_event("pipeline-config", pp=topo.pipe_parallel_size,
-                             virtual=topo.pipe_virtual_size, token_slices=1,
+                             virtual=topo.pipe_virtual_size,
+                             token_slices=topo.pipe_token_slices,
                              gas=topo.gradient_accumulation_steps)
         # the tuner's predicted step time for this run's layout (exported by
         # ``python -m scaling_tpu_torch.tune`` as SCALING_TPU_TUNER_PREDICTION),
@@ -824,9 +831,10 @@ class BaseTrainer:
         t = self.topology
         return {"world_size": t.world_size, "pipe_parallel_size": t.pipe_parallel_size,
                 "data_parallel_size": t.data_parallel_size,
-                "context_parallel_size": 1, "model_parallel_size": t.model_parallel_size,
+                "context_parallel_size": t.context_parallel_size,
+                "model_parallel_size": t.model_parallel_size,
                 "pipe_virtual_size": t.pipe_virtual_size,
-                "pipe_token_slices": 1, "micro_batch_size": t.micro_batch_size,
+                "pipe_token_slices": t.pipe_token_slices, "micro_batch_size": t.micro_batch_size,
                 "gradient_accumulation_steps": t.gradient_accumulation_steps,
                 "global_batch_size": t.global_batch_size, "num_hosts": self._num_hosts()}
 

@@ -1,4 +1,4 @@
-"""Phases 19 and 20 of ``chip_smoke.py`` (dp 2 x mp 2 with ZeRO-1, and pp 2
+"""Phases 19, 20 and 21 of ``chip_smoke.py`` (dp 2 x mp 2 with ZeRO-1, and pp 2
 x vpp 2 x dp 2 with ZeRO-1 and ``every_pipe_stage``, through
 ``runner_main``) at toy size on the CPU: four gloo worker processes, a
 one-rank run beside them, SIGTERM to rank 3, a one-rank resume of the
@@ -7,7 +7,12 @@ row-parallel products are not summed over the model group fails the
 loss or the logit check, a phase-20 run whose stages send zeros for their
 inputs' gradients fails the check of the pipelined backward against the
 one-rank child's, and a run where one rank runs the plain versions fails
-the launch check. The workers are
+the launch check. Phase 21 runs beside them as in the script: (a) ring at
+cp 2 x dp 2 and (b) Ulysses at cp 2 held to phase 19's one-rank run, (c)
+pp 2 x S 2 resuming phase 20's step-2 checkpoint held to its child; a ring
+whose dK/dV are dropped, and token slices whose cache passes no gradient to
+the earlier slices' K/V, fail the check of the backward (the gradient norm
+and the layers' Adam first moments). The workers are
 ``tests/test_torch_dist_helpers.py``'s ``phase19_worker``, which counts
 the CPU's plain runs as the card's launches."""
 
@@ -87,3 +92,53 @@ def test_pipe_phase_on_the_cpu_tells_a_wrong_run(monkeypatch, tmp_path, capsys, 
     # every rank ran 4 steps and the probe's forward: K5 once a layer and micro-batch
     gas, layers = chip_smoke.PIPE["gas"], chip_smoke.PIPE["layers"]
     assert launches["pipe_4ranks"]["flash_attention_bwd"] == 2 * 4 * gas * layers
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("", None),
+    ("ring_dkv_dropped", r"phase 21 \(a\) ring"),
+], ids=["intact", "ring_dkv_dropped"])
+def test_split_phase_on_the_cpu_tells_a_wrong_backward(monkeypatch, tmp_path, capsys, fault,
+                                                       match):
+    """Phase 19 and phase 21 (a), (b) side by side, as ``main`` runs them."""
+    from concurrent.futures import Future, ThreadPoolExecutor
+
+    base = _toy_dist(monkeypatch, tmp_path, fault)
+    lines: list = []
+    one_rank = Future()
+    with ThreadPoolExecutor(1) as pool:
+        split = pool.submit(chip_smoke.split_phase, base, one_rank, "cpu", lines.append)
+        chip_smoke.dist_phase(base, device="cpu", share=one_rank)
+        if match is not None:
+            with pytest.raises(AssertionError, match=match):
+                split.result()
+            return
+        launches = split.result()
+    out = "\n".join(lines)
+    assert "(a) ring, cp 2 x dp 2 with ZeRO-1: losses" in out
+    assert "(b) Ulysses, cp 2: K2-K5" in out
+    layers = chip_smoke.trainer_arch()["num_layers"]
+    # ring: no flash kernel; Ulysses: K5 once a layer a step on each of 2 ranks
+    assert launches["split_ring"].get("flash_attention_bwd", 0) == 0
+    assert launches["split_ulysses"].get("flash_attention_bwd", 0) == 2 * 2 * layers
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("", None),
+    ("slice_kv_detached", r"phase 21 \(c\)"),
+], ids=["intact", "slice_kv_detached"])
+def test_token_slices_on_the_cpu_tell_a_wrong_backward(monkeypatch, tmp_path, capsys, fault,
+                                                       match):
+    base = _toy_dist(monkeypatch, tmp_path, fault)
+    monkeypatch.setitem(chip_smoke.PIPE, "pause_s", 0.2)
+    monkeypatch.setitem(chip_smoke.PIPE, "timeout_s", 100)
+    lines: list = []
+    if match is not None:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.pipe_phase(base, device="cpu", say_slices=lines.append)
+        return
+    launches = chip_smoke.pipe_phase(base, device="cpu", say_slices=lines.append)
+    out = "\n".join(lines)
+    assert "(c) token slices, pp 2 x S 2, every_pipe_stage: losses" in out
+    assert "1/2 of an unsliced micro-batch's" in out
+    assert launches["split_slices"].get("flash_attention_bwd", 0) == 0

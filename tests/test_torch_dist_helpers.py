@@ -228,7 +228,9 @@ def phase19_worker() -> None:
     counted as launches (into ``launches.KERNEL``) unless ``PHASE19_FAULT``
     is ``plain_rank_<r>`` on rank ``r``; ``skip_row_reduction`` leaves the
     row-parallel products unsummed; ``zero_send_grad`` sends zeros where a
-    pipe stage sends the gradient of its input."""
+    pipe stage sends the gradient of its input; ``ring_dkv_dropped`` zeroes
+    ring attention's dK/dV; ``slice_kv_detached`` cuts the gradient of a
+    token slice's cache (the earlier slices' K/V)."""
     import os
     import sys
     from pathlib import Path
@@ -257,6 +259,28 @@ def phase19_worker() -> None:
             send(engine, t, peer, sends)
 
         pipeline_engine.PipelineEngine._send = zeros_for_grads
+    if fault == "ring_dkv_dropped":
+        from scaling_tpu_torch.ops import ring_attention
+
+        backward = ring_attention._ring_backward
+
+        def without_dkv(*args):
+            dq, dk, dv = backward(*args)
+            return dq, torch.zeros_like(dk), torch.zeros_like(dv)
+
+        ring_attention._ring_backward = without_dkv
+    if fault == "slice_kv_detached":
+        from scaling_tpu_torch.nn import attention
+
+        sliced = attention.ParallelSelfAttention._slice_cache_attention
+
+        def detached(self, q, k, v, cache, *args):
+            cache = attention.TokenSliceCache(tuple(t.detach() for t in cache.keys),
+                                              tuple(t.detach() for t in cache.values),
+                                              cache.segments)
+            return sliced(self, q, k, v, cache, *args)
+
+        attention.ParallelSelfAttention._slice_cache_attention = detached
     os.environ["CHIP_SMOKE_WORKER_DEVICE"] = "cpu"
     chip_smoke.dist_worker()
 

@@ -19,7 +19,11 @@ least 0.999 of the tokens routed alike, their outputs within 1e-4 of max
 |y| (f32 sums in another order). A checkpoint exported to the reference's
 format and imported back serves on the card the CPU's tokens of the
 original weights, and the C++ pack-index builder equals its plain loop on
-the card's host.
+the card's host. K4/K5 at Ulysses's local shapes (the whole sequence of a
+head shard) against their plain versions, and ring attention at cp 1 on
+CUDA tensors (its tiled online softmax and its recomputing backward)
+against the same function on the CPU and against autograd of the plain
+softmax, f32 within 1e-4.
 """
 
 import importlib
@@ -288,6 +292,8 @@ FLASH_CASES = [  # b, s, n, n_kv, d, segments, local heads, window
     (1, 256, 4, 2, 64, 2, 2, 16),            # a window smaller than a tile
     (1, 256, 16, 1, 128, 1, 0, None),        # one kv head for 16 query heads
     (4, 2048, 16, 4, 128, 1, 0, None),       # the training shape
+    (2, 2048, 8, 2, 128, 3, 0, None),        # Ulysses at cp 2: a head shard of 16 / 4
+    (2, 2048, 4, 1, 128, 3, 0, None),        # Ulysses at mp 2 x cp 2
 ]
 
 
@@ -892,3 +898,39 @@ def test_cpp_pack_builder_equals_the_plain_loop_on_the_cards_host(card, tmp_path
         want = build_pack_index_plain(sizes, 2048, every_n)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("kv_chunk", [None, 256])
+def test_ring_attention_at_cp1_on_the_card_matches_its_plain_recurrence(card, kv_chunk):
+    """One context rank: the ring is its own tile loop, no hop. The card's
+    run against the CPU's (the same recurrence) and against autograd of the
+    plain masked softmax, forward and q/k/v gradients, f32."""
+    from scaling_tpu_torch.nn.base_layer import ContextShard
+    from scaling_tpu_torch.ops.ring_attention import ring_attention
+
+    gen = torch.Generator().manual_seed(3)
+    b, s, n, n_kv, d = 2, 1024, 16, 4, 128
+    q, k, v = (torch.randn(b, s, h, d, generator=gen) * 0.5 for h in (n, n_kv, n_kv))
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    seg[:, 300:] = 1
+    dout = torch.randn(b, s, n, d, generator=gen)
+    results = {}
+    for device in ("cuda", "cpu"):
+        leaves = [t.to(device).requires_grad_() for t in (q, k, v)]
+        out = ring_attention(*leaves, seg.to(device), ContextShard(), causal=True,
+                             sm_scale=d ** -0.5, kv_chunk=kv_chunk)
+        out.backward(dout.to(device))
+        results[device] = [t.detach().cpu() for t in (out, *(x.grad for x in leaves))]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kr, vr = (x.repeat_interleave(n // n_kv, dim=2) for x in leaves[1:])
+    scores = torch.einsum("bqnd,bknd->bnqk", leaves[0], kr) * d ** -0.5
+    pos = torch.arange(s)
+    allowed = (seg[:, :, None] == seg[:, None, :]) & (pos[None, :, None] >= pos[None, None, :])
+    probs = scores.masked_fill(~allowed[:, None], float("-inf")).softmax(-1)
+    plain = torch.einsum("bnqk,bknd->bqnd", probs, vr)
+    plain.backward(dout)
+    want = [plain.detach(), *(x.grad for x in leaves)]
+    for name, got, cpu, ref in zip(("out", "dq", "dk", "dv"), results["cuda"], results["cpu"],
+                                   want):
+        torch.testing.assert_close(got, cpu, atol=1e-4, rtol=1e-4, msg=name)
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4, msg=name)

@@ -3,8 +3,9 @@
 - the partition functions and the executor's instruction streams equal
   JAX's ``pipeline.py`` and ``pipeline_schedule.py`` (1F1B without virtual
   stages, the interleaved stream with them) for pp 2 and 4, vpp 1 and 2,
-  accumulation 1-8, and the port's copies of the other schedules equal
-  JAX's too;
+  accumulation 1-8, the token-slice stream (``PipelineScheduleTokenSlice``)
+  for pp 2 and 4, S 2 and 4, accumulation 1-4, and the port's copies of
+  the other schedules equal JAX's too;
 - each channel of the stage transport (one direction of one stage pair, a
   two-rank group whose transfers are broadcasts) is used by its two ends in
   one order: the sender's sends, in its stream's order, are the receiver's
@@ -14,7 +15,11 @@
 - a toy untied stack's forward and its first step's reduced gradients at
   pp 2, pp 4, pp 2 x vpp 2 (with ``every_pipe_stage``) equal one rank's,
   rtol 1e-5, atol 1e-6 (JAX's ``test_pipeline.py`` cases), with the
-  transport's bytes the schedule's count;
+  transport's bytes the schedule's count; and at token slices pp 2 x S 2,
+  pp 2 x S 4 (``every_layer``), pp 4 x S 2 (``every_pipe_stage``), each
+  transfer ``1/S`` of a micro-batch's (the slices reorder the sums of the
+  attention's keys and of the weights' gradients: within 2e-6 of each
+  leaf's largest gradient);
 - the JAX default architecture (LayerNorm, GELU MLP, key/query norm, a tied
   head) at pp 2: 3 steps' losses against JAX ``build_train_step`` on the
   same carried weights, rtol 1e-5, atol 1e-6; the tied table's two copies
@@ -24,7 +29,14 @@
   the one rank's. Not bitwise: the clipping norm's squares are summed on
   each stage, then over the stages, which rounds the clip coefficient in
   its last bit; the losses within rtol 1e-6, the parameters within atol
-  1e-5 after 3 steps (a wrong mask moves a loss by 1e-2).
+  1e-5 after 3 steps (a wrong mask moves a loss by 1e-2). The same at pp 2 x
+  S 2 (every site's mask is the one-rank mask's slice, the probabilities'
+  its rows and its prefix of keys) and at cp 2 (ring; probability dropout is
+  refused there, as in JAX, so the stack drops out at the other sites),
+  each against its one-rank run: the losses within rtol 1e-5, each leaf
+  within 1e-3 of its norm (the split reorders the f32 sums, which Adam
+  amplifies on elements whose gradient is near its epsilon: a zero-started
+  query bias reads 5.2e-4).
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -53,6 +65,8 @@ from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 STREAMS = [(pp, vpp, gas) for pp in (2, 4) for vpp in (1, 2) for gas in range(1, 9)]
 STREAM_IDS = [f"pp{pp}_vpp{vpp}_gas{gas}" for pp, vpp, gas in STREAMS]
+SLICED = [(pp, ts, gas) for pp in (2, 4) for ts in (2, 4) for gas in range(1, 5)]
+SLICED_IDS = [f"pp{pp}_ts{ts}_gas{gas}" for pp, ts, gas in SLICED]
 
 
 # ---------------------------------------------------------------- partitions
@@ -119,20 +133,37 @@ def test_instruction_streams_equal_jax(pp, vpp, gas):
             assert [tuple(i) for i in mine] == [tuple(i) for i in theirs], name
 
 
+@pytest.mark.parametrize("pp,ts,gas", SLICED, ids=SLICED_IDS)
+def test_token_slice_streams_equal_jax(pp, ts, gas):
+    for rank in range(pp):
+        port = pipeline_schedule.executor_schedule(pp, rank, gas, 1, ts).instructions()
+        ref = jax_schedule.PipelineScheduleTokenSlice(pp, rank, gas,
+                                                      token_slices=ts).instructions()
+        assert [tuple(i) for i in port] == [tuple(i) for i in ref]
+        # every (micro-batch, slice) forward in m-major order, then the backwards reversed
+        items = pipeline_schedule.work_items(gas, pp, 1, ts)
+        assert items == [(m, k) for m in range(gas) for k in range(ts)]
+        assert [i.micro_batch_id for i in port if i.name == "forward_pass"] == [
+            m for m, _ in items]
+        assert [i.micro_batch_id for i in port if i.name == "backward_pass"] == [
+            m for m, _ in reversed(items)]
+
+
 _DEFAULT_PEER = {"send_activation": 1, "recv_grad": 1, "recv_activation": -1, "send_grad": -1}
 
 
-def transfers(pp: int, vpp: int, gas: int) -> dict:
+def transfers(pp: int, vpp: int, gas: int, ts: int = 1) -> dict:
     """(source stage, destination stage) -> the sender's sends and the
     receiver's receives over that channel, each (kind, micro-batch, tag) in
     stream order; the executor's work item of each is the instruction's
-    micro-batch."""
+    micro-batch (under token slices, with the instruction's tag its
+    slice)."""
     out = {}
     for rank in range(pp):
-        items = pipeline_schedule.work_items(gas, pp, vpp)
-        backwards = items if vpp == 1 else list(reversed(items))
+        items = pipeline_schedule.work_items(gas, pp, vpp, ts)
+        backwards = items if vpp == 1 and ts == 1 else list(reversed(items))
         fi = bi = 0
-        for ins in pipeline_schedule.executor_schedule(pp, rank, gas, vpp).instructions():
+        for ins in pipeline_schedule.executor_schedule(pp, rank, gas, vpp, ts).instructions():
             if ins.name == "forward_pass":
                 fi += 1
             if ins.name == "backward_pass":
@@ -146,6 +177,8 @@ def transfers(pp: int, vpp: int, gas: int) -> dict:
             item = (items[fi - 1] if kind == "act" else backwards[bi - 1]) if sending else (
                 items[fi] if kind == "act" else backwards[bi])
             assert item[0] == ins.micro_batch_id, (rank, ins)
+            if ts > 1:
+                assert item[1] == ins.tag, (rank, ins)
             key = (rank, peer) if sending else (peer, rank)
             out.setdefault(key, {"sent": [], "received": []})[
                 "sent" if sending else "received"].append((kind, ins.micro_batch_id, ins.tag))
@@ -181,6 +214,20 @@ def test_the_simulator_helpers_follow_jax():
         jax_schedule.durations_from_profile(obs, 4))
     with pytest.raises(NotImplementedError, match="visualize"):
         pipeline_schedule.visualize(2, 4, "timeline.png")
+
+
+@pytest.mark.parametrize("pp,ts,gas", SLICED, ids=SLICED_IDS)
+def test_both_ends_of_each_channel_see_one_transfer_order_with_token_slices(pp, ts, gas):
+    channels = transfers(pp, 1, gas, ts)
+    assert set(channels) <= set(channel_pairs(pp))
+    for pair, seen in channels.items():
+        assert seen["sent"] == seen["received"], pair
+        assert {tag for _, _, tag in seen["sent"]} == set(range(ts)), pair
+    sim = pipeline_schedule.SimulationEngine(pp, gas).simulate(
+        lambda **kw: pipeline_schedule.executor_schedule(
+            kw["pipe_parallel_size"], kw["pipe_parallel_rank"],
+            kw["gradient_accumulation_steps"], 1, ts))
+    assert not sim["deadlocked"]
 
 
 # ------------------------------------------------------------------- groups
@@ -223,10 +270,14 @@ STACK = dict(TOY_ARCH, precision="float32", sequence_length=SEQ, num_layers=4,
              weight_tying=False)
 LAYOUTS = {"pp2": (2, 1, "disabled"), "pp4": (4, 1, "disabled"),
            "pp2_vpp2": (2, 2, "every_pipe_stage")}
+# name -> (pp, token slices, remat)
+SLICE_LAYOUTS = {"pp2_ts2": (2, 2, "disabled"), "pp2_ts4_every_layer": (2, 4, "every_layer"),
+                 "pp4_ts2_every_pipe_stage": (4, 2, "every_pipe_stage")}
 
 
-def stack_config(pp: int, vpp: int, remat: str, arch=STACK) -> dict:
+def stack_config(pp: int, vpp: int, remat: str, arch=STACK, ts: int = 1, cp: int = 1) -> dict:
     return {"topology": {"pipe_parallel_size": pp, "pipe_virtual_size": vpp,
+                         "pipe_token_slices": ts, "context_parallel_size": cp,
                          "model_parallel_size": 1, "data_parallel_size": 1,
                          "micro_batch_size": MBS, "gradient_accumulation_steps": GAS,
                          "activation_checkpointing_type": remat},
@@ -293,11 +344,13 @@ def _stack_worker(rank: int, world: int, cfg: dict, batch: dict) -> dict:
 @pytest.fixture(scope="module")
 def stack_runs():
     batch = stack_batches(1)[0]
-    layouts = dict(LAYOUTS, one=(1, 1, "disabled"))
-    with ThreadPoolExecutor(len(layouts)) as pool:  # each layout's ranks are processes
-        futures = {name: pool.submit(run_ranks, _stack_worker, pp,
-                                     stack_config(pp, vpp, remat), batch, timeout=180)
-                   for name, (pp, vpp, remat) in layouts.items()}
+    configs = {name: (pp, stack_config(pp, vpp, remat))
+               for name, (pp, vpp, remat) in dict(LAYOUTS, one=(1, 1, "disabled")).items()}
+    configs.update({name: (pp, stack_config(pp, 1, remat, ts=ts))
+                    for name, (pp, ts, remat) in SLICE_LAYOUTS.items()})
+    with ThreadPoolExecutor(len(configs)) as pool:  # each layout's ranks are processes
+        futures = {name: pool.submit(run_ranks, _stack_worker, pp, cfg, batch, timeout=180)
+                   for name, (pp, cfg) in configs.items()}
         return {name: f.result() for name, f in futures.items()}
 
 
@@ -327,6 +380,33 @@ def test_the_transport_moves_what_the_schedule_sends(stack_runs, name):
         assert got["stats"].get("p2p_send_bytes", 0) == sends * act
         assert got["stats"].get("p2p_recv_bytes", 0) == recvs * act
         assert got["stats"].get("p2p_send_calls", 0) == sends
+
+
+@pytest.mark.parametrize("name", list(SLICE_LAYOUTS))
+def test_a_toy_stack_forward_and_gradients_at_token_slices_equal_one_rank(stack_runs, name):
+    one = stack_runs["one"][0]
+    ranks = stack_runs[name]
+    np.testing.assert_allclose(ranks[-1]["logits"], one["logits"], rtol=1e-5, atol=1e-6)
+    seen = set()
+    for rank in ranks:
+        assert rank["loss"] == pytest.approx(one["loss"], rel=1e-6)
+        for n, g in rank["grads"].items():
+            scale = np.abs(one["grads"][n]).max()
+            assert np.abs(g - one["grads"][n]).max() <= 2e-6 * scale, n
+            seen.add(n)
+    assert seen == set(one["grads"])
+
+
+@pytest.mark.parametrize("name", list(SLICE_LAYOUTS))
+def test_the_transport_moves_a_slice_a_transfer(stack_runs, name):
+    pp, ts, _ = SLICE_LAYOUTS[name]
+    act = MBS * (SEQ // ts) * STACK["hidden_size"] * 4  # f32 activations of one slice
+    for rank, got in enumerate(stack_runs[name]):
+        stream = pipeline_schedule.executor_schedule(pp, rank, GAS, 1, ts).instructions()
+        sends = sum(i.name in ("send_activation", "send_grad") for i in stream)
+        assert sends == (2 if 0 < rank < pp - 1 else 1) * GAS * ts
+        assert got["stats"].get("p2p_send_bytes", 0) == sends * act
+        assert got["stats"].get("p2p_recv_bytes", 0) == sends * act
 
 
 # --------------------------------------------- tied head against JAX, dropout
@@ -422,3 +502,35 @@ def test_dropout_at_pp2_matches_the_one_rank_run():
         np.testing.assert_allclose(rank["losses"], one["losses"], rtol=1e-6, atol=0)
         for n, p in rank["params"].items():
             np.testing.assert_allclose(p, one["params"][n], rtol=0, atol=1e-5, err_msg=n)
+
+
+SPLIT_DROPOUT = {  # name -> (ranks, config, dropout at the probabilities)
+    "pp2_ts2": (2, dict(pp=2, vpp=1, remat="disabled", ts=2), True),
+    "cp2_ring": (2, dict(pp=1, vpp=1, remat="disabled", cp=2), False),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_DROPOUT))
+def test_dropout_at_token_slices_and_context_parallel_matches_the_one_rank_run(name):
+    world, layout, probs = SPLIT_DROPOUT[name]
+    arch = dict(STACK, dropout_attention_probs=0.1 if probs else 0.0,
+                dropout_after_attention=0.1, dropout_after_mlp=0.1, dropout_embedding=0.1)
+    batches = stack_batches(STEPS)
+    layout = dict(layout)
+    split_cfg = stack_config(layout.pop("pp"), layout.pop("vpp"), layout.pop("remat"), arch,
+                             **layout)
+    with ThreadPoolExecutor(1) as pool:
+        split = pool.submit(run_ranks, _train_worker, world, split_cfg, None, batches, True,
+                            timeout=120)
+        one = to_numpy(_train_worker(0, 1, stack_config(1, 1, "disabled", arch), None,
+                                     batches, True))
+        ranks = split.result()
+    without = _train_worker(0, 1, stack_config(1, 1, "disabled"), None, batches, False)
+    assert all(a != b for a, b in zip(one["losses"], without["losses"]))  # dropout acts
+    for rank in ranks:
+        np.testing.assert_allclose(rank["losses"], one["losses"], rtol=1e-5, atol=0)
+        for n, p in rank["params"].items():
+            # the slices reorder the f32 sums, which Adam amplifies where a
+            # gradient is near its epsilon (test_torch_context_parallel_training)
+            rel = np.linalg.norm(p - one["params"][n]) / np.linalg.norm(one["params"][n])
+            assert rel <= 1e-3, (n, rel)

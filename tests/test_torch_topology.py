@@ -2,8 +2,11 @@
 every (pp, dp, cp, mp) grid of up to 8 devices equal to JAX's
 ``Topology`` (``get_global_rank``, the ``*_rank_of`` accessors, the
 first/last pipe stage and the io ranks), the config's derivation of the
-sizes and of the batch split equal to JAX's ``TopologyConfig``, and the
-parts that are not ported refused by name. The backend rule: NCCL where
+sizes (context parallelism counted into the world) and of the batch split
+equal to JAX's ``TopologyConfig``, JAX's checks of the knobs that combine
+(context parallelism with a pipe, token slices without one or with virtual
+stages, an unknown variant) refused as JAX refuses them, and the parts
+that are not ported refused by name. The backend rule: NCCL where
 each local rank has a card, gloo where ranks share one or run on the
 CPU. A 4-rank gloo world builds the model and data groups JAX's mesh
 axes give."""
@@ -48,14 +51,16 @@ def _jax_sizes(d: dict) -> tuple:
     c = JaxTopologyConfig(**d)
     return (c.world_size, c.model_parallel_size, c.data_parallel_size, c.global_batch_size,
             c.micro_batch_size, c.gradient_accumulation_steps, c.pipe_parallel_size,
-            c.pipe_virtual_size)
+            c.pipe_virtual_size, c.context_parallel_size, c.pipe_token_slices,
+            c.context_parallel_variant.value)
 
 
 def _port_sizes(d: dict) -> tuple:
     c = TopologyConfig.from_dict(d)
     return (c.world_size, c.model_parallel_size, c.data_parallel_size, c.global_batch_size,
             c.micro_batch_size, c.gradient_accumulation_steps, c.pipe_parallel_size,
-            c.pipe_virtual_size)
+            c.pipe_virtual_size, c.context_parallel_size, c.pipe_token_slices,
+            c.context_parallel_variant)
 
 
 DERIVED = [
@@ -73,6 +78,13 @@ DERIVED = [
      "micro_batch_size": 2, "gradient_accumulation_steps": 4, "pipe_virtual_size": 2},
     {"world_size": 4, "model_parallel_size": 2, "data_parallel_size": 1,
      "global_batch_size": 8, "micro_batch_size": 2},
+    {"world_size": 8, "context_parallel_size": 2, "data_parallel_size": 2,
+     "pipe_parallel_size": 1, "micro_batch_size": 2, "gradient_accumulation_steps": 3},
+    {"model_parallel_size": 2, "data_parallel_size": 1, "pipe_parallel_size": 1,
+     "context_parallel_size": 4, "context_parallel_variant": "ulysses",
+     "global_batch_size": 4, "micro_batch_size": 2},
+    {"world_size": 4, "pipe_parallel_size": 2, "model_parallel_size": 1,
+     "micro_batch_size": 1, "gradient_accumulation_steps": 4, "pipe_token_slices": 4},
 ]
 
 
@@ -95,29 +107,41 @@ def test_one_device_configs_parse_as_before():
                                   "gradient_accumulation_steps": 1})
 
 
-# pipelining is ported: its keys' cases now check what stays refused beside
-# them (token slices under pp 2, a partition method JAX lacks, a remat mode
-# JAX lacks)
+# pipelining, its token slices and context parallelism are ported: their
+# keys' cases check JAX's own checks of the combinations (ValueError, with
+# JAX's words, where JAX asserts) beside what stays refused by name
+# (NotImplementedError: sequence parallelism, a partition method JAX lacks,
+# a remat mode JAX lacks)
 REFUSED = [
-    ("pipe_parallel_size", {"pipe_parallel_size": 2, "pipe_token_slices": 2},
-     "token slices"),
-    ("context_parallel_size", {"context_parallel_size": 2}, "context parallelism"),
+    ("pipe_parallel_size", {"pipe_parallel_size": 2, "context_parallel_size": 2},
+     ValueError, "context_parallel_size > 1 requires pipe_parallel_size == 1"),
+    ("context_parallel_size", {"context_parallel_size": 2,
+                               "context_parallel_variant": "zigzag"},
+     ValueError, "context_parallel_variant"),
     ("pipe_virtual_size", {"pipe_parallel_size": 2, "pipe_virtual_size": 2,
                            "pipe_partition_method": "type:transformer"},
-     "pipe_partition_method"),
-    ("pipe_token_slices", {"pipe_token_slices": 2}, "token slices"),
-    ("sequence_parallel", {"sequence_parallel": True}, "sequence parallelism"),
+     NotImplementedError, "pipe_partition_method"),
+    ("pipe_token_slices", {"pipe_token_slices": 2}, ValueError,
+     "pipe_token_slices > 1 requires pipe_parallel_size > 1"),
+    ("pipe_virtual_size_with_token_slices", {"pipe_parallel_size": 2, "pipe_virtual_size": 2,
+                                             "pipe_token_slices": 2},
+     ValueError, "pipe_virtual_size and pipe_token_slices are mutually exclusive"),
+    ("sequence_parallel", {"sequence_parallel": True}, NotImplementedError,
+     "sequence parallelism"),
     ("activation_checkpointing_type", {"activation_checkpointing_type": "every_two_layers"},
-     "every_two_layers"),
+     NotImplementedError, "every_two_layers"),
 ]
 
 
-@pytest.mark.parametrize("key,extra,name", REFUSED, ids=[k for k, _, _ in REFUSED])
-def test_what_is_not_ported_is_refused_by_name(key, extra, name):
+@pytest.mark.parametrize("key,extra,exc,name", REFUSED, ids=[k for k, *_ in REFUSED])
+def test_what_is_not_ported_is_refused_by_name(key, extra, exc, name):
     d = {"model_parallel_size": 2, "data_parallel_size": 2, "micro_batch_size": 1,
          "gradient_accumulation_steps": 2, **extra}
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(exc, match=name):
         TopologyConfig.from_dict(d)
+    if exc is ValueError:  # JAX refuses the same config (its validator's error)
+        with pytest.raises(Exception, match=name.split("(")[0][:40]):
+            JaxTopologyConfig(**{"pipe_parallel_size": 1, **d})
 
 
 def test_the_backend_rule():
@@ -145,3 +169,37 @@ def test_groups_of_a_four_rank_world_follow_the_mesh_axes():
         assert got["model"] == [jax_topo.get_global_rank(0, d, j) for j in range(2)]
         assert got["data"] == [jax_topo.get_global_rank(0, j, m) for j in range(2)]
         assert got["io"] == jax_topo.is_io_rank(rank)
+
+
+def _cp_groups(rank: int, world: int):
+    import torch
+    import torch.distributed as dist
+
+    from scaling_tpu_torch.topology import Topology
+
+    topo = Topology(TopologyConfig.from_dict({
+        "model_parallel_size": 1, "data_parallel_size": 2, "pipe_parallel_size": 1,
+        "context_parallel_size": 2, "micro_batch_size": 1, "gradient_accumulation_steps": 1}),
+        device=torch.device("cpu"))
+    return {"coords": (topo.data_parallel_rank, topo.context_parallel_rank),
+            "data": topo.data_ranks, "context": topo.context_ranks, "grad": topo.grad_ranks,
+            "model": topo.model_ranks,
+            "send": dist.get_process_group_ranks(topo.ring_send),
+            "recv": dist.get_process_group_ranks(topo.ring_recv)}
+
+
+def test_context_groups_and_ring_channels_follow_the_mesh_axes():
+    """dp 2 x cp 2: the data group splits the batch at one context rank, the
+    context group the sequence at one data rank, the gradient group is both;
+    each ring hop is a two-rank group from a context rank to the next."""
+    jax_topo = JaxTopology(JaxTopologyConfig(pipe_parallel_size=1, data_parallel_size=2,
+                                             context_parallel_size=2, model_parallel_size=1,
+                                             micro_batch_size=1, gradient_accumulation_steps=1))
+    for rank, got in enumerate(run_ranks(_cp_groups, 4)):
+        d, c = jax_topo.data_parallel_rank_of(rank), jax_topo.context_parallel_rank_of(rank)
+        assert got["coords"] == (d, c)
+        assert got["data"] == [jax_topo.get_global_rank(0, j, 0, c) for j in range(2)]
+        assert got["context"] == [jax_topo.get_global_rank(0, d, 0, j) for j in range(2)]
+        assert got["grad"] == [0, 1, 2, 3] and got["model"] == [rank]
+        other = jax_topo.get_global_rank(0, d, 0, 1 - c)
+        assert got["send"] == got["recv"] == sorted([rank, other])

@@ -196,16 +196,22 @@ def test_more_devices_raise_by_name():
         layouts.enumerate_layouts(2, model, 64, 8)
     with pytest.raises(NotImplementedError, match="one device"):
         tune.best_layout("0.5b", costmodel.SliceTopology(chips=8))
-    # the port's topology takes data, model and pipeline parallelism (virtual
-    # stages too), not token slices
+    # the port's topology takes data, model, context and pipeline parallelism
+    # (virtual stages or token slices), and refuses their combinations as JAX
     piped = layouts.Layout(pp=2, dp=1, cp=1, mp=1, micro_batch_size=8,
                            gradient_accumulation_steps=4)
     assert piped.validate() is None
     assert layouts.Layout(pp=2, dp=2, cp=1, mp=1, micro_batch_size=8,
                           gradient_accumulation_steps=4, vpp=2).validate() is None
-    assert "token slices" in layouts.Layout(pp=2, dp=1, cp=1, mp=1, micro_batch_size=8,
-                                            gradient_accumulation_steps=4,
-                                            token_slices=2).validate()
+    assert layouts.Layout(pp=2, dp=1, cp=1, mp=1, micro_batch_size=8,
+                          gradient_accumulation_steps=4, token_slices=2).validate() is None
+    assert "mutually exclusive" in layouts.Layout(pp=2, dp=1, cp=1, mp=1, micro_batch_size=8,
+                                                  gradient_accumulation_steps=4, vpp=2,
+                                                  token_slices=2).validate()
+    assert layouts.Layout(pp=1, dp=1, cp=2, mp=2, micro_batch_size=8,
+                          gradient_accumulation_steps=4).validate() is None
+    assert "requires pipe_parallel_size == 1" in layouts.Layout(
+        pp=2, dp=1, cp=2, mp=1, micro_batch_size=8, gradient_accumulation_steps=4).validate()
     assert layouts.Layout(pp=1, dp=2, cp=1, mp=2, micro_batch_size=8,
                           gradient_accumulation_steps=4).validate() is None
 
