@@ -395,6 +395,34 @@ Phases, each of which must pass:
    slice transport's hops (each 1/S of an unsliced micro-batch's). Prints
    each rank's ``max_memory_allocated`` beside the reference's and the
    step times;
+22. ZeRO-3 and sequence parallelism, after phase 21 (a) and (b) (``ZERO3``;
+   its lines follow phase 21's; its workers start once every process of 21
+   (a) and (b) has ended, for the card's memory): ``runner_main`` starts 4
+   workers of phase 19's model and data at dp 2 x mp 2 with ``zero: true,
+   zero_stage: 3`` (each rank's
+   parameters its data slice of its model slice, gathered over the data
+   group at each use and released after it) and ``sequence_parallel: true``
+   (the activations between the tensor-parallel regions are each model
+   rank's 1024 tokens of the sequence), for 3 steps saving at step 2; each
+   rank writes the probe row's logits at the save. Checks, each failing
+   the phase: (a) the step-1 and step-2 losses within 0.02 of phase 19's
+   one-rank run, all finite; (b) the global gradient norm and each logical
+   layer's Adam first moment (its norm over the ranks' pieces, each counted
+   once) within a relative 0.01 of that run's; (c) the merged step-2
+   checkpoint's ``MESH.json`` names zero stage 3 and ``sequence_parallel``,
+   and a CPU f32 forward of it matches the four ranks' probe-row logits
+   within 0.05 of max |logit|; (d) K2-K5 in step 3 on each rank as often as
+   the one-rank run's step, no plain version on any rank; (e) each rank's
+   collective bytes in step 3 equal to their count from the shapes: the
+   per-use parameter gathers (each sliced leaf in the forward, and again in
+   the backward where autograd keeps it: the matrices but the embedding
+   table, the norm gains), the f32 reduce-scatters of their gradients, and
+   sequence parallelism's gathers and reduce-scatters (2L + 1 each way and
+   direction); (f) each rank's parameter bytes at rest equal to their count
+   from the shapes. Prints each rank's ``max_memory_allocated`` beside
+   phase 19's ZeRO-1 rank and the tuner's prediction
+   (``tune.costmodel.memory_gb_per_device``), and the step times, taken
+   with four ranks sharing one card (not a scaling figure);
 
 then print one ``{"kernels": [...]}`` line (K4 and K5 also with their
 achieved ``tflops``: the bound's operations over the device time; K1 with
@@ -639,6 +667,10 @@ PIPE = dict(pp=2, vpp=2, dp=2, layers=4, mbs=1, gas=4, steps=8, save_interval=2,
 # global batch, resuming phase 20's step-2 checkpoint beside phase 20's
 # one-rank child, and held to it; phase 19's and 20's tolerances
 SPLIT = dict(cp=2, dp=2, steps=2, ts=2, timeout_s=480)
+# phase 22: ZeRO-3 and sequence parallelism, phase 19's model, data and global
+# batch at dp 2 x mp 2, 3 steps saving at step 2, held to phase 19's one-rank
+# run; phase 19's and 20's tolerances
+ZERO3 = dict(dp=2, mp=2, steps=3, save_interval=2, timeout_s=480)
 DEFAULT_ARCH = dict(norm_type="layernorm", layernorm={"optimization_type": "torch"},
                     mlp_type="default", mlp_factor=4.0, activation_function="gelu",
                     weight_tying=True, key_query_norm=True)
@@ -5637,7 +5669,10 @@ def dist_worker() -> int:
     gradient norm and ``moment_sq``: the squared norm of the Adam first
     moments of the pieces this rank counts in the global norm, by logical
     layer (``moment_sq_by_layer``). ``CHIP_SMOKE_WORKER_DEVICE`` names
-    another device than the slot's card (the CPU tests)."""
+    another device than the slot's card (the CPU tests). Under ZeRO-3
+    (phase 22) every rank also runs the probe row's forward at each save and
+    rank 0 writes its logits (``probe_logits_step<N>.npy``): the weights the
+    checkpoint holds."""
     from scaling_tpu_torch.logging.logger import append_jsonl_line
     from scaling_tpu_torch.models.transformer import train
     from scaling_tpu_torch.ops import launches
@@ -5676,18 +5711,27 @@ def dist_worker() -> int:
                        else DIST["pause_s"])
 
         trainer.metrics_hooks.append(record)
+        if config.optimizer.shards_parameters:
+            trainer.checkpoint_hooks.append(lambda step_dir, step: probe(trainer, step))
         return trainer
+
+    def probe(trainer, step=None):
+        """Every rank's forward of the probe row; rank 0 (of the last stage)
+        writes its logits."""
+        row = dist_probe_row(trainer.module.model.architecture).to(trainer.device)
+        trainer.module.model.eval()
+        with torch.no_grad():
+            out = trainer.module.forward({"token_ids": row})  # a pipe runs it stagewise
+        trainer.module.model.train()
+        lay = trainer.layout
+        if out is not None and (lay is None or lay.data_parallel_rank == lay.model_parallel_rank
+                                == lay.context_parallel_rank == 0):
+            name = "probe_logits.npy" if step is None else f"probe_logits_step{step}.npy"
+            np.save(log_dir / name, out["activations"][0].float().cpu().numpy())
 
     train.build_trainer = build_with_records
     trainer = train.worker_main(device=device)
-    row = dist_probe_row(trainer.module.model.architecture).to(trainer.device)
-    trainer.module.model.eval()
-    with torch.no_grad():
-        out = trainer.module.forward({"token_ids": row})  # every rank: a pipe runs it stagewise
-    lay = trainer.layout
-    if out is not None and (lay is None or lay.data_parallel_rank == lay.model_parallel_rank
-                            == lay.context_parallel_rank == 0):
-        np.save(log_dir / "probe_logits.npy", out["activations"][0].float().cpu().numpy())
+    probe(trainer)
     opt = trainer.optimizer.state
     append_jsonl_line(records, json.dumps({
         "kind": "end", "iterations": trainer.context.iterations,
@@ -5823,9 +5867,10 @@ def check_dist_launches(what: str, steps: dict, plain: dict, want: dict) -> dict
 def dist_phase(base: dict, device: str = "cuda", share=None) -> dict:
     """Phase 19: see the module docstring (19). Returns the launches of the
     four ranks' run, summed over the ranks, by path. ``share`` (a
-    ``Future``) gets the one-rank run's records once every process of the
-    phase has ended (phase 21 holds its layouts to them and starts then), or
-    the error that ended the phase first."""
+    ``Future``) gets the one-rank run's records (with phase 19's rank 0's
+    ``max_memory_allocated`` as ``zero1_max_allocated``) once every process
+    of the phase has ended (phases 21 and 22 hold their layouts to them, and
+    21 starts then), or the error that ended the phase first."""
     try:
         return _dist_phase(base, device, share)
     except BaseException as e:
@@ -5922,7 +5967,7 @@ def _dist_phase(base: dict, device: str, share) -> dict:
         mesh = read_mesh_meta(ckpt / "global_step2")
         join_runner(*resume, "phase 19's one-rank resume", root / "resume" / "logs")
         if share is not None:  # every process of phase 19 has ended: phase 21 may start
-            share.set_result(ref)
+            share.set_result(dict(ref, zero1_max_allocated=ranks[0]["end"]["max_allocated"]))
         resumed = dist_records(root / "resume" / "logs", 1)[0]
         got = [resumed["steps"][s]["loss"] for s in range(3, stop + 1)]
         want_l = [ranks[0]["steps"][s]["loss"] for s in range(3, stop + 1)]
@@ -6202,22 +6247,24 @@ def step_delta(rec: dict, step: int, field: str) -> dict:
 
 
 def split_check(what: str, ranks: list, ref: dict, steps: list, ref_steps: list,
-                groups: list, want_launches: dict, want_bytes: dict, say) -> dict:
-    """The checks of a phase 21 launch against its reference's records:
-    the losses of ``steps`` against ``ref_steps`` (0.02); the global
+                groups: list, want_launches: dict, want_bytes: dict, say,
+                last=None, phase: str = "21") -> dict:
+    """The checks of a phase 21 (or 22) launch against its reference's
+    records: the losses of ``steps`` against ``ref_steps`` (0.02); the global
     gradient norm and each logical layer's Adam first moment, summed over
-    the ranks' pieces, relative ``PIPE["update_rtol"]``; K2-K5 in the last
-    step summed over each group of ranks equal to ``want_launches``, no plain
-    version; each rank's collective bytes of the last step equal to
-    ``want_bytes`` (by ``collectives.STATS`` key). Prints the readings, each
-    rank's memory and the step times; returns the launches of the run."""
+    the ranks' pieces, relative ``PIPE["update_rtol"]``; K2-K5 in step
+    ``last`` (the last of ``steps`` by default) summed over each group of
+    ranks equal to ``want_launches``, no plain version; each rank's
+    collective bytes of that step equal to ``want_bytes`` (by
+    ``collectives.STATS`` key). Prints the readings, each rank's memory and
+    the step times; returns the launches of the run."""
     got = [ranks[0]["steps"][s]["loss"] for s in steps]
     want = [ref["steps"][s]["loss"] for s in ref_steps]
     diffs = [abs(a - b) for a, b in zip(got, want)]
     say(f"  {what}: losses of steps {steps} {got}; the reference's {want}; |diff| {diffs} "
         f"(tol {DIST['loss_tol']})")
     if not all(math.isfinite(x) for x in got + want) or max(diffs) > DIST["loss_tol"]:
-        raise AssertionError(f"phase 21 {what}: losses {got} vs {want}")
+        raise AssertionError(f"phase {phase} {what}: losses {got} vs {want}")
     worst = {}
     for s, r in zip(steps, ref_steps):
         norms = ref["steps"][r]["grad_norm"], ranks[0]["steps"][s]["grad_norm"]
@@ -6232,24 +6279,24 @@ def split_check(what: str, ranks: list, ref: dict, steps: list, ref_steps: list,
         f"relative difference over them and the layers' Adam first moments {worst[far]:.3e} "
         f"({far}; tol {PIPE['update_rtol']})")
     if not all(math.isfinite(v) for v in worst.values()) or worst[far] > PIPE["update_rtol"]:
-        raise AssertionError(f"phase 21 {what}: {far} differs by {worst[far]}")
-    last = steps[-1]
+        raise AssertionError(f"phase {phase} {what}: {far} differs by {worst[far]}")
+    last = steps[-1] if last is None else last
     for group in groups:
         launched = {k: sum(step_delta(ranks[r], last, "kernel").get(k, 0) for r in group)
                     for k in DIST_KERNELS}
         if launched != want_launches:
-            raise AssertionError(f"phase 21 {what}: ranks {group} launched {launched} in step "
-                                 f"{last}, the layout's count {want_launches}")
+            raise AssertionError(f"phase {phase} {what}: ranks {group} launched {launched} in "
+                                 f"step {last}, the layout's count {want_launches}")
     plain = {r: rec["end"]["plain"] for r, rec in enumerate(ranks)}
     if any(sum(v.values()) for v in plain.values()):
-        raise AssertionError(f"phase 21 {what}: plain versions ran on the card: {plain}")
+        raise AssertionError(f"phase {phase} {what}: plain versions ran on the card: {plain}")
     say(f"  {what}: K2-K5 in step {last} over each of {groups}: {want_launches} (the layout's "
         f"count from the reference's); no plain version on any rank")
     for r, rec in enumerate(ranks):
         moved = step_delta(rec, last, "stats")
         for key, n in want_bytes.items():
             if moved.get(key, 0) != n:
-                raise AssertionError(f"phase 21 {what}: rank {r} moved {moved.get(key, 0)} "
+                raise AssertionError(f"phase {phase} {what}: rank {r} moved {moved.get(key, 0)} "
                                      f"{key} in step {last}, the count from the shapes {n}")
         step_s = rec["steps"][last]["t"] - rec["steps"][last - 1]["t"] - DIST["pause_s"]
         say(f"  {what} rank {r}: step {last} moved "
@@ -6361,6 +6408,139 @@ def slices_check(ranks: list, child: dict, config: dict, say) -> dict:
                                  f"schedule's count {sends * act}")
     say("  (c) the step-2 checkpoint: not compared, phase 20's one-rank child saves none")
     return {"split_slices": total}
+
+
+# ------------------------------------- phase 22: ZeRO-3 and sequence parallelism
+def zero3_config(prefixes: dict, root: Path) -> dict:
+    """Phase 19's config at dp x mp with ZeRO-3 and sequence parallelism,
+    ``ZERO3["steps"]`` steps saving every ``ZERO3["save_interval"]``."""
+    config = dist_config(prefixes, root, "zero3", ZERO3["dp"], ZERO3["mp"], ZERO3["steps"])
+    config["topology"]["sequence_parallel"] = True
+    config["optimizer"] = dict(config["optimizer"], zero=True, zero_stage=3)
+    config["trainer"]["save_interval"] = ZERO3["save_interval"]
+    return config
+
+
+def zero3_counts(arch: dict, dp: int, mp: int, mbs: int) -> dict:
+    """What a rank of the dp x mp ZeRO-3, sequence-parallel layout holds and
+    moves in a step of one micro-batch of ``mbs`` sequences, from the
+    shapes: ``param_bytes`` at rest (each leaf over the model group where
+    JAX's spec splits it, over the data group where ``spec_with_data_axis``
+    places the data axis); ``param_gather_bytes`` (each sliced leaf's model
+    slice gathered in the forward, and again in the backward where autograd
+    keeps it: the matrices but the embedding table, and the norm gains),
+    ``grad_reduce_scatter_bytes`` (each sliced leaf's f32 gradient), and
+    ``seq_gather_bytes`` / ``seq_reduce_scatter_bytes`` (2L + 1 region
+    entries and exits, each one way in the forward and the other in the
+    backward, of the whole local sequence's activations)."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig, TransformerModel
+    from scaling_tpu_torch.parallel.parallel_module import (
+        data_slice_dim, jax_param_key, jax_partition_spec, to_jax_layout)
+
+    cfg = TransformerConfig.from_dict({"topology": {"micro_batch_size": 1,
+                                                    "gradient_accumulation_steps": 1},
+                                       "transformer_architecture": arch})
+    a = cfg.transformer_architecture
+    model = TransformerModel(a, device="meta")
+    size = torch.empty((), dtype=a.dtype).element_size()
+    at_rest = gathered = reduced = 0
+    for name, p in model.named_parameters():
+        key = jax_param_key(model, name)
+        spec = jax_partition_spec(key, p.ndim)
+        n = p.numel() // (mp if "model" in spec else 1)
+        sliced = data_slice_dim(key, spec, tuple(to_jax_layout(key, p).shape), dp) is not None
+        at_rest += size * n // (dp if sliced else 1)
+        if sliced:
+            kept = (p.ndim == 2 and not name.endswith("embedding.weight")) or (
+                "norm" in name and name.endswith(".weight"))
+            gathered += size * n * (2 if kept else 1)
+            reduced += 4 * n
+    act = size * mbs * a.sequence_length * a.hidden_size
+    seq = (4 * a.num_layers + 2) * act
+    return {"param_bytes": at_rest, "param_gather_bytes": gathered,
+            "grad_reduce_scatter_bytes": reduced, "seq_gather_bytes": seq,
+            "seq_reduce_scatter_bytes": seq}
+
+
+def zero3_phase(base: dict, ref: dict, device: str = "cuda", say=print) -> dict:
+    """Phase 22: see the module docstring (22). ``ref``: phase 19's one-rank
+    records. Returns the launches of the run, summed over its
+    ranks, by path."""
+    from scaling_tpu_torch.resilience import read_mesh_meta
+    from scaling_tpu_torch.tune.costmodel import memory_gb_per_device
+    from scaling_tpu_torch.tune.layouts import Layout, ModelSpec
+
+    dp, mp = ZERO3["dp"], ZERO3["mp"]
+    world = dp * mp
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_zero3_"))
+    config = zero3_config(base["prefixes"], root)
+    runner = None
+    try:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        runner = start_runner(config)
+        log_dir = root / "zero3" / "logs"
+        join_runner(*runner, "phase 22", log_dir)
+        run_s = time.monotonic() - t0
+        ranks = dist_records(log_dir, world)
+        arch = config["transformer_architecture"]
+        mbs = config["topology"]["micro_batch_size"]
+        want = zero3_counts(arch, dp, mp, mbs)
+        base_launch = step_delta(ref, DIST["ref_steps"], "kernel")
+        one = {k: base_launch.get(k, 0) for k in DIST_KERNELS}
+        last = ZERO3["steps"]
+        moving = {k: v for k, v in want.items() if k != "param_bytes"}
+        total = split_check(f"(a, b, d, e) dp {dp} x mp {mp}, ZeRO-3, sequence parallel", ranks,
+                            ref, [1, 2], [1, 2], [[r] for r in range(world)], one, moving, say,
+                            last=last, phase="22")
+        # (c) the merged step-2 checkpoint against the ranks' logits at its save
+        step_dir = root / "zero3" / "ckpt" / f"global_step{ZERO3['save_interval']}"
+        mesh = read_mesh_meta(step_dir)
+        named = (mesh["optimizer"]["zero_stage"], mesh["topology"].get("sequence_parallel"))
+        t_cpu = time.monotonic()
+        card = torch.from_numpy(np.load(log_dir / f"probe_logits_step{ZERO3['save_interval']}"
+                                                  ".npy"))
+        cpu = dist_cpu_logits(step_dir, config)
+        scale = cpu.abs().max().item()
+        err = (card - cpu).abs().max().item() / scale
+        uniform = ((cpu.amax(-1) - cpu.amin(-1)) / 2).max().item() / scale
+        say(f"  (c) MESH.json of step {ZERO3['save_interval']}: zero_stage {named[0]}, "
+            f"sequence_parallel {named[1]}; the probe row ({DIST['probe_tokens']} tokens) at "
+            f"its weights, the four ranks' forward vs the f32 CPU forward of the merged "
+            f"checkpoint: max_abs_err={err * scale:.4e} max|logit|={scale:.4e} "
+            f"err/max|logit|={err:.3e} (tol {DIST['logit_tol']}; constant logits would give >= "
+            f"{uniform:.3e}) ({time.monotonic() - t_cpu:.1f}s)")
+        if named != (3, True) or not uniform > DIST["logit_tol"] or \
+                not err <= DIST["logit_tol"]:
+            raise AssertionError(f"phase 22 (c): MESH.json {named}, err {err}, constant "
+                                 f"logits {uniform}")
+        # (f) the parameters at rest; memory beside phase 19's and the tuner's
+        layout = Layout(pp=1, dp=dp, cp=1, mp=mp, micro_batch_size=mbs,
+                        gradient_accumulation_steps=1, sp=True, zero_stage=3)
+        predicted = memory_gb_per_device(ModelSpec.from_arch(arch), layout)
+        for r, rec in enumerate(ranks):
+            end = rec["end"]
+            say(f"  (f) rank {r}: parameters at rest {end['param_bytes']} bytes (the count "
+                f"from the shapes {want['param_bytes']}); max_memory_allocated "
+                f"{end['max_allocated'] / 1e9:.3f} GB (phase 19's ZeRO-1 rank 0 "
+                f"{ref['zero1_max_allocated'] / 1e9:.3f} GB, the one-rank run's "
+                f"{ref['end']['max_allocated'] / 1e9:.3f} GB; the tuner's prediction "
+                f"{predicted:.3f} GB)")
+            if end["param_bytes"] != want["param_bytes"]:
+                raise AssertionError(f"phase 22 (f): rank {r} holds {end['param_bytes']} "
+                                     f"parameter bytes, the count {want['param_bytes']}")
+        times = [ranks[0]["steps"][s]["t"] - ranks[0]["steps"][s - 1]["t"] - DIST["pause_s"]
+                 for s in range(2, last + 1)]
+        say(f"  step time with four ranks sharing one card (not a scaling figure), steps "
+            f"2-{last}: {[round(t * 1e3, 1) for t in times]} ms (step 2 with its save; host "
+            f"clock between step records, less the pause; run wall {run_s:.1f}s)")
+        return {"zero3_sp_4ranks": total}
+    finally:
+        if runner is not None:  # after a failed check: the runner ends on its own
+            runner[0].join(timeout=ZERO3["timeout_s"])
+        shutil.rmtree(root, ignore_errors=True)
 
 
 class CardMemory:
@@ -6526,6 +6706,7 @@ def main() -> int:
           "it, its lines follow")
     pipe_lines: list = []
     split_lines: list = []
+    zero3_lines: list = []
     one_rank = Future()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6538,6 +6719,9 @@ def main() -> int:
         launches_by_path.update(dist_phase(trainer_run["base"], share=one_rank))
         launches_by_path.update(piped.result())
         launches_by_path.update(split.result())
+        # phase 22 once every process of 21 (a) and (b) has ended, for the card's memory
+        launches_by_path.update(zero3_phase(trainer_run["base"], one_rank.result(), "cuda",
+                                            zero3_lines.append))
     used = card_used.stop()
     print(f"== pipe (phase 20), beside phase 19: phase 8's data and the 0.5B model at "
           f"{PIPE['layers']} layers, pp {PIPE['pp']} x vpp {PIPE['vpp']} x dp {PIPE['dp']} with "
@@ -6551,11 +6735,16 @@ def main() -> int:
           f"pipe_token_slices {SPLIT['ts']}, {PIPE['remat']}, resuming phase 20's step-2 "
           "checkpoint beside its one-rank child and held to it")
     print("\n".join(split_lines))
-    print(f"  the card's used memory over phases 19-21 (every process's, torch.cuda.mem_get_info "
+    print(f"== zero3 (phase 22), after phase 21 (a) and (b): phase 19's model, data and global "
+          f"batch at dp {ZERO3['dp']} x mp {ZERO3['mp']} with ZeRO-3 and sequence parallelism, "
+          f"{ZERO3['steps']} steps saving at step {ZERO3['save_interval']}, held to phase 19's "
+          "one-rank run")
+    print("\n".join(zero3_lines))
+    print(f"  the card's used memory over phases 19-22 (every process's, torch.cuda.mem_get_info "
           f"sampled every 0.25 s): before {used['before'] / 1e9:.2f} GB (this process's own "
           f"allocated {used['own'] / 1e9:.2f} GB), peak {used['peak'] / 1e9:.2f} GB of "
           f"{used['total'] / 1e9:.2f} GB")
-    lap("dist, pipe, split (19, 20, 21)")
+    lap("dist, pipe, split, zero3 (19, 20, 21, 22)")
     print("== modes (phase 13): speculative decoding, whole-prompt prefill, separate "
           "forwards; crash replay, drain, a wedged tick and overload in child benches")
     launches_by_path.update(modes_phase(serve_native, served["tokens"]))

@@ -544,4 +544,6 @@ class TransformerConfig:
                 kwargs[key] = section.from_dict(d.pop(key) or {})
         if d:
             raise ValueError(f"unknown config sections: {sorted(d)}")
+        kwargs["topology"].check_sequence_parallel(
+            kwargs["transformer_architecture"].sequence_length)
         return cls(**kwargs)

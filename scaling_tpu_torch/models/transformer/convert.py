@@ -30,7 +30,10 @@ transposed as a linear's.
 With ``topology`` (a ``TopologyConfig`` of several ranks) and ``rank``,
 ``params_from_jax`` returns that rank's shards: each leaf's contiguous
 slice over the model group along the dim JAX's partition spec names
-(``jax_partition_spec``), as ``TransformerModel`` builds them.
+(``jax_partition_spec``), as ``TransformerModel`` builds them; with
+``zero_stage3`` also the slice of that over the data group, on the dim
+``data_slice_dim`` picks, as ``ParallelModule`` stores parameters under
+ZeRO stage 3.
 """
 
 from __future__ import annotations
@@ -40,7 +43,13 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from ...parallel.parallel_module import from_jax_layout, jax_partition_spec, port_dim, slice_of
+from ...parallel.parallel_module import (
+    data_slice_dim,
+    from_jax_layout,
+    jax_partition_spec,
+    port_dim,
+    slice_of,
+)
 from ...topology.topology import rank_coords
 from .config import TransformerArchitectureConfig
 
@@ -63,22 +72,27 @@ def param_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
 
 
 def params_from_jax(np_params: Mapping[str, Any], arch: TransformerArchitectureConfig,
-                    topology: Any = None, rank: int = 0) -> Dict[str, torch.Tensor]:
+                    topology: Any = None, rank: int = 0,
+                    zero_stage3: bool = False) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's state dict, in the
     architecture's dtype (a MoE router in f32); with ``topology`` and
-    ``rank``, that rank's shards."""
+    ``rank``, that rank's shards (``zero_stage3``: their data slices)."""
     mp = 1 if topology is None else topology.model_parallel_size
-    mp_rank = 0
-    if mp > 1:
-        mp_rank = rank_coords((1, topology.data_parallel_size, 1, mp), rank)[3]
+    dp = 1 if topology is None or not zero_stage3 else topology.data_parallel_size
+    dp_rank = mp_rank = 0
+    if mp > 1 or dp > 1:
+        _, dp_rank, _, mp_rank = rank_coords((1, topology.data_parallel_size,
+                                              topology.context_parallel_size, mp), rank)
     state: Dict[str, torch.Tensor] = {}
     for name, value in _flatten(np_params).items():
-        tensor = from_jax_layout(name, torch.from_numpy(np.array(value, dtype=np.float32)))
-        if mp > 1:
-            layer, rest = name.split(".", 1)
-            spec = jax_partition_spec(f"{layer}_Layer.{rest}", tensor.ndim)
-            if "model" in spec:
-                dim = port_dim(name, tensor.ndim, spec.index("model"))
-                tensor = slice_of(tensor, dim, mp_rank, mp)
+        array = np.array(value, dtype=np.float32)
+        tensor = from_jax_layout(name, torch.from_numpy(array))
+        layer, rest = name.split(".", 1)
+        spec = jax_partition_spec(f"{layer}_Layer.{rest}", tensor.ndim)
+        if dp > 1:
+            tensor = slice_of(tensor, data_slice_dim(name, spec, array.shape, dp), dp_rank, dp)
+        if mp > 1 and "model" in spec:
+            tensor = slice_of(tensor, port_dim(name, tensor.ndim, spec.index("model")),
+                              mp_rank, mp)
         state[f"layers.{name}"] = tensor.contiguous().to(param_dtype(name, arch.dtype))
     return state

@@ -5,10 +5,23 @@ positions (each image's 144 tokens from its start ``input_image_locations``,
 an image whose ``input_image_mask`` entry is False left out, later images
 over earlier ones, a start clamped so that the span fits, as JAX's
 ``dynamic_update_slice`` clamps it); the soft prompt (``softprompt_config``)
-written over the first ``n_tokens`` positions; then embedding dropout at
-the site ``layer_0.embedding`` in a training pass. ``finetunable_token_ids``
-is accepted and inert, as in the JAX package (see the config). Over a
-model group the table is vocab-parallel (``nn.linear.VocabParallelEmbedding``)."""
+written over the first ``n_tokens`` slots of the sequence; then embedding
+dropout at the site ``layer_0.embedding`` in a training pass.
+``finetunable_token_ids`` is accepted and inert, as in the JAX package (see
+the config). Over a model group the table is vocab-parallel
+(``nn.linear.VocabParallelEmbedding``), and under sequence parallelism its
+output is this model rank's ``1/mp`` of the rows.
+
+The tensor the layer embeds may be a piece of the sequence: a context
+rank's slice, a pipeline's token slice, and under sequence parallelism the
+model rank's shard of either. The JAX layer embeds the whole sequence once
+(scaling_tpu/models/transformer/layers/embedding.py), so the prompt goes
+only where a row's absolute slot is below ``n_tokens``: the caller passes
+the slot of the piece's first token (``slot_offset``: ``context rank x
+s / cp``, or ``k x slice length`` for token slice ``k``) and the whole
+sequence's length (``total_len``), and the layer adds its model rank's
+offset within the piece under sequence parallelism. A prompt may span
+several pieces; one longer than the whole sequence raises."""
 
 from __future__ import annotations
 
@@ -75,15 +88,30 @@ class EmbeddingInput(torch.nn.Module):
     def forward(self, token_ids: torch.Tensor, ctx: Optional[DropoutContext] = None,
                 images: Optional[torch.Tensor] = None,
                 image_locations: Optional[torch.Tensor] = None,
-                image_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                image_mask: Optional[torch.Tensor] = None, slot_offset: int = 0,
+                total_len: Optional[int] = None) -> torch.Tensor:
         h = self.embedding(token_ids.long())
         if self.image_encoder is not None and images is not None:
             h = self.splice_images(h, images, image_locations, image_mask, ctx)
         if self.softprompt is not None:
-            sp = getattr(self, self.softprompt)
-            n = sp.shape[0]
-            if h.shape[1] < n:
-                raise ValueError(f"a soft prompt of {n} tokens needs at least {n} positions, "
-                                 f"got {h.shape[1]}")
-            h = torch.cat([sp.to(h.dtype)[None].expand(h.shape[0], -1, -1), h[:, n:]], dim=1)
-        return dropout(h, self.dropout_rate, ctx, "layer_0.embedding")
+            shard = self.embedding.shard
+            if shard.sequence_parallel:  # this rank's rows of the piece
+                slot_offset += shard.rank * h.shape[1]
+            h = self.write_softprompt(h, slot_offset,
+                                      token_ids.shape[1] if total_len is None else total_len)
+        return dropout(h, self.dropout_rate, ctx, "layer_0.embedding", sequence_sharded=True)
+
+    def write_softprompt(self, h: torch.Tensor, slot_offset: int, total_len: int
+                         ) -> torch.Tensor:
+        """``h``, the rows from absolute slot ``slot_offset`` on, with the
+        soft prompt over the rows whose slot is below ``n_tokens``."""
+        sp = getattr(self, self.softprompt)
+        n = sp.shape[0]
+        if total_len < n:
+            raise ValueError(f"a soft prompt of {n} tokens needs at least {n} positions, "
+                             f"got {total_len}")
+        rows = min(max(n - slot_offset, 0), h.shape[1])
+        if rows == 0:
+            return h
+        prompt = sp[slot_offset:slot_offset + rows].to(h.dtype)
+        return torch.cat([prompt[None].expand(h.shape[0], -1, -1), h[:, rows:]], dim=1)

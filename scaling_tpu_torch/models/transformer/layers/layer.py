@@ -19,6 +19,12 @@ a pipeline's token slice attends over its earlier slices through a
 (``return_kv``).
 The layer's dropout sites are ``layer_{i}.after_attention`` and
 ``layer_{i}.after_mlp``, ``layer_{i}`` its name in the stack.
+
+Under sequence parallelism (``ModelShard.sequence_parallel``) the block's
+input, its norms, the dropout after each branch, the adapters and the
+residual stream hold this model rank's shard of the sequence: the attention
+and the MLP gather their input along the sequence and reduce-scatter their
+output (the MLP's ``sequence_parallel_output``; see ``nn.mlp``).
 """
 
 from __future__ import annotations
@@ -119,12 +125,13 @@ class TransformerLayer(torch.nn.Module):
         elif arch.mlp_type == "swiglu":
             self.mlp = ParallelSwiGLUMLP(arch.hidden_size, arch.mlp_factor,
                                          bias=arch.mlp_bias, dtype=arch.dtype, device=device,
-                                         bitfit_bias_name=bitfit, shard=shard)
+                                         bitfit_bias_name=bitfit, shard=shard,
+                                         sequence_parallel_output=shard.sequence_parallel)
         else:
             self.mlp = ParallelMLP(arch.hidden_size, arch.mlp_factor,
                                    activation=arch.activation_function, bias=arch.mlp_bias,
                                    dtype=arch.dtype, device=device, bitfit_bias_name=bitfit,
-                                   shard=shard)
+                                   shard=shard, sequence_parallel_output=shard.sequence_parallel)
         self.adapter_attention: Optional[str] = None  # child names, as the JAX param keys
         self.adapter_mlp: Optional[str] = None
         cfg = arch.adapter_config
@@ -161,7 +168,8 @@ class TransformerLayer(torch.nn.Module):
         new_kv = None
         if return_kv:
             attn, new_kv = attn
-        attn = dropout(attn, self.dropout_after_attention, ctx, f"{self.site}.after_attention")
+        attn = dropout(attn, self.dropout_after_attention, ctx, f"{self.site}.after_attention",
+                       sequence_sharded=True)
         h = h + self._adapt(attn, self.adapter_attention).to(h.dtype)
         normed = self.post_attention_layernorm(h)
         aux = None
@@ -169,7 +177,8 @@ class TransformerLayer(torch.nn.Module):
             mlp_out, aux = self.mlp(normed, with_aux=return_aux)
         else:
             mlp_out = self.mlp(normed)
-        mlp_out = dropout(mlp_out, self.dropout_after_mlp, ctx, f"{self.site}.after_mlp")
+        mlp_out = dropout(mlp_out, self.dropout_after_mlp, ctx, f"{self.site}.after_mlp",
+                          sequence_sharded=True)
         h = h + self._adapt(mlp_out, self.adapter_mlp).to(h.dtype)
         if return_aux:
             return h, aux

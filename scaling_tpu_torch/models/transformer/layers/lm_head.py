@@ -13,7 +13,10 @@ gradients of both uses into it, and the optimizer keeps one state for it.
 
 Over a model group the head's product is vocab-parallel (the untied
 head's rows, or the tied table's shard) and its logits are all-gathered
-to the full vocabulary before the loss, as JAX does.
+to the full vocabulary before the loss, as JAX does. Under sequence
+parallelism the final norm runs on the rank's shard of the sequence and the
+head enters its region by an all-gather along the sequence
+(``ModelShard.enter``), so the logits cover the whole local sequence.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ....nn.linear import ColumnParallelLinear, ModelShard, xavier_normal_
-from ....parallel.collectives import copy_to_model_region, gather_from_model_region
+from ....parallel.collectives import gather_from_model_region
 from ....nn.norm import get_norm
 from ..config import TransformerArchitectureConfig
 from .embedding import EmbeddingInput
@@ -78,8 +81,7 @@ class TransformerLMHeadTied(torch.nn.Module):
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         table = self.tied_embedding.embedding
         group = table.shard.group
-        return gather_from_model_region(
-            F.linear(copy_to_model_region(h, group), table.weight), group)
+        return gather_from_model_region(F.linear(table.shard.enter(h), table.weight), group)
 
 
 class TransformerEmbeddingHead(torch.nn.Module):

@@ -356,6 +356,7 @@ def init_optimizer(config: TransformerConfig, model: TransformerModel,
 def init_model(config: TransformerConfig, device=None, topology=None) -> ParallelModule:
     """The model with random weights from ``trainer.seed`` behind its
     ParallelModule; with a ``topology`` of several ranks, this rank's shards
-    (``parallel.Topology``)."""
+    (``parallel.Topology``), under ZeRO stage 3 their data slices."""
     model = TransformerModel(config.transformer_architecture, device=device, topology=topology)
-    return ParallelModule(model.init_random_(config.seed), config.topology, topology)
+    return ParallelModule(model.init_random_(config.seed), config.topology, topology,
+                          zero_stage3=config.optimizer.shards_parameters)

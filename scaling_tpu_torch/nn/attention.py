@@ -74,7 +74,13 @@ group. The key/query norms then see the local heads only, so their
 parameters enter the model region in the forward: the region's backward
 sums their gradients over the group. Local-window heads, LoRA, score
 manipulations and the cached decode paths (but the token-slice cache)
-raise by name under model parallelism.
+raise by name under model parallelism. Under sequence parallelism
+(``ModelShard.sequence_parallel``) the input arrives as this rank's
+sequence shard and enters by an all-gather along the sequence
+(``ModelShard.enter``), so rotary and the attention paths (K4/K5, ring,
+Ulysses, the token-slice cache) see the whole local sequence at its own
+positions; the output projection leaves by a reduce-scatter along the
+sequence (``RowParallelLinear`` with ``parallel_output``, as JAX's dense).
 
 The pool and the dense cache are updated IN PLACE: the writers put the
 new tokens' K/V into the tensors the caller holds, so no updated caches
@@ -339,7 +345,7 @@ class ParallelSelfAttention(torch.nn.Module):
                                               **common)
             self.key = ColumnParallelLinear(hidden_size, kv_size, copy_input=False, **common)
             self.value = ColumnParallelLinear(hidden_size, kv_size, copy_input=False, **common)
-        self.dense = RowParallelLinear(hidden_size, hidden_size, **common)
+        self.dense = RowParallelLinear(hidden_size, hidden_size, parallel_output=True, **common)
         self.rotary_embedding = rotary
         self.key_query_norm = key_query_norm
         if key_query_norm:
@@ -394,8 +400,8 @@ class ParallelSelfAttention(torch.nn.Module):
             for name, p in norm.named_parameters()}, (t,))
 
     def _qkv(self, x: torch.Tensor, ctx: Optional[DropoutContext] = None):
+        x = self.shard.enter(x)
         b, s, _ = x.shape
-        x = copy_to_model_region(x, self.shard.group)
         if self.qkv_in_one:
             qkv = self.query_key_value(x).reshape(
                 b, s, self.local_heads, 3 * self.head_dim

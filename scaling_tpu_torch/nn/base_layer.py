@@ -28,7 +28,13 @@ with ``seq_shard=(rank, size)`` (a context rank's contiguous ``1/size`` of
 the sequence, or token slice ``rank`` of ``size`` in a pipeline) draws the
 sequence dim (``seq_dim``, dim 1 of an activation) whole and keeps its
 slice; an attention-probability mask's key dim (``key_dim``) is drawn whole
-too and cut to the keys a token slice attends, its prefix.
+too and cut to the keys a token slice attends, its prefix. Under sequence
+parallelism a context also carries ``sp_shard=(model rank, mp)``: the
+sites between the tensor-parallel regions (``sequence_sharded=True``: the
+embedding's, ``after_attention``, ``after_mlp``) hold this model rank's
+``1/mp`` of the local sequence, so their seq shard composes the two,
+``(rank * mp + model rank, size * mp)``; the sites inside a region see the
+whole local sequence and keep ``seq_shard``.
 
 ``ContextShard`` carries a layer's place in the context group (JAX's
 ``ForwardContext.context_parallel_size`` and ``context_parallel_variant``):
@@ -71,34 +77,44 @@ class DropoutContext:
     """The dropout state of one forward: a key and the mask source."""
 
     def __init__(self, key: Tuple, mask_source: Optional[MaskSource] = None,
-                 batch_shard: Tuple[int, int] = (0, 1), seq_shard: Tuple[int, int] = (0, 1)):
+                 batch_shard: Tuple[int, int] = (0, 1), seq_shard: Tuple[int, int] = (0, 1),
+                 sp_shard: Tuple[int, int] = (0, 1)):
         self.key = tuple(key)
         self.mask_source = mask_source or draw_mask
         self.batch_shard = batch_shard
         self.seq_shard = seq_shard
+        self.sp_shard = sp_shard
 
     def for_micro_batch(self, index: int) -> "DropoutContext":
         """The context of micro-batch ``index`` (JAX ``fold_in(key, index)``)."""
         return DropoutContext(self.key + (int(index),), self.mask_source, self.batch_shard,
-                              self.seq_shard)
+                              self.seq_shard, self.sp_shard)
 
     def for_seq_shard(self, rank: int, size: int) -> "DropoutContext":
         """The context of sequence slice ``rank`` of ``size``."""
-        return DropoutContext(self.key, self.mask_source, self.batch_shard, (rank, size))
+        return DropoutContext(self.key, self.mask_source, self.batch_shard, (rank, size),
+                              self.sp_shard)
+
+    def sequence_shard(self, sequence_sharded: bool = False) -> Tuple[int, int]:
+        """The (rank, size) of the sequence slice a site's tensor holds:
+        ``seq_shard``, composed with ``sp_shard`` for a site between the
+        tensor-parallel regions."""
+        (rank, size), (m, mp) = self.seq_shard, self.sp_shard
+        return (rank * mp + m, size * mp) if sequence_sharded else (rank, size)
 
     def dropout(self, x: torch.Tensor, rate: float, site: str,
                 head_shard: Optional[Tuple[int, int, int]] = None, seq_dim: int = 1,
-                key_dim: Optional[int] = None) -> torch.Tensor:
+                key_dim: Optional[int] = None, sequence_sharded: bool = False) -> torch.Tensor:
         if rate == 0.0:
             return x
         keep = 1.0 - rate
         shape, index = list(x.shape), [slice(None)] * x.ndim
-        seq_rank, seq_size = self.seq_shard
+        seq_rank, seq_size = self.sequence_shard(sequence_sharded)
         if key_dim is not None and seq_size > 1:  # the keys: a prefix of the whole sequence
             shape[key_dim] = shape[seq_dim] * seq_size
             index[key_dim] = slice(0, x.shape[key_dim])
         for dim, rank, size in ((0,) + self.batch_shard, head_shard or (0, 0, 1),
-                                (seq_dim,) + self.seq_shard):
+                                (seq_dim, seq_rank, seq_size)):
             if size > 1:
                 index[dim] = slice(rank * shape[dim], (rank + 1) * shape[dim])
                 shape[dim] *= size
@@ -108,11 +124,13 @@ class DropoutContext:
 
 def dropout(x: torch.Tensor, rate: float, ctx: Optional[DropoutContext],
             site: str, head_shard: Optional[Tuple[int, int, int]] = None, seq_dim: int = 1,
-            key_dim: Optional[int] = None) -> torch.Tensor:
-    """Dropout at ``site``; the identity without a context or at rate 0."""
+            key_dim: Optional[int] = None, sequence_sharded: bool = False) -> torch.Tensor:
+    """Dropout at ``site``; the identity without a context or at rate 0.
+    ``sequence_sharded``: the site lies between the tensor-parallel regions
+    (its tensor is a sequence shard under sequence parallelism)."""
     if ctx is None or rate == 0.0:
         return x
-    return ctx.dropout(x, rate, site, head_shard, seq_dim, key_dim)
+    return ctx.dropout(x, rate, site, head_shard, seq_dim, key_dim, sequence_sharded)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,18 @@ caller already did (``copy_input=False``: the attention and the MLP enter
 once for all their column products); with ``gather_output`` its output is
 all-gathered (the LM head's logits).
 
+Under sequence parallelism (``ModelShard.sequence_parallel``, JAX's
+``sequence_parallel`` over mp > 1) the activations between the
+tensor-parallel regions hold this rank's contiguous ``1/mp`` of the
+sequence: a region is entered by an all-gather along the sequence
+(``ModelShard.enter``, in place of ``copy_to_model_region``; its backward
+reduce-scatters), a ``RowParallelLinear`` with ``parallel_output`` (JAX's
+flag) leaves it by a reduce-scatter along the sequence in place of the
+all-reduce (its backward all-gathers), the bias added after it, and
+``VocabParallelEmbedding`` reduce-scatters its partial lookups likewise.
+These are the collectives that JAX's ``shard_activation_sp`` layouts
+make GSPMD insert (scaling_tpu/nn/linear.py).
+
 Parameters are allocated uninitialised; ``init_`` fills them from an
 explicit ``torch.Generator`` with the JAX package's initialiser
 (xavier normal, ``std = sqrt(2 / (fan_in + fan_out))``, zero biases), or
@@ -38,25 +50,45 @@ import torch.nn.functional as F
 from ..parallel.collectives import (
     copy_to_model_region,
     gather_from_model_region,
+    gather_sequence,
     reduce_from_model_region,
+    scatter_sequence,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelShard:
     """A layer's place in the model group: ``size`` ranks, this one
-    ``rank``, ``group`` the process group (None for one rank)."""
+    ``rank``, ``group`` the process group (None for one rank);
+    ``sequence_parallel``: the activations outside the tensor-parallel
+    regions are this rank's sequence shard."""
 
     size: int = 1
     rank: int = 0
     group: Any = None
+    sequence_parallel: bool = False
 
     @classmethod
     def of(cls, topology) -> "ModelShard":
         if topology is None or topology.model_parallel_size == 1:
             return cls()
         return cls(topology.model_parallel_size, topology.model_parallel_rank,
-                   topology.model_group)
+                   topology.model_group, topology.sequence_parallel)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (b, s, h) into a tensor-parallel region: gathered along the
+        sequence under sequence parallelism, else ``copy_to_model_region``."""
+        if self.sequence_parallel:
+            return gather_sequence(x, self.group, 1)
+        return copy_to_model_region(x, self.group)
+
+    def leave(self, y: torch.Tensor, parallel_output: bool = False) -> torch.Tensor:
+        """The group's partial sums ``y`` out of a tensor-parallel region:
+        reduce-scattered along the sequence when ``parallel_output`` under
+        sequence parallelism, else all-reduced."""
+        if parallel_output and self.sequence_parallel:
+            return scatter_sequence(y, self.group, 1)
+        return reduce_from_model_region(y, self.group)
 
     def split(self, n: int, what: str) -> int:
         if n % self.size:
@@ -138,22 +170,25 @@ class ColumnParallelLinear(Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.copy_input:
-            x = copy_to_model_region(x, self.shard.group)
+            x = self.shard.enter(x)
         y = F.linear(x, self.weight, self.host_bias)
         return gather_from_model_region(y, self.shard.group) if self.gather_output else y
 
 
 class RowParallelLinear(Linear):
     """``Linear`` with this rank's slice of the input features; the
-    partial products are summed over the model group, then the bias (whole
-    on every rank) is added."""
+    partial products are summed over the model group (reduce-scattered
+    along the sequence with ``parallel_output`` under sequence
+    parallelism), then the bias (whole on every rank) is added."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: Optional[torch.dtype] = None, device=None,
-                 bitfit_bias_name: Optional[str] = None, shard: ModelShard = ModelShard()):
+                 bitfit_bias_name: Optional[str] = None, shard: ModelShard = ModelShard(),
+                 parallel_output: bool = False):
         super().__init__(shard.split(in_features, "in_features"), out_features, bias=bias,
                          dtype=dtype, device=device, bitfit_bias_name=bitfit_bias_name)
         self.shard, self.global_in = shard, in_features
+        self.parallel_output = parallel_output
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> None:
@@ -169,7 +204,7 @@ class RowParallelLinear(Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.shard.size == 1:
             return F.linear(x, self.weight, self.host_bias)
-        y = reduce_from_model_region(F.linear(x, self.weight), self.shard.group)
+        y = self.shard.leave(F.linear(x, self.weight), self.parallel_output)
         bias = self.host_bias
         return y if bias is None else y + bias
 
@@ -190,7 +225,9 @@ class Embedding(torch.nn.Embedding):
 
 
 class VocabParallelEmbedding(Embedding):
-    """``Embedding`` with this rank's slice of the vocabulary rows."""
+    """``Embedding`` with this rank's slice of the vocabulary rows; the
+    ranks' lookups are summed (reduce-scattered along the sequence under
+    sequence parallelism)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  dtype: Optional[torch.dtype] = None, device=None,
@@ -217,4 +254,4 @@ class VocabParallelEmbedding(Embedding):
         outside = (local < 0) | (local >= self.num_embeddings)
         y = F.embedding(local.masked_fill(outside, 0), self.weight)
         y = y.masked_fill(outside[..., None], 0)
-        return reduce_from_model_region(y, self.shard.group)
+        return self.shard.leave(y, parallel_output=True)

@@ -14,6 +14,13 @@ gain takes K3's dx-only variant) where
 check, a hidden size that is a multiple of 128. Any other width takes the
 plain ops, as the JAX layer takes its XLA path; the route depends on the
 width alone, so it is the same on the CPU and on the card.
+
+Under sequence parallelism a norm between the tensor-parallel regions runs
+on the model rank's shard of the sequence (K2/K3 on ``1/mp`` of the rows),
+so its replicated parameters get a gradient from those rows only: their
+leaves carry JAX's ``is_sequence_parallel_norm`` as
+``parallel.parallel_module.LeafLayout.sequence_parallel``, and the step sums
+their gradients over the model group.
 """
 
 from __future__ import annotations

@@ -33,8 +33,11 @@ twice and every rank clips, and skips on overflow, alike. With ``zero: true``
 (stage 1, ``zero_stage`` 1) the f32 masters and both moments are kept for
 this rank's data slice of each leaf (over its pipe stage's data group) (``LeafLayout.data_dim``; leaves no
 dim of which ``dp`` divides stay whole), the update runs on the slices,
-and the updated parameters are all-gathered over the data group. Stage 3
-is a later slice and raises by name; stage 2 raises as in JAX.
+and the updated parameters are all-gathered over the data group. At stage
+3 the parameters themselves are those slices (``ParallelModule``'s ZeRO-3,
+``zero3_dims`` equal to this optimizer's ``zero_dims``): the gradients
+arrive as the slices, the masters are copied from them, the update writes
+them, and nothing is all-gathered. Stage 2 raises as in JAX.
 """
 
 from __future__ import annotations
@@ -70,9 +73,13 @@ class OptimizerConfig:
                              "update); use 1 or 3")
         if self.zero_stage != 1 and not self.zero:
             raise ValueError(f"zero_stage {self.zero_stage} requires zero: true")
-        if self.zero_stage == 3:
-            raise NotImplementedError("zero_stage 3 (sharded parameters) is not ported; "
-                                      "zero_stage 1 shards the optimizer state")
+        if self.zero_stage not in (1, 3):
+            raise ValueError(f"zero_stage {self.zero_stage}: expected 1 or 3")
+
+    @property
+    def shards_parameters(self) -> bool:
+        """ZeRO stage 3: the parameters are sharded over the data group."""
+        return self.zero and self.zero_stage == 3
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "OptimizerConfig":
@@ -135,8 +142,6 @@ class Optimizer:
         # over several ranks: each leaf's LeafLayout and the run's Topology
         self.topology = topology if topology is not None and topology.world_size > 1 else None
         self.layouts = dict(layouts or {})
-        if config.debug_log and self.topology is not None:
-            raise NotImplementedError("optimizer.debug_log over several ranks is not ported")
         self.parameter_groups = parameter_groups
         self.params = dict(params)
         self.keys = {n: n for n in self.params} if keys is None else dict(keys)
@@ -159,20 +164,29 @@ class Optimizer:
         self.zero_dims: Dict[str, int] = {
             n: self.layouts[n].data_dim for n in self.optimized
             if zero and self.layouts[n].data_dim is not None}
+        # stage 3: the parameters (and so the gradients) are the slices already
+        self.sliced_params = zero and config.shards_parameters
         self._owned = [self._owns(n) for n in self.optimized]
         self.state = self.init_state()
 
-    def _owns(self, name: str) -> bool:
-        """Whether this rank counts ``name``'s piece in the global norm."""
+    def _owns(self, name: str, stored_only: bool = True) -> bool:
+        """Whether this rank counts ``name``'s piece in a norm over the world
+        (``stored_only``: not a tied table's last-stage copy, the global
+        norm's rule; ``debug_log`` counts each stage's own leaves)."""
         topo = self.topology
         if topo is None:
             return True
         layout = self.layouts[name]
-        if not layout.stored or topo.context_parallel_rank != 0:
+        if (stored_only and not layout.stored) or topo.context_parallel_rank != 0:
             return False
         if layout.model_dim is None and topo.model_parallel_rank != 0:
             return False
         return name in self.zero_dims or topo.data_parallel_rank == 0
+
+    def _own(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``name``'s parameter or gradient ``t``: at
+        stage 3 ``t`` is the slice already."""
+        return t if self.sliced_params else self.piece(name, t)
 
     def piece(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's ZeRO slice of ``name``'s local tensor ``t`` (a view;
@@ -187,7 +201,7 @@ class Optimizer:
     @torch.no_grad()
     def init_state(self) -> OptimizerState:
         """Fresh state: f32 masters copied from the parameters, zero moments."""
-        master = {n: self.piece(n, self.params[n].detach()).to(torch.float32, copy=True)
+        master = {n: self._own(n, self.params[n].detach()).to(torch.float32, copy=True)
                   for n in self.optimized}
         return OptimizerState(
             step=0, master=master,
@@ -211,7 +225,7 @@ class Optimizer:
         they are scaled in place). Updates the parameters and the state."""
         c = self.config
         state = self.state
-        g32 = [self.piece(n, grads[n]) for n in self.optimized]
+        g32 = [self._own(n, grads[n]) for n in self.optimized]
         if c.loss_scaler.enable:
             torch._foreach_mul_(g32, 1.0 / state.loss_scaler.current_scale)
         norms = list(torch._foreach_norm(g32))
@@ -255,8 +269,16 @@ class Optimizer:
     def _grad_norms(self, g32: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """``sqrt(sum(g^2))`` of each clipped f32 gradient in one
         ``_foreach_norm``, by key in the parameters' order, with no host
-        sync; a frozen parameter's is 0, its gradient in the JAX step."""
+        sync; a frozen parameter's is 0, its gradient in the JAX step. Over
+        several ranks each leaf's pieces are summed, each counted once."""
         norms = dict(zip(self.optimized, torch._foreach_norm(g32))) if g32 else {}
+        topo = self.topology
+        if topo is not None and norms:
+            sq = torch.stack([norms[n].square() if self._owns(n, stored_only=False)
+                              else torch.zeros_like(norms[n]) for n in self.optimized])
+            all_reduce_(sq, topo.model_group)
+            all_reduce_(sq, topo.grad_group)
+            norms = dict(zip(self.optimized, sq.sqrt().unbind(0)))
         zero = None
         out = {}
         for name, p in self.params.items():
@@ -291,7 +313,9 @@ class Optimizer:
             torch._foreach_div_(denom, math.sqrt(bc2))
             torch._foreach_add_(denom, c.eps)
             torch._foreach_addcdiv_(masters, avgs, denom, value=-(lr / bc1))
-            torch._foreach_copy_([self.piece(n, self.params[n]) for n in names], masters)
+            torch._foreach_copy_([self._own(n, self.params[n]) for n in names], masters)
+        if self.sliced_params:
+            return
         for n in self.zero_dims:  # the updated slices to every data rank
             p = self.params[n]
             p.copy_(all_gather_cat(self.piece(n, p), self.topology.data_group,

@@ -36,7 +36,18 @@ collectives, so every byte they move is counted here (``STATS``):
 - ``all_to_all``: Ulysses's exchange of a sequence shard for a head shard
   over the context group, an autograd Function whose backward is the
   inverse exchange (counted as ``all_to_all_*``, each call the whole tensor
-  it is given).
+  it is given);
+- ``gather_param``: ZeRO-3's per-use all-gather of a parameter's data
+  slice over the data group (counted as ``param_gather_*``), whose
+  backward reduce-scatters the f32 gradient (``grad_reduce_scatter_*``)
+  and hands this rank's summed slice to a sink, not to autograd: the
+  parameter is bf16 in a bf16 model, and autograd would round the f32 sum
+  to it;
+- ``gather_sequence`` / ``scatter_sequence``: sequence parallelism's entry
+  into a tensor-parallel region (an all-gather along the sequence over the
+  model group, its backward a reduce-scatter) and exit from one (a
+  reduce-scatter, its backward an all-gather), counted as
+  ``seq_gather_*`` and ``seq_reduce_scatter_*`` in both directions.
 
 A group of one rank (or none) makes each of them the identity. Under the
 gloo backend (ranks that share a card, ``topology.choose_backend``) the
@@ -60,7 +71,7 @@ hidden)`` in the compute dtype), so the receiver allocates the buffer.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List
 
 import torch
 import torch.distributed as dist
@@ -86,16 +97,35 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return t
 
 
-def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The ranks' ``t`` concatenated along ``dim`` in group-rank order."""
+def all_gather_cat(t: torch.Tensor, group, dim: int = 0, op: str = "all_gather"
+                   ) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in group-rank order
+    (the bytes counted as the output's, under ``op``)."""
     n = _size(group)
     if n == 1:
         return t
     t = t.contiguous()
-    _count("all_gather", n * t.numel() * t.element_size())
+    _count(op, n * t.numel() * t.element_size())
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_cat(t: torch.Tensor, group, dim: int = 0, op: str = "reduce_scatter"
+                       ) -> torch.Tensor:
+    """``t`` summed over ``group``, this rank's contiguous ``1/n`` of the sum
+    along ``dim`` (the bytes counted as the input's, under ``op``)."""
+    n = _size(group)
+    if n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"a reduce-scatter over {n} ranks needs dim {dim} of {tuple(t.shape)} "
+                         f"divisible by {n}")
+    _count(op, t.numel() * t.element_size())
+    parts = [c.contiguous() for c in t.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
 
 
 def group_rank(group) -> int:
@@ -200,6 +230,64 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch
     if _size(group) == 1:
         return x
     return _AllToAll.apply(x, group, split_dim % x.ndim, concat_dim % x.ndim)
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, group, dim, sink):
+        ctx.group, ctx.dim, ctx.sink = group, dim, sink
+        return all_gather_cat(p, group, dim, "param_gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.sink(reduce_scatter_cat(grad.float(), ctx.group, ctx.dim, "grad_reduce_scatter"))
+        return None, None, None, None
+
+
+def gather_param(p: torch.Tensor, group, dim: int,
+                 sink: Callable[[torch.Tensor], None]) -> torch.Tensor:
+    """ZeRO-3: the whole parameter from this rank's data slice ``p`` (the
+    group's slices concatenated along ``dim``). In the backward the
+    gradient is cast to f32, reduce-scattered over ``group`` and this
+    rank's slice of the sum handed to ``sink``; ``p`` gets no ``.grad``."""
+    return _GatherParam.apply(p, group, dim, sink)
+
+
+class _GatherSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim, "seq_gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_cat(grad, ctx.group, ctx.dim, "seq_reduce_scatter"), None, None
+
+
+class _ScatterSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_cat(x, group, dim, "seq_reduce_scatter")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_cat(grad, ctx.group, ctx.dim, "seq_gather"), None, None
+
+
+def gather_sequence(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism into a tensor-parallel region: the model
+    group's sequence shards of ``x`` gathered along ``dim``; the backward
+    reduce-scatters the gradient (sums the ranks' partial gradients and
+    keeps this rank's rows)."""
+    return x if _size(group) == 1 else _GatherSequence.apply(x, group, dim % x.ndim)
+
+
+def scatter_sequence(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism out of a tensor-parallel region: the ranks'
+    partial sums of ``x`` reduce-scattered along ``dim`` (this rank's rows
+    of the sum); the backward all-gathers the gradient."""
+    return x if _size(group) == 1 else _ScatterSequence.apply(x, group, dim % x.ndim)
 
 
 def barrier(group=None) -> None:

@@ -56,6 +56,31 @@ group. Dropout masks are the one-rank masks' sequence slices
 (``DropoutContext``'s ``seq_shard``). ``forward`` gathers the logits of the
 slices, so that it returns the one-rank output at every layout.
 
+Under ZeRO stage 3 (``zero_stage3``) each rank's parameters are its data
+slices, on ``LeafLayout.data_dim``, of its model slices (leaves no dim of
+which ``dp`` divides stay whole), as JAX places them with
+``spec_with_data_axis``. A layer gathers its sliced leaves over the data
+group each time it runs (``call``: ``collectives.gather_param``, JAX's
+per-use all-gather under GSPMD) and releases them after it: outside a
+per-layer remat region the autograd graph keeps a gathered weight as its
+slice and gathers it again when the backward reads it (``_ReleaseGathered``,
+saved-tensor hooks); a remat region's recompute gathers again anyway. The
+backward reduce-scatters each use's f32 gradient over the data group into
+an f32 slice (``sliced_grads``), which the step adds up over the
+micro-batches in place of ``.grad``; only the context group still sums
+those slices, and the whole leaves keep the flat all-reduce
+(``reduce_gradients``).
+
+Under sequence parallelism (``sequence_parallel`` over mp > 1) the
+activations between the tensor-parallel regions are this model rank's
+``1/mp`` of the local sequence (``nn.linear.ModelShard``): the norms,
+dropout and residual run on the shard, the head gathers the final norm's
+output along the sequence. The replicated leaves used there
+(``sequence_parallel_leaf``: the norms, the row-parallel biases, the
+adapters, a soft prompt; JAX's ``is_sequence_parallel_norm``) get a
+gradient from the rank's rows only, so it is summed over the model group
+(``LeafLayout.sequence_parallel``).
+
 Over several pipe stages (``model.plan``) the step is
 ``pipeline_engine.PipelineEngine``'s, which runs this rank's instruction
 stream of the schedule; ``forward`` runs one micro-batch through the
@@ -70,9 +95,10 @@ layout.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import re
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -84,7 +110,14 @@ from torch.utils.checkpoint import (
 from ..nn.base_layer import DropoutContext, MaskSource
 from ..optimizer import Optimizer, OptimizerStepOutput
 from ..topology import ActivationCheckpointingType, TopologyConfig
-from .collectives import all_gather_cat, all_reduce_, broadcast_, flat_all_reduce_
+from .collectives import (
+    all_gather_cat,
+    all_reduce_,
+    broadcast_,
+    flat_all_reduce_,
+    gather_from_model_region,
+    gather_param,
+)
 
 # the batch's leaves with a sequence dim (dim 1), which sequence splitting cuts
 SEQUENCE_KEYS = ("token_ids", "target_token_ids", "loss_weights", "position_ids",
@@ -209,18 +242,49 @@ def spec_with_data_axis(spec: tuple, shape: tuple, dp: int) -> tuple:
     return tuple(spec)
 
 
+def data_slice_dim(key: str, spec: tuple, jax_shape: tuple, dp: int) -> Optional[int]:
+    """The port dim of the ZeRO slice over the data group of the leaf
+    ``key`` (partition spec ``spec``, JAX-layout shape ``jax_shape``) by
+    ``spec_with_data_axis``; None: the leaf stays whole."""
+    zspec = spec_with_data_axis(spec, jax_shape, dp)
+    if "data" in zspec and "data" not in spec:
+        return port_dim(key, len(jax_shape), zspec.index("data"))
+    return None
+
+
+# the replicated leaves that sequence parallelism uses between the
+# tensor-parallel regions, on a rank's rows only: the block's and the final
+# norms, the row-parallel biases (added after the reduce-scatter), the
+# adapters and a soft prompt
+_SEQUENCE_PARALLEL_LEAF = re.compile(
+    r"_TransformerLayer\.(input_layernorm|post_attention_layernorm|adapter_[^.]+)\."
+    r"|_TransformerLayer\.(attention\.dense|mlp\.dense_out|mlp\.down_proj)\.bias"
+    r"|_LayerNormWrapper\.|_EmbeddingInput\.softprompt_")
+
+
+def sequence_parallel_leaf(key: str) -> bool:
+    """Whether the replicated leaf ``key`` is used between the
+    tensor-parallel regions, where sequence parallelism gives each model rank
+    a shard of the rows (JAX's ``is_sequence_parallel_norm``, which marks the
+    norms, widened to every such leaf)."""
+    return _SEQUENCE_PARALLEL_LEAF.search(key) is not None
+
+
 class LeafLayout(NamedTuple):
     """Where a parameter's slices live: its JAX key, its global shape in the
     port's layout, the port dim split over the model group, the port dim
-    of its ZeRO slice over the data group (None: whole), and whether this
+    of its ZeRO slice over the data group (None: whole), whether this
     stage's copy is the stored one (False for the last stage's copy of a
-    tied table: the first stage's is stored and counted)."""
+    tied table: the first stage's is stored and counted), and whether its
+    gradient is summed over the model group (``sequence_parallel_leaf``
+    under sequence parallelism)."""
 
     key: str
     shape: Tuple[int, ...]
     model_dim: Optional[int]
     data_dim: Optional[int]
     stored: bool = True
+    sequence_parallel: bool = False
 
 
 def positions_and_segments(batch: Dict[str, torch.Tensor]
@@ -329,17 +393,69 @@ def remat(fn: Callable, args: tuple, params) -> Any:
     return Remat.apply(fn, len(args), *args, *(p for p in params if p.requires_grad))
 
 
+@contextlib.contextmanager
+def _substituted(uses, tensors):
+    """Each ``(module, attribute)`` of ``uses`` reads the matching tensor
+    of ``tensors`` in place of its parameter while the block runs."""
+    saved = [m._parameters[a] for m, a, _ in uses]
+    for (m, a, _), t in zip(uses, tensors):
+        m._parameters[a] = t
+    try:
+        yield
+    finally:
+        for (m, a, _), p in zip(uses, saved):
+            m._parameters[a] = p
+
+
+class _ReleaseGathered(torch.autograd.graph.saved_tensors_hooks):
+    """Saved-tensor hooks that keep a gathered ZeRO-3 weight (or a view of
+    it) in the autograd graph as a reference to its slice and gather it
+    again when the backward unpacks it."""
+
+    def __init__(self, gathered, regather):
+        storages = {g.untyped_storage().data_ptr(): i for i, g in enumerate(gathered)}
+
+        def pack(t):
+            i = storages.get(t.untyped_storage().data_ptr()) if t.device.type != "meta" else None
+            if i is None:
+                return t
+            return i, t.size(), t.stride(), t.storage_offset()
+
+        def unpack(packed):
+            if isinstance(packed, torch.Tensor):
+                return packed
+            i, size, stride, offset = packed
+            with torch.no_grad():
+                return regather(i).as_strided(size, stride, offset)
+
+        super().__init__(pack, unpack)
+
+
 class ParallelModule:
     """The model behind its forward, loss and training step. ``topology``
     is the config's section; ``layout`` the ``topology.Topology`` of a run
     of several ranks (None: one rank)."""
 
-    def __init__(self, model: torch.nn.Module, topology: TopologyConfig, layout=None):
+    def __init__(self, model: torch.nn.Module, topology: TopologyConfig, layout=None,
+                 zero_stage3: bool = False):
         self.model = model
         self.topology = topology
         self.layout = layout if layout is not None and layout.world_size > 1 else None
         # this stage's layers over several pipe stages (None: the whole stack)
         self.plan = getattr(model, "plan", None)
+        # ZeRO-3: the port dim of each sliced parameter's data slice
+        self.zero3_dims: Dict[str, int] = {}
+        # ZeRO-3: each sliced parameter's f32 gradient slice of the current
+        # backward(s), summed over the data group (the sinks' sums)
+        self.sliced_grads: Dict[str, torch.Tensor] = {}
+        self._uses: Dict[int, list] = {}
+        if zero_stage3 and self.layout is not None and self.layout.data_parallel_size > 1:
+            self.zero3_dims = {n: lay.data_dim for n, lay in self.leaf_layouts(True).items()
+                               if lay.data_dim is not None}
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    if name in self.zero3_dims:
+                        p.data = self.data_piece(name, p.data).clone()
 
     @property
     def pipe_group(self):
@@ -375,9 +491,11 @@ class ParallelModule:
         lay = self.layout
         if lay is None:
             return DropoutContext(key, mask_source)
+        sp = ((lay.model_parallel_rank, lay.model_parallel_size) if lay.sequence_parallel
+              else (0, 1))
         return DropoutContext(key, mask_source,
                               (lay.data_parallel_rank, lay.data_parallel_size),
-                              (lay.context_parallel_rank, lay.context_parallel_size))
+                              (lay.context_parallel_rank, lay.context_parallel_size), sp)
 
     def leaf_layouts(self, zero: bool = False) -> Dict[str, LeafLayout]:
         """Each parameter's ``LeafLayout`` by the port's name, from JAX's
@@ -385,11 +503,14 @@ class ParallelModule:
         lay = self.layout
         mp = 1 if lay is None else lay.model_parallel_size
         dp = 1 if lay is None else lay.data_parallel_size
+        sp = lay is not None and lay.sequence_parallel
         out = {}
         for name, p in self.model.named_parameters():
             key = jax_param_key(self.model, name)
             spec = jax_partition_spec(key, p.ndim)
             shape = list(p.shape)
+            if name in self.zero3_dims:  # the stored data slice's model slice
+                shape[self.zero3_dims[name]] *= dp
             model_dim = None
             if mp > 1 and "model" in spec:
                 model_dim = port_dim(key, p.ndim, spec.index("model"))
@@ -397,12 +518,95 @@ class ParallelModule:
             data_dim = None
             if zero and dp > 1:
                 jax_shape = tuple(to_jax_layout(key, torch.empty(shape, device="meta")).shape)
-                zspec = spec_with_data_axis(spec, jax_shape, dp)
-                if "data" in zspec and "data" not in spec:
-                    data_dim = port_dim(key, p.ndim, zspec.index("data"))
+                data_dim = data_slice_dim(key, spec, jax_shape, dp)
             stored = lay is None or self.owner_stage(name) == lay.pipe_parallel_rank
-            out[name] = LeafLayout(key, tuple(shape), model_dim, data_dim, stored)
+            out[name] = LeafLayout(key, tuple(shape), model_dim, data_dim, stored,
+                                   sp and model_dim is None and sequence_parallel_leaf(key))
         return out
+
+    def data_piece(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO-3 data slice of ``name``'s model slice ``t`` (a
+        view; ``t`` itself for a parameter that is not sliced)."""
+        d = self.zero3_dims.get(name)
+        if d is None:
+            return t
+        return slice_of(t, d, self.layout.data_parallel_rank, self.layout.data_parallel_size)
+
+    # -------------------------------------------------- ZeRO-3 per use
+    def _layer_uses(self, layer: torch.nn.Module) -> list:
+        """The sliced parameters ``layer`` reads: ``(module, attribute,
+        name)`` each, a tied head's table among them."""
+        uses = self._uses.get(id(layer))
+        if uses is None:
+            names = {id(p): n for n, p in self.model.named_parameters()}
+            modules = list(layer.modules())
+            tied = getattr(layer, "tied_embedding", None)
+            if tied is not None:
+                modules.append(tied.embedding)
+            uses = [(m, a, names[id(p)]) for m in modules for a, p in m._parameters.items()
+                    if p is not None and names.get(id(p)) in self.zero3_dims]
+            self._uses[id(layer)] = uses
+        return uses
+
+    def _sink(self, name: str) -> Callable[[torch.Tensor], None]:
+        def add(g: torch.Tensor) -> None:
+            held = self.sliced_grads.get(name)
+            self.sliced_grads[name] = g if held is None else held.add_(g)
+        return add
+
+    def _gather(self, name: str, p: torch.Tensor, sink: bool = True) -> torch.Tensor:
+        group, dim = self.layout.data_group, self.zero3_dims[name]
+        if not sink:
+            return all_gather_cat(p.detach(), group, dim, "param_gather")
+        return gather_param(p, group, dim, self._sink(name))
+
+    def call(self, layer: Callable, *args, release: bool = True):
+        """``layer(*args)``; under ZeRO-3 with the sliced parameters it reads
+        gathered over the data group for this call. ``release``: the graph
+        keeps them as slices and gathers them again in the backward (off
+        inside a remat region, whose recompute gathers anyway)."""
+        uses = self._layer_uses(layer) if self.zero3_dims else []
+        if not uses:
+            return layer(*args)
+        params = [m._parameters[a] for m, a, _ in uses]
+        gathered = [self._gather(n, p) for (_, _, n), p in zip(uses, params)]
+        hooks = contextlib.nullcontext()
+        if release and torch.is_grad_enabled():
+            hooks = _ReleaseGathered(gathered, lambda i: self._gather(
+                uses[i][2], params[i], sink=False))
+        with _substituted(uses, gathered), hooks:
+            return layer(*args)
+
+    def clear_grads(self, params) -> None:
+        """No gradient held for ``params`` (and no ZeRO-3 slice gradient)."""
+        for p in params:
+            p.grad = None
+        self.sliced_grads.clear()
+
+    def grads_of(self, names: List[str], params: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each parameter's gradient of the backward(s) since ``clear_grads``
+        (a ZeRO-3 slice's f32 sum over the data group), zeros where none
+        reached it."""
+        out = []
+        for n, p in zip(names, params):
+            g = self.sliced_grads.get(n) if n in self.zero3_dims else p.grad
+            out.append(torch.zeros_like(p) if g is None else g)
+        return out
+
+    def reduce_gradients(self, names: List[str], buffers: List[torch.Tensor]) -> None:
+        """The step's gradient sums: one flat all-reduce of the whole leaves
+        over the data x context group, the ZeRO-3 slices (summed over the
+        data group already) over the context group, and the sequence-parallel
+        leaves over the model group."""
+        lay = self.layout
+        if lay is None:
+            return
+        sliced = [n in self.zero3_dims for n in names]
+        flat_all_reduce_([b for b, z in zip(buffers, sliced) if not z], self.grad_group)
+        flat_all_reduce_([b for b, z in zip(buffers, sliced) if z], lay.context_group)
+        layouts = self.layouts
+        flat_all_reduce_([b for n, b in zip(names, buffers) if layouts[n].sequence_parallel],
+                         self.model_group)
 
     def gather_leaf(self, name: str, t: Optional[torch.Tensor],
                     data_dim: Optional[int] = None,
@@ -472,6 +676,11 @@ class ParallelModule:
         return slice_of(whole, self.layouts[name].model_dim, lay.model_parallel_rank,
                         lay.model_parallel_size)
 
+    def shard_param(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """The slice of the whole leaf ``name`` that this rank's parameter
+        holds: its model slice, under ZeRO-3 that slice's data slice."""
+        return self.data_piece(name, self.shard_leaf(name, whole))
+
     @functools.cached_property
     def layouts(self) -> Dict[str, LeafLayout]:
         return self.leaf_layouts()
@@ -517,23 +726,31 @@ class ParallelModule:
             layer.merge_lora_weights()
 
     def run(self, layer: Callable, *args, edge: bool = False):
-        """``layer(*args)``, under the config's per-layer remat mode in a
-        training pass; ``every_pipe_stage`` remats no single layer, and at
-        one stage the transformer layers but not the edges (``edge``)."""
+        """``layer(*args)`` (through ``call``), under the config's per-layer
+        remat mode in a training pass; ``every_pipe_stage`` remats no single
+        layer, and at one stage the transformer layers but not the edges
+        (``edge``)."""
         if not (self.remat and torch.is_grad_enabled()):
-            return layer(*args)
+            return self.call(layer, *args)
+        in_region = functools.partial(self.call, layer, release=False)
         mode = self.topology.activation_checkpointing_type
         if mode == ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS:
-            return checkpoint(layer, *args, use_reentrant=False, context_fn=_SAVE_DOTS_CONTEXT)
+            return checkpoint(in_region, *args, use_reentrant=False,
+                              context_fn=_SAVE_DOTS_CONTEXT)
         if mode == ActivationCheckpointingType.EVERY_PIPE_STAGE and (edge or self.plan is not None):
-            return layer(*args)
-        return remat(layer, args, layer.parameters())
+            return self.call(layer, *args)
+        return remat(in_region, args, layer.parameters())
 
-    def embed(self, batch: Dict[str, torch.Tensor],
-              ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+    def embed(self, batch: Dict[str, torch.Tensor], ctx: Optional[DropoutContext] = None,
+              slot_offset: int = 0, total_len: Optional[int] = None) -> torch.Tensor:
+        """The embedding of ``batch``, a piece of the sequence from absolute
+        slot ``slot_offset`` on of a sequence of ``total_len`` (the piece's
+        own length by default): the soft prompt's slots are absolute."""
+        s = batch["token_ids"].shape[1]
         return self.run(self.model.embedding, batch["token_ids"], ctx,
                         batch.get("input_images"), batch.get("input_image_locations"),
-                        batch.get("input_image_mask"), edge=True)
+                        batch.get("input_image_mask"), slot_offset,
+                        s if total_len is None else total_len, edge=True)
 
     def run_layers(self, layers, h: torch.Tensor, batch: Dict[str, torch.Tensor],
                    ctx: Optional[DropoutContext] = None):
@@ -561,6 +778,9 @@ class ParallelModule:
         if aux is not None:
             out["aux_loss"] = aux
         if m.embedding_head is not None:
+            if self.layout is not None and self.layout.sequence_parallel:
+                # every model rank pools the whole sequence; the backward keeps its rows
+                h = gather_from_model_region(h, self.model_group, 1)
             out["embeddings"] = self.run(m.embedding_head, h, batch.get("loss_weights"),
                                          edge=True)
         return out
@@ -585,8 +805,11 @@ class ParallelModule:
 
     def local_forward(self, batch: Dict[str, torch.Tensor],
                       ctx: Optional[DropoutContext] = None) -> Dict[str, torch.Tensor]:
-        """``forward`` of one stage over this rank's slice of the batch."""
-        h = self.embed(batch, ctx)
+        """``forward`` of one stage over this rank's slice of the batch (its
+        context rank's, from slot ``context rank x s`` of the ``s x cp``)."""
+        s, cp = batch["token_ids"].shape[1], self.context_size
+        rank = 0 if cp == 1 else self.layout.context_parallel_rank
+        h = self.embed(batch, ctx, rank * s, s * cp)
         h, aux = self.run_layers(self.model.transformer_layers, h, batch, ctx)
         return self.head(h, batch, aux)
 
@@ -648,14 +871,13 @@ class ParallelModule:
             for i, mb in enumerate(mbs):
                 ctx = (None if dropout_key is None
                        else self.dropout_context(dropout_key, mask_source).for_micro_batch(i))
-                for p in params:
-                    p.grad = None
+                self.clear_grads(params)
                 loss, metrics = self.loss(self.local_forward(mb, ctx), mb, loss_function,
                                           None if dens is None else dens[i])
                 scaled = optimizer.scale_loss(loss.float() / gas)
                 if scaled.requires_grad:  # else no trained parameter reaches the loss
                     scaled.backward()
-                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                grads = self.grads_of(optimizer.optimized, params)
                 if i == 0:
                     torch._foreach_copy_(buffers, grads)
                 else:
@@ -663,10 +885,9 @@ class ParallelModule:
                 loss_sum += loss.detach().float()
                 for k, v in metrics.items():
                     metrics_sum[k] = metrics_sum.get(k, 0.0) + v.detach().float()
-            for p in params:
-                p.grad = None
+            self.clear_grads(params)
             if self.grad_group is not None:
-                flat_all_reduce_(buffers, self.grad_group)
+                self.reduce_gradients(optimizer.optimized, buffers)
                 # the reported loss and metrics: the global batch's
                 names = sorted(metrics_sum)
                 summed = all_reduce_(torch.stack([loss_sum] + [metrics_sum[k] for k in names]),

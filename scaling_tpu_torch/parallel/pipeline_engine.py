@@ -77,7 +77,6 @@ from .collectives import (
     all_reduce_,
     broadcast_,
     broadcast_object,
-    flat_all_reduce_,
     p2p_recv,
     p2p_send,
 )
@@ -125,6 +124,15 @@ class PipelineEngine:
             return remat(run, (h,), [p for layer in self.chunks[rnd] for p in layer.parameters()])
         return run(h)
 
+    def stream_shape(self, batch: Dict[str, torch.Tensor]) -> Tuple[int, ...]:
+        """The shape of an activation between stages for ``batch`` (a
+        micro-batch or a token slice): under sequence parallelism this model
+        rank's shard of its sequence."""
+        b, s = batch["token_ids"].shape
+        if self.lay.sequence_parallel:
+            s //= self.lay.model_parallel_size
+        return (b, s, self.hidden)
+
     def run_slice(self, h: torch.Tensor, batch: Dict[str, torch.Tensor],
                   ctx: Optional[DropoutContext], prior: List[Tuple]) -> Tuple[torch.Tensor, list]:
         """A token slice through this stage's layers: ``prior[j]`` is layer
@@ -134,11 +142,14 @@ class PipelineEngine:
         outputs are the activation and the K/V)."""
         pos, seg = batch["position_ids"], batch["segment_ids"]
         layers = self.chunks[0]
+        per_layer = self.remat_mode in (ActivationCheckpointingType.EVERY_LAYER,
+                                        ActivationCheckpointingType.EVERY_LAYER_SAVE_DOTS)
 
         def one(layer, segments, x, *kv):
             n = len(kv) // 2
-            x, (k, v) = layer(x, pos, TokenSliceCache(kv[:n], kv[n:], segments), seg, None,
-                              None, True, ctx)
+            x, (k, v) = self.module.call(
+                layer, x, pos, TokenSliceCache(kv[:n], kv[n:], segments), seg, None, None, True,
+                ctx, release=not per_layer)
             return x, k, v
 
         def stage(x, *flat):
@@ -211,8 +222,7 @@ class PipelineEngine:
         for work, _ in sends:
             work.wait()
         sends.clear()
-        if module.data_group is not None:
-            flat_all_reduce_(buffers, module.data_group)
+        module.reduce_gradients(names, buffers)
         loss_out = metrics_out = None
         if self.plan.last:
             keys = sorted(metrics_sum)
@@ -228,7 +238,7 @@ class PipelineEngine:
                 ctx: Optional[DropoutContext] = None) -> Optional[Dict[str, torch.Tensor]]:
         """One deterministic pass of ``batch`` through the stages, round by
         round: the last stage returns the output, the others None."""
-        shape = tuple(batch["token_ids"].shape) + (self.hidden,)
+        shape = self.stream_shape(batch)
         sends: list = []
         out = None
         for rnd in range(self.vpp):
@@ -265,14 +275,13 @@ class PipelineEngine:
         instructions = executor_schedule(self.pp, self.stage, gas, self.vpp).instructions()
         forwards = work_items(gas, self.pp, self.vpp)
         backwards = forwards if self.vpp == 1 else list(reversed(forwards))
-        batch_shard = (lay.data_parallel_rank, lay.data_parallel_size)
 
         def step(micro_batches: Dict[str, torch.Tensor], dropout_key: Optional[Tuple] = None):
             if dropout_key is None and has_dropout:
                 raise ValueError("the model has dropout: the step needs its dropout key")
             module.model.train()
             mbs = [{k: v[i] for k, v in micro_batches.items()} for i in range(gas)]
-            shape = tuple(mbs[0]["token_ids"].shape) + (self.hidden,)
+            shape = self.stream_shape(mbs[0])
             dens = (module.weight_sums(mbs) if plan.last and module.data_group is not None
                     else None)
             for b in buffers:
@@ -294,8 +303,8 @@ class PipelineEngine:
                     m, rnd = forwards[fi]
                     fi += 1
                     item = items.setdefault((m, rnd), {})
-                    ctx = (None if dropout_key is None else DropoutContext(
-                        dropout_key, mask_source, batch_shard).for_micro_batch(m))
+                    ctx = (None if dropout_key is None else module.dropout_context(
+                        dropout_key, mask_source).for_micro_batch(m))
                     h = item["input"] if "input" in item else module.embed(mbs[m], ctx)
                     item["output"] = self.run_chunk(rnd, h, mbs[m], ctx)
                 elif kind == "send_activation":
@@ -318,15 +327,14 @@ class PipelineEngine:
                     m, rnd = backwards[bi]
                     bi += 1
                     item = items[(m, rnd)]
-                    for p in params:
-                        p.grad = None
+                    module.clear_grads(params)
                     if "loss" in item:
                         if item["loss"].requires_grad:  # else nothing trained reaches it
                             item["loss"].backward()
                     else:
                         torch.autograd.backward(item.pop("output"), item.pop("grad"))
-                    pending[rnd][m] = [torch.zeros_like(params[i]) if params[i].grad is None
-                                       else params[i].grad for i in by_round[rnd]]
+                    pending[rnd][m] = module.grads_of([names[i] for i in by_round[rnd]],
+                                                      [params[i] for i in by_round[rnd]])
                     while next_m[rnd] in pending[rnd]:  # micro-batch order, as one stage adds
                         grads = pending[rnd].pop(next_m[rnd])
                         torch._foreach_add_([buffers[i] for i in by_round[rnd]], grads)
@@ -338,8 +346,7 @@ class PipelineEngine:
                     self._send(torch.zeros_like(x) if x.grad is None else x.grad,
                                self._peer(ins, self.stage - 1), sends)
                 elif kind == "reduce_tied_grads":
-                    for p in params:
-                        p.grad = None
+                    module.clear_grads(params)
                     if tied:
                         all_reduce_(buffers[tied[0]], lay.tied_group)
                 elif kind == "optimizer_step":
@@ -375,7 +382,8 @@ class PipelineEngine:
             mbs = [{k: v[i] for k, v in micro_batches.items()} for i in range(gas)]
             parts = [[sequence_slice(mb, k, S, "pipe_token_slices") for k in range(S)]
                      for mb in mbs]
-            shape = tuple(parts[0][0]["token_ids"].shape) + (self.hidden,)
+            shape = self.stream_shape(parts[0][0])
+            slice_len = parts[0][0]["token_ids"].shape[1]
             dens = module.weight_sums(mbs) if plan.last else None
             for b in buffers:
                 b.zero_()
@@ -401,7 +409,8 @@ class PipelineEngine:
                     batch = parts[m][k]
                     ctx = (None if dropout_key is None else module.dropout_context(
                         dropout_key, mask_source).for_micro_batch(m).for_seq_shard(k, S))
-                    h = item["input"] if "input" in item else module.embed(batch, ctx)
+                    h = (item["input"] if "input" in item
+                         else module.embed(batch, ctx, k * slice_len, S * slice_len))
                     prior = caches.setdefault(m, [([], [], []) for _ in range(n_layers)])
                     item["output"], kvs = self.run_slice(
                         h, batch, ctx, [(tuple(a), tuple(b), tuple(c)) for a, b, c in prior])
@@ -434,8 +443,7 @@ class PipelineEngine:
                     bi += 1
                     item = items[(m, k)]
                     if k == S - 1:  # the micro-batch's first backward
-                        for p in params:
-                            p.grad = None
+                        module.clear_grads(params)
                     if "loss" in item:
                         roots, grads = [item.pop("loss")], [None]
                     else:
@@ -451,10 +459,8 @@ class PipelineEngine:
                     item.pop("leaves", None)
                     if k == 0:  # the micro-batch's last backward
                         del caches[m]
-                        pending[m] = [torch.zeros_like(p) if p.grad is None else p.grad
-                                      for p in params]
-                        for p in params:
-                            p.grad = None
+                        pending[m] = module.grads_of(names, params)
+                        module.clear_grads(params)
                         while next_m in pending:  # micro-batch order, as one stage adds
                             torch._foreach_add_(buffers, pending.pop(next_m))
                             next_m += 1

@@ -16,11 +16,15 @@ excludes virtual stages), context parallelism (``context_parallel_size``,
 which excludes pipelining, and ``context_parallel_variant``, ``ring`` or
 ``ulysses``), the stage partition (``pipe_partition_method``,
 ``pipe_partition_overwrite``: the uniform one, as JAX's executor places the
-layers; ``parallel.pipeline``), and ``activation_checkpointing_type``
+layers; ``parallel.pipeline``), ``activation_checkpointing_type``
 (``disabled``, ``every_layer``, ``every_layer_save_dots`` or
-``every_pipe_stage``).
+``every_pipe_stage``) and ``sequence_parallel`` (Megatron-style sequence
+sharding of the activations between tensor-parallel regions over the model
+group; off at ``model_parallel_size`` 1, where it has no effect in JAX;
+``check_sequence_parallel`` refuses by name a local sequence, after context
+parallelism and token slices, that the model group does not divide, where
+GSPMD would pad).
 
-Sequence parallelism is not ported: it raises NotImplementedError by name.
 An unknown key raises ValueError; the JAX key names and check messages are
 kept.
 """
@@ -38,10 +42,6 @@ class ActivationCheckpointingType:
     EVERY_PIPE_STAGE = "every_pipe_stage"  # one remat region a stage's chunk
 
 
-# key -> (the value that leaves it off, why it is refused)
-_REFUSED = {
-    "sequence_parallel": (False, "sequence parallelism is not ported"),
-}
 # keys at these values change nothing here; the launcher gives each
 # process its rank (``global_rank``) and slot (``local_slot``)
 _INERT = {"global_rank": None, "local_slot": None}
@@ -63,8 +63,14 @@ class TopologyConfig:
     pipe_token_slices: int = 1
     context_parallel_size: int = 1
     context_parallel_variant: str = "ring"
+    sequence_parallel: bool = False
 
     def __post_init__(self):
+        if not isinstance(self.sequence_parallel, bool):
+            raise ValueError(f"sequence_parallel must be true or false, got "
+                             f"{self.sequence_parallel!r}")
+        if self.model_parallel_size == 1:  # no effect at mp 1, as in JAX
+            object.__setattr__(self, "sequence_parallel", False)
         if self.micro_batch_size <= 0 or self.gradient_accumulation_steps <= 0:
             raise ValueError("micro_batch_size and gradient_accumulation_steps must be > 0")
         if min(self.model_parallel_size, self.data_parallel_size, self.pipe_parallel_size,
@@ -107,6 +113,20 @@ class TopologyConfig:
                 f"({self.gradient_accumulation_steps}) divisible by pipe_parallel_size "
                 f"({self.pipe_parallel_size}): micro-batches are injected in full groups of pp")
 
+    def check_sequence_parallel(self, sequence_length: int) -> None:
+        """Under sequence parallelism, the local sequence (``sequence_length``
+        over the context ranks and the token slices) must divide over the
+        model group."""
+        if not self.sequence_parallel:
+            return
+        local = sequence_length // (self.context_parallel_size * self.pipe_token_slices)
+        if local % self.model_parallel_size:
+            raise ValueError(
+                f"sequence_parallel: the local sequence ({sequence_length} over "
+                f"context_parallel_size {self.context_parallel_size} x pipe_token_slices "
+                f"{self.pipe_token_slices} = {local}) does not divide over "
+                f"model_parallel_size {self.model_parallel_size}")
+
     @property
     def world_size(self) -> int:
         return (self.model_parallel_size * self.data_parallel_size * self.pipe_parallel_size
@@ -119,10 +139,6 @@ class TopologyConfig:
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TopologyConfig":
         d = dict(d)
-        for key, (off, why) in _REFUSED.items():
-            value = d.pop(key, None)
-            if value is not None and value != off:
-                raise NotImplementedError(f"{key}={value!r}: {why}")
         for key, values in _INERT.items():
             value = d.pop(key, None)
             if values is not None and value is not None and value not in values:
@@ -165,6 +181,7 @@ class TopologyConfig:
         overwrite = d.pop("pipe_partition_overwrite", None)
         slices = d.pop("pipe_token_slices", None) or 1
         variant = d.pop("context_parallel_variant", None) or "ring"
+        sequence_parallel = d.pop("sequence_parallel", None)
         if d:
             raise ValueError(f"unknown topology keys: {sorted(d)}")
         return cls(micro_batch_size=mbs, gradient_accumulation_steps=gas,
@@ -173,4 +190,5 @@ class TopologyConfig:
                    pipe_partition_method=method,
                    pipe_partition_overwrite=None if overwrite is None else tuple(overwrite),
                    pipe_token_slices=slices, context_parallel_size=cp,
-                   context_parallel_variant=variant)
+                   context_parallel_variant=variant,
+                   sequence_parallel=False if sequence_parallel is None else sequence_parallel)

@@ -243,6 +243,12 @@ class Topology:
         return self.config.pipe_token_slices
 
     @property
+    def sequence_parallel(self) -> bool:
+        """Whether activations between tensor-parallel regions are sharded
+        along the sequence over the model group (mp > 1 only)."""
+        return self.config.sequence_parallel
+
+    @property
     def micro_batch_size(self) -> int:
         return self.config.micro_batch_size
 
@@ -316,7 +322,8 @@ class Topology:
                 "data_parallel_size": self.data_parallel_size,
                 "context_parallel_size": self.context_parallel_size,
                 "context_parallel_variant": self.context_parallel_variant,
-                "model_parallel_size": self.model_parallel_size, "backend": self.backend,
+                "model_parallel_size": self.model_parallel_size,
+                "sequence_parallel": self.sequence_parallel, "backend": self.backend,
                 "global_rank": self.global_rank, "device": str(self.device)}
 
 

@@ -70,7 +70,10 @@ data rank read the same micro-batches and each trains on its slice of the
 sequence (``ParallelModule``); the parameters are replicated over them, so
 the save gathers from context rank 0's groups and a load gives every
 context rank the same leaves. ``MESH.json`` carries the real
-``context_parallel_size`` and ``pipe_token_slices``.
+``context_parallel_size`` and ``pipe_token_slices`` (and
+``sequence_parallel`` where it is on). Under ZeRO stage 3 each rank's
+parameters are data slices: the save gathers them over the data group as
+it gathers the optimizer's slices, and a load cuts each rank's slice.
 
 Observability, as in the JAX trainer: the spans ``step.data``,
 ``step.fwdbwd`` (host dispatch only: the device work shows in
@@ -827,16 +830,22 @@ class BaseTrainer:
         return Path(vocab) if vocab and Path(vocab).is_file() else None
 
     def _current_topology_dict(self) -> dict:
-        """The JAX trainer's topology record."""
+        """The JAX trainer's topology record; under sequence parallelism it
+        also names ``sequence_parallel`` (JAX's record has no such key; a
+        reader that looks for it finds it only where it is on)."""
         t = self.topology
-        return {"world_size": t.world_size, "pipe_parallel_size": t.pipe_parallel_size,
-                "data_parallel_size": t.data_parallel_size,
-                "context_parallel_size": t.context_parallel_size,
-                "model_parallel_size": t.model_parallel_size,
-                "pipe_virtual_size": t.pipe_virtual_size,
-                "pipe_token_slices": t.pipe_token_slices, "micro_batch_size": t.micro_batch_size,
-                "gradient_accumulation_steps": t.gradient_accumulation_steps,
-                "global_batch_size": t.global_batch_size, "num_hosts": self._num_hosts()}
+        record = {"world_size": t.world_size, "pipe_parallel_size": t.pipe_parallel_size,
+                  "data_parallel_size": t.data_parallel_size,
+                  "context_parallel_size": t.context_parallel_size,
+                  "model_parallel_size": t.model_parallel_size,
+                  "pipe_virtual_size": t.pipe_virtual_size,
+                  "pipe_token_slices": t.pipe_token_slices,
+                  "micro_batch_size": t.micro_batch_size,
+                  "gradient_accumulation_steps": t.gradient_accumulation_steps,
+                  "global_batch_size": t.global_batch_size, "num_hosts": self._num_hosts()}
+        if t.sequence_parallel:
+            record["sequence_parallel"] = True
+        return record
 
     def _num_hosts(self) -> int:
         """The hosts of the run: the control plane's when one is attached,
@@ -878,14 +887,15 @@ class BaseTrainer:
         if self.layout is None:
             return None
         names = {key: name for name, key in self.module.whole_ckpt_keys().items()}
-        zero = self.optimizer.zero_dims
+        # the dims of the data slices: the optimizer's, or ZeRO-3's parameters'
+        zero = self.optimizer.zero_dims if state else self.module.zero3_dims
         optimized = self._optimized_by_any_stage() if state else None
 
         def gather(key: str, t: Optional[torch.Tensor]):
             name = names[key]
             if state and name not in optimized:
                 return None
-            return self.module.gather_leaf(name, t, zero.get(name) if state else None,
+            return self.module.gather_leaf(name, t, zero.get(name),
                                            torch.float32 if state else None)
         return gather
 
@@ -910,8 +920,9 @@ class BaseTrainer:
 
         def shard(key: str, whole: torch.Tensor) -> torch.Tensor:
             name = names[key]
-            t = self.module.shard_leaf(name, whole)
-            return self.optimizer.piece(name, t) if state else t
+            if not state:
+                return self.module.shard_param(name, whole)
+            return self.optimizer.piece(name, self.module.shard_leaf(name, whole))
         return shard
 
     def save_checkpoint(self, dir: Optional[Union[Path, str]] = None) -> Path:

@@ -12,7 +12,10 @@ cp 2 x dp 2 and (b) Ulysses at cp 2 held to phase 19's one-rank run, (c)
 pp 2 x S 2 resuming phase 20's step-2 checkpoint held to its child; a ring
 whose dK/dV are dropped, and token slices whose cache passes no gradient to
 the earlier slices' K/V, fail the check of the backward (the gradient norm
-and the layers' Adam first moments). The workers are
+and the layers' Adam first moments). Phase 22 (dp 2 x mp 2 with ZeRO-3 and
+sequence parallelism) passes its checks against a one-rank run of phase
+19's config; leaving the sequence-parallel leaves' gradients unsummed over
+the model group fails the check of the backward. The workers are
 ``tests/test_torch_dist_helpers.py``'s ``phase19_worker``, which counts
 the CPU's plain runs as the card's launches."""
 
@@ -142,3 +145,32 @@ def test_token_slices_on_the_cpu_tell_a_wrong_backward(monkeypatch, tmp_path, ca
     assert "(c) token slices, pp 2 x S 2, every_pipe_stage: losses" in out
     assert "1/2 of an unsliced micro-batch's" in out
     assert launches["split_slices"].get("flash_attention_bwd", 0) == 0
+
+
+def _one_rank_reference(base: dict, root) -> dict:
+    """Phase 19's one-rank run alone: its records, as phase 19 shares them."""
+    cfg = chip_smoke.dist_config(base["prefixes"], root, "one", 1, 1,
+                                 chip_smoke.DIST["ref_steps"], save=False)
+    chip_smoke.join_runner(*chip_smoke.start_runner(cfg), "one rank", root / "one" / "logs")
+    return dict(chip_smoke.dist_records(root / "one" / "logs", 1)[0], zero1_max_allocated=0)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("", None),
+    ("sp_leaves_unsummed", r"phase 22 \(a, b, d, e\)"),
+], ids=["intact", "sp_leaves_unsummed"])
+def test_zero3_phase_on_the_cpu_tells_a_wrong_backward(monkeypatch, tmp_path, fault, match):
+    base = _toy_dist(monkeypatch, tmp_path, fault)
+    reference = _one_rank_reference(base, tmp_path)
+    lines: list = []
+    if match is not None:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.zero3_phase(base, reference, "cpu", lines.append)
+        return
+    launches = chip_smoke.zero3_phase(base, reference, "cpu", lines.append)
+    out = "\n".join(lines)
+    assert "(c) MESH.json of step 2: zero_stage 3, sequence_parallel True" in out
+    assert "(the count from the shapes" in out
+    layers = chip_smoke.trainer_arch()["num_layers"]
+    # K5 once a layer in each of 3 steps on each of 4 ranks (K4 also at the probes)
+    assert launches["zero3_sp_4ranks"]["flash_attention_bwd"] == 4 * 3 * layers

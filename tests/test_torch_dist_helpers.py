@@ -1,7 +1,9 @@
 """Helpers of the port's multi-rank CPU tests: ``run_ranks`` starts one
 process a rank (spawned, one torch thread each), joins them into a gloo
-process group over ``tcp://127.0.0.1:<free port>``, runs a module-level
-function in each and returns what each returned, by rank. A rank that
+process group through a file store in a fresh temporary directory (a free
+port picked ahead could be taken by a concurrent test before rank 0 binds
+it), runs a module-level function in each and returns what each returned,
+by rank. A rank that
 raises, or a run past its ``timeout``, kills every rank and fails with
 the first traceback, so that no test waits on a collective whose peer is
 gone. Nothing here imports JAX: the ranks import the port alone."""
@@ -10,8 +12,11 @@ from __future__ import annotations
 
 import multiprocessing
 import queue as queue_mod
+import shutil
 import socket
+import tempfile
 import traceback
+from pathlib import Path
 from typing import Any, Callable, List
 
 import numpy as np
@@ -38,11 +43,11 @@ def to_numpy(value: Any) -> Any:
     return value
 
 
-def _entry(fn: Callable, rank: int, world: int, port: int, results, args) -> None:
+def _entry(fn: Callable, rank: int, world: int, store: str, results, args) -> None:
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                                world_size=world, rank=rank)
+        dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world,
+                                rank=rank)
         results.put((rank, True, to_numpy(fn(rank, world, *args))))
     except BaseException:  # reported to the parent, which kills the others
         results.put((rank, False, traceback.format_exc()))
@@ -56,8 +61,9 @@ def run_ranks(fn: Callable, world: int, *args, timeout: float = 90.0) -> List[An
     (tensors as numpy arrays)."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = free_port()
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, port, results, args), daemon=True)
+    root = tempfile.mkdtemp(prefix="run_ranks_")
+    store = str(Path(root) / "store")
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, store, results, args), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -77,6 +83,7 @@ def run_ranks(fn: Callable, world: int, *args, timeout: float = 90.0) -> List[An
             if p.is_alive():
                 p.kill()
                 p.join()
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -230,7 +237,10 @@ def phase19_worker() -> None:
     row-parallel products unsummed; ``zero_send_grad`` sends zeros where a
     pipe stage sends the gradient of its input; ``ring_dkv_dropped`` zeroes
     ring attention's dK/dV; ``slice_kv_detached`` cuts the gradient of a
-    token slice's cache (the earlier slices' K/V)."""
+    token slice's cache (the earlier slices' K/V); ``sp_leaves_unsummed``
+    leaves the gradients of the replicated leaves that sequence parallelism
+    uses on each rank's rows (the norms, the row-parallel biases) unsummed
+    over the model group."""
     import os
     import sys
     from pathlib import Path
@@ -281,6 +291,10 @@ def phase19_worker() -> None:
             return sliced(self, q, k, v, cache, *args)
 
         attention.ParallelSelfAttention._slice_cache_attention = detached
+    if fault == "sp_leaves_unsummed":
+        from scaling_tpu_torch.parallel import parallel_module
+
+        parallel_module.sequence_parallel_leaf = lambda key: False
     os.environ["CHIP_SMOKE_WORKER_DEVICE"] = "cpu"
     chip_smoke.dist_worker()
 
@@ -337,3 +351,111 @@ if __name__ == "__main__":
         phase19_worker()
     else:
         trainer_worker()
+
+
+def train_worker(rank: int, world: int, cfg: dict) -> dict:
+    """``train.main`` on the CPU at ``cfg``'s layout: each step's loss, and
+    this rank's parameters as the load left them and after the run."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import build_trainer
+
+    trainer = build_trainer(TransformerConfig.from_dict(cfg), device="cpu")
+    loaded = {n: p.detach().clone() for n, p in trainer.module.model.named_parameters()}
+    losses = []
+    trainer.metrics_hooks.append(lambda metrics, step: losses.append(metrics["loss"]))
+    trainer.run_training()
+    return {"losses": losses, "loaded": loaded,
+            "params": {n: p.detach() for n, p in trainer.module.model.named_parameters()}}
+
+
+def load_worker(rank: int, world_size: int, cfg: dict) -> dict:
+    """The trainer at ``cfg`` after its load: the iterations and this rank's
+    parameters."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import build_trainer
+
+    trainer = build_trainer(TransformerConfig.from_dict(cfg), device="cpu")
+    return {"iterations": trainer.context.iterations,
+            "params": {n: p.detach() for n, p in trainer.module.model.named_parameters()}}
+
+
+def debug_worker(rank: int, world: int, cfg: dict) -> dict:
+    """``train.main``'s trainer at ``cfg`` (with ``optimizer.debug_log``),
+    each step's ``debug_dict``."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.train import build_trainer
+
+    trainer = build_trainer(TransformerConfig.from_dict(cfg), device="cpu")
+    dicts, inner = [], trainer._train_step
+
+    def capture(*args, **kwargs):
+        loss, metrics, out = inner(*args, **kwargs)
+        dicts.append({k: float(v) for k, v in out.debug_dict.items()})
+        return loss, metrics, out
+
+    trainer._train_step = capture
+    trainer.run_training()
+    return {"debug": dicts}
+
+
+def sp_swiglu_worker(rank: int, world: int, state: dict, x, g) -> dict:
+    """``ParallelSwiGLUMLP(sequence_parallel_output=True)`` at mp ``world``
+    under sequence parallelism: this rank's shard of ``state``, its rows of
+    the sequence of ``x``, the forward and the backward of ``sum(y * g)``."""
+    from scaling_tpu_torch.nn.linear import ModelShard
+    from scaling_tpu_torch.nn.mlp import ParallelSwiGLUMLP
+
+    lay = topology(world, 1)
+    shard = ModelShard(lay.model_parallel_size, lay.model_parallel_rank, lay.model_group, True)
+    module = ParallelSwiGLUMLP(x.shape[-1], 2.0, bias=True, shard=shard,
+                               sequence_parallel_output=True)
+    module.load_state_dict(shard_state(module, state, shard.rank, shard.size))
+    n = x.shape[1] // world
+    xs = torch.from_numpy(np.asarray(x)[:, rank * n:(rank + 1) * n].copy()).requires_grad_(True)
+    y = module(xs)
+    (y * torch.from_numpy(np.asarray(g)[:, rank * n:(rank + 1) * n].copy())).sum().backward()
+    return {"y": y.detach(), "x_grad": xs.grad,
+            "grads": {k: p.grad for k, p in module.named_parameters()}}
+
+
+def dropout_replay_worker(rank: int, world: int, cfg: dict, whole: dict, batches: list,
+                          masks: list) -> dict:
+    """``build_train_step`` at ``cfg``'s layout from the one-rank weights
+    ``whole`` (the port's names), every rank given each step's whole batch;
+    step ``i`` draws its dropout masks from ``masks[i]`` (site -> the
+    one-rank mask) through the mask source, which checks that each site asks
+    for the one-rank mask's shape. Each step's loss and global gradient
+    norm."""
+    from scaling_tpu_torch.models.transformer import TransformerConfig
+    from scaling_tpu_torch.models.transformer.model import (
+        init_model,
+        init_optimizer,
+        loss_function,
+    )
+    from scaling_tpu_torch.nn.base_layer import dropout_key
+    from scaling_tpu_torch.topology import Topology
+
+    config = TransformerConfig.from_dict(cfg)
+    module = init_model(config, device="cpu",
+                        topology=Topology(config.topology, device=torch.device("cpu")))
+    with torch.no_grad():
+        for name, p in module.model.named_parameters():
+            p.copy_(module.shard_param(name, torch.from_numpy(whole[name])))
+    current: dict = {}
+
+    def replay(key, site, shape, keep, device):
+        mask = current[site]
+        assert tuple(mask.shape) == tuple(shape), (site, mask.shape, shape)
+        return torch.from_numpy(mask.copy())
+
+    step = module.build_train_step(init_optimizer(config, module.model, module), loss_function,
+                                   mask_source=replay)
+    losses, norms = [], []
+    for i, (batch, step_masks) in enumerate(zip(batches, masks)):
+        current.clear()
+        current.update(step_masks)
+        loss, _, out = step({k: torch.from_numpy(v).long() if "token" in k else torch.from_numpy(v)
+                             for k, v in batch.items()}, dropout_key(0, i))
+        losses.append(float(loss))
+        norms.append(float(out.global_grad_norm))
+    return {"losses": losses, "norms": norms}

@@ -42,7 +42,10 @@ from scaling_tpu_torch.models.transformer.train import main  # noqa: E402
 from scaling_tpu_torch.resilience import read_mesh_meta, verify_checkpoint  # noqa: E402
 
 from .test_torch_checkpoint import jax_trainer  # noqa: E402
-from .test_torch_dist_helpers import run_ranks  # noqa: E402
+# the ranks' workers live in the JAX-free helper module: a spawned rank
+# imports the module of the function it runs, and this one imports JAX
+from .test_torch_dist_helpers import load_worker as _load_worker  # noqa: E402,F401
+from .test_torch_dist_helpers import run_ranks, train_worker  # noqa: E402,F401
 from .test_torch_parity_helpers import one_torch_thread  # noqa: E402,F401
 
 ARCH = {
@@ -100,20 +103,6 @@ def config(data, root: Path, layout: tuple, load_dir=None) -> dict:
         "data": {"data_prefixes": data},
         "logger": {"log_dir": str(root / "logs"), "events_path": str(root / "events.jsonl")},
     }
-
-
-def train_worker(rank: int, world: int, cfg: dict) -> dict:
-    """``train.main`` on the CPU at ``cfg``'s layout: each step's loss, and
-    this rank's parameters as the load left them and after the run."""
-    from scaling_tpu_torch.models.transformer.train import build_trainer
-
-    trainer = build_trainer(TransformerConfig.from_dict(cfg), device="cpu")
-    loaded = {n: p.detach().clone() for n, p in trainer.module.model.named_parameters()}
-    losses = []
-    trainer.metrics_hooks.append(lambda metrics, step: losses.append(metrics["loss"]))
-    trainer.run_training()
-    return {"losses": losses, "loaded": loaded,
-            "params": {n: p.detach() for n, p in trainer.module.model.named_parameters()}}
 
 
 def stored(step_dir: Path) -> dict:
@@ -218,14 +207,6 @@ def test_jax_at_one_stage_loads_the_port_pp2_checkpoint(runs, data):
     assert set(files) == set(loaded)
     for name, value in files.items():
         np.testing.assert_array_equal(loaded[name].numpy(), value, err_msg=name)
-
-
-def _load_worker(rank: int, world_size: int, cfg: dict) -> dict:
-    from scaling_tpu_torch.models.transformer.train import build_trainer
-
-    trainer = build_trainer(TransformerConfig.from_dict(cfg), device="cpu")
-    return {"iterations": trainer.context.iterations,
-            "params": {n: p.detach() for n, p in trainer.module.model.named_parameters()}}
 
 
 def test_the_port_at_vpp2_loads_jax_pp2_checkpoint(runs, data):

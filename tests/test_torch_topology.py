@@ -126,8 +126,7 @@ REFUSED = [
     ("pipe_virtual_size_with_token_slices", {"pipe_parallel_size": 2, "pipe_virtual_size": 2,
                                              "pipe_token_slices": 2},
      ValueError, "pipe_virtual_size and pipe_token_slices are mutually exclusive"),
-    ("sequence_parallel", {"sequence_parallel": True}, NotImplementedError,
-     "sequence parallelism"),
+    ("sequence_parallel", {"sequence_parallel": 2}, ValueError, "sequence_parallel"),
     ("activation_checkpointing_type", {"activation_checkpointing_type": "every_two_layers"},
      NotImplementedError, "every_two_layers"),
 ]

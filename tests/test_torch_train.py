@@ -320,17 +320,28 @@ def test_config_reads_training_sections_and_refuses_what_is_not_ported():
         ({"topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
                        "pipe_parallel_size": 1, "pipe_token_slices": 2}},
          ValueError),  # JAX's check: token slices pipeline through the stages
+        # sequence parallelism over a local sequence (128 / cp 2 = 64) that
+        # the model group (3) does not divide; stage 3 without zero
         ({"topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
-                       "sequence_parallel": True}}, NotImplementedError),
-        ({"optimizer": {"zero": True, "zero_stage": 3}}, NotImplementedError),
+                       "model_parallel_size": 3, "context_parallel_size": 2,
+                       "sequence_parallel": True}}, ValueError, "sequence_parallel: the local"),
+        ({"optimizer": {"zero_stage": 3}}, ValueError, "requires zero: true"),
         ({"training": {"use_separate_lr_on_embedding": True}}, ValueError),
         ({"trainer": {"seed": 0, "checkpoint_backend": "orbax"}}, NotImplementedError),
         ({"optimizer": {"betaa": 0.9}}, ValueError),
         ({"surprise": {}}, ValueError),
     ]
-    for patch, exc in bad:
-        with pytest.raises(exc):
+    for patch, exc, *match in bad:
+        with pytest.raises(exc, match=match[0] if match else None):
             TransformerConfig.from_dict({**config_dict(2, 1, "disabled"), **patch})
+    # ZeRO-3 and sequence parallelism are accepted
+    config = TransformerConfig.from_dict({
+        **config_dict(2, 1, "disabled"),
+        "topology": {"micro_batch_size": 2, "gradient_accumulation_steps": 1,
+                     "model_parallel_size": 2, "data_parallel_size": 2,
+                     "sequence_parallel": True},
+        "optimizer": {"zero": True, "zero_stage": 3}})
+    assert config.optimizer.shards_parameters and config.topology.sequence_parallel
     # the finetuning keys are read (the misspelled alias too), LoRA builds,
     # muP and the image encoder are read
     config = TransformerConfig.from_dict({
